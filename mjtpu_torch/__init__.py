@@ -1,0 +1,83 @@
+"""mjtpu_torch — the PyTorch + CUDA port of mjtpu.
+
+The same public names over (Model, Data) as ``mjtpu``, batch-explicit:
+``Model`` is unbatched, every ``Data`` field has a leading env axis B
+(``make_data(m, batch_size=B)``), and every function steps all envs at
+once.  The port imports torch and numpy only; kernels written by hand for
+NVIDIA Hopper live in ``mjtpu_torch/ops`` (sources in ``csrc/``) and are
+built with nvcc at first use.
+
+This first slice runs ``humanoid_bench`` (mjtpu/zoo/assets): Euler, the
+dense Newton solver, joint limits and pyramidal plane-capsule contacts.
+``put_model`` refuses models outside it with NotImplementedError.
+"""
+
+import pathlib
+
+from mjtpu_torch._src.collision_driver import collision, ncon
+from mjtpu_torch._src.constraint import make_constraint
+from mjtpu_torch._src.dataclasses import replace, to
+from mjtpu_torch._src.forward import (
+    euler,
+    forward,
+    fwd_acceleration,
+    fwd_actuation,
+    fwd_position,
+    fwd_velocity,
+    step,
+)
+from mjtpu_torch._src.io import (
+    data_from_mjtpu,
+    data_to_numpy,
+    device_put,
+    get_data_into,
+    load_snapshot,
+    make_data,
+    model_from_arrays,
+    put_data,
+    put_model,
+    save_snapshot,
+)
+from mjtpu_torch._src.passive import passive
+from mjtpu_torch._src.smooth import (
+    com_pos,
+    com_vel,
+    crb,
+    factor_m,
+    kinematics,
+    rne,
+    solve_m,
+    transmission,
+)
+from mjtpu_torch._src.solver import solve
+from mjtpu_torch._src.support import (
+    constraint_sizes,
+    count_constraints,
+    jac,
+    xfrc_accumulate,
+)
+from mjtpu_torch._src.types import (
+    BiasType,
+    ConeType,
+    ConstraintType,
+    Contact,
+    Data,
+    DisableBit,
+    DynType,
+    EnableBit,
+    EqType,
+    GainType,
+    GeomType,
+    IntegratorType,
+    JacobianType,
+    JointType,
+    Model,
+    Option,
+    SolverType,
+    Statistic,
+    TrnType,
+)
+
+ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
+
+__version__ = "0.1.0"

@@ -1,0 +1,249 @@
+"""Constraint assembly: efc rows for joint limits and pyramidal contacts.
+
+Port of mjtpu/_src/constraint.py (the slice's part: _kbi,
+_contact_jacobians, _limit_rows for scalar joints, _contact_rows for
+pyramidal cones, make_constraint).  The row layout is static per model —
+[joint limits | contacts (condim-sorted groups)] — and rows deactivate
+themselves with zeroed Jacobians, as in mjtpu.  Equality, frictionloss,
+tendon limits and elliptic cones arrive with later slices; put_model
+refuses models that have them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src import math, support
+from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.types import Data, DisableBit, Model, cached, index
+
+# MuJoCo impedance clamps
+_MINIMP = 0.0001
+_MAXIMP = 0.9999
+
+
+class _Rows(NamedTuple):
+  """A block of constraint rows (every shape leads with (B, nrow))."""
+
+  J: torch.Tensor            # (B, n, nv)
+  # (B, n) violation: the aref input, and the impedance input too (mjtpu
+  # separates the two for equality rows only)
+  pos: torch.Tensor
+  pos_out: torch.Tensor      # (B, n) value written to efc_pos
+  margin: torch.Tensor       # (B, n)
+  invweight: torch.Tensor    # (B, n)
+  solref: torch.Tensor       # (B, n, 2)
+  solimp: torch.Tensor       # (B, n, 5)
+  # regularization scale applied outside the MINVAL floor (see mjtpu's
+  # _Rows.r_scale): R = r_scale * max(MINVAL, invweight*(1-imp)/imp)
+  r_scale: torch.Tensor      # (B, n)
+
+
+def _kbi(m: Model, solref, solimp, pos):
+  """Stiffness/damping/impedance from solver parameters (mj KBI transform).
+  pos is the (margin-adjusted) violation."""
+  timeconst, dampratio = solref[..., 0], solref[..., 1]
+  dmin = torch.clamp(solimp[..., 0], _MINIMP, _MAXIMP)
+  dmax = torch.clamp(solimp[..., 1], _MINIMP, _MAXIMP)
+  width = torch.clamp_min(solimp[..., 2], math.MINVAL)
+  mid = torch.clamp(solimp[..., 3], _MINIMP, _MAXIMP)
+  power = torch.clamp_min(solimp[..., 4], 1.0)
+
+  if not (m.opt.disableflags & DisableBit.REFSAFE):
+    timeconst = torch.maximum(timeconst, 2.0 * m.opt.timestep)
+
+  k = 1.0 / torch.clamp_min(dmax * dmax * timeconst * timeconst * dampratio * dampratio, math.MINVAL)
+  b = 2.0 / torch.clamp_min(dmax * timeconst, math.MINVAL)
+  # direct (negative) solref: -stiffness, -damping
+  k = torch.where(solref[..., 0] <= 0, -solref[..., 0] / torch.clamp_min(dmax * dmax, math.MINVAL), k)
+  b = torch.where(solref[..., 1] <= 0, -solref[..., 1] / torch.clamp_min(dmax, math.MINVAL), b)
+
+  x = torch.abs(pos) / width
+  y_low = (mid ** (1.0 - power)) * (x ** power)
+  y_high = 1.0 - ((1.0 - mid) ** (1.0 - power)) * ((1.0 - x) ** power)
+  y = torch.where(x < mid, y_low, y_high)
+  imp = dmin + y * (dmax - dmin)
+  imp = torch.minimum(torch.maximum(imp, dmin), dmax)
+  imp = torch.where(x >= 1.0, dmax, imp)
+  return k, b, imp
+
+
+def _contact_jacobians(m: Model, d: Data):
+  """Per-contact frame-projected Jacobian differences.
+
+  Returns jt (B, ncon, 3, nv): rows f_i . (jacp2 - jacp1) for the three
+  contact-frame axes f_i, and the contact bodies (b1, b2), each (B, ncon).
+  """
+  bodyid, rootid = index(m, "geom_bodyid"), index(m, "body_rootid")
+  b1 = bodyid[d.contact.geom1.long()]
+  b2 = bodyid[d.contact.geom2.long()]
+
+  mask = support.dof_ancestor_mask_t(m)
+  take = lambda x, idx: torch.gather(x, 1, idx[..., None].expand(idx.shape + x.shape[2:]))
+  com1 = take(d.subtree_com, rootid[b1])
+  com2 = take(d.subtree_com, rootid[b2])
+  pos = d.contact.pos       # (B, ncon, 3)
+  frame = d.contact.frame   # (B, ncon, 3, 3), rows = contact axes
+  w = d.cdof[..., :3]       # (B, nv, 3) rotational dof axes
+  v = d.cdof[..., 3:]       # (B, nv, 3) translational
+
+  # jacp_k[j] = (v_j + w_j x off_k) * mask_k; rewritten with the triple
+  # product f.(w x off) = w.(off x f), as in mjtpu
+  mask1 = mask[b1][:, :, None, :]  # (B, ncon, 1, nv)
+  mask2 = mask[b2][:, :, None, :]
+  fv = torch.einsum("bcik,bjk->bcij", frame, v)
+  g1 = math.cross((pos - com1)[:, :, None, :], frame)
+  g2 = math.cross((pos - com2)[:, :, None, :], frame)
+  wg1 = torch.einsum("bcik,bjk->bcij", g1, w)
+  wg2 = torch.einsum("bcik,bjk->bcij", g2, w)
+  jt = mask2 * (fv + wg2) - mask1 * (fv + wg1)
+  return jt, (b1, b2)
+
+
+def _limit_rows(m: Model, d: Data) -> list[_Rows]:
+  """Limit rows of scalar joints: one-sided rows (range wider than
+  2*margin) and two-sided pairs, permuted back to mj joint order."""
+  B = d.qpos.shape[0]
+  limited = np.nonzero(np.asarray(m.jnt_limited))[0]
+  if not len(limited):
+    return []
+  dtype = d.qpos.dtype
+
+  def build():
+    """Per category (one-sided, two-sided): the model constants of its
+    rows; and the permutation back to joint order (None if identity)."""
+    two = np.asarray(m.jnt_limit_two_sided).astype(bool)
+    sh1, sh2 = limited[~two[limited]], limited[two[limited]]
+    starts, base = {}, 0
+    for cat, per in ((sh1, 1), (sh2, 2)):
+      for p, j in enumerate(cat):
+        starts[j] = (base + per * p, per)
+      base += per * len(cat)
+    perm = np.concatenate([np.arange(s, s + c) for s, c in (starts[j] for j in limited)])
+    qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
+    cats = []
+    for cat, per in ((sh1, 1), (sh2, 2)):
+      if not len(cat):
+        continue
+      rep = lambda x: torch.repeat_interleave(x, per, dim=0)
+      cats.append(dict(
+          per=per, n=len(cat), qadr=torch.as_tensor(qadr[cat], device=m.device),
+          lo=m.jnt_range[cat, 0], hi=m.jnt_range[cat, 1], margin=m.jnt_margin[cat],
+          onehot=torch.as_tensor(np.eye(m.nv)[np.repeat(dadr[cat], per)], dtype=m.dtype,
+                                 device=m.device),
+          side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(cat)),
+          margin_rows=rep(m.jnt_margin[cat]), invweight=rep(m.dof_invweight0[dadr[cat]]),
+          solref=rep(m.jnt_solref[cat]), solimp=rep(m.jnt_solimp[cat]),
+      ))
+    identity = np.array_equal(perm, np.arange(len(perm)))
+    return cats, None if identity else torch.as_tensor(perm, device=m.device)
+
+  cats, perm = cached(m, "constraint.limit_rows", build)
+  parts = []
+  for c in cats:
+    q = d.qpos[:, c["qadr"]]
+    dist_min = q - c["lo"]
+    dist_max = c["hi"] - q
+    if c["per"] == 1:
+      # wide range: at most one side is within margin at a time
+      pos = torch.minimum(dist_min, dist_max) - c["margin"]
+      side = torch.where(dist_min < dist_max, 1.0, -1.0).to(dtype)
+    else:
+      # range narrower than 2*margin: lower then upper row, each gated
+      pos = torch.stack([dist_min, dist_max], dim=-1).reshape(B, 2 * c["n"])
+      pos = pos - c["margin_rows"]
+      side = c["side"]
+    active = (pos < 0).to(dtype)
+    rows = lambda x: x.expand((B,) + x.shape)
+    parts.append(_Rows(
+        J=c["onehot"] * (side * active)[..., None],
+        pos=pos, pos_out=pos,
+        margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
+        solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+        r_scale=torch.ones_like(pos),
+    ))
+  block = _Rows(*(torch.cat([getattr(p, f) for p in parts], dim=1) for f in _Rows._fields))
+  if perm is not None:
+    block = _Rows(*(getattr(block, f)[:, perm] for f in _Rows._fields))
+  return [block]
+
+
+def _contact_rows(m: Model, d: Data) -> list[_Rows]:
+  """Pyramidal contact rows, vectorized over the contacts.  Every contact
+  of the slice has condim 3 (put_model refuses others): four rows, the
+  pyramid's two edges along each of the two tangents."""
+  from mjtpu_torch._src import collision_driver
+
+  ncon = collision_driver.ncon(m)
+  if ncon == 0:
+    return []
+  B = d.qpos.shape[0]
+  con = d.contact
+  jt, (b1, b2) = _contact_jacobians(m, d)
+  iw_body = m.body_invweight0[:, 0]
+  iw = iw_body[b1] + iw_body[b2]        # (B, ncon)
+  pos = con.dist - con.includemargin
+  active = (pos < 0).to(pos.dtype)
+  mu = con.friction                     # (B, ncon, 5)
+
+  jn = jt[:, :, None, 0]                # (B, ncon, 1, nv) normal rows
+  f = mu[..., :2, None]
+  plus, minus = jn + f * jt[:, :, 1:3], jn - f * jt[:, :, 1:3]
+  J = torch.stack([plus, minus], dim=3).reshape(B, ncon, 4, m.nv) * active[..., None, None]
+  # all pyramid rows share the friction[0]-based invweight (mj C); the
+  # 2*mu^2 factor scales outside the R floor (see _Rows.r_scale)
+  per_row = lambda x: x[:, :, None].expand((B, ncon, 4) + x.shape[2:]).reshape(
+      (B, 4 * ncon) + x.shape[2:])
+  return [_Rows(
+      J=J.reshape(B, 4 * ncon, m.nv),
+      pos=per_row(pos),
+      pos_out=per_row(con.dist),
+      margin=per_row(con.includemargin),
+      invweight=per_row(iw + mu[..., 0] ** 2 * iw),
+      solref=per_row(con.solref),
+      solimp=per_row(con.solimp),
+      r_scale=per_row(2.0 * mu[..., 0] ** 2),
+  )]
+
+
+def make_constraint(m: Model, d: Data) -> Data:
+  """Assembles all constraint rows into efc_* (mj_makeConstraint)."""
+  B = d.qpos.shape[0]
+  dtype, device = d.qpos.dtype, d.qpos.device
+  _, _, _, nefc = support.count_constraints(m)
+
+  if nefc == 0:
+    z = torch.zeros((B, 0), dtype=dtype, device=device)
+    return replace(
+        d, efc_J=torch.zeros((B, 0, m.nv), dtype=dtype, device=device),
+        efc_pos=z, efc_margin=z, efc_frictionloss=z, efc_D=z, efc_aref=z, efc_force=z,
+    )
+
+  rows: list[_Rows] = []
+  if not (m.opt.disableflags & DisableBit.LIMIT):
+    rows += _limit_rows(m, d)
+  if not (m.opt.disableflags & DisableBit.CONTACT):
+    rows += _contact_rows(m, d)
+
+  cat = lambda f: torch.cat([getattr(r, f) for r in rows], dim=1)
+  J, pos, pos_out = cat("J"), cat("pos"), cat("pos_out")
+  margin, invweight, r_scale = cat("margin"), cat("invweight"), cat("r_scale")
+  solref, solimp = cat("solref"), cat("solimp")
+
+  k, b, imp = _kbi(m, solref, solimp, pos)
+  jv = torch.einsum("bnv,bv->bn", J, d.qvel)
+  aref = -b * jv - k * imp * pos
+  R = r_scale * torch.clamp_min(
+      invweight * (1.0 - imp) / torch.clamp_min(imp, math.MINVAL), math.MINVAL
+  )
+  # no re-floor after scaling; the tiny guard only prevents 1/0
+  D = 1.0 / torch.clamp_min(R, torch.finfo(dtype).tiny)
+
+  return replace(
+      d, efc_J=J, efc_pos=pos_out, efc_margin=margin,
+      efc_frictionloss=torch.zeros_like(pos), efc_D=D, efc_aref=aref,
+      efc_force=torch.zeros_like(pos),
+  )

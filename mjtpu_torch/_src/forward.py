@@ -1,0 +1,195 @@
+"""Forward dynamics orchestration + the Euler integrator.
+
+Port of mjtpu/_src/forward.py (the slice's part): _check_state, the
+fwd_* stages, forward, _advance, euler and step, batch-explicit over B
+envs.  Sensor stages are absent: put_model refuses models with sensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src import (
+    collision_driver,
+    constraint,
+    math,
+    passive as passive_mod,
+    scan,
+    smooth,
+    solver,
+    support,
+)
+from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.types import (
+    BiasType,
+    Data,
+    DisableBit,
+    GainType,
+    JointType,
+    MAXVAL,
+    Model,
+    cached,
+)
+
+
+def _check_state(m: Model, d: Data) -> Data:
+  """Resets envs whose state is non-finite or diverged (mj_checkPos/Vel
+  semantics) and counts each reset in ``nreset``."""
+  bad = lambda x: torch.any(~torch.isfinite(x) | (torch.abs(x) > MAXVAL), dim=-1)
+  reset = bad(d.qpos) | bad(d.qvel)
+  r = reset[:, None]
+  return replace(
+      d,
+      qpos=torch.where(r, m.qpos0, d.qpos),
+      qvel=torch.where(r, 0.0, d.qvel),
+      qacc=torch.where(r, 0.0, d.qacc),
+      qacc_warmstart=torch.where(r, 0.0, d.qacc_warmstart),
+      nreset=d.nreset + reset.to(d.nreset.dtype),
+  )
+
+
+def fwd_position(m: Model, d: Data) -> Data:
+  """Position-dependent computations (mj_fwdPosition)."""
+  d = smooth.kinematics(m, d)
+  d = smooth.com_pos(m, d)
+  d = smooth.crb(m, d)
+  d = smooth.factor_m(m, d)
+  d = collision_driver.collision(m, d)
+  d = constraint.make_constraint(m, d)
+  d = smooth.transmission(m, d)
+  return d
+
+
+def fwd_velocity(m: Model, d: Data) -> Data:
+  """Velocity-dependent computations (mj_fwdVelocity)."""
+  actuator_velocity = torch.einsum("buv,bv->bu", d.actuator_moment, d.qvel)
+  d = replace(d, actuator_velocity=actuator_velocity)
+  d = smooth.com_vel(m, d)
+  d = passive_mod.passive(m, d)
+  d = smooth.rne(m, d)
+  return d
+
+
+def fwd_actuation(m: Model, d: Data) -> Data:
+  """Actuator forces (mj_fwdActuation): stateless actuators with fixed or
+  affine gain and no or affine bias."""
+  if not m.nu or (m.opt.disableflags & DisableBit.ACTUATION):
+    return replace(
+        d, actuator_force=torch.zeros_like(d.ctrl), qfrc_actuator=torch.zeros_like(d.qvel)
+    )
+
+  c = cached(m, "forward.actuation", lambda: _actuation_tables(m))
+  ctrl = d.ctrl
+  if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
+    clamped = torch.minimum(
+        torch.maximum(ctrl, m.actuator_ctrlrange[:, 0]), m.actuator_ctrlrange[:, 1]
+    )
+    ctrl = torch.where(c["ctrllimited"], clamped, ctrl)
+
+  gain, bias = torch.zeros_like(ctrl), torch.zeros_like(ctrl)
+  if c["fixed"] is not None:
+    gain[:, c["fixed"]] = m.actuator_gainprm[c["fixed"], 0]
+  for out, ids, prm in ((gain, c["affine_gain"], m.actuator_gainprm),
+                        (bias, c["affine_bias"], m.actuator_biasprm)):
+    if ids is not None:
+      out[:, ids] = (prm[ids, 0] + prm[ids, 1] * d.actuator_length[:, ids]
+                     + prm[ids, 2] * d.actuator_velocity[:, ids])
+
+  force = gain * ctrl + bias
+  if c["forcelimited"] is not None:
+    clamped = torch.minimum(
+        torch.maximum(force, m.actuator_forcerange[:, 0]), m.actuator_forcerange[:, 1]
+    )
+    force = torch.where(c["forcelimited"], clamped, force)
+
+  qfrc_actuator = torch.einsum("buv,bu->bv", d.actuator_moment, force)
+
+  # clamp per-dof actuator force (jnt_actfrcrange)
+  if c["actfrclimited"] is not None:
+    lo, hi = c["actfrcrange"]
+    clamped = torch.minimum(torch.maximum(qfrc_actuator, lo), hi)
+    qfrc_actuator = torch.where(c["actfrclimited"], clamped, qfrc_actuator)
+  return replace(d, actuator_force=force, qfrc_actuator=qfrc_actuator)
+
+
+def _actuation_tables(m: Model) -> dict:
+  """Static actuator masks and index groups as device tensors (None where
+  a group is empty)."""
+  dev = m.device
+  mask = lambda x: torch.as_tensor(np.asarray(x, dtype=bool), device=dev) if np.any(x) else None
+  ids = lambda sel: torch.as_tensor(np.nonzero(sel)[0], device=dev) if np.any(sel) else None
+  dof_jnt = np.asarray(m.dof_jntid)
+  rng = m.jnt_actfrcrange[dof_jnt]
+  return dict(
+      ctrllimited=torch.as_tensor(np.asarray(m.actuator_ctrllimited, dtype=bool), device=dev),
+      fixed=ids(np.asarray(m.actuator_gaintype) == GainType.FIXED),
+      affine_gain=ids(np.asarray(m.actuator_gaintype) == GainType.AFFINE),
+      affine_bias=ids(np.asarray(m.actuator_biastype) == BiasType.AFFINE),
+      forcelimited=mask(m.actuator_forcelimited),
+      actfrclimited=mask(np.asarray(m.jnt_actfrclimited, dtype=bool)[dof_jnt]),
+      actfrcrange=(rng[:, 0], rng[:, 1]),
+  )
+
+
+def fwd_acceleration(m: Model, d: Data) -> Data:
+  """Smooth (unconstrained) acceleration (mj_fwdAcceleration)."""
+  qfrc_applied = d.qfrc_applied + support.xfrc_accumulate(m, d)
+  qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator + qfrc_applied
+  qacc_smooth = smooth.solve_m(m, d, qfrc_smooth)
+  return replace(d, qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
+
+
+def forward(m: Model, d: Data) -> Data:
+  """Full forward dynamics (mj_forward)."""
+  d = fwd_position(m, d)
+  d = fwd_velocity(m, d)
+  d = fwd_actuation(m, d)
+  d = fwd_acceleration(m, d)
+  _, _, _, nefc = support.count_constraints(m)
+  if nefc == 0:
+    return replace(d, qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth)
+  return solver.solve(m, d)
+
+
+def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
+  """Integrates state with the semi-implicit update (mj_advance)."""
+  h = m.opt.timestep
+  qvel = d.qvel + qacc * h
+
+  def fn(jnt_types, qpos, qvel_b):
+    out = []
+    qi = vi = 0
+    for jt in jnt_types:
+      jt = JointType(int(jt))
+      if jt == JointType.FREE:
+        out.append(qpos[..., qi : qi + 3] + h * qvel_b[..., vi : vi + 3])
+        out.append(math.quat_integrate(qpos[..., qi + 3 : qi + 7], qvel_b[..., vi + 3 : vi + 6], h))
+        qi, vi = qi + 7, vi + 6
+      elif jt == JointType.BALL:
+        out.append(math.quat_integrate(qpos[..., qi : qi + 4], qvel_b[..., vi : vi + 3], h))
+        qi, vi = qi + 4, vi + 3
+      else:
+        out.append(qpos[..., qi : qi + 1] + h * qvel_b[..., vi : vi + 1])
+        qi, vi = qi + 1, vi + 1
+    if not out:
+      return qpos.new_zeros(qpos.shape[:-1] + (0,))
+    return torch.cat(out, dim=-1)
+
+  qpos = scan.flat(m, fn, "jqv", "q", np.asarray(m.jnt_type), d.qpos, qvel)
+  if qpos is None:
+    qpos = d.qpos
+  return replace(d, qpos=qpos, qvel=qvel, qacc=qacc, time=d.time + h)
+
+
+def euler(m: Model, d: Data) -> Data:
+  """Semi-implicit Euler (mj_Euler).  The implicit joint-damping branch
+  is not in this slice: put_model refuses eulerdamp with damping."""
+  return _advance(m, d, d.qacc)
+
+
+def step(m: Model, d: Data) -> Data:
+  """Advances every env one timestep (mj_step)."""
+  d = _check_state(m, d)
+  d = forward(m, d)
+  return euler(m, d)

@@ -1,0 +1,340 @@
+"""Model/Data ingestion: compiled-model arrays -> Model, Data allocation.
+
+Port of mjtpu/_src/io.py.  ``model_from_arrays`` reads any object with
+``mujoco.MjModel``'s attribute names, so ``put_model(mjm)`` works on a live
+MjModel where ``mujoco`` is installed, and ``load_snapshot`` supplies the
+same attributes from a committed .npz where it is not (the machine with
+the GPU has neither ``mujoco`` nor ``jax``).
+
+The slice refuses, with NotImplementedError naming the feature, every
+model outside it — as mjtpu refuses flex.  The refusals go as later slices
+land.
+
+``data_from_mjtpu`` and ``data_to_numpy`` map between mjtpu's Data (as
+numpy) and the port's batched Data field by field by name; the parity
+tests feed both engines identical inputs with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src import support
+from mjtpu_torch._src.types import (
+    BiasType,
+    ConeType,
+    Contact,
+    Data,
+    DisableBit,
+    DynType,
+    GainType,
+    IntegratorType,
+    JointType,
+    Model,
+    Option,
+    SolverType,
+    Statistic,
+    TrnType,
+)
+
+# every MjModel attribute model_from_arrays reads: the model snapshot
+# (save_snapshot) stores exactly these
+SIZE_FIELDS = (
+    "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "npair",
+    "nexclude", "neq", "ntendon", "nsensor", "nflex", "nmocap",
+)
+OPTION_FIELDS = (
+    "opt.timestep", "opt.impratio", "opt.tolerance", "opt.ls_tolerance",
+    "opt.gravity", "opt.wind", "opt.density", "opt.viscosity",
+    "opt.integrator", "opt.cone", "opt.solver", "opt.iterations",
+    "opt.ls_iterations", "opt.disableflags", "opt.enableflags",
+    "stat.meaninertia",
+)
+STATIC_FIELDS = (
+    "body_parentid", "body_rootid", "body_weldid", "body_jntnum",
+    "body_jntadr", "body_dofnum", "body_dofadr",
+    "jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_bodyid", "jnt_limited",
+    "jnt_actfrclimited",
+    "dof_bodyid", "dof_jntid", "dof_parentid",
+    "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
+    "geom_bodyid", "geom_priority",
+    "site_bodyid",
+    "pair_dim", "pair_geom1", "pair_geom2", "exclude_signature",
+    "actuator_trntype", "actuator_dyntype", "actuator_gaintype",
+    "actuator_biastype", "actuator_trnid", "actuator_ctrllimited",
+    "actuator_forcelimited",
+    "numeric_adr", "numeric_data", "name_numericadr",
+)
+FLOAT_FIELDS = (
+    "qpos0", "qpos_spring",
+    "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
+    "body_inertia", "body_invweight0",
+    "jnt_solref", "jnt_solimp", "jnt_pos", "jnt_axis", "jnt_stiffness",
+    "jnt_range", "jnt_actfrcrange", "jnt_margin",
+    "dof_armature", "dof_damping", "dof_invweight0",
+    "geom_solmix", "geom_solref", "geom_solimp", "geom_size", "geom_pos",
+    "geom_quat", "geom_friction", "geom_margin", "geom_gap",
+    "site_pos", "site_quat",
+    "pair_solref", "pair_solreffriction", "pair_solimp", "pair_margin",
+    "pair_gap", "pair_friction",
+    "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
+    "actuator_forcerange", "actuator_gear",
+)
+# read only to refuse models outside the slice
+CHECK_FIELDS = ("dof_frictionloss", "body_gravcomp")
+SNAPSHOT_FIELDS = (
+    SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
+)
+
+
+def _get(ns, name: str):
+  for part in name.split("."):
+    ns = getattr(ns, part)
+  return ns
+
+
+def save_snapshot(mjm, path) -> None:
+  """Writes every attribute model_from_arrays reads from ``mjm`` (an
+  MjModel or any object with its attribute names) to an .npz."""
+  arrays = {}
+  for name in SNAPSHOT_FIELDS:
+    v = _get(mjm, name)
+    if name == "names":
+      v = np.frombuffer(bytes(v), dtype=np.uint8)
+    arrays[name] = np.array(v)
+  np.savez_compressed(path, **arrays)
+
+
+def load_snapshot(path) -> types.SimpleNamespace:
+  """Reads a snapshot written by save_snapshot back into an object with
+  MjModel's attribute names (``opt.*`` and ``stat.*`` nested)."""
+  ns = types.SimpleNamespace(opt=types.SimpleNamespace(), stat=types.SimpleNamespace())
+  with np.load(path) as z:
+    for name in z.files:
+      v = z[name]
+      if name == "names":
+        v = v.astype(np.uint8).tobytes()
+      elif v.ndim == 0:
+        v = v.item()
+      *parents, leaf = name.split(".")
+      setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
+  return ns
+
+
+def _validate(ns) -> None:
+  """Refuses models outside the slice (NotImplementedError names the
+  feature)."""
+  o = ns.opt
+
+  def refuse(cond, what):
+    if cond:
+      raise NotImplementedError(f"mjtpu_torch does not support {what} yet")
+
+  refuse(ns.nflex, "flex objects")
+  refuse(ns.nsensor, "sensors")
+  refuse(ns.ntendon, "tendons")
+  refuse(ns.neq, "equality constraints")
+  refuse(ns.nmocap, "mocap bodies")
+  refuse(ns.na, "actuator activation states")
+  refuse(np.any(np.asarray(ns.dof_frictionloss) > 0), "frictionloss")
+  refuse(np.any(np.asarray(ns.body_gravcomp) > 0), "gravity compensation")
+  refuse(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)), "fluid forces")
+  refuse(int(o.cone) != ConeType.PYRAMIDAL, "elliptic cones")
+  refuse(int(o.solver) != SolverType.NEWTON, f"solver {int(o.solver)} (only Newton)")
+  refuse(int(o.integrator) != IntegratorType.EULER,
+         f"integrator {int(o.integrator)} (only Euler)")
+  refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
+  damping = np.any(np.asarray(ns.dof_damping) > 0)
+  refuse(damping and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
+         "eulerdamp with joint damping (implicit damping in Euler)")
+
+  jnt_type = np.asarray(ns.jnt_type)
+  ball_lim = (jnt_type == JointType.BALL) & np.asarray(ns.jnt_limited).astype(bool)
+  refuse(ball_lim.any(), "ball joint limits")
+
+  trn = np.asarray(ns.actuator_trntype)
+  jid = np.where(np.isin(trn, (TrnType.JOINT, TrnType.JOINTINPARENT)),
+                 np.asarray(ns.actuator_trnid)[:, 0] if ns.nu else 0, -1)
+  scalar = (jid >= 0) & np.isin(jnt_type[np.maximum(jid, 0)], (JointType.SLIDE, JointType.HINGE))
+  refuse(ns.nu and not scalar.all(), "actuator transmissions other than scalar joints")
+  refuse(np.any(np.asarray(ns.actuator_dyntype) != DynType.NONE), "actuator dynamics")
+  refuse(not np.isin(ns.actuator_gaintype, (GainType.FIXED, GainType.AFFINE)).all(),
+         "actuator gain types other than fixed and affine")
+  refuse(not np.isin(ns.actuator_biastype, (BiasType.NONE, BiasType.AFFINE)).all(),
+         "actuator bias types other than none and affine")
+
+  # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks)
+  # and with the levelwise sparse LDL for a large tree (sparse.structure);
+  # the slice has the dense path only
+  dof_root = np.asarray(ns.body_rootid)[np.asarray(ns.dof_bodyid)]
+  refuse(len(np.unique(dof_root)) > 1, "multi-tree models (blocked mass matrix)")
+  refuse(ns.nv >= 32, "kinematic trees with nv >= 32 (sparse mass matrix)")
+
+
+def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device=None) -> Model:
+  """Builds the port's Model from ``ns``, any object with MjModel's
+  attribute names (an MjModel, or load_snapshot's namespace)."""
+  _validate(ns)
+  device = torch.device(device) if device is not None else torch.device("cpu")
+  f = lambda x: torch.as_tensor(np.array(x, dtype=np.float64), dtype=dtype, device=device)
+  o = ns.opt
+
+  model_fields = {fl.name for fl in dataclasses.fields(Model)}
+  fields: dict = {n: int(getattr(ns, n)) for n in SIZE_FIELDS if n in model_fields}
+  fields["opt"] = Option(
+      timestep=f(o.timestep), impratio=f(o.impratio), tolerance=f(o.tolerance),
+      ls_tolerance=f(o.ls_tolerance), gravity=f(o.gravity), wind=f(o.wind),
+      density=f(o.density), viscosity=f(o.viscosity),
+      integrator=IntegratorType(int(o.integrator)), cone=ConeType(int(o.cone)),
+      solver=SolverType(int(o.solver)), iterations=int(o.iterations),
+      ls_iterations=int(o.ls_iterations), disableflags=int(o.disableflags),
+      enableflags=int(o.enableflags),
+  )
+  fields["stat"] = Statistic(meaninertia=f(ns.stat.meaninertia))
+  for name in STATIC_FIELDS:
+    fields[name] = np.array(getattr(ns, name))
+  for name in FLOAT_FIELDS:
+    fields[name] = f(getattr(ns, name))
+  names = ns.names
+  fields["names"] = names.tobytes() if isinstance(names, np.ndarray) else bytes(names)
+
+  jnt_range, jnt_margin = np.asarray(ns.jnt_range), np.asarray(ns.jnt_margin)
+  fields["jnt_limit_two_sided"] = jnt_range[:, 1] - jnt_range[:, 0] < 2 * jnt_margin
+  fields["has_jnt_spring"] = bool(np.any(np.asarray(ns.jnt_stiffness) > 0))
+  fields["has_dof_damping"] = bool(np.any(np.asarray(ns.dof_damping) > 0))
+
+  # every transmission is a scalar joint (_validate): the moment row of
+  # actuator u is gear[u, 0] at its joint's dof
+  sm = np.zeros((ns.nu, ns.nv))
+  if ns.nu:
+    jid = np.asarray(ns.actuator_trnid)[:, 0]
+    sm[np.arange(ns.nu), np.asarray(ns.jnt_dofadr)[jid]] = np.asarray(ns.actuator_gear)[:, 0]
+  fields["actuator_static_moment"] = f(sm)
+
+  m = Model(**fields)
+  from mjtpu_torch._src import collision_driver
+
+  # refuse unsupported colliders, condims and broadphase options up front
+  if collision_driver.max_geom_pairs(m) is not None:
+    raise NotImplementedError("mjtpu_torch does not support max_geom_pairs yet")
+  bad = set(int(c) for c in collision_driver.make_condim(m)) - {3}
+  if bad:
+    raise NotImplementedError(f"mjtpu_torch does not support contact condim {sorted(bad)} yet")
+  return m
+
+
+def put_model(mjm, dtype: torch.dtype = torch.float64, device=None) -> Model:
+  """Converts an MjModel into the port's Model (dtype and device explicit)."""
+  return model_from_arrays(mjm, dtype=dtype, device=device)
+
+
+device_put = put_model
+
+
+def make_data(m: Model, batch_size: int = 1) -> Data:
+  """Allocates a batched Data (B = batch_size) with every env at qpos0."""
+  from mjtpu_torch._src import collision_driver
+
+  B, dtype, device = batch_size, m.dtype, m.device
+  ne, nf, nl, ncon, nefc = support.constraint_sizes(m)
+  zero = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=device)
+  eye3 = lambda n: torch.eye(3, dtype=dtype, device=device).expand(B, n, 3, 3).clone()
+  nbody, njnt, nv = m.nbody, m.njnt, m.nv
+
+  contact = Contact.zero(B, ncon, dtype, device)
+  if ncon:
+    contact.dim[:] = torch.as_tensor(collision_driver.make_condim(m), device=device)
+    contact.efc_address[:] = torch.as_tensor(
+        collision_driver.contact_efc_address(m, ne, nf, nl), device=device)
+  xquat = zero(nbody, 4)
+  xquat[..., 0] = 1.0
+
+  return Data(
+      time=zero(), qpos=m.qpos0.expand(B, m.nq).clone(), qvel=zero(nv), act=zero(m.na),
+      qacc_warmstart=zero(nv), ctrl=zero(m.nu), qfrc_applied=zero(nv),
+      xfrc_applied=zero(nbody, 6), qacc=zero(nv), act_dot=zero(m.na),
+      xpos=zero(nbody, 3), xquat=xquat, xmat=eye3(nbody), xipos=zero(nbody, 3),
+      ximat=eye3(nbody), xanchor=zero(njnt, 3), xaxis=zero(njnt, 3),
+      geom_xpos=zero(m.ngeom, 3), geom_xmat=eye3(m.ngeom),
+      site_xpos=zero(m.nsite, 3), site_xmat=eye3(m.nsite),
+      subtree_com=zero(nbody, 3), cdof=zero(nv, 6), cinert=zero(nbody, 10),
+      actuator_length=zero(m.nu), actuator_moment=zero(m.nu, nv),
+      actuator_velocity=zero(m.nu), actuator_force=zero(m.nu),
+      crb=zero(nbody, 10), qM=zero(nv, nv), qLD=zero(nv, nv), qLDiagInv=zero(nv),
+      cvel=zero(nbody, 6), cdof_dot=zero(nv, 6), qfrc_bias=zero(nv),
+      qfrc_spring=zero(nv), qfrc_damper=zero(nv), qfrc_passive=zero(nv),
+      contact=contact, efc_J=zero(nefc, nv), efc_pos=zero(nefc),
+      efc_margin=zero(nefc), efc_frictionloss=zero(nefc), efc_D=zero(nefc),
+      efc_aref=zero(nefc), efc_force=zero(nefc), qfrc_actuator=zero(nv),
+      qfrc_smooth=zero(nv), qacc_smooth=zero(nv), qfrc_constraint=zero(nv),
+      solver_niter=torch.zeros(B, dtype=torch.int32, device=device),
+      nreset=torch.zeros(B, dtype=torch.int32, device=device),
+  )
+
+
+_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "ctrl", "qfrc_applied", "xfrc_applied")
+
+
+def put_data(m: Model, mjds) -> Data:
+  """Copies the state of a list of MjData (one per env) into a fresh
+  batched Data; derived quantities are filled by running the pipeline."""
+  d = make_data(m, batch_size=len(mjds))
+  changes = {"time": torch.as_tensor([float(x.time) for x in mjds], dtype=m.dtype,
+                                     device=m.device)}
+  for name in _STATE_FIELDS:
+    val = np.stack([np.array(getattr(x, name), dtype=np.float64) for x in mjds])
+    changes[name] = torch.as_tensor(val, dtype=m.dtype, device=m.device).reshape(
+        getattr(d, name).shape)
+  return dataclasses.replace(d, **changes)
+
+
+def get_data_into(results, m: Model, d: Data) -> None:
+  """Writes a batched Data into a list of MjData (one per env): state,
+  kinematics, dynamics and forces.  Contact and efc rows are not written
+  back in this slice (that needs MjData's arena reallocation)."""
+  if len(results) != d.batch_size:
+    raise ValueError(f"need {d.batch_size} MjData instances, got {len(results)}")
+  for b, res in enumerate(results):
+    for f in dataclasses.fields(Data):
+      if f.name == "contact" or not hasattr(res, f.name):
+        continue
+      val = getattr(d, f.name)[b].detach().cpu().numpy().astype(np.float64)
+      target = getattr(res, f.name)
+      if not hasattr(target, "shape"):  # python scalars (time)
+        setattr(res, f.name, float(val))
+      elif target.size == val.size and f.name not in ("qM", "qLD"):
+        target[...] = val.reshape(target.shape)
+
+
+def data_from_mjtpu(leaves, device=None) -> Data:
+  """The port's Data from a batched mjtpu Data with numpy leaves (e.g.
+  ``jax.tree.map(np.asarray, d)``), field by field by name."""
+
+  def conv(cls, src):
+    out = {}
+    for f in dataclasses.fields(cls):
+      v = getattr(src, f.name)
+      out[f.name] = conv(Contact, v) if f.name == "contact" else torch.as_tensor(
+          np.array(v), device=device)
+    return cls(**out)
+
+  return conv(Data, leaves)
+
+
+def data_to_numpy(d: Data) -> types.SimpleNamespace:
+  """Every field of ``d`` as a numpy array, under its name (the contact
+  fields under ``.contact``), for comparing with mjtpu's Data."""
+
+  def conv(obj):
+    return types.SimpleNamespace(**{
+        f.name: conv(getattr(obj, f.name)) if f.name == "contact"
+        else getattr(obj, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(obj)
+    })
+
+  return conv(d)
+

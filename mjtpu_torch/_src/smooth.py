@@ -1,0 +1,283 @@
+"""Smooth (unconstrained) dynamics pipeline — the main-path part.
+
+Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, the dense factor_m
+and solve_m, com_vel, rne and transmission for joint transmissions.  Tree
+traversals use scan.body_tree (levelwise groups, batch-explicit).  The
+forest-blocked and tree-sparse factorizations (mass_blocks, sparse LDL)
+are not in this slice: put_model refuses models that would take them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src import math, scan
+from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.types import Data, DisableBit, JointType, Model, cached, index
+
+
+def kinematics(m: Model, d: Data) -> Data:
+  """Forward kinematics (mj_kinematics)."""
+
+  def fn(carry, jnt_types, jnt_pos, jnt_axis, qpos, qpos0, body_pos, body_quat):
+    if carry is None:
+      pos, quat = body_pos, body_quat
+    else:
+      parent_pos, parent_quat, _ = carry
+      pos = parent_pos + math.rotate(body_pos, parent_quat)
+      quat = math.quat_mul(parent_quat, body_quat)
+
+    anchors, axes, qpos_out = [], [], []
+    qi = 0
+    for i, jt in enumerate(jnt_types):
+      jt = JointType(int(jt))
+      if jt == JointType.FREE:
+        pos = qpos[..., qi : qi + 3]
+        quat = math.normalize(qpos[..., qi + 3 : qi + 7])
+        anchor = pos
+        axis = torch.zeros_like(pos)
+        axis[..., 2] = 1.0
+        qpos_out += [pos, quat]
+        qi += 7
+      else:
+        anchor = math.rotate(jnt_pos[..., i, :], quat) + pos
+        axis = math.rotate(jnt_axis[..., i, :], quat)
+        if jt == JointType.BALL:
+          qloc = math.normalize(qpos[..., qi : qi + 4])
+          qpos_out.append(qloc)
+          quat = math.quat_mul(quat, qloc)
+          pos = anchor - math.rotate(jnt_pos[..., i, :], quat)
+          qi += 4
+        elif jt == JointType.HINGE:
+          angle = qpos[..., qi] - qpos0[..., qi]
+          qloc = math.axis_angle_to_quat(jnt_axis[..., i, :], angle)
+          qpos_out.append(qpos[..., qi : qi + 1])
+          quat = math.quat_mul(quat, qloc)
+          pos = anchor - math.rotate(jnt_pos[..., i, :], quat)
+          qi += 1
+        else:  # SLIDE
+          qpos_out.append(qpos[..., qi : qi + 1])
+          pos = pos + axis * (qpos[..., qi] - qpos0[..., qi])[..., None]
+          qi += 1
+      anchors.append(anchor)
+      axes.append(axis)
+
+    quat = math.normalize(quat)
+    lead = torch.broadcast_shapes(pos.shape[:-1], quat.shape[:-1])
+    pos, quat = pos.expand(lead + (3,)), quat.expand(lead + (4,))
+    if anchors:
+      xanchor = torch.stack(torch.broadcast_tensors(*anchors), dim=-2)
+      xaxis = torch.stack(torch.broadcast_tensors(*axes), dim=-2)
+      qpos_new = torch.cat([q.expand(qpos.shape[:-1] + q.shape[-1:]) for q in qpos_out], -1)
+    else:
+      xanchor = xaxis = pos.new_zeros(lead + (0, 3))
+      qpos_new = qpos
+    return qpos_new, xanchor, xaxis, pos, quat, math.quat_to_mat(quat)
+
+  qpos, xanchor, xaxis, xpos, xquat, xmat = scan.body_tree(
+      m, fn, "jjjqqbb", "qjjbbb",
+      np.asarray(m.jnt_type), m.jnt_pos[None], m.jnt_axis[None],
+      d.qpos, m.qpos0[None], m.body_pos[None], m.body_quat[None],
+  )
+  if xanchor is None:  # model with no joints
+    xanchor, xaxis = d.xanchor, d.xaxis
+  if qpos is None:
+    qpos = d.qpos
+
+  # inertial / geom / site frames
+  xipos = xpos + math.rotate(m.body_ipos, xquat)
+  ximat = math.quat_to_mat(math.quat_mul(xquat, m.body_iquat))
+
+  bid = index(m, "geom_bodyid")
+  geom_xpos = xpos[:, bid] + math.rotate(m.geom_pos, xquat[:, bid])
+  geom_xmat = math.quat_to_mat(math.quat_mul(xquat[:, bid], m.geom_quat))
+
+  if m.nsite:
+    sid = index(m, "site_bodyid")
+    site_xpos = xpos[:, sid] + math.rotate(m.site_pos, xquat[:, sid])
+    site_xmat = math.quat_to_mat(math.quat_mul(xquat[:, sid], m.site_quat))
+  else:
+    site_xpos, site_xmat = d.site_xpos, d.site_xmat
+
+  return replace(
+      d, qpos=qpos, xanchor=xanchor, xaxis=xaxis, xpos=xpos, xquat=xquat,
+      xmat=xmat, xipos=xipos, ximat=ximat, geom_xpos=geom_xpos,
+      geom_xmat=geom_xmat, site_xpos=site_xpos, site_xmat=site_xmat,
+  )
+
+
+def com_pos(m: Model, d: Data) -> Data:
+  """Subtree CoM, com-frame inertias (cinert) and dof axes (cdof) — mj_comPos."""
+
+  def mass_fn(carry, mass, xipos):
+    own = (mass, mass[..., None] * xipos)
+    if carry is None:
+      return own
+    return own[0] + carry[0], own[1] + carry[1]
+
+  smass, smom = scan.body_tree(
+      m, mass_fn, "bb", "bb", m.body_mass[None], d.xipos, reverse=True
+  )
+  subtree_com = smom / torch.clamp_min(smass, math.MINVAL)[..., None]
+
+  root_com = subtree_com[:, index(m, "body_rootid")]
+  cinert = math.transform_inert(m.body_inertia, d.xipos - root_com, d.ximat, m.body_mass)
+  cinert[:, 0] = 0.0  # world body has no inertia
+
+  def cdof_fn(jnt_types, xanchor, xaxis, xmat, com):
+    def dof_com(axis, offset):
+      return torch.cat([axis, math.cross(axis, offset)], dim=-1)
+
+    cdofs = []
+    for i, jt in enumerate(jnt_types):
+      jt = JointType(int(jt))
+      offset = com - xanchor[..., i, :]
+      if jt in (JointType.FREE, JointType.BALL):
+        rot = dof_com(xmat.transpose(-1, -2), offset[..., None, :])  # (.., 3, 6)
+        if jt == JointType.FREE:
+          trans = torch.eye(6, dtype=xaxis.dtype, device=xaxis.device)[3:]
+          cdofs.append(trans.expand(rot.shape))
+        cdofs.append(rot)
+      elif jt == JointType.SLIDE:
+        ax = xaxis[..., i, :]
+        cdofs.append(torch.cat([torch.zeros_like(ax), ax], -1)[..., None, :])
+      else:  # HINGE
+        cdofs.append(dof_com(xaxis[..., i, :], offset)[..., None, :])
+    if not cdofs:
+      return xaxis.new_zeros(xaxis.shape[:-2] + (0, 6))
+    return torch.cat(cdofs, dim=-2)
+
+  cdof = scan.flat(
+      m, cdof_fn, "jjjbb", "v",
+      np.asarray(m.jnt_type), d.xanchor, d.xaxis, d.xmat, root_com,
+  )
+  if cdof is None:
+    cdof = d.cdof
+  return replace(d, subtree_com=subtree_com, cinert=cinert, cdof=cdof)
+
+
+def dof_chain_mask(m: Model) -> torch.Tensor:
+  """(nv, nv) mask: M[i, j] = 1 iff j == i or j is an ancestor dof of i."""
+
+  def build():
+    mask = np.zeros((m.nv, m.nv), dtype=np.float64)
+    parent = np.asarray(m.dof_parentid)
+    for i in range(m.nv):
+      j = i
+      while j >= 0:
+        mask[i, j] = 1.0
+        j = parent[j]
+    return torch.as_tensor(mask, dtype=m.dtype, device=m.device)
+
+  return cached(m, "smooth.dof_chain_mask", build)
+
+
+def crb(m: Model, d: Data) -> Data:
+  """Composite rigid body inertias + mass matrix (mj_crb)."""
+
+  def crb_fn(carry, cinert):
+    return cinert if carry is None else cinert + carry
+
+  crb_body = scan.body_tree(m, crb_fn, "b", "b", d.cinert, reverse=True)
+  crb_body[:, 0] = 0.0  # world row stays zero (mj_crb)
+
+  # qM[i, j] = cdof[j] . (crb[body(i)] * cdof[i])   for j in chain(i)
+  buf = math.inert_mul(crb_body[:, index(m, "dof_bodyid")], d.cdof)
+  full = buf @ d.cdof.transpose(-1, -2)  # (B, nv, nv)
+  lower = full * dof_chain_mask(m)
+  qm = lower + lower.transpose(-1, -2) - torch.diag_embed(torch.diagonal(full, dim1=-2, dim2=-1))
+  qm = qm + torch.diag(m.dof_armature)
+  return replace(d, crb=crb_body, qM=qm)
+
+
+def factor_m(m: Model, d: Data) -> Data:
+  """Mass matrix factorization (mj_factorM): the dense, pivot-clamped
+  Cholesky — the path mjtpu takes for one kinematic tree with nv < 32."""
+  qLD = math.safe_cholesky(d.qM)
+  return replace(d, qLD=qLD, qLDiagInv=1.0 / torch.diagonal(qLD, dim1=-2, dim2=-1))
+
+
+def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
+  """Solves qM y = x (B, nv) with the current factorization (mj_solveM)."""
+  return math.cho_solve(d.qLD, x)
+
+
+def com_vel(m: Model, d: Data) -> Data:
+  """Com-frame velocities + cdof time derivatives (mj_comVel)."""
+
+  def fn(carry, jnt_types, cdof, qvel):
+    if carry is None:
+      cvel = cdof.new_zeros(cdof.shape[:-2] + (6,))
+    else:
+      cvel = carry
+    cdof_x_qvel = cdof * qvel[..., None]
+    cdof_dots = []
+    di = 0
+    for jt in jnt_types:
+      jt = JointType(int(jt))
+      if jt == JointType.FREE:
+        cvel = cvel + torch.sum(cdof_x_qvel[..., di : di + 3, :], dim=-2)
+        cdof_dots.append(cdof.new_zeros(cvel.shape[:-1] + (3, 6)))
+        cdof_dots.append(math.motion_cross(cvel[..., None, :], cdof[..., di + 3 : di + 6, :]))
+        cvel = cvel + torch.sum(cdof_x_qvel[..., di + 3 : di + 6, :], dim=-2)
+        di += 6
+      else:
+        w = jt.dof_width()
+        cdof_dots.append(math.motion_cross(cvel[..., None, :], cdof[..., di : di + w, :]))
+        cvel = cvel + torch.sum(cdof_x_qvel[..., di : di + w, :], dim=-2)
+        di += w
+    if cdof_dots:
+      cdof_dot = torch.cat(cdof_dots, dim=-2)
+    else:
+      cdof_dot = cdof.new_zeros(cvel.shape[:-1] + (0, 6))
+    return cvel, cdof_dot
+
+  cvel, cdof_dot = scan.body_tree(m, fn, "jvv", "bv", np.asarray(m.jnt_type), d.cdof, d.qvel)
+  if cdof_dot is None:
+    cdof_dot = d.cdof_dot
+  return replace(d, cvel=cvel, cdof_dot=cdof_dot)
+
+
+def rne(m: Model, d: Data) -> Data:
+  """Recursive Newton-Euler bias forces, qacc = 0 (mj_rne)."""
+  base_acc = torch.zeros(6, dtype=d.qpos.dtype, device=d.qpos.device)
+  if not (m.opt.disableflags & DisableBit.GRAVITY):
+    base_acc = torch.cat([base_acc[:3], -m.opt.gravity])
+
+  def cacc_fn(carry, cdof_dot, qvel):
+    cacc = base_acc if carry is None else carry
+    return cacc + torch.einsum("...wi,...w->...i", cdof_dot, qvel)
+
+  cacc = scan.body_tree(m, cacc_fn, "vv", "b", d.cdof_dot, d.qvel)
+
+  # body-local force: I a + v x* (I v)
+  loc_frc = math.inert_mul(d.cinert, cacc) + math.motion_cross_force(
+      d.cvel, math.inert_mul(d.cinert, d.cvel)
+  )
+
+  def acc_fn(carry, frc):
+    return frc if carry is None else frc + carry
+
+  cfrc = scan.body_tree(m, acc_fn, "b", "b", loc_frc, reverse=True)
+  qfrc_bias = torch.sum(d.cdof * cfrc[:, index(m, "dof_bodyid")], dim=-1)
+  return replace(d, qfrc_bias=qfrc_bias)
+
+
+def transmission(m: Model, d: Data) -> Data:
+  """Actuator lengths and moment arms (mj_transmission) for scalar-joint
+  transmissions, whose moment matrix is model-constant (put_model bakes it
+  and refuses every other transmission)."""
+  if not m.nu:
+    return d
+  qadr, g0 = cached(m, "smooth.transmission", lambda: (
+      torch.as_tensor(np.asarray(m.jnt_qposadr)[np.asarray(m.actuator_trnid)[:, 0]],
+                      device=m.device),
+      m.actuator_gear[:, 0],
+  ))
+  B = d.qpos.shape[0]
+  return replace(
+      d,
+      actuator_length=d.qpos[:, qadr] * g0,
+      actuator_moment=m.actuator_static_moment.expand((B,) + m.actuator_static_moment.shape),
+  )

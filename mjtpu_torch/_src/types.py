@@ -1,0 +1,483 @@
+"""Core data model: enums + Option/Statistic/Model/Contact/Data.
+
+Port of mjtpu/_src/types.py.  Two differences follow from where the port
+runs:
+
+  * The enum values are hard-coded from MuJoCo's C headers (mjmodel.h,
+    MuJoCo 3.10) instead of read from the ``mujoco`` bindings, because the
+    machine with the GPU has no ``mujoco``.  tests/test_torch_assets.py
+    holds every member equal to the bindings.
+  * Every ``Data`` field carries a leading env axis ``B`` (batch-explicit,
+    no ``torch.vmap``); ``Model`` is unbatched.
+
+The slice covers the fields the humanoid_bench main path reads and writes;
+the rest of mjtpu's Model/Data (tendons, sensors, cameras, lights,
+equality, energy, ...) arrives with the slices that need it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src.dataclasses import static
+
+# ---------------------------------------------------------------------------
+# constants mirroring MuJoCo engine internals
+# ---------------------------------------------------------------------------
+
+MINVAL = 1e-15  # mjMINVAL
+NREF = 2        # mjNREF
+NIMP = 5        # mjNIMP
+MAXVAL = 1e10
+
+
+class DisableBit(enum.IntFlag):
+  """Option disable flags (mjtDisableBit)."""
+
+  CONSTRAINT = 1 << 0
+  EQUALITY = 1 << 1
+  FRICTIONLOSS = 1 << 2
+  LIMIT = 1 << 3
+  CONTACT = 1 << 4
+  SPRING = 1 << 5
+  DAMPER = 1 << 6
+  PASSIVE = (1 << 5) | (1 << 6)
+  GRAVITY = 1 << 7
+  CLAMPCTRL = 1 << 8
+  WARMSTART = 1 << 9
+  FILTERPARENT = 1 << 10
+  ACTUATION = 1 << 11
+  REFSAFE = 1 << 12
+  SENSOR = 1 << 13
+  MIDPHASE = 1 << 14
+  EULERDAMP = 1 << 15
+  AUTORESET = 1 << 16
+  NATIVECCD = 1 << 17
+
+
+class EnableBit(enum.IntFlag):
+  """Option enable flags (mjtEnableBit)."""
+
+  OVERRIDE = 1 << 0
+  ENERGY = 1 << 1
+  FWDINV = 1 << 2
+  INVDISCRETE = 1 << 3
+
+
+class JointType(enum.IntEnum):
+  """Joint types (mjtJoint)."""
+
+  FREE = 0
+  BALL = 1
+  SLIDE = 2
+  HINGE = 3
+
+  def dof_width(self) -> int:
+    return {0: 6, 1: 3, 2: 1, 3: 1}[self.value]
+
+  def qpos_width(self) -> int:
+    return {0: 7, 1: 4, 2: 1, 3: 1}[self.value]
+
+
+class IntegratorType(enum.IntEnum):
+  """Integrator types (mjtIntegrator)."""
+
+  EULER = 0
+  RK4 = 1
+  IMPLICIT = 2
+  IMPLICITFAST = 3
+
+
+class GeomType(enum.IntEnum):
+  """Geom types (mjtGeom)."""
+
+  PLANE = 0
+  HFIELD = 1
+  SPHERE = 2
+  CAPSULE = 3
+  ELLIPSOID = 4
+  CYLINDER = 5
+  BOX = 6
+  MESH = 7
+
+
+class ConeType(enum.IntEnum):
+  """Friction cone types (mjtCone)."""
+
+  PYRAMIDAL = 0
+  ELLIPTIC = 1
+
+
+class JacobianType(enum.IntEnum):
+  """Jacobian types (mjtJacobian)."""
+
+  DENSE = 0
+  SPARSE = 1
+  AUTO = 2
+
+
+class SolverType(enum.IntEnum):
+  """Constraint solver types (mjtSolver).  PGS unsupported."""
+
+  CG = 1
+  NEWTON = 2
+
+
+class EqType(enum.IntEnum):
+  """Equality constraint types (mjtEq)."""
+
+  CONNECT = 0
+  WELD = 1
+  JOINT = 2
+  TENDON = 3
+
+
+class TrnType(enum.IntEnum):
+  """Actuator transmission types (mjtTrn)."""
+
+  JOINT = 0
+  JOINTINPARENT = 1
+  SLIDERCRANK = 2
+  TENDON = 3
+  SITE = 4
+  BODY = 5
+
+
+class DynType(enum.IntEnum):
+  """Actuator dynamics types (mjtDyn)."""
+
+  NONE = 0
+  INTEGRATOR = 1
+  FILTER = 2
+  FILTEREXACT = 3
+  MUSCLE = 4
+
+
+class GainType(enum.IntEnum):
+  """Actuator gain types (mjtGain)."""
+
+  FIXED = 0
+  AFFINE = 1
+  MUSCLE = 2
+
+
+class BiasType(enum.IntEnum):
+  """Actuator bias types (mjtBias)."""
+
+  NONE = 0
+  AFFINE = 1
+  MUSCLE = 2
+
+
+class ConstraintType(enum.IntEnum):
+  """Constraint row types (mjtConstraint)."""
+
+  EQUALITY = 0
+  FRICTION_DOF = 1
+  FRICTION_TENDON = 2
+  LIMIT_JOINT = 3
+  LIMIT_TENDON = 4
+  CONTACT_FRICTIONLESS = 5
+  CONTACT_PYRAMIDAL = 6
+  CONTACT_ELLIPTIC = 7
+
+
+# ---------------------------------------------------------------------------
+# structs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Option:
+  """Physics options (mjOption).  Enum/flag/iteration fields are static:
+  they select code paths on the host."""
+
+  timestep: torch.Tensor
+  impratio: torch.Tensor
+  tolerance: torch.Tensor
+  ls_tolerance: torch.Tensor
+  gravity: torch.Tensor
+  wind: torch.Tensor
+  density: torch.Tensor
+  viscosity: torch.Tensor
+  integrator: IntegratorType = static()
+  cone: ConeType = static()
+  solver: SolverType = static()
+  iterations: int = static()
+  ls_iterations: int = static()
+  disableflags: int = static()
+  enableflags: int = static()
+
+
+@dataclasses.dataclass
+class Statistic:
+  """Model statistics (mjStatistic)."""
+
+  meaninertia: torch.Tensor
+
+
+@dataclasses.dataclass
+class Model:
+  """Static scene description (the slice's part of mjModel).
+
+  Tensor fields live on the model's device in its float dtype; numpy/int
+  fields are host structure.  Field semantics match mjModel 1:1.
+  ``cache`` holds host precomputation (index tables, candidate groups,
+  static efc layout) built once per Model; ``dataclasses.replace`` starts
+  a fresh one, so a model with other options never reads stale tables.
+  """
+
+  # ---- sizes ----
+  nq: int = static()
+  nv: int = static()
+  nu: int = static()
+  na: int = static()
+  nbody: int = static()
+  njnt: int = static()
+  ngeom: int = static()
+  nsite: int = static()
+  npair: int = static()
+  nexclude: int = static()
+  # ---- options / statistics ----
+  opt: Option = None
+  stat: Statistic = None
+  # ---- qpos defaults ----
+  qpos0: torch.Tensor = None
+  qpos_spring: torch.Tensor = None
+  # ---- bodies ----
+  body_parentid: np.ndarray = static(None)
+  body_rootid: np.ndarray = static(None)
+  body_weldid: np.ndarray = static(None)
+  body_jntnum: np.ndarray = static(None)
+  body_jntadr: np.ndarray = static(None)
+  body_dofnum: np.ndarray = static(None)
+  body_dofadr: np.ndarray = static(None)
+  body_pos: torch.Tensor = None
+  body_quat: torch.Tensor = None
+  body_ipos: torch.Tensor = None
+  body_iquat: torch.Tensor = None
+  body_mass: torch.Tensor = None
+  body_inertia: torch.Tensor = None
+  body_invweight0: torch.Tensor = None
+  # ---- joints ----
+  jnt_type: np.ndarray = static(None)
+  jnt_qposadr: np.ndarray = static(None)
+  jnt_dofadr: np.ndarray = static(None)
+  jnt_bodyid: np.ndarray = static(None)
+  jnt_limited: np.ndarray = static(None)
+  jnt_actfrclimited: np.ndarray = static(None)
+  jnt_solref: torch.Tensor = None
+  jnt_solimp: torch.Tensor = None
+  jnt_pos: torch.Tensor = None
+  jnt_axis: torch.Tensor = None
+  jnt_stiffness: torch.Tensor = None
+  jnt_range: torch.Tensor = None
+  jnt_actfrcrange: torch.Tensor = None
+  jnt_margin: torch.Tensor = None
+  # ---- dofs ----
+  dof_bodyid: np.ndarray = static(None)
+  dof_jntid: np.ndarray = static(None)
+  dof_parentid: np.ndarray = static(None)
+  dof_armature: torch.Tensor = None
+  dof_damping: torch.Tensor = None
+  dof_invweight0: torch.Tensor = None
+  # ---- geoms ----
+  geom_type: np.ndarray = static(None)
+  geom_contype: np.ndarray = static(None)
+  geom_conaffinity: np.ndarray = static(None)
+  geom_condim: np.ndarray = static(None)
+  geom_bodyid: np.ndarray = static(None)
+  geom_priority: np.ndarray = static(None)
+  geom_solmix: torch.Tensor = None
+  geom_solref: torch.Tensor = None
+  geom_solimp: torch.Tensor = None
+  geom_size: torch.Tensor = None
+  geom_pos: torch.Tensor = None
+  geom_quat: torch.Tensor = None
+  geom_friction: torch.Tensor = None
+  geom_margin: torch.Tensor = None
+  geom_gap: torch.Tensor = None
+  # ---- sites ----
+  site_bodyid: np.ndarray = static(None)
+  site_pos: torch.Tensor = None
+  site_quat: torch.Tensor = None
+  # ---- predefined / excluded collision pairs ----
+  pair_dim: np.ndarray = static(None)
+  pair_geom1: np.ndarray = static(None)
+  pair_geom2: np.ndarray = static(None)
+  pair_solref: torch.Tensor = None
+  pair_solreffriction: torch.Tensor = None
+  pair_solimp: torch.Tensor = None
+  pair_margin: torch.Tensor = None
+  pair_gap: torch.Tensor = None
+  pair_friction: torch.Tensor = None
+  exclude_signature: np.ndarray = static(None)
+  # ---- actuators ----
+  actuator_trntype: np.ndarray = static(None)
+  actuator_dyntype: np.ndarray = static(None)
+  actuator_gaintype: np.ndarray = static(None)
+  actuator_biastype: np.ndarray = static(None)
+  actuator_trnid: np.ndarray = static(None)
+  actuator_ctrllimited: np.ndarray = static(None)
+  actuator_forcelimited: np.ndarray = static(None)
+  actuator_gainprm: torch.Tensor = None
+  actuator_biasprm: torch.Tensor = None
+  actuator_ctrlrange: torch.Tensor = None
+  actuator_forcerange: torch.Tensor = None
+  actuator_gear: torch.Tensor = None
+  # model-constant (nu, nv) moment matrix: every actuator of the slice is a
+  # scalar-joint transmission, whose moment row is gear[0] at the joint dof
+  actuator_static_moment: torch.Tensor = None
+  # ---- custom numerics / names (max_contact_points lookup) ----
+  numeric_adr: np.ndarray = static(None)
+  numeric_data: np.ndarray = static(None)
+  name_numericadr: np.ndarray = static(None)
+  names: bytes = static(None)
+  # ---- derived static structure ----
+  # (njnt,) bool: range narrower than 2*margin, so C can emit both the
+  # lower and the upper limit row at once (support.count_constraints)
+  jnt_limit_two_sided: np.ndarray = static(None)
+  has_jnt_spring: bool = static(False)
+  has_dof_damping: bool = static(False)
+  cache: dict = dataclasses.field(
+      init=False, repr=False, compare=False, metadata={"static": True}
+  )
+
+  def __post_init__(self):
+    self.cache = {}
+
+  @property
+  def device(self) -> torch.device:
+    return self.qpos0.device
+
+  @property
+  def dtype(self) -> torch.dtype:
+    return self.qpos0.dtype
+
+
+def cached(m: Model, key, build):
+  """Returns ``m.cache[key]``, building it with ``build()`` on first use."""
+  if key not in m.cache:
+    m.cache[key] = build()
+  return m.cache[key]
+
+
+def index(m: Model, name: str) -> torch.Tensor:
+  """The static index field ``name`` as a long tensor on the model's device.
+
+  Indexing a CUDA tensor with a numpy array copies the array to the device
+  on every call, and a copy from pageable host memory waits for the
+  stream; the cached tensor keeps the step free of such copies."""
+  return cached(m, ("index", name), lambda: torch.as_tensor(
+      np.asarray(getattr(m, name)), dtype=torch.long, device=m.device))
+
+
+@dataclasses.dataclass
+class Contact:
+  """Contact state (mjContact rows, structure-of-arrays over ncon), each
+  field with a leading env axis B."""
+
+  dist: torch.Tensor           # (B, ncon)
+  pos: torch.Tensor            # (B, ncon, 3)
+  frame: torch.Tensor          # (B, ncon, 3, 3) rows: normal, tangent1, tangent2
+  includemargin: torch.Tensor  # (B, ncon)
+  margin: torch.Tensor         # (B, ncon) detection margin (margin + gap)
+  friction: torch.Tensor       # (B, ncon, 5)
+  solref: torch.Tensor         # (B, ncon, NREF)
+  solreffriction: torch.Tensor  # (B, ncon, NREF)
+  solimp: torch.Tensor         # (B, ncon, NIMP)
+  dim: torch.Tensor            # (B, ncon) int32
+  geom1: torch.Tensor          # (B, ncon) int32
+  geom2: torch.Tensor          # (B, ncon) int32
+  geom: torch.Tensor           # (B, ncon, 2) int32
+  efc_address: torch.Tensor    # (B, ncon) int32
+
+  @classmethod
+  def zero(cls, batch: int, ncon: int, dtype, device) -> "Contact":
+    f = lambda *s: torch.zeros((batch, ncon) + s, dtype=dtype, device=device)
+    i = lambda *s: torch.full((batch, ncon) + s, -1, dtype=torch.int32, device=device)
+    return cls(
+        dist=f(), pos=f(3), frame=f(3, 3), includemargin=f(), margin=f(),
+        friction=f(5), solref=f(NREF), solreffriction=f(NREF), solimp=f(NIMP),
+        dim=torch.zeros((batch, ncon), dtype=torch.int32, device=device),
+        geom1=i(), geom2=i(), geom=i(2), efc_address=i(),
+    )
+
+
+@dataclasses.dataclass
+class Data:
+  """Dynamic simulation state (the slice's part of mjData), batched: every
+  field has a leading env axis B.  Constraint row counts are static
+  functions of Model (``support.constraint_sizes``), as in mjtpu."""
+
+  # state
+  time: torch.Tensor
+  qpos: torch.Tensor
+  qvel: torch.Tensor
+  act: torch.Tensor
+  qacc_warmstart: torch.Tensor
+  # control
+  ctrl: torch.Tensor
+  qfrc_applied: torch.Tensor
+  xfrc_applied: torch.Tensor
+  # dynamics
+  qacc: torch.Tensor
+  act_dot: torch.Tensor
+  # position-stage kinematics
+  xpos: torch.Tensor
+  xquat: torch.Tensor
+  xmat: torch.Tensor
+  xipos: torch.Tensor
+  ximat: torch.Tensor
+  xanchor: torch.Tensor
+  xaxis: torch.Tensor
+  geom_xpos: torch.Tensor
+  geom_xmat: torch.Tensor
+  site_xpos: torch.Tensor
+  site_xmat: torch.Tensor
+  subtree_com: torch.Tensor
+  cdof: torch.Tensor
+  cinert: torch.Tensor
+  # actuation
+  actuator_length: torch.Tensor
+  actuator_moment: torch.Tensor
+  actuator_velocity: torch.Tensor
+  actuator_force: torch.Tensor
+  # mass matrix
+  crb: torch.Tensor
+  qM: torch.Tensor
+  qLD: torch.Tensor
+  qLDiagInv: torch.Tensor
+  # velocity stage
+  cvel: torch.Tensor
+  cdof_dot: torch.Tensor
+  qfrc_bias: torch.Tensor
+  qfrc_spring: torch.Tensor
+  qfrc_damper: torch.Tensor
+  qfrc_passive: torch.Tensor
+  # constraints
+  contact: Contact
+  efc_J: torch.Tensor
+  efc_pos: torch.Tensor
+  efc_margin: torch.Tensor
+  efc_frictionloss: torch.Tensor
+  efc_D: torch.Tensor
+  efc_aref: torch.Tensor
+  efc_force: torch.Tensor
+  # forces
+  qfrc_actuator: torch.Tensor
+  qfrc_smooth: torch.Tensor
+  qacc_smooth: torch.Tensor
+  qfrc_constraint: torch.Tensor
+  # solver iterations taken (int32, per env)
+  solver_niter: torch.Tensor
+  # count of _check_state resets since make_data (int32, per env)
+  nreset: torch.Tensor
+
+  @property
+  def batch_size(self) -> int:
+    return self.qpos.shape[0]

@@ -1,0 +1,95 @@
+"""Where a mjtpu_torch step's time goes on the GPU: humanoid_bench.
+
+    python scripts/torch_profile_step.py [--batch 4096] [--dtype float32]
+        [--steps 5] [--out build/profile]
+
+Runs the model from the committed snapshot on CUDA, warms up, then traces
+``--steps`` steps with torch.profiler (CPU and CUDA activity).  Prints the
+card (nvidia-smi name and power limit), host wall time per step, device
+kernel time per step, the device's busy share (kernel time / wall time),
+kernel launches per step and the kernels that take the most device time,
+and writes a Chrome trace to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument("--batch", type=int, default=4096)
+  p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
+  p.add_argument("--steps", type=int, default=5)
+  p.add_argument("--warmup", type=int, default=20)
+  p.add_argument("--out", default=str(ROOT / "build" / "profile"))
+  args = p.parse_args()
+
+  sys.path.insert(0, str(ROOT))
+  import numpy as np
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  import mjtpu_torch
+
+  if not torch.cuda.is_available():
+    raise RuntimeError("needs a CUDA device")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  card = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+  dtype = getattr(torch, args.dtype)
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"),
+      dtype=dtype, device="cuda")
+  rng = np.random.default_rng(1)
+  d = mjtpu_torch.make_data(m, batch_size=args.batch)
+  d = mjtpu_torch.replace(
+      d,
+      qpos=torch.as_tensor(m.qpos0.cpu().numpy()[None]
+                           + rng.uniform(-0.01, 0.01, (args.batch, m.nq)),
+                           dtype=dtype, device="cuda"),
+      ctrl=torch.as_tensor(rng.uniform(-1, 1, (args.batch, m.nu)), dtype=dtype, device="cuda"))
+  for _ in range(args.warmup):
+    d = mjtpu_torch.step(m, d)
+  torch.cuda.synchronize()
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+      d = mjtpu_torch.step(m, d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  out = pathlib.Path(args.out)
+  out.mkdir(parents=True, exist_ok=True)
+  trace = out / f"step_{args.dtype}_B{args.batch}.json.gz"  # ~5.6k kernels a step
+  prof.export_chrome_trace(str(trace))
+
+  kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+  dev_us = sum(e.device_time for e in kernels)  # microseconds
+  wall_ms = 1e3 * wall / args.steps
+  print(f"card: {card}")
+  print(f"humanoid_bench {args.dtype} B={args.batch}: {wall_ms:.3f} ms/step wall (profiled),"
+        f" {dev_us / 1e3 / args.steps:.3f} ms/step device kernel time, device busy"
+        f" {100 * dev_us / 1e3 / (wall_ms * args.steps):.1f}%,"
+        f" {len(kernels) / args.steps:.0f} kernel launches/step")
+  by_name: dict[str, list[float]] = {}
+  for e in kernels:
+    by_name.setdefault(e.name, []).append(e.device_time)
+  top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+  print("top kernels by device time (ms/step, launches/step, name):")
+  for name, ts in top:
+    print(f"  {sum(ts) / 1e3 / args.steps:8.4f} {len(ts) / args.steps:6.0f}  {name[:100]}")
+  print(f"trace: {trace.relative_to(ROOT) if trace.is_relative_to(ROOT) else trace}")
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

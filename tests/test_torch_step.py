@@ -1,0 +1,184 @@
+"""mjtpu_torch.step against mjtpu's jit(vmap(step)) at float64 on the CPU:
+humanoid_bench, B=4, from the committed initial states.
+
+The benchmark configuration (iterations=1, ls_iterations=4) truncates the
+Newton solve, so its iterate depends on rounding wherever a constraint
+switches on or off; there the two engines' ULP-level state differences
+grow over a long horizon (on an x86 CPU: below 1e-8 through step 52,
+1.6e-8 at step 53, at most 1.7e-7 over 100 steps, in one of the four
+envs).  So the benchmark configuration is held step by step from mjtpu's
+own state, and over the whole 100 steps where the solver runs to
+convergence.
+"""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+import mjtpu
+import mjtpu_torch
+from mjtpu_torch.ops import cholesky
+from tests.conftest import load_mj
+
+torch.set_num_threads(1)
+
+HB = str(pathlib.Path(mjtpu.__file__).parent / "zoo" / "assets" / "humanoid_bench.xml")
+STEPS = 100
+GOLDEN = mjtpu_torch.ASSETS / "humanoid_bench_golden.npz"
+
+
+@pytest.fixture(scope="module")
+def golden():
+  return dict(np.load(GOLDEN))
+
+
+@pytest.fixture(scope="module")
+def mjtpu_states(golden):
+  """mjtpu's Data (numpy leaves) before step 1 and after each step."""
+  mjm = mujoco.MjModel.from_xml_path(HB)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(4))
+  d = d.replace(qpos=jnp.asarray(golden["qpos0"]), qvel=jnp.asarray(golden["qvel0"]),
+                ctrl=jnp.asarray(golden["ctrl"]))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = [jax.tree.map(np.asarray, d)]
+  for _ in range(STEPS):
+    d = step(m, d)
+    out.append(jax.tree.map(np.asarray, d))
+  return out
+
+
+def _model(iterations=None):
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  if iterations:
+    ns.opt.iterations = ns.opt.ls_iterations = iterations
+  return mjtpu_torch.model_from_arrays(ns)
+
+
+def _rollout(m, golden, steps=STEPS):
+  d = mjtpu_torch.make_data(m, batch_size=4)
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["qpos0"]),
+                          qvel=torch.as_tensor(golden["qvel0"]),
+                          ctrl=torch.as_tensor(golden["ctrl"]))
+  qpos, qvel, first = [], [], None
+  for i in range(steps):
+    d = mjtpu_torch.step(m, d)
+    qpos.append(d.qpos.numpy())
+    qvel.append(d.qvel.numpy())
+    if i == 0:
+      first = d
+  return np.stack(qpos), np.stack(qvel), first
+
+
+def _err(a, b):
+  return np.abs(a - b).max(axis=tuple(range(1, a.ndim)))  # per step
+
+
+def test_benchmark_config_step_by_step(mjtpu_states):
+  """Every one of the 100 steps, started from mjtpu's full state (warmstart
+  included), lands within 1e-8 of mjtpu's next state."""
+  m = _model()
+  for i in range(STEPS):
+    got = mjtpu_torch.step(m, mjtpu_torch.data_from_mjtpu(mjtpu_states[i]))
+    want = mjtpu_states[i + 1]
+    for f in ("qpos", "qvel", "qacc"):
+      err = float(np.abs(getattr(got, f).numpy() - getattr(want, f)).max())
+      assert err < 1e-8, f"step {i + 1} {f}: {err:.3e}"
+
+
+def test_benchmark_config_trajectory(golden):
+  m = _model()
+  cholesky.launches = 0
+  qpos, qvel, first = _rollout(m, golden)
+  assert cholesky.launches == 0  # CPU tensors: the plain twin, no kernel
+  for f, key in (("qacc", "qacc"), ("efc_force", "efc_force")):
+    np.testing.assert_allclose(getattr(first, f).numpy(), golden[key], rtol=0, atol=1e-9)
+  np.testing.assert_allclose(first.contact.dist.numpy(), golden["contact_dist"],
+                             rtol=0, atol=1e-9)
+  err = np.maximum(_err(qpos, golden["qpos"]), _err(qvel, golden["qvel"]))
+  assert err[:50].max() < 1e-8, err[:50]
+  assert err.max() < 1e-6, err  # see the module docstring
+  assert int(first.nreset.sum()) == 0 and np.isfinite(qpos).all()
+
+
+def test_converged_trajectory(golden):
+  """With the solver run to convergence the 100-step trajectory holds 1e-8."""
+  m = _model(int(golden["converged_iterations"]))
+  qpos, qvel, _ = _rollout(m, golden)
+  err = np.maximum(_err(qpos, golden["conv_qpos"]), _err(qvel, golden["conv_qvel"]))
+  assert err.max() < 1e-8, (int(err.argmax()) + 1, float(err.max()))
+
+
+def test_check_state_resets_nan():
+  m = _model()
+  d = mjtpu_torch.make_data(m, batch_size=3)
+  qvel = torch.zeros(3, m.nv, dtype=torch.float64)
+  qvel[1, 4] = float("nan")
+  qpos = d.qpos.clone()
+  qpos[2, 10] = 1e12  # diverged
+  d = mjtpu_torch.replace(d, qvel=qvel, qpos=qpos)
+  d = mjtpu_torch.step(m, d)
+  assert d.nreset.tolist() == [0, 1, 1]
+  assert bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all())
+  d = mjtpu_torch.step(m, d)
+  assert d.nreset.tolist() == [0, 1, 1]
+
+
+def _variant(path, collide_head=False, pair_dim=None, **opt):
+  def make():
+    mjm = mujoco.MjModel.from_xml_path(path) if "/" in path else load_mj(path)
+    for k, v in opt.items():
+      setattr(mjm.opt, k, v)
+    if collide_head:  # the head sphere meets the floor plane
+      head = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "head")
+      mjm.geom_contype[head] = mjm.geom_conaffinity[head] = 1
+    if pair_dim is not None:
+      mjm.pair_dim[:] = pair_dim
+    return mjm
+  return make
+
+
+@pytest.mark.parametrize("make, what", [
+    (_variant("boxes.xml"), "multi-tree"),
+    (_variant(HB, collide_head=True), "collision between geom types PLANE and SPHERE"),
+    (_variant("pendulum.xml"), "eulerdamp"),
+    (_variant("sensors.xml"), "sensors"),
+    (_variant("equality.xml"), "equality"),
+    (_variant("friction_tendon.xml"), "tendons"),
+    (_variant("pendulum_rk4.xml"), "integrator"),
+    (_variant("chain40.xml", disableflags=mujoco.mjtDisableBit.mjDSBL_EULERDAMP), "nv >= 32"),
+    (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), "elliptic"),
+    (_variant(HB, solver=mujoco.mjtSolver.mjSOL_CG), "solver"),
+    (_variant(HB, pair_dim=1), r"condim \[1\]"),
+], ids=["boxes", "sphere_plane", "pendulum", "sensors", "equality", "tendon", "rk4", "chain40",
+        "elliptic", "cg", "condim1"])
+def test_put_model_refuses_out_of_slice(make, what):
+  with pytest.raises(NotImplementedError, match=what):
+    mjtpu_torch.put_model(make())
+
+
+def test_put_data_get_data_into_round_trip():
+  mjm = mujoco.MjModel.from_xml_path(HB)
+  rng = np.random.default_rng(3)
+  mjds = [mujoco.MjData(mjm) for _ in range(2)]
+  for x in mjds:
+    x.qpos[:] = mjm.qpos0 + rng.uniform(-0.01, 0.01, mjm.nq)
+    x.qvel[:] = rng.uniform(-0.1, 0.1, mjm.nv)
+    x.ctrl[:] = rng.uniform(-1, 1, mjm.nu)
+  m = mjtpu_torch.put_model(mjm)
+  d = mjtpu_torch.forward(m, mjtpu_torch.put_data(m, mjds))
+  out = [mujoco.MjData(mjm) for _ in range(2)]
+  mjtpu_torch.get_data_into(out, m, d)
+  for b, (x, y) in enumerate(zip(mjds, out)):
+    np.testing.assert_array_equal(y.qpos, d.qpos[b].numpy())  # quaternion normalized
+    np.testing.assert_array_equal(y.ctrl, x.ctrl)
+    np.testing.assert_array_equal(y.qacc, d.qacc[b].numpy())
+    np.testing.assert_array_equal(y.xmat.reshape(-1, 3, 3), d.xmat[b].numpy())
+    # mj_kinematics agrees with the port's kinematics
+    mujoco.mj_kinematics(mjm, x)
+    np.testing.assert_allclose(y.xpos, x.xpos, atol=1e-12)
