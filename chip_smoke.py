@@ -4,24 +4,36 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA device, nvcc (the
-kernel is built from mjtpu_torch/csrc at first use), torch and numpy; it
+kernels are built from mjtpu_torch/csrc at first use), torch and numpy; it
 needs neither jax nor mujoco.  Phases, each printing its own lines; any
 failure raises and the script exits non-zero:
 
   1. device: the card's name and power limit; TF32 off.
-  2. build: nvcc builds the Cholesky kernel for sm_90a.
-  3. kernel vs plain twin on the card: random SPD batches (n in 1, 6, 27,
-     40; B in 1, 130, 4096; f32 and f64) and a batch whose pivots hit the
-     floor; times at n=27, B=4096 (CUDA events, median of 20).
-  4. parity: humanoid_bench at f64 (model from the committed snapshot),
-     the committed B=4 mjtpu states stepped 100 times against the
-     committed mjtpu golden: in the benchmark configuration to 1e-8
-     through step 50 and 1e-6 over 100 steps, and with the solver run to
-     convergence to 1e-8 over 100 steps.
-  5. throughput: humanoid_bench at f32, B=4096, 20 warm-up and 200 timed
-     steps; the kernel's share of step time.
+  2. build: nvcc builds both kernels for sm_90a, in parallel.
+  3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
+     (n in 1, 6, 27, 40; B in 1, 130, 4096; f32 and f64) and a batch whose
+     pivots hit the floor; times at n=27, B=4096 (CUDA events, median of
+     20) beside torch.cholesky_solve(torch.linalg.cholesky_ex).
+  4. height-field kernel (B4) vs its plain twin on the card: subgrids
+     (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
+     and f64; random windows and a flat one (whose winners must agree
+     exactly); times at (2, 2), capsules, n=49152, f32.
+  5. humanoid_bench parity: f64, the committed B=4 mjtpu states stepped 100
+     times against the committed mjtpu golden: in the benchmark
+     configuration to 1e-8 through step 50 and 1e-6 over 100 steps, and
+     with the solver run to convergence to 1e-8 over 100 steps.
+  6. humanoid_bench throughput: f32, B=4096, 20 warm-up and 200 timed
+     steps; the Cholesky kernel's share of step time.
+  7. humanoid_terrain parity: f64, B=4, 100 steps from the committed
+     golden's initial states; step-1 qacc, efc_force and contact.dist to
+     1e-9, the trajectory to TERRAIN_BOUND (the CPU test's bound); two
+     height-field and eight Cholesky launches per step.
+  8. humanoid_terrain throughput: f32, B=4096 from qpos0 +-0.01, a few
+     warm-up and timed steps; each kernel's share of step time.
 
-The last two lines are the kernel record and {"ok": true, ...}.
+The main paths are phases 6 and 8: each kernel's launch count is set to 0
+just before each and read just after.  The last two lines are the kernel
+record and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -31,16 +43,23 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-KERNEL_SOURCE = "mjtpu_torch/csrc/cholesky.cu"
-KERNEL_REPLACES = "mjtpu/ops/cholesky.py:31"
 PARITY_STEPS = 100
 TIGHT_STEPS = 50  # the benchmark-config trajectory holds 1e-8 this far
 BENCH_BATCH = 4096
 WARMUP_STEPS = 20
 TIMED_STEPS = 200
+TERRAIN_BOUND = 1e-8  # tests/test_torch_terrain.py's TRAJECTORY_BOUND
+TERRAIN_WARMUP = 3
+TERRAIN_TIMED = 20
+HFIELD_N = 49152  # the capsule group at B=4096: 4096 envs x 12 pairs
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
+# non-tensor-core FLOP/s per type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def log(msg: str) -> None:
@@ -72,6 +91,14 @@ def cuda_ms(fn, reps: int = 20) -> float:
   return statistics.median(times)
 
 
+def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
+  """(least ms the card could take, what bounds it): the larger of bytes
+  over HBM bandwidth and operations over the type's peak."""
+  t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+  t_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)[6:]]
+  return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_device():
   import torch
 
@@ -88,16 +115,33 @@ def phase_device():
 
 
 def phase_build():
-  from mjtpu_torch.ops import cholesky
+  """Both libraries built at once (one nvcc per source, in threads)."""
+  from mjtpu_torch.ops import _build, cholesky, hfield
 
-  t0 = time.perf_counter()
-  cholesky.library()
-  secs = time.perf_counter() - t0
-  log(f"[build] {KERNEL_SOURCE} -> {cholesky.BUILD_DIR.relative_to(ROOT)} with nvcc"
-      f" {' '.join(cholesky.NVCC_FLAGS)}: {secs:.2f} s")
-  for line in (cholesky.build_log or "").splitlines():
-    if line.strip():
-      log(f"[build] {line.strip()}")
+  errors, secs = [], {}
+
+  def build(mod):
+    t0 = time.perf_counter()
+    try:
+      mod.library()
+    except Exception as e:  # re-raised below, after both threads end
+      errors.append(e)
+    secs[mod.SOURCE] = time.perf_counter() - t0
+
+  threads = [threading.Thread(target=build, args=(mod,)) for mod in (cholesky, hfield)]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  if errors:
+    raise errors[0]
+  for mod in (cholesky, hfield):
+    flags = _build.flags(getattr(mod, "EXTRA_FLAGS", ()))
+    log(f"[build] mjtpu_torch/csrc/{mod.SOURCE} -> {_build.BUILD_DIR.relative_to(ROOT)} with"
+        f" nvcc {' '.join(flags)}: {secs[mod.SOURCE]:.2f} s")
+    for line in _build.build_logs.get(mod.SOURCE, "").splitlines():
+      if line.strip():
+        log(f"[build] {line.strip()}")
 
 
 def _spd(n, batch, dtype, gen, clamp=False):
@@ -115,7 +159,17 @@ def _spd(n, batch, dtype, gen, clamp=False):
   return mat.contiguous(), rhs
 
 
-def phase_kernel():
+def _chol_work(n: int, batch: int, item: int) -> tuple[float, float]:
+  """(bytes, operations) of one batched factor + solve: each matrix and
+  right-hand side read once, the solution written once; per column the
+  sqrt, the divisions and the trailing update's multiply and subtract,
+  then both substitutions' divisions, multiplies and subtracts."""
+  ops = sum(1 + (n - j - 1) + (n - j - 1) * (n - j) for j in range(n))
+  ops += 2 * sum(1 + 2 * (n - j - 1) for j in range(n))
+  return float(batch * (n * n + 2 * n) * item), float(batch * ops)
+
+
+def phase_cholesky():
   import torch
 
   from mjtpu_torch.ops import cholesky
@@ -145,7 +199,7 @@ def phase_kernel():
           if n == 27 and batch == BENCH_BATCH and not clamp and dtype == torch.float32:
             main_abs_err = err
   for (dtype, clamp), rel in sorted(worst.items(), key=str):
-    log(f"[kernel] max rel err vs twin, {str(dtype)[6:]}, {'clamped pivots' if clamp else 'SPD'}:"
+    log(f"[cholesky] max rel err vs twin, {str(dtype)[6:]}, {'clamped pivots' if clamp else 'SPD'}:"
         f" {rel:.3e}")
 
   times = {}
@@ -156,10 +210,90 @@ def phase_kernel():
     k1 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
     k2 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
     p2 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs))
-    times[dtype] = (min(k1, k2), min(p1, p2))
-    log(f"[kernel] n=27 B={BENCH_BATCH} {str(dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms,"
-        f" plain twin {p1:.4f} / {p2:.4f} ms (median of 20)")
+    # one PyTorch call pair for the same solve (no pivot floor): context only
+    lib = cuda_ms(lambda: torch.cholesky_solve(
+        rhs[..., None], torch.linalg.cholesky_ex(mat).L)[..., 0])
+    b_ms, b_by = bound(*_chol_work(27, BENCH_BATCH, mat.element_size()), dtype)
+    times[dtype] = (min(k1, k2), min(p1, p2), lib, b_ms, b_by)
+    log(f"[cholesky] n=27 B={BENCH_BATCH} {str(dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms,"
+        f" plain twin {p1:.4f} / {p2:.4f} ms, torch.cholesky_solve(cholesky_ex) {lib:.4f} ms,"
+        f" bound {b_ms:.5f} ms ({b_by}) (median of 20)")
   return main_abs_err, times[torch.float32]
+
+
+def _windows(n, hy, hx, has_axis, dtype, gen, flat=False):
+  """Random height windows (n, R, C), origins and objects over them."""
+  import torch
+
+  u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda", dtype=dtype)
+  rr, cc = 2 * hy + 2, 2 * hx + 2
+  zwin = torch.full((n, rr, cc), 0.05, dtype=dtype, device="cuda") if flat else 0.3 * u(n, rr, cc)
+  origin = 40.0 * u(n, 2) - 20.0
+  span = torch.tensor([(cc - 1) * 1.29, (rr - 1) * 1.29], dtype=dtype, device="cuda")
+  center = torch.cat([origin + u(n, 2) * span, 0.4 * u(n, 1) - 0.05], dim=1)
+  axis = (0.6 * u(n, 3) - 0.3) if has_axis else torch.zeros_like(center)
+  return zwin, origin, center - axis, center + axis, 0.03 + 0.1 * u(n)
+
+
+def _hfield_work(n: int, hy: int, hx: int, has_axis: bool, item: int) -> tuple[float, float]:
+  """(bytes, operations) of one manifold batch: the windows, origins,
+  segments and radii read once, the 4-point manifolds written once; per
+  triangle the operations counted in csrc/hfield.cu's code (a closest
+  point on a triangle is 200, the sphere test 270, the capsule's segment
+  point adds 4 closest-point tests and 68 more), plus 4 selection rounds
+  of 10 each."""
+  ntri = 2 * (2 * hy + 1) * (2 * hx + 1)
+  per_tri = 270 + (4 * 200 + 68 if has_axis else 0) + 4 * 10
+  return float(n * ((2 * hy + 2) * (2 * hx + 2) + 9 + 28) * item), float(n * ntri * per_tri)
+
+
+def phase_hfield():
+  import torch
+
+  from mjtpu_torch.ops import hfield
+
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+  worst, main_abs_err = {}, None
+  for dtype in (torch.float32, torch.float64):
+    for hy, hx in ((0, 0), (2, 2), (8, 8)):
+      for has_axis in (False, True):
+        for n in (1, 130, HFIELD_N):
+          for flat in (False, True):
+            args = _windows(n, hy, hx, has_axis, dtype, gen, flat)
+            got = hfield.manifold_batch(*args, hy, hx, 1.29, 1.29, has_axis)
+            # the twin in chunks: its (n, T, 3) intermediates at (8, 8)
+            chunks = [hfield.manifold_reference(*(a[i:i + 8192] for a in args), hy, hx, 1.29,
+                                                1.29, has_axis) for i in range(0, n, 8192)]
+            want = [torch.cat(c) for c in zip(*chunks)]
+            torch.cuda.synchronize()
+            for name, g, w in zip(("dist", "pos", "nrm"), got, want):
+              if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"hfield kernel {name} not finite")
+              err = float((g - w).abs().max())
+              rel = err / max(1.0, float(w.abs().max()))
+              if rel > tol[dtype]:
+                raise AssertionError(
+                    f"hfield kernel vs twin: ({hy}, {hx}) axis={has_axis} n={n} {dtype}"
+                    f" flat={flat} {name}: rel {rel:.3e} > {tol[dtype]}")
+              worst[dtype] = max(worst.get(dtype, 0.0), rel)
+            if flat and not torch.equal(got[1], want[1]):
+              raise AssertionError(f"flat window: winner positions differ, ({hy}, {hx}) {dtype}")
+            if (hy, hx, has_axis, n, flat, dtype) == (2, 2, True, HFIELD_N, False, torch.float32):
+              main_abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+  for dtype, rel in worst.items():
+    log(f"[hfield] max rel err vs twin, {str(dtype)[6:]}: {rel:.3e} (limit {tol[dtype]});"
+        f" flat windows: winner positions equal")
+
+  dtype = torch.float32
+  args = _windows(HFIELD_N, 2, 2, True, dtype, gen)
+  run_k = lambda: hfield.manifold_batch(*args, 2, 2, 1.29, 1.29, True)
+  run_p = lambda: hfield.manifold_reference(*args, 2, 2, 1.29, 1.29, True)
+  p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
+  b_ms, b_by = bound(*_hfield_work(HFIELD_N, 2, 2, True, 4), dtype)
+  log(f"[hfield] (2, 2) capsules n={HFIELD_N} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin"
+      f" {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}) (median of 20)")
+  return main_abs_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
 
 
 def _golden_run(m, golden, steps):
@@ -200,6 +334,18 @@ def _excess(qpos, qvel, gq, gv, tol):
   return worst, first
 
 
+def _step_one(first, golden, tag):
+  import numpy as np
+
+  for name, got in (("qacc", first.qacc), ("efc_force", first.efc_force),
+                    ("contact.dist", first.contact.dist)):
+    want = golden[name.replace(".", "_")]
+    err = float(np.abs(got - want).max())
+    log(f"[{tag}] step 1 {name}: max abs err {err:.3e} (limit 1e-9)")
+    if not err <= 1e-9:
+      raise AssertionError(f"{tag}: step 1 {name} differs from mjtpu by {err:.3e}")
+
+
 def phase_parity():
   import numpy as np
   import torch
@@ -217,13 +363,7 @@ def phase_parity():
   launches = cholesky.launches
   if launches != PARITY_STEPS * m.opt.iterations:
     raise AssertionError(f"{launches} kernel launches in {PARITY_STEPS} steps")
-  for name, got in (("qacc", first.qacc), ("efc_force", first.efc_force),
-                    ("contact.dist", first.contact.dist)):
-    want = golden[name.replace(".", "_")]
-    err = float(np.abs(got - want).max())
-    log(f"[parity] step 1 {name}: max abs err {err:.3e} (limit 1e-9)")
-    if not err <= 1e-9:
-      raise AssertionError(f"step 1 {name} differs from mjtpu by {err:.3e}")
+  _step_one(first, golden, "parity")
   if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
     raise AssertionError("benchmark-config trajectory not finite or reset")
   # the CPU test's bounds: 1e-8 through step TIGHT_STEPS, 1e-6 over all
@@ -257,75 +397,162 @@ def phase_parity():
     raise AssertionError(f"converged trajectory differs from mjtpu: {excess}")
 
 
-def phase_throughput(card):
+def _f32_start(m, seed: int = 1):
+  """B=4096 envs at qpos0 +-0.01 (as bench.py starts them), ctrl in [-1, 1]."""
   import numpy as np
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch.ops import cholesky, fused
 
-  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
-  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
-  rng = np.random.default_rng(1)
+  rng = np.random.default_rng(seed)
   qpos = m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (BENCH_BATCH, m.nq))
   ctrl = rng.uniform(-1.0, 1.0, (BENCH_BATCH, m.nu))
   d = mjtpu_torch.make_data(m, batch_size=BENCH_BATCH)
-  d = mjtpu_torch.replace(
+  return mjtpu_torch.replace(
       d, qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"),
       ctrl=torch.as_tensor(ctrl, dtype=torch.float32, device="cuda"),
   )
-  for _ in range(WARMUP_STEPS):
+
+
+def _timed_main_path(m, d, warmup, timed):
+  """Warm-up steps, then the main path's run: every kernel count set to 0
+  just before it and read just after.  Returns (d, secs, counts)."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky, hfield
+
+  for _ in range(warmup):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
-
-  # the main path's run: counts start at 0 here and are read right after
-  cholesky.launches = 0
+  cholesky.launches = hfield.launches = 0
   t0 = time.perf_counter()
-  for _ in range(TIMED_STEPS):
+  for _ in range(timed):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
-  launches = cholesky.launches
-  if launches != TIMED_STEPS:
-    raise AssertionError(f"{launches} kernel launches in {TIMED_STEPS} timed steps")
+  counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches}
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
-  rate = BENCH_BATCH * TIMED_STEPS / secs
+  return d, secs, counts
 
-  # kernel share of step time: CUDA events around the seam, separate run
-  events = []
-  seam = fused.chol_solve
 
-  def timed_seam(h, g):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = seam(h, g)
-    end.record()
-    events.append((start, end))
-    return out
+def _seam_shares(m, d, steps):
+  """Per kernel: device ms per step inside its seam (CUDA events around
+  each call), and the step's device ms, over ``steps`` further steps."""
+  import torch
 
-  fused.chol_solve = timed_seam
+  import mjtpu_torch
+  from mjtpu_torch.ops import fused, hfield
+
+  events = {"chol_solve": [], "hfield_manifold": []}
+  seams = {"chol_solve": (fused, "chol_solve"), "hfield_manifold": (hfield, "manifold_batch")}
+  originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
+
+  def timed(key):
+    def call(*args):
+      start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+      start.record()
+      out = originals[key](*args)
+      end.record()
+      events[key].append((start, end))
+      return out
+    return call
+
+  for key, (mod, attr) in seams.items():
+    setattr(mod, attr, timed(key))
   try:
     step0, step1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     step0.record()
-    for _ in range(WARMUP_STEPS):
+    for _ in range(steps):
       d = mjtpu_torch.step(m, d)
     step1.record()
     torch.cuda.synchronize()
   finally:
-    fused.chol_solve = seam
-  chol_ms = sum(s.elapsed_time(e) for s, e in events)
-  step_ms = step0.elapsed_time(step1)
+    for key, (mod, attr) in seams.items():
+      setattr(mod, attr, originals[key])
+  step_ms = step0.elapsed_time(step1) / steps
+  return {k: sum(s.elapsed_time(e) for s, e in ev) / steps for k, ev in events.items()}, step_ms
+
+
+def phase_throughput(card):
+  import torch
+
+  import mjtpu_torch
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d, secs, counts = _timed_main_path(m, _f32_start(m), WARMUP_STEPS, TIMED_STEPS)
+  if counts["chol_solve"] != TIMED_STEPS or counts["hfield_manifold"] != 0:
+    raise AssertionError(f"kernel launches in {TIMED_STEPS} timed steps: {counts}")
+  rate = BENCH_BATCH * TIMED_STEPS / secs
+  shares, step_ms = _seam_shares(m, d, WARMUP_STEPS)
   log(f"[throughput] humanoid_bench f32 B={BENCH_BATCH}: {TIMED_STEPS} steps in {secs:.3f} s"
       f" = {rate:.0f} env-steps/s ({1e3 * secs / TIMED_STEPS:.3f} ms/step); qpos finite,"
-      f" nreset 0; Cholesky kernel {chol_ms / len(events):.4f} ms/step ="
-      f" {100 * chol_ms / step_ms:.2f}% of step time; card {card}")
-  return launches
+      f" nreset 0; Cholesky kernel {shares['chol_solve']:.4f} ms/step ="
+      f" {100 * shares['chol_solve'] / step_ms:.2f}% of step time; card {card}")
+  return counts
+
+
+def phase_terrain_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky, hfield
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "humanoid_terrain_golden.npz"))
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+  steps = golden["qpos"].shape[0]
+  cholesky.launches = hfield.launches = 0
+  qpos, qvel, first, d = _golden_run(m, golden, steps)
+  counts = (cholesky.launches, hfield.launches)
+  if counts != (m.opt.iterations * steps, 2 * steps):
+    raise AssertionError(f"(Cholesky, hfield) launches {counts} in {steps} steps")
+  _step_one(first, golden, "terrain parity")
+  if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
+    raise AssertionError("terrain trajectory not finite or reset")
+  worst, excess = _excess(qpos, qvel, golden["qpos"], golden["qvel"], 1e-8)
+  log(f"[terrain parity] humanoid_terrain, {steps} steps B=4 f64: max abs err {worst:.3e}"
+      f" (limit {TERRAIN_BOUND}); first step above 1e-8: {excess[0] if excess else 'none'};"
+      f" launches: Cholesky {counts[0]} ({m.opt.iterations} per step), hfield {counts[1]}"
+      f" (2 per step)")
+  if excess:
+    log(f"[terrain parity] exceeds 1e-8 first at step {excess[0]}, {excess[1]}, env {excess[2]}:"
+        f" {excess[3]:.3e}")
+  if not worst < TERRAIN_BOUND:
+    raise AssertionError(f"terrain trajectory differs from mjtpu by {worst:.3e}")
+
+
+def phase_terrain_throughput(card):
+  import torch
+
+  import mjtpu_torch
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d, secs, counts = _timed_main_path(m, _f32_start(m), TERRAIN_WARMUP, TERRAIN_TIMED)
+  if counts != {"chol_solve": m.opt.iterations * TERRAIN_TIMED,
+                "hfield_manifold": 2 * TERRAIN_TIMED}:
+    raise AssertionError(f"kernel launches in {TERRAIN_TIMED} timed steps: {counts}")
+  rate = BENCH_BATCH * TERRAIN_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, TERRAIN_WARMUP)
+  log(f"[terrain throughput] humanoid_terrain f32 B={BENCH_BATCH}: {TERRAIN_WARMUP} warm-up and"
+      f" {TERRAIN_TIMED} timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
+      f" ({1e3 * secs / TERRAIN_TIMED:.3f} ms/step); qpos finite, nreset 0; launches per step:"
+      f" Cholesky {counts['chol_solve'] // TERRAIN_TIMED}, hfield"
+      f" {counts['hfield_manifold'] // TERRAIN_TIMED}; device step {step_ms:.3f} ms, of it"
+      f" Cholesky {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%),"
+      f" hfield {shares['hfield_manifold']:.4f} ms"
+      f" ({100 * shares['hfield_manifold'] / step_ms:.2f}%); card {card}")
+  return counts
 
 
 def main() -> int:
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+  t0 = time.perf_counter()
   card = phase_device()
   import mjtpu_torch
 
@@ -334,15 +561,25 @@ def main() -> int:
   import torch
 
   phase_build()
-  main_abs_err, (kernel_ms, plain_ms) = phase_kernel()
+  chol_err, chol_t = phase_cholesky()
+  hf_err, hf_t = phase_hfield()
   phase_parity()
-  launches = phase_throughput(card)
+  bench_counts = phase_throughput(card)
+  phase_terrain_parity()
+  terrain_counts = phase_terrain_throughput(card)
+  log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
-  print(json.dumps({"kernels": [{
-      "name": "chol_solve", "route": "cuda", "source": KERNEL_SOURCE,
-      "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": main_abs_err,
-      "ms": kernel_ms, "plain_ms": plain_ms,
-  }]}), flush=True)
+  record = []
+  for name, source, replaces, err, (ms, plain, lib, b_ms, b_by) in (
+      ("chol_solve", "mjtpu_torch/csrc/cholesky.cu", "mjtpu/ops/cholesky.py:31", chol_err, chol_t),
+      ("hfield_manifold", "mjtpu_torch/csrc/hfield.cu", "mjtpu/ops/hfield.py:144", hf_err, hf_t),
+  ):
+    record.append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": bench_counts[name] + terrain_counts[name], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+    })
+  print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count(),

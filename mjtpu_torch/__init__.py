@@ -7,9 +7,12 @@ once.  The port imports torch and numpy only; kernels written by hand for
 NVIDIA Hopper live in ``mjtpu_torch/ops`` (sources in ``csrc/``) and are
 built with nvcc at first use.
 
-This first slice runs ``humanoid_bench`` (mjtpu/zoo/assets): Euler, the
-dense Newton solver, joint limits and pyramidal plane-capsule contacts.
-``put_model`` refuses models outside it with NotImplementedError.
+The slices so far run ``humanoid_bench`` (Euler, the dense Newton solver,
+joint limits, pyramidal plane-capsule contacts) and ``humanoid_terrain``
+(ImplicitFast; sphere/capsule self-collision at condim 1, spheres and
+capsules on a height field and on convex meshes), both in
+mjtpu/zoo/assets.  ``put_model`` refuses models outside them with
+NotImplementedError.
 """
 
 import pathlib
@@ -17,6 +20,7 @@ import pathlib
 from mjtpu_torch._src.collision_driver import collision, ncon
 from mjtpu_torch._src.constraint import make_constraint
 from mjtpu_torch._src.dataclasses import replace, to
+from mjtpu_torch._src.derivative import deriv_smooth_vel
 from mjtpu_torch._src.forward import (
     euler,
     forward,
@@ -24,6 +28,7 @@ from mjtpu_torch._src.forward import (
     fwd_actuation,
     fwd_position,
     fwd_velocity,
+    implicit,
     step,
 )
 from mjtpu_torch._src.io import (
@@ -34,6 +39,7 @@ from mjtpu_torch._src.io import (
     load_snapshot,
     make_data,
     model_from_arrays,
+    procedural_terrain,
     put_data,
     put_model,
     save_snapshot,
@@ -44,6 +50,7 @@ from mjtpu_torch._src.smooth import (
     com_vel,
     crb,
     factor_m,
+    factor_solve,
     kinematics,
     rne,
     solve_m,
@@ -61,6 +68,7 @@ from mjtpu_torch._src.types import (
     ConeType,
     ConstraintType,
     Contact,
+    ConvexMesh,
     Data,
     DisableBit,
     DynType,

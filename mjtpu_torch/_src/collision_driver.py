@@ -6,19 +6,23 @@ narrowphase runs once per homogeneous group (same type pair / condim) over
 a (B, npair) batch of geom poses.  Contacts are ordered by group, groups
 sorted by condim, so ``efc_address`` is static.
 
-This slice's narrowphase table holds plane-capsule only; put_model refuses
-a model whose candidate pairs need any other collider.
+The narrowphase table holds the colliders of the ported slices: plane
+against sphere and capsule, the sphere/capsule primitives among
+themselves, sphere and capsule against a convex mesh, and sphere and
+capsule against a height field (kernel B4).  put_model refuses a model
+whose candidate pairs need any other collider.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
-from mjtpu_torch._src import collision_primitive, math
+from mjtpu_torch._src import collision_convex, collision_hfield, collision_primitive, math
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import (
     ConeType,
@@ -32,10 +36,15 @@ from mjtpu_torch._src.types import (
 
 # contact points per pair function, keyed by (type1, type2), type1 <= type2
 _PAIR_NCON: dict[tuple[int, int], int] = {
+    (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
-}
-_PAIR_FN = {
-    (GeomType.PLANE, GeomType.CAPSULE): collision_primitive.plane_capsule,
+    (GeomType.HFIELD, GeomType.SPHERE): 4,
+    (GeomType.HFIELD, GeomType.CAPSULE): 4,
+    (GeomType.SPHERE, GeomType.SPHERE): 1,
+    (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.SPHERE, GeomType.MESH): 1,
+    (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+    (GeomType.CAPSULE, GeomType.MESH): 2,
 }
 
 
@@ -98,10 +107,17 @@ def _pair_condim(m: Model, g1: int, g2: int, ip: int) -> int:
   return int(max(m.geom_condim[g1], m.geom_condim[g2]))
 
 
+def _shape_key(m: Model, g: int) -> int:
+  """Grouping key: the geoms of a group share hull or height-field
+  constants (mesh and hfield geoms key on their data id)."""
+  if int(m.geom_type[g]) in (GeomType.MESH, GeomType.HFIELD):
+    return int(m.geom_dataid[g])
+  return -1
+
+
 def candidate_groups(m: Model) -> dict[tuple, list[tuple[int, int, int]]]:
   """Groups candidate pairs by (type1, type2, shape1, shape2, condim), in
-  condim order so efc row addressing is static.  The shape keys are -1:
-  the slice's primitive geoms need no per-shape hull constants."""
+  condim order so efc row addressing is static."""
 
   def build():
     groups: dict[tuple, list[tuple[int, int, int]]] = {}
@@ -115,7 +131,7 @@ def candidate_groups(m: Model) -> dict[tuple, list[tuple[int, int, int]]]:
       condim = _pair_condim(m, g1, g2, ip)
       if condim not in (1, 3, 4, 6):
         raise NotImplementedError(f"condim={condim} not supported")
-      key = (t1, t2, -1, -1, condim)
+      key = (t1, t2, _shape_key(m, g1), _shape_key(m, g2), condim)
       groups.setdefault(key, []).append((g1, g2, ip))
     return dict(sorted(groups.items(), key=lambda kv: (kv[0][4], str(kv[0]))))
 
@@ -259,6 +275,32 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   return margin, gap, friction, solref, solreffriction, solimp
 
 
+def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Callable:
+  """fn(pos1, mat1, size1, pos2, mat2, size2) -> (dist, pos, frame) for
+  one group, with its hull or height-field constants bound."""
+  t1, t2, s1, s2 = key[:4]
+  if t1 == GeomType.HFIELD:
+    # the subgrid is sized by the colliding objects' own bounding radii
+    # (the group's largest), not the model-wide one, which includes the
+    # height field itself
+    rbound = float(max(m.geom_rbound_np[p[1]] for p in pairs))
+    fn = {GeomType.SPHERE: collision_hfield.hfield_sphere,
+          GeomType.CAPSULE: collision_hfield.hfield_capsule}[t2]
+    return functools.partial(fn, m=m, hid=s1, rbound=rbound)
+  if t2 == GeomType.MESH:
+    hull = collision_convex.hull_consts(m.mesh_convex[s2], m.dtype, m.device)
+    fn = {GeomType.SPHERE: collision_convex.sphere_convex,
+          GeomType.CAPSULE: collision_convex.capsule_convex}[t1]
+    return functools.partial(fn, hull2=hull)
+  return {
+      (GeomType.PLANE, GeomType.SPHERE): collision_primitive.plane_sphere,
+      (GeomType.PLANE, GeomType.CAPSULE): collision_primitive.plane_capsule,
+      (GeomType.SPHERE, GeomType.SPHERE): collision_primitive.sphere_sphere,
+      (GeomType.SPHERE, GeomType.CAPSULE): collision_primitive.sphere_capsule,
+      (GeomType.CAPSULE, GeomType.CAPSULE): collision_primitive.capsule_capsule,
+  }[(t1, t2)]
+
+
 def _schedule(m: Model):
   """Per group: (pair fn, contacts per pair, geom1 ids, geom2 ids as
   tensors, mixed parameters repeated per contact) — model constants."""
@@ -272,7 +314,7 @@ def _schedule(m: Model):
       params = tuple(
           torch.repeat_interleave(p, n_per, dim=0) for p in _contact_params(m, pairs)
       )
-      out.append((_PAIR_FN[key[:2]], n_per, i1, i2, params))
+      out.append((_collision_fn(m, key, pairs), n_per, i1, i2, params))
     return out
 
   return cached(m, "collision.schedule", build)

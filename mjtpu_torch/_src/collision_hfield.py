@@ -1,0 +1,104 @@
+"""Height-field collisions: spheres and capsules against the terrain surface.
+
+Port of mjtpu/_src/collision_hfield.py (_subgrid_shape, _grid_consts,
+_height_window, _hfield_object, hfield_sphere, hfield_capsule), batched
+over (B, npair).  The subgrid size is a model constant (from the height
+field's cell size and the group's largest bounding radius), so each pair
+gathers a fixed (R, C) window of heights around its object; the object is
+pulled into the height field's local frame (terrain up = +z), the 4-point
+manifold is computed there by ``ops.hfield.manifold_batch`` over all
+(env, pair) instances at once, and only the 4 winners go back to world.
+
+On a CUDA tensor the manifold always runs in the hand-written kernel (or
+raises); the plain twin runs only for a CPU tensor.  The window gather
+stays plain torch, outside the kernel, as it stays in XLA outside mjtpu's
+Pallas call.  As in mjtpu, objects collide with the surface triangles only
+(two per cell); the side walls of the boundary prisms are not modelled.
+``hfield_convex`` (mesh or box on terrain) is not in this slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mjtpu_torch._src import math
+from mjtpu_torch._src.types import Model, cached
+from mjtpu_torch.ops import hfield as hfield_op
+
+# cap on the static subgrid half-extent (cells); bigger objects clamp here
+_MAX_HALF_CELLS = hfield_op.MAX_HALF_CELLS
+
+
+def _subgrid_shape(m: Model, hid: int, rbound: float) -> tuple[int, int]:
+  nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+  sx, sy = float(m.hfield_size[hid][0]), float(m.hfield_size[hid][1])
+  dx = 2.0 * sx / max(1, ncol - 1)
+  dy = 2.0 * sy / max(1, nrow - 1)
+  hx = min(_MAX_HALF_CELLS, int(np.ceil(rbound / max(1e-9, dx))) + 1)
+  hy = min(_MAX_HALF_CELLS, int(np.ceil(rbound / max(1e-9, dy))) + 1)
+  hx = max(0, min(hx, (ncol - 2) // 2))
+  hy = max(0, min(hy, (nrow - 2) // 2))
+  return hy, hx
+
+
+def _grid_consts(m: Model, hid: int):
+  nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+  size = m.hfield_size[hid]  # (sx, sy, ztop, zbottom), host numpy
+  sx, sy, ztop = float(size[0]), float(size[1]), float(size[2])
+  dx = 2.0 * sx / max(1, ncol - 1)
+  dy = 2.0 * sy / max(1, nrow - 1)
+  return nrow, ncol, sx, sy, ztop, int(m.hfield_adr[hid]), dx, dy
+
+
+def _height_window(m: Model, hid: int, lc: torch.Tensor, hy: int, hx: int):
+  """Gathers the (..., R, C) height window under the local object centres
+  ``lc`` (..., 3) and its origin (x0, y0); R = 2hy+2 rows, C = 2hx+2 cols."""
+  nrow, ncol, sx, sy, ztop, adr, dx, dy = _grid_consts(m, hid)
+  dev = lc.device
+  ar_r, ar_c = cached(m, ("hfield.window", hid, hy, hx), lambda: (
+      torch.arange(2 * hy + 2, device=dev), torch.arange(2 * hx + 2, device=dev)))
+  ci = torch.clamp(torch.floor((lc[..., 0] + sx) / dx).long(), hx, ncol - 2 - hx)
+  ri = torch.clamp(torch.floor((lc[..., 1] + sy) / dy).long(), hy, nrow - 2 - hy)
+  rows = torch.clamp(ri[..., None] - hy + ar_r, 0, nrow - 1)
+  cols = torch.clamp(ci[..., None] - hx + ar_c, 0, ncol - 1)
+  flat = adr + rows[..., :, None] * ncol + cols[..., None, :]
+  z = m.hfield_data[flat] * ztop
+  x0 = -sx + cols[..., 0].to(lc.dtype) * dx
+  y0 = -sy + rows[..., 0].to(lc.dtype) * dy
+  return z, x0, y0
+
+
+def _hfield_object(pos1, mat1, pos2, mat2, size2, m: Model, hid: int, rbound: float,
+                   has_axis: bool):
+  """Sphere/capsule (geom2) against height field ``hid`` (geom1), every
+  leading axis batched: (dist (..., 4), pos (..., 4, 3), frame (..., 4, 3, 3))."""
+  hy, hx = _subgrid_shape(m, hid, rbound)
+  _, _, _, _, _, _, dx, dy = _grid_consts(m, hid)
+  lead = pos2.shape[:-1]
+  lc = math.mat_t_vec(mat1, pos2 - pos1)
+  if has_axis:
+    axis_l = math.mat_t_vec(mat1, mat2[..., :, 2])
+    h = size2[..., 1, None]
+    a, b = lc - h * axis_l, lc + h * axis_l
+  else:
+    a = b = lc
+  zwin, x0, y0 = _height_window(m, hid, lc, hy, hx)
+  origin = torch.stack([x0, y0], dim=-1)
+  flat = lambda x: x.reshape((-1,) + x.shape[len(lead):])
+  r = size2[..., 0].expand(lead)
+  dist4, pos_l, n_l = hfield_op.manifold_batch(
+      flat(zwin), flat(origin), flat(a), flat(b), flat(r), hy, hx, dx, dy, has_axis)
+  dist4 = dist4.reshape(lead + (4,))
+  # local -> world: pos1 + mat1 @ p, with the axes as mjtpu's `p @ mat1.T`
+  pos_w = pos1[..., None, :] + math.mat_vec(mat1[..., None, :, :], pos_l.reshape(lead + (4, 3)))
+  n_w = math.mat_vec(mat1[..., None, :, :], n_l.reshape(lead + (4, 3)))
+  return dist4, pos_w, math.make_frame(n_w)
+
+
+def hfield_sphere(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, rbound: float):
+  return _hfield_object(pos1, mat1, pos2, mat2, size2, m, hid, rbound, has_axis=False)
+
+
+def hfield_capsule(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, rbound: float):
+  return _hfield_object(pos1, mat1, pos2, mat2, size2, m, hid, rbound, has_axis=True)

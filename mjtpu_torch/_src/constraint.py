@@ -1,10 +1,10 @@
 """Constraint assembly: efc rows for joint limits and pyramidal contacts.
 
-Port of mjtpu/_src/constraint.py (the slice's part: _kbi,
+Port of mjtpu/_src/constraint.py (the slices' part: _kbi,
 _contact_jacobians, _limit_rows for scalar joints, _contact_rows for
-pyramidal cones, make_constraint).  The row layout is static per model —
-[joint limits | contacts (condim-sorted groups)] — and rows deactivate
-themselves with zeroed Jacobians, as in mjtpu.  Equality, frictionloss,
+pyramidal cones at condim 1 and 3, make_constraint).  The row layout is
+static per model — [joint limits | contacts (condim-sorted groups)] — and
+rows deactivate themselves with zeroed Jacobians, as in mjtpu.  Equality, frictionloss,
 tendon limits and elliptic cones arrive with later slices; put_model
 refuses models that have them.
 """
@@ -172,9 +172,11 @@ def _limit_rows(m: Model, d: Data) -> list[_Rows]:
 
 
 def _contact_rows(m: Model, d: Data) -> list[_Rows]:
-  """Pyramidal contact rows, vectorized over the contacts.  Every contact
-  of the slice has condim 3 (put_model refuses others): four rows, the
-  pyramid's two edges along each of the two tangents."""
+  """Pyramidal contact rows, vectorized per condim group (the contacts
+  arrive condim-sorted from the driver, so each group is contiguous).
+  Condim 1 (frictionless): one row, the normal.  Condim 3: four rows, the
+  pyramid's two edges along each of the two tangents.  put_model refuses
+  other condims."""
   from mjtpu_torch._src import collision_driver
 
   ncon = collision_driver.ncon(m)
@@ -184,29 +186,50 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
   con = d.contact
   jt, (b1, b2) = _contact_jacobians(m, d)
   iw_body = m.body_invweight0[:, 0]
-  iw = iw_body[b1] + iw_body[b2]        # (B, ncon)
-  pos = con.dist - con.includemargin
-  active = (pos < 0).to(pos.dtype)
-  mu = con.friction                     # (B, ncon, 5)
+  iw_all = iw_body[b1] + iw_body[b2]        # (B, ncon)
+  pos_all = con.dist - con.includemargin
+  active_all = (pos_all < 0).to(pos_all.dtype)
 
-  jn = jt[:, :, None, 0]                # (B, ncon, 1, nv) normal rows
-  f = mu[..., :2, None]
-  plus, minus = jn + f * jt[:, :, 1:3], jn - f * jt[:, :, 1:3]
-  J = torch.stack([plus, minus], dim=3).reshape(B, ncon, 4, m.nv) * active[..., None, None]
-  # all pyramid rows share the friction[0]-based invweight (mj C); the
-  # 2*mu^2 factor scales outside the R floor (see _Rows.r_scale)
-  per_row = lambda x: x[:, :, None].expand((B, ncon, 4) + x.shape[2:]).reshape(
-      (B, 4 * ncon) + x.shape[2:])
-  return [_Rows(
-      J=J.reshape(B, 4 * ncon, m.nv),
-      pos=per_row(pos),
-      pos_out=per_row(con.dist),
-      margin=per_row(con.includemargin),
-      invweight=per_row(iw + mu[..., 0] ** 2 * iw),
-      solref=per_row(con.solref),
-      solimp=per_row(con.solimp),
-      r_scale=per_row(2.0 * mu[..., 0] ** 2),
-  )]
+  def groups():
+    dims = collision_driver.make_condim(m)
+    out = []
+    for condim in sorted(set(int(c) for c in dims)):
+      idx = np.nonzero(dims == condim)[0]
+      out.append((condim, slice(int(idx[0]), int(idx[-1]) + 1)))
+    return out
+
+  rows = []
+  for condim, sl in cached(m, "constraint.contact_groups", groups):
+    k = sl.stop - sl.start
+    jn = jt[:, sl, None, 0]                 # (B, k, 1, nv) normal rows
+    pos, active, iw = pos_all[:, sl], active_all[:, sl], iw_all[:, sl]
+    if condim == 1:
+      n_rows = 1
+      J = jn * active[..., None, None]
+      invweight, r_scale = iw, torch.ones_like(iw)
+    else:
+      n_rows = 4
+      mu = con.friction[:, sl]              # (B, k, 5)
+      f = mu[..., :2, None]
+      plus, minus = jn + f * jt[:, sl, 1:3], jn - f * jt[:, sl, 1:3]
+      J = torch.stack([plus, minus], dim=3).reshape(B, k, 4, m.nv) * active[..., None, None]
+      # all pyramid rows share the friction[0]-based invweight (mj C); the
+      # 2*mu^2 factor scales outside the R floor (see _Rows.r_scale)
+      invweight = iw + mu[..., 0] ** 2 * iw
+      r_scale = 2.0 * mu[..., 0] ** 2
+    per_row = lambda x: x[:, :, None].expand((B, k, n_rows) + x.shape[2:]).reshape(
+        (B, n_rows * k) + x.shape[2:])
+    rows.append(_Rows(
+        J=J.reshape(B, n_rows * k, m.nv),
+        pos=per_row(pos),
+        pos_out=per_row(con.dist[:, sl]),
+        margin=per_row(con.includemargin[:, sl]),
+        invweight=per_row(invweight),
+        solref=per_row(con.solref[:, sl]),
+        solimp=per_row(con.solimp[:, sl]),
+        r_scale=per_row(r_scale),
+    ))
+  return rows
 
 
 def make_constraint(m: Model, d: Data) -> Data:

@@ -1,8 +1,9 @@
-"""Forward dynamics orchestration + the Euler integrator.
+"""Forward dynamics orchestration + the Euler and ImplicitFast integrators.
 
-Port of mjtpu/_src/forward.py (the slice's part): _check_state, the
-fwd_* stages, forward, _advance, euler and step, batch-explicit over B
-envs.  Sensor stages are absent: put_model refuses models with sensors.
+Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
+fwd_* stages, forward, _advance, euler, implicit (ImplicitFast) and step,
+batch-explicit over B envs.  Sensor stages are absent: put_model refuses
+models with sensors, and the RK4 and full Implicit integrators.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from mjtpu_torch._src import (
     collision_driver,
     constraint,
+    derivative,
     math,
     passive as passive_mod,
     scan,
@@ -26,6 +28,7 @@ from mjtpu_torch._src.types import (
     Data,
     DisableBit,
     GainType,
+    IntegratorType,
     JointType,
     MAXVAL,
     Model,
@@ -188,8 +191,22 @@ def euler(m: Model, d: Data) -> Data:
   return _advance(m, d, d.qacc)
 
 
+def implicit(m: Model, d: Data) -> Data:
+  """ImplicitFast (mj_implicit without the RNE derivative): the velocity
+  update solves (qM - h * qDeriv) qacc = qfrc_smooth + qfrc_constraint,
+  with qDeriv symmetrized as C's ImplicitFast does."""
+  qderiv = derivative.deriv_smooth_vel(m, d)
+  qderiv = 0.5 * (qderiv + qderiv.transpose(-1, -2))
+  mh = d.qM - m.opt.timestep * qderiv
+  qfrc = d.qfrc_smooth + d.qfrc_constraint
+  qacc = smooth.factor_solve(m, mh, qfrc, symmetric=False)
+  return _advance(m, d, qacc)
+
+
 def step(m: Model, d: Data) -> Data:
   """Advances every env one timestep (mj_step)."""
   d = _check_state(m, d)
   d = forward(m, d)
+  if m.opt.integrator == IntegratorType.IMPLICITFAST:
+    return implicit(m, d)
   return euler(m, d)

@@ -13,6 +13,9 @@ land.
 ``data_from_mjtpu`` and ``data_to_numpy`` map between mjtpu's Data (as
 numpy) and the port's batched Data field by field by name; the parity
 tests feed both engines identical inputs with them.
+
+The entry points build on ``device="cuda"`` unless the caller names
+another device; without a card they raise and ask for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ import types
 import numpy as np
 import torch
 
-from mjtpu_torch._src import support
+from mjtpu_torch._src import mesh, support
 from mjtpu_torch._src.types import (
     BiasType,
     ConeType,
     Contact,
+    ConvexMesh,
     Data,
     DisableBit,
     DynType,
@@ -45,7 +49,7 @@ from mjtpu_torch._src.types import (
 # (save_snapshot) stores exactly these
 SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "npair",
-    "nexclude", "neq", "ntendon", "nsensor", "nflex", "nmocap",
+    "nexclude", "neq", "ntendon", "nsensor", "nflex", "nmocap", "nmesh", "nhfield",
 )
 OPTION_FIELDS = (
     "opt.timestep", "opt.impratio", "opt.tolerance", "opt.ls_tolerance",
@@ -61,8 +65,9 @@ STATIC_FIELDS = (
     "jnt_actfrclimited",
     "dof_bodyid", "dof_jntid", "dof_parentid",
     "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
-    "geom_bodyid", "geom_priority",
+    "geom_bodyid", "geom_dataid", "geom_priority",
     "site_bodyid",
+    "hfield_adr", "hfield_nrow", "hfield_ncol", "hfield_size",
     "pair_dim", "pair_geom1", "pair_geom2", "exclude_signature",
     "actuator_trntype", "actuator_dyntype", "actuator_gaintype",
     "actuator_biastype", "actuator_trnid", "actuator_ctrllimited",
@@ -77,8 +82,8 @@ FLOAT_FIELDS = (
     "jnt_range", "jnt_actfrcrange", "jnt_margin",
     "dof_armature", "dof_damping", "dof_invweight0",
     "geom_solmix", "geom_solref", "geom_solimp", "geom_size", "geom_pos",
-    "geom_quat", "geom_friction", "geom_margin", "geom_gap",
-    "site_pos", "site_quat",
+    "geom_quat", "geom_friction", "geom_margin", "geom_gap", "geom_rbound",
+    "site_pos", "site_quat", "hfield_data",
     "pair_solref", "pair_solreffriction", "pair_solimp", "pair_margin",
     "pair_gap", "pair_friction",
     "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
@@ -89,6 +94,9 @@ CHECK_FIELDS = ("dof_frictionloss", "body_gravcomp")
 SNAPSHOT_FIELDS = (
     SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
 )
+# a snapshot also stores the hull tables of each colliding mesh, under
+# "hull.<mesh id>.<ConvexMesh field>"
+HULL_FIELDS = ("vert", "face", "face_normal", "edge", "edge_face_normal")
 
 
 def _get(ns, name: str):
@@ -97,15 +105,21 @@ def _get(ns, name: str):
   return ns
 
 
-def save_snapshot(mjm, path) -> None:
+def save_snapshot(mjm, path, mesh_convex: tuple | None = None) -> None:
   """Writes every attribute model_from_arrays reads from ``mjm`` (an
-  MjModel or any object with its attribute names) to an .npz."""
+  MjModel or any object with its attribute names) to an .npz, with the
+  hull tables ``mesh_convex`` (default: mesh.get(mjm))."""
   arrays = {}
   for name in SNAPSHOT_FIELDS:
     v = _get(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
     arrays[name] = np.array(v)
+  hulls = mesh.get(mjm) if mesh_convex is None else mesh_convex
+  for i, hull in enumerate(hulls):
+    if hull is not None:
+      for f in HULL_FIELDS:
+        arrays[f"hull.{i}.{f}"] = np.asarray(getattr(hull, f))
   np.savez_compressed(path, **arrays)
 
 
@@ -113,16 +127,41 @@ def load_snapshot(path) -> types.SimpleNamespace:
   """Reads a snapshot written by save_snapshot back into an object with
   MjModel's attribute names (``opt.*`` and ``stat.*`` nested)."""
   ns = types.SimpleNamespace(opt=types.SimpleNamespace(), stat=types.SimpleNamespace())
+  hulls: dict[int, dict] = {}
   with np.load(path) as z:
     for name in z.files:
       v = z[name]
+      if name.startswith("hull."):
+        _, i, f = name.split(".")
+        hulls.setdefault(int(i), {})[f] = v
+        continue
       if name == "names":
         v = v.astype(np.uint8).tobytes()
       elif v.ndim == 0:
         v = v.item()
       *parents, leaf = name.split(".")
       setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
+  ns.mesh_convex = tuple(
+      ConvexMesh(**hulls[i]) if i in hulls else None for i in range(ns.nmesh))
   return ns
+
+
+def procedural_terrain(mjm, seed: int = 0) -> None:
+  """Fills every hfield of ``mjm`` with deterministic sinusoidal bumps,
+  flat near the origin so models spawn on level ground (numpy copy of
+  mjtpu.procedural_terrain; MJCF cannot inline elevation data, so terrain
+  assets ship flat).  The seed is reserved for randomized variants."""
+  del seed
+  for h in range(mjm.nhfield):
+    nrow, ncol = int(mjm.hfield_nrow[h]), int(mjm.hfield_ncol[h])
+    adr = int(mjm.hfield_adr[h])
+    rx, ry = mjm.hfield_size[h, 0], mjm.hfield_size[h, 1]
+    x = np.linspace(-rx, rx, ncol)[None, :]
+    y = np.linspace(-ry, ry, nrow)[:, None]
+    bumps = 0.5 * (1.0 + np.sin(1.7 * x) * np.sin(1.3 * y))
+    r = np.sqrt(x * x + y * y)
+    ramp = np.clip((r - 2.0) / 3.0, 0.0, 1.0)
+    mjm.hfield_data[adr : adr + nrow * ncol] = (bumps * ramp).reshape(-1)
 
 
 def _validate(ns) -> None:
@@ -145,11 +184,14 @@ def _validate(ns) -> None:
   refuse(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)), "fluid forces")
   refuse(int(o.cone) != ConeType.PYRAMIDAL, "elliptic cones")
   refuse(int(o.solver) != SolverType.NEWTON, f"solver {int(o.solver)} (only Newton)")
-  refuse(int(o.integrator) != IntegratorType.EULER,
-         f"integrator {int(o.integrator)} (only Euler)")
+  refuse(int(o.integrator) == IntegratorType.IMPLICIT,
+         "the implicit integrator (RNE velocity derivative)")
+  refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST),
+         f"integrator {int(o.integrator)} (only Euler and ImplicitFast)")
   refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
   damping = np.any(np.asarray(ns.dof_damping) > 0)
-  refuse(damping and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
+  refuse(int(o.integrator) == IntegratorType.EULER and damping
+         and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
          "eulerdamp with joint damping (implicit damping in Euler)")
 
   jnt_type = np.asarray(ns.jnt_type)
@@ -175,11 +217,22 @@ def _validate(ns) -> None:
   refuse(ns.nv >= 32, "kinematic trees with nv >= 32 (sparse mass matrix)")
 
 
-def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device=None) -> Model:
+def _device(device) -> torch.device:
+  """The entry points' device: cuda unless the caller names another."""
+  device = torch.device(device)
+  if device.type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError(
+        f"mjtpu_torch builds on device={str(device)!r} by default, and this machine has no"
+        " CUDA device: pass device=\"cpu\" to run on the CPU")
+  return device
+
+
+def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> Model:
   """Builds the port's Model from ``ns``, any object with MjModel's
-  attribute names (an MjModel, or load_snapshot's namespace)."""
+  attribute names (an MjModel, or load_snapshot's namespace), on
+  ``device`` (cuda unless the caller names another)."""
   _validate(ns)
-  device = torch.device(device) if device is not None else torch.device("cpu")
+  device = _device(device)
   f = lambda x: torch.as_tensor(np.array(x, dtype=np.float64), dtype=dtype, device=device)
   o = ns.opt
 
@@ -206,6 +259,9 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device=None) -> Mo
   fields["jnt_limit_two_sided"] = jnt_range[:, 1] - jnt_range[:, 0] < 2 * jnt_margin
   fields["has_jnt_spring"] = bool(np.any(np.asarray(ns.jnt_stiffness) > 0))
   fields["has_dof_damping"] = bool(np.any(np.asarray(ns.dof_damping) > 0))
+  fields["geom_rbound_np"] = np.array(ns.geom_rbound, dtype=np.float64)
+  # a snapshot carries the hull tables it was written with (mesh.py)
+  fields["mesh_convex"] = ns.mesh_convex if hasattr(ns, "mesh_convex") else mesh.get(ns)
 
   # every transmission is a scalar joint (_validate): the moment row of
   # actuator u is gear[u, 0] at its joint's dof
@@ -221,14 +277,15 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device=None) -> Mo
   # refuse unsupported colliders, condims and broadphase options up front
   if collision_driver.max_geom_pairs(m) is not None:
     raise NotImplementedError("mjtpu_torch does not support max_geom_pairs yet")
-  bad = set(int(c) for c in collision_driver.make_condim(m)) - {3}
+  bad = set(int(c) for c in collision_driver.make_condim(m)) - {1, 3}
   if bad:
     raise NotImplementedError(f"mjtpu_torch does not support contact condim {sorted(bad)} yet")
   return m
 
 
-def put_model(mjm, dtype: torch.dtype = torch.float64, device=None) -> Model:
-  """Converts an MjModel into the port's Model (dtype and device explicit)."""
+def put_model(mjm, dtype: torch.dtype = torch.float64, device="cuda") -> Model:
+  """Converts an MjModel into the port's Model (cuda unless the caller
+  names another device)."""
   return model_from_arrays(mjm, dtype=dtype, device=device)
 
 
@@ -310,9 +367,11 @@ def get_data_into(results, m: Model, d: Data) -> None:
         target[...] = val.reshape(target.shape)
 
 
-def data_from_mjtpu(leaves, device=None) -> Data:
+def data_from_mjtpu(leaves, device="cuda") -> Data:
   """The port's Data from a batched mjtpu Data with numpy leaves (e.g.
-  ``jax.tree.map(np.asarray, d)``), field by field by name."""
+  ``jax.tree.map(np.asarray, d)``), field by field by name, on ``device``
+  (cuda unless the caller names another)."""
+  device = _device(device)
 
   def conv(cls, src):
     out = {}

@@ -31,6 +31,16 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   ], dim=-1)
 
 
+def mat_vec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat @ v over trailing (3, 3) and (3,) axes, a fixed summation order."""
+  return torch.stack([dot3(mat[..., k, :], v) for k in range(3)], dim=-1)
+
+
+def mat_t_vec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat.T @ v over trailing (3, 3) and (3,) axes, a fixed summation order."""
+  return torch.stack([dot3(mat[..., :, k], v) for k in range(3)], dim=-1)
+
+
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
   sq = torch.sum(x * x, dim=dim)
   is_zero = sq == 0.0
@@ -200,6 +210,43 @@ def make_frame(a: torch.Tensor) -> torch.Tensor:
   b = normalize(b)
   c = cross(a, b)
   return torch.stack([a, b, c], dim=-2)
+
+
+def closest_segment_point(a: torch.Tensor, b: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+  """Closest point on segment ab to point pt (the 1e-12 floor as in mjtpu)."""
+  ab = b - a
+  t = dot3(pt - a, ab) / torch.clamp_min(dot3(ab, ab), 1e-12)
+  return a + torch.clamp(t, 0.0, 1.0)[..., None] * ab
+
+
+def closest_segment_to_segment_points(a0, a1, b0, b1):
+  """Closest points between the segments a0a1 and b0b1."""
+  dir_a, len_a = normalize_with_norm(a1 - a0)
+  dir_b, len_b = normalize_with_norm(b1 - b0)
+  half_len_a = len_a * 0.5
+  half_len_b = len_b * 0.5
+  a_mid = a0 + dir_a * half_len_a[..., None]
+  b_mid = b0 + dir_b * half_len_b[..., None]
+  trans = a_mid - b_mid
+
+  dira_dot_dirb = dot3(dir_a, dir_b)
+  dira_dot_trans = dot3(dir_a, trans)
+  dirb_dot_trans = dot3(dir_b, trans)
+  denom = 1.0 - dira_dot_dirb * dira_dot_dirb
+  orig_t_a = (-dira_dot_trans + dira_dot_dirb * dirb_dot_trans) / torch.clamp_min(denom, 1e-12)
+  orig_t_b = dirb_dot_trans + orig_t_a * dira_dot_dirb
+  t_a = torch.minimum(torch.maximum(orig_t_a, -half_len_a), half_len_a)
+  t_b = torch.minimum(torch.maximum(orig_t_b, -half_len_b), half_len_b)
+  best_a = a_mid + dir_a * t_a[..., None]
+  best_b = b_mid + dir_b * t_b[..., None]
+
+  # resolve degeneracy by one more round of projection
+  new_a = closest_segment_point(a0, a1, best_b)
+  new_b = closest_segment_point(b0, b1, new_a)
+  d_first = best_a - best_b
+  d_second = new_a - new_b
+  use_second = (dot3(d_second, d_second) < dot3(d_first, d_first))[..., None]
+  return torch.where(use_second, new_a, best_a), torch.where(use_second, new_b, best_b)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,118 @@
+"""Host-side convex hull tables for mesh collisions.
+
+Port of mjtpu/_src/mesh.py (``_merge_coplanar``, ``_edges_and_adjacent_normals``,
+``_pad_faces``, ``convex``, ``get``): scipy's ConvexHull, then coplanar
+triangles merged into polygonal faces in numpy.  The outputs are padded,
+fixed-shape numpy arrays that the convex colliders close over as model
+constants:
+
+  vert             (nvert, 3)
+  face             (nface, max_face_vert) vertex indices (padded by repeating)
+  face_normal      (nface, 3)
+  edge             (nedge, 2) unique hull edges
+  edge_face_normal (nedge, 2, 3) normals of the two faces adjacent to an edge
+
+Qhull's face order can differ between builds of scipy, so a model snapshot
+stores the tables built where the snapshot was written (io.save_snapshot),
+and a model loaded from it never rebuilds them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mjtpu_torch._src.types import ConvexMesh, GeomType
+
+
+def _merge_coplanar(hull) -> tuple[np.ndarray, np.ndarray, list[list[int]]]:
+  """Merges coplanar hull triangles into polygons: (vert, face_normal,
+  faces), faces as CCW-ordered vertex-index lists into vert."""
+  pts = hull.points
+  # a convex hull has at most one face per outward normal: group the
+  # triangles by quantized normal
+  keys = np.round(hull.equations[:, :3] / np.maximum(
+      np.linalg.norm(hull.equations[:, :3], axis=1, keepdims=True), 1e-12), 5)
+  groups: dict[tuple, list[int]] = {}
+  for i, k in enumerate(map(tuple, keys)):
+    groups.setdefault(k, []).append(i)
+
+  used = np.unique(hull.simplices)  # compact vertex set: hull vertices only
+  remap = -np.ones(len(pts), dtype=np.int64)
+  remap[used] = np.arange(len(used))
+  vert = pts[used]
+
+  faces, normals = [], []
+  for tri_ids in groups.values():
+    vids = np.unique(hull.simplices[np.array(tri_ids)])
+    n = hull.equations[tri_ids[0], :3]
+    n = n / max(np.linalg.norm(n), 1e-12)
+    # order the polygon's vertices CCW about the outward normal
+    c = pts[vids].mean(axis=0)
+    ref = np.array([1.0, 0.0, 0.0]) if abs(n[0]) < 0.9 else np.array([0.0, 1.0, 0.0])
+    u = np.cross(n, ref)
+    u /= max(np.linalg.norm(u), 1e-12)
+    v = np.cross(n, u)
+    ang = np.arctan2((pts[vids] - c) @ v, (pts[vids] - c) @ u)
+    order = np.argsort(ang)
+    faces.append([int(remap[i]) for i in vids[order]])
+    normals.append(n)
+  return vert, np.array(normals), faces
+
+
+def _edges_and_adjacent_normals(
+    faces: list[list[int]], normals: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+  """Unique undirected edges of the polygon soup and their two face normals."""
+  edge_faces: dict[tuple[int, int], list[int]] = {}
+  for fi, f in enumerate(faces):
+    for a, b in zip(f, f[1:] + f[:1]):
+      if a == b:
+        continue
+      edge_faces.setdefault((min(a, b), max(a, b)), []).append(fi)
+  edges, efn = [], []
+  for (a, b), fids in edge_faces.items():
+    edges.append((a, b))
+    n0 = normals[fids[0]]
+    n1 = normals[fids[1]] if len(fids) > 1 else n0
+    efn.append((n0, n1))
+  return np.array(edges, dtype=np.int64), np.array(efn)
+
+
+def _pad_faces(faces: list[list[int]]) -> np.ndarray:
+  maxv = max(len(f) for f in faces)
+  out = np.zeros((len(faces), maxv), dtype=np.int64)
+  for i, f in enumerate(faces):
+    out[i, : len(f)] = f
+    out[i, len(f):] = f[-1]  # pad by repeating the last vertex
+  return out
+
+
+def convex(vert: np.ndarray) -> ConvexMesh:
+  """ConvexMesh hull tables of a point cloud."""
+  from scipy.spatial import ConvexHull  # host-side, at model load only
+
+  hull = ConvexHull(np.asarray(vert, dtype=np.float64))
+  v, normals, faces = _merge_coplanar(hull)
+  edge, efn = _edges_and_adjacent_normals(faces, normals)
+  return ConvexMesh(
+      vert=v, face=_pad_faces(faces), face_normal=normals, edge=edge, edge_face_normal=efn,
+  )
+
+
+def get(mjm) -> tuple:
+  """Per-mesh ConvexMesh tuple of ``mjm`` (any object with MjModel's
+  attribute names): hulls of the meshes that colliding geoms use, None for
+  the others."""
+  geom_type = np.asarray(mjm.geom_type)
+  needed = {
+      int(mjm.geom_dataid[g]) for g in range(mjm.ngeom)
+      if geom_type[g] == GeomType.MESH and (mjm.geom_contype[g] or mjm.geom_conaffinity[g])
+  }
+  out = []
+  for i in range(mjm.nmesh):
+    if i in needed:
+      va, vn = int(mjm.mesh_vertadr[i]), int(mjm.mesh_vertnum[i])
+      out.append(convex(np.asarray(mjm.mesh_vert)[va : va + vn]))
+    else:
+      out.append(None)
+  return tuple(out)

@@ -1,10 +1,11 @@
 """Smooth (unconstrained) dynamics pipeline — the main-path part.
 
 Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, the dense factor_m
-and solve_m, com_vel, rne and transmission for joint transmissions.  Tree
-traversals use scan.body_tree (levelwise groups, batch-explicit).  The
-forest-blocked and tree-sparse factorizations (mass_blocks, sparse LDL)
-are not in this slice: put_model refuses models that would take them.
+and solve_m, factor_solve for one tree, com_vel, rne and transmission for
+joint transmissions.  Tree traversals use scan.body_tree (levelwise
+groups, batch-explicit).  The forest-blocked and tree-sparse
+factorizations (mass_blocks, sparse LDL) are not ported yet: put_model
+refuses models that would take them.
 """
 
 from __future__ import annotations
@@ -173,6 +174,17 @@ def dof_chain_mask(m: Model) -> torch.Tensor:
   return cached(m, "smooth.dof_chain_mask", build)
 
 
+def chain_pattern(m: Model) -> torch.Tensor:
+  """(nv, nv) symmetric 0/1 sparsity pattern of MuJoCo's qM: entry (i, j)
+  exists iff one of i, j is an ancestor dof of the other (or i == j)."""
+
+  def build():
+    mask = dof_chain_mask(m)
+    return torch.maximum(mask, mask.T)
+
+  return cached(m, "smooth.chain_pattern", build)
+
+
 def crb(m: Model, d: Data) -> Data:
   """Composite rigid body inertias + mass matrix (mj_crb)."""
 
@@ -201,6 +213,22 @@ def factor_m(m: Model, d: Data) -> Data:
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
   """Solves qM y = x (B, nv) with the current factorization (mj_solveM)."""
   return math.cho_solve(d.qLD, x)
+
+
+def factor_solve(m: Model, mat: torch.Tensor, rhs: torch.Tensor,
+                 symmetric: bool = True) -> torch.Tensor:
+  """Solves mat @ x = rhs per env, mat (B, nv, nv) with qM's one-tree
+  pattern (the implicit integrators' qM - h * qDeriv).  symmetric: the
+  pivot-clamped Cholesky of ops.fused.chol_solve (kernel B1);
+  symmetric=False: a batched LU (ImplicitFast's matrix is not symmetric),
+  through lu_factor_ex, which unlike lu_factor does not sync the host to
+  check for errors on CUDA."""
+  if symmetric:
+    from mjtpu_torch.ops import fused
+
+    return fused.chol_solve(mat, rhs)
+  lu, piv, _ = torch.linalg.lu_factor_ex(mat)
+  return torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]
 
 
 def com_vel(m: Model, d: Data) -> Data:

@@ -10,7 +10,8 @@ runs:
   * Every ``Data`` field carries a leading env axis ``B`` (batch-explicit,
     no ``torch.vmap``); ``Model`` is unbatched.
 
-The slice covers the fields the humanoid_bench main path reads and writes;
+The slices cover the fields the humanoid_bench and humanoid_terrain main
+paths read and write;
 the rest of mjtpu's Model/Data (tendons, sensors, cameras, lights,
 equality, energy, ...) arrives with the slices that need it.
 """
@@ -192,6 +193,18 @@ class ConstraintType(enum.IntEnum):
 
 
 @dataclasses.dataclass
+class ConvexMesh:
+  """Host-side convex hull tables of one mesh (all static numpy), closed
+  over by the convex colliders as model constants."""
+
+  vert: np.ndarray = static()              # (nvert, 3)
+  face: np.ndarray = static()              # (nface, max_face_vert) vert indices, padded by repeat
+  face_normal: np.ndarray = static()       # (nface, 3)
+  edge: np.ndarray = static()              # (nedge, 2) vert indices of unique edges
+  edge_face_normal: np.ndarray = static()  # (nedge, 2, 3) normals of the two adjacent faces
+
+
+@dataclasses.dataclass
 class Option:
   """Physics options (mjOption).  Enum/flag/iteration fields are static:
   they select code paths on the host."""
@@ -242,6 +255,8 @@ class Model:
   nsite: int = static()
   npair: int = static()
   nexclude: int = static()
+  nmesh: int = static()
+  nhfield: int = static()
   # ---- options / statistics ----
   opt: Option = None
   stat: Statistic = None
@@ -291,6 +306,7 @@ class Model:
   geom_conaffinity: np.ndarray = static(None)
   geom_condim: np.ndarray = static(None)
   geom_bodyid: np.ndarray = static(None)
+  geom_dataid: np.ndarray = static(None)
   geom_priority: np.ndarray = static(None)
   geom_solmix: torch.Tensor = None
   geom_solref: torch.Tensor = None
@@ -301,10 +317,19 @@ class Model:
   geom_friction: torch.Tensor = None
   geom_margin: torch.Tensor = None
   geom_gap: torch.Tensor = None
+  geom_rbound: torch.Tensor = None
+  geom_rbound_np: np.ndarray = static(None)  # host copy: hfield subgrid sizing
   # ---- sites ----
   site_bodyid: np.ndarray = static(None)
   site_pos: torch.Tensor = None
   site_quat: torch.Tensor = None
+  # ---- meshes (convex hulls) and height fields ----
+  mesh_convex: tuple = static(None)        # tuple[ConvexMesh | None] per mesh
+  hfield_adr: np.ndarray = static(None)
+  hfield_nrow: np.ndarray = static(None)
+  hfield_ncol: np.ndarray = static(None)
+  hfield_size: np.ndarray = static(None)   # (nhfield, 4) sx, sy, ztop, zbottom
+  hfield_data: torch.Tensor = None
   # ---- predefined / excluded collision pairs ----
   pair_dim: np.ndarray = static(None)
   pair_geom1: np.ndarray = static(None)

@@ -7,8 +7,8 @@ Cholesky:
   * on a CUDA tensor it launches the hand-written kernel in
     ``mjtpu_torch/csrc/cholesky.cu`` (one warp per env, factor and both
     substitutions in one shared-memory residency), built with ``nvcc`` for
-    sm_90a at first use and bound with ctypes.  A build or launch failure
-    raises; nothing falls back.
+    sm_90a at first use and bound with ctypes (``ops._build``).  A build or
+    launch failure raises; nothing falls back.
   * on a CPU tensor it runs the plain twin ``chol_solve_reference``, the
     port of mjtpu's ``fused._base`` (math.safe_cholesky + cho_solve).
 
@@ -20,36 +20,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from mjtpu_torch._src import math
+from mjtpu_torch.ops import _build
 
 # kernel launches since import (CPU calls and twin calls do not count)
 launches = 0
 
-# dynamic shared memory one block may use on Hopper (227 KB)
-SMEM_LIMIT = 232448
+SMEM_LIMIT = _build.SMEM_LIMIT
 _WARPS_PER_BLOCK = 4
 
-_SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "mjtpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_lib = None
-_lib_lock = threading.Lock()
-# what the last build printed (nvcc's -Xptxas -v register/smem report);
-# None when the library was loaded from an earlier build
-build_log: str | None = None
+SOURCE = "cholesky.cu"
 
 
 def chol_solve_reference(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -69,45 +52,16 @@ def max_n(dtype: torch.dtype) -> int:
   return n
 
 
-def _nvcc() -> str:
-  cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-  for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-    if cand and os.path.exists(cand):
-      return cand
-  raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
+@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-  """Builds (at first use, keyed by a hash of the source and flags) and
-  loads the kernel library."""
-  global _lib, build_log
-  with _lib_lock:
-    if _lib is not None:
-      return _lib
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"cholesky_{key}.so"
-    if not so.exists():
-      BUILD_DIR.mkdir(parents=True, exist_ok=True)
-      tmp = so.with_suffix(f".{os.getpid()}.tmp")
-      proc = subprocess.run(
-          [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-          capture_output=True, text=True, timeout=600,
-      )
-      build_log = proc.stdout + proc.stderr
-      if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{build_log}")
-      os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name in ("mjtpu_chol_solve_f32", "mjtpu_chol_solve_f64"):
-      fn = getattr(lib, name)
-      fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-      fn.restype = ctypes.c_int
-    lib.mjtpu_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mjtpu_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+  """Builds (at first use) and loads the kernel library."""
+  lib = _build.library(SOURCE)
+  for name in ("mjtpu_chol_solve_f32", "mjtpu_chol_solve_f64"):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  return lib
 
 
 def _check(mat: torch.Tensor, rhs: torch.Tensor) -> None:
@@ -146,9 +100,6 @@ def cholesky_solve(mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
   with torch.cuda.device(mat.device):
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(mat.data_ptr(), rhs.data_ptr(), out.data_ptr(), batch, n, warps, stream)
-  if err != 0:
-    raise RuntimeError(
-        f"cholesky kernel launch failed: {lib.mjtpu_cuda_error_string(err).decode()}"
-    )
+  _build.check_launch(lib, err, "cholesky")
   launches += 1
   return out

@@ -15,9 +15,26 @@
                                and opt.ls_iterations = CONVERGED, stored
                                as converged_iterations)
 
+  mjtpu_torch/assets/humanoid_terrain_model.npz
+      the same for humanoid_terrain.xml after mjtpu.procedural_terrain has
+      filled its height field, with the hull tables mjtpu built for its
+      rocks (mjtpu._src.mesh.get), so the port never rebuilds them.
+  mjtpu_torch/assets/humanoid_terrain_golden.npz
+      a reference trajectory from mjtpu at float64 on the CPU (ImplicitFast,
+      8 Newton iterations):
+        qpos0, qvel0, ctrl     B=4 initial states (terrain_initial_state:
+                               env 0 lying on the flat spawn ground, envs
+                               1 and 2 standing over the bumpy ring with
+                               the torso raised 0.3 m, env 3 with its
+                               right foot 1 mm above a rock's apex)
+        qpos, qvel             (steps, 4, ...) after each step
+        qacc, efc_force, contact_dist, contact_pos, contact_frame
+                               after the first step
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
-    JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py [--out DIR]
+    JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
+        [--out DIR] [--model humanoid_bench|humanoid_terrain] [--steps N]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -37,9 +54,12 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 XML = ROOT / "mjtpu" / "zoo" / "assets" / "humanoid_bench.xml"
+TERRAIN_XML = ROOT / "mjtpu" / "zoo" / "assets" / "humanoid_terrain.xml"
 ASSETS = ROOT / "mjtpu_torch" / "assets"
 MODEL_FILE = ASSETS / "humanoid_bench_model.npz"
 GOLDEN_FILE = ASSETS / "humanoid_bench_golden.npz"
+TERRAIN_MODEL_FILE = ASSETS / "humanoid_terrain_model.npz"
+TERRAIN_GOLDEN_FILE = ASSETS / "humanoid_terrain_golden.npz"
 BATCH = 4
 STEPS = 100
 # solver iterations / linesearch iterations that run humanoid_bench's
@@ -51,6 +71,101 @@ def load_mjmodel():
   import mujoco
 
   return mujoco.MjModel.from_xml_path(str(XML))
+
+
+def load_terrain_mjmodel():
+  """humanoid_terrain.xml with its height field filled by mjtpu."""
+  import mujoco
+
+  import mjtpu
+
+  mjm = mujoco.MjModel.from_xml_path(str(TERRAIN_XML))
+  mjtpu.procedural_terrain(mjm)
+  return mjm
+
+
+def _lowest_point(mjm, mjd) -> float:
+  """The lowest world z over the colliding sphere and capsule geoms."""
+  low = np.inf
+  for g in range(mjm.ngeom):
+    t = mjm.geom_type[g]
+    if mjm.geom_bodyid[g] == 0 or t not in (2, 3):  # world geoms; sphere, capsule
+      continue
+    half = abs(mjd.geom_xmat[g, 8]) * mjm.geom_size[g, 1] if t == 3 else 0.0
+    low = min(low, mjd.geom_xpos[g, 2] - half - mjm.geom_size[g, 0])
+  return low
+
+
+def terrain_initial_state(mjm, seed: int = 0):
+  """(qpos, qvel, ctrl) for the 4 terrain envs (module docstring): qpos0
+  +-0.01 and ctrl uniform in [-1, 1], then env 0 laid on its back on the
+  flat spawn ground 1 cm above it, envs 1 and 2 moved over the bumpy ring
+  (r = 4.0 and 4.3 m) with the torso 0.3 m higher, and env 3 moved so that
+  its right foot's sole hangs 1 mm above rock1's apex."""
+  import mujoco
+
+  qpos, qvel, ctrl = initial_state(mjm, seed=seed)
+  qpos[1, :3] += (4.0, 0.5, 0.3)
+  qpos[2, :3] += (-2.6, 3.4, 0.3)
+  mjd = mujoco.MjData(mjm)
+
+  # env 0: rotated 90 degrees about y (lying along x), lowest geom 1 cm up
+  qpos[0, 3:7] = (np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0)
+  mjd.qpos[:] = qpos[0]
+  mujoco.mj_kinematics(mjm, mjd)
+  qpos[0, 2] += 0.01 - _lowest_point(mjm, mjd)
+
+  mjd.qpos[:] = qpos[3]
+  mujoco.mj_kinematics(mjm, mjd)
+  rock = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "rock1")
+  foot = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "right_foot_g")
+  mesh = mjm.geom_dataid[rock]
+  va, vn = mjm.mesh_vertadr[mesh], mjm.mesh_vertnum[mesh]
+  verts = mjd.geom_xpos[rock] + mjm.mesh_vert[va : va + vn] @ mjd.geom_xmat[rock].reshape(3, 3).T
+  apex = verts[np.argmax(verts[:, 2])]
+  sole = mjd.geom_xpos[foot] - np.array([0.0, 0.0, mjm.geom_size[foot, 0]])
+  qpos[3, :3] += apex - sole + np.array([0.0, 0.0, 0.001])
+  return qpos, qvel, ctrl
+
+
+def terrain_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The terrain golden file's arrays (module docstring); prints the
+  active contacts (dist below the contact's margin, so the constraint row
+  is live) of each collision group over the run."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu._src import collision_driver
+
+  qpos0, qvel0, ctrl = terrain_initial_state(mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0), ctrl=jnp.asarray(ctrl))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  groups = collision_driver.candidate_groups(m)
+  sizes = [collision_driver._PAIR_NCON[k[:2]] * len(p) for k, p in groups.items()]
+  bounds = np.cumsum([0] + sizes)
+  active = np.zeros(len(sizes), int)
+  out = {"qpos": [], "qvel": []}
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    live = np.asarray(d.contact.dist) < np.asarray(d.contact.includemargin)
+    active += [int(live[:, a:b].sum()) for a, b in zip(bounds[:-1], bounds[1:])]
+    if i == 0:
+      first = jax.tree.map(np.asarray, d)
+  for key, n in zip(groups, active):
+    print(f"group {key}: {n} active contact slots over {steps} steps x {BATCH} envs")
+  return {
+      "qpos0": qpos0, "qvel0": qvel0, "ctrl": ctrl,
+      **{k: np.stack(v) for k, v in out.items()},
+      "qacc": first.qacc, "efc_force": first.efc_force, "contact_dist": first.contact.dist,
+      "contact_pos": first.contact.pos, "contact_frame": first.contact.frame,
+  }
 
 
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
@@ -108,18 +223,34 @@ def golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
 def main():
   parser = argparse.ArgumentParser(description="Writes the mjtpu_torch data files.")
   parser.add_argument("--out", type=pathlib.Path, default=ASSETS,
-                      help="directory for both files (default: the package's assets)")
-  out = parser.parse_args().out
+                      help="directory for the files (default: the package's assets)")
+  parser.add_argument("--model", action="append", choices=("humanoid_bench", "humanoid_terrain"),
+                      help="the model whose files to write (repeatable; default: both)")
+  parser.add_argument("--steps", type=int, default=STEPS,
+                      help="steps of the humanoid_terrain golden trajectory")
+  args = parser.parse_args()
+  out = args.out
   # before jax is imported: the flag is read when the CPU backend starts
   os.environ["XLA_FLAGS"] = (
       os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX2").strip()
   from mjtpu_torch._src import io
 
   out.mkdir(parents=True, exist_ok=True)
-  mjm = load_mjmodel()
-  io.save_snapshot(mjm, out / MODEL_FILE.name)
-  np.savez_compressed(out / GOLDEN_FILE.name, **golden(mjm))
-  for name in (MODEL_FILE.name, GOLDEN_FILE.name):
+  files = []
+  models = args.model or ["humanoid_bench", "humanoid_terrain"]
+  if "humanoid_bench" in models:
+    mjm = load_mjmodel()
+    io.save_snapshot(mjm, out / MODEL_FILE.name)
+    np.savez_compressed(out / GOLDEN_FILE.name, **golden(mjm))
+    files += [MODEL_FILE.name, GOLDEN_FILE.name]
+  if "humanoid_terrain" in models:
+    from mjtpu._src import mesh
+
+    mjm = load_terrain_mjmodel()
+    io.save_snapshot(mjm, out / TERRAIN_MODEL_FILE.name, mesh_convex=mesh.get(mjm))
+    np.savez_compressed(out / TERRAIN_GOLDEN_FILE.name, **terrain_golden(mjm, args.steps))
+    files += [TERRAIN_MODEL_FILE.name, TERRAIN_GOLDEN_FILE.name]
+  for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 
 

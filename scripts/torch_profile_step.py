@@ -1,9 +1,9 @@
-"""Where a mjtpu_torch step's time goes on the GPU: humanoid_bench.
+"""Where a mjtpu_torch step's time goes on the GPU.
 
-    python scripts/torch_profile_step.py [--batch 4096] [--dtype float32]
-        [--steps 5] [--out build/profile]
+    python scripts/torch_profile_step.py [--model humanoid_bench|humanoid_terrain]
+        [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
-Runs the model from the committed snapshot on CUDA, warms up, then traces
+Runs the model from its committed snapshot on CUDA, warms up, then traces
 ``--steps`` steps with torch.profiler (CPU and CUDA activity).  Prints the
 card (nvidia-smi name and power limit), host wall time per step, device
 kernel time per step, the device's busy share (kernel time / wall time),
@@ -24,6 +24,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument("--model", default="humanoid_bench",
+                 choices=("humanoid_bench", "humanoid_terrain"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)
@@ -47,7 +49,7 @@ def main() -> int:
       capture_output=True, text=True, timeout=60, check=True).stdout.strip()
   dtype = getattr(torch, args.dtype)
   m = mjtpu_torch.model_from_arrays(
-      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"),
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{args.model}_model.npz"),
       dtype=dtype, device="cuda")
   rng = np.random.default_rng(1)
   d = mjtpu_torch.make_data(m, batch_size=args.batch)
@@ -69,14 +71,14 @@ def main() -> int:
     wall = time.perf_counter() - t0
   out = pathlib.Path(args.out)
   out.mkdir(parents=True, exist_ok=True)
-  trace = out / f"step_{args.dtype}_B{args.batch}.json.gz"  # ~5.6k kernels a step
+  trace = out / f"{args.model}_{args.dtype}_B{args.batch}.json.gz"
   prof.export_chrome_trace(str(trace))
 
   kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
   dev_us = sum(e.device_time for e in kernels)  # microseconds
   wall_ms = 1e3 * wall / args.steps
   print(f"card: {card}")
-  print(f"humanoid_bench {args.dtype} B={args.batch}: {wall_ms:.3f} ms/step wall (profiled),"
+  print(f"{args.model} {args.dtype} B={args.batch}: {wall_ms:.3f} ms/step wall (profiled),"
         f" {dev_us / 1e3 / args.steps:.3f} ms/step device kernel time, device busy"
         f" {100 * dev_us / 1e3 / (wall_ms * args.steps):.1f}%,"
         f" {len(kernels) / args.steps:.0f} kernel launches/step")

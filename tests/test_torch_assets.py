@@ -73,6 +73,12 @@ def _assert_models_equal(a, b, path="model"):
     where = f"{path}.{f.name}"
     if dataclasses.is_dataclass(x):
       _assert_models_equal(x, y, where)
+    elif isinstance(x, tuple):  # mesh_convex: ConvexMesh or None per mesh
+      assert len(x) == len(y), where
+      for i, (u, v) in enumerate(zip(x, y)):
+        assert (u is None) == (v is None), f"{where}[{i}]"
+        if u is not None:
+          _assert_models_equal(u, v, f"{where}[{i}]")
     elif isinstance(x, torch.Tensor):
       assert x.dtype == y.dtype and torch.equal(x, y), where
     elif isinstance(x, np.ndarray):
@@ -82,21 +88,44 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
-def test_snapshot_model_equals_put_model():
-  mjm = _assets_script().load_mjmodel()
+@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain"])
+def test_snapshot_model_equals_put_model(model):
+  script = _assets_script()
+  mjm = script.load_mjmodel() if model == "humanoid_bench" else script.load_terrain_mjmodel()
   snap = mjtpu_torch.model_from_arrays(
-      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"))
-  _assert_models_equal(snap, mjtpu_torch.put_model(mjm))
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
+  _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
 
 
-@pytest.fixture(scope="module")
-def regenerated(tmp_path_factory):
-  """Both data files written afresh by scripts/torch_port_assets.py (in a
-  subprocess: the script pins XLA's vector ISA before jax starts)."""
-  out = tmp_path_factory.mktemp("assets")
+def test_hull_tables_match_mjtpu():
+  """The port's mesh.convex on a live MjModel builds mjtpu's hull tables,
+  table by table."""
+  from mjtpu._src import mesh as j_mesh
+  from mjtpu_torch._src import mesh as t_mesh
+
+  mjm = _assets_script().load_terrain_mjmodel()
+  want, got = j_mesh.get(mjm), t_mesh.get(mjm)
+  assert len(got) == len(want) == mjm.nmesh and all(h is not None for h in got)
+  for a, b in zip(got, want):
+    for f in io.HULL_FIELDS:
+      np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+
+
+def test_procedural_terrain_matches_mjtpu():
+  script = _assets_script()
+  want = script.load_terrain_mjmodel()
+  got = mujoco.MjModel.from_xml_path(str(script.TERRAIN_XML))
+  io.procedural_terrain(got)
+  np.testing.assert_array_equal(got.hfield_data, want.hfield_data)
+  assert np.ptp(want.hfield_data) > 0.5
+
+
+def _regenerate(out, *args):
+  """Runs scripts/torch_port_assets.py into ``out`` (in a subprocess: the
+  script pins XLA's vector ISA before jax starts)."""
   env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
   proc = subprocess.run(
-      [sys.executable, str(ROOT / "scripts" / "torch_port_assets.py"), "--out", str(out)],
+      [sys.executable, str(ROOT / "scripts" / "torch_port_assets.py"), "--out", str(out), *args],
       cwd=ROOT, capture_output=True, text=True, timeout=600,
       env={**env, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT)},
   )
@@ -104,12 +133,60 @@ def regenerated(tmp_path_factory):
   return out
 
 
+@pytest.fixture(scope="module")
+def regenerated(tmp_path_factory):
+  """humanoid_bench's data files written afresh."""
+  return _regenerate(tmp_path_factory.mktemp("assets"), "--model", "humanoid_bench")
+
+
+TERRAIN_PREFIX = 5
+
+
+@pytest.fixture(scope="module")
+def regenerated_terrain(tmp_path_factory):
+  """humanoid_terrain's data files written afresh, its golden over the
+  first TERRAIN_PREFIX steps only (the rest of the committed trajectory is
+  held by tests/test_torch_terrain.py's one-step restarts)."""
+  return _regenerate(tmp_path_factory.mktemp("terrain"), "--model", "humanoid_terrain",
+                     "--steps", str(TERRAIN_PREFIX))
+
+
+def _snapshot_keys(path) -> list[str]:
+  with np.load(path) as z:
+    return sorted(k for k in z.files if not k.startswith("hull."))
+
+
 def test_snapshot_file_is_fresh(regenerated):
   script = _assets_script()
+  assert _snapshot_keys(script.MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
   with np.load(regenerated / script.MODEL_FILE.name) as new, np.load(script.MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files) == sorted(io.SNAPSHOT_FIELDS)
+    assert sorted(new.files) == sorted(old.files)
     for k in new.files:
       np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_terrain_snapshot_file_is_fresh(regenerated_terrain):
+  script = _assets_script()
+  name = script.TERRAIN_MODEL_FILE.name
+  assert _snapshot_keys(script.TERRAIN_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
+  with np.load(regenerated_terrain / name) as new, np.load(script.TERRAIN_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert sum(k.startswith("hull.") for k in new.files) == len(io.HULL_FIELDS)
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_terrain_golden_file_is_fresh(regenerated_terrain):
+  """Regenerating the terrain golden with mjtpu reproduces the committed
+  file's first TERRAIN_PREFIX steps and its step-1 fields."""
+  script = _assets_script()
+  name = script.TERRAIN_GOLDEN_FILE.name
+  with np.load(regenerated_terrain / name) as new, np.load(script.TERRAIN_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[0] == script.STEPS
+    for k in new.files:
+      want = old[k][:TERRAIN_PREFIX] if k in ("qpos", "qvel") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
 
 
 def test_golden_file_is_fresh(regenerated):
@@ -133,11 +210,12 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import torch
 import mjtpu_torch
-from mjtpu_torch.ops import cholesky, fused
-m = mjtpu_torch.model_from_arrays(
-    mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"))
-d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
-assert bool(torch.isfinite(d.qpos).all())
+from mjtpu_torch.ops import cholesky, fused, hfield
+for name in ("humanoid_bench", "humanoid_terrain"):
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
+  d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
+  assert bool(torch.isfinite(d.qpos).all())
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "mjtpu", "mujoco"))
 assert not bad, bad
 print("ok")

@@ -13,7 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mjtpu.ops import cholesky as mjtpu_cholesky
 from mjtpu.ops import fused as mjtpu_fused
-from mjtpu_torch.ops import cholesky, fused
+from mjtpu_torch.ops import _build, cholesky, fused
 
 torch.set_num_threads(1)
 
@@ -93,7 +93,8 @@ def test_seam_on_cpu_uses_twin_and_never_builds():
   y = cholesky.cholesky_solve(h, g)
   np.testing.assert_array_equal(y.numpy(), x.numpy())
   assert cholesky.launches == before == 0
-  assert cholesky._lib is None  # no nvcc, no library: nothing was built
+  # no nvcc, no library: nothing was built
+  assert cholesky.SOURCE not in _build._libs and cholesky.library.cache_info().currsize == 0
 
 
 def test_wrapper_refuses_bad_inputs():

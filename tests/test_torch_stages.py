@@ -184,7 +184,7 @@ def chains():
         ds.append(jax.tree.map(np.asarray, d))
     else:
       ds = [jax.tree.map(np.asarray, x) for x in jax.jit(_chain)(m, d)]
-    out[case] = (mjtpu_torch.put_model(mjm), ds)
+    out[case] = (mjtpu_torch.put_model(mjm, device="cpu"), ds)
   return out
 
 
@@ -199,7 +199,7 @@ def _field(obj, name):
 def test_stage(chains, case, stage):
   name, _, t_stage, fields = STAGES[stage]
   m, ds = chains[case]
-  got = mjtpu_torch.data_to_numpy(t_stage(m, mjtpu_torch.data_from_mjtpu(ds[stage])))
+  got = mjtpu_torch.data_to_numpy(t_stage(m, mjtpu_torch.data_from_mjtpu(ds[stage], device="cpu")))
   want = ds[stage + 1]
   for f in fields:
     a, b = _field(got, f), _field(want, f)
@@ -226,7 +226,7 @@ def test_forward_skips_solver_without_rows(chains):
   """pendulum has no constraint rows: forward takes qacc = qacc_smooth."""
   m, ds = chains["pendulum_noeulerdamp"]
   assert mjtpu_torch.count_constraints(m)[3] == 0
-  got = mjtpu_torch.forward(m, mjtpu_torch.data_from_mjtpu(ds[1]))
+  got = mjtpu_torch.forward(m, mjtpu_torch.data_from_mjtpu(ds[1], device="cpu"))
   want = ds[[s[0] for s in STAGES].index("fwd_acceleration") + 1]
   np.testing.assert_allclose(got.qacc.numpy(), want.qacc_smooth, rtol=1e-10, atol=1e-10)
   np.testing.assert_array_equal(got.qacc.numpy(), got.qacc_warmstart.numpy())
@@ -240,7 +240,7 @@ def test_static_layout_matches(case):
   from mjtpu_torch._src import support as t_support
 
   mjm = CASES[case]()[0]
-  jm, tm = mjtpu.put_model(mjm, dtype=jnp.float64), mjtpu_torch.put_model(mjm)
+  jm, tm = mjtpu.put_model(mjm, dtype=jnp.float64), mjtpu_torch.put_model(mjm, device="cpu")
   assert mjtpu_torch.constraint_sizes(tm) == j_support.constraint_sizes(jm)
   assert mjtpu_torch.count_constraints(tm) == j_support.count_constraints(jm)
   ne, nf, nl, _ = j_support.count_constraints(jm)
@@ -261,7 +261,7 @@ def test_jac_matches(chains):
     point = d.xipos[:, body] + 0.1
     want = jax.vmap(lambda dd, p: j_support.jac(jm, dd, p, body))(
         jax.tree.map(jnp.asarray, d), jnp.asarray(point))
-    got = mjtpu_torch.jac(m, mjtpu_torch.data_from_mjtpu(d), torch.as_tensor(point), body)
+    got = mjtpu_torch.jac(m, mjtpu_torch.data_from_mjtpu(d, device="cpu"), torch.as_tensor(point), body)
     for a, b in zip(got, want):
       np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-12)
 
@@ -280,7 +280,7 @@ def test_model_to_float32_steps(chains):
 def test_data_round_trip(chains):
   """data_from_mjtpu / data_to_numpy carry every field unchanged."""
   _, ds = chains["humanoid_bench"]
-  back = mjtpu_torch.data_to_numpy(mjtpu_torch.data_from_mjtpu(ds[-1]))
+  back = mjtpu_torch.data_to_numpy(mjtpu_torch.data_from_mjtpu(ds[-1], device="cpu"))
   for f in dataclasses.fields(mjtpu_torch.Data):
     if f.name == "contact":
       for c in dataclasses.fields(mjtpu_torch.Contact):

@@ -57,7 +57,7 @@ def _model(iterations=None):
   ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
   if iterations:
     ns.opt.iterations = ns.opt.ls_iterations = iterations
-  return mjtpu_torch.model_from_arrays(ns)
+  return mjtpu_torch.model_from_arrays(ns, device="cpu")
 
 
 def _rollout(m, golden, steps=STEPS):
@@ -84,7 +84,7 @@ def test_benchmark_config_step_by_step(mjtpu_states):
   included), lands within 1e-8 of mjtpu's next state."""
   m = _model()
   for i in range(STEPS):
-    got = mjtpu_torch.step(m, mjtpu_torch.data_from_mjtpu(mjtpu_states[i]))
+    got = mjtpu_torch.step(m, mjtpu_torch.data_from_mjtpu(mjtpu_states[i], device="cpu"))
     want = mjtpu_states[i + 1]
     for f in ("qpos", "qvel", "qacc"):
       err = float(np.abs(getattr(got, f).numpy() - getattr(want, f)).max())
@@ -134,9 +134,10 @@ def _variant(path, collide_head=False, pair_dim=None, **opt):
     mjm = mujoco.MjModel.from_xml_path(path) if "/" in path else load_mj(path)
     for k, v in opt.items():
       setattr(mjm.opt, k, v)
-    if collide_head:  # the head sphere meets the floor plane
+    if collide_head:  # the head, made an ellipsoid, meets the floor plane
       head = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "head")
       mjm.geom_contype[head] = mjm.geom_conaffinity[head] = 1
+      mjm.geom_type[head] = mujoco.mjtGeom.mjGEOM_ELLIPSOID
     if pair_dim is not None:
       mjm.pair_dim[:] = pair_dim
     return mjm
@@ -145,7 +146,7 @@ def _variant(path, collide_head=False, pair_dim=None, **opt):
 
 @pytest.mark.parametrize("make, what", [
     (_variant("boxes.xml"), "multi-tree"),
-    (_variant(HB, collide_head=True), "collision between geom types PLANE and SPHERE"),
+    (_variant(HB, collide_head=True), "collision between geom types PLANE and ELLIPSOID"),
     (_variant("pendulum.xml"), "eulerdamp"),
     (_variant("sensors.xml"), "sensors"),
     (_variant("equality.xml"), "equality"),
@@ -154,12 +155,31 @@ def _variant(path, collide_head=False, pair_dim=None, **opt):
     (_variant("chain40.xml", disableflags=mujoco.mjtDisableBit.mjDSBL_EULERDAMP), "nv >= 32"),
     (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), "elliptic"),
     (_variant(HB, solver=mujoco.mjtSolver.mjSOL_CG), "solver"),
-    (_variant(HB, pair_dim=1), r"condim \[1\]"),
+    # condim 1 is in the slice since humanoid_terrain; condim 4 is not
+    (_variant(HB, pair_dim=4), r"condim \[4\]"),
+    (_variant(HB, integrator=mujoco.mjtIntegrator.mjINT_IMPLICIT), "implicit integrator"),
+    (_variant(HB, density=1.2, integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), "fluid"),
 ], ids=["boxes", "sphere_plane", "pendulum", "sensors", "equality", "tendon", "rk4", "chain40",
-        "elliptic", "cg", "condim1"])
+        "elliptic", "cg", "condim1", "implicit", "implicitfast_fluid"])
 def test_put_model_refuses_out_of_slice(make, what):
   with pytest.raises(NotImplementedError, match=what):
-    mjtpu_torch.put_model(make())
+    mjtpu_torch.put_model(make(), device="cpu")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+  """Without a CUDA device, a call that names no device raises and asks
+  for device="cpu"; it never falls back to the CPU."""
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  with pytest.raises(RuntimeError, match='device="cpu"'):
+    mjtpu_torch.model_from_arrays(ns)
+  with pytest.raises(RuntimeError, match='device="cpu"'):
+    mjtpu_torch.put_model(mujoco.MjModel.from_xml_path(HB))
+  m = mjtpu_torch.model_from_arrays(ns, device="cpu")
+  d = mjtpu_torch.data_to_numpy(mjtpu_torch.make_data(m, batch_size=1))
+  with pytest.raises(RuntimeError, match='device="cpu"'):
+    mjtpu_torch.data_from_mjtpu(d)
+  assert mjtpu_torch.data_from_mjtpu(d, device="cpu").qpos.device.type == "cpu"
 
 
 def test_put_data_get_data_into_round_trip():
@@ -170,7 +190,7 @@ def test_put_data_get_data_into_round_trip():
     x.qpos[:] = mjm.qpos0 + rng.uniform(-0.01, 0.01, mjm.nq)
     x.qvel[:] = rng.uniform(-0.1, 0.1, mjm.nv)
     x.ctrl[:] = rng.uniform(-1, 1, mjm.nu)
-  m = mjtpu_torch.put_model(mjm)
+  m = mjtpu_torch.put_model(mjm, device="cpu")
   d = mjtpu_torch.forward(m, mjtpu_torch.put_data(m, mjds))
   out = [mujoco.MjData(mjm) for _ in range(2)]
   mjtpu_torch.get_data_into(out, m, d)
@@ -182,3 +202,39 @@ def test_put_data_get_data_into_round_trip():
     # mj_kinematics agrees with the port's kinematics
     mujoco.mj_kinematics(mjm, x)
     np.testing.assert_allclose(y.xpos, x.xpos, atol=1e-12)
+
+
+def test_zoo_humanoid_matches_mjtpu():
+  """Zoo humanoid.xml (the model __graft_entry__ steps: ImplicitFast, feet
+  on a plane) at B=2, f64: 5 port steps against mjtpu's to 1e-8, with the
+  feet 5 mm into the floor so that the plane-sphere contacts are live."""
+  from mjtpu_torch._src import collision_driver
+
+  mjm = mujoco.MjModel.from_xml_path(str(pathlib.Path(HB).with_name("humanoid.xml")))
+  rng = np.random.default_rng(5)
+  qpos = mjm.qpos0 + rng.uniform(-0.01, 0.01, (2, mjm.nq))
+  mjd = mujoco.MjData(mjm)
+  mjd.qpos[:] = qpos[0]
+  mujoco.mj_kinematics(mjm, mjd)
+  foot = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "right_foot_g")
+  qpos[:, 2] -= mjd.geom_xpos[foot, 2] - mjm.geom_size[foot, 0] + 0.005
+  ctrl = rng.uniform(-1.0, 1.0, (2, mjm.nu))
+
+  jm = mjtpu.put_model(mjm, dtype=jnp.float64)
+  jd = jax.vmap(lambda _: mjtpu.make_data(jm))(jnp.arange(2))
+  jd = jd.replace(qpos=jnp.asarray(qpos), ctrl=jnp.asarray(ctrl))
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  keys = [k[:2] for k in collision_driver.candidate_groups(m)]
+  assert (0, 2) in keys  # plane-sphere
+  d = mjtpu_torch.make_data(m, batch_size=2)
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(qpos), ctrl=torch.as_tensor(ctrl))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  for i in range(5):
+    jd = step(jm, jd)
+    d = mjtpu_torch.step(m, d)
+    if i == 0:
+      live = np.asarray(jd.contact.dist) < np.asarray(jd.contact.includemargin)
+      assert live[np.asarray(jd.contact.geom1) == 0].any()  # feet on the floor
+    for f in ("qpos", "qvel"):
+      err = float(np.abs(getattr(d, f).numpy() - np.asarray(getattr(jd, f))).max())
+      assert err < 1e-8, f"step {i + 1} {f}: {err:.3e}"
