@@ -43,7 +43,6 @@ import pathlib
 import statistics
 import subprocess
 import sys
-import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -115,30 +114,19 @@ def phase_device():
 
 
 def phase_build():
-  """Both libraries built at once (one nvcc per source, in threads)."""
+  """Both libraries built at once (one nvcc per source, started together)."""
   from mjtpu_torch.ops import _build, cholesky, hfield
 
-  errors, secs = [], {}
-
-  def build(mod):
-    t0 = time.perf_counter()
-    try:
-      mod.library()
-    except Exception as e:  # re-raised below, after both threads end
-      errors.append(e)
-    secs[mod.SOURCE] = time.perf_counter() - t0
-
-  threads = [threading.Thread(target=build, args=(mod,)) for mod in (cholesky, hfield)]
-  for t in threads:
-    t.start()
-  for t in threads:
-    t.join()
-  if errors:
-    raise errors[0]
-  for mod in (cholesky, hfield):
+  mods = (cholesky, hfield)
+  t0 = time.perf_counter()
+  _build.build([(mod.SOURCE, getattr(mod, "EXTRA_FLAGS", ())) for mod in mods])
+  for mod in mods:
+    mod.library()
+  log(f"[build] both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+  for mod in mods:
     flags = _build.flags(getattr(mod, "EXTRA_FLAGS", ()))
     log(f"[build] mjtpu_torch/csrc/{mod.SOURCE} -> {_build.BUILD_DIR.relative_to(ROOT)} with"
-        f" nvcc {' '.join(flags)}: {secs[mod.SOURCE]:.2f} s")
+        f" nvcc {' '.join(flags)}")
     for line in _build.build_logs.get(mod.SOURCE, "").splitlines():
       if line.strip():
         log(f"[build] {line.strip()}")
@@ -236,15 +224,36 @@ def _windows(n, hy, hx, has_axis, dtype, gen, flat=False):
 
 
 def _hfield_work(n: int, hy: int, hx: int, has_axis: bool, item: int) -> tuple[float, float]:
-  """(bytes, operations) of one manifold batch: the windows, origins,
-  segments and radii read once, the 4-point manifolds written once; per
-  triangle the operations counted in csrc/hfield.cu's code (a closest
-  point on a triangle is 200, the sphere test 270, the capsule's segment
-  point adds 4 closest-point tests and 68 more), plus 4 selection rounds
-  of 10 each."""
+  """(bytes, operations) of one manifold batch.
+
+  Bytes: the windows, origins, segments and radii read once, the 4-point
+  manifolds written once.  Operations: what the algorithm needs, each
+  add, subtract, multiply, divide and square root counted once
+  (comparisons and selects not counted), whatever csrc/hfield.cu repeats:
+    * per instance: the window's x and y coordinates, 2(R + C); for a
+      capsule its axis b - a and |b - a|^2, 8;
+    * per triangle, once: the edges b-a, c-a, c-b, 9 (a-c is a negation);
+      the unit normal, cross 9 + normalize 9; the three in-plane edge
+      normals cross(e, n), 27; the three |e|^2, 15: 69 in all;
+    * per closest point on the triangle to a point p: p-a 3, the plane
+      distance 5 and projection 6; the three edge signs, 8 each; the
+      three closest edge points, 12 + 15 + 15 (p-a shared); their squared
+      distances to p, 8 each: 104;
+    * the sphere test at its point s: one closest point 104 (whose
+      projection it reuses), the inside test 8, normalize(s - closest)
+      12, dist 1, pos 8: 133;
+    * the capsule: closest points to both ends 2 x 104, the two segment
+      points 2 x 15, closest points to those 2 x 104, their squared gaps
+      16, then the sphere test at the winner without its closest point,
+      which is one already made, 29: 491;
+    * selection: the suppression |p - p_k|^2 after each of the first 3
+      rounds (the 4th's is never read), 8 each: 24.
+  So 226 operations per sphere triangle and 584 per capsule triangle."""
+  rr, cc = 2 * hy + 2, 2 * hx + 2
   ntri = 2 * (2 * hy + 1) * (2 * hx + 1)
-  per_tri = 270 + (4 * 200 + 68 if has_axis else 0) + 4 * 10
-  return float(n * ((2 * hy + 2) * (2 * hx + 2) + 9 + 28) * item), float(n * ntri * per_tri)
+  per_inst = 2 * (rr + cc) + (8 if has_axis else 0)
+  per_tri = 69 + (491 if has_axis else 133) + 24
+  return float(n * (rr * cc + 9 + 28) * item), float(n * (per_inst + ntri * per_tri))
 
 
 def phase_hfield():
@@ -576,7 +585,11 @@ def main() -> int:
   ):
     record.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": bench_counts[name] + terrain_counts[name], "max_abs_err": err,
+        # the sum over both main paths; each path's own count beside it
+        "launches": bench_counts[name] + terrain_counts[name],
+        "launches_per_path": {"humanoid_bench": bench_counts[name],
+                              "humanoid_terrain": terrain_counts[name]},
+        "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
     })
   print(json.dumps({"kernels": record}), flush=True)

@@ -9,9 +9,11 @@
 // gathers the window and maps the 4 winners back to world.
 //
 // What bounds it on this card: at the main path's size (hy = hx = 2: a 6x6
-// window, T = 50 triangles) one capsule instance reads ~0.3 KB and does
-// ~50k floating-point operations (five closest-point-on-triangle tests per
-// triangle), so arithmetic, not bytes, bounds it.  What the design does
+// window, T = 50 triangles) one capsule instance reads ~0.3 KB and needs
+// ~29k floating-point operations (four closest-point-on-triangle tests per
+// triangle; this code does about twice that, since it recomputes each
+// triangle's normal and edge terms in every test and makes a fifth test),
+// so arithmetic, not bytes, bounds it.  What the design does
 // about that: one warp per instance, its lanes striding over the T
 // triangles so that 32 triangles are tested at once, the window staged in
 // shared memory (read R*C times per instance from there, once from device

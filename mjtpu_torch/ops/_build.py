@@ -27,7 +27,6 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_source_locks: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: what its build printed (nvcc's -Xptxas -v register/smem
 # report); absent when the library was loaded from an earlier build
@@ -46,35 +45,50 @@ def flags(extra: tuple[str, ...] = ()) -> tuple[str, ...]:
   return NVCC_FLAGS + tuple(extra)
 
 
-def library(source: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-  """The loaded library built from ``csrc/<source>`` (built at first use).
-  Every library exports ``mjtpu_cuda_error_string(int)``."""
-  with _lock:
-    source_lock = _source_locks.setdefault(source, threading.Lock())
-  with source_lock:
-    if source in _libs:
-      return _libs[source]
-    path = CSRC / source
-    cmd_flags = flags(extra_flags)
-    src = path.read_bytes()
-    key = hashlib.sha256(src + " ".join(cmd_flags).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{path.stem}_{key}.so"
-    if not so.exists():
-      BUILD_DIR.mkdir(parents=True, exist_ok=True)
-      tmp = so.with_suffix(f".{os.getpid()}.tmp")
-      proc = subprocess.run(
-          [_nvcc(), *cmd_flags, "-o", str(tmp), str(path)],
-          capture_output=True, text=True, timeout=600,
-      )
-      build_logs[source] = proc.stdout + proc.stderr
-      if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {path}:\n{build_logs[source]}")
+def _so_path(source: str, extra: tuple[str, ...]) -> pathlib.Path:
+  key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(flags(extra)).encode())
+  return BUILD_DIR / f"{pathlib.Path(source).stem}_{key.hexdigest()[:16]}.so"
+
+
+def build(specs: list[tuple[str, tuple[str, ...]]]) -> None:
+  """Compiles each (source, extra flags) not built yet: one nvcc per
+  source, all started together.  Raises if any build fails."""
+  procs = []
+  for source, extra in specs:
+    so = _so_path(source, extra)
+    if so.exists():
+      continue
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags(extra), "-o", str(tmp), str(CSRC / source)]
+    procs.append((source, so, tmp, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  failed = []
+  for source, so, tmp, proc in procs:
+    build_logs[source] = proc.communicate(timeout=600)[0]
+    if proc.returncode != 0:
+      failed.append(f"nvcc failed to build {CSRC / source}:\n{build_logs[source]}")
+    else:
       os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.mjtpu_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mjtpu_cuda_error_string.restype = ctypes.c_char_p
-    _libs[source] = lib
-    return lib
+  if failed:
+    raise RuntimeError("\n".join(failed))
+
+
+def library(source: str, extra_flags: tuple[str, ...] = (),
+            signatures: dict[str, tuple[list, object]] | None = None) -> ctypes.CDLL:
+  """The loaded library built from ``csrc/<source>`` (built at first use),
+  its entry points typed from ``signatures`` (name -> (argtypes,
+  restype)).  Every library exports ``mjtpu_cuda_error_string(int)``."""
+  with _lock:
+    if source not in _libs:
+      build([(source, extra_flags)])
+      lib = ctypes.CDLL(str(_so_path(source, extra_flags)))
+      sigs = {"mjtpu_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p), **(signatures or {})}
+      for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+      _libs[source] = lib
+    return _libs[source]
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

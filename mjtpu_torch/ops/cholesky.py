@@ -52,16 +52,14 @@ def max_n(dtype: torch.dtype) -> int:
   return n
 
 
-@functools.lru_cache(maxsize=None)
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+SIGNATURES = {name: (_ARGTYPES, ctypes.c_int)
+              for name in ("mjtpu_chol_solve_f32", "mjtpu_chol_solve_f64")}
+
+
 def library() -> ctypes.CDLL:
   """Builds (at first use) and loads the kernel library."""
-  lib = _build.library(SOURCE)
-  for name in ("mjtpu_chol_solve_f32", "mjtpu_chol_solve_f64"):
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-  return lib
+  return _build.library(SOURCE, (), SIGNATURES)
 
 
 def _check(mat: torch.Tensor, rhs: torch.Tensor) -> None:

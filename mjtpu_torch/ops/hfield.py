@@ -31,7 +31,6 @@ not finite gives dist = 1, pos = 0, normal = (0, 0, 1).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -176,17 +175,17 @@ def manifold_reference(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: f
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+SIGNATURES = {
+    name: ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [real, real]
+           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+    for name, real in (("mjtpu_hfield_manifold_f32", ctypes.c_float),
+                       ("mjtpu_hfield_manifold_f64", ctypes.c_double))
+}
+
+
 def library() -> ctypes.CDLL:
   """Builds (at first use) and loads the kernel library."""
-  lib = _build.library(SOURCE, EXTRA_FLAGS)
-  for name, real in (("mjtpu_hfield_manifold_f32", ctypes.c_float),
-                     ("mjtpu_hfield_manifold_f64", ctypes.c_double)):
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [real, real] + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-  return lib
+  return _build.library(SOURCE, EXTRA_FLAGS, SIGNATURES)
 
 
 def _check(zwin, origin, a, b, r, hy: int, hx: int) -> None:
