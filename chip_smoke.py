@@ -132,6 +132,23 @@ def phase_build():
         log(f"[build] {line.strip()}")
 
 
+def _mismatch(what, got, want, kernel, twin, exact=None) -> str:
+  """The message for a kernel/twin disagreement: the worst entry's index
+  and value in each (and in ``exact()``, a float64 solve on the host, when
+  given), and whether a second call of each repeats its first result, which
+  tells a launch that is not repeatable from one that is wrong."""
+  import numpy as np
+  import torch
+
+  k = int((got - want).abs().argmax())
+  idx = tuple(int(i) for i in np.unravel_index(k, tuple(got.shape)))
+  msg = f"{what}; worst at {idx}: kernel {float(got.flatten()[k]):.9e}, twin {float(want.flatten()[k]):.9e}"
+  if exact is not None:
+    msg += f", float64 on the host {float(exact().flatten()[k]):.9e}"
+  return (f"{msg}; a second call repeats the kernel's result: {torch.equal(kernel(), got)},"
+          f" the twin's: {torch.equal(twin(), want)}")
+
+
 def _spd(n, batch, dtype, gen, clamp=False):
   import torch
 
@@ -180,8 +197,11 @@ def phase_cholesky():
           # floored pivots make f64 solutions ~1e15 and ill-conditioned
           limit = 1e-6 if clamp and dtype == torch.float64 else tol[dtype]
           if rel > limit:
-            raise AssertionError(
-                f"kernel vs twin: n={n} B={batch} {dtype} clamp={clamp}: rel {rel:.3e} > {limit}")
+            raise AssertionError(_mismatch(
+                f"kernel vs twin: n={n} B={batch} {dtype} clamp={clamp}: rel {rel:.3e} > {limit}",
+                x, ref, lambda: cholesky.cholesky_solve(mat, rhs),
+                lambda: cholesky.chol_solve_reference(mat, rhs),
+                lambda: cholesky.chol_solve_reference(mat.double().cpu(), rhs.double().cpu())))
           key = (dtype, clamp)
           worst[key] = max(worst.get(key, 0.0), rel)
           if n == 27 and batch == BENCH_BATCH and not clamp and dtype == torch.float32:
@@ -270,21 +290,23 @@ def phase_hfield():
         for n in (1, 130, HFIELD_N):
           for flat in (False, True):
             args = _windows(n, hy, hx, has_axis, dtype, gen, flat)
-            got = hfield.manifold_batch(*args, hy, hx, 1.29, 1.29, has_axis)
+            kernel = lambda: hfield.manifold_batch(*args, hy, hx, 1.29, 1.29, has_axis)
             # the twin in chunks: its (n, T, 3) intermediates at (8, 8)
-            chunks = [hfield.manifold_reference(*(a[i:i + 8192] for a in args), hy, hx, 1.29,
-                                                1.29, has_axis) for i in range(0, n, 8192)]
-            want = [torch.cat(c) for c in zip(*chunks)]
+            twin = lambda: [torch.cat(c) for c in zip(*(
+                hfield.manifold_reference(*(a[i:i + 8192] for a in args), hy, hx, 1.29, 1.29,
+                                          has_axis) for i in range(0, n, 8192)))]
+            got, want = kernel(), twin()
             torch.cuda.synchronize()
-            for name, g, w in zip(("dist", "pos", "nrm"), got, want):
+            for o, (name, g, w) in enumerate(zip(("dist", "pos", "nrm"), got, want)):
               if not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"hfield kernel {name} not finite")
               err = float((g - w).abs().max())
               rel = err / max(1.0, float(w.abs().max()))
               if rel > tol[dtype]:
-                raise AssertionError(
+                raise AssertionError(_mismatch(
                     f"hfield kernel vs twin: ({hy}, {hx}) axis={has_axis} n={n} {dtype}"
-                    f" flat={flat} {name}: rel {rel:.3e} > {tol[dtype]}")
+                    f" flat={flat} {name}: rel {rel:.3e} > {tol[dtype]}",
+                    g, w, lambda: kernel()[o], lambda: twin()[o]))
               worst[dtype] = max(worst.get(dtype, 0.0), rel)
             if flat and not torch.equal(got[1], want[1]):
               raise AssertionError(f"flat window: winner positions differ, ({hy}, {hx}) {dtype}")
