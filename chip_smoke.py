@@ -9,7 +9,7 @@ needs neither jax nor mujoco.  Phases, each printing its own lines; any
 failure raises and the script exits non-zero:
 
   1. device: the card's name and power limit; TF32 off.
-  2. build: nvcc builds both kernels for sm_90a, in parallel.
+  2. build: nvcc builds the three kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
      (n in 1, 6, 27, 40; B in 1, 130, 4096; f32 and f64) and a batch whose
      pivots hit the floor; times at n=27, B=4096 (CUDA events, median of
@@ -30,10 +30,22 @@ failure raises and the script exits non-zero:
      height-field and eight Cholesky launches per step.
   8. humanoid_terrain throughput: f32, B=4096 from qpos0 +-0.01, a few
      warm-up and timed steps; each kernel's share of step time.
+  9. SAT kernel (B3) vs its plain twin on the card: box-box with equal and
+     with unequal sizes and a box against a terrain rock hull; random,
+     axis-aligned touching and stacked poses; n in 1, 130, 491520; f32 and
+     f64; winner indices and separations exact; times at box-box, n =
+     491520 (scene_pile's group at B=4096), f32.
+ 10. scene_pile parity: f64, B=4, 100 steps from the committed golden's
+     initial states; step-1 contact.dist to 1e-9, qacc and efc_force and
+     the trajectory to the CPU test's bounds (PILE_SOLVE_BOUND,
+     PILE_BOUND); one SAT and no Cholesky launch per step.
+ 11. scene_pile throughput: f32, B=4096 from qpos0 +-0.01 dropped 0.25 m,
+     a few warm-up and timed steps; the SAT kernel's share of step time;
+     the CG iterations and linesearch rounds per step.
 
-The main paths are phases 6 and 8: each kernel's launch count is set to 0
-just before each and read just after.  The last two lines are the kernel
-record and {"ok": true, ...}.
+The main paths are phases 6, 8 and 11: each kernel's launch count is set
+to 0 just before each and read just after.  The last two lines are the
+kernel record and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -55,6 +67,13 @@ TERRAIN_BOUND = 1e-8  # tests/test_torch_terrain.py's TRAJECTORY_BOUND
 TERRAIN_WARMUP = 3
 TERRAIN_TIMED = 20
 HFIELD_N = 49152  # the capsule group at B=4096: 4096 envs x 12 pairs
+SAT_N = 491520  # the box-box group at B=4096: 4096 envs x 120 pairs
+# tests/test_torch_pile.py's bounds: the step-1 solve relative to each
+# field's scale, and the 100-step trajectory (absolute)
+PILE_SOLVE_BOUND = 1e-3
+PILE_BOUND = 1e-2
+PILE_WARMUP = 3
+PILE_TIMED = 10
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # non-tensor-core FLOP/s per type
 HBM_BYTES_PER_S = 3.35e12
@@ -114,15 +133,15 @@ def phase_device():
 
 
 def phase_build():
-  """Both libraries built at once (one nvcc per source, started together)."""
-  from mjtpu_torch.ops import _build, cholesky, hfield
+  """Every library built at once (one nvcc per source, started together)."""
+  from mjtpu_torch.ops import _build, cholesky, hfield, sat
 
-  mods = (cholesky, hfield)
+  mods = (cholesky, hfield, sat)
   t0 = time.perf_counter()
   _build.build([(mod.SOURCE, getattr(mod, "EXTRA_FLAGS", ())) for mod in mods])
   for mod in mods:
     mod.library()
-  log(f"[build] both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+  log(f"[build] {len(mods)} kernels built and loaded in {time.perf_counter() - t0:.2f} s")
   for mod in mods:
     flags = _build.flags(getattr(mod, "EXTRA_FLAGS", ()))
     log(f"[build] mjtpu_torch/csrc/{mod.SOURCE} -> {_build.BUILD_DIR.relative_to(ROOT)} with"
@@ -327,6 +346,129 @@ def phase_hfield():
   return main_abs_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
 
 
+def _rock_hull():
+  """One of humanoid_terrain's 6-vertex rock hulls (mjtpu's tables, from
+  the committed snapshot)."""
+  import mjtpu_torch
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
+  return next(h for h in ns.mesh_convex if h is not None)
+
+
+def _sat_poses(kind, n, h1, h2, dtype, gen):
+  """(pos1, mat1, pos2, mat2) on the card: random rotations and offsets;
+  axis-aligned hulls touching 1 mm deep along x, y or z (half of them
+  with small sideways offsets); or hull 2 stacked on hull 1, 1 mm deep,
+  with a yaw."""
+  import math
+
+  import torch
+
+  u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda", dtype=dtype)
+  pos1 = 2.0 * u(n, 3) - 1.0
+  eye = torch.eye(3, dtype=dtype, device="cuda").expand(n, 3, 3)
+  if kind == "random":
+    def rot():
+      q = torch.randn(n, 4, generator=gen, device="cuda", dtype=dtype)
+      w, x, y, z = (q / q.norm(dim=1, keepdim=True)).unbind(1)
+      return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                          2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                          2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                         1).reshape(n, 3, 3)
+    return pos1, rot(), pos1 + 0.3 * u(n, 3) - 0.15, rot()
+  ext1, ext2 = (torch.as_tensor(abs(h.vert).max(0), dtype=dtype, device="cuda") for h in (h1, h2))
+  if kind == "aligned":
+    axis = (3 * u(n)).long().clamp(max=2)
+    step = torch.nn.functional.one_hot(axis, 3).to(dtype) * (ext1 + ext2 - 0.001)
+    side = torch.where(u(n, 1) < 0.5, 0.0, 1.0) * (0.01 * u(n, 3))
+    return pos1, eye, pos1 + step + side * (1 - torch.nn.functional.one_hot(axis, 3)), eye.clone()
+  yaw = 2 * math.pi * u(n)
+  c, s0, z, o = torch.cos(yaw), torch.sin(yaw), torch.zeros_like(yaw), torch.ones_like(yaw)
+  mat2 = torch.stack([c, -s0, z, s0, c, z, z, z, o], 1).reshape(n, 3, 3)
+  lift = torch.zeros(n, 3, dtype=dtype, device="cuda")
+  lift[:, 2] = ext1[2] + ext2[2] - 0.001
+  lift[:, :2] = 0.02 * u(n, 2) - 0.01
+  return pos1, eye, pos1 + lift, mat2
+
+
+def _sat_work(n: int, h1, h2, item: int) -> tuple[float, float]:
+  """(bytes, operations) of one SAT batch.
+
+  Bytes: each instance's two poses (24 numbers) read once and its 3
+  separations and 4 int32 indices written once; both hulls' tables read
+  once.  Operations: what the algorithm needs, each add, subtract,
+  multiply, divide and square root counted once (comparisons, selects and
+  the argmax reductions not counted), whatever csrc/sat.cu repeats:
+    * world vertices R v + p, 18 each; world face normals R n, 15 each;
+      face offsets n . v0, 5 each; edge directions b - a, 3, and midpoints
+      0.5 (a + b), 6, per edge; centroids, 3 per vertex, and c2 - c1, 3;
+    * face separations: n . v for each face and each vertex of the other
+      hull, 5, and the offset subtracted, 1 per face;
+    * per edge-cross axis: the cross product 9, |axis|^2 5, its square root
+      1, the division 3, the orientation dot 5, the sign's multiply 3, the
+      projections 5 per vertex of either hull, the separation 1;
+    * the reselect: per axis the compatibility dot 5 and the score's
+      subtraction 1; per edge its midpoint dot 5.
+  Box-box (nv 8, nf 6, ne 12): 17,679 operations per instance."""
+  sizes = [(len(h.vert), len(h.face_normal), len(h.edge)) for h in (h1, h2)]
+  (nv1, nf1, ne1), (nv2, nf2, ne2) = sizes
+  ops = 18 * (nv1 + nv2) + 20 * (nf1 + nf2) + 9 * (ne1 + ne2) + 3 * (nv1 + nv2) + 3
+  ops += 5 * (nf1 * nv2 + nf2 * nv1) + nf1 + nf2
+  ops += ne1 * ne2 * (33 + 5 * (nv1 + nv2)) + 5 * (ne1 + ne2)
+  tables = sum((3 * nv + 3 * nf) * item + (nf + 2 * ne) * 4 for nv, nf, ne in sizes)
+  return float(n * (27 * item + 16) + tables), float(n * ops)
+
+
+def phase_sat():
+  import numpy as np
+  import torch
+
+  from mjtpu_torch._src import mesh
+  from mjtpu_torch.ops import sat
+
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  box = mesh.box(np.array([0.08, 0.08, 0.08]))  # scene_pile's boxes
+  pairs = {"box-box equal": (box, box),
+           "box-box unequal": (mesh.box(np.array([0.1, 0.15, 0.2])),
+                               mesh.box(np.array([0.12, 0.1, 0.08]))),
+           "box-rock": (mesh.box(np.array([0.1, 0.15, 0.2])), _rock_hull())}
+  checked, edge_wins, main_err = 0, 0, None
+  for dtype in (torch.float32, torch.float64):
+    for name, (h1, h2) in pairs.items():
+      hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
+      for kind in ("random", "aligned", "stacked"):
+        for n in (1, 130, SAT_N):
+          poses = _sat_poses(kind, n, h1, h2, dtype, gen)
+          kernel = lambda: sat.sat_winners_batch(*poses, *hulls)
+          twin = lambda: sat.sat_winners_reference(*poses, *hulls)
+          (seps, idx), (want_seps, want_idx) = kernel(), twin()
+          torch.cuda.synchronize()
+          for what, g, w, o in (("idx", idx, want_idx, 1), ("seps", seps, want_seps, 0)):
+            if not torch.equal(g, w):
+              raise AssertionError(_mismatch(
+                  f"sat kernel vs twin: {name} {kind} n={n} {dtype} {what} differ"
+                  f" ({int((g != w).any(1).sum())} instances)", g.double(), w.double(),
+                  lambda: kernel()[o].double(), lambda: twin()[o].double()))
+          checked += n
+          if (name, kind, n, dtype) == ("box-box equal", "random", SAT_N, torch.float32):
+            main_err = float((seps - want_seps).abs().max())
+          edge_wins += int((seps[:, 2] > seps[:, :2].max(1).values).sum())
+  log(f"[sat] kernel == twin (indices and separations exact) over {checked} instances: 3 hull"
+      f" pairs x random, axis-aligned, stacked poses x n in 1, 130, {SAT_N} x f32, f64;"
+      f" the edge axis wins in {edge_wins}")
+
+  dtype = torch.float32
+  hulls = (sat.sat_hull(box, dtype, "cuda"),) * 2
+  poses = _sat_poses("random", SAT_N, box, box, dtype, gen)
+  run_k = lambda: sat.sat_winners_batch(*poses, *hulls)
+  run_p = lambda: sat.sat_winners_reference(*poses, *hulls)
+  p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
+  b_ms, b_by = bound(*_sat_work(SAT_N, box, box, 4), dtype)
+  log(f"[sat] box-box n={SAT_N} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.4f} /"
+      f" {p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}) (median of 20)")
+  return main_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
+
+
 def _golden_run(m, golden, steps):
   import numpy as np
   import torch
@@ -338,7 +480,7 @@ def _golden_run(m, golden, steps):
   d = mjtpu_torch.replace(
       d, qpos=torch.as_tensor(golden["qpos0"], device=dev),
       qvel=torch.as_tensor(golden["qvel0"], device=dev),
-      ctrl=torch.as_tensor(golden["ctrl"], device=dev),
+      ctrl=torch.as_tensor(golden["ctrl"], device=dev) if "ctrl" in golden else d.ctrl,
   )
   qpos, qvel, first = [], [], None
   for i in range(steps):
@@ -451,18 +593,19 @@ def _timed_main_path(m, d, warmup, timed):
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch.ops import cholesky, hfield
+  from mjtpu_torch.ops import cholesky, hfield, sat
 
   for _ in range(warmup):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
-  cholesky.launches = hfield.launches = 0
+  cholesky.launches = hfield.launches = sat.launches = 0
   t0 = time.perf_counter()
   for _ in range(timed):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
-  counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches}
+  counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
+            "sat_winners": sat.launches}
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts
@@ -474,10 +617,11 @@ def _seam_shares(m, d, steps):
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch.ops import fused, hfield
+  from mjtpu_torch.ops import fused, hfield, sat
 
-  events = {"chol_solve": [], "hfield_manifold": []}
-  seams = {"chol_solve": (fused, "chol_solve"), "hfield_manifold": (hfield, "manifold_batch")}
+  seams = {"chol_solve": (fused, "chol_solve"), "hfield_manifold": (hfield, "manifold_batch"),
+           "sat_winners": (sat, "sat_winners_batch")}
+  events = {k: [] for k in seams}
   originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
 
   def timed(key):
@@ -514,7 +658,7 @@ def phase_throughput(card):
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
   d, secs, counts = _timed_main_path(m, _f32_start(m), WARMUP_STEPS, TIMED_STEPS)
-  if counts["chol_solve"] != TIMED_STEPS or counts["hfield_manifold"] != 0:
+  if counts != {"chol_solve": TIMED_STEPS, "hfield_manifold": 0, "sat_winners": 0}:
     raise AssertionError(f"kernel launches in {TIMED_STEPS} timed steps: {counts}")
   rate = BENCH_BATCH * TIMED_STEPS / secs
   shares, step_ms = _seam_shares(m, d, WARMUP_STEPS)
@@ -565,7 +709,7 @@ def phase_terrain_throughput(card):
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
   d, secs, counts = _timed_main_path(m, _f32_start(m), TERRAIN_WARMUP, TERRAIN_TIMED)
   if counts != {"chol_solve": m.opt.iterations * TERRAIN_TIMED,
-                "hfield_manifold": 2 * TERRAIN_TIMED}:
+                "hfield_manifold": 2 * TERRAIN_TIMED, "sat_winners": 0}:
     raise AssertionError(f"kernel launches in {TERRAIN_TIMED} timed steps: {counts}")
   rate = BENCH_BATCH * TERRAIN_TIMED / secs
   shares, step_ms = _seam_shares(m, d, TERRAIN_WARMUP)
@@ -577,6 +721,79 @@ def phase_terrain_throughput(card):
       f" Cholesky {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%),"
       f" hfield {shares['hfield_manifold']:.4f} ms"
       f" ({100 * shares['hfield_manifold'] / step_ms:.2f}%); card {card}")
+  return counts
+
+
+def _scaled_err(got, want) -> float:
+  """max |got - want| over max(1, max |want|)."""
+  import numpy as np
+
+  return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+def phase_pile_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky, sat
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "scene_pile_golden.npz"))
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "scene_pile_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+  steps = PARITY_STEPS
+  every = steps // golden["qpos"].shape[0]
+  cholesky.launches = sat.launches = 0
+  qpos, qvel, first, d = _golden_run(m, golden, steps)
+  counts = (cholesky.launches, sat.launches)
+  if counts != (0, steps):
+    raise AssertionError(f"(Cholesky, SAT) launches {counts} in {steps} steps")
+  dist_err = float(np.abs(first.contact.dist - golden["contact_dist"]).max())
+  solve_err = {f: _scaled_err(getattr(first, f), golden[f]) for f in ("qacc", "efc_force")}
+  log(f"[pile parity] step 1: contact.dist max abs err {dist_err:.3e} (limit 1e-9); qacc"
+      f" {solve_err['qacc']:.3e}, efc_force {solve_err['efc_force']:.3e} of their scale (limit"
+      f" {PILE_SOLVE_BOUND}); solver iterations {first.solver_niter.tolist()} (mjtpu"
+      f" {golden['solver_niter'].tolist()})")
+  if not (dist_err <= 1e-9 and max(solve_err.values()) <= PILE_SOLVE_BOUND):
+    raise AssertionError(f"pile step 1 differs from mjtpu: dist {dist_err:.3e}, {solve_err}")
+  if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
+    raise AssertionError("pile trajectory not finite or reset")
+  worst, excess = _excess(qpos[every - 1::every], qvel[every - 1::every], golden["qpos"],
+                          golden["qvel"], 1e-8)
+  log(f"[pile parity] scene_pile, {steps} steps B=4 f64: max abs err {worst:.3e} over every"
+      f" {every}th step (limit {PILE_BOUND}); first above 1e-8:"
+      f" {'step %d, %s, env %d: %.3e' % (excess[0] * every, *excess[1:]) if excess else 'none'};"
+      f" launches: SAT {counts[1]} (1 per step), Cholesky {counts[0]}")
+  if not worst < PILE_BOUND:
+    raise AssertionError(f"pile trajectory differs from mjtpu by {worst:.3e}")
+
+
+def phase_pile_throughput(card):
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import solver
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "scene_pile_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d = _f32_start(m)
+  qpos = d.qpos.clone()
+  qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
+  d = mjtpu_torch.replace(d, qpos=qpos)
+  before = dict(solver.loop_counts)
+  d, secs, counts = _timed_main_path(m, d, PILE_WARMUP, PILE_TIMED)
+  if counts != {"chol_solve": 0, "hfield_manifold": 0, "sat_winners": PILE_TIMED}:
+    raise AssertionError(f"kernel launches in {PILE_TIMED} timed steps: {counts}")
+  loops = {k: (solver.loop_counts[k] - before[k]) / (PILE_WARMUP + PILE_TIMED) for k in before}
+  rate = BENCH_BATCH * PILE_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, PILE_WARMUP)
+  log(f"[pile throughput] scene_pile f32 B={BENCH_BATCH}: {PILE_WARMUP} warm-up and"
+      f" {PILE_TIMED} timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
+      f" ({1e3 * secs / PILE_TIMED:.3f} ms/step); qpos finite, nreset 0; per step: SAT"
+      f" {counts['sat_winners'] // PILE_TIMED} launch, CG {loops['iterations']:.1f} iterations"
+      f" and {loops['ls_rounds']:.1f} linesearch rounds (warm-up and timed steps); device step"
+      f" {step_ms:.3f} ms, of it SAT {shares['sat_winners']:.4f} ms"
+      f" ({100 * shares['sat_winners'] / step_ms:.2f}%); card {card}")
   return counts
 
 
@@ -594,23 +811,26 @@ def main() -> int:
   phase_build()
   chol_err, chol_t = phase_cholesky()
   hf_err, hf_t = phase_hfield()
+  sat_err, sat_t = phase_sat()
   phase_parity()
-  bench_counts = phase_throughput(card)
+  paths = {"humanoid_bench": phase_throughput(card)}
   phase_terrain_parity()
-  terrain_counts = phase_terrain_throughput(card)
+  paths["humanoid_terrain"] = phase_terrain_throughput(card)
+  phase_pile_parity()
+  paths["scene_pile"] = phase_pile_throughput(card)
   log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
   record = []
   for name, source, replaces, err, (ms, plain, lib, b_ms, b_by) in (
       ("chol_solve", "mjtpu_torch/csrc/cholesky.cu", "mjtpu/ops/cholesky.py:31", chol_err, chol_t),
       ("hfield_manifold", "mjtpu_torch/csrc/hfield.cu", "mjtpu/ops/hfield.py:144", hf_err, hf_t),
+      ("sat_winners", "mjtpu_torch/csrc/sat.cu", "mjtpu/ops/sat.py:67", sat_err, sat_t),
   ):
     record.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        # the sum over both main paths; each path's own count beside it
-        "launches": bench_counts[name] + terrain_counts[name],
-        "launches_per_path": {"humanoid_bench": bench_counts[name],
-                              "humanoid_terrain": terrain_counts[name]},
+        # the sum over the main paths; each path's own count beside it
+        "launches": sum(counts[name] for counts in paths.values()),
+        "launches_per_path": {path: counts[name] for path, counts in paths.items()},
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
     })

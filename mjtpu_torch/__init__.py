@@ -8,11 +8,12 @@ NVIDIA Hopper live in ``mjtpu_torch/ops`` (sources in ``csrc/``) and are
 built with nvcc at first use.
 
 The slices so far run ``humanoid_bench`` (Euler, the dense Newton solver,
-joint limits, pyramidal plane-capsule contacts) and ``humanoid_terrain``
+joint limits, pyramidal plane-capsule contacts), ``humanoid_terrain``
 (ImplicitFast; sphere/capsule self-collision at condim 1, spheres and
-capsules on a height field and on convex meshes), both in
-mjtpu/zoo/assets.  ``put_model`` refuses models outside them with
-NotImplementedError.
+capsules on a height field and on convex meshes) and ``scene_pile`` (32
+free bodies: the CG solver, the forest-blocked mass matrix, plane, sphere
+and box colliders with box-box SAT), all in mjtpu/zoo/assets.
+``put_model`` refuses models outside them with NotImplementedError.
 """
 
 import pathlib

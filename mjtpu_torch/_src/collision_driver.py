@@ -7,10 +7,11 @@ a (B, npair) batch of geom poses.  Contacts are ordered by group, groups
 sorted by condim, so ``efc_address`` is static.
 
 The narrowphase table holds the colliders of the ported slices: plane
-against sphere and capsule, the sphere/capsule primitives among
-themselves, sphere and capsule against a convex mesh, and sphere and
-capsule against a height field (kernel B4).  put_model refuses a model
-whose candidate pairs need any other collider.
+against sphere, capsule and box, the sphere/capsule primitives among
+themselves, sphere and capsule against a convex mesh, sphere against a
+box, box against box (SAT, kernel B3) and sphere and capsule against a
+height field (kernel B4).  put_model refuses a model whose candidate
+pairs need any other collider.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from mjtpu_torch._src import collision_convex, collision_hfield, collision_primitive, math
+from mjtpu_torch._src import collision_convex, collision_hfield, collision_primitive, math, mesh
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import (
     ConeType,
@@ -38,13 +39,16 @@ from mjtpu_torch._src.types import (
 _PAIR_NCON: dict[tuple[int, int], int] = {
     (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.PLANE, GeomType.BOX): 4,
     (GeomType.HFIELD, GeomType.SPHERE): 4,
     (GeomType.HFIELD, GeomType.CAPSULE): 4,
     (GeomType.SPHERE, GeomType.SPHERE): 1,
     (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.SPHERE, GeomType.BOX): 1,
     (GeomType.SPHERE, GeomType.MESH): 1,
     (GeomType.CAPSULE, GeomType.CAPSULE): 1,
     (GeomType.CAPSULE, GeomType.MESH): 2,
+    (GeomType.BOX, GeomType.BOX): 4,
 }
 
 
@@ -107,11 +111,16 @@ def _pair_condim(m: Model, g1: int, g2: int, ip: int) -> int:
   return int(max(m.geom_condim[g1], m.geom_condim[g2]))
 
 
-def _shape_key(m: Model, g: int) -> int:
+def _shape_key(m: Model, g: int):
   """Grouping key: the geoms of a group share hull or height-field
-  constants (mesh and hfield geoms key on their data id)."""
-  if int(m.geom_type[g]) in (GeomType.MESH, GeomType.HFIELD):
+  constants (mesh and hfield geoms key on their data id; boxes, cylinders
+  and ellipsoids, whose hulls mjtpu builds from the size, on their exact
+  size), so the groups and the contact order are mjtpu's."""
+  t = int(m.geom_type[g])
+  if t in (GeomType.MESH, GeomType.HFIELD):
     return int(m.geom_dataid[g])
+  if t in (GeomType.BOX, GeomType.CYLINDER, GeomType.ELLIPSOID):
+    return mesh.size_key(m.geom_size_np[g])
   return -1
 
 
@@ -287,11 +296,19 @@ def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Ca
     fn = {GeomType.SPHERE: collision_hfield.hfield_sphere,
           GeomType.CAPSULE: collision_hfield.hfield_capsule}[t2]
     return functools.partial(fn, m=m, hid=s1, rbound=rbound)
-  if t2 == GeomType.MESH:
-    hull = collision_convex.hull_consts(m.mesh_convex[s2], m.dtype, m.device)
-    fn = {GeomType.SPHERE: collision_convex.sphere_convex,
+  # the hulls: a mesh's by its id, a box's as built for the group's first
+  # pair (every geom of a box group has the same size)
+  hull = lambda t, g, s: collision_convex.hull_consts(
+      m.mesh_convex[s] if t == GeomType.MESH else m.geom_convex[g], m.dtype, m.device)
+  if t2 in (GeomType.MESH, GeomType.BOX):
+    hull2 = hull(t2, pairs[0][1], s2)
+    if t1 == GeomType.BOX:
+      return functools.partial(collision_convex.convex_convex,
+                               hull1=hull(t1, pairs[0][0], s1), hull2=hull2)
+    fn = {GeomType.PLANE: collision_convex.plane_convex,
+          GeomType.SPHERE: collision_convex.sphere_convex,
           GeomType.CAPSULE: collision_convex.capsule_convex}[t1]
-    return functools.partial(fn, hull2=hull)
+    return functools.partial(fn, hull2=hull2)
   return {
       (GeomType.PLANE, GeomType.SPHERE): collision_primitive.plane_sphere,
       (GeomType.PLANE, GeomType.CAPSULE): collision_primitive.plane_capsule,

@@ -26,7 +26,7 @@ import types
 import numpy as np
 import torch
 
-from mjtpu_torch._src import mesh, support
+from mjtpu_torch._src import mesh, smooth, support
 from mjtpu_torch._src.types import (
     BiasType,
     ConeType,
@@ -95,8 +95,10 @@ SNAPSHOT_FIELDS = (
     SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
 )
 # a snapshot also stores the hull tables of each colliding mesh, under
-# "hull.<mesh id>.<ConvexMesh field>"
+# "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, under
+# "geomhull.<geom id>.<ConvexMesh field>"
 HULL_FIELDS = ("vert", "face", "face_normal", "edge", "edge_face_normal")
+HULL_PREFIXES = ("hull.", "geomhull.")
 
 
 def _get(ns, name: str):
@@ -105,21 +107,25 @@ def _get(ns, name: str):
   return ns
 
 
-def save_snapshot(mjm, path, mesh_convex: tuple | None = None) -> None:
+def save_snapshot(mjm, path, mesh_convex: tuple | None = None,
+                  geom_convex: tuple | None = None) -> None:
   """Writes every attribute model_from_arrays reads from ``mjm`` (an
   MjModel or any object with its attribute names) to an .npz, with the
-  hull tables ``mesh_convex`` (default: mesh.get(mjm))."""
+  hull tables ``mesh_convex`` (default: mesh.get(mjm)) and ``geom_convex``
+  (default: mesh.get_geoms(mjm))."""
   arrays = {}
   for name in SNAPSHOT_FIELDS:
     v = _get(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
     arrays[name] = np.array(v)
-  hulls = mesh.get(mjm) if mesh_convex is None else mesh_convex
-  for i, hull in enumerate(hulls):
-    if hull is not None:
-      for f in HULL_FIELDS:
-        arrays[f"hull.{i}.{f}"] = np.asarray(getattr(hull, f))
+  tables = (mesh.get(mjm) if mesh_convex is None else mesh_convex,
+            mesh.get_geoms(mjm) if geom_convex is None else geom_convex)
+  for prefix, hulls in zip(HULL_PREFIXES, tables):
+    for i, hull in enumerate(hulls):
+      if hull is not None:
+        for f in HULL_FIELDS:
+          arrays[f"{prefix}{i}.{f}"] = np.asarray(getattr(hull, f))
   np.savez_compressed(path, **arrays)
 
 
@@ -127,13 +133,14 @@ def load_snapshot(path) -> types.SimpleNamespace:
   """Reads a snapshot written by save_snapshot back into an object with
   MjModel's attribute names (``opt.*`` and ``stat.*`` nested)."""
   ns = types.SimpleNamespace(opt=types.SimpleNamespace(), stat=types.SimpleNamespace())
-  hulls: dict[int, dict] = {}
+  hulls: dict[str, dict[int, dict]] = {p: {} for p in HULL_PREFIXES}
   with np.load(path) as z:
     for name in z.files:
       v = z[name]
-      if name.startswith("hull."):
-        _, i, f = name.split(".")
-        hulls.setdefault(int(i), {})[f] = v
+      prefix = next((p for p in HULL_PREFIXES if name.startswith(p)), None)
+      if prefix is not None:
+        i, f = name[len(prefix):].split(".")
+        hulls[prefix].setdefault(int(i), {})[f] = v
         continue
       if name == "names":
         v = v.astype(np.uint8).tobytes()
@@ -141,8 +148,10 @@ def load_snapshot(path) -> types.SimpleNamespace:
         v = v.item()
       *parents, leaf = name.split(".")
       setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
-  ns.mesh_convex = tuple(
-      ConvexMesh(**hulls[i]) if i in hulls else None for i in range(ns.nmesh))
+  per = lambda prefix, n: tuple(
+      ConvexMesh(**hulls[prefix][i]) if i in hulls[prefix] else None for i in range(n))
+  ns.mesh_convex = per("hull.", ns.nmesh)
+  ns.geom_convex = per("geomhull.", ns.ngeom)
   return ns
 
 
@@ -183,7 +192,8 @@ def _validate(ns) -> None:
   refuse(np.any(np.asarray(ns.body_gravcomp) > 0), "gravity compensation")
   refuse(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)), "fluid forces")
   refuse(int(o.cone) != ConeType.PYRAMIDAL, "elliptic cones")
-  refuse(int(o.solver) != SolverType.NEWTON, f"solver {int(o.solver)} (only Newton)")
+  refuse(int(o.solver) not in (SolverType.CG, SolverType.NEWTON),
+         f"solver {int(o.solver)} (only CG and Newton)")
   refuse(int(o.integrator) == IntegratorType.IMPLICIT,
          "the implicit integrator (RNE velocity derivative)")
   refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST),
@@ -210,11 +220,12 @@ def _validate(ns) -> None:
          "actuator bias types other than none and affine")
 
   # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks)
-  # and with the levelwise sparse LDL for a large tree (sparse.structure);
-  # the slice has the dense path only
-  dof_root = np.asarray(ns.body_rootid)[np.asarray(ns.dof_bodyid)]
-  refuse(len(np.unique(dof_root)) > 1, "multi-tree models (blocked mass matrix)")
-  refuse(ns.nv >= 32, "kinematic trees with nv >= 32 (sparse mass matrix)")
+  # and with the levelwise sparse LDL for a large single tree
+  # (sparse.structure); the port has the dense and the blocked paths
+  blocks = smooth.block_partition(ns.nv, ns.body_rootid, ns.dof_bodyid)
+  refuse(blocks is None and ns.nv >= 32, "kinematic trees with nv >= 32 (sparse mass matrix)")
+  refuse(blocks is not None and int(o.integrator) == IntegratorType.IMPLICITFAST,
+         "ImplicitFast on a multi-tree model (the blocked factor_solve)")
 
 
 def _device(device) -> torch.device:
@@ -260,8 +271,10 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["has_jnt_spring"] = bool(np.any(np.asarray(ns.jnt_stiffness) > 0))
   fields["has_dof_damping"] = bool(np.any(np.asarray(ns.dof_damping) > 0))
   fields["geom_rbound_np"] = np.array(ns.geom_rbound, dtype=np.float64)
+  fields["geom_size_np"] = np.array(ns.geom_size, dtype=np.float64)
   # a snapshot carries the hull tables it was written with (mesh.py)
   fields["mesh_convex"] = ns.mesh_convex if hasattr(ns, "mesh_convex") else mesh.get(ns)
+  fields["geom_convex"] = ns.geom_convex if hasattr(ns, "geom_convex") else mesh.get_geoms(ns)
 
   # every transmission is a scalar joint (_validate): the moment row of
   # actuator u is gear[u, 0] at its joint's dof

@@ -1,7 +1,7 @@
 """Host-side convex hull tables for mesh collisions.
 
 Port of mjtpu/_src/mesh.py (``_merge_coplanar``, ``_edges_and_adjacent_normals``,
-``_pad_faces``, ``convex``, ``get``): scipy's ConvexHull, then coplanar
+``_pad_faces``, ``convex``, ``box``, ``get``): scipy's ConvexHull, then coplanar
 triangles merged into polygonal faces in numpy.  The outputs are padded,
 fixed-shape numpy arrays that the convex colliders close over as model
 constants:
@@ -14,10 +14,13 @@ constants:
 
 Qhull's face order can differ between builds of scipy, so a model snapshot
 stores the tables built where the snapshot was written (io.save_snapshot),
-and a model loaded from it never rebuilds them.
+mesh hulls and box hulls alike, and a model loaded from it never rebuilds
+them.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 
@@ -97,6 +100,38 @@ def convex(vert: np.ndarray) -> ConvexMesh:
   return ConvexMesh(
       vert=v, face=_pad_faces(faces), face_normal=normals, edge=edge, edge_face_normal=efn,
   )
+
+
+def box(size: np.ndarray) -> ConvexMesh:
+  """Hull of the axis-aligned box with half-sizes ``size`` (3,): convex()
+  of its 8 corners in itertools.product order, as mjtpu builds it (the
+  table order decides SAT ties)."""
+  corners = np.array(list(itertools.product([-1.0, 1.0], repeat=3))) * size
+  return convex(corners)
+
+
+def size_key(size: np.ndarray) -> tuple:
+  """mjtpu's grouping key of a box, cylinder or ellipsoid geom: its exact
+  size, rounded to 12 digits (collision_driver._shape_key); a box's hull
+  is built from it."""
+  return tuple(np.round(np.asarray(size, dtype=np.float64), 12))
+
+
+def get_geoms(mjm) -> tuple:
+  """Per-geom ConvexMesh tuple of ``mjm``: the hull of each colliding box
+  (one hull object per distinct size), None for every other geom."""
+  geom_type = np.asarray(mjm.geom_type)
+  hulls: dict[tuple, ConvexMesh] = {}
+  out = []
+  for g in range(mjm.ngeom):
+    if geom_type[g] == GeomType.BOX and (mjm.geom_contype[g] or mjm.geom_conaffinity[g]):
+      key = size_key(np.asarray(mjm.geom_size)[g])
+      if key not in hulls:
+        hulls[key] = box(np.array(key))
+      out.append(hulls[key])
+    else:
+      out.append(None)
+  return tuple(out)
 
 
 def get(mjm) -> tuple:

@@ -1,11 +1,12 @@
 """Smooth (unconstrained) dynamics pipeline — the main-path part.
 
-Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, the dense factor_m
-and solve_m, factor_solve for one tree, com_vel, rne and transmission for
+Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, factor_m and
+solve_m (dense for one tree, forest-blocked through mass_blocks for
+several), factor_solve for one tree, com_vel, rne and transmission for
 joint transmissions.  Tree traversals use scan.body_tree (levelwise
-groups, batch-explicit).  The forest-blocked and tree-sparse
-factorizations (mass_blocks, sparse LDL) are not ported yet: put_model
-refuses models that would take them.
+groups, batch-explicit).  The tree-sparse factorization (sparse LDL) and
+the blocked factor_solve are not ported yet: put_model refuses models that
+would take them.
 """
 
 from __future__ import annotations
@@ -203,16 +204,80 @@ def crb(m: Model, d: Data) -> Data:
   return replace(d, crb=crb_body, qM=qm)
 
 
+def block_partition(nv: int, body_rootid, dof_bodyid) -> tuple[tuple[int, int], ...] | None:
+  """mjtpu's _mass_blocks_cached: the static diagonal-block partition
+  ((start, size), ...) of qM, one block per kinematic tree (trees whose
+  dofs interleave merge into one), or None when one block spans all dofs."""
+  if nv == 0:
+    return None
+  rootid = np.asarray(body_rootid)
+  lo, hi = {}, {}
+  for i, b in enumerate(np.asarray(dof_bodyid)):
+    t = int(rootid[b])
+    lo[t] = min(lo.get(t, i), i)
+    hi[t] = max(hi.get(t, i), i)
+  merged = []
+  for s, e in sorted((lo[t], hi[t]) for t in lo):
+    if merged and s <= merged[-1][1]:
+      merged[-1] = (merged[-1][0], max(merged[-1][1], e))
+    else:
+      merged.append((s, e))
+  blocks = tuple((s, e - s + 1) for s, e in merged)
+  return None if len(blocks) <= 1 else blocks
+
+
+def mass_blocks(m: Model) -> tuple[tuple[int, int], ...] | None:
+  """The diagonal-block partition of qM (mjtpu's smooth.mass_blocks): qM
+  of a forest is exactly block diagonal, one block per tree, and mjtpu
+  factors and solves it per block; None for one tree."""
+  return cached(m, "smooth.mass_blocks",
+                lambda: block_partition(m.nv, m.body_rootid, m.dof_bodyid))
+
+
+def block_indices(m: Model) -> list[tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]]:
+  """mjtpu's _block_indices as device tensors: per block size bs, in
+  ascending order, (bs, rows (k, bs), ii (k, bs, bs), jj (k, bs, bs)), so
+  that each size group moves with one gather and one scatter."""
+
+  def build():
+    by: dict[int, list[int]] = {}
+    for s, n in mass_blocks(m):
+      by.setdefault(n, []).append(s)
+    out = []
+    for bs, starts in sorted(by.items()):
+      rows = np.asarray([[s + r for r in range(bs)] for s in starts])
+      ii = np.repeat(rows[:, :, None], bs, axis=2)
+      jj = np.repeat(rows[:, None, :], bs, axis=1)
+      t = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
+      out.append((bs, t(rows), t(ii), t(jj)))
+    return out
+
+  return cached(m, "smooth.block_indices", build)
+
+
 def factor_m(m: Model, d: Data) -> Data:
-  """Mass matrix factorization (mj_factorM): the dense, pivot-clamped
-  Cholesky — the path mjtpu takes for one kinematic tree with nv < 32."""
-  qLD = math.safe_cholesky(d.qM)
+  """Mass matrix factorization (mj_factorM): the pivot-clamped Cholesky,
+  dense for one kinematic tree with nv < 32, and per tree for a forest —
+  each block size group one batched factorization over (B, k, bs, bs).
+  Blocked and dense differ in rounding, so the port takes mjtpu's branch."""
+  if mass_blocks(m) is None:
+    qLD = math.safe_cholesky(d.qM)
+  else:
+    qLD = torch.zeros_like(d.qM)
+    for _, _, ii, jj in block_indices(m):
+      qLD[:, ii, jj] = math.safe_cholesky(d.qM[:, ii, jj])
   return replace(d, qLD=qLD, qLDiagInv=1.0 / torch.diagonal(qLD, dim1=-2, dim2=-1))
 
 
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
-  """Solves qM y = x (B, nv) with the current factorization (mj_solveM)."""
-  return math.cho_solve(d.qLD, x)
+  """Solves qM y = x (B, nv) with the current factorization (mj_solveM),
+  per block size group for a forest."""
+  if mass_blocks(m) is None:
+    return math.cho_solve(d.qLD, x)
+  out = torch.zeros_like(x)
+  for _, rows, ii, jj in block_indices(m):
+    out[:, rows] = math.cho_solve(d.qLD[:, ii, jj], x[:, rows])
+  return out
 
 
 def factor_solve(m: Model, mat: torch.Tensor, rhs: torch.Tensor,

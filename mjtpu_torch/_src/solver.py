@@ -1,23 +1,29 @@
-"""Constraint solver: Newton over the primal cost, dense path.
+"""Constraint solver: CG (Polak-Ribiere) and Newton over the primal cost.
 
-Port of mjtpu/_src/solver.py's Newton path (_row_costs, _ls_point,
-_rescale, warmstart selection, precond_grad, C's 3-point linesearch, the
-iteration body), batch-explicit over B envs.
+Port of mjtpu/_src/solver.py's dense CG and Newton paths (_row_costs,
+_ls_point, _rescale, warmstart selection, precond_grad, C's 3-point
+linesearch, the iteration body), batch-explicit over B envs.
 
 mjtpu runs its data-dependent loops as ``lax.while_loop`` under
 ``jax.vmap``, which keeps iterating until every lane is done and freezes
-the finished lanes.  Here both loops run a fixed count with finished envs
-frozen by ``torch.where(done, old, new)``: ``opt.iterations`` solver
-iterations and ``opt.ls_iterations`` linesearch rounds.  That is exact —
-mjtpu's body already freezes done envs, and no lane of a while_loop can
-run more rounds than those bounds — and it needs no host sync per
-iteration.  Models with many iterations pay for all of them; a host check
-of ``done.all()`` every few iterations is the later trade-off.
+the finished lanes.  Here finished envs are frozen by
+``torch.where(done, old, new)``, and the loop counts are:
+
+  * Newton: fixed, ``opt.iterations`` solver iterations and
+    ``opt.ls_iterations`` linesearch rounds, with no host sync.  That is
+    exact (mjtpu's body already freezes done envs, and no lane of a
+    while_loop can run more rounds than those bounds).
+  * CG: the same loops, left as soon as no env is still running: a host
+    check after each solver iteration and after each linesearch round.
+    Also exact, and needed: CG's bounds (30 x 50 on scene_pile) would
+    otherwise run ~10^5 eager launches a step where mjtpu's loops stop
+    after a few.  ``loop_counts`` adds up the iterations and rounds the
+    CG loops ran.
 
 The primal problem (MuJoCo Computation docs): minimize over qacc
     0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth) + s(J qacc - aref)
 where s() sums one-sided quadratic penalties for limit and pyramidal
-contact rows.  CG, frictionloss zones and elliptic cones wait for later
+contact rows.  Frictionloss zones and elliptic cones wait for later
 slices; put_model refuses models that need them.
 """
 
@@ -27,10 +33,14 @@ from typing import NamedTuple
 
 import torch
 
-from mjtpu_torch._src import math
+from mjtpu_torch._src import math, smooth
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, Model
+from mjtpu_torch._src.types import Data, DisableBit, Model, SolverType
 from mjtpu_torch.ops import fused
+
+# CG iterations and linesearch rounds run (each counts once for the whole
+# batch), since import; Newton's fixed counts are not added
+loop_counts = {"iterations": 0, "ls_rounds": 0}
 
 
 class _Context(NamedTuple):
@@ -43,6 +53,9 @@ class _Context(NamedTuple):
   cost: torch.Tensor       # (B,)
   grad: torch.Tensor       # (B, nv)
   quad: torch.Tensor       # (B, nefc) bool: row cost locally quadratic
+  Mgrad: torch.Tensor      # (B, nv) the previous iteration's M^-1 grad (CG beta)
+  search: torch.Tensor     # (B, nv) the previous iteration's search (CG beta)
+  gMg: torch.Tensor        # (B,) dot(prev grad, prev Mgrad), CG beta's denominator
   gauss: torch.Tensor      # (B,)
   niter: torch.Tensor      # (B,) int32
   done: torch.Tensor       # (B,) bool
@@ -100,7 +113,7 @@ def _rescale(m: Model, value):
 
 
 def solve(m: Model, d: Data) -> Data:
-  """Solves for constrained qacc (mj_fwdConstraint, Newton)."""
+  """Solves for constrained qacc (mj_fwdConstraint, CG or Newton)."""
   dtype = d.qpos.dtype
   efc_J, efc_D, efc_aref = d.efc_J, d.efc_D, d.efc_aref
   qfrc_smooth, qacc_smooth = d.qfrc_smooth, d.qacc_smooth
@@ -121,15 +134,20 @@ def solve(m: Model, d: Data) -> Data:
   reg = None if dtype == torch.float64 else 1e-6 * m.stat.meaninertia
   eye = torch.eye(m.nv, dtype=dtype, device=d.qpos.device)
 
+  newton = m.opt.solver == SolverType.NEWTON
+
   def precond_grad(grad, quad):
+    if not newton:
+      return smooth.solve_m(m, d, grad)
     Dq = efc_D * quad
     h = d.qM + (efc_JT * Dq[:, None, :]) @ efc_J
     if reg is not None:
       h = h + reg * eye
     return fused.chol_solve(h, grad)
 
-  def linesearch(Ma, Jaref, search, gauss):
-    """MuJoCo C's exact 3-point lo/hi bracket-swap linesearch."""
+  def linesearch(Ma, Jaref, search, gauss, running):
+    """MuJoCo C's exact 3-point lo/hi bracket-swap linesearch (``running``:
+    the envs whose result is kept)."""
     mv = matvec(d.qM, search)
     jv = matvec(efc_J, search)
 
@@ -154,9 +172,13 @@ def solve(m: Model, d: Data) -> Data:
 
     in_bracket = lambda cur, cand: ((cur < cand) & (cand < 0)) | ((cur > cand) & (cand > 0))
 
-    # fixed count, converged lanes frozen (module docstring)
+    # converged lanes frozen; CG leaves once none continues (module docstring)
     for _ in range(m.opt.ls_iterations):
       cont = swap & ~((lo.d0 < 0) & (lo.d0 > -gtol)) & ~((hi.d0 > 0) & (hi.d0 < gtol))
+      if not newton:
+        if not bool((cont & running).any()):
+          break
+        loop_counts["ls_rounds"] += 1
       lo_next = point(lo.alpha - lo.d0 / lo.d1)
       hi_next = point(hi.alpha - hi.d0 / hi.d1)
       mid = point(0.5 * (lo.alpha + hi.alpha))
@@ -201,7 +223,10 @@ def solve(m: Model, d: Data) -> Data:
     B = qacc.shape[0]
     return _Context(
         qacc=qacc, Ma=Ma, Jaref=Jaref, efc_force=force, cost=cost,
-        grad=gradient(Ma, force), quad=quad, gauss=gauss,
+        grad=gradient(Ma, force), quad=quad, Mgrad=torch.zeros_like(qacc),
+        search=torch.zeros_like(qacc),
+        gMg=torch.full_like(cost, torch.inf),  # beta = x / inf = 0 on iteration 0
+        gauss=gauss,
         niter=torch.zeros(B, dtype=torch.int32, device=qacc.device),
         done=torch.zeros(B, dtype=torch.bool, device=qacc.device),
     )
@@ -220,17 +245,29 @@ def solve(m: Model, d: Data) -> Data:
     ))
 
   for _ in range(m.opt.iterations):
+    if not newton:
+      if bool(ctx.done.all()):
+        break
+      loop_counts["iterations"] += 1
     # the expensive preconditioned gradient runs once per iteration
-    search = -precond_grad(ctx.grad, ctx.quad)
-    alpha, mv, jv = linesearch(ctx.Ma, ctx.Jaref, search, ctx.gauss)
+    mgrad = precond_grad(ctx.grad, ctx.quad)
+    if newton:
+      search = -mgrad
+    else:
+      # Polak-Ribiere, floored at 0
+      beta = _dot(ctx.grad, mgrad - ctx.Mgrad) / torch.clamp_min(ctx.gMg, math.MINVAL)
+      search = -mgrad + torch.clamp_min(beta, 0.0)[:, None] * ctx.search
+    gMg = _dot(ctx.grad, mgrad)
+    alpha, mv, jv = linesearch(ctx.Ma, ctx.Jaref, search, ctx.gauss, ~ctx.done)
     qacc = ctx.qacc + alpha[:, None] * search
     Ma = ctx.Ma + alpha[:, None] * mv
     Jaref = ctx.Jaref + alpha[:, None] * jv
     force, cost, gauss, quad = update_constraint(qacc, Ma, Jaref)
-    # reject non-improving steps
+    # reject non-improving steps (the iterate only: gauss and the CG
+    # history take the new values, as in mjtpu)
     worse = cost > ctx.cost
-    new = _Context(qacc, Ma, Jaref, force, cost, ctx.grad, quad, gauss, ctx.niter, ctx.done)
-    new = _where(worse, ctx, new)._replace(gauss=gauss)
+    new = ctx._replace(qacc=qacc, Ma=Ma, Jaref=Jaref, efc_force=force, cost=cost, quad=quad)
+    new = _where(worse, ctx, new)._replace(gauss=gauss, Mgrad=mgrad, search=search, gMg=gMg)
     grad = gradient(new.Ma, new.efc_force)
     improvement = _rescale(m, ctx.cost - new.cost)
     gradnorm = _rescale(m, math.safe_norm(grad))

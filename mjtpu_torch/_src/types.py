@@ -10,8 +10,8 @@ runs:
   * Every ``Data`` field carries a leading env axis ``B`` (batch-explicit,
     no ``torch.vmap``); ``Model`` is unbatched.
 
-The slices cover the fields the humanoid_bench and humanoid_terrain main
-paths read and write;
+The slices cover the fields the humanoid_bench, humanoid_terrain and
+scene_pile main paths read and write;
 the rest of mjtpu's Model/Data (tendons, sensors, cameras, lights,
 equality, energy, ...) arrives with the slices that need it.
 """
@@ -319,6 +319,10 @@ class Model:
   geom_gap: torch.Tensor = None
   geom_rbound: torch.Tensor = None
   geom_rbound_np: np.ndarray = static(None)  # host copy: hfield subgrid sizing
+  geom_size_np: np.ndarray = static(None)    # host copy: box grouping by exact size
+  # per geom: the hull of a colliding box (mesh.box of its grouping key),
+  # None for every other geom
+  geom_convex: tuple = static(None)
   # ---- sites ----
   site_bodyid: np.ndarray = static(None)
   site_pos: torch.Tensor = None

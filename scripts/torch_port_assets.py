@@ -31,10 +31,31 @@
         qacc, efc_force, contact_dist, contact_pos, contact_frame
                                after the first step
 
+  mjtpu_torch/assets/scene_pile_model.npz
+      the same for scene_pile.xml (32 free bodies, CG), with the box hull
+      tables mjtpu builds (mjtpu._src.mesh.box of each box's size).
+  mjtpu_torch/assets/scene_pile_golden.npz
+      a reference trajectory from mjtpu at float64 on the CPU:
+        qpos0, qvel0           B=4 initial states (pile_initial_state: env 0
+                               every body dropped 0.25 m; env 1 the same
+                               with small random rotations; env 2 bottom-
+                               layer boxes in axis-aligned face contact in a
+                               row, one box stacked on them, a sphere on a
+                               box, two spheres touching; env 3 a box on
+                               its edge and a box tilted about two axes on
+                               it, edge across edge)
+        qpos, qvel             (steps / 5, 4, ...) after every 5th step
+        qacc, efc_force, contact_dist, contact_pos, contact_frame,
+        solver_niter           after the first step
+
+  mjtpu_torch/assets/boxes_model.npz
+      the snapshot of tests/models/boxes.xml (Newton on three trees, boxes
+      of two sizes), so that the card's tests step it without ``mujoco``.
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
-        [--out DIR] [--model humanoid_bench|humanoid_terrain] [--steps N]
+        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes] [--steps N]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -55,11 +76,18 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 XML = ROOT / "mjtpu" / "zoo" / "assets" / "humanoid_bench.xml"
 TERRAIN_XML = ROOT / "mjtpu" / "zoo" / "assets" / "humanoid_terrain.xml"
+PILE_XML = ROOT / "mjtpu" / "zoo" / "assets" / "scene_pile.xml"
+BOXES_XML = ROOT / "tests" / "models" / "boxes.xml"
 ASSETS = ROOT / "mjtpu_torch" / "assets"
 MODEL_FILE = ASSETS / "humanoid_bench_model.npz"
 GOLDEN_FILE = ASSETS / "humanoid_bench_golden.npz"
 TERRAIN_MODEL_FILE = ASSETS / "humanoid_terrain_model.npz"
 TERRAIN_GOLDEN_FILE = ASSETS / "humanoid_terrain_golden.npz"
+PILE_MODEL_FILE = ASSETS / "scene_pile_model.npz"
+PILE_GOLDEN_FILE = ASSETS / "scene_pile_golden.npz"
+BOXES_MODEL_FILE = ASSETS / "boxes_model.npz"
+# the pile golden keeps the state after every PILE_EVERY-th step
+PILE_EVERY = 5
 BATCH = 4
 STEPS = 100
 # solver iterations / linesearch iterations that run humanoid_bench's
@@ -168,6 +196,117 @@ def terrain_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
   }
 
 
+def load_pile_mjmodel():
+  import mujoco
+
+  return mujoco.MjModel.from_xml_path(str(PILE_XML))
+
+
+def box_geom_convex(mjm) -> tuple:
+  """Per geom, mjtpu's hull of each colliding box (mjtpu._src.mesh.box of
+  its grouping key, as mjtpu's collision_driver builds it), else None."""
+  from mjtpu._src import mesh
+
+  out = []
+  for g in range(mjm.ngeom):
+    colliding = mjm.geom_contype[g] or mjm.geom_conaffinity[g]
+    box = mjm.geom_type[g] == 6 and colliding  # mjGEOM_BOX
+    out.append(mesh.box(np.array(tuple(np.round(mjm.geom_size[g], 12)))) if box else None)
+  return tuple(out)
+
+
+def _axis_quat(axis, angle: float) -> np.ndarray:
+  axis = np.asarray(axis, dtype=np.float64)
+  return np.concatenate([[np.cos(angle / 2)], np.sin(angle / 2) * axis / np.linalg.norm(axis)])
+
+
+def _quat_mul(u, v) -> np.ndarray:
+  w1, x1, y1, z1 = u
+  w2, x2, y2, z2 = v
+  return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                   w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def pile_initial_state(mjm, seed: int = 0):
+  """(qpos, qvel) for the 4 pile envs (module docstring), every body at
+  rest.  Body b<i> is free joint i (qpos 7i..7i+6); box half-size 0.08,
+  sphere radius 0.09; each contact below is 1 mm deep."""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (BATCH, 1))
+  qpos[:, 2::7] -= 0.25  # env 0 and the base of the others: dropped 0.25 m
+  for i in range(32):  # env 1: rotations of up to 0.1 rad about each axis
+    rv = rng.uniform(-0.1, 0.1, 3)
+    qpos[1, 7 * i + 3:7 * i + 7] = _axis_quat(rv, np.linalg.norm(rv))
+
+  def place(env, body, pos, quat=(1.0, 0.0, 0.0, 0.0)):
+    qpos[env, 7 * body:7 * body + 7] = np.concatenate([pos, quat])
+
+  h, r = 0.08, 0.09
+  # env 2: boxes b0, b10, b20 in a row along x and b30 beside b0 along y,
+  # axis-aligned on the floor, each neighbour 1 mm into the next face; box
+  # b3 stacked on b0; sphere b1 on b20; spheres b2 and b6 side by side.
+  # The boxes stand 0.5 mm apart in height and 5-10 mm apart sideways:
+  # where two aligned boxes' centres differ along only one axis, mjtpu's
+  # SAT orients the edge axes perpendicular to it by sign(0) = 0, and those
+  # zero axes win with separation 0, so the pair gets no contact
+  z = h - 0.001
+  for body, pos in ((0, (1.0, 1.0, z)), (10, (1.159, 1.01, z - 0.0005)),
+                    (20, (1.318, 1.02, z)), (30, (1.005, 1.159, z - 0.0005))):
+    place(2, body, pos)
+  place(2, 3, (1.01, 1.005, z + 2 * h - 0.001))
+  place(2, 1, (1.318, 1.02, z + h + r - 0.001))
+  place(2, 2, (-1.0, 1.0, r - 0.001))
+  place(2, 6, (-1.0 + 2 * r - 0.001, 1.0, r - 0.001))
+  # env 3: box b4 on its edge (45 degrees about y, top edge along y) and
+  # box b7 tilted 45 degrees about x, then 30 degrees about z, so that its
+  # lowest edge crosses b4's top edge
+  reach = h * np.sqrt(2.0)
+  z4 = reach - 0.001
+  place(3, 4, (-1.0, -1.0, z4), _axis_quat((0, 1, 0), np.pi / 4))
+  tilt = _quat_mul(_axis_quat((0, 0, 1), np.pi / 6), _axis_quat((1, 0, 0), np.pi / 4))
+  place(3, 7, (-1.0, -1.0, z4 + 2 * reach - 0.001), tilt)
+  return qpos, np.zeros((BATCH, mjm.nv))
+
+
+def pile_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The pile golden file's arrays (module docstring); prints the live
+  contacts of each collision group after the first step."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  qpos0, qvel0 = pile_initial_state(mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {"qpos": [], "qvel": []}
+  for i in range(steps):
+    d = step(m, d)
+    if i == 0:
+      first = jax.tree.map(np.asarray, d)
+    if (i + 1) % PILE_EVERY == 0:
+      for k in out:
+        out[k].append(np.asarray(getattr(d, k)))
+  g1, g2 = first.contact.geom1, first.contact.geom2
+  live = first.contact.dist < 0
+  types = np.asarray(mjm.geom_type)
+  for t1, t2 in sorted({(int(types[a]), int(types[b])) for a, b in zip(g1.ravel(), g2.ravel())}):
+    sel = (types[g1] == t1) & (types[g2] == t2)
+    print(f"geom types ({t1}, {t2}): live contacts after step 1 per env"
+          f" {(sel & live).sum(axis=1).tolist()}")
+  print(f"solver iterations of step 1 per env: {first.solver_niter.tolist()}")
+  return {
+      "qpos0": qpos0, "qvel0": qvel0, **{k: np.stack(v) for k, v in out.items()},
+      "qacc": first.qacc, "efc_force": first.efc_force, "contact_dist": first.contact.dist,
+      "contact_pos": first.contact.pos, "contact_frame": first.contact.frame,
+      "solver_niter": first.solver_niter,
+  }
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -224,10 +363,11 @@ def main():
   parser = argparse.ArgumentParser(description="Writes the mjtpu_torch data files.")
   parser.add_argument("--out", type=pathlib.Path, default=ASSETS,
                       help="directory for the files (default: the package's assets)")
-  parser.add_argument("--model", action="append", choices=("humanoid_bench", "humanoid_terrain"),
-                      help="the model whose files to write (repeatable; default: both)")
+  parser.add_argument("--model", action="append",
+                      choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes"),
+                      help="the model whose files to write (repeatable; default: all)")
   parser.add_argument("--steps", type=int, default=STEPS,
-                      help="steps of the humanoid_terrain golden trajectory")
+                      help="steps of the humanoid_terrain and scene_pile golden trajectories")
   args = parser.parse_args()
   out = args.out
   # before jax is imported: the flag is read when the CPU backend starts
@@ -237,7 +377,7 @@ def main():
 
   out.mkdir(parents=True, exist_ok=True)
   files = []
-  models = args.model or ["humanoid_bench", "humanoid_terrain"]
+  models = args.model or ["humanoid_bench", "humanoid_terrain", "scene_pile", "boxes"]
   if "humanoid_bench" in models:
     mjm = load_mjmodel()
     io.save_snapshot(mjm, out / MODEL_FILE.name)
@@ -250,6 +390,17 @@ def main():
     io.save_snapshot(mjm, out / TERRAIN_MODEL_FILE.name, mesh_convex=mesh.get(mjm))
     np.savez_compressed(out / TERRAIN_GOLDEN_FILE.name, **terrain_golden(mjm, args.steps))
     files += [TERRAIN_MODEL_FILE.name, TERRAIN_GOLDEN_FILE.name]
+  if "scene_pile" in models:
+    mjm = load_pile_mjmodel()
+    io.save_snapshot(mjm, out / PILE_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
+    np.savez_compressed(out / PILE_GOLDEN_FILE.name, **pile_golden(mjm, args.steps))
+    files += [PILE_MODEL_FILE.name, PILE_GOLDEN_FILE.name]
+  if "boxes" in models:
+    import mujoco
+
+    mjm = mujoco.MjModel.from_xml_path(str(BOXES_XML))
+    io.save_snapshot(mjm, out / BOXES_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
+    files.append(BOXES_MODEL_FILE.name)
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -1,14 +1,18 @@
 """Where a mjtpu_torch step's time goes on the GPU.
 
-    python scripts/torch_profile_step.py [--model humanoid_bench|humanoid_terrain]
+    python scripts/torch_profile_step.py
+        [--model humanoid_bench|humanoid_terrain|scene_pile]
         [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
-Runs the model from its committed snapshot on CUDA, warms up, then traces
-``--steps`` steps with torch.profiler (CPU and CUDA activity).  Prints the
-card (nvidia-smi name and power limit), host wall time per step, device
-kernel time per step, the device's busy share (kernel time / wall time),
-kernel launches per step and the kernels that take the most device time,
-and writes a Chrome trace to ``--out``.
+Runs the model from its committed snapshot on CUDA (from qpos0 +-0.01,
+numpy seed 1, as chip_smoke.py starts it; scene_pile's bodies also
+dropped 0.25 m), warms up, then traces ``--steps`` steps with
+torch.profiler (CPU and CUDA activity).  Prints the card (nvidia-smi name
+and power limit), host wall time per step, device kernel time per step,
+the device's busy share (kernel time / wall time), kernel launches per
+step, the CG iterations and linesearch rounds per traced step (CG models)
+and the kernels that take the most device time, and writes a Chrome trace
+to ``--out``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--model", default="humanoid_bench",
-                 choices=("humanoid_bench", "humanoid_terrain"))
+                 choices=("humanoid_bench", "humanoid_terrain", "scene_pile"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)
@@ -39,6 +43,7 @@ def main() -> int:
   from torch.profiler import ProfilerActivity, profile
 
   import mjtpu_torch
+  from mjtpu_torch._src import solver
 
   if not torch.cuda.is_available():
     raise RuntimeError("needs a CUDA device")
@@ -52,17 +57,18 @@ def main() -> int:
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{args.model}_model.npz"),
       dtype=dtype, device="cuda")
   rng = np.random.default_rng(1)
+  qpos = m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (args.batch, m.nq))
+  if args.model == "scene_pile":
+    qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
   d = mjtpu_torch.make_data(m, batch_size=args.batch)
   d = mjtpu_torch.replace(
-      d,
-      qpos=torch.as_tensor(m.qpos0.cpu().numpy()[None]
-                           + rng.uniform(-0.01, 0.01, (args.batch, m.nq)),
-                           dtype=dtype, device="cuda"),
+      d, qpos=torch.as_tensor(qpos, dtype=dtype, device="cuda"),
       ctrl=torch.as_tensor(rng.uniform(-1, 1, (args.batch, m.nu)), dtype=dtype, device="cuda"))
   for _ in range(args.warmup):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
 
+  loops = dict(solver.loop_counts)
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -82,6 +88,10 @@ def main() -> int:
         f" {dev_us / 1e3 / args.steps:.3f} ms/step device kernel time, device busy"
         f" {100 * dev_us / 1e3 / (wall_ms * args.steps):.1f}%,"
         f" {len(kernels) / args.steps:.0f} kernel launches/step")
+  if m.opt.solver == mjtpu_torch.SolverType.CG:
+    print(f"CG per step: {(solver.loop_counts['iterations'] - loops['iterations']) / args.steps:.1f}"
+          f" iterations, {(solver.loop_counts['ls_rounds'] - loops['ls_rounds']) / args.steps:.1f}"
+          " linesearch rounds")
   by_name: dict[str, list[float]] = {}
   for e in kernels:
     by_name.setdefault(e.name, []).append(e.device_time)

@@ -88,10 +88,11 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
-@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain"])
+@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes"])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
-  mjm = script.load_mjmodel() if model == "humanoid_bench" else script.load_terrain_mjmodel()
+  mjm = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
+         "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML))}[model]()
   snap = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
   _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
@@ -153,7 +154,7 @@ def regenerated_terrain(tmp_path_factory):
 
 def _snapshot_keys(path) -> list[str]:
   with np.load(path) as z:
-    return sorted(k for k in z.files if not k.startswith("hull."))
+    return sorted(k for k in z.files if not k.startswith(io.HULL_PREFIXES))
 
 
 def test_snapshot_file_is_fresh(regenerated):
@@ -172,6 +173,54 @@ def test_terrain_snapshot_file_is_fresh(regenerated_terrain):
   with np.load(regenerated_terrain / name) as new, np.load(script.TERRAIN_MODEL_FILE) as old:
     assert sorted(new.files) == sorted(old.files)
     assert sum(k.startswith("hull.") for k in new.files) == len(io.HULL_FIELDS)
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+PILE_PREFIX = 5
+
+
+@pytest.fixture(scope="module")
+def regenerated_pile(tmp_path_factory):
+  """scene_pile's data files written afresh, its golden over the first
+  PILE_PREFIX steps only (the golden keeps every 5th step: one entry)."""
+  return _regenerate(tmp_path_factory.mktemp("pile"), "--model", "scene_pile",
+                     "--steps", str(PILE_PREFIX))
+
+
+def test_pile_snapshot_file_is_fresh(regenerated_pile):
+  """The pile snapshot, with mjtpu's box hulls (one per box geom), is what
+  the script writes."""
+  script = _assets_script()
+  name = script.PILE_MODEL_FILE.name
+  assert _snapshot_keys(script.PILE_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
+  with np.load(regenerated_pile / name) as new, np.load(script.PILE_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert sum(k.startswith("geomhull.") for k in new.files) == 16 * len(io.HULL_FIELDS)
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_pile_golden_file_is_fresh(regenerated_pile):
+  """Regenerating the pile golden with mjtpu reproduces the committed
+  file's step-1 fields and its state after step PILE_PREFIX."""
+  script = _assets_script()
+  name = script.PILE_GOLDEN_FILE.name
+  with np.load(regenerated_pile / name) as new, np.load(script.PILE_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[0] * script.PILE_EVERY == script.STEPS
+    for k in new.files:
+      want = old[k][:PILE_PREFIX // script.PILE_EVERY] if k in ("qpos", "qvel") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
+
+
+def test_boxes_snapshot_file_is_fresh(tmp_path):
+  script = _assets_script()
+  new_dir = _regenerate(tmp_path, "--model", "boxes")
+  with np.load(new_dir / script.BOXES_MODEL_FILE.name) as new, \
+      np.load(script.BOXES_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert sum(k.startswith("geomhull.") for k in new.files) == 2 * len(io.HULL_FIELDS)
     for k in new.files:
       np.testing.assert_array_equal(new[k], old[k], err_msg=k)
 
@@ -210,8 +259,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import torch
 import mjtpu_torch
-from mjtpu_torch.ops import cholesky, fused, hfield
-for name in ("humanoid_bench", "humanoid_terrain"):
+from mjtpu_torch.ops import cholesky, fused, hfield, sat
+for name in ("humanoid_bench", "humanoid_terrain", "scene_pile"):
   m = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
   d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))

@@ -144,26 +144,65 @@ def _variant(path, collide_head=False, pair_dim=None, **opt):
   return make
 
 
+def _xml(body: str, asset: str = "", custom: str = ""):
+  return lambda: mujoco.MjModel.from_xml_string(
+      f"<mujoco><asset>{asset}</asset><custom>{custom}</custom><worldbody>"
+      f'<geom type="plane" size="5 5 0.1"/>{body}</worldbody></mujoco>')
+
+
+def _free(geom: str, z: float) -> str:
+  return f'<body pos="0 0 {z}"><freejoint/><geom {geom}/></body>'
+
+
+_BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0.1 0.1 0.1"', 0.5)
+
+
 @pytest.mark.parametrize("make, what", [
-    (_variant("boxes.xml"), "multi-tree"),
     (_variant(HB, collide_head=True), "collision between geom types PLANE and ELLIPSOID"),
+    (_xml(_free('type="capsule" size="0.05 0.1"', 0.5) + _free('type="box" size="0.1 0.1 0.1"', 0.2)),
+     "collision between geom types CAPSULE and BOX"),
+    (_xml('<geom type="hfield" hfield="h"/>' + _free('type="box" size="0.1 0.1 0.1"', 0.3),
+          asset='<hfield name="h" nrow="4" ncol="4" size="1 1 0.1 0.1"/>'),
+     "collision between geom types HFIELD and BOX"),
+    (_xml(_BOXES, custom='<numeric name="max_geom_pairs" data="1"/>'), "max_geom_pairs"),
     (_variant("pendulum.xml"), "eulerdamp"),
     (_variant("sensors.xml"), "sensors"),
     (_variant("equality.xml"), "equality"),
     (_variant("friction_tendon.xml"), "tendons"),
     (_variant("pendulum_rk4.xml"), "integrator"),
     (_variant("chain40.xml", disableflags=mujoco.mjtDisableBit.mjDSBL_EULERDAMP), "nv >= 32"),
+    (_variant("boxes.xml", integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST),
+     "ImplicitFast on a multi-tree"),
     (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), "elliptic"),
-    (_variant(HB, solver=mujoco.mjtSolver.mjSOL_CG), "solver"),
-    # condim 1 is in the slice since humanoid_terrain; condim 4 is not
+    (_variant(HB, solver=mujoco.mjtSolver.mjSOL_PGS), "solver 0"),
+    # condim 1 is in the slice since humanoid_terrain; condims 4 and 6 are not
     (_variant(HB, pair_dim=4), r"condim \[4\]"),
+    (_variant(HB, pair_dim=6), r"condim \[6\]"),
     (_variant(HB, integrator=mujoco.mjtIntegrator.mjINT_IMPLICIT), "implicit integrator"),
     (_variant(HB, density=1.2, integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), "fluid"),
-], ids=["boxes", "sphere_plane", "pendulum", "sensors", "equality", "tendon", "rk4", "chain40",
-        "elliptic", "cg", "condim1", "implicit", "implicitfast_fluid"])
+], ids=["sphere_plane", "box_capsule", "box_hfield", "max_geom_pairs", "pendulum", "sensors",
+        "equality", "tendon", "rk4", "chain40", "implicitfast_forest", "elliptic", "pgs",
+        "condim1", "condim6", "implicit", "implicitfast_fluid"])
 def test_put_model_refuses_out_of_slice(make, what):
   with pytest.raises(NotImplementedError, match=what):
     mjtpu_torch.put_model(make(), device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    # three trees: the blocked mass matrix, boxes of two sizes (Newton,
+    # its loops capped: the port runs them to their fixed counts)
+    _variant("boxes.xml", iterations=5, ls_iterations=5),
+    _variant(HB, solver=mujoco.mjtSolver.mjSOL_CG),
+], ids=["boxes", "cg"])
+def test_put_model_accepts_the_slice(make):
+  """Models that earlier slices refused build and step on the CPU."""
+  mjm = make()
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  d = mjtpu_torch.make_data(m, batch_size=2)
+  for _ in range(2):
+    d = mjtpu_torch.step(m, d)
+  assert bool(torch.isfinite(d.qpos).all()) and int(d.nreset.sum()) == 0
+  assert float(d.time[0]) == pytest.approx(2 * mjm.opt.timestep)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

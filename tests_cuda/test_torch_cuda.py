@@ -1,12 +1,14 @@
-"""The Hopper kernels (Cholesky, height-field manifold) against their plain
-twins, and the port's step on the card against the same step on the CPU."""
+"""The Hopper kernels (Cholesky, height-field manifold, SAT winners) against
+their plain twins, and the port's step on the card against the same step
+on the CPU."""
 
 import numpy as np
 import pytest
 import torch
 
 import mjtpu_torch
-from mjtpu_torch.ops import cholesky, fused, hfield
+from mjtpu_torch._src import mesh
+from mjtpu_torch.ops import cholesky, fused, hfield, sat
 
 pytestmark = pytest.mark.cuda
 
@@ -101,25 +103,114 @@ def test_hfield_refusals():
     hfield.manifold_batch(args[0], args[1].cpu(), *args[2:], 2, 2, 0.37, 0.29, True)
 
 
-@pytest.mark.parametrize("name, chol, hf", [("humanoid_bench", 1, 0), ("humanoid_terrain", 8, 2)])
-def test_step_on_cuda_matches_cpu(name, chol, hf):
-  """Three steps on the card against the same three on the CPU, with the
-  kernels' launch counts per step (Newton iterations for Cholesky, one per
-  height-field group for the manifold)."""
+def _rot(n, dtype, gen):
+  q = torch.randn(n, 4, generator=gen, device="cuda", dtype=dtype)
+  w, x, y, z = (q / q.norm(dim=1, keepdim=True)).unbind(1)
+  return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                      2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                      2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                     1).reshape(n, 3, 3)
+
+
+def _sat_poses(kind, n, dtype, seed=0):
+  """Box (0.1, 0.15, 0.2) and box (0.12, 0.1, 0.08) poses: random; axis-
+  aligned, 1 mm into each other along x, half of them with sideways
+  offsets; or stacked along z with a yaw."""
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda", dtype=dtype)
+  pos1 = u(n, 3) - 0.5
+  eye = torch.eye(3, dtype=dtype, device="cuda").expand(n, 3, 3).contiguous()
+  if kind == "random":
+    return pos1, _rot(n, dtype, gen), pos1 + 0.3 * u(n, 3) - 0.15, _rot(n, dtype, gen)
+  if kind == "aligned":
+    step = torch.tensor([0.219, 0.0, 0.0], dtype=dtype, device="cuda")
+    side = torch.where(u(n, 1) < 0.5, 0.0, 1.0) * 0.01 * u(n, 3) * torch.tensor(
+        [0.0, 1.0, 1.0], dtype=dtype, device="cuda")
+    return pos1, eye, pos1 + step + side, eye
+  yaw = u(n)
+  c, s, z, o = torch.cos(yaw), torch.sin(yaw), torch.zeros_like(yaw), torch.ones_like(yaw)
+  lift = torch.stack([0.02 * u(n) - 0.01, 0.02 * u(n) - 0.01, 0.279 * o], 1)
+  return pos1, eye, pos1 + lift, torch.stack([c, -s, z, s, c, z, z, z, o], 1).reshape(n, 3, 3)
+
+
+def _box_hulls(dtype):
+  return (sat.sat_hull(mesh.box(np.array([0.1, 0.15, 0.2])), dtype, "cuda"),
+          sat.sat_hull(mesh.box(np.array([0.12, 0.1, 0.08])), dtype, "cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["random", "aligned", "stacked"])
+@pytest.mark.parametrize("n", [1, 130, 20000])
+def test_sat_kernel_matches_twin(n, kind, dtype):
+  """The kernel repeats the twin's operations in its order, without
+  contracted multiply-adds: winners and separations agree exactly."""
+  poses = _sat_poses(kind, n, dtype)
+  hulls = _box_hulls(dtype)
+  before = sat.launches
+  seps, idx = sat.sat_winners_batch(*poses, *hulls)
+  want_seps, want_idx = sat.sat_winners_reference(*poses, *hulls)
+  torch.cuda.synchronize()
+  assert sat.launches == before + 1
+  assert torch.equal(idx, want_idx) and torch.equal(seps, want_seps)
+
+
+def test_sat_refusals():
+  poses = _sat_poses("random", 8, torch.float64)
+  hulls = _box_hulls(torch.float64)
+  # 10,000 vertices: past one warp's share of a block's shared memory
+  big = sat.SatHull(torch.zeros(10000, 3, dtype=torch.float64, device="cuda"), *hulls[0][1:])
+  assert sat.smem_per_warp(big, hulls[1], torch.float64) > sat.SMEM_LIMIT
+  before = sat.launches
+  with pytest.raises(ValueError):  # past the kernel's static bound: never the twin
+    sat.sat_winners_batch(*poses, big, hulls[1])
+  with pytest.raises(ValueError):  # mixed devices
+    sat.sat_winners_batch(poses[0].cpu(), *poses[1:], *hulls)
+  with pytest.raises(TypeError):  # mixed dtypes
+    sat.sat_winners_batch(poses[0].float(), *poses[1:], *hulls)
+  assert sat.launches == before
+
+
+def _model(name, device):
   ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz")
-  golden = np.load(mjtpu_torch.ASSETS / f"{name}_golden.npz")
+  if name == "boxes":  # Newton's loops run to their fixed counts: cap them
+    ns.opt.iterations = ns.opt.ls_iterations = 10
+  return mjtpu_torch.model_from_arrays(ns, device=device)
+
+
+@pytest.mark.parametrize("name, steps, per_step, tol", [
+    ("humanoid_bench", 3, (1, 0, 0), 1e-9),
+    ("humanoid_terrain", 3, (8, 2, 0), 1e-9),
+    # CG amplifies the rounding differences of the two devices (the CPU
+    # test's step-1 solve bound)
+    ("scene_pile", 1, (0, 0, 1), 1e-3),
+    ("boxes", 3, (10, 0, 1), 1e-9),
+])
+def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
+  """Steps on the card against the same steps on the CPU, with the
+  kernels' launch counts per step (Newton iterations for Cholesky, one per
+  height-field group for the manifold, one per box-box group for SAT)."""
+  golden = np.load(mjtpu_torch.ASSETS / f"{name}_golden.npz") if name != "boxes" else None
   out = {}
   for device in ("cpu", "cuda"):
-    m = mjtpu_torch.model_from_arrays(ns, device=device)
+    m = _model(name, device)
     d = mjtpu_torch.make_data(m, batch_size=4)
-    d = mjtpu_torch.replace(
-        d, qpos=torch.as_tensor(golden["qpos0"], device=device),
-        ctrl=torch.as_tensor(golden["ctrl"], device=device))
-    before = cholesky.launches, hfield.launches
-    for _ in range(3):
+    if golden is not None:
+      d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["qpos0"], device=device))
+    if golden is not None and "ctrl" in golden:
+      d = mjtpu_torch.replace(d, ctrl=torch.as_tensor(golden["ctrl"], device=device))
+    if name == "boxes":  # dropped onto the floor and each other
+      qpos = d.qpos.clone()
+      qpos[:, 2] -= 0.125
+      qpos[:, 9] -= 0.2
+      qpos[:, 16] -= 0.335
+      d = mjtpu_torch.replace(d, qpos=qpos)
+    before = cholesky.launches, hfield.launches, sat.launches
+    for _ in range(steps):
       d = mjtpu_torch.step(m, d)
-    out[device] = (d.qacc.cpu().numpy(), cholesky.launches - before[0],
-                   hfield.launches - before[1])
-  assert out["cpu"][1:] == (0, 0) and out["cuda"][1:] == (3 * chol, 3 * hf)
+    counts = (cholesky.launches - before[0], hfield.launches - before[1],
+              sat.launches - before[2])
+    out[device] = (d.qacc.cpu().numpy(), counts)
+  assert out["cpu"][1] == (0, 0, 0)
+  assert out["cuda"][1] == tuple(steps * k for k in per_step)
   np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
-                             atol=1e-9 * max(1.0, np.abs(out["cpu"][0]).max()))
+                             atol=tol * max(1.0, np.abs(out["cpu"][0]).max()))
