@@ -9,7 +9,7 @@ needs neither jax nor mujoco.  Phases, each printing its own lines; any
 failure raises and the script exits non-zero:
 
   1. device: the card's name and power limit; TF32 off.
-  2. build: nvcc builds the three kernels for sm_90a, in parallel.
+  2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
      (n in 1, 6, 27, 40; B in 1, 130, 4096; f32 and f64) and a batch whose
      pivots hit the floor; times at n=27, B=4096 (CUDA events, median of
@@ -42,10 +42,24 @@ failure raises and the script exits non-zero:
  11. scene_pile throughput: f32, B=4096 from qpos0 +-0.01 dropped 0.25 m,
      a few warm-up and timed steps; the SAT kernel's share of step time;
      the CG iterations and linesearch rounds per step.
+ 12. LDL kernel (B2) vs its plain twin on the card: its three entry points
+     (factor, solve, factor + solve) on the branchy trees of 66 and 38
+     dofs, a forced serial chain (nv = depth = 40) and a seeded random
+     tree of 100 dofs; B in 1, 130, 4096; f32 and f64; chain-pattern
+     matrices L^T D L and a batch with massless dofs, whose pivots hit the
+     MINVAL floor; results equal bit for bit.  Times on the 66-dof tree at
+     B=4096, f32, beside torch.linalg.cholesky_ex / torch.cholesky_solve
+     on the dense (B, 66, 66) matrix (context only: dense, no floor; the
+     kernels line gives it as context_ms, its library_ms is null).
+ 13. branchy66 parity: f64, B=4, 100 steps from the committed golden's
+     initial states, the trajectory to 1e-8 (the CPU test's bound); three
+     B2 launches (one per entry point) and no Cholesky launch per step.
+ 14. branchy66 throughput: f32, B=4096 from qpos0 +-0.01, a few warm-up
+     and timed steps; B2's share of step time; launches per step.
 
-The main paths are phases 6, 8 and 11: each kernel's launch count is set
-to 0 just before each and read just after.  The last two lines are the
-kernel record and {"ok": true, ...}.
+The main paths are phases 6, 8, 11 and 14: each kernel's launch count is
+set to 0 just before each and read just after.  The last two lines are
+the kernel record and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -74,6 +88,10 @@ PILE_SOLVE_BOUND = 1e-3
 PILE_BOUND = 1e-2
 PILE_WARMUP = 3
 PILE_TIMED = 10
+BRANCHY_BOUND = 1e-8  # tests/test_torch_branchy.py's TRAJECTORY_BOUND
+BRANCHY_WARMUP = 3
+BRANCHY_TIMED = 20
+LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # non-tensor-core FLOP/s per type
 HBM_BYTES_PER_S = 3.35e12
@@ -134,9 +152,9 @@ def phase_device():
 
 def phase_build():
   """Every library built at once (one nvcc per source, started together)."""
-  from mjtpu_torch.ops import _build, cholesky, hfield, sat
+  from mjtpu_torch.ops import _build, cholesky, hfield, ldl, sat
 
-  mods = (cholesky, hfield, sat)
+  mods = (cholesky, hfield, sat, ldl)
   t0 = time.perf_counter()
   _build.build([(mod.SOURCE, getattr(mod, "EXTRA_FLAGS", ())) for mod in mods])
   for mod in mods:
@@ -469,6 +487,158 @@ def phase_sat():
   return main_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
 
 
+def branchy_parentid(limbs: int, links: int) -> tuple[int, ...]:
+  """dof_parentid of tests/test_sparse.py's _branchy_xml(limbs, links): a
+  free trunk (a chain of 6 dofs) with ``limbs`` chains of ``links`` hinges."""
+  parent = [-1, 0, 1, 2, 3, 4]
+  for _ in range(limbs):
+    parent += [5] + list(range(len(parent), len(parent) + links - 1))
+  return tuple(parent)
+
+
+def random_parentid(nv: int, seed: int) -> tuple[int, ...]:
+  """A seeded random dof tree: each dof continues its predecessor's chain
+  with probability 0.6, else hangs from a random earlier dof."""
+  import numpy as np
+
+  rng = np.random.default_rng(seed)
+  return (-1,) + tuple(i - 1 if rng.random() < 0.6 else int(rng.integers(0, i))
+                       for i in range(1, nv))
+
+
+def ldl_trees() -> dict:
+  """The trees of phase 12, name -> dof_parentid."""
+  return {"branchy66": branchy_parentid(6, 10), "branchy38": branchy_parentid(4, 8),
+          "chain40": tuple(range(-1, 39)), "random100": random_parentid(100, 0)}
+
+
+def chain_pattern_batch(t, batch, dtype, gen, massless=False):
+  """(Mc, rhs, M): compact matrices Mc (batch, nv, depth) of M = L^T D L
+  (batch, nv, nv) on the tree's pattern (L unit-lower, entries in
+  [-0.5, 0.5], D in [0.5, 2]) and right-hand sides, on the device of the
+  tables t and the generator gen.  massless: about 10% of the dofs get a
+  zero row and column, so their pivots hit the MINVAL floor."""
+  import torch
+
+  from mjtpu_torch._src import sparse
+
+  nv, dev = t.nv, t.sched.device
+  u = lambda *shape: torch.rand(*shape, generator=gen, device=dev, dtype=dtype)
+  L = torch.zeros(batch, nv * nv, dtype=dtype, device=dev)
+  diag = torch.arange(nv, device=dev) * (nv + 1)
+  off = t.real_dense[~torch.isin(t.real_dense, diag)]
+  L[:, off] = u(batch, off.numel()) - 0.5
+  L[:, diag] = 1.0
+  L = L.reshape(batch, nv, nv)
+  M = L.transpose(1, 2) @ ((0.5 + 1.5 * u(batch, nv))[:, :, None] * L)
+  if massless:
+    keep = (u(batch, nv) >= 0.1).to(dtype)
+    M = M * keep[:, :, None] * keep[:, None, :]
+  return sparse.gather_compact(t, M).contiguous(), (2 * u(batch, nv) - 1).contiguous(), M
+
+
+def ldl_calls() -> dict:
+  """B2's entry points: name -> (kernel, twin), each called as f(t, Mc,
+  rhs, S) with the tables t, compact matrices Mc, right-hand sides rhs
+  and the compact factors S of Mc."""
+  from mjtpu_torch.ops import ldl
+
+  return {
+      "ldl_factor": (lambda t, mc, rhs, S: ldl.ldl_factor(t, mc),
+                     lambda t, mc, rhs, S: ldl.ldl_factor_reference(t, mc)),
+      "ldl_solve": (lambda t, mc, rhs, S: ldl.ldl_solve(t, S, rhs),
+                    lambda t, mc, rhs, S: ldl.ldl_solve_reference(t, S, rhs)),
+      "ldl_factor_solve": (lambda t, mc, rhs, S: ldl.ldl_factor_solve(t, mc, rhs),
+                           lambda t, mc, rhs, S: ldl.ldl_factor_solve_reference(t, mc, rhs)),
+  }
+
+
+def _ldl_work(s, batch: int, item: int, name: str) -> tuple[float, float]:
+  """(bytes, operations) of one batched B2 call on the tree s.
+
+  Bytes: the real entries of the compact (nv, depth) matrix or factor read
+  once (its pad entries are zero by construction and need no read), the
+  right-hand side read once, the output written once: the whole compact
+  factor (pad entries included) or the solution.  Operations:
+  what the algorithm needs, each add, subtract, multiply and divide
+  counted once (comparisons not counted): the factor 3 per update (the
+  product, its division by the pivot, the subtraction) and one division
+  per off-diagonal of L; the solve 2 per off-diagonal in each of the Lᵀ
+  and L passes and one division per dof."""
+  nd, nv, real = s.nv * s.depth, s.nv, int((s.anc < s.nv).sum())
+  updates = sum(len(r.u_k) for r in s.rounds)
+  offdiag = real - nv
+  factor_ops, solve_ops = 3 * updates + offdiag, 4 * offdiag + nv
+  per = {"ldl_factor": (real + nd, factor_ops), "ldl_solve": (real + 2 * nv, solve_ops),
+         "ldl_factor_solve": (real + 2 * nv, factor_ops + solve_ops)}[name]
+  return float(batch * per[0] * item), float(batch * per[1])
+
+
+def phase_ldl():
+  import torch
+
+  from mjtpu_torch._src import sparse
+  from mjtpu_torch.ops import ldl
+
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  calls = ldl_calls()
+  checked, floored, main_err = 0, 0, {}
+  for name, parent in ldl_trees().items():
+    s = sparse._build(len(parent), parent)
+    for dtype in (torch.float32, torch.float64):
+      t = sparse.device_tables(s, dtype, "cuda")
+      for batch, massless in ((1, False), (130, False), (4096, False), (130, True)):
+        mc, rhs, _ = chain_pattern_batch(t, batch, dtype, gen, massless)
+        S = ldl.ldl_factor_reference(t, mc)
+        floored += int((S[:, :, -1] == sparse.MINVAL).sum())
+        for entry, (kernel, twin) in calls.items():
+          got, want = kernel(t, mc, rhs, S), twin(t, mc, rhs, S)
+          torch.cuda.synchronize()
+          # equal bit for bit, NaN in the same places
+          same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
+              got.nan_to_num(), want.nan_to_num())
+          if not same:
+            raise AssertionError(_mismatch(
+                f"ldl kernel vs twin: {entry} {name} B={batch} {dtype} massless={massless}"
+                f" differ ({int((got != want).sum())} entries)", got.double().nan_to_num(),
+                want.double().nan_to_num(),
+                lambda: kernel(t, mc, rhs, S).double().nan_to_num(),
+                lambda: twin(t, mc, rhs, S).double().nan_to_num()))
+          checked += got.numel()
+          if (name, batch, dtype, massless) == ("branchy66", 4096, torch.float32, False):
+            main_err[entry] = float((got - want).abs().max())
+  log(f"[ldl] kernel == twin (bit for bit) in every case: {checked} output entries over the"
+      f" three entry points x trees branchy66, branchy38, chain40 (depth 40), random100 x B in"
+      f" 1, 130, 4096 and a massless batch x f32, f64; {floored} pivots at the MINVAL floor")
+
+  dtype = torch.float32
+  s = sparse._build(66, ldl_trees()["branchy66"])
+  t = sparse.device_tables(s, dtype, "cuda")
+  mc, rhs, M = chain_pattern_batch(t, BENCH_BATCH, dtype, gen)
+  S = ldl.ldl_factor_reference(t, mc)
+  chol = torch.linalg.cholesky_ex(M).L
+  # dense, with no MINVAL floor: not the function B2 computes, so its time
+  # goes under context_ms and library_ms stays null (no PyTorch call
+  # computes the tree-sparse floored LDL)
+  dense = {
+      "ldl_factor": lambda: torch.linalg.cholesky_ex(M),
+      "ldl_solve": lambda: torch.cholesky_solve(rhs[..., None], chol),
+      "ldl_factor_solve": lambda: torch.cholesky_solve(rhs[..., None],
+                                                       torch.linalg.cholesky_ex(M).L),
+  }
+  times, context = {}, {}
+  for entry, (kernel, twin) in calls.items():
+    run_k, run_p = lambda: kernel(t, mc, rhs, S), lambda: twin(t, mc, rhs, S)
+    p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
+    context[entry] = lib = cuda_ms(dense[entry])
+    b_ms, b_by = bound(*_ldl_work(s, BENCH_BATCH, 4, entry), dtype)
+    times[entry] = (min(k1, k2), min(p1, p2), None, b_ms, b_by)
+    log(f"[ldl] {entry} branchy66 B={BENCH_BATCH} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin"
+        f" {p1:.4f} / {p2:.4f} ms, dense torch.linalg.cholesky_ex / cholesky_solve {lib:.4f} ms"
+        f" (context only), bound {b_ms:.5f} ms ({b_by}) (median of 20)")
+  return main_err, times, context
+
+
 def _golden_run(m, golden, steps):
   import numpy as np
   import torch
@@ -593,22 +763,29 @@ def _timed_main_path(m, d, warmup, timed):
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch.ops import cholesky, hfield, sat
+  from mjtpu_torch.ops import cholesky, hfield, ldl, sat
 
   for _ in range(warmup):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
   cholesky.launches = hfield.launches = sat.launches = 0
+  ldl.launches.update(dict.fromkeys(LDL_ENTRIES, 0))
   t0 = time.perf_counter()
   for _ in range(timed):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
-            "sat_winners": sat.launches}
+            "sat_winners": sat.launches, **ldl.launches}
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts
+
+
+def _only(**launches) -> dict:
+  """The launch counts of a main path that launches only these kernels."""
+  return {**dict.fromkeys(("chol_solve", "hfield_manifold", "sat_winners", *LDL_ENTRIES), 0),
+          **launches}
 
 
 def _seam_shares(m, d, steps):
@@ -617,10 +794,11 @@ def _seam_shares(m, d, steps):
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch.ops import fused, hfield, sat
+  from mjtpu_torch.ops import fused, hfield, ldl, sat
 
   seams = {"chol_solve": (fused, "chol_solve"), "hfield_manifold": (hfield, "manifold_batch"),
-           "sat_winners": (sat, "sat_winners_batch")}
+           "sat_winners": (sat, "sat_winners_batch"),
+           **{entry: (ldl, entry) for entry in LDL_ENTRIES}}
   events = {k: [] for k in seams}
   originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
 
@@ -658,7 +836,7 @@ def phase_throughput(card):
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
   d, secs, counts = _timed_main_path(m, _f32_start(m), WARMUP_STEPS, TIMED_STEPS)
-  if counts != {"chol_solve": TIMED_STEPS, "hfield_manifold": 0, "sat_winners": 0}:
+  if counts != _only(chol_solve=TIMED_STEPS):
     raise AssertionError(f"kernel launches in {TIMED_STEPS} timed steps: {counts}")
   rate = BENCH_BATCH * TIMED_STEPS / secs
   shares, step_ms = _seam_shares(m, d, WARMUP_STEPS)
@@ -708,8 +886,8 @@ def phase_terrain_throughput(card):
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
   d, secs, counts = _timed_main_path(m, _f32_start(m), TERRAIN_WARMUP, TERRAIN_TIMED)
-  if counts != {"chol_solve": m.opt.iterations * TERRAIN_TIMED,
-                "hfield_manifold": 2 * TERRAIN_TIMED, "sat_winners": 0}:
+  if counts != _only(chol_solve=m.opt.iterations * TERRAIN_TIMED,
+                     hfield_manifold=2 * TERRAIN_TIMED):
     raise AssertionError(f"kernel launches in {TERRAIN_TIMED} timed steps: {counts}")
   rate = BENCH_BATCH * TERRAIN_TIMED / secs
   shares, step_ms = _seam_shares(m, d, TERRAIN_WARMUP)
@@ -782,7 +960,7 @@ def phase_pile_throughput(card):
   d = mjtpu_torch.replace(d, qpos=qpos)
   before = dict(solver.loop_counts)
   d, secs, counts = _timed_main_path(m, d, PILE_WARMUP, PILE_TIMED)
-  if counts != {"chol_solve": 0, "hfield_manifold": 0, "sat_winners": PILE_TIMED}:
+  if counts != _only(sat_winners=PILE_TIMED):
     raise AssertionError(f"kernel launches in {PILE_TIMED} timed steps: {counts}")
   loops = {k: (solver.loop_counts[k] - before[k]) / (PILE_WARMUP + PILE_TIMED) for k in before}
   rate = BENCH_BATCH * PILE_TIMED / secs
@@ -794,6 +972,62 @@ def phase_pile_throughput(card):
       f" and {loops['ls_rounds']:.1f} linesearch rounds (warm-up and timed steps); device step"
       f" {step_ms:.3f} ms, of it SAT {shares['sat_winners']:.4f} ms"
       f" ({100 * shares['sat_winners'] / step_ms:.2f}%); card {card}")
+  return counts
+
+
+def phase_branchy_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky, ldl
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "branchy66_golden.npz"))
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "branchy66_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+  steps = golden["qpos"].shape[0]
+  cholesky.launches = 0
+  ldl.launches.update(dict.fromkeys(LDL_ENTRIES, 0))
+  qpos, qvel, first, d = _golden_run(m, golden, steps)
+  counts = {"chol_solve": cholesky.launches, **ldl.launches}
+  if counts != {"chol_solve": 0, **dict.fromkeys(LDL_ENTRIES, steps)}:
+    raise AssertionError(f"launches {counts} in {steps} steps")
+  fields = {f: _scaled_err(getattr(first, f), golden[f])
+            for f in ("qLD", "qLDiagInv", "qacc_smooth", "qacc")}
+  log(f"[branchy parity] step 1, of each field's scale (limit 1e-10): "
+      + ", ".join(f"{k} {v:.3e}" for k, v in fields.items()))
+  if not max(fields.values()) <= 1e-10:
+    raise AssertionError(f"branchy step 1 differs from mjtpu: {fields}")
+  if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
+    raise AssertionError("branchy trajectory not finite or reset")
+  worst, excess = _excess(qpos, qvel, golden["qpos"], golden["qvel"], BRANCHY_BOUND)
+  log(f"[branchy parity] branchy66, {steps} steps B=4 f64: max abs err {worst:.3e} (limit"
+      f" {BRANCHY_BOUND}); launches: ldl_factor, ldl_solve, ldl_factor_solve"
+      f" {counts['ldl_factor']}, {counts['ldl_solve']}, {counts['ldl_factor_solve']} (one each"
+      f" per step), Cholesky {counts['chol_solve']}")
+  if excess:
+    raise AssertionError(f"branchy trajectory differs from mjtpu: {excess}")
+
+
+def phase_branchy_throughput(card):
+  import torch
+
+  import mjtpu_torch
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "branchy66_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d, secs, counts = _timed_main_path(m, _f32_start(m), BRANCHY_WARMUP, BRANCHY_TIMED)
+  if counts != _only(**dict.fromkeys(LDL_ENTRIES, BRANCHY_TIMED)):
+    raise AssertionError(f"kernel launches in {BRANCHY_TIMED} timed steps: {counts}")
+  rate = BENCH_BATCH * BRANCHY_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, BRANCHY_WARMUP)
+  b2 = sum(shares[e] for e in LDL_ENTRIES)
+  log(f"[branchy throughput] branchy66 f32 B={BENCH_BATCH}: {BRANCHY_WARMUP} warm-up and"
+      f" {BRANCHY_TIMED} timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
+      f" ({1e3 * secs / BRANCHY_TIMED:.3f} ms/step); qpos finite, nreset 0; launches per step:"
+      f" ldl_factor, ldl_solve, ldl_factor_solve 1 each, Cholesky 0; device step {step_ms:.3f}"
+      f" ms, of it B2 {b2:.4f} ms ({100 * b2 / step_ms:.2f}%: "
+      + ", ".join(f"{e} {shares[e]:.4f}" for e in LDL_ENTRIES) + f"); card {card}")
   return counts
 
 
@@ -812,12 +1046,15 @@ def main() -> int:
   chol_err, chol_t = phase_cholesky()
   hf_err, hf_t = phase_hfield()
   sat_err, sat_t = phase_sat()
+  ldl_err, ldl_t, ldl_context = phase_ldl()
   phase_parity()
   paths = {"humanoid_bench": phase_throughput(card)}
   phase_terrain_parity()
   paths["humanoid_terrain"] = phase_terrain_throughput(card)
   phase_pile_parity()
   paths["scene_pile"] = phase_pile_throughput(card)
+  phase_branchy_parity()
+  paths["branchy66"] = phase_branchy_throughput(card)
   log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
   record = []
@@ -825,6 +1062,9 @@ def main() -> int:
       ("chol_solve", "mjtpu_torch/csrc/cholesky.cu", "mjtpu/ops/cholesky.py:31", chol_err, chol_t),
       ("hfield_manifold", "mjtpu_torch/csrc/hfield.cu", "mjtpu/ops/hfield.py:144", hf_err, hf_t),
       ("sat_winners", "mjtpu_torch/csrc/sat.cu", "mjtpu/ops/sat.py:67", sat_err, sat_t),
+      *((entry, "mjtpu_torch/csrc/ldl.cu", f"mjtpu/ops/ldl.py:{line}", ldl_err[entry],
+         ldl_t[entry])
+        for entry, line in zip(LDL_ENTRIES, (208, 231, 340))),
   ):
     record.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -834,6 +1074,9 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
     })
+    if name in ldl_context:
+      # the dense Cholesky's time on the same matrices, beside B2 for context only
+      record[-1]["context_ms"] = ldl_context[name]
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

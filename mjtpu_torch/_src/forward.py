@@ -1,7 +1,8 @@
 """Forward dynamics orchestration + the Euler and ImplicitFast integrators.
 
 Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
-fwd_* stages, forward, _advance, euler, implicit (ImplicitFast) and step,
+fwd_* stages, forward, _advance, euler (with implicit joint damping),
+implicit (ImplicitFast) and step,
 batch-explicit over B envs.  Sensor stages are absent: put_model refuses
 models with sensors, and the RK4 and full Implicit integrators.
 """
@@ -186,9 +187,17 @@ def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
 
 
 def euler(m: Model, d: Data) -> Data:
-  """Semi-implicit Euler (mj_Euler).  The implicit joint-damping branch
-  is not in this slice: put_model refuses eulerdamp with damping."""
-  return _advance(m, d, d.qacc)
+  """Semi-implicit Euler with implicit joint damping (mj_Euler): with dof
+  damping, unless EULERDAMP or DAMPER is disabled, qacc solves
+  (qM + h * diag(dof_damping)) qacc = qfrc_smooth + qfrc_constraint
+  through the symmetric factor_solve."""
+  qacc = d.qacc
+  if (m.has_dof_damping and not (m.opt.disableflags & DisableBit.EULERDAMP)
+      and not (m.opt.disableflags & DisableBit.DAMPER)):
+    mh = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
+    qfrc = d.qfrc_smooth + d.qfrc_constraint
+    qacc = smooth.factor_solve(m, mh, qfrc)
+  return _advance(m, d, qacc)
 
 
 def implicit(m: Model, d: Data) -> Data:

@@ -199,10 +199,6 @@ def _validate(ns) -> None:
   refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST),
          f"integrator {int(o.integrator)} (only Euler and ImplicitFast)")
   refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
-  damping = np.any(np.asarray(ns.dof_damping) > 0)
-  refuse(int(o.integrator) == IntegratorType.EULER and damping
-         and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
-         "eulerdamp with joint damping (implicit damping in Euler)")
 
   jnt_type = np.asarray(ns.jnt_type)
   ball_lim = (jnt_type == JointType.BALL) & np.asarray(ns.jnt_limited).astype(bool)
@@ -219,13 +215,18 @@ def _validate(ns) -> None:
   refuse(not np.isin(ns.actuator_biastype, (BiasType.NONE, BiasType.AFFINE)).all(),
          "actuator bias types other than none and affine")
 
-  # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks)
-  # and with the levelwise sparse LDL for a large single tree
-  # (sparse.structure); the port has the dense and the blocked paths
+  # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks),
+  # with the levelwise sparse LDL for a large branchy tree
+  # (sparse.structure) and densely otherwise; the port has all three, but
+  # not the blocked factor_solve that the implicit solves of a forest take
   blocks = smooth.block_partition(ns.nv, ns.body_rootid, ns.dof_bodyid)
-  refuse(blocks is None and ns.nv >= 32, "kinematic trees with nv >= 32 (sparse mass matrix)")
   refuse(blocks is not None and int(o.integrator) == IntegratorType.IMPLICITFAST,
          "ImplicitFast on a multi-tree model (the blocked factor_solve)")
+  damping = np.any(np.asarray(ns.dof_damping) > 0)
+  refuse(blocks is not None and int(o.integrator) == IntegratorType.EULER and damping
+         and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
+         "Euler's implicit joint damping on a multi-tree model (the blocked symmetric"
+         " factor_solve)")
 
 
 def _device(device) -> torch.device:

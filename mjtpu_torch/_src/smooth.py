@@ -1,12 +1,12 @@
 """Smooth (unconstrained) dynamics pipeline — the main-path part.
 
 Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, factor_m and
-solve_m (dense for one tree, forest-blocked through mass_blocks for
-several), factor_solve for one tree, com_vel, rne and transmission for
+solve_m (forest-blocked through mass_blocks for several trees, the
+levelwise sparse LDL of sparse.py for a large branchy tree, dense
+otherwise), factor_solve for one tree, com_vel, rne and transmission for
 joint transmissions.  Tree traversals use scan.body_tree (levelwise
-groups, batch-explicit).  The tree-sparse factorization (sparse LDL) and
-the blocked factor_solve are not ported yet: put_model refuses models that
-would take them.
+groups, batch-explicit).  The blocked factor_solve is not ported yet:
+put_model refuses models that would take it.
 """
 
 from __future__ import annotations
@@ -14,9 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjtpu_torch._src import math, scan
+from mjtpu_torch._src import math, scan, sparse
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import Data, DisableBit, JointType, Model, cached, index
+from mjtpu_torch.ops import fused
 
 
 def kinematics(m: Model, d: Data) -> Data:
@@ -256,12 +257,19 @@ def block_indices(m: Model) -> list[tuple[int, torch.Tensor, torch.Tensor, torch
 
 
 def factor_m(m: Model, d: Data) -> Data:
-  """Mass matrix factorization (mj_factorM): the pivot-clamped Cholesky,
-  dense for one kinematic tree with nv < 32, and per tree for a forest —
-  each block size group one batched factorization over (B, k, bs, bs).
-  Blocked and dense differ in rounding, so the port takes mjtpu's branch."""
+  """Mass matrix factorization (mj_factorM), on mjtpu's three static
+  paths: per tree for a forest (each block size group one batched
+  pivot-clamped Cholesky over (B, k, bs, bs)); the levelwise sparse LDL
+  (kernel B2) for a single tree that sparse.structure takes, whose compact
+  factor is spread into the dense qLD (L below the diagonal, D on it);
+  else one dense pivot-clamped Cholesky.  The paths differ in rounding, so
+  the port takes mjtpu's branch."""
   if mass_blocks(m) is None:
-    qLD = math.safe_cholesky(d.qM)
+    t = sparse.tables(m)
+    if t is not None:
+      qLD = sparse.scatter_dense(t, fused.ldl_factor(t, d.qM))
+    else:
+      qLD = math.safe_cholesky(d.qM)
   else:
     qLD = torch.zeros_like(d.qM)
     for _, _, ii, jj in block_indices(m):
@@ -271,8 +279,12 @@ def factor_m(m: Model, d: Data) -> Data:
 
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
   """Solves qM y = x (B, nv) with the current factorization (mj_solveM),
-  per block size group for a forest."""
+  per block size group for a forest, through kernel B2 from the compact
+  factor for a sparse tree."""
   if mass_blocks(m) is None:
+    t = sparse.tables(m)
+    if t is not None:
+      return fused.ldl_solve(t, sparse.gather_compact(t, d.qLD), x)
     return math.cho_solve(d.qLD, x)
   out = torch.zeros_like(x)
   for _, rows, ii, jj in block_indices(m):
@@ -283,14 +295,17 @@ def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
 def factor_solve(m: Model, mat: torch.Tensor, rhs: torch.Tensor,
                  symmetric: bool = True) -> torch.Tensor:
   """Solves mat @ x = rhs per env, mat (B, nv, nv) with qM's one-tree
-  pattern (the implicit integrators' qM - h * qDeriv).  symmetric: the
-  pivot-clamped Cholesky of ops.fused.chol_solve (kernel B1);
-  symmetric=False: a batched LU (ImplicitFast's matrix is not symmetric),
-  through lu_factor_ex, which unlike lu_factor does not sync the host to
-  check for errors on CUDA."""
+  pattern (the implicit integrators' qM + h * damping or qM - h * qDeriv).
+  symmetric: for a tree that sparse.structure takes, the levelwise LDL
+  factor and solve in one launch of kernel B2 (mat keeps qM's chain
+  pattern), else the pivot-clamped Cholesky of ops.fused.chol_solve
+  (kernel B1); symmetric=False: a batched LU (ImplicitFast's matrix is not
+  symmetric), through lu_factor_ex, which unlike lu_factor does not sync
+  the host to check for errors on CUDA."""
   if symmetric:
-    from mjtpu_torch.ops import fused
-
+    t = sparse.tables(m)
+    if t is not None:
+      return fused.ldl_factor_solve(t, mat, rhs)
     return fused.chol_solve(mat, rhs)
   lu, piv, _ = torch.linalg.lu_factor_ex(mat)
   return torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]

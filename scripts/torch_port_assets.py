@@ -52,10 +52,25 @@
       the snapshot of tests/models/boxes.xml (Newton on three trees, boxes
       of two sizes), so that the card's tests step it without ``mujoco``.
 
+  mjtpu_torch/assets/branchy66_model.npz
+      the snapshot of the 66-dof branchy tree of tests/test_sparse.py
+      (``_branchy_xml()``: a free trunk with 6 limbs of 10 damped hinges,
+      Euler; mjtpu factors its mass matrix with the levelwise sparse LDL).
+  mjtpu_torch/assets/branchy66_golden.npz
+      a reference trajectory from mjtpu at float64 on the CPU:
+        qpos0, qvel0           B=4 initial states (branchy_initial_state:
+                               env e from numpy seed e, hinge angles qpos0
+                               +-0.3, qvel uniform in [-0.3, 0.3])
+        qpos, qvel             (100, 4, ...) after each step
+        qLD, qLDiagInv, qacc_smooth, qacc
+                               after the first step (qacc: after Euler's
+                               implicit damping)
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
-        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes] [--steps N]
+        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66]
+        [--steps N]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -86,6 +101,8 @@ TERRAIN_GOLDEN_FILE = ASSETS / "humanoid_terrain_golden.npz"
 PILE_MODEL_FILE = ASSETS / "scene_pile_model.npz"
 PILE_GOLDEN_FILE = ASSETS / "scene_pile_golden.npz"
 BOXES_MODEL_FILE = ASSETS / "boxes_model.npz"
+BRANCHY_MODEL_FILE = ASSETS / "branchy66_model.npz"
+BRANCHY_GOLDEN_FILE = ASSETS / "branchy66_golden.npz"
 # the pile golden keeps the state after every PILE_EVERY-th step
 PILE_EVERY = 5
 BATCH = 4
@@ -307,6 +324,53 @@ def pile_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
   }
 
 
+def load_branchy_mjmodel():
+  """The 66-dof branchy tree of tests/test_sparse.py (_branchy_xml())."""
+  import mujoco
+
+  from tests.test_sparse import _branchy_xml
+
+  return mujoco.MjModel.from_xml_string(_branchy_xml())
+
+
+def branchy_initial_state(mjm, batch: int = BATCH):
+  """(qpos, qvel) for the branchy envs: env e from numpy seed e, its hinge
+  angles (every qpos after the trunk's free joint) qpos0 +-0.3 and qvel
+  uniform in [-0.3, 0.3]."""
+  qpos = np.tile(mjm.qpos0, (batch, 1))
+  qvel = np.zeros((batch, mjm.nv))
+  for e in range(batch):
+    rng = np.random.default_rng(e)
+    qpos[e, 7:] += rng.uniform(-0.3, 0.3, mjm.nq - 7)
+    qvel[e] = rng.uniform(-0.3, 0.3, mjm.nv)
+  return qpos, qvel
+
+
+def branchy_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The branchy golden file's arrays (module docstring)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  qpos0, qvel0 = branchy_initial_state(mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {"qpos": [], "qvel": []}
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    if i == 0:
+      first = jax.tree.map(np.asarray, d)
+  return {"qpos0": qpos0, "qvel0": qvel0, **{k: np.stack(v) for k, v in out.items()},
+          **{k: getattr(first, k) for k in ("qLD", "qLDiagInv", "qacc_smooth", "qacc")}}
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -364,10 +428,12 @@ def main():
   parser.add_argument("--out", type=pathlib.Path, default=ASSETS,
                       help="directory for the files (default: the package's assets)")
   parser.add_argument("--model", action="append",
-                      choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes"),
+                      choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes",
+                               "branchy66"),
                       help="the model whose files to write (repeatable; default: all)")
   parser.add_argument("--steps", type=int, default=STEPS,
-                      help="steps of the humanoid_terrain and scene_pile golden trajectories")
+                      help="steps of the humanoid_terrain, scene_pile and branchy66 golden"
+                      " trajectories")
   args = parser.parse_args()
   out = args.out
   # before jax is imported: the flag is read when the CPU backend starts
@@ -377,7 +443,8 @@ def main():
 
   out.mkdir(parents=True, exist_ok=True)
   files = []
-  models = args.model or ["humanoid_bench", "humanoid_terrain", "scene_pile", "boxes"]
+  models = args.model or ["humanoid_bench", "humanoid_terrain", "scene_pile", "boxes",
+                          "branchy66"]
   if "humanoid_bench" in models:
     mjm = load_mjmodel()
     io.save_snapshot(mjm, out / MODEL_FILE.name)
@@ -401,6 +468,11 @@ def main():
     mjm = mujoco.MjModel.from_xml_path(str(BOXES_XML))
     io.save_snapshot(mjm, out / BOXES_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
     files.append(BOXES_MODEL_FILE.name)
+  if "branchy66" in models:
+    mjm = load_branchy_mjmodel()
+    io.save_snapshot(mjm, out / BRANCHY_MODEL_FILE.name)
+    np.savez_compressed(out / BRANCHY_GOLDEN_FILE.name, **branchy_golden(mjm, args.steps))
+    files += [BRANCHY_MODEL_FILE.name, BRANCHY_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

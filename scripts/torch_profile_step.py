@@ -1,7 +1,7 @@
 """Where a mjtpu_torch step's time goes on the GPU.
 
     python scripts/torch_profile_step.py
-        [--model humanoid_bench|humanoid_terrain|scene_pile]
+        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66]
         [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
 Runs the model from its committed snapshot on CUDA (from qpos0 +-0.01,
@@ -29,7 +29,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--model", default="humanoid_bench",
-                 choices=("humanoid_bench", "humanoid_terrain", "scene_pile"))
+                 choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)

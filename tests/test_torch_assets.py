@@ -88,11 +88,12 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
-@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes"])
+@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66"])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
   mjm = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
-         "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML))}[model]()
+         "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
+         "branchy66": script.load_branchy_mjmodel}[model]()
   snap = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
   _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
@@ -225,6 +226,35 @@ def test_boxes_snapshot_file_is_fresh(tmp_path):
       np.testing.assert_array_equal(new[k], old[k], err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def regenerated_branchy(tmp_path_factory):
+  """The branchy66 data files written afresh (the whole 100-step golden:
+  the tree has no contacts, so its steps cost little beside the compile)."""
+  return _regenerate(tmp_path_factory.mktemp("branchy"), "--model", "branchy66")
+
+
+def test_branchy_snapshot_file_is_fresh(regenerated_branchy):
+  script = _assets_script()
+  assert _snapshot_keys(script.BRANCHY_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
+  with np.load(regenerated_branchy / script.BRANCHY_MODEL_FILE.name) as new, \
+      np.load(script.BRANCHY_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_branchy_golden_file_is_fresh(regenerated_branchy):
+  """Regenerating the branchy golden with mjtpu reproduces the committed
+  file: its 100 steps and its step-1 fields."""
+  script = _assets_script()
+  name = script.BRANCHY_GOLDEN_FILE.name
+  with np.load(regenerated_branchy / name) as new, np.load(script.BRANCHY_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
+    for k in new.files:
+      np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
+
+
 def test_terrain_golden_file_is_fresh(regenerated_terrain):
   """Regenerating the terrain golden with mjtpu reproduces the committed
   file's first TERRAIN_PREFIX steps and its step-1 fields."""
@@ -259,8 +289,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import torch
 import mjtpu_torch
-from mjtpu_torch.ops import cholesky, fused, hfield, sat
-for name in ("humanoid_bench", "humanoid_terrain", "scene_pile"):
+from mjtpu_torch.ops import cholesky, fused, hfield, ldl, sat
+for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66"):
   m = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
   d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))

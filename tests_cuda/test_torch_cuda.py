@@ -1,14 +1,17 @@
-"""The Hopper kernels (Cholesky, height-field manifold, SAT winners) against
-their plain twins, and the port's step on the card against the same step
-on the CPU."""
+"""The Hopper kernels (Cholesky, height-field manifold, SAT winners, tree-
+sparse LDL) against their plain twins, and the port's step on the card
+against the same step on the CPU."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mjtpu_torch
-from mjtpu_torch._src import mesh
-from mjtpu_torch.ops import cholesky, fused, hfield, sat
+from mjtpu_torch._src import mesh, sparse
+from mjtpu_torch.ops import cholesky, fused, hfield, ldl, sat
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +173,49 @@ def test_sat_refusals():
   assert sat.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tree", ["branchy66", "branchy38", "chain40", "random100"])
+@pytest.mark.parametrize("batch, massless", [(1, False), (130, False), (4096, False),
+                                             (130, True)])
+def test_ldl_kernel_matches_twin(batch, massless, tree, dtype):
+  """Each entry point equals its twin bit for bit (--fmad=false, the same
+  per-target order), massless dofs (pivots at the MINVAL floor) included."""
+  parent = chip_smoke.ldl_trees()[tree]
+  t = sparse.device_tables(sparse._build(len(parent), parent), dtype, "cuda")
+  gen = torch.Generator(device="cuda").manual_seed(batch)
+  mc, rhs, _ = chip_smoke.chain_pattern_batch(t, batch, dtype, gen, massless)
+  S = ldl.ldl_factor_reference(t, mc)
+  if massless:
+    assert bool((S[:, :, -1] == sparse.MINVAL).any())
+  before = dict(ldl.launches)
+  for name, (kernel, twin) in chip_smoke.ldl_calls().items():
+    got, want = kernel(t, mc, rhs, S), twin(t, mc, rhs, S)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), (name, float((got - want).abs().max()))
+  assert ldl.launches == {k: v + 1 for k, v in before.items()}
+
+
+def test_ldl_refusals():
+  parent = chip_smoke.ldl_trees()["branchy66"]
+  t = sparse.device_tables(sparse._build(len(parent), parent), torch.float64, "cuda")
+  mc, rhs, _ = chip_smoke.chain_pattern_batch(t, 8, torch.float64,
+                                              torch.Generator(device="cuda").manual_seed(0))
+  before = dict(ldl.launches)
+  with pytest.raises(ValueError):  # not contiguous
+    ldl.ldl_solve(t, mc, rhs.t().contiguous().t())
+  with pytest.raises(ValueError):  # mixed devices
+    ldl.ldl_factor_solve(t, mc, rhs.cpu())
+  with pytest.raises(TypeError):  # mixed dtypes
+    ldl.ldl_solve(t, mc, rhs.float())
+  # past the static bound (one env's factor in a block's shared memory):
+  # a tree of nv = 200, depth 200 at f64; raised before any launch
+  big = dataclasses.replace(t, structure=t.structure._replace(nv=200, depth=200))
+  assert ldl.smem_per_warp(200, 200, torch.float64) > ldl.SMEM_LIMIT
+  with pytest.raises(ValueError, match="static bound"):
+    ldl.ldl_factor(big, torch.zeros(1, 200, 200, dtype=torch.float64, device="cuda"))
+  assert ldl.launches == before
+
+
 def _model(name, device):
   ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz")
   if name == "boxes":  # Newton's loops run to their fixed counts: cap them
@@ -178,17 +224,19 @@ def _model(name, device):
 
 
 @pytest.mark.parametrize("name, steps, per_step, tol", [
-    ("humanoid_bench", 3, (1, 0, 0), 1e-9),
-    ("humanoid_terrain", 3, (8, 2, 0), 1e-9),
+    ("humanoid_bench", 3, (1, 0, 0, 0), 1e-9),
+    ("humanoid_terrain", 3, (8, 2, 0, 0), 1e-9),
     # CG amplifies the rounding differences of the two devices (the CPU
     # test's step-1 solve bound)
-    ("scene_pile", 1, (0, 0, 1), 1e-3),
-    ("boxes", 3, (10, 0, 1), 1e-9),
+    ("scene_pile", 1, (0, 0, 1, 0), 1e-3),
+    ("boxes", 3, (10, 0, 1, 0), 1e-9),
+    ("branchy66", 3, (0, 0, 0, 3), 1e-9),
 ])
 def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
   """Steps on the card against the same steps on the CPU, with the
   kernels' launch counts per step (Newton iterations for Cholesky, one per
-  height-field group for the manifold, one per box-box group for SAT)."""
+  height-field group for the manifold, one per box-box group for SAT, one
+  per entry point for LDL)."""
   golden = np.load(mjtpu_torch.ASSETS / f"{name}_golden.npz") if name != "boxes" else None
   out = {}
   for device in ("cpu", "cuda"):
@@ -204,13 +252,15 @@ def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
       qpos[:, 9] -= 0.2
       qpos[:, 16] -= 0.335
       d = mjtpu_torch.replace(d, qpos=qpos)
-    before = cholesky.launches, hfield.launches, sat.launches
+    if golden is not None and "qvel0" in golden:
+      d = mjtpu_torch.replace(d, qvel=torch.as_tensor(golden["qvel0"], device=device))
+    before = cholesky.launches, hfield.launches, sat.launches, sum(ldl.launches.values())
     for _ in range(steps):
       d = mjtpu_torch.step(m, d)
     counts = (cholesky.launches - before[0], hfield.launches - before[1],
-              sat.launches - before[2])
+              sat.launches - before[2], sum(ldl.launches.values()) - before[3])
     out[device] = (d.qacc.cpu().numpy(), counts)
-  assert out["cpu"][1] == (0, 0, 0)
+  assert out["cpu"][1] == (0, 0, 0, 0)
   assert out["cuda"][1] == tuple(steps * k for k in per_step)
   np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
                              atol=tol * max(1.0, np.abs(out["cpu"][0]).max()))
