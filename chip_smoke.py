@@ -12,12 +12,14 @@ failure raises and the script exits non-zero:
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
      (n in 1, 6, 27, 40; B in 1, 130, 4096; f32 and f64) and a batch whose
-     pivots hit the floor; times at n=27, B=4096 (CUDA events, median of
-     20) beside torch.cholesky_solve(torch.linalg.cholesky_ex).
+     pivots hit the floor; times at n=27, B=4096 beside
+     torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
-     and f64; random windows and a flat one (whose winners must agree
-     exactly); times at (2, 2), capsules, n=49152, f32.
+     and f64; random windows and a flat one; every variant that can run a
+     subgrid (the static kernel at (2, 2), the shared one everywhere)
+     equal to the twin bit for bit; times of both variants at (2, 2),
+     capsules, n=49152, f32.
   5. humanoid_bench parity: f64, the committed B=4 mjtpu states stepped 100
      times against the committed mjtpu golden: in the benchmark
      configuration to 1e-8 through step 50 and 1e-6 over 100 steps, and
@@ -33,7 +35,8 @@ failure raises and the script exits non-zero:
   9. SAT kernel (B3) vs its plain twin on the card: box-box with equal and
      with unequal sizes and a box against a terrain rock hull; random,
      axis-aligned touching and stacked poses; n in 1, 130, 491520; f32 and
-     f64; winner indices and separations exact; times at box-box, n =
+     f64; both variants (static and shared) equal to the twin bit for bit
+     in winner indices and separations; times of both at box-box, n =
      491520 (scene_pile's group at B=4096), f32.
  10. scene_pile parity: f64, B=4, 100 steps from the committed golden's
      initial states; step-1 contact.dist to 1e-9, qacc and efc_force and
@@ -58,8 +61,19 @@ failure raises and the script exits non-zero:
      and timed steps; B2's share of step time; launches per step.
 
 The main paths are phases 6, 8, 11 and 14: each kernel's launch count is
-set to 0 just before each and read just after.  The last two lines are
-the kernel record and {"ok": true, ...}.
+set to 0 just before each and read just after (B3's and B4's by variant
+too: the main paths must run their static kernels only).  The last two
+lines are the kernel record and {"ok": true, ...}.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-4, 9 and 12 only (each kernel built, held to its twin and
+timed) and prints neither record: a short check of a kernel change.
+
+Kernel times (phases 3, 4, 9, 12) are device times: CUDA events around a
+window of calls enqueued back to back behind a sleep kernel that holds the
+stream until the host has enqueued them all, over the number of calls
+(``cuda_ms``); the wrappers' host work is outside the window.
 """
 
 from __future__ import annotations
@@ -92,6 +106,14 @@ BRANCHY_BOUND = 1e-8  # tests/test_torch_branchy.py's TRAJECTORY_BOUND
 BRANCHY_WARMUP = 3
 BRANCHY_TIMED = 20
 LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
+# calls per timing window: a kernel's, and a plain twin's or library call's
+# (those take milliseconds each)
+KERNEL_REPS = 50
+PLAIN_REPS = 20
+# the main paths' launches of B3 and B4, by variant
+VARIANT_LAUNCHES = {"hfield_manifold": {"static": 0, "shared": 0},
+                    "sat_winners": {"static": 0, "shared": 0}}
+TIMING = f"(device time per call over {KERNEL_REPS} back-to-back calls, {PLAIN_REPS} for twins)"
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # non-tensor-core FLOP/s per type
 HBM_BYTES_PER_S = 3.35e12
@@ -110,20 +132,35 @@ def card_line() -> str:
   return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-  """Median over ``reps`` of one call's device time (CUDA events)."""
+def cuda_ms(fn, reps: int = KERNEL_REPS, windows: int = 3) -> float:
+  """Device ms of one call of ``fn``: the median over ``windows`` windows of
+  the CUDA-event time of ``reps`` calls enqueued back to back, over
+  ``reps``.  The inputs are made once by the caller, outside the window.
+  Before each window a sleep kernel holds the stream for longer than the
+  host takes to enqueue the window, so that the queue runs ahead of the
+  host and the window holds the calls' device time only, none of the
+  wrappers' host work.  The calls read the same inputs one after another:
+  whatever of them fits the 50 MB L2 stays warm there."""
   import torch
 
   fn()
   torch.cuda.synchronize()
-  times = []
+  t0 = time.perf_counter()
   for _ in range(reps):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
     fn()
+  host_s = time.perf_counter() - t0  # the host's enqueue time of one window
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(windows):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # at most 2 GHz, so the sleep lasts at least 2 * host_s + 1 ms
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
+    start.record()
+    for _ in range(reps):
+      fn()
     end.record()
     end.synchronize()
-    times.append(start.elapsed_time(end))
+    times.append(start.elapsed_time(end) / reps)
   return statistics.median(times)
 
 
@@ -251,18 +288,18 @@ def phase_cholesky():
   for dtype in (torch.float32, torch.float64):
     mat, rhs = _spd(27, BENCH_BATCH, dtype, gen)
     # plain, kernel, kernel, plain: compare within one call
-    p1 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs))
+    p1 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs), PLAIN_REPS)
     k1 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
     k2 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
-    p2 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs))
+    p2 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs), PLAIN_REPS)
     # one PyTorch call pair for the same solve (no pivot floor): context only
     lib = cuda_ms(lambda: torch.cholesky_solve(
-        rhs[..., None], torch.linalg.cholesky_ex(mat).L)[..., 0])
+        rhs[..., None], torch.linalg.cholesky_ex(mat).L)[..., 0], PLAIN_REPS)
     b_ms, b_by = bound(*_chol_work(27, BENCH_BATCH, mat.element_size()), dtype)
     times[dtype] = (min(k1, k2), min(p1, p2), lib, b_ms, b_by)
     log(f"[cholesky] n=27 B={BENCH_BATCH} {str(dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms,"
         f" plain twin {p1:.4f} / {p2:.4f} ms, torch.cholesky_solve(cholesky_ex) {lib:.4f} ms,"
-        f" bound {b_ms:.5f} ms ({b_by}) (median of 20)")
+        f" bound {b_ms:.5f} ms ({b_by}) {TIMING}")
   return main_abs_err, times[torch.float32]
 
 
@@ -313,55 +350,68 @@ def _hfield_work(n: int, hy: int, hx: int, has_axis: bool, item: int) -> tuple[f
   return float(n * (rr * cc + 9 + 28) * item), float(n * (per_inst + ntri * per_tri))
 
 
+def _bits(x):
+  """x's bit patterns (a -0 differs from a +0), integers as they are."""
+  import torch
+
+  ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+  return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
 def phase_hfield():
   import torch
 
   from mjtpu_torch.ops import hfield
 
   gen = torch.Generator(device="cuda").manual_seed(1)
-  tol = {torch.float32: 1e-5, torch.float64: 1e-12}
-  worst, main_abs_err = {}, None
+  checked, main_abs_err = {}, None
   for dtype in (torch.float32, torch.float64):
     for hy, hx in ((0, 0), (2, 2), (8, 8)):
       for has_axis in (False, True):
         for n in (1, 130, HFIELD_N):
           for flat in (False, True):
             args = _windows(n, hy, hx, has_axis, dtype, gen, flat)
-            kernel = lambda: hfield.manifold_batch(*args, hy, hx, 1.29, 1.29, has_axis)
             # the twin in chunks: its (n, T, 3) intermediates at (8, 8)
             twin = lambda: [torch.cat(c) for c in zip(*(
                 hfield.manifold_reference(*(a[i:i + 8192] for a in args), hy, hx, 1.29, 1.29,
                                           has_axis) for i in range(0, n, 8192)))]
-            got, want = kernel(), twin()
-            torch.cuda.synchronize()
-            for o, (name, g, w) in enumerate(zip(("dist", "pos", "nrm"), got, want)):
-              if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"hfield kernel {name} not finite")
-              err = float((g - w).abs().max())
-              rel = err / max(1.0, float(w.abs().max()))
-              if rel > tol[dtype]:
-                raise AssertionError(_mismatch(
-                    f"hfield kernel vs twin: ({hy}, {hx}) axis={has_axis} n={n} {dtype}"
-                    f" flat={flat} {name}: rel {rel:.3e} > {tol[dtype]}",
-                    g, w, lambda: kernel()[o], lambda: twin()[o]))
-              worst[dtype] = max(worst.get(dtype, 0.0), rel)
-            if flat and not torch.equal(got[1], want[1]):
-              raise AssertionError(f"flat window: winner positions differ, ({hy}, {hx}) {dtype}")
-            if (hy, hx, has_axis, n, flat, dtype) == (2, 2, True, HFIELD_N, False, torch.float32):
-              main_abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-  for dtype, rel in worst.items():
-    log(f"[hfield] max rel err vs twin, {str(dtype)[6:]}: {rel:.3e} (limit {tol[dtype]});"
-        f" flat windows: winner positions equal")
+            want = twin()
+            for kind in hfield.variants(hy, hx):
+              kernel = lambda: hfield.manifold_batch(*args, hy, hx, 1.29, 1.29, has_axis,
+                                                     kernel=kind)
+              got = kernel()
+              torch.cuda.synchronize()
+              for o, (name, g, w) in enumerate(zip(("dist", "pos", "nrm"), got, want)):
+                if not bool(torch.isfinite(g).all()):
+                  raise AssertionError(f"hfield {kind} kernel {name} not finite")
+                if not torch.equal(_bits(g), _bits(w)):
+                  raise AssertionError(_mismatch(
+                      f"hfield {kind} kernel vs twin: ({hy}, {hx}) axis={has_axis} n={n}"
+                      f" {dtype} flat={flat} {name}: {int((_bits(g) != _bits(w)).sum())} entries"
+                      f" differ in bits", g, w, lambda: kernel()[o], lambda: twin()[o]))
+              checked[kind] = checked.get(kind, 0) + n
+              if (hy, hx, has_axis, n, flat, dtype, kind) == (2, 2, True, HFIELD_N, False,
+                                                              torch.float32, "static"):
+                main_abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+  log(f"[hfield] kernel == twin bit for bit (dist, pos, normal) in every case: subgrids (0, 0),"
+      f" (2, 2), (8, 8) x spheres, capsules x n in 1, 130, {HFIELD_N} x random, flat windows x"
+      f" f32, f64; instances by variant {checked}")
 
   dtype = torch.float32
   args = _windows(HFIELD_N, 2, 2, True, dtype, gen)
-  run_k = lambda: hfield.manifold_batch(*args, 2, 2, 1.29, 1.29, True)
+  run = {kind: (lambda kind=kind: hfield.manifold_batch(*args, 2, 2, 1.29, 1.29, True,
+                                                        kernel=kind))
+         for kind in hfield.variants(2, 2)}
   run_p = lambda: hfield.manifold_reference(*args, 2, 2, 1.29, 1.29, True)
-  p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
+  # plain, static, shared, shared, static, plain: compare within one call
+  p1, k1, s1 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run["static"]), cuda_ms(run["shared"])
+  s2, k2, p2 = cuda_ms(run["shared"]), cuda_ms(run["static"]), cuda_ms(run_p, PLAIN_REPS)
   b_ms, b_by = bound(*_hfield_work(HFIELD_N, 2, 2, True, 4), dtype)
-  log(f"[hfield] (2, 2) capsules n={HFIELD_N} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin"
-      f" {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}) (median of 20)")
-  return main_abs_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
+  log(f"[hfield] (2, 2) capsules n={HFIELD_N} f32: static kernel {k1:.4f} / {k2:.4f} ms, shared"
+      f" kernel {s1:.4f} / {s2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms"
+      f" ({b_by}) {TIMING}")
+  variant_ms = {"static": min(k1, k2), "shared": min(s1, s2)}
+  return main_abs_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by), variant_ms
 
 
 def _rock_hull():
@@ -450,41 +500,52 @@ def phase_sat():
            "box-box unequal": (mesh.box(np.array([0.1, 0.15, 0.2])),
                                mesh.box(np.array([0.12, 0.1, 0.08]))),
            "box-rock": (mesh.box(np.array([0.1, 0.15, 0.2])), _rock_hull())}
-  checked, edge_wins, main_err = 0, 0, None
+  checked, edge_wins, main_err = {}, 0, None
   for dtype in (torch.float32, torch.float64):
     for name, (h1, h2) in pairs.items():
       hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
-      for kind in ("random", "aligned", "stacked"):
+      for kind_of_pose in ("random", "aligned", "stacked"):
         for n in (1, 130, SAT_N):
-          poses = _sat_poses(kind, n, h1, h2, dtype, gen)
-          kernel = lambda: sat.sat_winners_batch(*poses, *hulls)
+          poses = _sat_poses(kind_of_pose, n, h1, h2, dtype, gen)
           twin = lambda: sat.sat_winners_reference(*poses, *hulls)
-          (seps, idx), (want_seps, want_idx) = kernel(), twin()
-          torch.cuda.synchronize()
-          for what, g, w, o in (("idx", idx, want_idx, 1), ("seps", seps, want_seps, 0)):
-            if not torch.equal(g, w):
-              raise AssertionError(_mismatch(
-                  f"sat kernel vs twin: {name} {kind} n={n} {dtype} {what} differ"
-                  f" ({int((g != w).any(1).sum())} instances)", g.double(), w.double(),
-                  lambda: kernel()[o].double(), lambda: twin()[o].double()))
-          checked += n
-          if (name, kind, n, dtype) == ("box-box equal", "random", SAT_N, torch.float32):
-            main_err = float((seps - want_seps).abs().max())
-          edge_wins += int((seps[:, 2] > seps[:, :2].max(1).values).sum())
-  log(f"[sat] kernel == twin (indices and separations exact) over {checked} instances: 3 hull"
-      f" pairs x random, axis-aligned, stacked poses x n in 1, 130, {SAT_N} x f32, f64;"
-      f" the edge axis wins in {edge_wins}")
+          want_seps, want_idx = twin()
+          for kind in sat.variants(*hulls):
+            kernel = lambda: sat.sat_winners_batch(*poses, *hulls, kernel=kind)
+            seps, idx = kernel()
+            torch.cuda.synchronize()
+            for what, g, w, o in (("idx", idx, want_idx, 1), ("seps", seps, want_seps, 0)):
+              if not torch.equal(_bits(g), _bits(w)):
+                raise AssertionError(_mismatch(
+                    f"sat {kind} kernel vs twin: {name} {kind_of_pose} n={n} {dtype} {what}:"
+                    f" {int((_bits(g) != _bits(w)).any(1).sum())} instances differ in bits",
+                    g.double(), w.double(), lambda: kernel()[o].double(),
+                    lambda: twin()[o].double()))
+            checked[kind] = checked.get(kind, 0) + n
+            if (name, kind_of_pose, n, dtype, kind) == ("box-box equal", "random", SAT_N,
+                                                        torch.float32, "static"):
+              main_err = float((seps - want_seps).abs().max())
+          edge_wins += int((want_seps[:, 2] > want_seps[:, :2].max(1).values).sum())
+  log(f"[sat] kernel == twin bit for bit (indices and separations) in every case: 3 hull pairs"
+      f" x random, axis-aligned, stacked poses x n in 1, 130, {SAT_N} x f32, f64; instances by"
+      f" variant {checked}; the edge axis wins in {edge_wins}")
 
   dtype = torch.float32
   hulls = (sat.sat_hull(box, dtype, "cuda"),) * 2
   poses = _sat_poses("random", SAT_N, box, box, dtype, gen)
-  run_k = lambda: sat.sat_winners_batch(*poses, *hulls)
+  run = {kind: (lambda kind=kind: sat.sat_winners_batch(*poses, *hulls, kernel=kind))
+         for kind in sat.variants(*hulls)}
   run_p = lambda: sat.sat_winners_reference(*poses, *hulls)
-  p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
+  # plain, static, shared, shared, static, plain: compare within one call.  The
+  # 61 MB the calls read and write (poses 47 MB) exceed the 50 MB L2: mostly
+  # cold, and either way small beside the operations that bound the kernel
+  p1, k1, s1 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run["static"]), cuda_ms(run["shared"])
+  s2, k2, p2 = cuda_ms(run["shared"]), cuda_ms(run["static"]), cuda_ms(run_p, PLAIN_REPS)
   b_ms, b_by = bound(*_sat_work(SAT_N, box, box, 4), dtype)
-  log(f"[sat] box-box n={SAT_N} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.4f} /"
-      f" {p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}) (median of 20)")
-  return main_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by)
+  log(f"[sat] box-box n={SAT_N} f32: static kernel {k1:.4f} / {k2:.4f} ms, shared kernel"
+      f" {s1:.4f} / {s2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms"
+      f" ({b_by}) {TIMING}")
+  variant_ms = {"static": min(k1, k2), "shared": min(s1, s2)}
+  return main_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by), variant_ms
 
 
 def branchy_parentid(limbs: int, links: int) -> tuple[int, ...]:
@@ -629,13 +690,14 @@ def phase_ldl():
   times, context = {}, {}
   for entry, (kernel, twin) in calls.items():
     run_k, run_p = lambda: kernel(t, mc, rhs, S), lambda: twin(t, mc, rhs, S)
-    p1, k1, k2, p2 = cuda_ms(run_p), cuda_ms(run_k), cuda_ms(run_k), cuda_ms(run_p)
-    context[entry] = lib = cuda_ms(dense[entry])
+    p1, k1, k2 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run_k), cuda_ms(run_k)
+    p2 = cuda_ms(run_p, PLAIN_REPS)
+    context[entry] = lib = cuda_ms(dense[entry], PLAIN_REPS)
     b_ms, b_by = bound(*_ldl_work(s, BENCH_BATCH, 4, entry), dtype)
     times[entry] = (min(k1, k2), min(p1, p2), None, b_ms, b_by)
     log(f"[ldl] {entry} branchy66 B={BENCH_BATCH} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin"
         f" {p1:.4f} / {p2:.4f} ms, dense torch.linalg.cholesky_ex / cholesky_solve {lib:.4f} ms"
-        f" (context only), bound {b_ms:.5f} ms ({b_by}) (median of 20)")
+        f" (context only), bound {b_ms:.5f} ms ({b_by}) {TIMING}")
   return main_err, times, context
 
 
@@ -770,6 +832,8 @@ def _timed_main_path(m, d, warmup, timed):
   torch.cuda.synchronize()
   cholesky.launches = hfield.launches = sat.launches = 0
   ldl.launches.update(dict.fromkeys(LDL_ENTRIES, 0))
+  for mod in (hfield, sat):
+    mod.variant_launches.update(dict.fromkeys(mod.variant_launches, 0))
   t0 = time.perf_counter()
   for _ in range(timed):
     d = mjtpu_torch.step(m, d)
@@ -777,6 +841,10 @@ def _timed_main_path(m, d, warmup, timed):
   secs = time.perf_counter() - t0
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
             "sat_winners": sat.launches, **ldl.launches}
+  # the main path's launches by variant, for the kernels line
+  for name, mod in (("hfield_manifold", hfield), ("sat_winners", sat)):
+    for kind, k in mod.variant_launches.items():
+      VARIANT_LAUNCHES[name][kind] += k
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts
@@ -1044,9 +1112,12 @@ def main() -> int:
 
   phase_build()
   chol_err, chol_t = phase_cholesky()
-  hf_err, hf_t = phase_hfield()
-  sat_err, sat_t = phase_sat()
+  hf_err, hf_t, hf_variant_ms = phase_hfield()
+  sat_err, sat_t, sat_variant_ms = phase_sat()
   ldl_err, ldl_t, ldl_context = phase_ldl()
+  if "--kernels" in sys.argv[1:]:
+    log(f"[done] --kernels: phases 1-4, 9 and 12 only; {time.perf_counter() - t0:.1f} s")
+    return 0
   phase_parity()
   paths = {"humanoid_bench": phase_throughput(card)}
   phase_terrain_parity()
@@ -1055,6 +1126,9 @@ def main() -> int:
   paths["scene_pile"] = phase_pile_throughput(card)
   phase_branchy_parity()
   paths["branchy66"] = phase_branchy_throughput(card)
+  for name, kinds in VARIANT_LAUNCHES.items():
+    if kinds["shared"] or not kinds["static"]:
+      raise AssertionError(f"{name}: the main paths launched {kinds}, not the static kernel only")
   log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
   record = []
@@ -1077,6 +1151,12 @@ def main() -> int:
     if name in ldl_context:
       # the dense Cholesky's time on the same matrices, beside B2 for context only
       record[-1]["context_ms"] = ldl_context[name]
+    if name in VARIANT_LAUNCHES:
+      # a size dispatch: the variant the main paths ran (ms is its time), and
+      # each variant's time at the main path's shape
+      ran = [kind for kind, k in VARIANT_LAUNCHES[name].items() if k]
+      record[-1].update(variant="+".join(ran), variant_launches=VARIANT_LAUNCHES[name],
+                        variant_ms=hf_variant_ms if name == "hfield_manifold" else sat_variant_ms)
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

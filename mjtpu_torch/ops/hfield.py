@@ -8,12 +8,16 @@ _closest_on_triangle, _point_triangle, _segment_triangle, _select4).
 centre, or a capsule segment), in the height field's local frame
 (terrain up = +z), and returns the 4-point contact manifold of each:
 
-  * on a CUDA tensor it launches the hand-written kernel in
-    ``mjtpu_torch/csrc/hfield.cu`` (one warp per instance, the window in
-    shared memory, the lanes striding over the triangles), built with nvcc
-    for sm_90a at first use and bound with ctypes (``ops._build``).  A
-    build or launch failure, or a window past the kernel's static bound,
-    raises; nothing falls back.
+  * on a CUDA tensor it launches a hand-written kernel in
+    ``mjtpu_torch/csrc/hfield.cu``, built with nvcc for sm_90a at first use
+    and bound with ctypes (``ops._build``).  Which one is a size dispatch
+    (``variant``): a subgrid in ``STATIC_SUBGRIDS`` (humanoid_terrain's
+    (2, 2)) takes the ``static`` kernel (the subgrid fixed at compile time,
+    one thread per triangle, each triangle's terms built once in
+    registers); any other subgrid takes the ``shared`` kernel (one warp per
+    instance, the window in shared memory, the lanes striding over the
+    triangles).  A build or launch failure, or a window past the kernels'
+    static bound, raises; nothing falls back.
   * on a CPU tensor it runs the plain twin ``manifold_reference``.
 
 Both follow mjtpu's jnp path operation by operation: the triangle order
@@ -25,7 +29,8 @@ multiply-add.  Selection: 4 rounds of argmin with near-duplicate
 suppression (|p - p_chosen|^2 < 1e-10 -> +inf); a round whose minimum is
 not finite gives dist = 1, pos = 0, normal = (0, 0, 1).
 
-``launches`` counts kernel launches (never twin calls).
+``launches`` counts kernel launches (never twin calls), and
+``variant_launches`` counts them by variant.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ import torch
 from mjtpu_torch._src.math import closest_segment_point, cross, dot3, normalize_with_norm
 from mjtpu_torch.ops import _build
 
-# kernel launches since import (CPU calls and twin calls do not count)
+# kernel launches since import (CPU calls and twin calls do not count),
+# in all and by variant
 launches = 0
+variant_launches = {"static": 0, "shared": 0}
 
 SOURCE = "hfield.cu"
 EXTRA_FLAGS = ("--fmad=false",)
@@ -46,10 +53,41 @@ EXTRA_FLAGS = ("--fmad=false",)
 MAX_HALF_CELLS = 8
 SMEM_LIMIT = _build.SMEM_LIMIT
 _MAX_WARPS_PER_BLOCK = 8
+# the subgrids (hy, hx) the static kernel is instantiated for
+# (csrc/hfield.cu's MJTPU_HFIELD_SUBGRIDS), and its threads a block
+STATIC_SUBGRIDS = ((2, 2),)
+STATIC_THREADS = 256
 
 
 def num_triangles(hy: int, hx: int) -> int:
   return 2 * (2 * hy + 1) * (2 * hx + 1)
+
+
+def variant(hy: int, hx: int) -> str:
+  """The kernel a subgrid takes: "static" when it is instantiated
+  (STATIC_SUBGRIDS), else "shared"."""
+  return "static" if (hy, hx) in STATIC_SUBGRIDS else "shared"
+
+
+def variants(hy: int, hx: int) -> tuple[str, ...]:
+  """The kernels that can run a subgrid: the shared one always, the static
+  one where it is instantiated."""
+  return ("static", "shared") if variant(hy, hx) == "static" else ("shared",)
+
+
+def launch_geometry(n: int, hy: int, hx: int, dtype: torch.dtype, kind: str | None = None):
+  """(variant, blocks, threads a block, instances a block) of one launch
+  over n instances, of ``kind`` or else of ``variant(hy, hx)``.  The static
+  kernel gives each triangle a thread and a block as many whole instances
+  as fit in its threads; the shared kernel puts one warp per instance and
+  as many warps in a block as its shared memory allows, up to 8."""
+  kind = kind or variant(hy, hx)
+  if kind == "static":
+    per_block, threads = STATIC_THREADS // num_triangles(hy, hx), STATIC_THREADS
+  else:
+    per_block = max(1, min(_MAX_WARPS_PER_BLOCK, SMEM_LIMIT // smem_per_warp(hy, hx, dtype)))
+    threads = 32 * per_block
+  return kind, -(-n // per_block), threads, per_block
 
 
 def smem_per_warp(hy: int, hx: int, dtype: torch.dtype) -> int:
@@ -176,10 +214,11 @@ def manifold_reference(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: f
 
 
 SIGNATURES = {
-    name: ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [real, real]
-           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
-    for name, real in (("mjtpu_hfield_manifold_f32", ctypes.c_float),
-                       ("mjtpu_hfield_manifold_f64", ctypes.c_double))
+    f"mjtpu_hfield_{kind}_{suffix}": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [real, real] + [ctypes.c_int]
+        + ([ctypes.c_int] if kind == "shared" else []) + [ctypes.c_void_p], ctypes.c_int)
+    for kind in ("static", "shared")
+    for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double))
 }
 
 
@@ -202,19 +241,23 @@ def _check(zwin, origin, a, b, r, hy: int, hx: int) -> None:
 
 
 def manifold_batch(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: float,
-                   has_axis: bool):
+                   has_axis: bool, *, kernel: str | None = None):
   """Batched surface manifold: zwin (n, R, C) local height windows
   (R = 2hy+2, C = 2hx+2), origin (n, 2) window (x0, y0), a/b (n, 3) object
   segment ends in the local frame (a == b for spheres), r (n,) radii.
-  Returns (dist (n, 4), pos (n, 4, 3), nrm (n, 4, 3)) in the local frame."""
+  Returns (dist (n, 4), pos (n, 4, 3), nrm (n, 4, 3)) in the local frame.
+  ``kernel`` names the variant to launch ("static" or "shared"; a test's
+  choice, to hold both to the twin); None takes ``variant(hy, hx)``."""
   global launches
   _check(zwin, origin, a, b, r, hy, hx)
+  kind = variant(hy, hx) if kernel is None else kernel
+  if kind not in variants(hy, hx):
+    raise ValueError(f"no {kind!r} hfield kernel for the subgrid ({hy}, {hx})")
   if zwin.device.type == "cpu":
     return manifold_reference(zwin, origin, a, b, r, hy, hx, dx, dy, has_axis)
   if zwin.device.type != "cuda":
     raise ValueError(f"manifold_batch runs on cuda or cpu, not {zwin.device}")
-  per_warp = smem_per_warp(hy, hx, zwin.dtype)
-  if max(hy, hx) > MAX_HALF_CELLS or per_warp > SMEM_LIMIT:
+  if max(hy, hx) > MAX_HALF_CELLS or smem_per_warp(hy, hx, zwin.dtype) > SMEM_LIMIT:
     raise ValueError(
         f"subgrid (hy, hx) = ({hy}, {hx}) exceeds the kernel's static bound"
         f" ({MAX_HALF_CELLS} half cells, {SMEM_LIMIT} bytes of shared memory a block)")
@@ -227,12 +270,14 @@ def manifold_batch(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: float
     return dist, pos, nrm
   args = [x.contiguous() for x in (zwin, origin, a, b, r)]
   lib = library()
-  warps = max(1, min(_MAX_WARPS_PER_BLOCK, SMEM_LIMIT // per_warp))
-  fn = lib.mjtpu_hfield_manifold_f64 if dtype == torch.float64 else lib.mjtpu_hfield_manifold_f32
+  per_block = launch_geometry(n, hy, hx, dtype, kind)[3]
+  fn = getattr(lib, f"mjtpu_hfield_{kind}_{'f64' if dtype == torch.float64 else 'f32'}")
   with torch.cuda.device(zwin.device):
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*(x.data_ptr() for x in args), dist.data_ptr(), pos.data_ptr(), nrm.data_ptr(),
-             n, hy, hx, float(dx), float(dy), int(has_axis), warps, stream)
-  _build.check_launch(lib, err, "hfield")
+    ptrs = [x.data_ptr() for x in args] + [dist.data_ptr(), pos.data_ptr(), nrm.data_ptr(), n,
+                                           hy, hx, float(dx), float(dy), int(has_axis)]
+    err = fn(*ptrs, stream) if kind == "static" else fn(*ptrs, per_block, stream)
+  _build.check_launch(lib, err, f"hfield ({kind})")
   launches += 1
+  variant_launches[kind] += 1
   return dist, pos, nrm

@@ -11,13 +11,17 @@ of two hulls, ``sat_winners_batch`` returns
   idx  (n, 4)  int32 [bf1, bf2, be1, be2], the edge pair re-selected by
                support along the winning axis
 
-  * on a CUDA tensor it launches the hand-written kernel in
-    ``mjtpu_torch/csrc/sat.cu`` (one warp per instance, the world hulls in
-    shared memory, the lanes striding over the ne1*ne2 edge-cross axes and
-    the faces, warp-shuffle argmax on (value, flat index)), built with nvcc
-    for sm_90a at first use and bound with ctypes (``ops._build``).  A
-    build or launch failure, or hulls whose tables do not fit a block's
-    shared memory (the kernel's static bound), raises; nothing falls back.
+  * on a CUDA tensor it launches a hand-written kernel in
+    ``mjtpu_torch/csrc/sat.cu``, built with nvcc for sm_90a at first use
+    and bound with ctypes (``ops._build``).  Which one is a size dispatch
+    (``variant``): hull pairs whose (nv, nf, ne) are both in
+    ``STATIC_HULLS`` (boxes and humanoid_terrain's rock hulls) take the
+    ``static`` kernel (sizes fixed at compile time, 16 lanes per instance,
+    world vertices and each lane's axes in registers); any other pair takes
+    the ``shared`` kernel (one warp per instance, the world hulls in shared
+    memory).  A build or launch failure, or hulls whose tables do not fit a
+    block's shared memory (the shared kernel's static bound), raises;
+    nothing falls back.
   * on a CPU tensor it runs the plain twin ``sat_winners_reference``.
 
 The algorithm, per instance, on world geometry (vertices w = pos + R v;
@@ -39,7 +43,8 @@ operations in the kernel's order (3-vector dots as x + y + z, no matmul),
 and the kernel is built with ``--fmad=false`` so that nvcc contracts no
 multiply-add: the two agree bit for bit.
 
-``launches`` counts kernel launches (never twin calls).
+``launches`` counts kernel launches (never twin calls), and
+``variant_launches`` counts them by variant.
 """
 
 from __future__ import annotations
@@ -53,13 +58,22 @@ import torch
 from mjtpu_torch._src.math import cross, dot3, mat_vec, norm3
 from mjtpu_torch.ops import _build
 
-# kernel launches since import (CPU calls and twin calls do not count)
+# kernel launches since import (CPU calls and twin calls do not count),
+# in all and by variant
 launches = 0
+variant_launches = {"static": 0, "shared": 0}
 
 SOURCE = "sat.cu"
 EXTRA_FLAGS = ("--fmad=false",)
 SMEM_LIMIT = _build.SMEM_LIMIT
 _MAX_WARPS_PER_BLOCK = 8
+# the hull sizes (nv, nf, ne) the static kernel is instantiated for, in
+# either place of a pair (csrc/sat.cu's MJTPU_SAT_HULLS): a box and
+# humanoid_terrain's 6-vertex rock
+STATIC_HULLS = ((8, 6, 12), (6, 8, 12))
+# the static kernel's launch: 16 lanes per instance, 128 threads a block
+STATIC_LANES = 16
+STATIC_THREADS = 128
 
 
 class SatHull(NamedTuple):
@@ -80,6 +94,39 @@ def sat_hull(hull, dtype: torch.dtype, device) -> SatHull:
   return SatHull(f(hull.vert), f(hull.face_normal), i(np.asarray(hull.face)[:, 0]), i(hull.edge))
 
 
+def hull_sizes(h: SatHull) -> tuple[int, int, int]:
+  """(nv, nf, ne) of a hull's tables."""
+  return h.vert.shape[0], h.face_normal.shape[0], h.edge.shape[0]
+
+
+def variant(h1: SatHull, h2: SatHull) -> str:
+  """The kernel a hull pair takes: "static" when both hulls' sizes are
+  instantiated (STATIC_HULLS), else "shared"."""
+  return "static" if {hull_sizes(h1), hull_sizes(h2)} <= set(STATIC_HULLS) else "shared"
+
+
+def variants(h1: SatHull, h2: SatHull) -> tuple[str, ...]:
+  """The kernels that can run a hull pair: the shared one always, the
+  static one where both sizes are instantiated."""
+  return ("static", "shared") if variant(h1, h2) == "static" else ("shared",)
+
+
+def launch_geometry(n: int, h1: SatHull, h2: SatHull, dtype: torch.dtype,
+                    kind: str | None = None):
+  """(variant, blocks, threads a block, instances a block) of one launch
+  over n instances, of ``kind`` or else of ``variant(h1, h2)``.  The static
+  kernel puts 16 lanes on an instance; the shared kernel puts one warp per
+  instance and as many warps in a block as its shared memory allows, up to
+  8."""
+  kind = kind or variant(h1, h2)
+  if kind == "static":
+    per_block, threads = STATIC_THREADS // STATIC_LANES, STATIC_THREADS
+  else:
+    per_block = max(1, min(_MAX_WARPS_PER_BLOCK, SMEM_LIMIT // smem_per_warp(h1, h2, dtype)))
+    threads = 32 * per_block
+  return kind, -(-n // per_block), threads, per_block
+
+
 def smem_per_warp(h1: SatHull, h2: SatHull, dtype: torch.dtype) -> int:
   """Shared memory one warp's instance takes: both hulls' world vertices,
   face normals, face offsets, edge directions and midpoints.  The kernel's
@@ -96,11 +143,14 @@ def smem_per_warp(h1: SatHull, h2: SatHull, dtype: torch.dtype) -> int:
 
 def centroid(w: torch.Tensor) -> torch.Tensor:
   """The mean of the points w (..., nv, 3), summed in vertex order (the
-  kernel's order on every device)."""
+  kernel's order on every device) and divided by nv.  The divisor is a
+  tensor on w's device: on the card torch multiplies by the reciprocal of a
+  Python-number divisor, which differs from the division (the kernel's, and
+  mjtpu's) where nv is not a power of two."""
   c = w[..., 0, :]
   for v in range(1, w.shape[-2]):
     c = c + w[..., v, :]
-  return c / w.shape[-2]
+  return c / torch.full((), w.shape[-2], dtype=c.dtype, device=c.device)
 
 
 def _argmax(x: torch.Tensor) -> torch.Tensor:
@@ -174,8 +224,10 @@ def sat_winners_reference(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull):
 
 
 SIGNATURES = {
-    name: ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
-    for name in ("mjtpu_sat_winners_f32", "mjtpu_sat_winners_f64")
+    **{name: ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
+       for name in ("mjtpu_sat_shared_f32", "mjtpu_sat_shared_f64")},
+    **{name: ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)
+       for name in ("mjtpu_sat_static_f32", "mjtpu_sat_static_f64")},
 }
 
 
@@ -206,23 +258,30 @@ def _check(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull) -> None:
     raise ValueError("sat_winners_batch takes tensors on one device")
 
 
-def sat_winners_batch(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull):
+def sat_winners_batch(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull, *,
+                      kernel: str | None = None):
   """Batched SAT winners: pos (n, 3), mat (n, 3, 3) per hull ->
-  (seps (n, 3), idx (n, 4) int32); see the module docstring."""
+  (seps (n, 3), idx (n, 4) int32); see the module docstring.  ``kernel``
+  names the variant to launch ("static" or "shared"; a test's choice, to
+  hold both to the twin); None takes ``variant(h1, h2)``."""
   global launches
   _check(pos1, mat1, pos2, mat2, h1, h2)
+  kind = variant(h1, h2) if kernel is None else kernel
+  if kind not in variants(h1, h2):
+    raise ValueError(f"no {kind!r} sat kernel for hulls of (nv, nf, ne)"
+                     f" {[hull_sizes(h1), hull_sizes(h2)]}")
   if pos1.device.type == "cpu":
     return sat_winners_reference(pos1, mat1, pos2, mat2, h1, h2)
   if pos1.device.type != "cuda":
     raise ValueError(f"sat_winners_batch runs on cuda or cpu, not {pos1.device}")
   dtype = pos1.dtype
-  per_warp = smem_per_warp(h1, h2, dtype)
-  sizes = [(h.vert.shape[0], h.face_normal.shape[0], h.edge.shape[0]) for h in (h1, h2)]
-  if per_warp > SMEM_LIMIT:
-    raise ValueError(
-        f"hulls of (nv, nf, ne) {sizes} need {per_warp} bytes of shared memory, past the"
-        f" kernel's static bound of {SMEM_LIMIT} a block")
+  sizes = (hull_sizes(h1), hull_sizes(h2))
   n = pos1.shape[0]
+  per_block = launch_geometry(n, h1, h2, dtype, kind)[3]
+  if kind == "shared" and smem_per_warp(h1, h2, dtype) > SMEM_LIMIT:
+    raise ValueError(
+        f"hulls of (nv, nf, ne) {list(sizes)} need {smem_per_warp(h1, h2, dtype)} bytes of shared"
+        f" memory, past the kernel's static bound of {SMEM_LIMIT} a block")
   seps = torch.empty((n, 3), dtype=dtype, device=pos1.device)
   idx = torch.empty((n, 4), dtype=torch.int32, device=pos1.device)
   if n == 0:
@@ -230,12 +289,16 @@ def sat_winners_batch(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull):
   # contiguous copies where needed, kept alive through the launch
   args = [x.contiguous() for x in (pos1, mat1, pos2, mat2, *h1, *h2)]
   lib = library()
-  warps = max(1, min(_MAX_WARPS_PER_BLOCK, SMEM_LIMIT // per_warp))
-  fn = lib.mjtpu_sat_winners_f64 if dtype == torch.float64 else lib.mjtpu_sat_winners_f32
+  suffix = "f64" if dtype == torch.float64 else "f32"
   with torch.cuda.device(pos1.device):
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*(x.data_ptr() for x in args), seps.data_ptr(), idx.data_ptr(), n, *sizes[0],
-             *sizes[1], warps, stream)
-  _build.check_launch(lib, err, "sat")
+    ptrs = [x.data_ptr() for x in args] + [seps.data_ptr(), idx.data_ptr(), n, *sizes[0],
+                                           *sizes[1]]
+    if kind == "static":
+      err = getattr(lib, f"mjtpu_sat_static_{suffix}")(*ptrs, stream)
+    else:
+      err = getattr(lib, f"mjtpu_sat_shared_{suffix}")(*ptrs, per_block, stream)
+  _build.check_launch(lib, err, f"sat ({kind})")
   launches += 1
+  variant_launches[kind] += 1
   return seps, idx

@@ -19,6 +19,9 @@ On a CPU tensor the wrapper runs the twin and counts no kernel launch; the
 kernel itself is held to the twin on the card (tests_cuda/,
 chip_smoke.py)."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,6 +118,33 @@ def test_wrapper_runs_twin_on_cpu():
     hfield.manifold_batch(*args, 1, 2, DX, DY, True)
   with pytest.raises(TypeError):
     hfield.manifold_batch(args[0].float(), *args[1:], 2, 2, DX, DY, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_size_dispatch_and_launch_geometry(dtype):
+  """(2, 2), humanoid_terrain's subgrid, takes the static kernel (a thread
+  a triangle: 5 instances of 50 triangles a 256-thread block); every other
+  subgrid up to mjtpu's cap takes the shared one (a warp an instance, up to
+  8 a block, fewer where one warp's shared memory is large).  The static
+  subgrids are the ones csrc/hfield.cu instantiates."""
+  assert hfield.variant(2, 2) == "static" and hfield.variants(2, 2) == ("static", "shared")
+  assert hfield.launch_geometry(49152, 2, 2, dtype) == ("static", 9831, 256, 5)
+  assert hfield.launch_geometry(1, 2, 2, dtype) == ("static", 1, 256, 5)
+  for hy, hx in ((0, 0), (1, 1), (2, 3), (8, 8)):
+    assert hfield.variant(hy, hx) == "shared" and hfield.variants(hy, hx) == ("shared",)
+    per = min(8, hfield.SMEM_LIMIT // hfield.smem_per_warp(hy, hx, dtype))
+    assert hfield.launch_geometry(130, hy, hx, dtype) == ("shared", -(-130 // per), 32 * per, per)
+  # (8, 8) at f64: 34,960 bytes a warp, so 6 warps a block
+  assert hfield.launch_geometry(130, 8, 8, torch.float64)[3] == 6
+  assert hfield.launch_geometry(130, 2, 2, dtype, "shared") == ("shared", 17, 256, 8)
+  src = (pathlib.Path(hfield.__file__).parent.parent / "csrc" / hfield.SOURCE).read_text()
+  grids = re.search(r"#define MJTPU_HFIELD_SUBGRIDS\(X\) (.*)", src).group(1)
+  assert tuple(tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+)\)", grids)) \
+      == hfield.STATIC_SUBGRIDS
+  # a variant that cannot run a subgrid is refused before any device check
+  args = [torch.as_tensor(x, dtype=dtype) for x in _inputs(1, 1, True, False, n=3)]
+  with pytest.raises(ValueError):
+    hfield.manifold_batch(*args, 1, 1, DX, DY, True, kernel="static")
 
 
 def test_empty_rounds_and_suppression():

@@ -20,6 +20,9 @@ the twin and counts no kernel launch; the kernel itself is held to the
 twin on the card (tests_cuda/, chip_smoke.py).
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,6 +135,51 @@ def test_wrapper_runs_twin_on_cpu():
     sat.sat_winners_batch(*(p.float() for p in poses), *hulls)
   with pytest.raises(ValueError):
     sat.sat_winners_batch(poses[0][:3], *poses[1:], *hulls)
+
+
+def _house():
+  """A box with a pyramid roof: (nv, nf, ne) = (9, 9, 16), just past the
+  static kernel's sizes."""
+  corners = [[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)]
+  return t_mesh.convex(np.array(corners + [[0.0, 0.0, 0.2]]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_size_dispatch_and_launch_geometry(dtype):
+  """Boxes and rock hulls, in either place, take the static kernel (16
+  lanes an instance, 8 instances a 128-thread block); a hull past their
+  sizes takes the shared one (a warp an instance, up to 8 a block, fewer
+  where one warp's shared memory is large), and one too large for a block
+  still raises on the card (tests_cuda).  The static sizes are the ones
+  csrc/sat.cu instantiates."""
+  box = sat.sat_hull(t_mesh.box(np.array(SIZES["box_unequal"])), dtype, "cpu")
+  rock = sat.sat_hull(_rock(), dtype, "cpu")
+  house = sat.sat_hull(_house(), dtype, "cpu")
+  assert sat.hull_sizes(box) == (8, 6, 12) and sat.hull_sizes(rock) == (6, 8, 12)
+  assert sat.hull_sizes(house) == (9, 9, 16)
+  for h1, h2 in ((box, box), (box, rock), (rock, box), (rock, rock)):
+    assert sat.variant(h1, h2) == "static" and sat.variants(h1, h2) == ("static", "shared")
+    assert sat.launch_geometry(491520, h1, h2, dtype) == ("static", 61440, 128, 8)
+    assert sat.launch_geometry(130, h1, h2, dtype) == ("static", 17, 128, 8)
+  for h1, h2 in ((box, house), (house, rock)):
+    assert sat.variant(h1, h2) == "shared" and sat.variants(h1, h2) == ("shared",)
+    assert sat.launch_geometry(130, h1, h2, dtype) == ("shared", 17, 256, 8)
+  # the shared kernel's block shrinks to what its shared memory allows
+  big = sat.SatHull(torch.zeros(4000, 3, dtype=dtype), *box[1:])
+  per = sat.SMEM_LIMIT // sat.smem_per_warp(big, box, dtype)
+  assert 1 <= per < 8
+  assert sat.launch_geometry(130, big, box, dtype) == ("shared", -(-130 // per), 32 * per, per)
+  assert sat.launch_geometry(130, box, box, dtype, "shared") == ("shared", 17, 256, 8)
+  src = (pathlib.Path(sat.__file__).parent.parent / "csrc" / sat.SOURCE).read_text()
+  hulls = re.search(r"#define MJTPU_SAT_HULLS\(X\) (.*)", src).group(1)
+  assert tuple(tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", hulls)) \
+      == sat.STATIC_HULLS
+  # a variant that cannot run a pair is refused before any device check
+  poses = [torch.as_tensor(x, dtype=dtype) for x in _random_poses(4, 3, 0.05)]
+  with pytest.raises(ValueError):
+    sat.sat_winners_batch(*poses, box, house, kernel="static")
+  got = sat.sat_winners_batch(*poses, box, rock, kernel="shared")  # the twin on the CPU
+  assert all(torch.equal(g, w) for g, w in zip(got, sat.sat_winners_reference(*poses, box, rock)))
 
 
 def _axis_mat(axis, angle):

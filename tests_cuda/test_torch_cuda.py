@@ -97,6 +97,38 @@ def test_hfield_kernel_matches_twin(flat, has_axis, hy, hx, dtype):
     assert torch.equal(g, w)
 
 
+_bits = chip_smoke._bits
+
+
+def _bit_diff(got, want) -> str:
+  """Where got and want differ in bits: the count, whether they differ in
+  value too, and the first few entries (index, got, want)."""
+  diff = (_bits(got) != _bits(want)).nonzero().tolist()
+  first = [(i, float(got[tuple(i)]), float(want[tuple(i)])) for i in diff[:4]]
+  return (f"{len(diff)} entries differ in bits, values equal: {torch.equal(got, want)};"
+          f" first (index, got, want): {first}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hy, hx", [(1, 1), (2, 2), (2, 3)])
+@pytest.mark.parametrize("has_axis", [False, True], ids=["sphere", "capsule"])
+def test_hfield_variants_match_twin_bit_for_bit(has_axis, hy, hx, dtype):
+  """At the size dispatch's boundary: (2, 2) takes the static kernel, its
+  neighbours (1, 1) and (2, 3) the shared one; every variant that can run
+  a subgrid equals the twin bit for bit, on random and flat windows."""
+  assert hfield.variant(hy, hx) == ("static" if (hy, hx) == (2, 2) else "shared")
+  for flat in (False, True):
+    args = _windows(2000, hy, hx, has_axis, dtype, flat, seed=hy + 3 * hx)
+    want = hfield.manifold_reference(*args, hy, hx, 0.37, 0.29, has_axis)
+    for kind in hfield.variants(hy, hx):
+      before = dict(hfield.variant_launches)
+      got = hfield.manifold_batch(*args, hy, hx, 0.37, 0.29, has_axis, kernel=kind)
+      torch.cuda.synchronize()
+      assert hfield.variant_launches == {**before, kind: before[kind] + 1}
+      for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)), (kind, flat, _bit_diff(g, w))
+
+
 def test_hfield_refusals():
   args = _windows(4, 9, 9, True, torch.float64)
   with pytest.raises(ValueError):  # past the kernel's static bound
@@ -104,6 +136,9 @@ def test_hfield_refusals():
   args = _windows(4, 2, 2, True, torch.float64)
   with pytest.raises(ValueError):  # mixed devices
     hfield.manifold_batch(args[0], args[1].cpu(), *args[2:], 2, 2, 0.37, 0.29, True)
+  args = _windows(4, 1, 1, True, torch.float64)
+  with pytest.raises(ValueError):  # no static kernel for (1, 1)
+    hfield.manifold_batch(*args, 1, 1, 0.37, 0.29, True, kernel="static")
 
 
 def _rot(n, dtype, gen):
@@ -157,6 +192,45 @@ def test_sat_kernel_matches_twin(n, kind, dtype):
   assert torch.equal(idx, want_idx) and torch.equal(seps, want_seps)
 
 
+def _house():
+  """A box with a pyramid roof: (nv, nf, ne) = (9, 9, 16), just past the
+  static kernel's sizes."""
+  corners = [[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)]
+  return mesh.convex(np.array(corners + [[0.0, 0.0, 0.2]]))
+
+
+SAT_PAIRS = {
+    "box-box": lambda: (mesh.box(np.array([0.1, 0.15, 0.2])),
+                        mesh.box(np.array([0.12, 0.1, 0.08]))),
+    "box-rock": lambda: (mesh.box(np.array([0.1, 0.15, 0.2])), chip_smoke._rock_hull()),
+    "rock-box": lambda: (chip_smoke._rock_hull(), mesh.box(np.array([0.1, 0.15, 0.2]))),
+    "box-house": lambda: (mesh.box(np.array([0.1, 0.15, 0.2])), _house()),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pair", list(SAT_PAIRS))
+def test_sat_variants_match_twin_bit_for_bit(pair, dtype):
+  """At the size dispatch's boundary: boxes and rock hulls take the static
+  kernel, a hull just past their sizes the shared one; every variant that
+  can run a pair equals the twin bit for bit on random, aligned and
+  stacked poses."""
+  h1, h2 = SAT_PAIRS[pair]()
+  hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
+  assert sat.variant(*hulls) == ("shared" if pair == "box-house" else "static")
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  for poses_kind in ("random", "aligned", "stacked"):
+    poses = chip_smoke._sat_poses(poses_kind, 3000, h1, h2, dtype, gen)
+    want = sat.sat_winners_reference(*poses, *hulls)
+    for kind in sat.variants(*hulls):
+      before = dict(sat.variant_launches)
+      got = sat.sat_winners_batch(*poses, *hulls, kernel=kind)
+      torch.cuda.synchronize()
+      assert sat.variant_launches == {**before, kind: before[kind] + 1}
+      for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)), (kind, poses_kind, _bit_diff(g, w))
+
+
 def test_sat_refusals():
   poses = _sat_poses("random", 8, torch.float64)
   hulls = _box_hulls(torch.float64)
@@ -170,6 +244,9 @@ def test_sat_refusals():
     sat.sat_winners_batch(poses[0].cpu(), *poses[1:], *hulls)
   with pytest.raises(TypeError):  # mixed dtypes
     sat.sat_winners_batch(poses[0].float(), *poses[1:], *hulls)
+  house = sat.sat_hull(_house(), torch.float64, "cuda")
+  with pytest.raises(ValueError):  # no static kernel for the house's sizes
+    sat.sat_winners_batch(*poses, hulls[0], house, kernel="static")
   assert sat.launches == before
 
 
