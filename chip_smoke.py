@@ -11,9 +11,12 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 6, 27, 40; B in 1, 130, 4096; f32 and f64) and a batch whose
-     pivots hit the floor; times at n=27, B=4096 beside
-     torch.cholesky_solve(torch.linalg.cholesky_ex).
+     (n in 1, 6, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and f64) and
+     batches whose pivots hit the floor; every variant that can run an n
+     (the register kernel at n=23 and 27, the shared one everywhere)
+     within the tolerance of the twin, and the two equal bit for bit;
+     times of both at n=27 and n=23 (bench's and terrain's shapes),
+     B=4096, beside torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
      and f64; random windows and a flat one; every variant that can run a
@@ -50,8 +53,9 @@ failure raises and the script exits non-zero:
      dofs, a forced serial chain (nv = depth = 40) and a seeded random
      tree of 100 dofs; B in 1, 130, 4096; f32 and f64; chain-pattern
      matrices L^T D L and a batch with massless dofs, whose pivots hit the
-     MINVAL floor; results equal bit for bit.  Times on the 66-dof tree at
-     B=4096, f32, beside torch.linalg.cholesky_ex / torch.cholesky_solve
+     MINVAL floor; both variants (lanes and shared) equal to the twin bit
+     for bit.  Times of both on the 66-dof tree at B=4096, f32, beside
+     torch.linalg.cholesky_ex / torch.cholesky_solve
      on the dense (B, 66, 66) matrix (context only: dense, no floor; the
      kernels line gives it as context_ms, its library_ms is null).
  13. branchy66 parity: f64, B=4, 100 steps from the committed golden's
@@ -61,9 +65,10 @@ failure raises and the script exits non-zero:
      and timed steps; B2's share of step time; launches per step.
 
 The main paths are phases 6, 8, 11 and 14: each kernel's launch count is
-set to 0 just before each and read just after (B3's and B4's by variant
-too: the main paths must run their static kernels only).  The last two
-lines are the kernel record and {"ok": true, ...}.
+set to 0 just before each and read just after, by variant too: the main
+paths must run the redesigned variants only (NEW_VARIANT: B1 register, B2
+lanes, B3 and B4 static).  The last two lines are the kernel record and
+{"ok": true, ...}.
 
     python3 chip_smoke.py --kernels
 
@@ -106,13 +111,19 @@ BRANCHY_BOUND = 1e-8  # tests/test_torch_branchy.py's TRAJECTORY_BOUND
 BRANCHY_WARMUP = 3
 BRANCHY_TIMED = 20
 LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
+# phase 3's sizes: the main paths' n (23, 27), which both variants run, and
+# n that only the shared kernel runs (32 and 33 on either side of its rows'
+# striding over the lanes)
+CHOL_NS = (1, 6, 23, 27, 32, 33, 40)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
 PLAIN_REPS = 20
-# the main paths' launches of B3 and B4, by variant
-VARIANT_LAUNCHES = {"hfield_manifold": {"static": 0, "shared": 0},
-                    "sat_winners": {"static": 0, "shared": 0}}
+# the variant each kernel's main paths must run (the redesigned one), and
+# the main paths' launches by kernel and variant
+NEW_VARIANT = {"chol_solve": "register", "hfield_manifold": "static", "sat_winners": "static",
+               **dict.fromkeys(LDL_ENTRIES, "lanes")}
+VARIANT_LAUNCHES = {}
 TIMING = f"(device time per call over {KERNEL_REPS} back-to-back calls, {PLAIN_REPS} for twins)"
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # non-tensor-core FLOP/s per type
@@ -255,52 +266,77 @@ def phase_cholesky():
 
   gen = torch.Generator(device="cuda").manual_seed(0)
   tol = {torch.float32: 1e-4, torch.float64: 1e-10}
-  worst = {}
+  worst, checked, same_bits, main_abs_err = {}, {}, 0, None
   for dtype in (torch.float32, torch.float64):
-    for n in (1, 6, 27, 40):
+    for n in CHOL_NS:
       for batch in (1, 130, 4096):
         for clamp in (False, True):
           mat, rhs = _spd(n, batch, dtype, gen, clamp)
-          x = cholesky.cholesky_solve(mat, rhs)
           ref = cholesky.chol_solve_reference(mat, rhs)
-          torch.cuda.synchronize()
-          if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"kernel output not finite: n={n} B={batch} {dtype}")
-          err = float((x - ref).abs().max())
-          rel = err / max(float(ref.abs().max()), 1e-300)
-          # floored pivots make f64 solutions ~1e15 and ill-conditioned
-          limit = 1e-6 if clamp and dtype == torch.float64 else tol[dtype]
-          if rel > limit:
-            raise AssertionError(_mismatch(
-                f"kernel vs twin: n={n} B={batch} {dtype} clamp={clamp}: rel {rel:.3e} > {limit}",
-                x, ref, lambda: cholesky.cholesky_solve(mat, rhs),
-                lambda: cholesky.chol_solve_reference(mat, rhs),
-                lambda: cholesky.chol_solve_reference(mat.double().cpu(), rhs.double().cpu())))
-          key = (dtype, clamp)
-          worst[key] = max(worst.get(key, 0.0), rel)
-          if n == 27 and batch == BENCH_BATCH and not clamp and dtype == torch.float32:
-            main_abs_err = err
+          got = {}
+          for kind in cholesky.variants(n, dtype):
+            run = lambda kind=kind: cholesky.cholesky_solve(mat, rhs, kernel=kind)
+            got[kind] = x = run()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(x).all()):
+              raise AssertionError(f"{kind} kernel output not finite: n={n} B={batch} {dtype}")
+            err = float((x - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-300)
+            # floored pivots make f64 solutions ~1e15 and ill-conditioned
+            limit = 1e-6 if clamp and dtype == torch.float64 else tol[dtype]
+            if rel > limit:
+              raise AssertionError(_mismatch(
+                  f"{kind} kernel vs twin: n={n} B={batch} {dtype} clamp={clamp}: rel"
+                  f" {rel:.3e} > {limit}", x, ref, run,
+                  lambda: cholesky.chol_solve_reference(mat, rhs),
+                  lambda: cholesky.chol_solve_reference(mat.double().cpu(), rhs.double().cpu())))
+            key = (dtype, clamp)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            checked[kind] = checked.get(kind, 0) + batch
+            if (n, batch, clamp, dtype, kind) == (27, BENCH_BATCH, False, torch.float32,
+                                                  "register"):
+              main_abs_err = err
+          if len(got) == 2:
+            # the two kernels do the same operations in the same order
+            if not torch.equal(_bits(got["register"]), _bits(got["shared"])):
+              raise AssertionError(_mismatch(
+                  f"register vs shared kernel: n={n} B={batch} {dtype} clamp={clamp}:"
+                  f" {int((_bits(got['register']) != _bits(got['shared'])).sum())} entries"
+                  f" differ in bits", got["register"], got["shared"],
+                  lambda: cholesky.cholesky_solve(mat, rhs, kernel="register"),
+                  lambda: cholesky.cholesky_solve(mat, rhs, kernel="shared")))
+            same_bits += batch
   for (dtype, clamp), rel in sorted(worst.items(), key=str):
     log(f"[cholesky] max rel err vs twin, {str(dtype)[6:]}, {'clamped pivots' if clamp else 'SPD'}:"
         f" {rel:.3e}")
+  log(f"[cholesky] n in {CHOL_NS} x B in 1, 130, {BENCH_BATCH} x SPD, clamped x f32, f64: envs"
+      f" by variant {checked}; register == shared bit for bit in {same_bits} envs")
 
-  times = {}
-  for dtype in (torch.float32, torch.float64):
-    mat, rhs = _spd(27, BENCH_BATCH, dtype, gen)
-    # plain, kernel, kernel, plain: compare within one call
-    p1 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs), PLAIN_REPS)
-    k1 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
-    k2 = cuda_ms(lambda: cholesky.cholesky_solve(mat, rhs))
-    p2 = cuda_ms(lambda: cholesky.chol_solve_reference(mat, rhs), PLAIN_REPS)
-    # one PyTorch call pair for the same solve (no pivot floor): context only
-    lib = cuda_ms(lambda: torch.cholesky_solve(
-        rhs[..., None], torch.linalg.cholesky_ex(mat).L)[..., 0], PLAIN_REPS)
-    b_ms, b_by = bound(*_chol_work(27, BENCH_BATCH, mat.element_size()), dtype)
-    times[dtype] = (min(k1, k2), min(p1, p2), lib, b_ms, b_by)
-    log(f"[cholesky] n=27 B={BENCH_BATCH} {str(dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms,"
-        f" plain twin {p1:.4f} / {p2:.4f} ms, torch.cholesky_solve(cholesky_ex) {lib:.4f} ms,"
-        f" bound {b_ms:.5f} ms ({b_by}) {TIMING}")
-  return main_abs_err, times[torch.float32]
+  times, variant_ms = {}, {}
+  for n in (27, 23):
+    for dtype in (torch.float32, torch.float64):
+      mat, rhs = _spd(n, BENCH_BATCH, dtype, gen)
+      run = {kind: (lambda kind=kind: cholesky.cholesky_solve(mat, rhs, kernel=kind))
+             for kind in cholesky.variants(n, dtype)}
+      run_p = lambda: cholesky.chol_solve_reference(mat, rhs)
+      # plain, register, shared, shared, register, plain: compare within one call
+      p1, r1, s1 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run["register"]), cuda_ms(run["shared"])
+      s2, r2, p2 = cuda_ms(run["shared"]), cuda_ms(run["register"]), cuda_ms(run_p, PLAIN_REPS)
+      # one PyTorch call pair for the same solve (no pivot floor): context only
+      lib = cuda_ms(lambda: torch.cholesky_solve(
+          rhs[..., None], torch.linalg.cholesky_ex(mat).L)[..., 0], PLAIN_REPS)
+      b_ms, b_by = bound(*_chol_work(n, BENCH_BATCH, mat.element_size()), dtype)
+      times[n, dtype] = (min(r1, r2), min(p1, p2), lib, b_ms, b_by)
+      variant_ms[n, dtype] = {"register": min(r1, r2), "shared": min(s1, s2)}
+      log(f"[cholesky] n={n} B={BENCH_BATCH} {str(dtype)[6:]}: register kernel {r1:.4f} /"
+          f" {r2:.4f} ms, shared kernel {s1:.4f} / {s2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms,"
+          f" torch.cholesky_solve(cholesky_ex) {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+          f" {TIMING}")
+  f32 = torch.float32
+  shapes = {f"n={n}": {"ms": times[n, f32][0], "plain_ms": times[n, f32][1],
+                       "library_ms": times[n, f32][2], "bound_ms": times[n, f32][3],
+                       "variant_ms": variant_ms[n, f32]} for n in (27, 23)}
+  return main_abs_err, times[27, f32], variant_ms[27, f32], shapes
 
 
 def _windows(n, hy, hx, has_axis, dtype, gen, flat=False):
@@ -601,15 +637,17 @@ def chain_pattern_batch(t, batch, dtype, gen, massless=False):
 def ldl_calls() -> dict:
   """B2's entry points: name -> (kernel, twin), each called as f(t, Mc,
   rhs, S) with the tables t, compact matrices Mc, right-hand sides rhs
-  and the compact factors S of Mc."""
+  and the compact factors S of Mc; the kernel takes a fifth argument, the
+  variant to launch (None: the wrapper's dispatch)."""
   from mjtpu_torch.ops import ldl
 
   return {
-      "ldl_factor": (lambda t, mc, rhs, S: ldl.ldl_factor(t, mc),
+      "ldl_factor": (lambda t, mc, rhs, S, kind=None: ldl.ldl_factor(t, mc, kernel=kind),
                      lambda t, mc, rhs, S: ldl.ldl_factor_reference(t, mc)),
-      "ldl_solve": (lambda t, mc, rhs, S: ldl.ldl_solve(t, S, rhs),
+      "ldl_solve": (lambda t, mc, rhs, S, kind=None: ldl.ldl_solve(t, S, rhs, kernel=kind),
                     lambda t, mc, rhs, S: ldl.ldl_solve_reference(t, S, rhs)),
-      "ldl_factor_solve": (lambda t, mc, rhs, S: ldl.ldl_factor_solve(t, mc, rhs),
+      "ldl_factor_solve": (lambda t, mc, rhs, S, kind=None: ldl.ldl_factor_solve(
+                               t, mc, rhs, kernel=kind),
                            lambda t, mc, rhs, S: ldl.ldl_factor_solve_reference(t, mc, rhs)),
   }
 
@@ -643,7 +681,7 @@ def phase_ldl():
 
   gen = torch.Generator(device="cuda").manual_seed(3)
   calls = ldl_calls()
-  checked, floored, main_err = 0, 0, {}
+  checked, floored, main_err = {}, 0, {}
   for name, parent in ldl_trees().items():
     s = sparse._build(len(parent), parent)
     for dtype in (torch.float32, torch.float64):
@@ -653,24 +691,27 @@ def phase_ldl():
         S = ldl.ldl_factor_reference(t, mc)
         floored += int((S[:, :, -1] == sparse.MINVAL).sum())
         for entry, (kernel, twin) in calls.items():
-          got, want = kernel(t, mc, rhs, S), twin(t, mc, rhs, S)
-          torch.cuda.synchronize()
-          # equal bit for bit, NaN in the same places
-          same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
-              got.nan_to_num(), want.nan_to_num())
-          if not same:
-            raise AssertionError(_mismatch(
-                f"ldl kernel vs twin: {entry} {name} B={batch} {dtype} massless={massless}"
-                f" differ ({int((got != want).sum())} entries)", got.double().nan_to_num(),
-                want.double().nan_to_num(),
-                lambda: kernel(t, mc, rhs, S).double().nan_to_num(),
-                lambda: twin(t, mc, rhs, S).double().nan_to_num()))
-          checked += got.numel()
-          if (name, batch, dtype, massless) == ("branchy66", 4096, torch.float32, False):
-            main_err[entry] = float((got - want).abs().max())
-  log(f"[ldl] kernel == twin (bit for bit) in every case: {checked} output entries over the"
-      f" three entry points x trees branchy66, branchy38, chain40 (depth 40), random100 x B in"
-      f" 1, 130, 4096 and a massless batch x f32, f64; {floored} pivots at the MINVAL floor")
+          want = twin(t, mc, rhs, S)
+          for kind in ldl.variants(t, dtype):
+            run = lambda: kernel(t, mc, rhs, S, kind)
+            got = run()
+            torch.cuda.synchronize()
+            # equal bit for bit (a -0 differs from a +0; NaN in the same places)
+            if not torch.equal(_bits(got), _bits(want)):
+              raise AssertionError(_mismatch(
+                  f"ldl {kind} kernel vs twin: {entry} {name} B={batch} {dtype}"
+                  f" massless={massless}: {int((_bits(got) != _bits(want)).sum())} entries"
+                  f" differ in bits", got.double().nan_to_num(), want.double().nan_to_num(),
+                  lambda: run().double().nan_to_num(),
+                  lambda: twin(t, mc, rhs, S).double().nan_to_num()))
+            checked[kind] = checked.get(kind, 0) + got.numel()
+            if (name, batch, dtype, massless, kind) == ("branchy66", 4096, torch.float32,
+                                                        False, "lanes"):
+              main_err[entry] = float((got - want).abs().max())
+  log(f"[ldl] kernel == twin bit for bit in every case: the three entry points x trees"
+      f" branchy66, branchy38, chain40 (depth 40), random100 x B in 1, 130, 4096 and a massless"
+      f" batch x f32, f64; output entries by variant {checked}; {floored} pivots at the MINVAL"
+      f" floor")
 
   dtype = torch.float32
   s = sparse._build(66, ldl_trees()["branchy66"])
@@ -687,18 +728,22 @@ def phase_ldl():
       "ldl_factor_solve": lambda: torch.cholesky_solve(rhs[..., None],
                                                        torch.linalg.cholesky_ex(M).L),
   }
-  times, context = {}, {}
+  times, context, variant_ms = {}, {}, {}
   for entry, (kernel, twin) in calls.items():
-    run_k, run_p = lambda: kernel(t, mc, rhs, S), lambda: twin(t, mc, rhs, S)
-    p1, k1, k2 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run_k), cuda_ms(run_k)
-    p2 = cuda_ms(run_p, PLAIN_REPS)
+    run = {kind: (lambda kind=kind: kernel(t, mc, rhs, S, kind)) for kind in ldl.variants(t, dtype)}
+    run_p = lambda: twin(t, mc, rhs, S)
+    # plain, lanes, shared, shared, lanes, plain: compare within one call
+    p1, k1, s1 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run["lanes"]), cuda_ms(run["shared"])
+    s2, k2, p2 = cuda_ms(run["shared"]), cuda_ms(run["lanes"]), cuda_ms(run_p, PLAIN_REPS)
     context[entry] = lib = cuda_ms(dense[entry], PLAIN_REPS)
     b_ms, b_by = bound(*_ldl_work(s, BENCH_BATCH, 4, entry), dtype)
     times[entry] = (min(k1, k2), min(p1, p2), None, b_ms, b_by)
-    log(f"[ldl] {entry} branchy66 B={BENCH_BATCH} f32: kernel {k1:.4f} / {k2:.4f} ms, plain twin"
-        f" {p1:.4f} / {p2:.4f} ms, dense torch.linalg.cholesky_ex / cholesky_solve {lib:.4f} ms"
-        f" (context only), bound {b_ms:.5f} ms ({b_by}) {TIMING}")
-  return main_err, times, context
+    variant_ms[entry] = {"lanes": min(k1, k2), "shared": min(s1, s2)}
+    log(f"[ldl] {entry} branchy66 B={BENCH_BATCH} f32: lanes kernel {k1:.4f} / {k2:.4f} ms,"
+        f" shared kernel {s1:.4f} / {s2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms, dense"
+        f" torch.linalg.cholesky_ex / cholesky_solve {lib:.4f} ms (context only), bound"
+        f" {b_ms:.5f} ms ({b_by}) {TIMING}")
+  return main_err, times, context, variant_ms
 
 
 def _golden_run(m, golden, steps):
@@ -832,8 +877,9 @@ def _timed_main_path(m, d, warmup, timed):
   torch.cuda.synchronize()
   cholesky.launches = hfield.launches = sat.launches = 0
   ldl.launches.update(dict.fromkeys(LDL_ENTRIES, 0))
-  for mod in (hfield, sat):
-    mod.variant_launches.update(dict.fromkeys(mod.variant_launches, 0))
+  for table in (cholesky.variant_launches, hfield.variant_launches, sat.variant_launches,
+                *ldl.variant_launches.values()):
+    table.update(dict.fromkeys(table, 0))
   t0 = time.perf_counter()
   for _ in range(timed):
     d = mjtpu_torch.step(m, d)
@@ -841,10 +887,17 @@ def _timed_main_path(m, d, warmup, timed):
   secs = time.perf_counter() - t0
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
             "sat_winners": sat.launches, **ldl.launches}
-  # the main path's launches by variant, for the kernels line
-  for name, mod in (("hfield_manifold", hfield), ("sat_winners", sat)):
-    for kind, k in mod.variant_launches.items():
-      VARIANT_LAUNCHES[name][kind] += k
+  # the main path's launches by variant: the redesigned variant only
+  by_variant = {"chol_solve": cholesky.variant_launches, "hfield_manifold":
+                hfield.variant_launches, "sat_winners": sat.variant_launches,
+                **ldl.variant_launches}
+  for name, kinds in by_variant.items():
+    if any(k for kind, k in kinds.items() if kind != NEW_VARIANT[name]):
+      raise AssertionError(f"{name}: the main path launched {kinds}, not the"
+                           f" {NEW_VARIANT[name]} kernel only")
+    total = VARIANT_LAUNCHES.setdefault(name, dict.fromkeys(kinds, 0))
+    for kind, k in kinds.items():
+      total[kind] += k
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts
@@ -1111,10 +1164,10 @@ def main() -> int:
   import torch
 
   phase_build()
-  chol_err, chol_t = phase_cholesky()
+  chol_err, chol_t, chol_variant_ms, chol_shapes = phase_cholesky()
   hf_err, hf_t, hf_variant_ms = phase_hfield()
   sat_err, sat_t, sat_variant_ms = phase_sat()
-  ldl_err, ldl_t, ldl_context = phase_ldl()
+  ldl_err, ldl_t, ldl_context, ldl_variant_ms = phase_ldl()
   if "--kernels" in sys.argv[1:]:
     log(f"[done] --kernels: phases 1-4, 9 and 12 only; {time.perf_counter() - t0:.1f} s")
     return 0
@@ -1127,10 +1180,13 @@ def main() -> int:
   phase_branchy_parity()
   paths["branchy66"] = phase_branchy_throughput(card)
   for name, kinds in VARIANT_LAUNCHES.items():
-    if kinds["shared"] or not kinds["static"]:
-      raise AssertionError(f"{name}: the main paths launched {kinds}, not the static kernel only")
+    if not kinds[NEW_VARIANT[name]] or sum(kinds.values()) != kinds[NEW_VARIANT[name]]:
+      raise AssertionError(f"{name}: the main paths launched {kinds}, not the"
+                           f" {NEW_VARIANT[name]} kernel only")
   log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
+  variant_ms = {"chol_solve": chol_variant_ms, "hfield_manifold": hf_variant_ms,
+                "sat_winners": sat_variant_ms, **ldl_variant_ms}
   record = []
   for name, source, replaces, err, (ms, plain, lib, b_ms, b_by) in (
       ("chol_solve", "mjtpu_torch/csrc/cholesky.cu", "mjtpu/ops/cholesky.py:31", chol_err, chol_t),
@@ -1151,12 +1207,14 @@ def main() -> int:
     if name in ldl_context:
       # the dense Cholesky's time on the same matrices, beside B2 for context only
       record[-1]["context_ms"] = ldl_context[name]
-    if name in VARIANT_LAUNCHES:
-      # a size dispatch: the variant the main paths ran (ms is its time), and
-      # each variant's time at the main path's shape
-      ran = [kind for kind, k in VARIANT_LAUNCHES[name].items() if k]
-      record[-1].update(variant="+".join(ran), variant_launches=VARIANT_LAUNCHES[name],
-                        variant_ms=hf_variant_ms if name == "hfield_manifold" else sat_variant_ms)
+    # a size dispatch: the variant the main paths ran (ms is its time), and
+    # each variant's time at the main path's shape
+    ran = [kind for kind, k in VARIANT_LAUNCHES[name].items() if k]
+    record[-1].update(variant="+".join(ran), variant_launches=VARIANT_LAUNCHES[name],
+                      variant_ms=variant_ms[name])
+    if name == "chol_solve":
+      # both shapes of the main paths (bench n=27, terrain n=23), f32
+      record[-1]["shapes"] = chol_shapes
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,12 +21,13 @@ MJTPU_SPARSE_LDL knob; the port has none): None for a forest (which
 when the sparse flop count is below half the dense one.
 
 ``Tables`` holds the schedule on the device, built once per Model
-(``tables(m)``): the packed int32 schedule that kernel B2
-(``mjtpu_torch/csrc/ldl.cu``) reads and, built only when the plain batched
+(``tables(m)``): the two schedules that the variants of kernel B2
+(``mjtpu_torch/csrc/ldl.cu``) read (``_pack``; ``_pack_lanes``, the lists
+dealt to a warp's lanes, lane-major) and, built only when the plain batched
 ``factor`` / ``solve`` below first run, their index tensors
-(``Tables.twin``).  Both come from the same per-target
-contribution lists, in ascending update order, so the kernel and this plain
-version sum every entry in the same order.  Every scatter-add is a
+(``Tables.twin``).  All three come from the same per-target
+contribution lists, in ascending update order, so the kernels and this
+plain version sum every entry in the same order.  Every scatter-add is a
 gather-based sum over those lists: no ``index_add_``, no atomics, so the
 result is deterministic.  The pivot floor is MINVAL (1e-15) at float32 and
 float64 alike, as in mjtpu.
@@ -260,6 +261,143 @@ def _pack(s: Structure, flists: list[_Lists], ltlists: list[_Lists]) -> np.ndarr
   return packed.astype(np.int32)
 
 
+# the lane-major schedule of csrc/ldl.cu's lanes kernel: LANES_HEADER int32
+# entries (nv, depth, the shared row stride, then per pass its round count,
+# the offset of its cumulative step counts and the offset of its words),
+# then the tables.  Each word is one update of one lane, 64 bits: fields
+# p, q, r, t of LANE_FIELD_BITS bits, byte offsets into the env's shared
+# block (its compact factor at an odd row stride, then x, then the L
+# solve's partial sums), with flags FIRST (the target's first update),
+# LAST (its last) and VALID (clear in a padding word) in the bits above
+# p, q and r (csrc/ldl.cu's MJTPU_LDL_LANE_FIELD_BITS and
+# MJTPU_LDL_LANES).  Each pass's words end with one step of padding,
+# which the kernel's lookahead reads past a round's last step.
+LANES = 32
+LANES_HEADER = 12
+LANE_FIELD_BITS = 15
+LANE_FIELD_LIMIT = 1 << LANE_FIELD_BITS
+
+
+def lane_stride(depth: int) -> int:
+  """The lanes kernel's shared row stride: odd, so rows start on
+  different banks."""
+  return depth | 1
+
+
+def lane_block(nv: int, depth: int) -> int:
+  """Entries of one env's shared block in the lanes kernel: the compact
+  factor at lane_stride, x and the L solve's partial sums."""
+  return nv * lane_stride(depth) + 2 * nv
+
+
+def _l_push(s: Structure) -> list[tuple[_Lists, np.ndarray, np.ndarray]]:
+  """The L solve by ancestor level, for the lanes kernel: in round l every
+  row k deeper than l adds its term L[k, c] x[anc[k, c]] for its ancestor
+  at level l (final since round l - 1), so each row still sums its terms
+  in ascending c, the twin's order, while all deeper rows share a round.
+  Per round: the rows as one-source lists (sources (k*D + c, anc)), and
+  per row whether the term is its first (level 0) and its last (the
+  parent: then x[k] -= the sum)."""
+  D = s.depth
+  level = (s.anc < s.nv).sum(axis=1) - 1
+  out = []
+  for lv in range(D - 1):
+    ks = np.nonzero(level > lv)[0].astype(np.int64)
+    c = D - 1 - (level[ks] - lv)
+    src = np.stack([ks * D + c, s.anc[ks, c].astype(np.int64)], axis=1)
+    lists = _Lists(ks, np.arange(len(ks) + 1, dtype=np.int64), src)
+    out.append((lists, np.full(len(ks), lv == 0), level[ks] == lv + 1))
+  return out
+
+
+def _deal(lists: _Lists) -> list[list[int]]:
+  """A round's targets dealt to the LANES lanes: longest list first, each to
+  the least loaded lane (the lowest on a tie).  A lane sums each of its
+  targets' lists whole, so the order of each sum is the twin's."""
+  counts = np.diff(lists.ptr)
+  load, own = np.zeros(LANES, dtype=np.int64), [[] for _ in range(LANES)]
+  for i in sorted(range(len(counts)), key=lambda i: (-counts[i], i)):
+    lane = int(np.argmin(load))
+    own[lane].append(i)
+    load[lane] += counts[i]
+  return own
+
+
+def _list_flags(lists: _Lists) -> tuple[_Lists, np.ndarray, np.ndarray]:
+  """A round of contribution lists with its flags per update: FIRST and
+  LAST mark each target's first and last update."""
+  u = np.arange(len(lists.sources))
+  return lists, np.isin(u, lists.ptr[:-1]), np.isin(u, lists.ptr[1:] - 1)
+
+
+def _lane_words(rounds: list, offsets) -> tuple[np.ndarray, np.ndarray]:
+  """(cumulative steps per round (R + 1,), words (steps + 1, LANES) uint64)
+  of rounds given as (_Lists, first, last), the flags per update;
+  ``offsets(column, index)`` maps a source column (0-2) or the target (3)
+  to its field.  Step s of a round is one word per lane, lane-major, so a
+  warp reads one step with one coalesced load; one step of padding ends
+  the words."""
+  steps, blocks = [0], []
+  for x, first_u, last_u in rounds:
+    own = _deal(x)
+    lane_u = [np.concatenate([np.arange(x.ptr[i], x.ptr[i + 1]) for i in tl])
+              if tl else np.zeros(0, np.int64) for tl in own]
+    lane_t = [np.concatenate([np.full(x.ptr[i + 1] - x.ptr[i], i) for i in tl])
+              if tl else np.zeros(0, np.int64) for tl in own]
+    n = max(len(u) for u in lane_u)
+    words = np.zeros((n, LANES), dtype=np.uint64)
+    for lane, (u, ti) in enumerate(zip(lane_u, lane_t)):
+      if not len(u):
+        continue
+      src = np.zeros((len(u), 3), dtype=np.uint64)
+      for col in range(x.sources.shape[1]):
+        src[:, col] = offsets(col, x.sources[u, col])
+      first, last = first_u[u].astype(np.uint64), last_u[u].astype(np.uint64)
+      b = np.uint64(LANE_FIELD_BITS)
+      words[:len(u), lane] = (
+          src[:, 0] | first << b | src[:, 1] << np.uint64(16) | last << (np.uint64(16) + b)
+          | src[:, 2] << np.uint64(32) | np.uint64(1) << (np.uint64(32) + b)
+          | offsets(3, x.targets[ti]).astype(np.uint64) << np.uint64(48))
+    blocks.append(words)
+    steps.append(steps[-1] + n)
+  words = np.concatenate(blocks + [np.zeros((1, LANES), dtype=np.uint64)])
+  return np.asarray(steps, dtype=np.int64), words
+
+
+def lanes_fit(nv: int, depth: int, item: int) -> bool:
+  """Whether a tree's shared block at ``item`` bytes an entry fits the
+  lane words' byte-offset fields."""
+  return lane_block(nv, depth) * item <= LANE_FIELD_LIMIT
+
+
+def _pack_lanes(s: Structure, flists: list[_Lists], ltlists: list[_Lists],
+                item: int) -> np.ndarray:
+  """The int32 lane-major schedule that csrc/ldl.cu's lanes kernel reads
+  (layout above LANES_HEADER) for entries of ``item`` bytes; the words
+  start at even offsets, so each is 8-byte aligned on the device."""
+  if not lanes_fit(s.nv, s.depth, item):
+    raise ValueError(f"a tree of nv={s.nv}, depth={s.depth} does not fit the lane schedule's"
+                     f" {LANE_FIELD_BITS}-bit fields at {item} bytes an entry")
+  D, ld, nv = s.depth, lane_stride(s.depth), s.nv
+  # byte offsets: S[k, c] at k * ld + c, x[i] at nv * ld + i, the L solve's
+  # partial sums after x
+  entry = lambda i: (np.asarray(i) // D * ld + np.asarray(i) % D) * item
+  dof = lambda i: (nv * ld + np.asarray(i)) * item
+  factor = lambda col, i: entry(i)
+  solve = lambda col, i: entry(i) if col == 0 else dof(i)
+  header, parts, offset = [nv, D, ld], [], LANES_HEADER
+  for rounds, offsets in (([_list_flags(x) for x in flists], factor),
+                          ([_list_flags(x) for x in ltlists], solve), (_l_push(s), solve)):
+    steps, words = _lane_words(rounds, offsets)
+    pad = (offset + len(steps)) % 2
+    header += [len(rounds), offset, offset + len(steps) + pad]
+    parts += [steps, np.zeros(pad, np.int64), words.ravel().view(np.uint32).astype(np.int64)]
+    offset += len(steps) + pad + 2 * words.size
+  header += [0] * (LANES_HEADER - len(header))
+  packed = np.concatenate([np.asarray(header, dtype=np.int64)] + parts)
+  return packed.astype(np.uint32).view(np.int32)
+
+
 class _Twin(NamedTuple):
   """The plain ``factor`` / ``solve``'s index tensors: factor_rounds, per
   round (a, b, d, slots), the sources of its updates in list order and,
@@ -292,9 +430,10 @@ class Tables:
   gather (nv*D,) dense flat index i*nv + anc_clip[i, c] of each compact
   entry, mask (nv*D,) 1 where the entry is a real ancestor, real_compact /
   real_dense the flat indices of the real entries in either layout, sched
-  the packed int32 schedule of the kernel.  ``twin``, the plain version's
-  index tensors, is built at its first use: a step on the card never
-  reads it."""
+  the packed int32 schedule of kernel B2's shared variant, lanes the
+  lane-major schedule of its lanes variant (None for a tree whose indices
+  do not fit its fields).  ``twin``, the plain version's index tensors, is
+  built at its first use: a step on the card never reads it."""
 
   structure: Structure
   gather: torch.Tensor
@@ -302,6 +441,7 @@ class Tables:
   real_compact: torch.Tensor
   real_dense: torch.Tensor
   sched: torch.Tensor
+  lanes: torch.Tensor | None
 
   @property
   def nv(self) -> int:
@@ -310,6 +450,12 @@ class Tables:
   @property
   def depth(self) -> int:
     return self.structure.depth
+
+  @property
+  def dtype(self) -> torch.dtype:
+    """The dtype the tables were built for: the lane schedule's byte
+    offsets are in its entries' size."""
+    return self.mask.dtype
 
   @functools.cached_property
   def twin(self) -> _Twin:
@@ -330,13 +476,17 @@ def device_tables(s: Structure, dtype: torch.dtype, device) -> Tables:
   t = _ints(device)
   rows = np.arange(s.nv)[:, None]
   real = (s.anc < s.nv).ravel()
+  flists, ltlists = _factor_lists(s), _lt_lists(s)
+  item = torch.empty((), dtype=dtype).element_size()
   return Tables(
       structure=s,
       gather=t((rows * s.nv + s.anc_clip).ravel()),
       mask=torch.as_tensor(s.mask.ravel(), dtype=dtype, device=device),
       real_compact=t(np.nonzero(real)[0]),
       real_dense=t((rows * s.nv + s.anc).ravel()[real]),
-      sched=torch.as_tensor(_pack(s, _factor_lists(s), _lt_lists(s)), device=device),
+      sched=torch.as_tensor(_pack(s, flists, ltlists), device=device),
+      lanes=torch.as_tensor(_pack_lanes(s, flists, ltlists, item), device=device)
+      if lanes_fit(s.nv, s.depth, item) else None,
   )
 
 

@@ -4,16 +4,22 @@ Port of mjtpu/ops/cholesky.py.  ``cholesky_solve(mat, rhs)`` solves
 mat[b] @ x[b] = rhs[b] for a batch of SPD matrices with a pivot-clamped
 Cholesky:
 
-  * on a CUDA tensor it launches the hand-written kernel in
-    ``mjtpu_torch/csrc/cholesky.cu`` (one warp per env, factor and both
-    substitutions in one shared-memory residency), built with ``nvcc`` for
-    sm_90a at first use and bound with ctypes (``ops._build``).  A build or
-    launch failure raises; nothing falls back.
+  * on a CUDA tensor it launches a hand-written kernel in
+    ``mjtpu_torch/csrc/cholesky.cu``, built with ``nvcc`` for sm_90a at
+    first use and bound with ctypes (``ops._build``).  Which one is a size
+    dispatch (``variant``): an n in ``REGISTER_WIDTHS`` takes the
+    ``register`` kernel (lane i keeps row i in registers, columns by warp
+    shuffles; an instance for each such n); any other n takes the
+    ``shared`` kernel (the first design: the matrix in shared memory), up
+    to ``max_n``, past which it raises.  Both put one warp on
+    an env, factor and both substitutions in one launch, and agree bit for
+    bit.  A build or launch failure raises; nothing falls back.
   * on a CPU tensor it runs the plain twin ``chol_solve_reference``, the
     port of mjtpu's ``fused._base`` (math.safe_cholesky + cho_solve).
 
 ``launches`` counts kernel launches (never twin calls), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel; ``variant_launches`` counts
+them by variant.
 """
 
 from __future__ import annotations
@@ -26,11 +32,16 @@ import torch
 from mjtpu_torch._src import math
 from mjtpu_torch.ops import _build
 
-# kernel launches since import (CPU calls and twin calls do not count)
+# kernel launches since import (CPU calls and twin calls do not count),
+# in all and by variant
 launches = 0
+variant_launches = {"register": 0, "shared": 0}
 
 SMEM_LIMIT = _build.SMEM_LIMIT
 _WARPS_PER_BLOCK = 4
+# the n the register kernel is instantiated for (csrc/cholesky.cu's
+# MJTPU_CHOL_WIDTHS): the main paths' (humanoid_terrain 23, humanoid_bench 27)
+REGISTER_WIDTHS = (23, 27)
 
 SOURCE = "cholesky.cu"
 
@@ -43,7 +54,7 @@ def chol_solve_reference(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def max_n(dtype: torch.dtype) -> int:
   """Largest n whose (n, n) matrix and (n,) vector fit one warp's share of
-  a block's shared memory: the kernel's static bound, above which
+  a block's shared memory: the shared kernel's static bound, above which
   ``cholesky_solve`` raises on a CUDA tensor."""
   item = torch.empty((), dtype=dtype).element_size()
   n = 1
@@ -52,9 +63,48 @@ def max_n(dtype: torch.dtype) -> int:
   return n
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-SIGNATURES = {name: (_ARGTYPES, ctypes.c_int)
-              for name in ("mjtpu_chol_solve_f32", "mjtpu_chol_solve_f64")}
+def variants(n: int, dtype: torch.dtype) -> tuple[str, ...]:
+  """The kernels that can run an (n, n) system at dtype: the register
+  kernel for an n in REGISTER_WIDTHS, the shared one for n <= max_n."""
+  return tuple(kind for kind, fits in (("register", n in REGISTER_WIDTHS),
+                                       ("shared", n <= max_n(dtype))) if fits)
+
+
+def variant(n: int, dtype: torch.dtype) -> str:
+  """The kernel an (n, n) system at dtype takes: the first of ``variants``;
+  raises past every kernel's static bound."""
+  kinds = variants(n, dtype)
+  if not kinds:
+    raise ValueError(f"n={n} exceeds the kernels' shared-memory bound {max_n(dtype)}")
+  return kinds[0]
+
+
+def smem_per_warp(n: int, dtype: torch.dtype, kind: str) -> int:
+  """Shared memory one env takes: the register kernel's (n, n) matrix at
+  an odd row stride, the shared kernel's matrix and right-hand side."""
+  item = torch.empty((), dtype=dtype).element_size()
+  return (n * (n | 1) if kind == "register" else n * n + n) * item
+
+
+def launch_geometry(batch: int, n: int, dtype: torch.dtype, kind: str | None = None):
+  """(variant, blocks, threads a block, envs a block) of one launch over
+  ``batch`` envs, of ``kind`` or else of ``variant(n, dtype)``: one warp an
+  env, 4 warps a block (the shared kernel fewer where one env's matrix
+  leaves less room)."""
+  kind = kind or variant(n, dtype)
+  per = _WARPS_PER_BLOCK
+  if kind == "shared":
+    per = max(1, min(per, SMEM_LIMIT // smem_per_warp(n, dtype, kind)))
+  return kind, -(-batch // per), 32 * per, per
+
+
+# (mat, rhs, out, batch, n[, warps a block], stream): the shared kernel
+# also takes its warps a block
+SIGNATURES = {
+    f"mjtpu_chol_{kind}_{suffix}": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * ints
+                                    + [ctypes.c_void_p], ctypes.c_int)
+    for kind, ints in (("register", 2), ("shared", 3)) for suffix in ("f32", "f64")
+}
 
 
 def library() -> ctypes.CDLL:
@@ -75,29 +125,33 @@ def _check(mat: torch.Tensor, rhs: torch.Tensor) -> None:
     raise ValueError(f"mat on {mat.device}, rhs on {rhs.device}")
 
 
-def cholesky_solve(mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-  """Solves mat @ x = rhs for a batch: mat (B, n, n) SPD, rhs (B, n)."""
+def cholesky_solve(mat: torch.Tensor, rhs: torch.Tensor, *,
+                   kernel: str | None = None) -> torch.Tensor:
+  """Solves mat @ x = rhs for a batch: mat (B, n, n) SPD, rhs (B, n).
+  ``kernel`` names the variant to launch ("register" or "shared"; a
+  test's choice, to hold both to the twin); None takes ``variant``."""
   global launches
   _check(mat, rhs)
+  n = rhs.shape[1]
+  if kernel is not None and kernel not in variants(n, mat.dtype):
+    raise ValueError(f"no {kernel!r} Cholesky kernel for n={n}")
   if mat.device.type == "cpu":
     return chol_solve_reference(mat, rhs)
   if mat.device.type != "cuda":
     raise ValueError(f"cholesky_solve runs on cuda or cpu, not {mat.device}")
   if not (mat.is_contiguous() and rhs.is_contiguous()):
     raise ValueError("cholesky_solve takes contiguous tensors")
-  batch, n = rhs.shape
-  if n > max_n(mat.dtype):
-    raise ValueError(f"n={n} exceeds the kernel's shared-memory bound {max_n(mat.dtype)}")
+  kind, _, _, warps = launch_geometry(rhs.shape[0], n, mat.dtype, kernel)
   out = torch.empty_like(rhs)
-  if batch == 0 or n == 0:
+  if rhs.shape[0] == 0 or n == 0:
     return out
   lib = library()
-  per_warp = (n * n + n) * mat.element_size()
-  warps = max(1, min(_WARPS_PER_BLOCK, SMEM_LIMIT // per_warp))
-  fn = lib.mjtpu_chol_solve_f64 if mat.dtype == torch.float64 else lib.mjtpu_chol_solve_f32
+  fn = getattr(lib, f"mjtpu_chol_{kind}_{'f64' if mat.dtype == torch.float64 else 'f32'}")
+  shape = (rhs.shape[0], n) if kind == "register" else (rhs.shape[0], n, warps)
   with torch.cuda.device(mat.device):
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(mat.data_ptr(), rhs.data_ptr(), out.data_ptr(), batch, n, warps, stream)
-  _build.check_launch(lib, err, "cholesky")
+    err = fn(mat.data_ptr(), rhs.data_ptr(), out.data_ptr(), *shape, stream)
+  _build.check_launch(lib, err, f"cholesky ({kind})")
   launches += 1
+  variant_launches[kind] += 1
   return out

@@ -12,18 +12,26 @@ tree's ``sparse.Tables`` (``sparse.tables(m)`` for a Model).
   * ``ldl_factor_solve(t, Mc, rhs)`` -> x, the factor kept in shared
     memory between the factor and the solve: one launch.
 
-On a CUDA tensor each launches the hand-written kernel in
-``mjtpu_torch/csrc/ldl.cu`` (one warp per env, the compact factor in the
-warp's shared memory, lanes striding over each round's targets), built
-with nvcc for sm_90a and ``--fmad=false`` at first use and bound with
-ctypes (``ops._build``).  A build or launch failure, or a tree whose
-compact factor does not fit one warp's share of a block's shared memory
-(the kernel's static bound, ``smem_per_warp``), raises; nothing falls back.  On a
+On a CUDA tensor each launches a hand-written kernel in
+``mjtpu_torch/csrc/ldl.cu``, built with nvcc for sm_90a and
+``--fmad=false`` at first use and bound with ctypes (``ops._build``).
+Which one is a size dispatch (``variant``): a tree whose shared block
+fits the lane schedule's byte-offset fields (``sparse.lanes_fit``: at most
+32 KB an env, every tree of the port) takes the ``lanes`` kernel (the
+schedule dealt to a warp's lanes on the host and read lane-major, one
+64-bit word an update); any other takes the ``shared`` kernel (the first
+design: lanes striding over each round's targets).  Both hold one env a
+warp, its compact factor in the warp's shared memory.  A build or launch
+failure, a tree whose compact factor does not fit one warp's share of a
+block's shared memory (the static bound, ``smem_per_warp``), or tensors of
+another dtype than the tables' (``Tables.dtype``: the lane schedule's
+offsets are in bytes of its entries), raises; nothing falls back.  On a
 CPU tensor each runs its plain twin (``*_reference``, built on
-``_src/sparse.py``), which sums in the kernel's order: the two agree bit
-for bit.
+``_src/sparse.py``), which sums in the kernels' order: all agree bit for
+bit.
 
-``launches`` counts kernel launches per entry point (never twin calls).
+``launches`` counts kernel launches per entry point (never twin calls),
+``variant_launches`` per entry point and variant.
 """
 
 from __future__ import annotations
@@ -35,9 +43,12 @@ import torch
 from mjtpu_torch._src import sparse
 from mjtpu_torch.ops import _build
 
-# kernel launches since import, per entry point (CPU calls and twin calls
-# do not count)
-launches = {"ldl_factor": 0, "ldl_solve": 0, "ldl_factor_solve": 0}
+ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
+KINDS = ("lanes", "shared")
+# kernel launches since import, per entry point and per entry point and
+# variant (CPU calls and twin calls do not count)
+launches = dict.fromkeys(ENTRIES, 0)
+variant_launches = {entry: dict.fromkeys(KINDS, 0) for entry in ENTRIES}
 
 SOURCE = "ldl.cu"
 EXTRA_FLAGS = ("--fmad=false",)
@@ -46,10 +57,44 @@ _MAX_WARPS_PER_BLOCK = 8
 _MODES = {"ldl_factor": 1, "ldl_solve": 2, "ldl_factor_solve": 3}
 
 
-def smem_per_warp(nv: int, depth: int, dtype: torch.dtype) -> int:
+def smem_per_warp(nv: int, depth: int, dtype: torch.dtype, kind: str = "shared") -> int:
   """Shared memory one env takes: its compact factor and its right-hand
-  side.  The kernel's static bound: it must fit a block's shared memory."""
-  return (nv * depth + nv) * torch.empty((), dtype=dtype).element_size()
+  side, and for the lanes kernel the factor's rows at an odd stride and
+  the L solve's partial sums.  The kernels' static bound: it must fit a
+  block's shared memory."""
+  entries = sparse.lane_block(nv, depth) if kind == "lanes" else nv * depth + nv
+  return entries * torch.empty((), dtype=dtype).element_size()
+
+
+def variants(t: sparse.Tables, dtype: torch.dtype) -> tuple[str, ...]:
+  """The kernels that can run the tree t at dtype: the lanes kernel where
+  its schedule was built for dtype (its byte offsets fit their fields at
+  that entry size), the shared one; each where one env's block fits a
+  block's shared memory."""
+  fits = lambda kind: smem_per_warp(t.nv, t.depth, dtype, kind) <= SMEM_LIMIT
+  lanes = t.lanes is not None and dtype == t.dtype
+  return tuple(kind for kind in KINDS if fits(kind) and (kind != "lanes" or lanes))
+
+
+def variant(t: sparse.Tables, dtype: torch.dtype) -> str:
+  """The kernel the tree t takes at dtype: the first of ``variants``."""
+  kinds = variants(t, dtype)
+  if not kinds:
+    raise ValueError(
+        f"a tree of nv={t.nv}, depth={t.depth} needs"
+        f" {smem_per_warp(t.nv, t.depth, dtype)} bytes of shared memory per env, past the"
+        f" kernels' static bound of {SMEM_LIMIT} a block")
+  return kinds[0]
+
+
+def launch_geometry(batch: int, t: sparse.Tables, dtype: torch.dtype, kind: str | None = None):
+  """(variant, blocks, threads a block, envs a block) of one launch over
+  ``batch`` envs, of ``kind`` or else of ``variant(t, dtype)``: one warp
+  an env, as many warps a block as its shared memory allows, up to 8."""
+  kind = kind or variant(t, dtype)
+  per = max(1, min(_MAX_WARPS_PER_BLOCK,
+                   SMEM_LIMIT // smem_per_warp(t.nv, t.depth, dtype, kind)))
+  return kind, -(-batch // per), 32 * per, per
 
 
 def ldl_factor_reference(t: sparse.Tables, Mc: torch.Tensor) -> torch.Tensor:
@@ -69,9 +114,10 @@ def ldl_factor_solve_reference(t: sparse.Tables, Mc: torch.Tensor,
 
 
 SIGNATURES = {
-    name: ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-           ctypes.c_int)
-    for name in ("mjtpu_ldl_f32", "mjtpu_ldl_f64")
+    f"mjtpu_ldl_{kind}_{suffix}": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ctypes.c_int)
+    for kind in KINDS for suffix in ("f32", "f64")
 }
 
 
@@ -84,6 +130,10 @@ def _check(name: str, t: sparse.Tables, mat: torch.Tensor, rhs: torch.Tensor | N
   if mat.dtype not in (torch.float32, torch.float64) or (
       rhs is not None and rhs.dtype != mat.dtype):
     raise TypeError(f"{name} takes float32 or float64 tensors of one dtype")
+  if mat.dtype != t.dtype:
+    # the lane schedule's byte offsets are in the entry size of t.dtype
+    raise TypeError(f"{name} takes {t.dtype} tensors, the dtype its tables were built for,"
+                    f" not {mat.dtype}")
   batch = mat.shape[0] if mat.dim() == 3 else -1
   if tuple(mat.shape) != (batch, t.nv, t.depth) or (
       rhs is not None and tuple(rhs.shape) != (batch, t.nv)):
@@ -95,45 +145,48 @@ def _check(name: str, t: sparse.Tables, mat: torch.Tensor, rhs: torch.Tensor | N
 
 
 def _run(name: str, t: sparse.Tables, mat: torch.Tensor, rhs: torch.Tensor | None,
-         reference) -> torch.Tensor:
+         reference, kernel: str | None) -> torch.Tensor:
   _check(name, t, mat, rhs)
+  if kernel is not None and kernel not in variants(t, mat.dtype):
+    raise ValueError(f"no {kernel!r} LDL kernel for a tree of nv={t.nv}, depth={t.depth}")
   if mat.device.type == "cpu":
     return reference()
   if mat.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu, not {mat.device}")
   if not (mat.is_contiguous() and (rhs is None or rhs.is_contiguous())):
     raise ValueError(f"{name} takes contiguous tensors")
-  per_warp = smem_per_warp(t.nv, t.depth, mat.dtype)
-  if per_warp > SMEM_LIMIT:
-    raise ValueError(
-        f"a tree of nv={t.nv}, depth={t.depth} needs {per_warp} bytes of shared memory per env,"
-        f" past the kernel's static bound of {SMEM_LIMIT} a block")
-  batch = mat.shape[0]
+  kind, _, _, warps = launch_geometry(mat.shape[0], t, mat.dtype, kernel)
   out = torch.empty_like(mat if name == "ldl_factor" else rhs)
-  if batch == 0:
+  if mat.shape[0] == 0:
     return out
   lib = library()
-  warps = max(1, min(_MAX_WARPS_PER_BLOCK, SMEM_LIMIT // per_warp))
-  fn = lib.mjtpu_ldl_f64 if mat.dtype == torch.float64 else lib.mjtpu_ldl_f32
+  fn = getattr(lib, f"mjtpu_ldl_{kind}_{'f64' if mat.dtype == torch.float64 else 'f32'}")
+  sched = t.lanes if kind == "lanes" else t.sched
   with torch.cuda.device(mat.device):
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(_MODES[name], mat.data_ptr(), None if rhs is None else rhs.data_ptr(),
-             out.data_ptr(), t.sched.data_ptr(), batch, t.nv, t.depth, warps, stream)
-  _build.check_launch(lib, err, name)
+             out.data_ptr(), sched.data_ptr(), mat.shape[0], t.nv, t.depth, warps, stream)
+  _build.check_launch(lib, err, f"{name} ({kind})")
   launches[name] += 1
+  variant_launches[name][kind] += 1
   return out
 
 
-def ldl_factor(t: sparse.Tables, Mc: torch.Tensor) -> torch.Tensor:
-  """Compact factors (B, nv, depth) of compact matrices Mc (B, nv, depth)."""
-  return _run("ldl_factor", t, Mc, None, lambda: ldl_factor_reference(t, Mc))
+def ldl_factor(t: sparse.Tables, Mc: torch.Tensor, *, kernel: str | None = None) -> torch.Tensor:
+  """Compact factors (B, nv, depth) of compact matrices Mc (B, nv, depth).
+  ``kernel`` names the variant to launch ("lanes" or "shared"; a test's
+  choice, to hold both to the twin); None takes ``variant``."""
+  return _run("ldl_factor", t, Mc, None, lambda: ldl_factor_reference(t, Mc), kernel)
 
 
-def ldl_solve(t: sparse.Tables, S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def ldl_solve(t: sparse.Tables, S: torch.Tensor, rhs: torch.Tensor, *,
+              kernel: str | None = None) -> torch.Tensor:
   """Solves M x = rhs (B, nv) from compact factors S (B, nv, depth)."""
-  return _run("ldl_solve", t, S, rhs, lambda: ldl_solve_reference(t, S, rhs))
+  return _run("ldl_solve", t, S, rhs, lambda: ldl_solve_reference(t, S, rhs), kernel)
 
 
-def ldl_factor_solve(t: sparse.Tables, Mc: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def ldl_factor_solve(t: sparse.Tables, Mc: torch.Tensor, rhs: torch.Tensor, *,
+                     kernel: str | None = None) -> torch.Tensor:
   """Factors Mc (B, nv, depth) and solves M x = rhs (B, nv) in one launch."""
-  return _run("ldl_factor_solve", t, Mc, rhs, lambda: ldl_factor_solve_reference(t, Mc, rhs))
+  return _run("ldl_factor_solve", t, Mc, rhs, lambda: ldl_factor_solve_reference(t, Mc, rhs),
+              kernel)

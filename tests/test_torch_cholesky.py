@@ -4,6 +4,9 @@ kernel in interpret mode (as tests/test_ops.py runs it), plus the CPU
 contract of the wrapper and the seam.  The CUDA kernel itself runs only on
 the card: tests_cuda/ and chip_smoke.py hold it to the twin there."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,3 +124,43 @@ def test_shared_memory_bound():
     item = torch.empty((), dtype=dtype).element_size()
     assert (n * n + n) * item <= cholesky.SMEM_LIMIT < ((n + 1) ** 2 + n + 1) * item
   assert cholesky.max_n(torch.float64) >= 27
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_size_dispatch_and_launch_geometry(dtype):
+  """humanoid_terrain's n=23 and humanoid_bench's 27 take the register
+  kernel (an instance of each n), one warp an env, 4 a block; every other
+  n up to max_n the shared one; past that none (tests_cuda: it raises on
+  the card).  The n are the ones csrc/cholesky.cu instantiates."""
+  for n in (23, 27):
+    assert cholesky.variant(n, dtype) == "register"
+    assert cholesky.variants(n, dtype) == ("register", "shared")
+    assert cholesky.launch_geometry(4096, n, dtype) == ("register", 1024, 128, 4)
+    assert cholesky.launch_geometry(130, n, dtype, "shared") == ("shared", 33, 128, 4)
+  for n in (1, 6, 22, 24, 26, 28, 32, 33, 40, cholesky.max_n(dtype)):
+    assert cholesky.variant(n, dtype) == "shared" and cholesky.variants(n, dtype) == ("shared",)
+  # the shared kernel's block shrinks to what its shared memory allows
+  big = cholesky.max_n(dtype)
+  per = cholesky.SMEM_LIMIT // cholesky.smem_per_warp(big, dtype, "shared")
+  assert 1 <= per < 4 and cholesky.launch_geometry(130, big, dtype) == (
+      "shared", -(-130 // per), 32 * per, per)
+  assert cholesky.variants(big + 1, dtype) == ()
+  with pytest.raises(ValueError):
+    cholesky.variant(big + 1, dtype)
+  # the register kernel's staging: (n, n | 1) a warp
+  assert cholesky.smem_per_warp(27, dtype, "register") == 27 * 27 * torch.finfo(dtype).bits // 8
+  assert cholesky.smem_per_warp(23, dtype, "register") == 23 * 23 * torch.finfo(dtype).bits // 8
+  src = (pathlib.Path(cholesky.__file__).parent.parent / "csrc" / cholesky.SOURCE).read_text()
+  widths = re.search(r"#define MJTPU_CHOL_WIDTHS\(X\) (.*)", src).group(1)
+  assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", widths)) == cholesky.REGISTER_WIDTHS
+  # a variant that cannot run an n is refused before any device check;
+  # what can run it, on the CPU, is the twin
+  for n in (24, 33):
+    mat, rhs = (torch.as_tensor(x, dtype=dtype) for x in _batch(n, clamp=False))
+    with pytest.raises(ValueError):
+      cholesky.cholesky_solve(mat, rhs, kernel="register")
+  mat, rhs = (torch.as_tensor(x, dtype=dtype) for x in _batch(27, clamp=False))
+  want = cholesky.chol_solve_reference(mat, rhs)
+  for kind in ("register", "shared"):
+    assert torch.equal(cholesky.cholesky_solve(mat, rhs, kernel=kind), want)
+  assert cholesky.launches == 0 and cholesky.variant_launches == {"register": 0, "shared": 0}

@@ -12,13 +12,20 @@ against mjtpu's sparse.py and its Pallas kernel on the CPU.
     with a zero row and column: a massless dof);
   * the twins against mjtpu's Pallas kernel in interpret mode
     (``mjtpu.ops.ldl``, as tests/test_ops.py runs it) to 1e-10, once, B=3;
-  * the packed int32 schedule that csrc/ldl.cu reads, replayed here in
-    numpy with the kernel's loops, gives the twin's results bit for bit on
-    chip_smoke.py's trees and matrices (the kernel itself is held to the
-    twin on the card: tests_cuda/, chip_smoke.py).
+  * the two schedules that csrc/ldl.cu's kernels read (the shared
+    kernel's packed int32 lists, the lanes kernel's lane-major words),
+    each replayed here in numpy with its kernel's loops, give the twin's
+    results bit for bit on chip_smoke.py's trees and matrices (the kernels
+    themselves are held to the twin on the card: tests_cuda/,
+    chip_smoke.py);
+  * the wrapper's size dispatch between the two kernels.
 
 Inputs are made with numpy from a seed.
 """
+
+import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -260,3 +267,207 @@ def test_ldl_work_counts():
   assert chip_smoke._ldl_work(s, 2, 8, "ldl_solve") == (2 * (711 + 132) * 8, 2 * (4 * 645 + 66))
   assert chip_smoke._ldl_work(s, 1, 4, "ldl_factor_solve") == (
       (711 + 132) * 4, 3 * 3905 + 645 + 4 * 645 + 66)
+
+
+def _replay_lanes(sched: np.ndarray, Mc: np.ndarray, rhs: np.ndarray, mode: int,
+                  item: int = 8) -> np.ndarray:
+  """csrc/ldl.cu's lanes kernel for one env, in numpy float64 scalars: the
+  env's shared block as a list addressed by byte offset / item (its compact
+  factor at the header's odd row stride, then x, then the partial sums),
+  each round's steps in order, each step's 32 lanes in turn, every word
+  decoded from the lane-major schedule (sparse._pack_lanes)."""
+  h = sched[:sparse.LANES_HEADER].astype(np.int64)
+  nv, depth, ld = int(h[0]), int(h[1]), int(h[2])
+  floor = np.float64(1e-15)
+  fl = lambda v: floor if v < floor else v
+  mem = [np.float64(0)] * sparse.lane_block(nv, depth)
+  for e, v in enumerate(Mc.ravel()):
+    mem[e // depth * ld + e % depth] = np.float64(v)
+  for i, v in enumerate(rhs):
+    mem[nv * ld + i] = np.float64(v)
+  mask, flag = (1 << sparse.LANE_FIELD_BITS) - 1, 1 << sparse.LANE_FIELD_BITS
+  part = nv  # the partial sums, nv entries after x
+
+  def run(rounds, steps_at, words_at, step):
+    steps = sched[steps_at:steps_at + rounds + 1]
+    words = sched.view(np.uint32)[words_at:].astype(np.int64)
+    for r in range(rounds):
+      acc = [None] * sparse.LANES
+      for s in range(steps[r], steps[r + 1]):
+        for lane in range(sparse.LANES):
+          lo, hi = words[2 * (s * sparse.LANES + lane)], words[2 * (s * sparse.LANES + lane) + 1]
+          if hi & flag:
+            acc[lane] = step(acc[lane], *((v & mask) // item for v in (lo, lo >> 16, hi)),
+                             (hi >> 16) // item, bool(lo & flag), bool(lo >> 31))
+
+  def factor_step(acc, p, q, r, t, first, last):
+    acc = (mem[t] if first else acc) - (mem[p] * mem[q]) / fl(mem[r])
+    if last:
+      mem[t] = acc
+    return acc
+
+  def lt_step(acc, p, q, r, t, first, last):
+    acc = (mem[t] if first else acc) - mem[p] * mem[q]
+    if last:
+      mem[t] = acc
+    return acc
+
+  def l_step(acc, p, q, r, t, first, last):
+    total = mem[p] * mem[q] if first else mem[t + part] + mem[p] * mem[q]
+    if last:
+      mem[t] = mem[t] - total
+    else:
+      mem[t + part] = total
+
+  if mode & 1:
+    run(h[3], h[4], h[5], factor_step)
+    for i in range(nv):
+      dia = fl(mem[i * ld + depth - 1])
+      for c in range(depth - 1):
+        mem[i * ld + c] = mem[i * ld + c] / dia
+      mem[i * ld + depth - 1] = dia
+    if mode == 1:
+      return np.array([mem[i * ld:i * ld + depth] for i in range(nv)])
+  run(h[6], h[7], h[8], lt_step)
+  for i in range(nv):
+    mem[nv * ld + i] = mem[nv * ld + i] / fl(mem[i * ld + depth - 1])
+  run(h[9], h[10], h[11], l_step)
+  return np.array(mem[nv * ld:nv * ld + nv])
+
+
+@pytest.mark.parametrize("tree", ["branchy66", "branchy38", "chain40", "random100"])
+def test_lane_schedule_replays_twin(tree):
+  """The lanes kernel's schedule (sparse._pack_lanes), replayed with its
+  loops on chip_smoke.py's trees and matrices with a massless dof, equals
+  the twin bit for bit; each warp step is one word a lane, and each
+  target's updates stay in its list order in one lane."""
+  parent = chip_smoke.ldl_trees()[tree]
+  s = sparse._build(len(parent), parent)
+  t = sparse.device_tables(s, torch.float64, "cpu")
+  Mc, rhs, M = chip_smoke.chain_pattern_batch(
+      t, 2, torch.float64, torch.Generator().manual_seed(2))
+  M[1, 5], M[1, :, 5] = 0.0, 0.0  # a massless dof: its pivot hits the floor
+  Mc = sparse.gather_compact(t, M)
+  S = sparse.factor(t, Mc).numpy()
+  x = sparse.solve(t, torch.as_tensor(S), rhs).numpy()
+  assert S[1, 5, -1] == MINVAL
+  sched, Mc, rhs = t.lanes.numpy(), Mc.numpy(), rhs.numpy()
+  # the kernel loads each step's operands a step ahead: within a round no
+  # target is written twice or read as a source (factor: S[p], S[q], S[r];
+  # the solves: x[q])
+  words = sched.view(np.uint32).astype(np.int64)
+  mask, flag = (1 << sparse.LANE_FIELD_BITS) - 1, 1 << sparse.LANE_FIELD_BITS
+  assert sched[2] == sparse.lane_stride(s.depth) and sched[2] % 2 == 1
+  for rounds_at, factor in ((3, True), (6, False), (9, False)):
+    rounds, steps_at, words_at = (int(v) for v in sched[rounds_at:rounds_at + 3])
+    steps = sched[steps_at:steps_at + rounds + 1]
+    for r in range(rounds):
+      w = words[words_at + 2 * steps[r] * sparse.LANES:words_at + 2 * steps[r + 1] * sparse.LANES]
+      lo, hi = w[0::2][(w[1::2] & flag) > 0], w[1::2][(w[1::2] & flag) > 0]
+      first = (lo & flag) > 0
+      targets = (hi >> 16)[first]
+      assert len(set(targets.tolist())) == len(targets)
+      sources = {*((lo >> 16) & mask).tolist()}
+      if factor:
+        sources |= {*(lo & mask).tolist(), *(hi & mask).tolist()}
+      assert not sources & set(targets.tolist())
+  for b in range(2):
+    np.testing.assert_array_equal(_replay_lanes(sched, Mc[b], rhs[b], 1), S[b])
+    np.testing.assert_array_equal(_replay_lanes(sched, S[b], rhs[b], 2), x[b])
+    np.testing.assert_array_equal(_replay_lanes(sched, Mc[b], rhs[b], 3), x[b])
+
+
+def test_lane_schedule_steps():
+  """branchy66's lane schedule: the factor's 3,905 updates in 133 warp
+  steps (131 for a perfect split of each round), the L^T solve's 645 in
+  65 (the root's chain of 65 contributions), the L solve's 645 in 26 (15
+  levels), against 149, 70 and 120 over the busiest lane of the shared
+  kernel's striding; each pass's words 8-byte aligned and followed by a
+  step of padding; the shared rows at stride 17."""
+  s = sparse._build(66, chip_smoke.branchy_parentid(6, 10))
+  h = sparse._pack_lanes(s, sparse._factor_lists(s), sparse._lt_lists(s), 4)
+  assert tuple(h[:3]) == (66, 16, 17)
+  valid = 0
+  for rounds_at, want_steps in ((3, 133), (6, 65), (9, 26)):
+    rounds, steps_at, words_at = (int(v) for v in h[rounds_at:rounds_at + 3])
+    assert rounds == 15 and int(h[steps_at + rounds]) == want_steps
+    assert words_at % 2 == 0 and words_at >= steps_at + rounds + 1
+    hi = h.view(np.uint32)[words_at + 1:words_at + 2 * (want_steps + 1) * sparse.LANES:2]
+    flags = (hi.astype(np.int64) >> sparse.LANE_FIELD_BITS) & 1
+    assert len(flags) == (want_steps + 1) * sparse.LANES
+    assert not flags[want_steps * sparse.LANES:].any()  # the padding step
+    valid += int(flags.sum())
+  assert valid == 3905 + 645 + 645
+  # the shared kernel's lanes stride over each round's targets (lane l
+  # takes targets l, l + 32, ...): its busiest lane's updates, round by
+  # round, summed
+  busiest = lambda rounds: sum(max(int(c[lane::sparse.LANES].sum()) for lane in range(
+      sparse.LANES)) for c in rounds)
+  depth = (s.anc < s.nv).sum(axis=1)
+  assert busiest([np.diff(x.ptr) for x in sparse._factor_lists(s)]) == 149
+  assert busiest([np.diff(x.ptr) for x in sparse._lt_lists(s)]) == 70
+  assert busiest([depth[ks] - 1 for ks in s.depth_rounds]) == 120
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_size_dispatch_and_launch_geometry(dtype):
+  """Every tree of the port takes the lanes kernel (its shared block fits
+  the schedule's 15-bit byte offsets), one warp an env, 8 a block; a tree
+  past the fields takes the shared one while its block fits, and
+  none past that (tests_cuda: it raises on the card).  The field width
+  and lane count are the ones csrc/ldl.cu reads."""
+  item = torch.empty((), dtype=dtype).element_size()
+  for tree, parent in chip_smoke.ldl_trees().items():
+    t = sparse.device_tables(sparse._build(len(parent), parent), dtype, "cpu")
+    assert t.lanes is not None and sparse.lanes_fit(t.nv, t.depth, item)
+    assert ldl.variant(t, dtype) == "lanes" and ldl.variants(t, dtype) == ("lanes", "shared")
+    assert ldl.launch_geometry(4096, t, dtype) == ("lanes", 512, 256, 8)
+    assert ldl.launch_geometry(1, t, dtype) == ("lanes", 1, 256, 8)
+    assert ldl.launch_geometry(130, t, dtype, "shared") == ("shared", 17, 256, 8)
+  # the lanes kernel's static limit: 32 KB of shared block an env
+  # (66 * 17 + 132 = 1,254 entries for branchy66)
+  assert sparse.lane_block(66, 16) == 1254
+  assert sparse.lanes_fit(127, 255, 1) and not sparse.lanes_fit(128, 255, 1)
+  assert ldl.smem_per_warp(66, 16, dtype, "lanes") == 1254 * item
+  assert ldl.smem_per_warp(66, 16, dtype) == (66 * 16 + 66) * item
+  wide = dataclasses.replace(t, structure=t.structure._replace(nv=150, depth=150), lanes=None)
+  assert ldl.variants(wide, dtype) == ("shared",)
+  per = min(8, ldl.SMEM_LIMIT // ldl.smem_per_warp(150, 150, dtype))
+  assert ldl.launch_geometry(130, wide, dtype) == ("shared", -(-130 // per), 32 * per, per)
+  huge = dataclasses.replace(t, structure=t.structure._replace(nv=250, depth=250), lanes=None)
+  assert ldl.variants(huge, dtype) == ()
+  with pytest.raises(ValueError, match="static bound"):
+    ldl.variant(huge, dtype)
+  src = (pathlib.Path(ldl.__file__).parent.parent / "csrc" / ldl.SOURCE).read_text()
+  macro = lambda name: int(re.search(rf"#define {name} (\d+)", src).group(1))
+  assert (macro("MJTPU_LDL_LANE_FIELD_BITS"), macro("MJTPU_LDL_LANES")) == (
+      sparse.LANE_FIELD_BITS, sparse.LANES)
+  # a variant that cannot run a tree is refused before any device check
+  mc = torch.zeros(2, 150, 150, dtype=dtype)
+  with pytest.raises(ValueError):
+    ldl.ldl_factor(wide, mc, kernel="lanes")
+  Mc, _, _ = chip_smoke.chain_pattern_batch(t, 2, dtype, torch.Generator().manual_seed(0))
+  for kind in ("lanes", "shared"):  # the twin on the CPU: no launch
+    assert torch.equal(ldl.ldl_factor(t, Mc, kernel=kind), ldl.ldl_factor_reference(t, Mc))
+  assert ldl.launches == dict.fromkeys(ldl.ENTRIES, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tables_refuse_another_dtype(dtype):
+  """The lane schedule holds byte offsets in the entry size of the dtype
+  its tables were built for: each entry point refuses tensors of the other
+  dtype before any device check (on the card, offsets in the wrong units
+  would read and write the wrong entries), and the lanes variant is not
+  offered for it."""
+  other = torch.float64 if dtype == torch.float32 else torch.float32
+  parent = chip_smoke.ldl_trees()["branchy66"]
+  t = sparse.device_tables(sparse._build(len(parent), parent), dtype, "cpu")
+  assert t.dtype == dtype and ldl.variants(t, other) == ("shared",)
+  Mc, rhs, _ = chip_smoke.chain_pattern_batch(t, 2, dtype, torch.Generator().manual_seed(3))
+  S = ldl.ldl_factor(t, Mc)
+  for name, (kernel, twin) in chip_smoke.ldl_calls().items():
+    assert torch.equal(kernel(t, Mc, rhs, S), twin(t, Mc, rhs, S))
+    for kind in (None, "lanes", "shared"):
+      with pytest.raises(TypeError, match="tables were built for"):
+        kernel(t, Mc.to(other), rhs.to(other), S.to(other), kind)
+  assert ldl.launches == dict.fromkeys(ldl.ENTRIES, 0)

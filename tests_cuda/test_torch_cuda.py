@@ -34,6 +34,33 @@ def test_kernel_matches_twin(batch, n, dtype):
   assert float((x - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("clamp", [False, True], ids=["spd", "clamped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 23, 27, 32, 33, 40])
+def test_chol_variants_match_twin(n, dtype, clamp):
+  """Every variant that can run an n (the register kernel at the main
+  paths' n, 23 and 27; the shared kernel everywhere) within phase 3's
+  tolerance of the twin, the register kernel equal to the shared one bit
+  for bit, launches counted by variant."""
+  gen = torch.Generator(device="cuda").manual_seed(n)
+  mat, rhs = chip_smoke._spd(n, 130, dtype, gen, clamp)
+  ref = cholesky.chol_solve_reference(mat, rhs)
+  assert cholesky.variant(n, dtype) == ("register" if n in (23, 27) else "shared")
+  got = {}
+  for kind in cholesky.variants(n, dtype):
+    before = dict(cholesky.variant_launches)
+    got[kind] = x = cholesky.cholesky_solve(mat, rhs, kernel=kind)
+    torch.cuda.synchronize()
+    assert cholesky.variant_launches == {**before, kind: before[kind] + 1}
+    assert bool(torch.isfinite(x).all())
+    limit = 1e-6 if clamp and dtype == torch.float64 else (
+        1e-10 if dtype == torch.float64 else 1e-4)
+    assert float((x - ref).abs().max()) <= limit * float(ref.abs().max()), kind
+  first = got[cholesky.variant(n, dtype)]
+  for kind, x in got.items():
+    assert torch.equal(_bits(x), _bits(first)), (kind, _bit_diff(x, first))
+
+
 def test_launch_counter_and_refusals():
   mat, rhs = _spd(8, 6, torch.float64)
   before = cholesky.launches
@@ -48,6 +75,9 @@ def test_launch_counter_and_refusals():
     cholesky.cholesky_solve(*_spd(1, big, torch.float64))
   with pytest.raises(ValueError):  # the seam raises too: no route to the twin
     fused.chol_solve(*_spd(1, big, torch.float64))
+  for n in (24, 33):  # no register kernel for an n it is not instantiated for
+    with pytest.raises(ValueError):
+      cholesky.cholesky_solve(*_spd(2, n, torch.float64), kernel="register")
   assert cholesky.launches == before + 1
 
 
@@ -272,6 +302,31 @@ def test_ldl_kernel_matches_twin(batch, massless, tree, dtype):
   assert ldl.launches == {k: v + 1 for k, v in before.items()}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tree", ["branchy66", "branchy38", "chain40", "random100"])
+def test_ldl_variants_match_twin_bit_for_bit(tree, dtype):
+  """Both variants (lanes and shared), each of the three entry points,
+  equal to the twin bit for bit, massless dofs (pivots at the MINVAL
+  floor) included; launches counted by entry point and variant."""
+  parent = chip_smoke.ldl_trees()[tree]
+  t = sparse.device_tables(sparse._build(len(parent), parent), dtype, "cuda")
+  assert ldl.variant(t, dtype) == "lanes" and ldl.variants(t, dtype) == ("lanes", "shared")
+  gen = torch.Generator(device="cuda").manual_seed(len(parent))
+  for massless in (False, True):
+    mc, rhs, _ = chip_smoke.chain_pattern_batch(t, 130, dtype, gen, massless)
+    S = ldl.ldl_factor_reference(t, mc)
+    assert bool((S[:, :, -1] == sparse.MINVAL).any()) == massless
+    for name, (kernel, twin) in chip_smoke.ldl_calls().items():
+      want = twin(t, mc, rhs, S)
+      for kind in ("lanes", "shared"):
+        before = {k: dict(v) for k, v in ldl.variant_launches.items()}
+        got = kernel(t, mc, rhs, S, kind)
+        torch.cuda.synchronize()
+        assert ldl.variant_launches[name] == {**before[name], kind: before[name][kind] + 1}
+        assert torch.equal(_bits(got), _bits(want)), (name, kind, massless,
+                                                      _bit_diff(got, want))
+
+
 def test_ldl_refusals():
   parent = chip_smoke.ldl_trees()["branchy66"]
   t = sparse.device_tables(sparse._build(len(parent), parent), torch.float64, "cuda")
@@ -284,12 +339,21 @@ def test_ldl_refusals():
     ldl.ldl_factor_solve(t, mc, rhs.cpu())
   with pytest.raises(TypeError):  # mixed dtypes
     ldl.ldl_solve(t, mc, rhs.float())
+  with pytest.raises(TypeError):  # f64 tables, f32 tensors: offsets in another unit
+    ldl.ldl_factor_solve(t, mc.float(), rhs.float(), kernel="lanes")
   # past the static bound (one env's factor in a block's shared memory):
   # a tree of nv = 200, depth 200 at f64; raised before any launch
   big = dataclasses.replace(t, structure=t.structure._replace(nv=200, depth=200))
   assert ldl.smem_per_warp(200, 200, torch.float64) > ldl.SMEM_LIMIT
   with pytest.raises(ValueError, match="static bound"):
     ldl.ldl_factor(big, torch.zeros(1, 200, 200, dtype=torch.float64, device="cuda"))
+  # past the lane schedule's fields (no lane schedule built) only the
+  # shared kernel runs a tree; forcing the lanes kernel is refused
+  wide = dataclasses.replace(t, structure=t.structure._replace(nv=100, depth=100), lanes=None)
+  assert ldl.variants(wide, torch.float64) == ("shared",)
+  with pytest.raises(ValueError):
+    ldl.ldl_factor(wide, torch.zeros(1, 100, 100, dtype=torch.float64, device="cuda"),
+                   kernel="lanes")
   assert ldl.launches == before
 
 
