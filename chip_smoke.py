@@ -11,12 +11,12 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 6, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and f64) and
-     batches whose pivots hit the floor; every variant that can run an n
-     (the register kernel at n=23 and 27, the shared one everywhere)
+     (n in 1, 6, 8, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and f64)
+     and batches whose pivots hit the floor; every variant that can run an
+     n (the register kernel at n=8, 23 and 27, the shared one everywhere)
      within the tolerance of the twin, and the two equal bit for bit;
-     times of both at n=27 and n=23 (bench's and terrain's shapes),
-     B=4096, beside torch.cholesky_solve(torch.linalg.cholesky_ex).
+     times of both at n=27, 23 and 8 (bench's, terrain's and ant's
+     shapes), B=4096, beside torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
      and f64; random windows and a flat one; every variant that can run a
@@ -26,13 +26,16 @@ failure raises and the script exits non-zero:
   5. humanoid_bench parity: f64, the committed B=4 mjtpu states stepped 100
      times against the committed mjtpu golden: in the benchmark
      configuration to 1e-8 through step 50 and 1e-6 over 100 steps, and
-     with the solver run to convergence to 1e-8 over 100 steps.
+     with the solver run to convergence to 1e-8 over 100 steps; one
+     Cholesky launch per Newton iteration (the solver leaves its loops
+     once no env runs on).
   6. humanoid_bench throughput: f32, B=4096, 20 warm-up and 200 timed
      steps; the Cholesky kernel's share of step time.
   7. humanoid_terrain parity: f64, B=4, 100 steps from the committed
      golden's initial states; step-1 qacc, efc_force and contact.dist to
      1e-9, the trajectory to TERRAIN_BOUND (the CPU test's bound); two
-     height-field and eight Cholesky launches per step.
+     height-field launches per step and one Cholesky launch per Newton
+     iteration (at most 8 a step).
   8. humanoid_terrain throughput: f32, B=4096 from qpos0 +-0.01, a few
      warm-up and timed steps; each kernel's share of step time.
   9. SAT kernel (B3) vs its plain twin on the card: box-box with equal and
@@ -63,12 +66,22 @@ failure raises and the script exits non-zero:
      B2 launches (one per entry point) and no Cholesky launch per step.
  14. branchy66 throughput: f32, B=4096 from qpos0 +-0.01, a few warm-up
      and timed steps; B2's share of step time; launches per step.
+ 15. ant_bench parity: f64, B=4, 100 steps from the committed golden's
+     initial states; qpos and qvel to 1e-8, sensordata to 1e-8 of each
+     sensor's scale (the CPU test's bounds); one Cholesky launch per
+     Newton iteration and one per step for Euler's damping, all n=8.
+ 16. ant_bench throughput: f32, B=4096, joints uniform over their ranges
+     and ctrl in [-1, 1] (numpy seed 1), a few warm-up and timed steps;
+     env-steps/s, nreset, B1 launches per step and its share of step
+     time, Newton iterations and linesearch rounds per step, the three
+     sensor stages' share of step time (CUDA events around each) and the
+     touch readings that are not zero.
 
-The main paths are phases 6, 8, 11 and 14: each kernel's launch count is
-set to 0 just before each and read just after, by variant too: the main
-paths must run the redesigned variants only (NEW_VARIANT: B1 register, B2
-lanes, B3 and B4 static).  The last two lines are the kernel record and
-{"ok": true, ...}.
+The main paths are phases 6, 8, 11, 14 and 16: each kernel's launch count
+is set to 0 just before each and read just after, by variant too: the
+main paths must run the redesigned variants only (NEW_VARIANT: B1
+register, B2 lanes, B3 and B4 static).  The last two lines are the kernel
+record and {"ok": true, ...}.
 
     python3 chip_smoke.py --kernels
 
@@ -110,11 +123,17 @@ PILE_TIMED = 10
 BRANCHY_BOUND = 1e-8  # tests/test_torch_branchy.py's TRAJECTORY_BOUND
 BRANCHY_WARMUP = 3
 BRANCHY_TIMED = 20
+ANT_BOUND = 1e-8  # tests/test_torch_ant.py's TRAJECTORY_BOUND
+ANT_WARMUP = 3
+ANT_TIMED = 20
+SENSOR_STAGES = ("sensor_pos", "sensor_vel", "sensor_acc")
 LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
-# phase 3's sizes: the main paths' n (23, 27), which both variants run, and
-# n that only the shared kernel runs (32 and 33 on either side of its rows'
-# striding over the lanes)
-CHOL_NS = (1, 6, 23, 27, 32, 33, 40)
+# phase 3's sizes: the main paths' n (8, 23, 27), which both variants run,
+# and n that only the shared kernel runs (32 and 33 on either side of its
+# rows' striding over the lanes)
+CHOL_NS = (1, 6, 8, 23, 27, 32, 33, 40)
+# the main paths' n, timed in phase 3: bench, terrain, ant
+CHOL_TIMED_NS = (27, 23, 8)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
@@ -313,7 +332,7 @@ def phase_cholesky():
       f" by variant {checked}; register == shared bit for bit in {same_bits} envs")
 
   times, variant_ms = {}, {}
-  for n in (27, 23):
+  for n in CHOL_TIMED_NS:
     for dtype in (torch.float32, torch.float64):
       mat, rhs = _spd(n, BENCH_BATCH, dtype, gen)
       run = {kind: (lambda kind=kind: cholesky.cholesky_solve(mat, rhs, kernel=kind))
@@ -335,7 +354,7 @@ def phase_cholesky():
   f32 = torch.float32
   shapes = {f"n={n}": {"ms": times[n, f32][0], "plain_ms": times[n, f32][1],
                        "library_ms": times[n, f32][2], "bound_ms": times[n, f32][3],
-                       "variant_ms": variant_ms[n, f32]} for n in (27, 23)}
+                       "variant_ms": variant_ms[n, f32]} for n in CHOL_TIMED_NS}
   return main_abs_err, times[27, f32], variant_ms[27, f32], shapes
 
 
@@ -801,6 +820,7 @@ def phase_parity():
   import torch
 
   import mjtpu_torch
+  from mjtpu_torch._src import solver
   from mjtpu_torch.ops import cholesky
 
   golden = dict(np.load(mjtpu_torch.ASSETS / "humanoid_bench_golden.npz"))
@@ -837,12 +857,17 @@ def phase_parity():
   snapshot.opt.ls_iterations = its
   mc = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
   cholesky.launches = 0
+  before = solver.loop_counts["iterations"]
   qpos, qvel, _, _ = _golden_run(mc, golden, PARITY_STEPS)
-  if cholesky.launches != PARITY_STEPS * its:
-    raise AssertionError(f"{cholesky.launches} kernel launches in {PARITY_STEPS} steps")
+  iterations = solver.loop_counts["iterations"] - before
+  # one launch per Newton iteration; the solver leaves once every env is done
+  if not cholesky.launches == iterations <= PARITY_STEPS * its:
+    raise AssertionError(f"{cholesky.launches} kernel launches, {iterations} Newton iterations"
+                         f" in {PARITY_STEPS} steps")
   worst, excess = _excess(qpos, qvel, golden["conv_qpos"], golden["conv_qvel"], 1e-8)
   log(f"[parity] converged solver (iterations={its}), {PARITY_STEPS} steps B=4 f64:"
-      f" max abs err {worst:.3e} (limit 1e-8)")
+      f" max abs err {worst:.3e} (limit 1e-8); {iterations / PARITY_STEPS:.2f} Newton"
+      f" iterations and kernel launches per step")
   if excess:
     raise AssertionError(f"converged trajectory differs from mjtpu: {excess}")
 
@@ -866,10 +891,12 @@ def _f32_start(m, seed: int = 1):
 
 def _timed_main_path(m, d, warmup, timed):
   """Warm-up steps, then the main path's run: every kernel count set to 0
-  just before it and read just after.  Returns (d, secs, counts)."""
+  just before it and read just after.  Returns (d, secs, counts, the
+  solver's iterations and linesearch rounds in the timed steps)."""
   import torch
 
   import mjtpu_torch
+  from mjtpu_torch._src import solver
   from mjtpu_torch.ops import cholesky, hfield, ldl, sat
 
   for _ in range(warmup):
@@ -880,11 +907,13 @@ def _timed_main_path(m, d, warmup, timed):
   for table in (cholesky.variant_launches, hfield.variant_launches, sat.variant_launches,
                 *ldl.variant_launches.values()):
     table.update(dict.fromkeys(table, 0))
+  loops = dict(solver.loop_counts)
   t0 = time.perf_counter()
   for _ in range(timed):
     d = mjtpu_torch.step(m, d)
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
             "sat_winners": sat.launches, **ldl.launches}
   # the main path's launches by variant: the redesigned variant only
@@ -900,7 +929,7 @@ def _timed_main_path(m, d, warmup, timed):
       total[kind] += k
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
-  return d, secs, counts
+  return d, secs, counts, loops
 
 
 def _only(**launches) -> dict:
@@ -909,17 +938,21 @@ def _only(**launches) -> dict:
           **launches}
 
 
-def _seam_shares(m, d, steps):
-  """Per kernel: device ms per step inside its seam (CUDA events around
-  each call), and the step's device ms, over ``steps`` further steps."""
+def _seam_shares(m, d, steps, stages=False):
+  """Per kernel (and with ``stages``, per sensor stage): device ms per step
+  inside its seam (CUDA events around each call), and the step's device
+  ms, over ``steps`` further steps."""
   import torch
 
   import mjtpu_torch
+  from mjtpu_torch._src import sensor
   from mjtpu_torch.ops import fused, hfield, ldl, sat
 
   seams = {"chol_solve": (fused, "chol_solve"), "hfield_manifold": (hfield, "manifold_batch"),
            "sat_winners": (sat, "sat_winners_batch"),
            **{entry: (ldl, entry) for entry in LDL_ENTRIES}}
+  if stages:
+    seams.update({stage: (sensor, stage) for stage in SENSOR_STAGES})
   events = {k: [] for k in seams}
   originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
 
@@ -956,7 +989,7 @@ def phase_throughput(card):
 
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
-  d, secs, counts = _timed_main_path(m, _f32_start(m), WARMUP_STEPS, TIMED_STEPS)
+  d, secs, counts, _ = _timed_main_path(m, _f32_start(m), WARMUP_STEPS, TIMED_STEPS)
   if counts != _only(chol_solve=TIMED_STEPS):
     raise AssertionError(f"kernel launches in {TIMED_STEPS} timed steps: {counts}")
   rate = BENCH_BATCH * TIMED_STEPS / secs
@@ -973,6 +1006,7 @@ def phase_terrain_parity():
   import torch
 
   import mjtpu_torch
+  from mjtpu_torch._src import solver
   from mjtpu_torch.ops import cholesky, hfield
 
   golden = dict(np.load(mjtpu_torch.ASSETS / "humanoid_terrain_golden.npz"))
@@ -980,18 +1014,21 @@ def phase_terrain_parity():
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
   steps = golden["qpos"].shape[0]
   cholesky.launches = hfield.launches = 0
+  before = solver.loop_counts["iterations"]
   qpos, qvel, first, d = _golden_run(m, golden, steps)
   counts = (cholesky.launches, hfield.launches)
-  if counts != (m.opt.iterations * steps, 2 * steps):
-    raise AssertionError(f"(Cholesky, hfield) launches {counts} in {steps} steps")
+  iterations = solver.loop_counts["iterations"] - before
+  if counts != (iterations, 2 * steps) or iterations > m.opt.iterations * steps:
+    raise AssertionError(f"(Cholesky, hfield) launches {counts}, {iterations} Newton iterations"
+                         f" in {steps} steps")
   _step_one(first, golden, "terrain parity")
   if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
     raise AssertionError("terrain trajectory not finite or reset")
   worst, excess = _excess(qpos, qvel, golden["qpos"], golden["qvel"], 1e-8)
   log(f"[terrain parity] humanoid_terrain, {steps} steps B=4 f64: max abs err {worst:.3e}"
       f" (limit {TERRAIN_BOUND}); first step above 1e-8: {excess[0] if excess else 'none'};"
-      f" launches: Cholesky {counts[0]} ({m.opt.iterations} per step), hfield {counts[1]}"
-      f" (2 per step)")
+      f" launches: Cholesky {counts[0]} (one per Newton iteration, {counts[0] / steps:.2f} per"
+      f" step, at most {m.opt.iterations}), hfield {counts[1]} (2 per step)")
   if excess:
     log(f"[terrain parity] exceeds 1e-8 first at step {excess[0]}, {excess[1]}, env {excess[2]}:"
         f" {excess[3]:.3e}")
@@ -1006,16 +1043,19 @@ def phase_terrain_throughput(card):
 
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
-  d, secs, counts = _timed_main_path(m, _f32_start(m), TERRAIN_WARMUP, TERRAIN_TIMED)
-  if counts != _only(chol_solve=m.opt.iterations * TERRAIN_TIMED,
-                     hfield_manifold=2 * TERRAIN_TIMED):
-    raise AssertionError(f"kernel launches in {TERRAIN_TIMED} timed steps: {counts}")
+  d, secs, counts, loops = _timed_main_path(m, _f32_start(m), TERRAIN_WARMUP, TERRAIN_TIMED)
+  if counts != _only(chol_solve=loops["iterations"], hfield_manifold=2 * TERRAIN_TIMED) \
+      or loops["iterations"] > m.opt.iterations * TERRAIN_TIMED:
+    raise AssertionError(f"kernel launches in {TERRAIN_TIMED} timed steps: {counts}, Newton"
+                         f" loops {loops}")
   rate = BENCH_BATCH * TERRAIN_TIMED / secs
   shares, step_ms = _seam_shares(m, d, TERRAIN_WARMUP)
   log(f"[terrain throughput] humanoid_terrain f32 B={BENCH_BATCH}: {TERRAIN_WARMUP} warm-up and"
       f" {TERRAIN_TIMED} timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
       f" ({1e3 * secs / TERRAIN_TIMED:.3f} ms/step); qpos finite, nreset 0; launches per step:"
-      f" Cholesky {counts['chol_solve'] // TERRAIN_TIMED}, hfield"
+      f" Cholesky {counts['chol_solve'] / TERRAIN_TIMED:.2f} (Newton"
+      f" {loops['iterations'] / TERRAIN_TIMED:.2f} iterations,"
+      f" {loops['ls_rounds'] / TERRAIN_TIMED:.2f} linesearch rounds), hfield"
       f" {counts['hfield_manifold'] // TERRAIN_TIMED}; device step {step_ms:.3f} ms, of it"
       f" Cholesky {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%),"
       f" hfield {shares['hfield_manifold']:.4f} ms"
@@ -1080,7 +1120,7 @@ def phase_pile_throughput(card):
   qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
   d = mjtpu_torch.replace(d, qpos=qpos)
   before = dict(solver.loop_counts)
-  d, secs, counts = _timed_main_path(m, d, PILE_WARMUP, PILE_TIMED)
+  d, secs, counts, _ = _timed_main_path(m, d, PILE_WARMUP, PILE_TIMED)
   if counts != _only(sat_winners=PILE_TIMED):
     raise AssertionError(f"kernel launches in {PILE_TIMED} timed steps: {counts}")
   loops = {k: (solver.loop_counts[k] - before[k]) / (PILE_WARMUP + PILE_TIMED) for k in before}
@@ -1137,7 +1177,7 @@ def phase_branchy_throughput(card):
 
   snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "branchy66_model.npz")
   m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
-  d, secs, counts = _timed_main_path(m, _f32_start(m), BRANCHY_WARMUP, BRANCHY_TIMED)
+  d, secs, counts, _ = _timed_main_path(m, _f32_start(m), BRANCHY_WARMUP, BRANCHY_TIMED)
   if counts != _only(**dict.fromkeys(LDL_ENTRIES, BRANCHY_TIMED)):
     raise AssertionError(f"kernel launches in {BRANCHY_TIMED} timed steps: {counts}")
   rate = BENCH_BATCH * BRANCHY_TIMED / secs
@@ -1149,6 +1189,107 @@ def phase_branchy_throughput(card):
       f" ldl_factor, ldl_solve, ldl_factor_solve 1 each, Cholesky 0; device step {step_ms:.3f}"
       f" ms, of it B2 {b2:.4f} ms ({100 * b2 / step_ms:.2f}%: "
       + ", ".join(f"{e} {shares[e]:.4f}" for e in LDL_ENTRIES) + f"); card {card}")
+  return counts
+
+
+def _sensor_scale(m, golden):
+  """(nsensordata,) each sensor's largest |value| in the golden, at least
+  1, repeated over its dimensions (tests/test_torch_ant.py's scale)."""
+  import numpy as np
+
+  top = np.abs(golden["sensordata"]).max(axis=(0, 1))
+  return np.concatenate([np.full(int(m.sensor_dim[i]), max(1.0, float(
+      top[m.sensor_adr[i]:m.sensor_adr[i] + m.sensor_dim[i]].max()))) for i in range(m.nsensor)])
+
+
+def phase_ant_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import solver
+  from mjtpu_torch.ops import cholesky
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "ant_bench_golden.npz"))
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "ant_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+  steps = golden["qpos"].shape[0]
+  scale = _sensor_scale(m, golden)
+  cholesky.launches = 0
+  before = dict(cholesky.variant_launches)
+  loops = dict(solver.loop_counts)
+  d = mjtpu_torch.make_data(m, batch_size=golden["qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["qpos0"], device="cuda"),
+                          qvel=torch.as_tensor(golden["qvel0"], device="cuda"),
+                          ctrl=torch.as_tensor(golden["ctrl"], device="cuda"))
+  err = {"qpos": 0.0, "qvel": 0.0, "sensordata": 0.0}
+  for i in range(steps):
+    d = mjtpu_torch.step(m, d)
+    for f in ("qpos", "qvel"):
+      err[f] = max(err[f], float(np.abs(getattr(d, f).cpu().numpy() - golden[f][i]).max()))
+    err["sensordata"] = max(err["sensordata"], float(
+        (np.abs(d.sensordata.cpu().numpy() - golden["sensordata"][i]) / scale).max()))
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
+  log(f"[ant parity] ant_bench, {steps} steps B=4 f64: max abs err qpos {err['qpos']:.3e}, qvel"
+      f" {err['qvel']:.3e}, sensordata {err['sensordata']:.3e} of each sensor's scale (limit"
+      f" {ANT_BOUND}); Newton {loops['iterations']} iterations and {loops['ls_rounds']}"
+      f" linesearch rounds in {steps} steps; Cholesky launches {cholesky.launches} by variant"
+      f" {kinds} (one per Newton iteration and one per step for Euler's damping, n=8)")
+  if int(d.nreset.sum()) or not max(err.values()) <= ANT_BOUND:
+    raise AssertionError(f"ant trajectory differs from mjtpu: {err}, nreset {int(d.nreset.sum())}")
+  if cholesky.launches != loops["iterations"] + steps or kinds["register"] != cholesky.launches:
+    raise AssertionError(f"Cholesky launches {cholesky.launches} ({kinds}), Newton {loops}")
+
+
+def _ant_start(m):
+  """B=4096 envs with every joint uniform over its range and ctrl in
+  [-1, 1] (numpy seed 1)."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  rng = np.random.default_rng(1)
+  lo, hi = (m.jnt_range[:, k].cpu().numpy() for k in (0, 1))
+  qpos = np.tile(m.qpos0.cpu().numpy(), (BENCH_BATCH, 1))
+  qpos[:, m.jnt_qposadr] = rng.uniform(lo, hi, (BENCH_BATCH, m.njnt))
+  ctrl = rng.uniform(-1.0, 1.0, (BENCH_BATCH, m.nu))
+  d = mjtpu_torch.make_data(m, batch_size=BENCH_BATCH)
+  return mjtpu_torch.replace(
+      d, qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"),
+      ctrl=torch.as_tensor(ctrl, dtype=torch.float32, device="cuda"))
+
+
+def phase_ant_throughput(card):
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "ant_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d, secs, counts, loops = _timed_main_path(m, _ant_start(m), ANT_WARMUP, ANT_TIMED)
+  if counts != _only(chol_solve=loops["iterations"] + ANT_TIMED):
+    raise AssertionError(f"kernel launches in {ANT_TIMED} timed steps: {counts}, Newton {loops}")
+  rate = BENCH_BATCH * ANT_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, ANT_WARMUP, stages=True)
+  touch = np.asarray(m.sensor_type) == mjtpu_torch.SensorType.TOUCH
+  cols = np.concatenate([m.sensor_adr[i] + np.arange(m.sensor_dim[i])
+                         for i in np.nonzero(touch)[0]])
+  nonzero = int((d.sensordata[:, torch.as_tensor(cols, device="cuda")] != 0).sum())
+  stage_ms = sum(shares[k] for k in SENSOR_STAGES)
+  log(f"[ant throughput] ant_bench f32 B={BENCH_BATCH}: {ANT_WARMUP} warm-up and {ANT_TIMED}"
+      f" timed steps in {secs:.3f} s = {rate:.0f} env-steps/s ({1e3 * secs / ANT_TIMED:.3f}"
+      f" ms/step); qpos finite, nreset 0; per step: B1 register"
+      f" {counts['chol_solve'] / ANT_TIMED:.2f} launches (n=8), Newton"
+      f" {loops['iterations'] / ANT_TIMED:.2f} iterations and"
+      f" {loops['ls_rounds'] / ANT_TIMED:.2f} linesearch rounds; device step {step_ms:.3f} ms,"
+      f" of it B1 {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%),"
+      f" sensor stages {stage_ms:.4f} ms ({100 * stage_ms / step_ms:.2f}%: "
+      + ", ".join(f"{k} {shares[k]:.4f}" for k in SENSOR_STAGES)
+      + f"); touch readings not zero after the last step: {nonzero} of {BENCH_BATCH * len(cols)};"
+      f" card {card}")
   return counts
 
 
@@ -1179,6 +1320,8 @@ def main() -> int:
   paths["scene_pile"] = phase_pile_throughput(card)
   phase_branchy_parity()
   paths["branchy66"] = phase_branchy_throughput(card)
+  phase_ant_parity()
+  paths["ant_bench"] = phase_ant_throughput(card)
   for name, kinds in VARIANT_LAUNCHES.items():
     if not kinds[NEW_VARIANT[name]] or sum(kinds.values()) != kinds[NEW_VARIANT[name]]:
       raise AssertionError(f"{name}: the main paths launched {kinds}, not the"
@@ -1213,7 +1356,7 @@ def main() -> int:
     record[-1].update(variant="+".join(ran), variant_launches=VARIANT_LAUNCHES[name],
                       variant_ms=variant_ms[name])
     if name == "chol_solve":
-      # both shapes of the main paths (bench n=27, terrain n=23), f32
+      # the main paths' shapes (bench n=27, terrain n=23, ant n=8), f32
       record[-1]["shapes"] = chol_shapes
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {

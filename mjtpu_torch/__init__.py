@@ -10,9 +10,11 @@ built with nvcc at first use.
 The slices so far run ``humanoid_bench`` (Euler, the dense Newton solver,
 joint limits, pyramidal plane-capsule contacts), ``humanoid_terrain``
 (ImplicitFast; sphere/capsule self-collision at condim 1, spheres and
-capsules on a height field and on convex meshes) and ``scene_pile`` (32
+capsules on a height field and on convex meshes), ``scene_pile`` (32
 free bodies: the CG solver, the forest-blocked mass matrix, plane, sphere
-and box colliders with box-box SAT), all in mjtpu/zoo/assets.
+and box colliders with box-box SAT) and ``ant_bench`` (the sensor stages,
+rangefinder rays, cameras and lights), all in mjtpu/zoo/assets, and the
+66-dof branchy tree of tests/test_sparse.py (the levelwise sparse LDL).
 ``put_model`` refuses models outside them with NotImplementedError.
 """
 
@@ -46,7 +48,10 @@ from mjtpu_torch._src.io import (
     save_snapshot,
 )
 from mjtpu_torch._src.passive import passive
+from mjtpu_torch._src.ray import ray, ray_geom
+from mjtpu_torch._src.sensor import sensor_acc, sensor_pos, sensor_vel
 from mjtpu_torch._src.smooth import (
+    camlight,
     com_pos,
     com_vel,
     crb,
@@ -54,23 +59,28 @@ from mjtpu_torch._src.smooth import (
     factor_solve,
     kinematics,
     rne,
+    rne_postconstraint,
     solve_m,
+    subtree_vel,
     transmission,
 )
 from mjtpu_torch._src.solver import solve
 from mjtpu_torch._src.support import (
     constraint_sizes,
+    contact_forces,
     count_constraints,
     jac,
     xfrc_accumulate,
 )
 from mjtpu_torch._src.types import (
     BiasType,
+    CamLightType,
     ConeType,
     ConstraintType,
     Contact,
     ConvexMesh,
     Data,
+    DataType,
     DisableBit,
     DynType,
     EnableBit,
@@ -81,7 +91,9 @@ from mjtpu_torch._src.types import (
     JacobianType,
     JointType,
     Model,
+    ObjType,
     Option,
+    SensorType,
     SolverType,
     Statistic,
     TrnType,

@@ -220,6 +220,28 @@ def make_condim(m: Model) -> np.ndarray:
   return cached(m, "collision.make_condim", build)
 
 
+def _slot_geoms(m: Model) -> tuple[np.ndarray, np.ndarray]:
+  """(geom1, geom2) of each contact the narrowphase writes, in group
+  order, before the max_contact_points cap."""
+
+  def build():
+    g1, g2 = [], []
+    for key, pairs in candidate_groups(m).items():
+      for a, b, _ in pairs:
+        g1 += [a] * _PAIR_NCON[key[:2]]
+        g2 += [b] * _PAIR_NCON[key[:2]]
+    return np.array(g1, dtype=np.int64), np.array(g2, dtype=np.int64)
+
+  return cached(m, "collision.slot_geoms", build)
+
+
+def contact_geoms(m: Model) -> tuple[np.ndarray, np.ndarray] | None:
+  """Static (geom1, geom2) of each contact slot, or None where the
+  max_contact_points cap picks the slots per env (their geoms then differ
+  from env to env)."""
+  return None if _raw_ncon(m) > ncon(m) else _slot_geoms(m)
+
+
 def contact_efc_address(m: Model, ne: int, nf: int, nl: int) -> np.ndarray:
   """Static efc row address per contact (rows start after ne+nf+nl)."""
   dims = make_condim(m)
@@ -319,8 +341,8 @@ def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Ca
 
 
 def _schedule(m: Model):
-  """Per group: (pair fn, contacts per pair, geom1 ids, geom2 ids as
-  tensors, mixed parameters repeated per contact) — model constants."""
+  """Per group: (pair fn, geom1 ids, geom2 ids as tensors, mixed
+  parameters repeated per contact) — model constants."""
 
   def build():
     out = []
@@ -331,7 +353,7 @@ def _schedule(m: Model):
       params = tuple(
           torch.repeat_interleave(p, n_per, dim=0) for p in _contact_params(m, pairs)
       )
-      out.append((_collision_fn(m, key, pairs), n_per, i1, i2, params))
+      out.append((_collision_fn(m, key, pairs), i1, i2, params))
     return out
 
   return cached(m, "collision.schedule", build)
@@ -348,29 +370,27 @@ def collision(m: Model, d: Data) -> Data:
     return replace(d, contact=Contact.zero(B, 0, dtype, device))
 
   ne, nf, nl, _ = support.count_constraints(m)
-  dists, poss, frames, params, g1s, g2s = [], [], [], [], [], []
-  for fn, n_per, i1, i2, prm in _schedule(m):
+  dists, poss, frames, params = [], [], [], []
+  for fn, i1, i2, prm in _schedule(m):
     dist, pos, frame = fn(
         d.geom_xpos[:, i1], d.geom_xmat[:, i1], m.geom_size[i1],
         d.geom_xpos[:, i2], d.geom_xmat[:, i2], m.geom_size[i2],
-    )  # (B, npair, n_per, ...)
+    )  # (B, npair, contacts per pair, ...)
     dists.append(dist.reshape(B, -1))
     poss.append(pos.reshape(B, -1, 3))
     frames.append(frame.reshape(B, -1, 3, 3))
     params.append(prm)
-    g1s.append(torch.repeat_interleave(i1, n_per))
-    g2s.append(torch.repeat_interleave(i2, n_per))
 
   margin, gap, friction, solref, solreffriction, solimp = (
       torch.cat([p[k] for p in params]) for k in range(6)
   )
   bcast = lambda x: x.expand((B,) + x.shape)
-  geom1 = bcast(torch.cat(g1s).to(torch.int32))
-  geom2 = bcast(torch.cat(g2s).to(torch.int32))
-  dim, efc_address = cached(m, "collision.static_rows", lambda: (
+  dim, efc_address, geom1, geom2 = cached(m, "collision.static_rows", lambda: (
       torch.as_tensor(make_condim(m), device=device),
       torch.as_tensor(contact_efc_address(m, ne, nf, nl), device=device),
+      *(torch.as_tensor(g, dtype=torch.int32, device=device) for g in _slot_geoms(m)),
   ))
+  geom1, geom2 = bcast(geom1), bcast(geom2)
 
   dist = torch.cat(dists, dim=1)
   contact = Contact(

@@ -1,10 +1,9 @@
 """Forward dynamics orchestration + the Euler and ImplicitFast integrators.
 
 Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
-fwd_* stages, forward, _advance, euler (with implicit joint damping),
-implicit (ImplicitFast) and step,
-batch-explicit over B envs.  Sensor stages are absent: put_model refuses
-models with sensors, and the RK4 and full Implicit integrators.
+fwd_* stages, forward with the three sensor stages, _advance, euler (with
+implicit joint damping), implicit (ImplicitFast) and step, batch-explicit
+over B envs.  put_model refuses the RK4 and full Implicit integrators.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from mjtpu_torch._src import (
     math,
     passive as passive_mod,
     scan,
+    sensor,
     smooth,
     solver,
     support,
@@ -57,6 +57,7 @@ def fwd_position(m: Model, d: Data) -> Data:
   """Position-dependent computations (mj_fwdPosition)."""
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
+  d = smooth.camlight(m, d)
   d = smooth.crb(m, d)
   d = smooth.factor_m(m, d)
   d = collision_driver.collision(m, d)
@@ -145,15 +146,20 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
 
 
 def forward(m: Model, d: Data) -> Data:
-  """Full forward dynamics (mj_forward)."""
+  """Full forward dynamics (mj_forward), with the sensor stages after
+  the position, velocity and acceleration stages as in mjtpu."""
   d = fwd_position(m, d)
+  d = sensor.sensor_pos(m, d)
   d = fwd_velocity(m, d)
+  d = sensor.sensor_vel(m, d)
   d = fwd_actuation(m, d)
   d = fwd_acceleration(m, d)
   _, _, _, nefc = support.count_constraints(m)
   if nefc == 0:
-    return replace(d, qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth)
-  return solver.solve(m, d)
+    d = replace(d, qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth)
+  else:
+    d = solver.solve(m, d)
+  return sensor.sensor_acc(m, d)
 
 
 def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:

@@ -36,10 +36,12 @@ from mjtpu_torch._src.types import (
     DisableBit,
     DynType,
     GainType,
+    GeomType,
     IntegratorType,
     JointType,
     Model,
     Option,
+    SensorType,
     SolverType,
     Statistic,
     TrnType,
@@ -50,10 +52,11 @@ from mjtpu_torch._src.types import (
 SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "npair",
     "nexclude", "neq", "ntendon", "nsensor", "nflex", "nmocap", "nmesh", "nhfield",
+    "ncam", "nlight", "nsensordata",
 )
 OPTION_FIELDS = (
     "opt.timestep", "opt.impratio", "opt.tolerance", "opt.ls_tolerance",
-    "opt.gravity", "opt.wind", "opt.density", "opt.viscosity",
+    "opt.gravity", "opt.wind", "opt.magnetic", "opt.density", "opt.viscosity",
     "opt.integrator", "opt.cone", "opt.solver", "opt.iterations",
     "opt.ls_iterations", "opt.disableflags", "opt.enableflags",
     "stat.meaninertia",
@@ -65,29 +68,36 @@ STATIC_FIELDS = (
     "jnt_actfrclimited",
     "dof_bodyid", "dof_jntid", "dof_parentid",
     "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
-    "geom_bodyid", "geom_dataid", "geom_priority",
-    "site_bodyid",
+    "geom_bodyid", "geom_dataid", "geom_priority", "geom_group",
+    "site_bodyid", "site_type",
+    "cam_mode", "cam_bodyid", "cam_targetbodyid",
+    "light_mode", "light_bodyid", "light_targetbodyid",
+    "mesh_vertadr", "mesh_faceadr", "mesh_facenum", "mesh_vert", "mesh_face",
     "hfield_adr", "hfield_nrow", "hfield_ncol", "hfield_size",
     "pair_dim", "pair_geom1", "pair_geom2", "exclude_signature",
     "actuator_trntype", "actuator_dyntype", "actuator_gaintype",
     "actuator_biastype", "actuator_trnid", "actuator_ctrllimited",
     "actuator_forcelimited",
+    "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
+    "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_dim", "sensor_adr",
     "numeric_adr", "numeric_data", "name_numericadr",
 )
 FLOAT_FIELDS = (
     "qpos0", "qpos_spring",
     "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
-    "body_inertia", "body_invweight0",
+    "body_subtreemass", "body_inertia", "body_invweight0",
     "jnt_solref", "jnt_solimp", "jnt_pos", "jnt_axis", "jnt_stiffness",
     "jnt_range", "jnt_actfrcrange", "jnt_margin",
     "dof_armature", "dof_damping", "dof_invweight0",
     "geom_solmix", "geom_solref", "geom_solimp", "geom_size", "geom_pos",
     "geom_quat", "geom_friction", "geom_margin", "geom_gap", "geom_rbound",
-    "site_pos", "site_quat", "hfield_data",
+    "site_size", "site_pos", "site_quat", "hfield_data",
+    "cam_pos", "cam_quat", "cam_poscom0", "cam_pos0", "cam_mat0",
+    "light_pos", "light_dir", "light_poscom0", "light_pos0",
     "pair_solref", "pair_solreffriction", "pair_solimp", "pair_margin",
     "pair_gap", "pair_friction",
     "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
-    "actuator_forcerange", "actuator_gear",
+    "actuator_forcerange", "actuator_gear", "sensor_cutoff",
 )
 # read only to refuse models outside the slice
 CHECK_FIELDS = ("dof_frictionloss", "body_gravcomp")
@@ -99,6 +109,19 @@ SNAPSHOT_FIELDS = (
 # "geomhull.<geom id>.<ConvexMesh field>"
 HULL_FIELDS = ("vert", "face", "face_normal", "edge", "edge_face_normal")
 HULL_PREFIXES = ("hull.", "geomhull.")
+
+
+# the sensor types the port computes (mjtpu's sensor_pos, sensor_vel and
+# sensor_acc); put_model refuses every other type by name
+SENSORS_PORTED = frozenset(SensorType[n] for n in (
+    "MAGNETOMETER", "RANGEFINDER", "JOINTPOS", "ACTUATORPOS", "BALLQUAT", "FRAMEPOS",
+    "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "SUBTREECOM", "CLOCK",
+    "INSIDESITE", "JOINTLIMITPOS",
+    "VELOCIMETER", "GYRO", "JOINTVEL", "ACTUATORVEL", "BALLANGVEL", "SUBTREELINVEL",
+    "SUBTREEANGMOM", "FRAMELINVEL", "FRAMEANGVEL", "JOINTLIMITVEL",
+    "ACCELEROMETER", "FRAMELINACC", "FRAMEANGACC", "FORCE", "TORQUE", "ACTUATORFRC",
+    "JOINTACTFRC", "JOINTLIMITFRC", "TOUCH",
+))
 
 
 def _get(ns, name: str):
@@ -183,7 +206,9 @@ def _validate(ns) -> None:
       raise NotImplementedError(f"mjtpu_torch does not support {what} yet")
 
   refuse(ns.nflex, "flex objects")
-  refuse(ns.nsensor, "sensors")
+  names = {int(s): s.name for s in SensorType}
+  for t in sorted(set(int(t) for t in np.asarray(ns.sensor_type))):
+    refuse(t not in SENSORS_PORTED, f"{names.get(t, f'type {t}')} sensors")
   refuse(ns.ntendon, "tendons")
   refuse(ns.neq, "equality constraints")
   refuse(ns.nmocap, "mocap bodies")
@@ -253,6 +278,7 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["opt"] = Option(
       timestep=f(o.timestep), impratio=f(o.impratio), tolerance=f(o.tolerance),
       ls_tolerance=f(o.ls_tolerance), gravity=f(o.gravity), wind=f(o.wind),
+      magnetic=f(o.magnetic),
       density=f(o.density), viscosity=f(o.viscosity),
       integrator=IntegratorType(int(o.integrator)), cone=ConeType(int(o.cone)),
       solver=SolverType(int(o.solver)), iterations=int(o.iterations),
@@ -294,6 +320,14 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   bad = set(int(c) for c in collision_driver.make_condim(m)) - {1, 3}
   if bad:
     raise NotImplementedError(f"mjtpu_torch does not support contact condim {sorted(bad)} yet")
+  # mjtpu's ray has no height-field intersector either
+  from mjtpu_torch._src import ray
+
+  rf = np.asarray(m.sensor_type) == SensorType.RANGEFINDER
+  sites = np.asarray(m.sensor_objid)[rf]
+  for b in set(int(b) for b in np.asarray(m.site_bodyid)[sites]):
+    if np.any(np.asarray(m.geom_type)[ray.candidate_geoms(m, None, True, b)] == GeomType.HFIELD):
+      raise NotImplementedError("mjtpu_torch does not support rangefinders over height fields")
   return m
 
 
@@ -332,16 +366,21 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       ximat=eye3(nbody), xanchor=zero(njnt, 3), xaxis=zero(njnt, 3),
       geom_xpos=zero(m.ngeom, 3), geom_xmat=eye3(m.ngeom),
       site_xpos=zero(m.nsite, 3), site_xmat=eye3(m.nsite),
+      cam_xpos=zero(m.ncam, 3), cam_xmat=eye3(m.ncam),
+      light_xpos=zero(m.nlight, 3), light_xdir=zero(m.nlight, 3),
       subtree_com=zero(nbody, 3), cdof=zero(nv, 6), cinert=zero(nbody, 10),
       actuator_length=zero(m.nu), actuator_moment=zero(m.nu, nv),
       actuator_velocity=zero(m.nu), actuator_force=zero(m.nu),
       crb=zero(nbody, 10), qM=zero(nv, nv), qLD=zero(nv, nv), qLDiagInv=zero(nv),
       cvel=zero(nbody, 6), cdof_dot=zero(nv, 6), qfrc_bias=zero(nv),
       qfrc_spring=zero(nv), qfrc_damper=zero(nv), qfrc_passive=zero(nv),
+      subtree_linvel=zero(nbody, 3), subtree_angmom=zero(nbody, 3),
       contact=contact, efc_J=zero(nefc, nv), efc_pos=zero(nefc),
       efc_margin=zero(nefc), efc_frictionloss=zero(nefc), efc_D=zero(nefc),
       efc_aref=zero(nefc), efc_force=zero(nefc), qfrc_actuator=zero(nv),
       qfrc_smooth=zero(nv), qacc_smooth=zero(nv), qfrc_constraint=zero(nv),
+      cacc=zero(nbody, 6), cfrc_int=zero(nbody, 6), cfrc_ext=zero(nbody, 6),
+      sensordata=zero(m.nsensordata),
       solver_niter=torch.zeros(B, dtype=torch.int32, device=device),
       nreset=torch.zeros(B, dtype=torch.int32, device=device),
   )

@@ -140,6 +140,28 @@ def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
   return axis * speed[..., None]
 
 
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """3x3 rotation matrix -> unit quaternion: of the four constructions,
+  the one whose pivot (trace or a diagonal entry) is largest."""
+  tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+  q = torch.stack([
+      torch.stack([tr + 1.0, m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                   m[..., 1, 0] - m[..., 0, 1]], dim=-1),
+      torch.stack([m[..., 2, 1] - m[..., 1, 2], 1.0 + m[..., 0, 0] - m[..., 1, 1] - m[..., 2, 2],
+                   m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0]], dim=-1),
+      torch.stack([m[..., 0, 2] - m[..., 2, 0], m[..., 0, 1] + m[..., 1, 0],
+                   1.0 - m[..., 0, 0] + m[..., 1, 1] - m[..., 2, 2],
+                   m[..., 1, 2] + m[..., 2, 1]], dim=-1),
+      torch.stack([m[..., 1, 0] - m[..., 0, 1], m[..., 0, 2] + m[..., 2, 0],
+                   m[..., 1, 2] + m[..., 2, 1],
+                   1.0 - m[..., 0, 0] - m[..., 1, 1] + m[..., 2, 2]], dim=-1),
+  ], dim=-2)
+  pivots = torch.stack([tr, m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]], dim=-1)
+  case = torch.argmax(pivots, dim=-1)
+  pick = case[..., None, None].expand(case.shape + (1, 4))
+  return normalize(torch.gather(q, -2, pick)[..., 0, :])
+
+
 # ---------------------------------------------------------------------------
 # spatial algebra (Featherstone 6-vectors, MuJoCo layout: [ang, lin])
 # ---------------------------------------------------------------------------
@@ -157,6 +179,22 @@ def motion_cross_force(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
   ang = cross(v[..., :3], f[..., :3]) + cross(v[..., 3:], f[..., 3:])
   lin = cross(v[..., :3], f[..., 3:])
   return torch.cat([ang, lin], dim=-1)
+
+
+def transform_motion(vel: torch.Tensor, offset: torch.Tensor, rotmat: torch.Tensor) -> torch.Tensor:
+  """A motion 6-vector in a frame ``offset`` away and rotated by ``rotmat``
+  (rows are the new frame's axes): mju_transformSpatial, flg_force=0."""
+  ang, lin = vel[..., :3], vel[..., 3:]
+  lin = lin - cross(offset, ang)
+  return torch.cat([mat_vec(rotmat, ang), mat_vec(rotmat, lin)], dim=-1)
+
+
+def transform_force(frc: torch.Tensor, offset: torch.Tensor, rotmat: torch.Tensor) -> torch.Tensor:
+  """A force 6-vector in a frame ``offset`` away and rotated by ``rotmat``:
+  mju_transformSpatial, flg_force=1."""
+  ang, lin = frc[..., :3], frc[..., 3:]
+  ang = ang - cross(offset, lin)
+  return torch.cat([mat_vec(rotmat, ang), mat_vec(rotmat, lin)], dim=-1)
 
 
 def inert_mul(i: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Smooth (unconstrained) dynamics pipeline — the main-path part.
 
-Port of mjtpu/_src/smooth.py: kinematics, com_pos, crb, factor_m and
-solve_m (forest-blocked through mass_blocks for several trees, the
-levelwise sparse LDL of sparse.py for a large branchy tree, dense
-otherwise), factor_solve for one tree, com_vel, rne and transmission for
-joint transmissions.  Tree traversals use scan.body_tree (levelwise
-groups, batch-explicit).  The blocked factor_solve is not ported yet:
-put_model refuses models that would take it.
+Port of mjtpu/_src/smooth.py: kinematics, com_pos, camlight, crb,
+factor_m and solve_m (forest-blocked through mass_blocks for several
+trees, the levelwise sparse LDL of sparse.py for a large branchy tree,
+dense otherwise), factor_solve for one tree, com_vel, rne, transmission
+for joint transmissions, and what the sensors read: rne_postconstraint
+and subtree_vel.  Tree traversals use scan.body_tree (levelwise groups,
+batch-explicit).  The blocked factor_solve is not ported yet: put_model
+refuses models that would take it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,15 @@ import torch
 
 from mjtpu_torch._src import math, scan, sparse
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, JointType, Model, cached, index
+from mjtpu_torch._src.types import (
+    CamLightType,
+    Data,
+    DisableBit,
+    JointType,
+    Model,
+    cached,
+    index,
+)
 from mjtpu_torch.ops import fused
 
 
@@ -158,6 +167,70 @@ def com_pos(m: Model, d: Data) -> Data:
   if cdof is None:
     cdof = d.cdof
   return replace(d, subtree_com=subtree_com, cinert=cinert, cdof=cdof)
+
+
+def _track_modes(m: Model, prefix: str) -> list[tuple[CamLightType, torch.Tensor, torch.Tensor]]:
+  """Per tracking mode other than FIXED: (mode, camera or light ids, the
+  bodies they track or target) as device tensors, for ``prefix`` "cam" or
+  "light"."""
+
+  def build():
+    modes = np.asarray(getattr(m, f"{prefix}_mode"))
+    out = []
+    for mode in CamLightType:
+      ids = np.nonzero(modes == mode)[0]
+      if mode == CamLightType.FIXED or not len(ids):
+        continue
+      target = mode in (CamLightType.TARGETBODY, CamLightType.TARGETBODYCOM)
+      bodies = np.asarray(getattr(m, f"{prefix}_{'targetbodyid' if target else 'bodyid'}"))[ids]
+      t = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
+      out.append((mode, t(ids), t(bodies)))
+    return out
+
+  return cached(m, ("smooth.track_modes", prefix), build)
+
+
+def camlight(m: Model, d: Data) -> Data:
+  """Camera and light frames (mj_camlight), with mjtpu's tracking modes:
+  each mode's cameras (lights) in one batch."""
+  if not m.ncam and not m.nlight:
+    return d
+  changes = {}
+  if m.ncam:
+    bid = index(m, "cam_bodyid")
+    quat = d.xquat[:, bid]
+    cam_xpos = d.xpos[:, bid] + math.rotate(m.cam_pos, quat)
+    cam_xmat = math.quat_to_mat(math.quat_mul(quat, m.cam_quat))
+    for mode, ids, body in _track_modes(m, "cam"):
+      if mode == CamLightType.TRACK:
+        cam_xpos[:, ids] = d.xpos[:, body] + m.cam_pos0[ids]
+        cam_xmat[:, ids] = m.cam_mat0[ids].reshape(-1, 3, 3)
+      elif mode == CamLightType.TRACKCOM:
+        cam_xpos[:, ids] = d.subtree_com[:, body] + m.cam_poscom0[ids]
+        cam_xmat[:, ids] = m.cam_mat0[ids].reshape(-1, 3, 3)
+      else:  # the camera looks down -z at the target
+        target = (d.subtree_com if mode == CamLightType.TARGETBODYCOM else d.xpos)[:, body]
+        z = math.normalize(cam_xpos[:, ids] - target)
+        up = torch.zeros_like(z)
+        up[..., 2] = 1.0
+        x = math.normalize(math.cross(up, z))
+        cam_xmat[:, ids] = torch.stack([x, math.cross(z, x), z], dim=-1)
+    changes.update(cam_xpos=cam_xpos, cam_xmat=cam_xmat)
+  if m.nlight:
+    bid = index(m, "light_bodyid")
+    quat = d.xquat[:, bid]
+    light_xpos = d.xpos[:, bid] + math.rotate(m.light_pos, quat)
+    light_xdir = math.rotate(m.light_dir, quat)
+    for mode, ids, body in _track_modes(m, "light"):
+      if mode == CamLightType.TRACK:
+        light_xpos[:, ids] = d.xpos[:, body] + m.light_pos0[ids]
+      elif mode == CamLightType.TRACKCOM:
+        light_xpos[:, ids] = d.subtree_com[:, body] + m.light_poscom0[ids]
+      else:
+        target = (d.subtree_com if mode == CamLightType.TARGETBODYCOM else d.xpos)[:, body]
+        light_xdir[:, ids] = light_xpos[:, ids] - target
+    changes.update(light_xpos=light_xpos, light_xdir=math.normalize(light_xdir))
+  return replace(d, **changes)
 
 
 def dof_chain_mask(m: Model) -> torch.Tensor:
@@ -347,11 +420,17 @@ def com_vel(m: Model, d: Data) -> Data:
   return replace(d, cvel=cvel, cdof_dot=cdof_dot)
 
 
-def rne(m: Model, d: Data) -> Data:
-  """Recursive Newton-Euler bias forces, qacc = 0 (mj_rne)."""
+def _base_acc(m: Model, d: Data) -> torch.Tensor:
+  """The world's com-frame acceleration: -gravity (unless disabled)."""
   base_acc = torch.zeros(6, dtype=d.qpos.dtype, device=d.qpos.device)
   if not (m.opt.disableflags & DisableBit.GRAVITY):
     base_acc = torch.cat([base_acc[:3], -m.opt.gravity])
+  return base_acc
+
+
+def rne(m: Model, d: Data) -> Data:
+  """Recursive Newton-Euler bias forces, qacc = 0 (mj_rne)."""
+  base_acc = _base_acc(m, d)
 
   def cacc_fn(carry, cdof_dot, qvel):
     cacc = base_acc if carry is None else carry
@@ -389,3 +468,63 @@ def transmission(m: Model, d: Data) -> Data:
       actuator_length=d.qpos[:, qadr] * g0,
       actuator_moment=m.actuator_static_moment.expand((B,) + m.actuator_static_moment.shape),
   )
+
+
+# ---------------------------------------------------------------------------
+# post-constraint quantities, read by the acceleration and velocity sensors
+# ---------------------------------------------------------------------------
+
+
+def rne_postconstraint(m: Model, d: Data) -> Data:
+  """Com-frame accelerations and interaction forces with the constrained
+  qacc (mj_rnePostConstraint): fills cacc, cfrc_int and cfrc_ext.
+
+  cfrc_ext holds the applied forces (xfrc_applied) and the contact
+  wrenches; mjtpu's equality (connect and weld) part is not ported, and
+  cannot be reached: put_model refuses equality constraints."""
+  from mjtpu_torch._src import collision_driver, support
+
+  root_com = d.subtree_com[:, index(m, "body_rootid")]
+  force = d.xfrc_applied[..., :3]
+  torque = d.xfrc_applied[..., 3:] + math.cross(d.xipos - root_com, force)
+  cfrc_ext = torch.cat([torque, force], dim=-1)
+  cfrc_ext[:, 0] = 0.0
+  if collision_driver.ncon(m):
+    cfrc_ext = cfrc_ext + support.contact_body_wrenches(m, d)
+
+  base_acc = _base_acc(m, d)
+
+  def cacc_fn(carry, cdof, cdof_dot, qvel, qacc):
+    cacc = base_acc if carry is None else carry
+    return (cacc + torch.einsum("...wi,...w->...i", cdof_dot, qvel)
+            + torch.einsum("...wi,...w->...i", cdof, qacc))
+
+  cacc = scan.body_tree(m, cacc_fn, "vvvv", "b", d.cdof, d.cdof_dot, d.qvel, d.qacc)
+  loc_frc = (math.inert_mul(d.cinert, cacc)
+             + math.motion_cross_force(d.cvel, math.inert_mul(d.cinert, d.cvel)) - cfrc_ext)
+
+  def acc_fn(carry, frc):
+    return frc if carry is None else frc + carry
+
+  cfrc_int = scan.body_tree(m, acc_fn, "b", "b", loc_frc, reverse=True)
+  return replace(d, cacc=cacc, cfrc_int=cfrc_int, cfrc_ext=cfrc_ext)
+
+
+def subtree_vel(m: Model, d: Data) -> Data:
+  """Subtree linear velocity and angular momentum (mj_subtreeVel)."""
+  root_com = d.subtree_com[:, index(m, "body_rootid")]
+  ang, lin = d.cvel[..., :3], d.cvel[..., 3:]
+  # each body's com velocity and momenta, world frame
+  p_body = m.body_mass[:, None] * (lin - math.cross(d.xipos - root_com, ang))
+  l_body = math.mat_vec(d.ximat, m.body_inertia * math.mat_t_vec(d.ximat, ang))
+  rxp = math.cross(d.xipos, p_body)
+
+  def acc3(carry, a, b, c):
+    own = (a, b, c)
+    return own if carry is None else tuple(o + cc for o, cc in zip(own, carry))
+
+  p_sub, l_sub, rxp_sub = scan.body_tree(m, acc3, "bbb", "bbb", p_body, l_body, rxp,
+                                         reverse=True)
+  linvel = p_sub / torch.clamp_min(m.body_subtreemass, math.MINVAL)[:, None]
+  angmom = l_sub + rxp_sub - math.cross(d.subtree_com, p_sub)
+  return replace(d, subtree_linvel=linvel, subtree_angmom=angmom)

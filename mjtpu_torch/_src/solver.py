@@ -7,18 +7,16 @@ linesearch, the iteration body), batch-explicit over B envs.
 mjtpu runs its data-dependent loops as ``lax.while_loop`` under
 ``jax.vmap``, which keeps iterating until every lane is done and freezes
 the finished lanes.  Here finished envs are frozen by
-``torch.where(done, old, new)``, and the loop counts are:
-
-  * Newton: fixed, ``opt.iterations`` solver iterations and
-    ``opt.ls_iterations`` linesearch rounds, with no host sync.  That is
-    exact (mjtpu's body already freezes done envs, and no lane of a
-    while_loop can run more rounds than those bounds).
-  * CG: the same loops, left as soon as no env is still running: a host
-    check after each solver iteration and after each linesearch round.
-    Also exact, and needed: CG's bounds (30 x 50 on scene_pile) would
-    otherwise run ~10^5 eager launches a step where mjtpu's loops stop
-    after a few.  ``loop_counts`` adds up the iterations and rounds the
-    CG loops ran.
+``torch.where(done, old, new)``, and both solvers, CG and Newton, leave
+each loop as soon as no env runs on: a host check before each solver
+iteration (``done.all()``) and before each linesearch round (no running
+env continues).  That is exact: an env that is done, or whose linesearch
+has stopped, is frozen, so the rounds after the last env stops change
+nothing, and mjtpu's vmapped while_loop stops at the same point.  It is
+also needed: the bounds (CG 30 x 50 on scene_pile, Newton 100 x 50 on
+ant_bench) would otherwise run ~10^5 eager launches a step where mjtpu's
+loops stop after a few.  ``loop_counts`` adds up the iterations and
+rounds the loops ran; ``EARLY_EXIT = False`` runs them to their bounds.
 
 The primal problem (MuJoCo Computation docs): minimize over qacc
     0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth) + s(J qacc - aref)
@@ -38,9 +36,12 @@ from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import Data, DisableBit, Model, SolverType
 from mjtpu_torch.ops import fused
 
-# CG iterations and linesearch rounds run (each counts once for the whole
-# batch), since import; Newton's fixed counts are not added
+# solver iterations and linesearch rounds run (each counts once for the
+# whole batch), since import
 loop_counts = {"iterations": 0, "ls_rounds": 0}
+# leave each loop once no env runs on (module docstring); False runs every
+# loop to its bound, whose results are the same bits
+EARLY_EXIT = True
 
 
 class _Context(NamedTuple):
@@ -172,13 +173,12 @@ def solve(m: Model, d: Data) -> Data:
 
     in_bracket = lambda cur, cand: ((cur < cand) & (cand < 0)) | ((cur > cand) & (cand > 0))
 
-    # converged lanes frozen; CG leaves once none continues (module docstring)
+    # converged lanes frozen; left once none continues (module docstring)
     for _ in range(m.opt.ls_iterations):
       cont = swap & ~((lo.d0 < 0) & (lo.d0 > -gtol)) & ~((hi.d0 > 0) & (hi.d0 < gtol))
-      if not newton:
-        if not bool((cont & running).any()):
-          break
-        loop_counts["ls_rounds"] += 1
+      if EARLY_EXIT and not bool((cont & running).any()):
+        break
+      loop_counts["ls_rounds"] += 1
       lo_next = point(lo.alpha - lo.d0 / lo.d1)
       hi_next = point(hi.alpha - hi.d0 / hi.d1)
       mid = point(0.5 * (lo.alpha + hi.alpha))
@@ -245,10 +245,9 @@ def solve(m: Model, d: Data) -> Data:
     ))
 
   for _ in range(m.opt.iterations):
-    if not newton:
-      if bool(ctx.done.all()):
-        break
-      loop_counts["iterations"] += 1
+    if EARLY_EXIT and bool(ctx.done.all()):
+      break
+    loop_counts["iterations"] += 1
     # the expensive preconditioned gradient runs once per iteration
     mgrad = precond_grad(ctx.grad, ctx.quad)
     if newton:

@@ -1,4 +1,5 @@
-"""Support functions: constraint counting, Jacobians, applied forces.
+"""Support functions: constraint counting, Jacobians, applied forces,
+contact forces.
 
 Port of mjtpu/_src/support.py (the slice's part).  Sizes are host functions
 of the Model's static fields, cached per Model.
@@ -9,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjtpu_torch._src import math
+from mjtpu_torch._src import math, scan
 from mjtpu_torch._src.types import (
     ConeType,
     ConstraintType,
@@ -163,3 +164,111 @@ def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
   qfrc_p = torch.einsum("nv,bnvi,bni->bv", mask, jacp, d.xfrc_applied[..., :3])
   qfrc_r = torch.einsum("nv,bvi,bni->bv", mask, d.cdof[..., :3], d.xfrc_applied[..., 3:])
   return qfrc_p + qfrc_r
+
+
+# ---------------------------------------------------------------------------
+# contact forces (mju_decodePyramid / mj_contactForce)
+# ---------------------------------------------------------------------------
+
+
+def _contact_force_rows(m: Model) -> list[tuple[int, slice, torch.Tensor]]:
+  """Per condim (the contacts of one condim are contiguous): (condim, its
+  contacts' slice, their efc rows (k, rows a contact) on the device)."""
+
+  def build():
+    from mjtpu_torch._src import collision_driver
+
+    ne, nf, nl, _ = count_constraints(m)
+    dims = collision_driver.make_condim(m)
+    addr = collision_driver.contact_efc_address(m, ne, nf, nl)
+    out = []
+    for condim in sorted(set(int(c) for c in dims)):
+      idx = np.nonzero(dims == condim)[0]
+      n_rows = 1 if condim == 1 else 2 * (condim - 1)
+      rows = addr[idx][:, None] + np.arange(n_rows)[None]
+      out.append((condim, slice(int(idx[0]), int(idx[-1]) + 1),
+                  torch.as_tensor(rows, dtype=torch.long, device=m.device)))
+    return out
+
+  return cached(m, "support.contact_force_rows", build)
+
+
+def contact_forces(m: Model, d: Data) -> torch.Tensor:
+  """(B, ncon, 6) contact wrenches in the contact frame [fn, ft1, ft2,
+  torques], decoded from efc_force: a condim-1 row is the normal force; a
+  pyramidal contact's normal force is the sum of its rows and each
+  friction component the difference of a row pair times its friction
+  (mju_decodePyramid).  Elliptic cones: put_model refuses them."""
+  from mjtpu_torch._src import collision_driver
+
+  B = d.qpos.shape[0]
+  ncon = collision_driver.ncon(m)
+  if ncon == 0:
+    return d.qpos.new_zeros((B, 0, 6))
+  parts = []
+  for condim, sl, rows in _contact_force_rows(m):
+    f = d.efc_force[:, rows]  # (B, k, rows)
+    k = rows.shape[0]
+    if condim == 1:
+      parts.append(torch.cat([f, f.new_zeros((B, k, 5))], dim=-1))
+      continue
+    mu = d.contact.friction[:, sl]
+    total = f[..., 0]
+    for r in range(1, f.shape[-1]):
+      total = total + f[..., r]
+    fric = [(f[..., 2 * j] - f[..., 2 * j + 1]) * mu[..., j] for j in range(condim - 1)]
+    parts.append(torch.cat([torch.stack([total, *fric], dim=-1),
+                            f.new_zeros((B, k, 6 - condim))], dim=-1))
+  return torch.cat(parts, dim=1)
+
+
+def contact_force_com(m: Model, d: Data):
+  """Per-contact wrenches about body2's root subtree com, world axes, for
+  cfrc_ext: (wrench (B, ncon, 6), body1 ids, body2 ids (B, ncon)).  The
+  wrench applies positively to body2 and negatively to body1
+  (mj_rnePostConstraint's contact part)."""
+  bodyid = index(m, "geom_bodyid")
+  b1 = bodyid[d.contact.geom1.long()]
+  b2 = bodyid[d.contact.geom2.long()]
+  f = contact_forces(m, d)
+  frame = d.contact.frame  # rows are the contact axes
+  force = math.mat_t_vec(frame, f[..., :3])
+  root = index(m, "body_rootid")[b2]
+  rc2 = torch.gather(d.subtree_com, 1, root[..., None].expand(root.shape + (3,)))
+  torque = math.mat_t_vec(frame, f[..., 3:]) + math.cross(d.contact.pos - rc2, force)
+  return torch.cat([torque, force], dim=-1), b1, b2
+
+
+def _contact_body_table(m: Model) -> torch.Tensor | None:
+  """segment_table over [wrenches, -wrenches] (2 ncon rows): body b sums
+  the contacts whose body2 is b, then the negated ones whose body1 is b;
+  None where the contact slots' geoms differ per env (a capped model)."""
+
+  def build():
+    from mjtpu_torch._src import collision_driver
+
+    geoms = collision_driver.contact_geoms(m)
+    if geoms is None:
+      return None
+    bodyid = np.asarray(m.geom_bodyid)
+    b1, b2 = bodyid[geoms[0]], bodyid[geoms[1]]
+    n = len(b1)
+    return scan.segment_table(
+        [np.concatenate([np.nonzero(b2 == b)[0], n + np.nonzero(b1 == b)[0]])
+         for b in range(m.nbody)], 2 * n, m.device)
+
+  return cached(m, "support.contact_body_table", build)
+
+
+def contact_body_wrenches(m: Model, d: Data) -> torch.Tensor:
+  """(B, nbody, 6) sum of the contact wrenches on each body: +wrench on
+  body2, -wrench on body1 (contact_force_com).  Static contact geoms sum
+  through a gather table in a fixed order; a capped model, whose slots'
+  bodies differ per env, through a masked product over the contacts."""
+  wrench, b1, b2 = contact_force_com(m, d)
+  table = _contact_body_table(m)
+  if table is not None:
+    return scan.segment_sum(torch.cat([wrench, -wrench], dim=1), table)
+  bodies = torch.arange(m.nbody, device=wrench.device)[None, :, None]
+  sign = (b2[:, None, :] == bodies).to(wrench.dtype) - (b1[:, None, :] == bodies).to(wrench.dtype)
+  return sign @ wrench

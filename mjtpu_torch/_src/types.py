@@ -10,10 +10,10 @@ runs:
   * Every ``Data`` field carries a leading env axis ``B`` (batch-explicit,
     no ``torch.vmap``); ``Model`` is unbatched.
 
-The slices cover the fields the humanoid_bench, humanoid_terrain and
-scene_pile main paths read and write;
-the rest of mjtpu's Model/Data (tendons, sensors, cameras, lights,
-equality, energy, ...) arrives with the slices that need it.
+The slices cover the fields the humanoid_bench, humanoid_terrain,
+scene_pile, branchy66 and ant_bench main paths read and write (sensors,
+cameras and lights since ant_bench); the rest of mjtpu's Model/Data
+(tendons, equality, energy, ...) arrives with the slices that need it.
 """
 
 from __future__ import annotations
@@ -187,6 +187,103 @@ class ConstraintType(enum.IntEnum):
   CONTACT_ELLIPTIC = 7
 
 
+class CamLightType(enum.IntEnum):
+  """Camera/light tracking modes (mjtCamLight)."""
+
+  FIXED = 0
+  TRACK = 1
+  TRACKCOM = 2
+  TARGETBODY = 3
+  TARGETBODYCOM = 4
+
+
+class SensorType(enum.IntEnum):
+  """Sensor types (mjtSensor), every member of MuJoCo's enum: put_model
+  refuses by name the ones the port does not compute (io.SENSORS_REFUSED)."""
+
+  TOUCH = 0
+  ACCELEROMETER = 1
+  VELOCIMETER = 2
+  GYRO = 3
+  FORCE = 4
+  TORQUE = 5
+  MAGNETOMETER = 6
+  RANGEFINDER = 7
+  CAMPROJECTION = 8
+  JOINTPOS = 9
+  JOINTVEL = 10
+  TENDONPOS = 11
+  TENDONVEL = 12
+  ACTUATORPOS = 13
+  ACTUATORVEL = 14
+  ACTUATORFRC = 15
+  JOINTACTFRC = 16
+  TENDONACTFRC = 17
+  BALLQUAT = 18
+  BALLANGVEL = 19
+  JOINTLIMITPOS = 20
+  JOINTLIMITVEL = 21
+  JOINTLIMITFRC = 22
+  TENDONLIMITPOS = 23
+  TENDONLIMITVEL = 24
+  TENDONLIMITFRC = 25
+  FRAMEPOS = 26
+  FRAMEQUAT = 27
+  FRAMEXAXIS = 28
+  FRAMEYAXIS = 29
+  FRAMEZAXIS = 30
+  FRAMELINVEL = 31
+  FRAMEANGVEL = 32
+  FRAMELINACC = 33
+  FRAMEANGACC = 34
+  SUBTREECOM = 35
+  SUBTREELINVEL = 36
+  SUBTREEANGMOM = 37
+  INSIDESITE = 38
+  GEOMDIST = 39
+  GEOMNORMAL = 40
+  GEOMFROMTO = 41
+  CONTACT = 42
+  E_POTENTIAL = 43
+  E_KINETIC = 44
+  CLOCK = 45
+  TACTILE = 46
+  PLUGIN = 47
+  USER = 48
+
+
+class ObjType(enum.IntEnum):
+  """Object types (mjtObj) that sensors and cameras refer to."""
+
+  UNKNOWN = 0
+  BODY = 1
+  XBODY = 2
+  JOINT = 3
+  GEOM = 5
+  SITE = 6
+  CAMERA = 7
+  ACTUATOR = 19
+  SENSOR = 20
+
+
+class DataType(enum.IntEnum):
+  """Sensor data types (mjtDataType)."""
+
+  REAL = 0
+  POSITIVE = 1
+  AXIS = 2
+  QUATERNION = 3
+
+
+class Stage(enum.IntEnum):
+  """Computation stages (mjtStage): a sensor's ``sensor_needstage``."""
+
+  NONE = 0
+  POS = 1
+  VEL = 2
+  ACC = 3
+
+
 # ---------------------------------------------------------------------------
 # structs
 # ---------------------------------------------------------------------------
@@ -215,6 +312,7 @@ class Option:
   ls_tolerance: torch.Tensor
   gravity: torch.Tensor
   wind: torch.Tensor
+  magnetic: torch.Tensor
   density: torch.Tensor
   viscosity: torch.Tensor
   integrator: IntegratorType = static()
@@ -257,6 +355,10 @@ class Model:
   nexclude: int = static()
   nmesh: int = static()
   nhfield: int = static()
+  ncam: int = static()
+  nlight: int = static()
+  nsensor: int = static()
+  nsensordata: int = static()
   # ---- options / statistics ----
   opt: Option = None
   stat: Statistic = None
@@ -276,6 +378,7 @@ class Model:
   body_ipos: torch.Tensor = None
   body_iquat: torch.Tensor = None
   body_mass: torch.Tensor = None
+  body_subtreemass: torch.Tensor = None
   body_inertia: torch.Tensor = None
   body_invweight0: torch.Tensor = None
   # ---- joints ----
@@ -308,6 +411,7 @@ class Model:
   geom_bodyid: np.ndarray = static(None)
   geom_dataid: np.ndarray = static(None)
   geom_priority: np.ndarray = static(None)
+  geom_group: np.ndarray = static(None)
   geom_solmix: torch.Tensor = None
   geom_solref: torch.Tensor = None
   geom_solimp: torch.Tensor = None
@@ -325,10 +429,33 @@ class Model:
   geom_convex: tuple = static(None)
   # ---- sites ----
   site_bodyid: np.ndarray = static(None)
+  site_type: np.ndarray = static(None)
+  site_size: torch.Tensor = None
   site_pos: torch.Tensor = None
   site_quat: torch.Tensor = None
-  # ---- meshes (convex hulls) and height fields ----
+  # ---- cameras and lights ----
+  cam_mode: np.ndarray = static(None)
+  cam_bodyid: np.ndarray = static(None)
+  cam_targetbodyid: np.ndarray = static(None)
+  cam_pos: torch.Tensor = None
+  cam_quat: torch.Tensor = None
+  cam_poscom0: torch.Tensor = None
+  cam_pos0: torch.Tensor = None
+  cam_mat0: torch.Tensor = None
+  light_mode: np.ndarray = static(None)
+  light_bodyid: np.ndarray = static(None)
+  light_targetbodyid: np.ndarray = static(None)
+  light_pos: torch.Tensor = None
+  light_dir: torch.Tensor = None
+  light_poscom0: torch.Tensor = None
+  light_pos0: torch.Tensor = None
+  # ---- meshes (convex hulls and the triangles rays hit) and height fields ----
   mesh_convex: tuple = static(None)        # tuple[ConvexMesh | None] per mesh
+  mesh_vertadr: np.ndarray = static(None)
+  mesh_faceadr: np.ndarray = static(None)
+  mesh_facenum: np.ndarray = static(None)
+  mesh_vert: np.ndarray = static(None)     # (nmeshvert, 3) host copy: ray triangles
+  mesh_face: np.ndarray = static(None)     # (nmeshface, 3)
   hfield_adr: np.ndarray = static(None)
   hfield_nrow: np.ndarray = static(None)
   hfield_ncol: np.ndarray = static(None)
@@ -358,6 +485,17 @@ class Model:
   actuator_ctrlrange: torch.Tensor = None
   actuator_forcerange: torch.Tensor = None
   actuator_gear: torch.Tensor = None
+  # ---- sensors ----
+  sensor_type: np.ndarray = static(None)
+  sensor_datatype: np.ndarray = static(None)
+  sensor_needstage: np.ndarray = static(None)
+  sensor_objtype: np.ndarray = static(None)
+  sensor_objid: np.ndarray = static(None)
+  sensor_reftype: np.ndarray = static(None)
+  sensor_refid: np.ndarray = static(None)
+  sensor_dim: np.ndarray = static(None)
+  sensor_adr: np.ndarray = static(None)
+  sensor_cutoff: torch.Tensor = None
   # model-constant (nu, nv) moment matrix: every actuator of the slice is a
   # scalar-joint transmission, whose moment row is gear[0] at the joint dof
   actuator_static_moment: torch.Tensor = None
@@ -468,6 +606,10 @@ class Data:
   geom_xmat: torch.Tensor
   site_xpos: torch.Tensor
   site_xmat: torch.Tensor
+  cam_xpos: torch.Tensor
+  cam_xmat: torch.Tensor
+  light_xpos: torch.Tensor
+  light_xdir: torch.Tensor
   subtree_com: torch.Tensor
   cdof: torch.Tensor
   cinert: torch.Tensor
@@ -488,6 +630,8 @@ class Data:
   qfrc_spring: torch.Tensor
   qfrc_damper: torch.Tensor
   qfrc_passive: torch.Tensor
+  subtree_linvel: torch.Tensor
+  subtree_angmom: torch.Tensor
   # constraints
   contact: Contact
   efc_J: torch.Tensor
@@ -502,6 +646,11 @@ class Data:
   qfrc_smooth: torch.Tensor
   qacc_smooth: torch.Tensor
   qfrc_constraint: torch.Tensor
+  # post-constraint (rne_postconstraint) and sensors
+  cacc: torch.Tensor
+  cfrc_int: torch.Tensor
+  cfrc_ext: torch.Tensor
+  sensordata: torch.Tensor
   # solver iterations taken (int32, per env)
   solver_niter: torch.Tensor
   # count of _check_state resets since make_data (int32, per env)

@@ -40,8 +40,9 @@ variant_launches = {"register": 0, "shared": 0}
 SMEM_LIMIT = _build.SMEM_LIMIT
 _WARPS_PER_BLOCK = 4
 # the n the register kernel is instantiated for (csrc/cholesky.cu's
-# MJTPU_CHOL_WIDTHS): the main paths' (humanoid_terrain 23, humanoid_bench 27)
-REGISTER_WIDTHS = (23, 27)
+# MJTPU_CHOL_WIDTHS): the main paths' (ant_bench 8, humanoid_terrain 23,
+# humanoid_bench 27)
+REGISTER_WIDTHS = (8, 23, 27)
 
 SOURCE = "cholesky.cu"
 

@@ -66,10 +66,31 @@
                                after the first step (qacc: after Euler's
                                implicit damping)
 
+  mjtpu_torch/assets/ant_bench_model.npz
+      the snapshot of mjtpu/zoo/assets/ant_bench.xml (a fixed-base ant,
+      Euler, Newton 100 x 50, 60 capsule-capsule contact slots, 20 sensors:
+      9 touch, velocimeter, gyro, accelerometer, 8 rangefinders).
+  mjtpu_torch/assets/ant_bench_golden.npz
+      a reference trajectory from mjtpu at float64 on the CPU:
+        qpos0, qvel0, ctrl     B=4 initial states (ant_initial_state:
+                               numpy seed 0, each joint uniform over its
+                               range, qvel 0, ctrl uniform in [-1, 1])
+        qpos, qvel, sensordata (steps, 4, ...) after each step
+        fwd.<field>, fwd.contact.<field>
+                               the Data step 1 computes before it
+                               integrates (mjtpu.forward at the initial
+                               states): the Data after step 1 with qpos,
+                               qvel and time put back and qacc the
+                               solver's (qacc_warmstart; Euler's damping
+                               solve replaces qacc), every field of the
+                               port's Data, for the stage tests
+      The script prints the touch readings that are not zero (it fails if
+      there are none) and the rangefinder readings that hit.
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
-        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66]
+        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench]
         [--steps N]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -103,6 +124,10 @@ PILE_GOLDEN_FILE = ASSETS / "scene_pile_golden.npz"
 BOXES_MODEL_FILE = ASSETS / "boxes_model.npz"
 BRANCHY_MODEL_FILE = ASSETS / "branchy66_model.npz"
 BRANCHY_GOLDEN_FILE = ASSETS / "branchy66_golden.npz"
+ANT_XML = ROOT / "mjtpu" / "zoo" / "assets" / "ant_bench.xml"
+ANT_MODEL_FILE = ASSETS / "ant_bench_model.npz"
+ANT_GOLDEN_FILE = ASSETS / "ant_bench_golden.npz"
+MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench")
 # the pile golden keeps the state after every PILE_EVERY-th step
 PILE_EVERY = 5
 BATCH = 4
@@ -371,6 +396,79 @@ def branchy_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
           **{k: getattr(first, k) for k in ("qLD", "qLDiagInv", "qacc_smooth", "qacc")}}
 
 
+def load_ant_mjmodel():
+  import mujoco
+
+  return mujoco.MjModel.from_xml_path(str(ANT_XML))
+
+
+def ant_initial_state(mjm, batch: int = BATCH, seed: int = 0):
+  """(qpos, qvel, ctrl) for the ant envs: each joint uniform over its
+  range, qvel 0, ctrl uniform in [-1, 1], from one numpy generator."""
+  rng = np.random.default_rng(seed)
+  lo, hi = mjm.jnt_range[:, 0], mjm.jnt_range[:, 1]
+  qpos = np.tile(mjm.qpos0, (batch, 1))
+  qpos[:, mjm.jnt_qposadr] = rng.uniform(lo, hi, (batch, mjm.njnt))
+  ctrl = rng.uniform(-1.0, 1.0, (batch, mjm.nu))
+  return qpos, np.zeros((batch, mjm.nv)), ctrl
+
+
+def port_fields(d, prefix: str) -> dict[str, np.ndarray]:
+  """Every field of the port's Data, read by name from mjtpu's Data ``d``
+  (numpy leaves), under ``prefix`` (the contact fields under
+  ``prefix + "contact."``)."""
+  import dataclasses
+
+  from mjtpu_torch._src import types
+
+  out = {}
+  for f in dataclasses.fields(types.Data):
+    if f.name == "contact":
+      for c in dataclasses.fields(types.Contact):
+        out[f"{prefix}contact.{c.name}"] = np.asarray(getattr(d.contact, c.name))
+    else:
+      out[prefix + f.name] = np.asarray(getattr(d, f.name))
+  return out
+
+
+def ant_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The ant golden file's arrays (module docstring); prints its touch
+  and rangefinder readings."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  qpos0, qvel0, ctrl = ant_initial_state(mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0), ctrl=jnp.asarray(ctrl))
+  start = d
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {"qpos": [], "qvel": [], "sensordata": []}
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    if i == 0:  # what _advance changed, put back
+      fwd = jax.tree.map(np.asarray, d.replace(
+          qpos=start.qpos, qvel=start.qvel, time=start.time, qacc=d.qacc_warmstart))
+  out = {k: np.stack(v) for k, v in out.items()}
+  stype = np.asarray(mjm.sensor_type)
+  cols = lambda t: np.concatenate([mjm.sensor_adr[i] + np.arange(mjm.sensor_dim[i])
+                                   for i in np.nonzero(stype == t)[0]])
+  touch = out["sensordata"][..., cols(0)]  # mjSENS_TOUCH
+  rays = out["sensordata"][..., cols(7)]   # mjSENS_RANGEFINDER
+  print(f"touch readings not zero: {int((touch != 0).sum())} of {touch.size}"
+        f" ({steps} steps x {BATCH} envs x {touch.shape[-1]} sensors)")
+  print(f"rangefinder readings that hit: {int((rays >= 0).sum())} of {rays.size}")
+  if not (touch != 0).any():
+    raise AssertionError("the ant golden has no touch reading that is not zero")
+  return {"qpos0": qpos0, "qvel0": qvel0, "ctrl": ctrl, **out, **port_fields(fwd, "fwd.")}
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -427,13 +525,11 @@ def main():
   parser = argparse.ArgumentParser(description="Writes the mjtpu_torch data files.")
   parser.add_argument("--out", type=pathlib.Path, default=ASSETS,
                       help="directory for the files (default: the package's assets)")
-  parser.add_argument("--model", action="append",
-                      choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes",
-                               "branchy66"),
+  parser.add_argument("--model", action="append", choices=MODELS,
                       help="the model whose files to write (repeatable; default: all)")
   parser.add_argument("--steps", type=int, default=STEPS,
-                      help="steps of the humanoid_terrain, scene_pile and branchy66 golden"
-                      " trajectories")
+                      help="steps of the humanoid_terrain, scene_pile, branchy66 and ant_bench"
+                      " golden trajectories")
   args = parser.parse_args()
   out = args.out
   # before jax is imported: the flag is read when the CPU backend starts
@@ -443,8 +539,7 @@ def main():
 
   out.mkdir(parents=True, exist_ok=True)
   files = []
-  models = args.model or ["humanoid_bench", "humanoid_terrain", "scene_pile", "boxes",
-                          "branchy66"]
+  models = args.model or list(MODELS)
   if "humanoid_bench" in models:
     mjm = load_mjmodel()
     io.save_snapshot(mjm, out / MODEL_FILE.name)
@@ -473,6 +568,11 @@ def main():
     io.save_snapshot(mjm, out / BRANCHY_MODEL_FILE.name)
     np.savez_compressed(out / BRANCHY_GOLDEN_FILE.name, **branchy_golden(mjm, args.steps))
     files += [BRANCHY_MODEL_FILE.name, BRANCHY_GOLDEN_FILE.name]
+  if "ant_bench" in models:
+    mjm = load_ant_mjmodel()
+    io.save_snapshot(mjm, out / ANT_MODEL_FILE.name)
+    np.savez_compressed(out / ANT_GOLDEN_FILE.name, **ant_golden(mjm, args.steps))
+    files += [ANT_MODEL_FILE.name, ANT_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -1,18 +1,20 @@
 """Where a mjtpu_torch step's time goes on the GPU.
 
     python scripts/torch_profile_step.py
-        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66]
+        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66|ant_bench]
         [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
 Runs the model from its committed snapshot on CUDA (from qpos0 +-0.01,
 numpy seed 1, as chip_smoke.py starts it; scene_pile's bodies also
-dropped 0.25 m), warms up, then traces ``--steps`` steps with
-torch.profiler (CPU and CUDA activity).  Prints the card (nvidia-smi name
-and power limit), host wall time per step, device kernel time per step,
-the device's busy share (kernel time / wall time), kernel launches per
-step, the CG iterations and linesearch rounds per traced step (CG models)
-and the kernels that take the most device time, and writes a Chrome trace
-to ``--out``.
+dropped 0.25 m; ant_bench's joints uniform over their ranges), warms up,
+then traces ``--steps`` steps with torch.profiler (CPU and CUDA
+activity).  Prints the card (nvidia-smi name and power limit), host wall
+time per step, device kernel time per step, the device's busy share
+(kernel time / wall time), kernel launches per step, the solver's
+iterations and linesearch rounds per traced step, for a model with
+sensors the kernel launches of each sensor stage (each traced alone on
+the last step's Data), and the kernels that take the most device time,
+and writes a Chrome trace to ``--out``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--model", default="humanoid_bench",
-                 choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66"))
+                 choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66",
+                          "ant_bench"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)
@@ -43,7 +46,7 @@ def main() -> int:
   from torch.profiler import ProfilerActivity, profile
 
   import mjtpu_torch
-  from mjtpu_torch._src import solver
+  from mjtpu_torch._src import sensor, solver
 
   if not torch.cuda.is_available():
     raise RuntimeError("needs a CUDA device")
@@ -60,6 +63,10 @@ def main() -> int:
   qpos = m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (args.batch, m.nq))
   if args.model == "scene_pile":
     qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
+  if args.model == "ant_bench":  # every joint uniform over its range
+    rng = np.random.default_rng(1)
+    rng_lo, rng_hi = (m.jnt_range[:, k].cpu().numpy() for k in (0, 1))
+    qpos[:, m.jnt_qposadr] = rng.uniform(rng_lo, rng_hi, (args.batch, m.njnt))
   d = mjtpu_torch.make_data(m, batch_size=args.batch)
   d = mjtpu_torch.replace(
       d, qpos=torch.as_tensor(qpos, dtype=dtype, device="cuda"),
@@ -88,10 +95,22 @@ def main() -> int:
         f" {dev_us / 1e3 / args.steps:.3f} ms/step device kernel time, device busy"
         f" {100 * dev_us / 1e3 / (wall_ms * args.steps):.1f}%,"
         f" {len(kernels) / args.steps:.0f} kernel launches/step")
-  if m.opt.solver == mjtpu_torch.SolverType.CG:
-    print(f"CG per step: {(solver.loop_counts['iterations'] - loops['iterations']) / args.steps:.1f}"
-          f" iterations, {(solver.loop_counts['ls_rounds'] - loops['ls_rounds']) / args.steps:.1f}"
-          " linesearch rounds")
+  print(f"{m.opt.solver.name} per step:"
+        f" {(solver.loop_counts['iterations'] - loops['iterations']) / args.steps:.1f}"
+        f" iterations, {(solver.loop_counts['ls_rounds'] - loops['ls_rounds']) / args.steps:.1f}"
+        " linesearch rounds")
+  if m.nsensor:
+    launches = {}
+    for stage in ("sensor_pos", "sensor_vel", "sensor_acc"):
+      getattr(sensor, stage)(m, d)  # caches built outside the trace
+      torch.cuda.synchronize()
+      with profile(activities=[ProfilerActivity.CUDA]) as stage_prof:
+        getattr(sensor, stage)(m, d)
+        torch.cuda.synchronize()
+      launches[stage] = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                            for e in stage_prof.events())
+    print("kernel launches of each sensor stage: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
   by_name: dict[str, list[float]] = {}
   for e in kernels:
     by_name.setdefault(e.name, []).append(e.device_time)

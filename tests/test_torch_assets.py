@@ -46,6 +46,11 @@ ENUMS = [
     (types.GainType, mujoco.mjtGain, "mjGAIN_"),
     (types.BiasType, mujoco.mjtBias, "mjBIAS_"),
     (types.ConstraintType, mujoco.mjtConstraint, "mjCNSTR_"),
+    (types.CamLightType, mujoco.mjtCamLight, "mjCAMLIGHT_"),
+    (types.SensorType, mujoco.mjtSensor, "mjSENS_"),
+    (types.ObjType, mujoco.mjtObj, "mjOBJ_"),
+    (types.DataType, mujoco.mjtDataType, "mjDATATYPE_"),
+    (types.Stage, mujoco.mjtStage, "mjSTAGE_"),
 ]
 
 
@@ -57,6 +62,8 @@ def test_enum_matches_bindings(port, binding, prefix):
     else:
       want = int(getattr(binding, prefix + member.name))
     assert int(member) == want, (port.__name__, member.name)
+  if port is types.SensorType:  # every sensor type, so each is refused by name
+    assert len(port) == len([n for n in dir(binding) if n.startswith(prefix)])
 
 
 def test_constants_match_bindings():
@@ -88,12 +95,13 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
-@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66"])
+@pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66",
+                                   "ant_bench"])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
   mjm = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
          "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
-         "branchy66": script.load_branchy_mjmodel}[model]()
+         "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel}[model]()
   snap = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
   _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
@@ -255,6 +263,43 @@ def test_branchy_golden_file_is_fresh(regenerated_branchy):
       np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
 
 
+ANT_PREFIX = 5
+
+
+@pytest.fixture(scope="module")
+def regenerated_ant(tmp_path_factory):
+  """ant_bench's data files written afresh, its golden over the first
+  ANT_PREFIX steps only (the rest of the committed trajectory is held by
+  tests/test_torch_ant.py against the port)."""
+  return _regenerate(tmp_path_factory.mktemp("ant"), "--model", "ant_bench",
+                     "--steps", str(ANT_PREFIX))
+
+
+def test_ant_snapshot_file_is_fresh(regenerated_ant):
+  script = _assets_script()
+  assert _snapshot_keys(script.ANT_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
+  with np.load(regenerated_ant / script.ANT_MODEL_FILE.name) as new, \
+      np.load(script.ANT_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_ant_golden_file_is_fresh(regenerated_ant):
+  """Regenerating the ant golden with mjtpu reproduces the committed
+  file's first ANT_PREFIX steps and its forward fields; the golden has
+  touch readings that are not zero."""
+  script = _assets_script()
+  name = script.ANT_GOLDEN_FILE.name
+  with np.load(regenerated_ant / name) as new, np.load(script.ANT_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
+    assert (old["sensordata"][..., :9] != 0).any()  # the 9 touch sensors
+    for k in new.files:
+      want = old[k][:ANT_PREFIX] if k in ("qpos", "qvel", "sensordata") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
+
+
 def test_terrain_golden_file_is_fresh(regenerated_terrain):
   """Regenerating the terrain golden with mjtpu reproduces the committed
   file's first TERRAIN_PREFIX steps and its step-1 fields."""
@@ -289,12 +334,15 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import torch
 import mjtpu_torch
+from mjtpu_torch._src import ray, sensor
 from mjtpu_torch.ops import cholesky, fused, hfield, ldl, sat
-for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66"):
+for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66", "ant_bench"):
   m = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
   d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
   assert bool(torch.isfinite(d.qpos).all())
+d = mjtpu_torch.forward(m, mjtpu_torch.make_data(m, batch_size=2))  # ant_bench's sensors
+assert d.sensordata.shape == (2, 26) and bool(torch.isfinite(d.sensordata).all())
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "mjtpu", "mujoco"))
 assert not bad, bad
 print("ok")

@@ -36,16 +36,16 @@ def test_kernel_matches_twin(batch, n, dtype):
 
 @pytest.mark.parametrize("clamp", [False, True], ids=["spd", "clamped"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 23, 27, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 8, 23, 27, 32, 33, 40])
 def test_chol_variants_match_twin(n, dtype, clamp):
   """Every variant that can run an n (the register kernel at the main
-  paths' n, 23 and 27; the shared kernel everywhere) within phase 3's
+  paths' n, 8, 23 and 27; the shared kernel everywhere) within phase 3's
   tolerance of the twin, the register kernel equal to the shared one bit
   for bit, launches counted by variant."""
   gen = torch.Generator(device="cuda").manual_seed(n)
   mat, rhs = chip_smoke._spd(n, 130, dtype, gen, clamp)
   ref = cholesky.chol_solve_reference(mat, rhs)
-  assert cholesky.variant(n, dtype) == ("register" if n in (23, 27) else "shared")
+  assert cholesky.variant(n, dtype) == ("register" if n in (8, 23, 27) else "shared")
   got = {}
   for kind in cholesky.variants(n, dtype):
     before = dict(cholesky.variant_launches)
@@ -359,25 +359,32 @@ def test_ldl_refusals():
 
 def _model(name, device):
   ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz")
-  if name == "boxes":  # Newton's loops run to their fixed counts: cap them
+  if name == "boxes":  # a cap on Newton's loops, as before they left early
     ns.opt.iterations = ns.opt.ls_iterations = 10
   return mjtpu_torch.model_from_arrays(ns, device=device)
 
 
+# per step: Cholesky launches besides one per Newton iteration, height-field,
+# SAT and LDL launches
 @pytest.mark.parametrize("name, steps, per_step, tol", [
-    ("humanoid_bench", 3, (1, 0, 0, 0), 1e-9),
-    ("humanoid_terrain", 3, (8, 2, 0, 0), 1e-9),
+    ("humanoid_bench", 3, (0, 0, 0, 0), 1e-9),
+    ("humanoid_terrain", 3, (0, 2, 0, 0), 1e-9),
     # CG amplifies the rounding differences of the two devices (the CPU
     # test's step-1 solve bound)
     ("scene_pile", 1, (0, 0, 1, 0), 1e-3),
-    ("boxes", 3, (10, 0, 1, 0), 1e-9),
+    ("boxes", 3, (0, 0, 1, 0), 1e-9),
     ("branchy66", 3, (0, 0, 0, 3), 1e-9),
+    # Euler's damping solve takes B1 too
+    ("ant_bench", 3, (1, 0, 0, 0), 1e-9),
 ])
 def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
   """Steps on the card against the same steps on the CPU, with the
-  kernels' launch counts per step (Newton iterations for Cholesky, one per
+  kernels' launch counts per step (one Cholesky per Newton iteration, the
+  solver leaving once no env runs on, and ant's damping solve; one per
   height-field group for the manifold, one per box-box group for SAT, one
-  per entry point for LDL)."""
+  per entry point for LDL); sensordata too."""
+  from mjtpu_torch._src import solver
+
   golden = np.load(mjtpu_torch.ASSETS / f"{name}_golden.npz") if name != "boxes" else None
   out = {}
   for device in ("cpu", "cuda"):
@@ -396,12 +403,18 @@ def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
     if golden is not None and "qvel0" in golden:
       d = mjtpu_torch.replace(d, qvel=torch.as_tensor(golden["qvel0"], device=device))
     before = cholesky.launches, hfield.launches, sat.launches, sum(ldl.launches.values())
+    newton = solver.loop_counts["iterations"]
     for _ in range(steps):
       d = mjtpu_torch.step(m, d)
-    counts = (cholesky.launches - before[0], hfield.launches - before[1],
-              sat.launches - before[2], sum(ldl.launches.values()) - before[3])
-    out[device] = (d.qacc.cpu().numpy(), counts)
+    iterations = solver.loop_counts["iterations"] - newton
+    if m.opt.solver != mjtpu_torch.SolverType.NEWTON:
+      iterations = 0
+    counts = (cholesky.launches - before[0] - (iterations if device == "cuda" else 0),
+              hfield.launches - before[1], sat.launches - before[2],
+              sum(ldl.launches.values()) - before[3])
+    out[device] = (d.qacc.cpu().numpy(), counts, d.sensordata.cpu().numpy())
   assert out["cpu"][1] == (0, 0, 0, 0)
   assert out["cuda"][1] == tuple(steps * k for k in per_step)
-  np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
-                             atol=tol * max(1.0, np.abs(out["cpu"][0]).max()))
+  for k in (0, 2):
+    np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0,
+                               atol=tol * max(1.0, np.abs(out["cpu"][k]).max(initial=0.0)))
