@@ -11,12 +11,14 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 6, 8, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and f64)
-     and batches whose pivots hit the floor; every variant that can run an
-     n (the register kernel at n=8, 23 and 27, the shared one everywhere)
-     within the tolerance of the twin, and the two equal bit for bit;
-     times of both at n=27, 23 and 8 (bench's, terrain's and ant's
-     shapes), B=4096, beside torch.cholesky_solve(torch.linalg.cholesky_ex).
+     (n in 1, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and
+     f64) and batches whose pivots hit the floor; every variant that can
+     run an n (the register kernel at n=6, 8, 9, 14, 23 and 27, the shared
+     one everywhere) within the tolerance of the twin, and the two equal
+     bit for bit; times of both at n=27, 23, 14, 9, 8 and 6 (bench's,
+     terrain's, the Ant env's, walker2d's and halfcheetah's, ant_bench's
+     and hopper's shapes), B=4096, beside
+     torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
      and f64; random windows and a flat one; every variant that can run a
@@ -76,8 +78,25 @@ failure raises and the script exits non-zero:
      time, Newton iterations and linesearch rounds per step, the three
      sensor stages' share of step time (CUDA events around each) and the
      touch readings that are not zero.
+ 17. Ant RK4 parity: mjtpu/zoo/assets/ant.xml, f64, B=4, 100 steps from the
+     committed golden's initial states; step 1's four forward passes' qacc
+     and its qacc_warmstart to 1e-10 of scale, qpos and qvel to 1e-8 (the
+     CPU test's bounds); one Cholesky launch (register, n=14) per Newton
+     iteration.
+ 18. zoo env parity: f64, the five locomotion envs (ant, hopper, walker2d,
+     halfcheetah, cartpole) through mjtpu_torch.zoo.ENVS, 3 env steps from
+     the committed env golden's states: obs and reward to 1e-10, done and
+     steps exact; the env forced done at its first step: that step's
+     reward, done and steps.
+ 19. Ant env throughput: f32, B=4096, ENVS["ant"]() on the card, reset
+     from a seeded torch.Generator, a few warm-up and timed env steps with
+     actions uniform in [-1, 1] from it; env steps/s, physics steps/s, ms
+     per env step, Newton iterations and linesearch rounds per physics
+     step, B1 launches by variant (all register, at n=14, as many as
+     Newton's iterations), auto-resets, nreset 0; B1's share of the env
+     step.
 
-The main paths are phases 6, 8, 11, 14 and 16: each kernel's launch count
+The main paths are phases 6, 8, 11, 14, 16 and 19: each kernel's launch count
 is set to 0 just before each and read just after, by variant too: the
 main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static).  The last two lines are the kernel
@@ -128,12 +147,19 @@ ANT_WARMUP = 3
 ANT_TIMED = 20
 SENSOR_STAGES = ("sensor_pos", "sensor_vel", "sensor_acc")
 LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
-# phase 3's sizes: the main paths' n (8, 23, 27), which both variants run,
-# and n that only the shared kernel runs (32 and 33 on either side of its
-# rows' striding over the lanes)
-CHOL_NS = (1, 6, 8, 23, 27, 32, 33, 40)
-# the main paths' n, timed in phase 3: bench, terrain, ant
-CHOL_TIMED_NS = (27, 23, 8)
+ANT_RK4_PASS_BOUND = 1e-10  # tests/test_torch_rk4.py's PASS_BOUND
+ENV_BOUND = 1e-10  # tests/test_torch_zoo.py's STEP_BOUND
+ZOO_LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
+ENV_WARMUP = 2
+ENV_TIMED = 5
+# phase 3's sizes: the register kernel's n (the main paths' 8, 14, 23, 27
+# and the zoo envs' 6 and 9), which both variants run, and n that only the
+# shared kernel runs (32 and 33 on either side of its rows' striding over
+# the lanes)
+CHOL_NS = (1, 6, 8, 9, 14, 23, 27, 32, 33, 40)
+# the register kernel's n, timed in phase 3: bench, terrain, the Ant env,
+# walker2d and halfcheetah, ant_bench, hopper
+CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
@@ -889,31 +915,22 @@ def _f32_start(m, seed: int = 1):
   )
 
 
-def _timed_main_path(m, d, warmup, timed):
-  """Warm-up steps, then the main path's run: every kernel count set to 0
-  just before it and read just after.  Returns (d, secs, counts, the
-  solver's iterations and linesearch rounds in the timed steps)."""
-  import torch
-
-  import mjtpu_torch
-  from mjtpu_torch._src import solver
+def _zero_counts() -> None:
+  """Every kernel's launch count, in all and by variant, set to 0."""
   from mjtpu_torch.ops import cholesky, hfield, ldl, sat
 
-  for _ in range(warmup):
-    d = mjtpu_torch.step(m, d)
-  torch.cuda.synchronize()
   cholesky.launches = hfield.launches = sat.launches = 0
   ldl.launches.update(dict.fromkeys(LDL_ENTRIES, 0))
   for table in (cholesky.variant_launches, hfield.variant_launches, sat.variant_launches,
                 *ldl.variant_launches.values()):
     table.update(dict.fromkeys(table, 0))
-  loops = dict(solver.loop_counts)
-  t0 = time.perf_counter()
-  for _ in range(timed):
-    d = mjtpu_torch.step(m, d)
-  torch.cuda.synchronize()
-  secs = time.perf_counter() - t0
-  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+
+
+def _read_counts() -> dict:
+  """Each kernel's launches since _zero_counts; fails unless every launch
+  was of the redesigned variant, and adds them to VARIANT_LAUNCHES."""
+  from mjtpu_torch.ops import cholesky, hfield, ldl, sat
+
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
             "sat_winners": sat.launches, **ldl.launches}
   # the main path's launches by variant: the redesigned variant only
@@ -927,6 +944,30 @@ def _timed_main_path(m, d, warmup, timed):
     total = VARIANT_LAUNCHES.setdefault(name, dict.fromkeys(kinds, 0))
     for kind, k in kinds.items():
       total[kind] += k
+  return counts
+
+
+def _timed_main_path(m, d, warmup, timed):
+  """Warm-up steps, then the main path's run: every kernel count set to 0
+  just before it and read just after.  Returns (d, secs, counts, the
+  solver's iterations and linesearch rounds in the timed steps)."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import solver
+
+  for _ in range(warmup):
+    d = mjtpu_torch.step(m, d)
+  torch.cuda.synchronize()
+  _zero_counts()
+  loops = dict(solver.loop_counts)
+  t0 = time.perf_counter()
+  for _ in range(timed):
+    d = mjtpu_torch.step(m, d)
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  counts = _read_counts()
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts, loops
@@ -938,10 +979,11 @@ def _only(**launches) -> dict:
           **launches}
 
 
-def _seam_shares(m, d, steps, stages=False):
+def _seam_shares(m, d, steps, stages=False, advance=None):
   """Per kernel (and with ``stages``, per sensor stage): device ms per step
   inside its seam (CUDA events around each call), and the step's device
-  ms, over ``steps`` further steps."""
+  ms, over ``steps`` further steps (``advance(d)``, by default
+  mjtpu_torch.step(m, d)).  Also the set of n the Cholesky seam took."""
   import torch
 
   import mjtpu_torch
@@ -955,9 +997,13 @@ def _seam_shares(m, d, steps, stages=False):
     seams.update({stage: (sensor, stage) for stage in SENSOR_STAGES})
   events = {k: [] for k in seams}
   originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
+  advance = advance or (lambda d: mjtpu_torch.step(m, d))
+  chol_ns = set()
 
   def timed(key):
     def call(*args):
+      if key == "chol_solve":
+        chol_ns.add(int(args[1].shape[-1]))
       start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
       start.record()
       out = originals[key](*args)
@@ -972,14 +1018,16 @@ def _seam_shares(m, d, steps, stages=False):
     step0, step1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     step0.record()
     for _ in range(steps):
-      d = mjtpu_torch.step(m, d)
+      d = advance(d)
     step1.record()
     torch.cuda.synchronize()
   finally:
     for key, (mod, attr) in seams.items():
       setattr(mod, attr, originals[key])
   step_ms = step0.elapsed_time(step1) / steps
-  return {k: sum(s.elapsed_time(e) for s, e in ev) / steps for k, ev in events.items()}, step_ms
+  shares = {k: sum(s.elapsed_time(e) for s, e in ev) / steps for k, ev in events.items()}
+  shares["chol_ns"] = chol_ns
+  return shares, step_ms
 
 
 def phase_throughput(card):
@@ -1293,6 +1341,165 @@ def phase_ant_throughput(card):
   return counts
 
 
+def phase_ant_rk4_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import forward as forward_mod
+  from mjtpu_torch._src import solver
+  from mjtpu_torch.ops import cholesky
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "ant_rk4_golden.npz"))
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "ant_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+  steps = golden["qpos"].shape[0]
+  d = mjtpu_torch.make_data(m, batch_size=golden["qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["qpos0"], device="cuda"),
+                          qvel=torch.as_tensor(golden["qvel0"], device="cuda"),
+                          ctrl=torch.as_tensor(golden["ctrl"], device="cuda"))
+  cholesky.launches = 0
+  before = dict(cholesky.variant_launches)
+  loops = dict(solver.loop_counts)
+  # step 1's forward passes, read through the forward seam
+  passes, original = [], forward_mod.forward
+
+  def record(m, d):
+    d = original(m, d)
+    passes.append(d.qacc.cpu().numpy())
+    return d
+
+  forward_mod.forward = record
+  try:
+    d = mjtpu_torch.step(m, d)
+  finally:
+    forward_mod.forward = original
+  pass_err = max(_scaled_err(p, w) for p, w in zip(passes, golden["pass_qacc"]))
+  warm_err = max(_scaled_err(getattr(d, f).cpu().numpy(), golden[f])
+                 for f in ("qacc", "qacc_warmstart"))
+  err = {"qpos": 0.0, "qvel": 0.0}
+  for i in range(steps):
+    d = d if i == 0 else mjtpu_torch.step(m, d)  # step 1 ran above
+    for f in err:
+      err[f] = max(err[f], float(np.abs(getattr(d, f).cpu().numpy() - golden[f][i]).max()))
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
+  log(f"[ant rk4 parity] ant.xml RK4, {steps} steps B=4 f64: step 1's {len(passes)} forward"
+      f" passes' qacc {pass_err:.3e}, qacc and qacc_warmstart {warm_err:.3e} of scale (limit"
+      f" {ANT_RK4_PASS_BOUND}); max abs err qpos {err['qpos']:.3e}, qvel {err['qvel']:.3e}"
+      f" (limit {ANT_BOUND}); Newton {loops['iterations']} iterations and"
+      f" {loops['ls_rounds']} linesearch rounds in {4 * steps} forward passes; Cholesky"
+      f" launches {cholesky.launches} by variant {kinds} (one per Newton iteration, n=14)")
+  if len(passes) != 4 or not max(pass_err, warm_err) <= ANT_RK4_PASS_BOUND:
+    raise AssertionError(f"ant RK4 passes differ from mjtpu: {pass_err:.3e}, {warm_err:.3e}")
+  if int(d.nreset.sum()) or not max(err.values()) <= ANT_BOUND:
+    raise AssertionError(f"ant RK4 trajectory differs from mjtpu: {err}")
+  if cholesky.launches != loops["iterations"] or kinds["register"] != cholesky.launches:
+    raise AssertionError(f"Cholesky launches {cholesky.launches} ({kinds}), Newton {loops}")
+
+
+def phase_env_parity():
+  import dataclasses
+
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch import zoo
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "zoo_env_golden.npz"))
+  worst = {}
+  for name in ZOO_LOCOMOTION:
+    env = zoo.ENVS[name](dtype=torch.float64)
+    m = env.model
+    d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden[f"{name}.qpos0"], device="cuda"),
+                            qvel=torch.as_tensor(golden[f"{name}.qvel0"], device="cuda"))
+    state = dataclasses.replace(env._init_state(mjtpu_torch.forward(m, d)), steps=torch.as_tensor(
+        golden[f"{name}.steps0"], device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = 0.0
+    actions = golden[f"{name}.action"]
+    for t in range(actions.shape[0]):
+      state = env.step(state, torch.as_tensor(actions[t], device="cuda"), gen)
+      # env 3 is forced done at the first step and then restarted from
+      # mjtpu's PRNG: only that step's reward, done and steps compare
+      live = 4 if t == 0 else 3
+      for k, n in (("obs", 3), ("reward", live)):
+        got = getattr(state, k)[:n].cpu().numpy()
+        err = max(err, float(np.abs(got - golden[f"{name}.{k}"][t][:n]).max()))
+      for k in ("done", "steps"):
+        if not np.array_equal(getattr(state, k)[:live].cpu().numpy(),
+                              golden[f"{name}.{k}"][t][:live]):
+          raise AssertionError(f"{name} env step {t + 1} {k}: {getattr(state, k).tolist()}"
+                               f" against mjtpu's {golden[f'{name}.{k}'][t].tolist()}")
+    worst[name] = err
+    if not err <= ENV_BOUND:
+      raise AssertionError(f"{name}: obs or reward differ from mjtpu's env by {err:.3e}")
+  log(f"[env parity] {', '.join(ZOO_LOCOMOTION)} f64 B=4, 3 env steps through"
+      f" mjtpu_torch.zoo.ENVS: max abs err of obs and reward "
+      + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+      + f" (limit {ENV_BOUND}); done and steps equal to mjtpu's env, the forced-done env's"
+      " first step included")
+
+
+def phase_env_throughput(card):
+  import torch
+
+  from mjtpu_torch import zoo
+  from mjtpu_torch._src import solver
+  from mjtpu_torch.ops import cholesky
+
+  env = zoo.ENVS["ant"]()  # float32, on cuda
+  if env.model.dtype != torch.float32 or env.device.type != "cuda":
+    raise AssertionError(f"the Ant env built at {env.model.dtype} on {env.device}")
+  batch = BENCH_BATCH
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  act = lambda: 2.0 * torch.rand(batch, env.action_size, generator=gen, device="cuda") - 1.0
+  state = env.reset(batch, gen)
+  for _ in range(ENV_WARMUP):
+    state = env.step(state, act(), gen)
+  actions = [act() for _ in range(ENV_TIMED)]
+  nreset = torch.zeros((), dtype=torch.int64, device="cuda")
+  resets = torch.zeros((), dtype=torch.int64, device="cuda")
+  torch.cuda.synchronize()
+  _zero_counts()
+  loops = dict(solver.loop_counts)
+  t0 = time.perf_counter()
+  for a in actions:
+    state = env.step(state, a, gen)
+    # a NaN recovery inside the step stays in nreset until the env is done
+    # and reset: read it after every env step, on the device
+    nreset += state.data.nreset.sum()
+    resets += state.done.sum()
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  counts = _read_counts()
+  kinds = dict(cholesky.variant_launches)
+  physics = ENV_TIMED * env.frame_skip
+  if counts != _only(chol_solve=loops["iterations"]) or not counts["chol_solve"]:
+    raise AssertionError(f"kernel launches in {ENV_TIMED} env steps: {counts}, Newton {loops}")
+  if not bool(torch.isfinite(state.data.qpos).all()) or int(nreset):
+    raise AssertionError(f"Ant env run not finite or reset: nreset {int(nreset)}")
+  shares, step_ms = _seam_shares(env.model, state, 1,
+                                 advance=lambda s: env.step(s, act(), gen))
+  if shares["chol_ns"] != {env.model.nv}:
+    raise AssertionError(f"Cholesky launches at n={shares['chol_ns']}, not {env.model.nv}")
+  log(f"[env throughput] Ant env (ant.xml, RK4) f32 B={batch} through ENVS['ant']:"
+      f" {ENV_WARMUP} warm-up and {ENV_TIMED} timed env steps in {secs:.3f} s ="
+      f" {batch * ENV_TIMED / secs:.0f} env steps/s, {batch * physics / secs:.0f} physics"
+      f" steps/s, {1e3 * secs / ENV_TIMED:.3f} ms per env step ({env.frame_skip} physics steps"
+      f" x 4 forward passes + the reset forward); per physics step: Newton"
+      f" {loops['iterations'] / physics:.2f} iterations, {loops['ls_rounds'] / physics:.2f}"
+      f" linesearch rounds; B1 launches {counts['chol_solve']} by variant"
+      f" {kinds} (all at n={env.model.nv}, one per Newton"
+      f" iteration); auto-resets {int(resets)} of {batch * ENV_TIMED}; qpos finite, nreset 0;"
+      f" device env step {step_ms:.3f} ms, of it B1 {shares['chol_solve']:.4f} ms"
+      f" ({100 * shares['chol_solve'] / step_ms:.2f}%); card {card}")
+  return counts
+
+
 def main() -> int:
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -1322,6 +1529,9 @@ def main() -> int:
   paths["branchy66"] = phase_branchy_throughput(card)
   phase_ant_parity()
   paths["ant_bench"] = phase_ant_throughput(card)
+  phase_ant_rk4_parity()
+  phase_env_parity()
+  paths["ant_env"] = phase_env_throughput(card)
   for name, kinds in VARIANT_LAUNCHES.items():
     if not kinds[NEW_VARIANT[name]] or sum(kinds.values()) != kinds[NEW_VARIANT[name]]:
       raise AssertionError(f"{name}: the main paths launched {kinds}, not the"
@@ -1356,7 +1566,8 @@ def main() -> int:
     record[-1].update(variant="+".join(ran), variant_launches=VARIANT_LAUNCHES[name],
                       variant_ms=variant_ms[name])
     if name == "chol_solve":
-      # the main paths' shapes (bench n=27, terrain n=23, ant n=8), f32
+      # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
+      # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6), f32
       record[-1]["shapes"] = chol_shapes
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {

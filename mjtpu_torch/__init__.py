@@ -15,7 +15,11 @@ free bodies: the CG solver, the forest-blocked mass matrix, plane, sphere
 and box colliders with box-box SAT) and ``ant_bench`` (the sensor stages,
 rangefinder rays, cameras and lights), all in mjtpu/zoo/assets, and the
 66-dof branchy tree of tests/test_sparse.py (the levelwise sparse LDL).
-``put_model`` refuses models outside them with NotImplementedError.
+The zoo's Gym locomotion envs run through ``mjtpu_torch.zoo`` (ant,
+hopper, walker2d, halfcheetah, cartpole and the humanoids: ``ENVS[name]()``,
+``reset``, ``step`` with auto-reset), with the RK4 integrator
+(``rungekutta4``) that ant, hopper and walker2d take.  ``put_model``
+refuses models outside them with NotImplementedError.
 """
 
 import pathlib
@@ -32,6 +36,7 @@ from mjtpu_torch._src.forward import (
     fwd_position,
     fwd_velocity,
     implicit,
+    rungekutta4,
     step,
 )
 from mjtpu_torch._src.io import (
@@ -102,3 +107,5 @@ from mjtpu_torch._src.types import (
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 
 __version__ = "0.1.0"
+
+from mjtpu_torch import zoo  # noqa: E402  (after ASSETS: the envs load their snapshots from it)

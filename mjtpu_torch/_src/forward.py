@@ -1,9 +1,10 @@
-"""Forward dynamics orchestration + the Euler and ImplicitFast integrators.
+"""Forward dynamics orchestration + the Euler, ImplicitFast and RK4 integrators.
 
 Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
 fwd_* stages, forward with the three sensor stages, _advance, euler (with
-implicit joint damping), implicit (ImplicitFast) and step, batch-explicit
-over B envs.  put_model refuses the RK4 and full Implicit integrators.
+implicit joint damping), implicit (ImplicitFast), rungekutta4 and step,
+batch-explicit over B envs.  put_model refuses the full Implicit
+integrator.
 """
 
 from __future__ import annotations
@@ -162,10 +163,8 @@ def forward(m: Model, d: Data) -> Data:
   return sensor.sensor_acc(m, d)
 
 
-def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
-  """Integrates state with the semi-implicit update (mj_advance)."""
-  h = m.opt.timestep
-  qvel = d.qvel + qacc * h
+def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:
+  """qpos integrated by qvel over dt, quaternion-correct (mj_integratePos)."""
 
   def fn(jnt_types, qpos, qvel_b):
     out = []
@@ -173,23 +172,36 @@ def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
     for jt in jnt_types:
       jt = JointType(int(jt))
       if jt == JointType.FREE:
-        out.append(qpos[..., qi : qi + 3] + h * qvel_b[..., vi : vi + 3])
-        out.append(math.quat_integrate(qpos[..., qi + 3 : qi + 7], qvel_b[..., vi + 3 : vi + 6], h))
+        out.append(qpos[..., qi : qi + 3] + dt * qvel_b[..., vi : vi + 3])
+        out.append(
+            math.quat_integrate(qpos[..., qi + 3 : qi + 7], qvel_b[..., vi + 3 : vi + 6], dt))
         qi, vi = qi + 7, vi + 6
       elif jt == JointType.BALL:
-        out.append(math.quat_integrate(qpos[..., qi : qi + 4], qvel_b[..., vi : vi + 3], h))
+        out.append(math.quat_integrate(qpos[..., qi : qi + 4], qvel_b[..., vi : vi + 3], dt))
         qi, vi = qi + 4, vi + 3
       else:
-        out.append(qpos[..., qi : qi + 1] + h * qvel_b[..., vi : vi + 1])
+        out.append(qpos[..., qi : qi + 1] + dt * qvel_b[..., vi : vi + 1])
         qi, vi = qi + 1, vi + 1
     if not out:
       return qpos.new_zeros(qpos.shape[:-1] + (0,))
     return torch.cat(out, dim=-1)
 
-  qpos = scan.flat(m, fn, "jqv", "q", np.asarray(m.jnt_type), d.qpos, qvel)
-  if qpos is None:
-    qpos = d.qpos
-  return replace(d, qpos=qpos, qvel=qvel, qacc=qacc, time=d.time + h)
+  out = scan.flat(m, fn, "jqv", "q", np.asarray(m.jnt_type), qpos, qvel)
+  return qpos if out is None else out
+
+
+def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
+             qvel: torch.Tensor | None = None) -> Data:
+  """Integrates state with the semi-implicit update (mj_advance).  The
+  velocity state always takes qvel + h * qacc; ``qvel`` (RK4's combined
+  velocity) overrides only the velocity the position update uses.
+  put_model refuses activation dynamics, so ``act`` integrates linearly
+  (and is empty in every model the port takes)."""
+  h = m.opt.timestep
+  act = d.act + act_dot * h if m.na else d.act
+  qvel_state = d.qvel + qacc * h
+  qpos = _integrate_pos(m, d.qpos, qvel_state if qvel is None else qvel, h)
+  return replace(d, act=act, qpos=qpos, qvel=qvel_state, qacc=qacc, time=d.time + h)
 
 
 def euler(m: Model, d: Data) -> Data:
@@ -203,7 +215,7 @@ def euler(m: Model, d: Data) -> Data:
     mh = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
     qfrc = d.qfrc_smooth + d.qfrc_constraint
     qacc = smooth.factor_solve(m, mh, qfrc)
-  return _advance(m, d, qacc)
+  return _advance(m, d, d.act_dot, qacc)
 
 
 def implicit(m: Model, d: Data) -> Data:
@@ -215,7 +227,41 @@ def implicit(m: Model, d: Data) -> Data:
   mh = d.qM - m.opt.timestep * qderiv
   qfrc = d.qfrc_smooth + d.qfrc_constraint
   qacc = smooth.factor_solve(m, mh, qfrc, symmetric=False)
-  return _advance(m, d, qacc)
+  return _advance(m, d, d.act_dot, qacc)
+
+
+# RK4's tableau (mj_RungeKutta): each stage's step fraction and the
+# combination weights of the four passes
+RK4_A = (0.5, 0.5, 1.0)
+RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def rungekutta4(m: Model, d: Data) -> Data:
+  """4th-order Runge-Kutta (mj_RungeKutta) from ``d`` after its forward:
+  three more forward passes at the stage states X_i = X_0 + h a_i F_{i-1},
+  each warm-started from the previous pass's solve (the stage Data is
+  carried), then one advance from X_0 by the B-weighted passes.  The last
+  pass's derived fields stay; qpos, qvel, act and time come from X_0."""
+  h = m.opt.timestep
+  qpos0, qvel0, act0, time0 = d.qpos, d.qvel, d.act, d.time
+  qvels, qaccs, act_dots = [qvel0], [d.qacc], [d.act_dot]
+  dd = d
+  for a in RK4_A:
+    ha = h * a  # at the state's dtype, as mjtpu scans the tableau
+    qvel_i = qvel0 + ha * qaccs[-1]
+    act_i = act0 + ha * act_dots[-1]
+    dd = replace(dd, qpos=_integrate_pos(m, qpos0, qvels[-1], ha), qvel=qvel_i, act=act_i,
+                 time=time0 + ha)
+    dd = forward(m, dd)
+    qvels.append(dd.qvel)
+    qaccs.append(dd.qacc)
+    act_dots.append(dd.act_dot)
+  # left to right from the first pass's term, as mjtpu sums them
+  qvel_comb = sum(b * v for b, v in zip(RK4_B, qvels))
+  qacc_comb = sum(b * v for b, v in zip(RK4_B, qaccs))
+  act_dot_comb = sum(b * v for b, v in zip(RK4_B, act_dots))
+  dd = replace(dd, qpos=qpos0, qvel=qvel0, act=act0, time=time0)
+  return _advance(m, dd, act_dot_comb, qacc_comb, qvel=qvel_comb)
 
 
 def step(m: Model, d: Data) -> Data:
@@ -224,4 +270,6 @@ def step(m: Model, d: Data) -> Data:
   d = forward(m, d)
   if m.opt.integrator == IntegratorType.IMPLICITFAST:
     return implicit(m, d)
+  if m.opt.integrator == IntegratorType.RK4:
+    return rungekutta4(m, d)
   return euler(m, d)

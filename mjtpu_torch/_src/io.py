@@ -221,8 +221,9 @@ def _validate(ns) -> None:
          f"solver {int(o.solver)} (only CG and Newton)")
   refuse(int(o.integrator) == IntegratorType.IMPLICIT,
          "the implicit integrator (RNE velocity derivative)")
-  refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST),
-         f"integrator {int(o.integrator)} (only Euler and ImplicitFast)")
+  refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST,
+                                   IntegratorType.RK4),
+         f"integrator {int(o.integrator)} (only Euler, ImplicitFast and RK4)")
   refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
 
   jnt_type = np.asarray(ns.jnt_type)

@@ -9,9 +9,10 @@
 // Two kernels, chosen by ops/cholesky.py's size dispatch; both put one env
 // on a warp, 4 warps a block:
 //
-//   * `register` (instantiated for the n of MJTPU_CHOL_WIDTHS: 8, 23, 27,
-//     the main paths' sizes, so every loop bound is a constant; a 32-wide
-//     instance masked at run time measured 35-56% slower, PERF.md).  What
+//   * `register` (instantiated for the n of MJTPU_CHOL_WIDTHS: 6, 8, 9, 14,
+//     23, 27, the main paths' and the zoo envs' sizes, so every loop bound
+//     is a constant; a 32-wide instance masked at run time measured 35-56%
+//     slower, PERF.md).  What
 //     bounds it on this card: at the main paths' sizes (n = 27 and 23,
 //     B = 4096: ~31 warps an SM, one wave) neither bytes (~6 KB an env)
 //     nor FLOPs (~7 KFLOP) do, but the instructions each warp issues along
@@ -118,7 +119,7 @@ __global__ void chol_shared_kernel(const T* __restrict__ mat, const T* __restric
 
 // the n the register kernel is instantiated for (every loop bound a
 // constant); ops/cholesky.py's REGISTER_WIDTHS lists the same
-#define MJTPU_CHOL_WIDTHS(X) X(8) X(23) X(27)
+#define MJTPU_CHOL_WIDTHS(X) X(6) X(8) X(9) X(14) X(23) X(27)
 
 constexpr int kRegisterWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;

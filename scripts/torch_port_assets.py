@@ -87,11 +87,47 @@
       The script prints the touch readings that are not zero (it fails if
       there are none) and the rangefinder readings that hit.
 
+  mjtpu_torch/assets/<env>_model.npz for the zoo envs' models in
+  mjtpu/zoo/assets (--model zoo): ant, hopper, walker2d, halfcheetah,
+      cartpole, humanoid and swimmer (which put_model refuses: fluid).
+  mjtpu_torch/assets/ant_rk4_golden.npz
+      a reference trajectory of mjtpu/zoo/assets/ant.xml (RK4) from mjtpu
+      at float64 on the CPU:
+        qpos0, qvel0, ctrl     B=4 initial states (ant_rk4_initial_state:
+                               numpy seed 0, the Ant env's reset noise:
+                               qpos0 +-0.1, qvel 0.1 x normal; ctrl uniform
+                               in [-1, 1])
+        qpos, qvel             (steps, 4, ...) after each step
+        pass_qacc              (4, 4, nv): step 1's four forward passes'
+                               qacc (the stage passes replayed with mjtpu's
+                               forward and _integrate_pos_only; the script
+                               fails unless the last pass's solve equals
+                               mjtpu.step's qacc_warmstart)
+        qacc, qacc_warmstart   after step 1 (the combined qacc; the last
+                               pass's solve)
+  mjtpu_torch/assets/zoo_env_golden.npz
+      mjtpu's env.step (jit(vmap)) at float64 on the CPU for the five
+      locomotion envs (ant, hopper, walker2d, halfcheetah, cartpole), under
+      "<env>." keys:
+        qpos0, qvel0, steps0   B=4 initial states (env_initial_state: envs
+                               0-2 the env's reset distribution from numpy
+                               seed 0, none of them done within the run;
+                               env 3 forced done at the first step: ant's
+                               torso at z=1.2, hopper tilted 0.5 rad,
+                               walker2d 1.5 rad, cartpole's pole at 1.5
+                               rad, halfcheetah one step before its
+                               episode_length)
+        action                 (steps, 4, nu), uniform in [-1, 1]
+        obs, reward, done, steps   (steps, 4, ...) after each env step
+      Env 3 is reset by mjtpu's PRNG after its first step, which no other
+      engine can reproduce: only its first step's reward, done and steps
+      are comparable.
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
-        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench]
-        [--steps N]
+        [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
+                     |zoo|ant_rk4|zoo_envs] [--steps N] [--env NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -127,7 +163,15 @@ BRANCHY_GOLDEN_FILE = ASSETS / "branchy66_golden.npz"
 ANT_XML = ROOT / "mjtpu" / "zoo" / "assets" / "ant_bench.xml"
 ANT_MODEL_FILE = ASSETS / "ant_bench_model.npz"
 ANT_GOLDEN_FILE = ASSETS / "ant_bench_golden.npz"
-MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench")
+ZOO = ROOT / "mjtpu" / "zoo" / "assets"
+ZOO_MODELS = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid", "swimmer")
+LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
+ANT_RK4_GOLDEN_FILE = ASSETS / "ant_rk4_golden.npz"
+ENV_GOLDEN_FILE = ASSETS / "zoo_env_golden.npz"
+MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
+          "zoo", "ant_rk4", "zoo_envs")
+# env steps of the env golden
+ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
 PILE_EVERY = 5
 BATCH = 4
@@ -469,6 +513,132 @@ def ant_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
   return {"qpos0": qpos0, "qvel0": qvel0, "ctrl": ctrl, **out, **port_fields(fwd, "fwd.")}
 
 
+def load_zoo_mjmodel(name: str):
+  import mujoco
+
+  return mujoco.MjModel.from_xml_path(str(ZOO / f"{name}.xml"))
+
+
+def ant_rk4_initial_state(mjm, batch: int = BATCH, seed: int = 0):
+  """(qpos, qvel, ctrl): the Ant env's reset distribution (qpos0 +-0.1,
+  qvel 0.1 x normal) and ctrl uniform in [-1, 1], from one numpy
+  generator."""
+  rng = np.random.default_rng(seed)
+  qpos = mjm.qpos0[None] + rng.uniform(-0.1, 0.1, (batch, mjm.nq))
+  qvel = 0.1 * rng.normal(size=(batch, mjm.nv))
+  ctrl = rng.uniform(-1.0, 1.0, (batch, mjm.nu))
+  return qpos, qvel, ctrl
+
+
+def ant_rk4_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The ant RK4 golden file's arrays (module docstring)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu._src import forward as fwd
+
+  qpos0, qvel0, ctrl = ant_rk4_initial_state(mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0), ctrl=jnp.asarray(ctrl))
+
+  # step 1's passes: mjtpu's rungekutta4 stages (forward.py:363-403),
+  # replayed pass by pass so that each pass's qacc can be read
+  forward = jax.jit(jax.vmap(fwd.forward, in_axes=(None, 0)))
+
+  @jax.jit
+  def stage_state(d0, dd, a):
+    h = m.opt.timestep
+    dd = jax.vmap(fwd._integrate_pos_only, in_axes=(None, 0, 0, 0, None))(
+        m, dd, d0.qpos, dd.qvel, h * a)
+    return dd.replace(qvel=d0.qvel + (h * a) * dd.qacc,
+                      act=d0.act + (h * a) * dd.act_dot, time=d0.time + h * a)
+
+  d0 = forward(m, jax.vmap(fwd._check_state, in_axes=(None, 0))(m, d))
+  dd, passes = d0, [np.asarray(d0.qacc)]
+  for a in jnp.asarray((0.5, 0.5, 1.0), jnp.float64):  # the tableau's A (forward.py:372)
+    dd = forward(m, stage_state(d0, dd, a))
+    passes.append(np.asarray(dd.qacc))
+
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {"qpos": [], "qvel": []}
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    if i == 0:
+      qacc, warm = np.asarray(d.qacc), np.asarray(d.qacc_warmstart)
+  gap = np.abs(passes[-1] - warm).max()
+  print(f"ant RK4: last replayed pass vs mjtpu.step's qacc_warmstart: {gap:.3e}")
+  if not gap <= 1e-10 * max(1.0, np.abs(warm).max()):
+    raise AssertionError(f"the replayed RK4 passes differ from mjtpu.step by {gap:.3e}")
+  return {"qpos0": qpos0, "qvel0": qvel0, "ctrl": ctrl,
+          **{k: np.stack(v) for k, v in out.items()},
+          "pass_qacc": np.stack(passes), "qacc": qacc, "qacc_warmstart": warm}
+
+
+def env_initial_state(name: str, env, seed: int = 0):
+  """(qpos, qvel, steps) of the env golden's 4 envs (module docstring)."""
+  mjm = env.mj_model
+  rng = np.random.default_rng(seed)
+  noise = env.reset_noise
+  qpos = mjm.qpos0[None] + rng.uniform(-noise, noise, (BATCH, mjm.nq))
+  qvel = noise * rng.normal(size=(BATCH, mjm.nv))
+  steps = np.zeros(BATCH, np.int32)
+  if name == "ant":
+    qpos[3, 2] = 1.2         # torso above the healthy band
+  elif name in ("hopper", "walker2d"):
+    qpos[3, 2] = 0.5 if name == "hopper" else 1.5  # tilted past the bound
+  elif name == "cartpole":
+    qpos[3, 1] = 1.5         # the pole past 1 rad
+  elif name == "halfcheetah":
+    steps[3] = env.episode_length - 1
+  return qpos, qvel, steps
+
+
+def env_golden(names, steps: int = ENV_STEPS) -> dict[str, np.ndarray]:
+  """The env golden file's arrays for ``names`` (module docstring)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu.zoo import ENVS
+  from mjtpu.zoo.base import State
+
+  out = {}
+  for name in names:
+    env = ENVS[name](dtype=jnp.float64)
+    qpos0, qvel0, steps0 = env_initial_state(name, env)
+    rng = np.random.default_rng(1)
+    action = rng.uniform(-1.0, 1.0, (steps, BATCH, env.action_size))
+    d = jax.vmap(lambda _: env._d0)(jnp.arange(BATCH))
+    d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0))
+    d = jax.jit(jax.vmap(mjtpu.forward, in_axes=(None, 0)))(env.model, d)
+    state = State(data=d, obs=jax.vmap(env._obs)(d), reward=jnp.zeros(BATCH),
+                  done=jnp.zeros(BATCH, bool),
+                  key=jax.random.split(jax.random.PRNGKey(0), BATCH),
+                  steps=jnp.asarray(steps0), pixels=jnp.zeros((BATCH, 0)))
+    step = jax.jit(jax.vmap(env.step))
+    rec = {"obs": [], "reward": [], "done": [], "steps": []}
+    for t in range(steps):
+      state = step(state, jnp.asarray(action[t]))
+      for k in rec:
+        rec[k].append(np.asarray(getattr(state, k)))
+    rec = {k: np.stack(v) for k, v in rec.items()}
+    if rec["done"][:, :3].any() or not rec["done"][0, 3]:
+      raise AssertionError(f"{name}: done {rec['done'].tolist()}: envs 0-2 must stay"
+                           " healthy and env 3 end at the first step")
+    print(f"{name}: rewards {rec['reward'].tolist()}")
+    out.update({f"{name}.{k}": v for k, v in dict(
+        qpos0=qpos0, qvel0=qvel0, steps0=steps0, action=action, **rec).items()})
+  return out
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -527,11 +697,15 @@ def main():
                       help="directory for the files (default: the package's assets)")
   parser.add_argument("--model", action="append", choices=MODELS,
                       help="the model whose files to write (repeatable; default: all)")
-  parser.add_argument("--steps", type=int, default=STEPS,
-                      help="steps of the humanoid_terrain, scene_pile, branchy66 and ant_bench"
-                      " golden trajectories")
+  parser.add_argument("--steps", type=int, default=None,
+                      help="steps of the humanoid_terrain, scene_pile, branchy66, ant_bench and"
+                      f" ant_rk4 golden trajectories (default {STEPS}) and env steps of the env"
+                      f" golden (default {ENV_STEPS})")
+  parser.add_argument("--env", action="append", choices=LOCOMOTION,
+                      help="the envs of the env golden (repeatable; default: all five)")
   args = parser.parse_args()
   out = args.out
+  steps = args.steps or STEPS
   # before jax is imported: the flag is read when the CPU backend starts
   os.environ["XLA_FLAGS"] = (
       os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX2").strip()
@@ -550,12 +724,12 @@ def main():
 
     mjm = load_terrain_mjmodel()
     io.save_snapshot(mjm, out / TERRAIN_MODEL_FILE.name, mesh_convex=mesh.get(mjm))
-    np.savez_compressed(out / TERRAIN_GOLDEN_FILE.name, **terrain_golden(mjm, args.steps))
+    np.savez_compressed(out / TERRAIN_GOLDEN_FILE.name, **terrain_golden(mjm, steps))
     files += [TERRAIN_MODEL_FILE.name, TERRAIN_GOLDEN_FILE.name]
   if "scene_pile" in models:
     mjm = load_pile_mjmodel()
     io.save_snapshot(mjm, out / PILE_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
-    np.savez_compressed(out / PILE_GOLDEN_FILE.name, **pile_golden(mjm, args.steps))
+    np.savez_compressed(out / PILE_GOLDEN_FILE.name, **pile_golden(mjm, steps))
     files += [PILE_MODEL_FILE.name, PILE_GOLDEN_FILE.name]
   if "boxes" in models:
     import mujoco
@@ -566,13 +740,25 @@ def main():
   if "branchy66" in models:
     mjm = load_branchy_mjmodel()
     io.save_snapshot(mjm, out / BRANCHY_MODEL_FILE.name)
-    np.savez_compressed(out / BRANCHY_GOLDEN_FILE.name, **branchy_golden(mjm, args.steps))
+    np.savez_compressed(out / BRANCHY_GOLDEN_FILE.name, **branchy_golden(mjm, steps))
     files += [BRANCHY_MODEL_FILE.name, BRANCHY_GOLDEN_FILE.name]
   if "ant_bench" in models:
     mjm = load_ant_mjmodel()
     io.save_snapshot(mjm, out / ANT_MODEL_FILE.name)
-    np.savez_compressed(out / ANT_GOLDEN_FILE.name, **ant_golden(mjm, args.steps))
+    np.savez_compressed(out / ANT_GOLDEN_FILE.name, **ant_golden(mjm, steps))
     files += [ANT_MODEL_FILE.name, ANT_GOLDEN_FILE.name]
+  if "zoo" in models:
+    for name in ZOO_MODELS:
+      io.save_snapshot(load_zoo_mjmodel(name), out / f"{name}_model.npz")
+      files.append(f"{name}_model.npz")
+  if "ant_rk4" in models:
+    np.savez_compressed(out / ANT_RK4_GOLDEN_FILE.name,
+                        **ant_rk4_golden(load_zoo_mjmodel("ant"), steps))
+    files.append(ANT_RK4_GOLDEN_FILE.name)
+  if "zoo_envs" in models:
+    np.savez_compressed(out / ENV_GOLDEN_FILE.name,
+                        **env_golden(args.env or LOCOMOTION, args.steps or ENV_STEPS))
+    files.append(ENV_GOLDEN_FILE.name)
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

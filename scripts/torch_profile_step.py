@@ -1,15 +1,20 @@
 """Where a mjtpu_torch step's time goes on the GPU.
 
     python scripts/torch_profile_step.py
-        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66|ant_bench]
+        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66|ant_bench|ant_env]
         [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
 Runs the model from its committed snapshot on CUDA (from qpos0 +-0.01,
 numpy seed 1, as chip_smoke.py starts it; scene_pile's bodies also
 dropped 0.25 m; ant_bench's joints uniform over their ranges), warms up,
 then traces ``--steps`` steps with torch.profiler (CPU and CUDA
-activity).  Prints the card (nvidia-smi name and power limit), host wall
-time per step, device kernel time per step, the device's busy share
+activity).  ``--model ant_env`` runs the Ant env instead
+(``mjtpu_torch.zoo.ENVS["ant"]``, reset and actions uniform in [-1, 1]
+from a torch.Generator seeded 0, as chip_smoke.py runs it): its
+``--warmup`` and ``--steps`` count env steps (each 5 RK4 physics steps
+and the auto-reset's forward), and so do the per-step figures.  Prints
+the card (nvidia-smi name and power limit), host wall time per step,
+device kernel time per step, the device's busy share
 (kernel time / wall time), kernel launches per step, the solver's
 iterations and linesearch rounds per traced step, for a model with
 sensors the kernel launches of each sensor stage (each traced alone on
@@ -32,7 +37,7 @@ def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--model", default="humanoid_bench",
                  choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66",
-                          "ant_bench"))
+                          "ant_bench", "ant_env"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)
@@ -56,30 +61,41 @@ def main() -> int:
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, timeout=60, check=True).stdout.strip()
   dtype = getattr(torch, args.dtype)
-  m = mjtpu_torch.model_from_arrays(
-      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{args.model}_model.npz"),
-      dtype=dtype, device="cuda")
-  rng = np.random.default_rng(1)
-  qpos = m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (args.batch, m.nq))
-  if args.model == "scene_pile":
-    qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
-  if args.model == "ant_bench":  # every joint uniform over its range
+  if args.model == "ant_env":
+    from mjtpu_torch import zoo
+
+    env = zoo.ENVS["ant"](dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    act = lambda: 2.0 * torch.rand(args.batch, env.action_size, generator=gen, device="cuda",
+                                   dtype=dtype) - 1.0
+    m, d = env.model, env.reset(args.batch, gen)
+    advance = lambda s: env.step(s, act(), gen)
+  else:
+    m = mjtpu_torch.model_from_arrays(
+        mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{args.model}_model.npz"),
+        dtype=dtype, device="cuda")
     rng = np.random.default_rng(1)
-    rng_lo, rng_hi = (m.jnt_range[:, k].cpu().numpy() for k in (0, 1))
-    qpos[:, m.jnt_qposadr] = rng.uniform(rng_lo, rng_hi, (args.batch, m.njnt))
-  d = mjtpu_torch.make_data(m, batch_size=args.batch)
-  d = mjtpu_torch.replace(
-      d, qpos=torch.as_tensor(qpos, dtype=dtype, device="cuda"),
-      ctrl=torch.as_tensor(rng.uniform(-1, 1, (args.batch, m.nu)), dtype=dtype, device="cuda"))
+    qpos = m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (args.batch, m.nq))
+    if args.model == "scene_pile":
+      qpos[:, 2::7] -= 0.25  # the bottom layer starts in the floor
+    if args.model == "ant_bench":  # every joint uniform over its range
+      rng = np.random.default_rng(1)
+      rng_lo, rng_hi = (m.jnt_range[:, k].cpu().numpy() for k in (0, 1))
+      qpos[:, m.jnt_qposadr] = rng.uniform(rng_lo, rng_hi, (args.batch, m.njnt))
+    d = mjtpu_torch.make_data(m, batch_size=args.batch)
+    d = mjtpu_torch.replace(
+        d, qpos=torch.as_tensor(qpos, dtype=dtype, device="cuda"),
+        ctrl=torch.as_tensor(rng.uniform(-1, 1, (args.batch, m.nu)), dtype=dtype, device="cuda"))
+    advance = lambda d: mjtpu_torch.step(m, d)
   for _ in range(args.warmup):
-    d = mjtpu_torch.step(m, d)
+    d = advance(d)
   torch.cuda.synchronize()
 
   loops = dict(solver.loop_counts)
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for _ in range(args.steps):
-      d = mjtpu_torch.step(m, d)
+      d = advance(d)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
   out = pathlib.Path(args.out)

@@ -95,13 +95,17 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
+ZOO_BUILT = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid")
+
+
 @pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66",
-                                   "ant_bench"])
+                                   "ant_bench", *ZOO_BUILT])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
-  mjm = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
-         "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
-         "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel}[model]()
+  load = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
+          "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
+          "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel}
+  mjm = load[model]() if model in load else script.load_zoo_mjmodel(model)
   snap = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
   _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
@@ -300,6 +304,59 @@ def test_ant_golden_file_is_fresh(regenerated_ant):
       np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
 
 
+def test_zoo_snapshot_files_are_fresh(tmp_path):
+  """The zoo envs' snapshots (swimmer's too, which put_model refuses for
+  its fluid) are what the script writes."""
+  script = _assets_script()
+  new_dir = _regenerate(tmp_path, "--model", "zoo")
+  assert script.ZOO_MODELS == ZOO_BUILT + ("swimmer",)
+  for name in script.ZOO_MODELS:
+    old_file = mjtpu_torch.ASSETS / f"{name}_model.npz"
+    assert _snapshot_keys(old_file) == sorted(io.SNAPSHOT_FIELDS)
+    with np.load(new_dir / old_file.name) as new, np.load(old_file) as old:
+      assert sorted(new.files) == sorted(old.files)
+      for k in new.files:
+        np.testing.assert_array_equal(new[k], old[k], err_msg=f"{name} {k}")
+
+
+ANT_RK4_PREFIX = 2
+
+
+def test_ant_rk4_golden_file_is_fresh(tmp_path):
+  """Regenerating the ant RK4 golden with mjtpu reproduces the committed
+  file's step-1 passes and fields and its first ANT_RK4_PREFIX steps (the
+  rest of the trajectory is held by tests/test_torch_rk4.py against the
+  port)."""
+  script = _assets_script()
+  new_dir = _regenerate(tmp_path, "--model", "ant_rk4", "--steps", str(ANT_RK4_PREFIX))
+  name = script.ANT_RK4_GOLDEN_FILE.name
+  with np.load(new_dir / name) as new, np.load(script.ANT_RK4_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
+    assert old["pass_qacc"].shape == (4, script.BATCH, 14)
+    for k in new.files:
+      want = old[k][:ANT_RK4_PREFIX] if k in ("qpos", "qvel") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
+
+
+def test_env_golden_file_is_fresh(tmp_path):
+  """Regenerating cartpole's part of the env golden with mjtpu reproduces
+  the committed file's first env step (mjtpu's compile of the other envs'
+  env.step takes 40-90 s each on the CPU; their entries are held by
+  tests/test_torch_zoo.py against the port)."""
+  script = _assets_script()
+  new_dir = _regenerate(tmp_path, "--model", "zoo_envs", "--env", "cartpole", "--steps", "1")
+  name = script.ENV_GOLDEN_FILE.name
+  with np.load(new_dir / name) as new, np.load(script.ENV_GOLDEN_FILE) as old:
+    assert sorted(old.files) == sorted(f"{env}.{k}" for env in script.LOCOMOTION for k in (
+        "qpos0", "qvel0", "steps0", "action", "obs", "reward", "done", "steps"))
+    assert sorted(new.files) == sorted(k for k in old.files if k.startswith("cartpole."))
+    for k in new.files:
+      want = old[k][:1] if new[k].ndim and k.split(".")[1] in (
+          "action", "obs", "reward", "done", "steps") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
+
+
 def test_terrain_golden_file_is_fresh(regenerated_terrain):
   """Regenerating the terrain golden with mjtpu reproduces the committed
   file's first TERRAIN_PREFIX steps and its step-1 fields."""
@@ -343,6 +400,11 @@ for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66", "a
   assert bool(torch.isfinite(d.qpos).all())
 d = mjtpu_torch.forward(m, mjtpu_torch.make_data(m, batch_size=2))  # ant_bench's sensors
 assert d.sensordata.shape == (2, 26) and bool(torch.isfinite(d.sensordata).all())
+from mjtpu_torch import zoo
+env = zoo.ENVS["ant"](device="cpu")
+gen = torch.Generator().manual_seed(0)
+state = env.step(env.reset(2, gen), torch.zeros(2, env.action_size), gen)
+assert state.obs.shape == (2, 27) and bool(torch.isfinite(state.obs).all())
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "mjtpu", "mujoco"))
 assert not bad, bad
 print("ok")

@@ -173,7 +173,9 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
     (_variant("sensors.xml"), "sensors"),
     (_variant("equality.xml"), "equality"),
     (_variant("friction_tendon.xml"), "tendons"),
-    (_variant("pendulum_rk4.xml"), "integrator"),
+    # RK4 is in the slice since the zoo envs: an RK4 model in a fluid (the
+    # zoo's swimmer) is refused for the fluid
+    (_variant("pendulum_rk4.xml", density=1.2), "fluid"),
     (_variant("boxes.xml", integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST),
      "ImplicitFast on a multi-tree"),
     (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), "elliptic"),
@@ -201,7 +203,9 @@ def test_put_model_refuses_out_of_slice(make, what):
     # one tree with nv >= 32 that sparse.structure leaves dense (Newton,
     # its loops capped as for boxes)
     _variant("chain40.xml", iterations=2, ls_iterations=2),
-], ids=["boxes", "cg", "pendulum", "chain40"])
+    # RK4 (the zoo's ant, hopper and walker2d)
+    _variant("pendulum_rk4.xml"),
+], ids=["boxes", "cg", "pendulum", "chain40", "rk4"])
 def test_put_model_accepts_the_slice(make):
   """Models that earlier slices refused build and step on the CPU."""
   mjm = make()
