@@ -41,11 +41,17 @@ failure raises and the script exits non-zero:
   8. humanoid_terrain throughput: f32, B=4096 from qpos0 +-0.01, a few
      warm-up and timed steps; each kernel's share of step time.
   9. SAT kernel (B3) vs its plain twin on the card: box-box with equal and
-     with unequal sizes and a box against a terrain rock hull; random,
-     axis-aligned touching and stacked poses; n in 1, 130, 491520; f32 and
-     f64; both variants (static and shared) equal to the twin bit for bit
-     in winner indices and separations; times of both at box-box, n =
-     491520 (scene_pile's group at B=4096), f32.
+     with unequal sizes and a box against a terrain rock hull (n in 1,
+     130, 491520), and the round hulls of the committed snapshots,
+     cylinder-box at the cylinder drop's sizes, cylinder-cylinder,
+     ellipsoid-box and ellipsoid-ellipsoid (n in 1, 130, 4096; the size
+     dispatch must give them the shared kernel); random, axis-aligned
+     touching and stacked poses; f32 and f64; every variant that can run a
+     pair equal to the twin bit for bit in winner indices and separations;
+     times of both variants at box-box, n = 491520 (scene_pile's group at
+     B=4096), and of the shared kernel at each round pair, n = 4096 (the
+     cylinder drop's group at B=4096), f32, each beside its twin and its
+     bound (_sat_work).
  10. scene_pile parity: f64, B=4, 100 steps from the committed golden's
      initial states; step-1 contact.dist to 1e-9, qacc and efc_force and
      the trajectory to the CPU test's bounds (PILE_SOLVE_BOUND,
@@ -95,11 +101,29 @@ failure raises and the script exits non-zero:
      step, B1 launches by variant (all register, at n=14, as many as
      Newton's iterations), auto-resets, nreset 0; B1's share of the env
      step.
+ 20. collision parity: f64, B=4, 100 steps of the cylinder drop (a
+     cylinder on a box, SAT on its inscribed hull), tests/models/roll.xml
+     and tests/models/sph_cyl.xml from the committed goldens' initial
+     states: step-1 contacts to 1e-10 of scale with their geoms equal,
+     qpos and qvel to 1e-8 (the CPU test's bounds); one SAT launch a step
+     for the drop and none for the others, one Cholesky launch per Newton
+     iteration; then the contacts of the 22 collision scenes of
+     collision_scenes.npz (every geom pair this slice added, a
+     tetrahedron pair, the max_geom_pairs sphere pile) at B=2 against
+     their goldens, to 1e-10 of scale with their geoms equal.
+ 21. cylinder drop throughput: f32, B=4096, cylinders turned at random
+     just over the box (numpy seed 1), a few warm-up and timed steps;
+     env-steps/s, ms per step, launches per step (B3 shared 1, B1
+     register as many as Newton's iterations), Newton iterations and
+     linesearch rounds per step, nreset 0, B3's and B1's share of the
+     step (CUDA events around each seam), one more step traced by
+     torch.profiler for its launches and the device's busy share.
 
-The main paths are phases 6, 8, 11, 14, 16 and 19: each kernel's launch count
-is set to 0 just before each and read just after, by variant too: the
-main paths must run the redesigned variants only (NEW_VARIANT: B1
-register, B2 lanes, B3 and B4 static).  The last two lines are the kernel
+The main paths are phases 6, 8, 11, 14, 16, 19 and 21: each kernel's launch
+count is set to 0 just before each and read just after, by variant too:
+the main paths must run the redesigned variants only (NEW_VARIANT: B1
+register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
+the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
 
     python3 chip_smoke.py --kernels
@@ -133,6 +157,7 @@ TERRAIN_WARMUP = 3
 TERRAIN_TIMED = 20
 HFIELD_N = 49152  # the capsule group at B=4096: 4096 envs x 12 pairs
 SAT_N = 491520  # the box-box group at B=4096: 4096 envs x 120 pairs
+ROUND_N = 4096  # the cylinder drop's cylinder-box group at B=4096: one pair an env
 # tests/test_torch_pile.py's bounds: the step-1 solve relative to each
 # field's scale, and the 100-step trajectory (absolute)
 PILE_SOLVE_BOUND = 1e-3
@@ -148,6 +173,13 @@ ANT_TIMED = 20
 SENSOR_STAGES = ("sensor_pos", "sensor_vel", "sensor_acc")
 LDL_ENTRIES = ("ldl_factor", "ldl_solve", "ldl_factor_solve")
 ANT_RK4_PASS_BOUND = 1e-10  # tests/test_torch_rk4.py's PASS_BOUND
+# tests/test_torch_collision_round.py's bounds: contacts of each field's
+# scale, and the 100-step trajectories (absolute)
+CONTACT_BOUND = 1e-10
+CONTACT_TRAJECTORY_BOUND = 1e-8
+CONTACT_MODELS = ("cylinder_drop", "roll", "sph_cyl")
+DROP_WARMUP = 5
+DROP_TIMED = 20
 ENV_BOUND = 1e-10  # tests/test_torch_zoo.py's STEP_BOUND
 ZOO_LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
 ENV_WARMUP = 2
@@ -568,6 +600,33 @@ def _sat_work(n: int, h1, h2, item: int) -> tuple[float, float]:
   return float(n * (27 * item + 16) + tables), float(n * ops)
 
 
+def _geom_hulls(ns) -> list:
+  """The hull tables of a snapshot's colliding boxes, cylinders and
+  ellipsoids (mjtpu's, as committed), in the order of a collision group's
+  pair: by geom type, then by geom id."""
+  import numpy as np
+
+  types = np.asarray(ns.geom_type)
+  geoms = [g for g, h in enumerate(ns.geom_convex) if h is not None]
+  return [ns.geom_convex[g] for g in sorted(geoms, key=lambda g: (int(types[g]), g))]
+
+
+def round_hull_pairs() -> dict:
+  """B3's round-hull pairs, name -> (hull1, hull2): the cylinder drop's
+  cylinder and box, and the collision scenes' cylinder-cylinder,
+  ellipsoid-box and ellipsoid-ellipsoid pairs (mjtpu's tables, from the
+  committed snapshots)."""
+  import mjtpu_torch
+
+  bundle = mjtpu_torch.ASSETS / "collision_scenes.npz"
+  return {
+      "cylinder-box": tuple(_geom_hulls(mjtpu_torch.load_snapshot(
+          mjtpu_torch.ASSETS / "cylinder_drop_model.npz"))),
+      **{name.replace("_", "-"): tuple(_geom_hulls(mjtpu_torch.load_snapshot(bundle, name)))
+         for name in ("cylinder_cylinder", "ellipsoid_box", "ellipsoid_ellipsoid")},
+  }
+
+
 def phase_sat():
   import numpy as np
   import torch
@@ -581,12 +640,15 @@ def phase_sat():
            "box-box unequal": (mesh.box(np.array([0.1, 0.15, 0.2])),
                                mesh.box(np.array([0.12, 0.1, 0.08]))),
            "box-rock": (mesh.box(np.array([0.1, 0.15, 0.2])), _rock_hull())}
+  rounds = round_hull_pairs()
   checked, edge_wins, main_err = {}, 0, None
   for dtype in (torch.float32, torch.float64):
-    for name, (h1, h2) in pairs.items():
+    for name, (h1, h2) in {**pairs, **rounds}.items():
       hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
+      if name in rounds and sat.variant(*hulls) != "shared":
+        raise AssertionError(f"sat {name}: the size dispatch picks {sat.variant(*hulls)}")
       for kind_of_pose in ("random", "aligned", "stacked"):
-        for n in (1, 130, SAT_N):
+        for n in (1, 130, ROUND_N if name in rounds else SAT_N):
           poses = _sat_poses(kind_of_pose, n, h1, h2, dtype, gen)
           twin = lambda: sat.sat_winners_reference(*poses, *hulls)
           want_seps, want_idx = twin()
@@ -606,9 +668,11 @@ def phase_sat():
                                                         torch.float32, "static"):
               main_err = float((seps - want_seps).abs().max())
           edge_wins += int((want_seps[:, 2] > want_seps[:, :2].max(1).values).sum())
-  log(f"[sat] kernel == twin bit for bit (indices and separations) in every case: 3 hull pairs"
-      f" x random, axis-aligned, stacked poses x n in 1, 130, {SAT_N} x f32, f64; instances by"
-      f" variant {checked}; the edge axis wins in {edge_wins}")
+  log(f"[sat] kernel == twin bit for bit (indices and separations) in every case: 3 box and"
+      f" rock hull pairs x n in 1, 130, {SAT_N} and 4 round-hull pairs ({', '.join(rounds)};"
+      f" the size dispatch picks shared) x n in 1, 130, {ROUND_N} x random, axis-aligned,"
+      f" stacked poses x f32, f64; instances by variant {checked}; the edge axis wins in"
+      f" {edge_wins}")
 
   dtype = torch.float32
   hulls = (sat.sat_hull(box, dtype, "cuda"),) * 2
@@ -626,7 +690,29 @@ def phase_sat():
       f" {s1:.4f} / {s2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms"
       f" ({b_by}) {TIMING}")
   variant_ms = {"static": min(k1, k2), "shared": min(s1, s2)}
-  return main_err, (min(k1, k2), min(p1, p2), None, b_ms, b_by), variant_ms
+  box_t = (min(k1, k2), min(p1, p2), None, b_ms, b_by)
+  # the round hulls at n = ROUND_N (the cylinder drop's group at B=4096):
+  # shared, the variant the size dispatch gives them
+  shapes = {}
+  for name, (h1, h2) in rounds.items():
+    hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
+    poses = _sat_poses("random", ROUND_N, h1, h2, dtype, gen)
+    run = lambda: sat.sat_winners_batch(*poses, *hulls)
+    run_p = lambda: sat.sat_winners_reference(*poses, *hulls)
+    p1, k1 = cuda_ms(run_p, PLAIN_REPS), cuda_ms(run)
+    k2, p2 = cuda_ms(run), cuda_ms(run_p, PLAIN_REPS)
+    seps, _ = run()
+    err = float((seps - run_p()[0]).abs().max())
+    b_ms, b_by = bound(*_sat_work(ROUND_N, h1, h2, 4), dtype)
+    sizes = [sat.hull_sizes(h) for h in hulls]
+    axes = sizes[0][2] * sizes[1][2]
+    log(f"[sat] {name} n={ROUND_N} f32, (nv, nf, ne) {sizes[0]} x {sizes[1]}, {axes}"
+        f" edge-cross axes: shared kernel {k1:.4f} / {k2:.4f} ms, plain twin"
+        f" {p1:.4f} / {p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}) {TIMING}")
+    shapes[f"{name} n={ROUND_N}"] = {
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by, "max_abs_err": err, "variant": "shared", "hull_sizes": sizes}
+  return main_err, box_t, variant_ms, shapes
 
 
 def branchy_parentid(limbs: int, links: int) -> tuple[int, ...]:
@@ -926,9 +1012,11 @@ def _zero_counts() -> None:
     table.update(dict.fromkeys(table, 0))
 
 
-def _read_counts() -> dict:
+def _read_counts(expect: dict | None = None) -> dict:
   """Each kernel's launches since _zero_counts; fails unless every launch
-  was of the redesigned variant, and adds them to VARIANT_LAUNCHES."""
+  was of the redesigned variant (or of the variant ``expect`` names for a
+  kernel, where the path's shapes take another), and adds them to
+  VARIANT_LAUNCHES."""
   from mjtpu_torch.ops import cholesky, hfield, ldl, sat
 
   counts = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
@@ -938,19 +1026,20 @@ def _read_counts() -> dict:
                 hfield.variant_launches, "sat_winners": sat.variant_launches,
                 **ldl.variant_launches}
   for name, kinds in by_variant.items():
-    if any(k for kind, k in kinds.items() if kind != NEW_VARIANT[name]):
-      raise AssertionError(f"{name}: the main path launched {kinds}, not the"
-                           f" {NEW_VARIANT[name]} kernel only")
+    want = (expect or {}).get(name, NEW_VARIANT[name])
+    if any(k for kind, k in kinds.items() if kind != want):
+      raise AssertionError(f"{name}: the main path launched {kinds}, not the {want} kernel only")
     total = VARIANT_LAUNCHES.setdefault(name, dict.fromkeys(kinds, 0))
     for kind, k in kinds.items():
       total[kind] += k
   return counts
 
 
-def _timed_main_path(m, d, warmup, timed):
+def _timed_main_path(m, d, warmup, timed, expect=None):
   """Warm-up steps, then the main path's run: every kernel count set to 0
-  just before it and read just after.  Returns (d, secs, counts, the
-  solver's iterations and linesearch rounds in the timed steps)."""
+  just before it and read just after (``expect``: _read_counts').  Returns
+  (d, secs, counts, the solver's iterations and linesearch rounds in the
+  timed steps)."""
   import torch
 
   import mjtpu_torch
@@ -967,7 +1056,7 @@ def _timed_main_path(m, d, warmup, timed):
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
   loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
-  counts = _read_counts()
+  counts = _read_counts(expect)
   if not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
     raise AssertionError(f"f32 run not finite or reset: nreset {int(d.nreset.sum())}")
   return d, secs, counts, loops
@@ -1500,6 +1589,146 @@ def phase_env_throughput(card):
   return counts
 
 
+def _contacts_close(c, golden, prefix, tag) -> float:
+  """Worst scaled error of the contacts c (dist, pos, frame) against the
+  golden's, whose geoms must be equal; fails past CONTACT_BOUND."""
+  import numpy as np
+
+  for k in ("geom1", "geom2"):
+    if not np.array_equal(getattr(c, k).cpu().numpy(), golden[prefix + k]):
+      raise AssertionError(f"{tag}: contact {k} differs from mjtpu's")
+  err = max(_scaled_err(getattr(c, k).cpu().numpy(), golden[prefix + k])
+            for k in ("dist", "pos", "frame"))
+  if not err <= CONTACT_BOUND:
+    raise AssertionError(f"{tag}: contacts differ from mjtpu's by {err:.3e} of scale")
+  return err
+
+
+def phase_collision_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import collision_driver, io, smooth, solver
+  from mjtpu_torch.ops import cholesky, sat
+
+  for name in CONTACT_MODELS:
+    golden = dict(np.load(mjtpu_torch.ASSETS / f"{name}_golden.npz"))
+    snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz")
+    m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float64, device="cuda")
+    steps = golden["qpos"].shape[0]
+    d = mjtpu_torch.make_data(m, batch_size=golden["qpos0"].shape[0])
+    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["qpos0"], device="cuda"),
+                            qvel=torch.as_tensor(golden["qvel0"], device="cuda"))
+    cholesky.launches = sat.launches = 0
+    loops = dict(solver.loop_counts)
+    err = {"qpos": 0.0, "qvel": 0.0}
+    for i in range(steps):
+      d = mjtpu_torch.step(m, d)
+      if i == 0:
+        contact_err = _contacts_close(d.contact, golden, "contact_", f"{name} step 1")
+      for f in err:
+        err[f] = max(err[f], float(np.abs(getattr(d, f).cpu().numpy() - golden[f][i]).max()))
+    loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+    launches = {"sat_winners": sat.launches, "chol_solve": cholesky.launches}
+    want = {"sat_winners": steps if name == "cylinder_drop" else 0,
+            "chol_solve": loops["iterations"]}
+    log(f"[collision parity] {name}, {steps} steps B=4 f64: step-1 contacts {contact_err:.3e} of"
+        f" scale (limit {CONTACT_BOUND}); max abs err qpos {err['qpos']:.3e}, qvel"
+        f" {err['qvel']:.3e} (limit {CONTACT_TRAJECTORY_BOUND}); Newton {loops['iterations']}"
+        f" iterations and {loops['ls_rounds']} linesearch rounds; launches {launches}")
+    if int(d.nreset.sum()) or not max(err.values()) <= CONTACT_TRAJECTORY_BOUND:
+      raise AssertionError(f"{name} trajectory differs from mjtpu: {err}")
+    if launches != want:
+      raise AssertionError(f"{name}: launches {launches}, want {want}")
+
+  bundle = mjtpu_torch.ASSETS / "collision_scenes.npz"
+  golden = dict(np.load(mjtpu_torch.ASSETS / "collision_scenes_golden.npz"))
+  worst, sat.launches, groups = 0.0, 0, set()
+  names = io.bundle_names(bundle)
+  for name in names:
+    m = mjtpu_torch.model_from_arrays(io.load_snapshot(bundle, name), dtype=torch.float64,
+                                      device="cuda")
+    groups |= {k[:2] for k in collision_driver.candidate_groups(m)}
+    d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden[f"{name}.qpos0"], device="cuda"))
+    c = collision_driver.collision(m, smooth.kinematics(m, d)).contact
+    worst = max(worst, _contacts_close(c, golden, f"{name}.", name))
+  log(f"[collision parity] {len(names)} scenes ({', '.join(names)}), B=2 f64: contacts within"
+      f" {worst:.3e} of scale of mjtpu's (limit {CONTACT_BOUND}), geoms equal; {len(groups)}"
+      f" geom-type pairs; SAT launches {sat.launches}")
+
+
+def _drop_start(m):
+  """B=4096 cylinders turned at random (numpy seed 1) over the box, their
+  lowest point 0 to 2 cm above its top (z = 0.1) and xy in +-0.3 m, at
+  rest."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  rng = np.random.default_rng(1)
+  q = rng.normal(size=(BENCH_BATCH, 4))
+  q /= np.linalg.norm(q, axis=1, keepdims=True)
+  w, x, y, _ = q.T
+  axis_z = 1 - 2 * (x * x + y * y)  # the cylinder axis' world z
+  r, h = (float(v) for v in m.geom_size[1, :2])
+  low = h * np.abs(axis_z) + r * np.sqrt(np.clip(1 - axis_z ** 2, 0.0, 1.0))
+  qpos = np.concatenate([rng.uniform(-0.3, 0.3, (BENCH_BATCH, 2)),
+                         (0.1 + low + rng.uniform(0.0, 0.02, BENCH_BATCH))[:, None], q], axis=1)
+  d = mjtpu_torch.make_data(m, batch_size=BENCH_BATCH)
+  return mjtpu_torch.replace(d, qpos=torch.as_tensor(qpos, dtype=torch.float32, device="cuda"))
+
+
+def _busy_share(advance, d) -> tuple[float, int]:
+  """(the device's busy share, kernel launches) of one more step
+  ``advance(d)`` traced by torch.profiler: the kernels' device time over
+  the wall time."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    advance(d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+  if not kernels:
+    raise AssertionError("torch.profiler traced no device kernel")
+  return sum(e.device_time for e in kernels) / 1e6 / wall, len(kernels)
+
+
+def phase_drop_throughput(card):
+  import torch
+
+  import mjtpu_torch
+
+  snapshot = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "cylinder_drop_model.npz")
+  m = mjtpu_torch.model_from_arrays(snapshot, dtype=torch.float32, device="cuda")
+  d, secs, counts, loops = _timed_main_path(m, _drop_start(m), DROP_WARMUP, DROP_TIMED,
+                                            expect={"sat_winners": "shared"})
+  if counts != _only(sat_winners=DROP_TIMED, chol_solve=loops["iterations"]):
+    raise AssertionError(f"kernel launches in {DROP_TIMED} timed steps: {counts}, Newton {loops}")
+  rate = BENCH_BATCH * DROP_TIMED / secs
+  live = int((d.contact.dist < 0).any(dim=1).sum())
+  shares, step_ms = _seam_shares(m, d, 2)
+  busy, launches = _busy_share(lambda d: mjtpu_torch.step(m, d), d)
+  log(f"[drop throughput] cylinder drop f32 B={BENCH_BATCH}: {DROP_WARMUP} warm-up and"
+      f" {DROP_TIMED} timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
+      f" ({1e3 * secs / DROP_TIMED:.3f} ms/step); qpos finite, nreset 0; per step: B3 shared"
+      f" {counts['sat_winners'] // DROP_TIMED} launch, B1 register"
+      f" {counts['chol_solve'] / DROP_TIMED:.2f} launches (n=6), Newton"
+      f" {loops['iterations'] / DROP_TIMED:.2f} iterations and"
+      f" {loops['ls_rounds'] / DROP_TIMED:.2f} linesearch rounds; envs in contact after the"
+      f" last step {live} of {BENCH_BATCH}; device step {step_ms:.3f} ms, of it B3"
+      f" {shares['sat_winners']:.4f} ms ({100 * shares['sat_winners'] / step_ms:.2f}%), B1"
+      f" {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%); one"
+      f" profiled step: {launches} kernel launches, device busy {100 * busy:.1f}% of its wall"
+      f" time; card {card}")
+  return counts
+
+
 def main() -> int:
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -1514,7 +1743,7 @@ def main() -> int:
   phase_build()
   chol_err, chol_t, chol_variant_ms, chol_shapes = phase_cholesky()
   hf_err, hf_t, hf_variant_ms = phase_hfield()
-  sat_err, sat_t, sat_variant_ms = phase_sat()
+  sat_err, sat_t, sat_variant_ms, sat_shapes = phase_sat()
   ldl_err, ldl_t, ldl_context, ldl_variant_ms = phase_ldl()
   if "--kernels" in sys.argv[1:]:
     log(f"[done] --kernels: phases 1-4, 9 and 12 only; {time.perf_counter() - t0:.1f} s")
@@ -1532,10 +1761,14 @@ def main() -> int:
   phase_ant_rk4_parity()
   phase_env_parity()
   paths["ant_env"] = phase_env_throughput(card)
+  phase_collision_parity()
+  paths["cylinder_drop"] = phase_drop_throughput(card)
+  # each path ran only the variant it expects (_read_counts); the
+  # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
-    if not kinds[NEW_VARIANT[name]] or sum(kinds.values()) != kinds[NEW_VARIANT[name]]:
+    if not kinds[NEW_VARIANT[name]]:
       raise AssertionError(f"{name}: the main paths launched {kinds}, not the"
-                           f" {NEW_VARIANT[name]} kernel only")
+                           f" {NEW_VARIANT[name]} kernel")
   log(f"[done] {time.perf_counter() - t0:.1f} s")
   log(card)
   variant_ms = {"chol_solve": chol_variant_ms, "hfield_manifold": hf_variant_ms,
@@ -1569,6 +1802,10 @@ def main() -> int:
       # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
       # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6), f32
       record[-1]["shapes"] = chol_shapes
+    if name == "sat_winners":
+      # the round hulls (the cylinder drop's cylinder-box and three more
+      # pairs), shared, n = ROUND_N, f32
+      record[-1]["shapes"] = sat_shapes
   print(json.dumps({"kernels": record}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

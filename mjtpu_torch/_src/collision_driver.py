@@ -2,16 +2,22 @@
 
 Port of mjtpu/_src/collision_driver.py.  Candidate enumeration is plain
 numpy over the Model's static fields, computed once per Model; the
-narrowphase runs once per homogeneous group (same type pair / condim) over
-a (B, npair) batch of geom poses.  Contacts are ordered by group, groups
-sorted by condim, so ``efc_address`` is static.
+narrowphase runs once per homogeneous group (same type pair / shape /
+condim) over a (B, npair) batch of geom poses.  Contacts are ordered by
+group, groups sorted by condim, so ``efc_address`` is static.
 
-The narrowphase table holds the colliders of the ported slices: plane
-against sphere, capsule and box, the sphere/capsule primitives among
-themselves, sphere and capsule against a convex mesh, sphere against a
-box, box against box (SAT, kernel B3) and sphere and capsule against a
-height field (kernel B4).  put_model refuses a model whose candidate
-pairs need any other collider.
+The narrowphase table is mjtpu's: the analytic primitives (plane against
+sphere, capsule, ellipsoid and cylinder; sphere against sphere, capsule
+and cylinder; capsule against capsule), the convex colliders on hull
+tables (a plane, sphere or capsule against a box, mesh or the inscribed
+hull of an ellipsoid or cylinder; every other pair of those hulls through
+SAT, kernel B3) and the height field against spheres and capsules (kernel
+B4) and against hulls (``hfield_convex``).
+
+The ``max_geom_pairs`` broadphase (``<numeric name="max_geom_pairs">``)
+narrowphases only the K pairs of each group nearest by bounding-sphere
+distance, per env; the slots' geoms then differ from env to env.
+mjtpu's ``MJTPU_MAX_GEOM_PAIRS`` environment variable is not read.
 """
 
 from __future__ import annotations
@@ -35,20 +41,55 @@ from mjtpu_torch._src.types import (
     cached,
 )
 
+G = GeomType
 # contact points per pair function, keyed by (type1, type2), type1 <= type2
 _PAIR_NCON: dict[tuple[int, int], int] = {
-    (GeomType.PLANE, GeomType.SPHERE): 1,
-    (GeomType.PLANE, GeomType.CAPSULE): 2,
-    (GeomType.PLANE, GeomType.BOX): 4,
-    (GeomType.HFIELD, GeomType.SPHERE): 4,
-    (GeomType.HFIELD, GeomType.CAPSULE): 4,
-    (GeomType.SPHERE, GeomType.SPHERE): 1,
-    (GeomType.SPHERE, GeomType.CAPSULE): 1,
-    (GeomType.SPHERE, GeomType.BOX): 1,
-    (GeomType.SPHERE, GeomType.MESH): 1,
-    (GeomType.CAPSULE, GeomType.CAPSULE): 1,
-    (GeomType.CAPSULE, GeomType.MESH): 2,
-    (GeomType.BOX, GeomType.BOX): 4,
+    (G.PLANE, G.SPHERE): 1,
+    (G.PLANE, G.CAPSULE): 2,
+    (G.PLANE, G.ELLIPSOID): 1,
+    (G.PLANE, G.CYLINDER): 4,
+    (G.PLANE, G.BOX): 4,
+    (G.PLANE, G.MESH): 4,
+    (G.HFIELD, G.SPHERE): 4,
+    (G.HFIELD, G.CAPSULE): 4,
+    (G.HFIELD, G.BOX): 4,
+    (G.HFIELD, G.MESH): 4,
+    (G.HFIELD, G.ELLIPSOID): 4,
+    (G.HFIELD, G.CYLINDER): 4,
+    (G.SPHERE, G.SPHERE): 1,
+    (G.SPHERE, G.CAPSULE): 1,
+    (G.SPHERE, G.ELLIPSOID): 1,
+    (G.SPHERE, G.CYLINDER): 1,
+    (G.SPHERE, G.BOX): 1,
+    (G.SPHERE, G.MESH): 1,
+    (G.CAPSULE, G.CAPSULE): 1,
+    (G.CAPSULE, G.ELLIPSOID): 2,
+    (G.CAPSULE, G.CYLINDER): 2,
+    (G.CAPSULE, G.BOX): 2,
+    (G.CAPSULE, G.MESH): 2,
+    (G.ELLIPSOID, G.ELLIPSOID): 4,
+    (G.ELLIPSOID, G.CYLINDER): 4,
+    (G.ELLIPSOID, G.BOX): 4,
+    (G.ELLIPSOID, G.MESH): 4,
+    (G.CYLINDER, G.CYLINDER): 4,
+    (G.CYLINDER, G.BOX): 4,
+    (G.CYLINDER, G.MESH): 4,
+    (G.BOX, G.BOX): 4,
+    (G.BOX, G.MESH): 4,
+    (G.MESH, G.MESH): 4,
+}
+
+# the analytic colliders; every other pair but the height field's goes
+# through a hull (_collision_fn)
+_PRIMITIVE: dict[tuple[int, int], Callable] = {
+    (G.PLANE, G.SPHERE): collision_primitive.plane_sphere,
+    (G.PLANE, G.CAPSULE): collision_primitive.plane_capsule,
+    (G.PLANE, G.ELLIPSOID): collision_primitive.plane_ellipsoid,
+    (G.PLANE, G.CYLINDER): collision_primitive.plane_cylinder,
+    (G.SPHERE, G.SPHERE): collision_primitive.sphere_sphere,
+    (G.SPHERE, G.CAPSULE): collision_primitive.sphere_capsule,
+    (G.SPHERE, G.CYLINDER): collision_primitive.sphere_cylinder,
+    (G.CAPSULE, G.CAPSULE): collision_primitive.capsule_capsule,
 }
 
 
@@ -164,14 +205,37 @@ def max_contact_points(m: Model) -> int | None:
 
 def max_geom_pairs(m: Model) -> int | None:
   """The per-group broadphase cap <numeric name="max_geom_pairs">, or None
-  (put_model refuses a model that sets it: the top-K broadphase waits)."""
+  (off: every candidate pair is narrowphased)."""
   return _numeric(m, b"max_geom_pairs")
+
+
+def _group_npair(m: Model, key: tuple, pairs: list) -> int:
+  """Pairs of a group that the narrowphase runs: the K nearest by
+  bound distance when max_geom_pairs is set, except in height-field
+  groups (the field's bounding radius spans the terrain, so a centre
+  distance ranks nothing)."""
+  cap = max_geom_pairs(m)
+  if cap is None or key[0] == GeomType.HFIELD:
+    return len(pairs)
+  return max(1, min(len(pairs), cap))
+
+
+def _group_slots(m: Model) -> list[int]:
+  """Contact slots each group writes (before the max_contact_points cap)."""
+  return cached(m, "collision.group_slots", lambda: [
+      _PAIR_NCON[k[:2]] * _group_npair(m, k, p) for k, p in candidate_groups(m).items()])
 
 
 def _raw_ncon(m: Model) -> int:
   if m.opt.disableflags & DisableBit.CONTACT:
     return 0
-  return sum(_PAIR_NCON[k[:2]] * len(p) for k, p in candidate_groups(m).items())
+  return sum(_group_slots(m))
+
+
+def _compacted(m: Model) -> bool:
+  """Whether the broadphase narrowphases fewer pairs than a group has."""
+  return cached(m, "collision.compacted", lambda: any(
+      _group_npair(m, k, p) < len(p) for k, p in candidate_groups(m).items()))
 
 
 def condim_counts(m: Model) -> dict[int, int]:
@@ -179,8 +243,8 @@ def condim_counts(m: Model) -> dict[int, int]:
   counts: dict[int, int] = {}
   if m.opt.disableflags & DisableBit.CONTACT:
     return counts
-  for key, pairs in candidate_groups(m).items():
-    counts[key[4]] = counts.get(key[4], 0) + _PAIR_NCON[key[:2]] * len(pairs)
+  for key, n in zip(candidate_groups(m), _group_slots(m)):
+    counts[key[4]] = counts.get(key[4], 0) + n
   cap = max_contact_points(m)
   if cap is not None and len(counts) == 1:
     k = next(iter(counts))
@@ -213,8 +277,8 @@ def make_condim(m: Model) -> np.ndarray:
   def build():
     dims = []
     if not (m.opt.disableflags & DisableBit.CONTACT):
-      for key, pairs in candidate_groups(m).items():
-        dims += [key[4]] * (_PAIR_NCON[key[:2]] * len(pairs))
+      for key, n in zip(candidate_groups(m), _group_slots(m)):
+        dims += [key[4]] * n
     return np.array(dims, dtype=np.int32)[: ncon(m)]
 
   return cached(m, "collision.make_condim", build)
@@ -222,7 +286,7 @@ def make_condim(m: Model) -> np.ndarray:
 
 def _slot_geoms(m: Model) -> tuple[np.ndarray, np.ndarray]:
   """(geom1, geom2) of each contact the narrowphase writes, in group
-  order, before the max_contact_points cap."""
+  order, before the max_contact_points cap, where no group is compacted."""
 
   def build():
     g1, g2 = [], []
@@ -237,9 +301,9 @@ def _slot_geoms(m: Model) -> tuple[np.ndarray, np.ndarray]:
 
 def contact_geoms(m: Model) -> tuple[np.ndarray, np.ndarray] | None:
   """Static (geom1, geom2) of each contact slot, or None where the
-  max_contact_points cap picks the slots per env (their geoms then differ
-  from env to env)."""
-  return None if _raw_ncon(m) > ncon(m) else _slot_geoms(m)
+  max_contact_points cap or the max_geom_pairs broadphase picks the slots
+  per env (their geoms then differ from env to env)."""
+  return None if _raw_ncon(m) > ncon(m) or _compacted(m) else _slot_geoms(m)
 
 
 def contact_efc_address(m: Model, ne: int, nf: int, nl: int) -> np.ndarray:
@@ -310,7 +374,15 @@ def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Ca
   """fn(pos1, mat1, size1, pos2, mat2, size2) -> (dist, pos, frame) for
   one group, with its hull or height-field constants bound."""
   t1, t2, s1, s2 = key[:4]
+  # the hulls: a mesh's by its id, a box's, cylinder's or ellipsoid's as
+  # built for the group's first pair (every geom of such a group has the
+  # same size)
+  hull = lambda t, g, s: collision_convex.hull_consts(
+      m.mesh_convex[s] if t == GeomType.MESH else m.geom_convex[g], m.dtype, m.device)
   if t1 == GeomType.HFIELD:
+    if t2 not in (GeomType.SPHERE, GeomType.CAPSULE):
+      return functools.partial(collision_hfield.hfield_convex, m=m, hid=s1,
+                               hull2=hull(t2, pairs[0][1], s2))
     # the subgrid is sized by the colliding objects' own bounding radii
     # (the group's largest), not the model-wide one, which includes the
     # height field itself
@@ -318,79 +390,123 @@ def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Ca
     fn = {GeomType.SPHERE: collision_hfield.hfield_sphere,
           GeomType.CAPSULE: collision_hfield.hfield_capsule}[t2]
     return functools.partial(fn, m=m, hid=s1, rbound=rbound)
-  # the hulls: a mesh's by its id, a box's as built for the group's first
-  # pair (every geom of a box group has the same size)
-  hull = lambda t, g, s: collision_convex.hull_consts(
-      m.mesh_convex[s] if t == GeomType.MESH else m.geom_convex[g], m.dtype, m.device)
-  if t2 in (GeomType.MESH, GeomType.BOX):
-    hull2 = hull(t2, pairs[0][1], s2)
-    if t1 == GeomType.BOX:
-      return functools.partial(collision_convex.convex_convex,
-                               hull1=hull(t1, pairs[0][0], s1), hull2=hull2)
-    fn = {GeomType.PLANE: collision_convex.plane_convex,
-          GeomType.SPHERE: collision_convex.sphere_convex,
-          GeomType.CAPSULE: collision_convex.capsule_convex}[t1]
+  if (t1, t2) in _PRIMITIVE:
+    return _PRIMITIVE[t1, t2]
+  hull2 = hull(t2, pairs[0][1], s2)
+  fn = {GeomType.PLANE: collision_convex.plane_convex,
+        GeomType.SPHERE: collision_convex.sphere_convex,
+        GeomType.CAPSULE: collision_convex.capsule_convex}.get(t1)
+  if fn is not None:
     return functools.partial(fn, hull2=hull2)
-  return {
-      (GeomType.PLANE, GeomType.SPHERE): collision_primitive.plane_sphere,
-      (GeomType.PLANE, GeomType.CAPSULE): collision_primitive.plane_capsule,
-      (GeomType.SPHERE, GeomType.SPHERE): collision_primitive.sphere_sphere,
-      (GeomType.SPHERE, GeomType.CAPSULE): collision_primitive.sphere_capsule,
-      (GeomType.CAPSULE, GeomType.CAPSULE): collision_primitive.capsule_capsule,
-  }[(t1, t2)]
+  # every other pair of hulls (boxes, meshes, round geoms): SAT
+  return functools.partial(collision_convex.convex_convex,
+                           hull1=hull(t1, pairs[0][0], s1), hull2=hull2)
 
 
-def _schedule(m: Model):
-  """Per group: (pair fn, geom1 ids, geom2 ids as tensors, mixed
-  parameters repeated per contact) — model constants."""
+class _Group:
+  """One group's narrowphase: its pair function, geom ids (P,) as tensors,
+  contacts per pair, the pairs the broadphase keeps (``npair``; P where it
+  keeps all), whether geom1 is a plane, and the mixed parameters per pair
+  (margin, gap, friction, solref, solreffriction, solimp)."""
+
+  def __init__(self, m: Model, key: tuple, pairs: list[tuple[int, int, int]]):
+    self.fn = _collision_fn(m, key, pairs)
+    self.i1 = torch.as_tensor([p[0] for p in pairs], device=m.device)
+    self.i2 = torch.as_tensor([p[1] for p in pairs], device=m.device)
+    self.n_per = _PAIR_NCON[key[:2]]
+    self.npair = _group_npair(m, key, pairs)
+    self.compacted = self.npair < len(pairs)
+    self.plane = key[0] == GeomType.PLANE
+    self.params = _contact_params(m, pairs)
+
+
+def _schedule(m: Model) -> list[_Group]:
+  """The groups' narrowphases (model constants)."""
+  return cached(m, "collision.schedule", lambda: [
+      _Group(m, key, pairs) for key, pairs in candidate_groups(m).items()])
+
+
+def _static_rows(m: Model):
+  """(condim, efc_address) of the slots, and where no group is compacted
+  the slots' mixed parameters (margin, margin + gap, friction, solref,
+  solreffriction, solimp) and geoms, in group order (model constants)."""
+  from mjtpu_torch._src import support
 
   def build():
-    out = []
-    for key, pairs in candidate_groups(m).items():
-      n_per = _PAIR_NCON[key[:2]]
-      i1 = torch.as_tensor([p[0] for p in pairs], device=m.device)
-      i2 = torch.as_tensor([p[1] for p in pairs], device=m.device)
-      params = tuple(
-          torch.repeat_interleave(p, n_per, dim=0) for p in _contact_params(m, pairs)
-      )
-      out.append((_collision_fn(m, key, pairs), i1, i2, params))
-    return out
+    ne, nf, nl, _ = support.count_constraints(m)
+    rows = (torch.as_tensor(make_condim(m), device=m.device),
+            torch.as_tensor(contact_efc_address(m, ne, nf, nl), device=m.device))
+    if _compacted(m):
+      return rows, None
+    groups = _schedule(m)
+    rep = lambda x, g: torch.repeat_interleave(x, g.n_per, dim=0)
+    margin, gap, *params = (torch.cat([rep(g.params[k], g) for g in groups]) for k in range(6))
+    params = (margin, margin + gap, *params)
+    geoms = tuple(torch.as_tensor(g, dtype=torch.int32, device=m.device)
+                  for g in _slot_geoms(m))
+    return rows, params + geoms
 
-  return cached(m, "collision.schedule", build)
+  return cached(m, "collision.static_rows", build)
+
+
+def _broadphase(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """(B, npair) the pairs of group g that the narrowphase runs in each env:
+  the npair smallest bound distances, the lower pair index first on ties
+  (jax.lax.top_k's order: a stable sort).  The bound is the distance of
+  the two bounding spheres (for a plane, the sphere's signed height above
+  it) less the detection buffer margin + gap."""
+  rb = m.geom_rbound
+  detect = g.params[0] + g.params[1]
+  x1, x2 = d.geom_xpos[:, g.i1], d.geom_xpos[:, g.i2]
+  if g.plane:
+    bound = math.dot3(d.geom_xmat[:, g.i1][..., :, 2], x2 - x1) - rb[g.i2] - detect
+  else:
+    bound = math.norm3(x2 - x1) - rb[g.i1] - rb[g.i2] - detect
+  return torch.sort(bound, dim=1, stable=True).indices[:, :g.npair]
 
 
 def collision(m: Model, d: Data) -> Data:
   """Narrowphase over all candidate groups -> d.contact (batched)."""
-  from mjtpu_torch._src import support
-
   B = d.qpos.shape[0]
   dtype, device = d.qpos.dtype, d.qpos.device
   n = ncon(m)
   if n == 0:
     return replace(d, contact=Contact.zero(B, 0, dtype, device))
 
-  ne, nf, nl, _ = support.count_constraints(m)
-  dists, poss, frames, params = [], [], [], []
-  for fn, i1, i2, prm in _schedule(m):
-    dist, pos, frame = fn(
-        d.geom_xpos[:, i1], d.geom_xmat[:, i1], m.geom_size[i1],
-        d.geom_xpos[:, i2], d.geom_xmat[:, i2], m.geom_size[i2],
-    )  # (B, npair, contacts per pair, ...)
+  (dim, efc_address), static = _static_rows(m)
+  bcast = lambda x: x.expand((B,) + x.shape)
+  dists, poss, frames, slots = [], [], [], []
+  for g in _schedule(m):
+    i1, i2 = g.i1, g.i2
+    if g.compacted:
+      # the broadphase's pairs, per env: (B, K) geom ids
+      sel = _broadphase(m, d, g)
+      i1, i2 = i1[sel], i2[sel]
+      envs = torch.arange(B, device=device)[:, None]
+      args = (d.geom_xpos[envs, i1], d.geom_xmat[envs, i1], m.geom_size[i1],
+              d.geom_xpos[envs, i2], d.geom_xmat[envs, i2], m.geom_size[i2])
+    else:
+      args = (d.geom_xpos[:, i1], d.geom_xmat[:, i1], m.geom_size[i1],
+              d.geom_xpos[:, i2], d.geom_xmat[:, i2], m.geom_size[i2])
+    dist, pos, frame = g.fn(*args)  # (B, npair, contacts per pair, ...)
     dists.append(dist.reshape(B, -1))
     poss.append(pos.reshape(B, -1, 3))
     frames.append(frame.reshape(B, -1, 3, 3))
-    params.append(prm)
+    if static is None:
+      # each slot's parameters and geoms, (B, slots, ...)
+      rep = lambda x: torch.repeat_interleave(x, g.n_per, dim=1)
+      if g.compacted:
+        slots.append([rep(p[sel]) for p in g.params] + [rep(i1), rep(i2)])
+      else:
+        slots.append([bcast(torch.repeat_interleave(x, g.n_per, dim=0))
+                      for x in (*g.params, i1, i2)])
 
-  margin, gap, friction, solref, solreffriction, solimp = (
-      torch.cat([p[k] for p in params]) for k in range(6)
-  )
-  bcast = lambda x: x.expand((B,) + x.shape)
-  dim, efc_address, geom1, geom2 = cached(m, "collision.static_rows", lambda: (
-      torch.as_tensor(make_condim(m), device=device),
-      torch.as_tensor(contact_efc_address(m, ne, nf, nl), device=device),
-      *(torch.as_tensor(g, dtype=torch.int32, device=device) for g in _slot_geoms(m)),
-  ))
-  geom1, geom2 = bcast(geom1), bcast(geom2)
+  if static is None:
+    margin, gap, friction, solref, solreffriction, solimp, geom1, geom2 = (
+        torch.cat([s[k] for s in slots], dim=1) for k in range(8))
+    detect, geom1, geom2 = margin + gap, geom1.to(torch.int32), geom2.to(torch.int32)
+  else:
+    margin, detect, friction, solref, solreffriction, solimp, geom1, geom2 = map(bcast, static)
 
   dist = torch.cat(dists, dim=1)
   contact = Contact(
@@ -399,12 +515,12 @@ def collision(m: Model, d: Data) -> Data:
       frame=torch.cat(frames, dim=1),
       # gap is an additional detection buffer beyond margin (MuJoCo >= 3);
       # includemargin is the mixed margin itself
-      includemargin=bcast(margin),
-      margin=bcast(margin + gap),
-      friction=bcast(friction),
-      solref=bcast(solref),
-      solreffriction=bcast(solreffriction),
-      solimp=bcast(solimp),
+      includemargin=margin,
+      margin=detect,
+      friction=friction,
+      solref=solref,
+      solreffriction=solreffriction,
+      solimp=solimp,
       dim=bcast(dim),
       geom1=geom1,
       geom2=geom2,

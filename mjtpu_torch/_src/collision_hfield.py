@@ -1,7 +1,8 @@
-"""Height-field collisions: spheres and capsules against the terrain surface.
+"""Height-field collisions: spheres, capsules and hulls against the terrain.
 
 Port of mjtpu/_src/collision_hfield.py (_subgrid_shape, _grid_consts,
-_height_window, _hfield_object, hfield_sphere, hfield_capsule), batched
+_height_window, _hfield_object, hfield_sphere, hfield_capsule,
+hfield_convex), batched
 over (B, npair).  The subgrid size is a model constant (from the height
 field's cell size and the group's largest bounding radius), so each pair
 gathers a fixed (R, C) window of heights around its object; the object is
@@ -14,7 +15,9 @@ raises); the plain twin runs only for a CPU tensor.  The window gather
 stays plain torch, outside the kernel, as it stays in XLA outside mjtpu's
 Pallas call.  As in mjtpu, objects collide with the surface triangles only
 (two per cell); the side walls of the boundary prisms are not modelled.
-``hfield_convex`` (mesh or box on terrain) is not in this slice.
+``hfield_convex`` (a box, mesh, cylinder or ellipsoid hull on terrain)
+stays plain torch, as it stays in XLA in mjtpu: a bilinear lookup per
+vertex, no triangle batch, nothing for a kernel to keep on chip.
 """
 
 from __future__ import annotations
@@ -102,3 +105,43 @@ def hfield_sphere(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, rbou
 
 def hfield_capsule(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, rbound: float):
   return _hfield_object(pos1, mat1, pos2, mat2, size2, m, hid, rbound, has_axis=True)
+
+
+def hfield_convex(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, hull2):
+  """A hull (geom2; ``hull2`` from collision_convex.hull_consts) against
+  height field ``hid`` (geom1): each hull vertex against the surface
+  triangle under it (the cell split on its 00-11 diagonal), contacts at
+  the 4 deepest vertices (a stable sort, as jnp.argsort).  Every leading
+  axis batched: (dist (..., 4), pos (..., 4, 3), frame (..., 4, 3, 3))."""
+  nrow, ncol, sx, sy, ztop, adr, dx, dy = _grid_consts(m, hid)
+  verts_w = pos2[..., None, :] + math.mat_vec(mat2[..., None, :, :], hull2.vert)  # (..., nv, 3)
+  v = math.mat_t_vec(mat1[..., None, :, :], verts_w - pos1[..., None, :])       # hfield-local
+  fx = (v[..., 0] + sx) / dx
+  fy = (v[..., 1] + sy) / dy
+  ci = torch.clamp(torch.floor(fx).to(torch.int32), 0, ncol - 2)
+  ri = torch.clamp(torch.floor(fy).to(torch.int32), 0, nrow - 2)
+  u = torch.clamp(fx - ci, 0.0, 1.0)
+  w = torch.clamp(fy - ri, 0.0, 1.0)
+  height = lambda r, c: m.hfield_data[(adr + r * ncol + c).long()] * ztop
+  z00, z01 = height(ri, ci), height(ri, ci + 1)
+  z10, z11 = height(ri + 1, ci), height(ri + 1, ci + 1)
+  x0 = -sx + ci.to(v.dtype) * dx
+  y0 = -sy + ri.to(v.dtype) * dy
+  pt = lambda x, y, z: torch.stack([x, y, z], dim=-1)
+  p00, p01 = pt(x0, y0, z00), pt(x0 + dx, y0, z01)
+  p10, p11 = pt(x0, y0 + dy, z10), pt(x0 + dx, y0 + dy, z11)
+  # the triangle of the (00, 11) diagonal split: u >= w -> (00, 01, 11)
+  in_a = (u >= w)[..., None]
+  a = p00
+  b = torch.where(in_a, p01, p11)
+  c = torch.where(in_a, p11, p10)
+  n = math.normalize(math.cross(b - a, c - a))
+  n = torch.where((n[..., 2] < 0)[..., None], -n, n)  # up
+  dist = math.dot3(n, v - a)                                                     # (..., nv)
+
+  idx = torch.argsort(dist, dim=-1, stable=True)[..., :4]
+  at = lambda x: torch.gather(x, -2, idx[..., None].expand(idx.shape + (3,)))
+  dist4 = torch.gather(dist, -1, idx)
+  n4 = math.mat_vec(mat1[..., None, :, :], at(n))  # local -> world
+  pos4 = at(verts_w) - 0.5 * dist4[..., None] * n4
+  return dist4, pos4, math.make_frame(n4)

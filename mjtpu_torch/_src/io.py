@@ -21,6 +21,7 @@ another device; without a card they raise and ask for ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import types
 
 import numpy as np
@@ -105,8 +106,8 @@ SNAPSHOT_FIELDS = (
     SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
 )
 # a snapshot also stores the hull tables of each colliding mesh, under
-# "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, under
-# "geomhull.<geom id>.<ConvexMesh field>"
+# "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
+# and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
 HULL_FIELDS = ("vert", "face", "face_normal", "edge", "edge_face_normal")
 HULL_PREFIXES = ("hull.", "geomhull.")
 
@@ -130,12 +131,12 @@ def _get(ns, name: str):
   return ns
 
 
-def save_snapshot(mjm, path, mesh_convex: tuple | None = None,
-                  geom_convex: tuple | None = None) -> None:
-  """Writes every attribute model_from_arrays reads from ``mjm`` (an
-  MjModel or any object with its attribute names) to an .npz, with the
-  hull tables ``mesh_convex`` (default: mesh.get(mjm)) and ``geom_convex``
-  (default: mesh.get_geoms(mjm))."""
+def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
+                    geom_convex: tuple | None = None) -> dict[str, np.ndarray]:
+  """Every attribute model_from_arrays reads from ``mjm`` (an MjModel or
+  any object with its attribute names), with the hull tables
+  ``mesh_convex`` (default: mesh.get(mjm)) and ``geom_convex`` (default:
+  mesh.get_geoms(mjm)), as a snapshot's arrays."""
   arrays = {}
   for name in SNAPSHOT_FIELDS:
     v = _get(mjm, name)
@@ -149,28 +150,70 @@ def save_snapshot(mjm, path, mesh_convex: tuple | None = None,
       if hull is not None:
         for f in HULL_FIELDS:
           arrays[f"{prefix}{i}.{f}"] = np.asarray(getattr(hull, f))
-  np.savez_compressed(path, **arrays)
+  return arrays
 
 
-def load_snapshot(path) -> types.SimpleNamespace:
-  """Reads a snapshot written by save_snapshot back into an object with
-  MjModel's attribute names (``opt.*`` and ``stat.*`` nested)."""
+def save_snapshot(mjm, path, mesh_convex: tuple | None = None,
+                  geom_convex: tuple | None = None) -> None:
+  """Writes snapshot_arrays(mjm, mesh_convex, geom_convex) to an .npz."""
+  np.savez_compressed(path, **snapshot_arrays(mjm, mesh_convex, geom_convex))
+
+
+def save_snapshot_bundle(path, snapshots: dict[str, dict[str, np.ndarray]]) -> None:
+  """Writes several small models' snapshots (name -> snapshot_arrays) to
+  one .npz: each model's arrays packed into one byte buffer, under its
+  name, with an index of (field, dtype, shape, offset) under
+  "<name>.index", so the file holds two entries a model, not two hundred."""
+  out = {}
+  for name, arrays in snapshots.items():
+    index, blobs, offset = [], [], 0
+    for k in sorted(arrays):
+      v = np.array(arrays[k], order="C")  # (ascontiguousarray makes a 0-d array 1-d)
+      index.append([k, v.dtype.str, list(v.shape), offset])
+      blobs.append(v.tobytes())
+      offset += v.nbytes
+    out[name] = np.frombuffer(b"".join(blobs), dtype=np.uint8)
+    out[f"{name}.index"] = np.frombuffer(json.dumps(index).encode(), dtype=np.uint8)
+  np.savez_compressed(path, **out)
+
+
+def _bundle_arrays(z, name: str) -> dict[str, np.ndarray]:
+  blob = z[name].tobytes()
+  out = {}
+  for k, dtype, shape, offset in json.loads(z[f"{name}.index"].tobytes()):
+    dt = np.dtype(dtype)
+    count = int(np.prod(shape, dtype=np.int64))
+    out[k] = np.frombuffer(blob, dtype=dt, count=count, offset=offset).reshape(shape).copy()
+  return out
+
+
+def bundle_names(path) -> list[str]:
+  """The models of a snapshot bundle (save_snapshot_bundle)."""
+  with np.load(path) as z:
+    return sorted(k for k in z.files if not k.endswith(".index"))
+
+
+def load_snapshot(path, name: str | None = None) -> types.SimpleNamespace:
+  """Reads a snapshot written by save_snapshot (or, with ``name``, model
+  ``name`` of a bundle written by save_snapshot_bundle) back into an
+  object with MjModel's attribute names (``opt.*`` and ``stat.*``
+  nested)."""
   ns = types.SimpleNamespace(opt=types.SimpleNamespace(), stat=types.SimpleNamespace())
   hulls: dict[str, dict[int, dict]] = {p: {} for p in HULL_PREFIXES}
   with np.load(path) as z:
-    for name in z.files:
-      v = z[name]
-      prefix = next((p for p in HULL_PREFIXES if name.startswith(p)), None)
-      if prefix is not None:
-        i, f = name[len(prefix):].split(".")
-        hulls[prefix].setdefault(int(i), {})[f] = v
-        continue
-      if name == "names":
-        v = v.astype(np.uint8).tobytes()
-      elif v.ndim == 0:
-        v = v.item()
-      *parents, leaf = name.split(".")
-      setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
+    arrays = {k: z[k] for k in z.files} if name is None else _bundle_arrays(z, name)
+  for key, v in arrays.items():
+    prefix = next((p for p in HULL_PREFIXES if key.startswith(p)), None)
+    if prefix is not None:
+      i, f = key[len(prefix):].split(".")
+      hulls[prefix].setdefault(int(i), {})[f] = v
+      continue
+    if key == "names":
+      v = v.astype(np.uint8).tobytes()
+    elif v.ndim == 0:
+      v = v.item()
+    *parents, leaf = key.split(".")
+    setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
   per = lambda prefix, n: tuple(
       ConvexMesh(**hulls[prefix][i]) if i in hulls[prefix] else None for i in range(n))
   ns.mesh_convex = per("hull.", ns.nmesh)
@@ -315,9 +358,8 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   m = Model(**fields)
   from mjtpu_torch._src import collision_driver
 
-  # refuse unsupported colliders, condims and broadphase options up front
-  if collision_driver.max_geom_pairs(m) is not None:
-    raise NotImplementedError("mjtpu_torch does not support max_geom_pairs yet")
+  # refuse unsupported condims up front (candidate_groups refuses a geom
+  # pair without a collider)
   bad = set(int(c) for c in collision_driver.make_condim(m)) - {1, 3}
   if bad:
     raise NotImplementedError(f"mjtpu_torch does not support contact condim {sorted(bad)} yet")

@@ -1,8 +1,8 @@
 """Host-side convex hull tables for mesh collisions.
 
 Port of mjtpu/_src/mesh.py (``_merge_coplanar``, ``_edges_and_adjacent_normals``,
-``_pad_faces``, ``convex``, ``box``, ``get``): scipy's ConvexHull, then coplanar
-triangles merged into polygonal faces in numpy.  The outputs are padded,
+``_pad_faces``, ``convex``, ``box``, ``cylinder``, ``ellipsoid``, ``get``): scipy's
+ConvexHull, then coplanar triangles merged into polygonal faces in numpy.  The outputs are padded,
 fixed-shape numpy arrays that the convex colliders close over as model
 constants:
 
@@ -14,8 +14,8 @@ constants:
 
 Qhull's face order can differ between builds of scipy, so a model snapshot
 stores the tables built where the snapshot was written (io.save_snapshot),
-mesh hulls and box hulls alike, and a model loaded from it never rebuilds
-them.
+mesh hulls and the hulls of boxes, cylinders and ellipsoids alike, and a
+model loaded from it never rebuilds them.
 """
 
 from __future__ import annotations
@@ -110,24 +110,58 @@ def box(size: np.ndarray) -> ConvexMesh:
   return convex(corners)
 
 
+def cylinder(size: np.ndarray, nseg: int = 16) -> ConvexMesh:
+  """Hull of the cylinder of radius size[0] and half-height size[1]: two
+  rings of ``nseg`` vertices, inscribed in the cylinder (its depth is short
+  by at most r (1 - cos(pi / nseg)), ~1.9% of r at 16), as mjtpu builds
+  it.  Its 16 side edges are parallel and tie on every SAT cross axis; the
+  lowest index wins, so the table order matters."""
+  ang = np.arange(nseg) * (2.0 * np.pi / nseg)
+  ring = np.stack([np.cos(ang), np.sin(ang)], axis=-1) * float(size[0])
+  h = float(size[1])
+  return convex(np.concatenate([
+      np.concatenate([ring, np.full((nseg, 1), -h)], axis=-1),
+      np.concatenate([ring, np.full((nseg, 1), h)], axis=-1),
+  ]))
+
+
+def ellipsoid(size: np.ndarray, nvert: int = 32) -> ConvexMesh:
+  """Hull of the ellipsoid with radii ``size``: a Fibonacci sphere of
+  ``nvert`` points scaled by the radii (inscribed, every face a triangle),
+  as mjtpu builds it."""
+  i = np.arange(nvert)
+  phi = np.arccos(1.0 - 2.0 * (i + 0.5) / nvert)
+  theta = np.pi * (1.0 + np.sqrt(5.0)) * i
+  pts = np.stack([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta), np.cos(phi)],
+                 axis=-1)
+  return convex(pts * np.asarray(size, dtype=np.float64))
+
+
+# the hull of each geom type that collides through a hull made from its
+# size, as a function of the size
+SIZED_HULLS = {GeomType.BOX: box, GeomType.CYLINDER: cylinder, GeomType.ELLIPSOID: ellipsoid}
+
+
 def size_key(size: np.ndarray) -> tuple:
   """mjtpu's grouping key of a box, cylinder or ellipsoid geom: its exact
-  size, rounded to 12 digits (collision_driver._shape_key); a box's hull
-  is built from it."""
+  size, rounded to 12 digits (collision_driver._shape_key); its hull is
+  built from it."""
   return tuple(np.round(np.asarray(size, dtype=np.float64), 12))
 
 
 def get_geoms(mjm) -> tuple:
-  """Per-geom ConvexMesh tuple of ``mjm``: the hull of each colliding box
-  (one hull object per distinct size), None for every other geom."""
+  """Per-geom ConvexMesh tuple of ``mjm``: the hull of each colliding box,
+  cylinder and ellipsoid (one hull object per type and distinct size),
+  None for every other geom."""
   geom_type = np.asarray(mjm.geom_type)
   hulls: dict[tuple, ConvexMesh] = {}
   out = []
   for g in range(mjm.ngeom):
-    if geom_type[g] == GeomType.BOX and (mjm.geom_contype[g] or mjm.geom_conaffinity[g]):
-      key = size_key(np.asarray(mjm.geom_size)[g])
+    t = int(geom_type[g])
+    if t in SIZED_HULLS and (mjm.geom_contype[g] or mjm.geom_conaffinity[g]):
+      key = (t,) + size_key(np.asarray(mjm.geom_size)[g])
       if key not in hulls:
-        hulls[key] = box(np.array(key))
+        hulls[key] = SIZED_HULLS[t](np.array(key[1:]))
       out.append(hulls[key])
     else:
       out.append(None)

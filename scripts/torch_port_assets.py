@@ -123,11 +123,41 @@
       engine can reproduce: only its first step's reward, done and steps
       are comparable.
 
+  mjtpu_torch/assets/cylinder_drop_model.npz, roll_model.npz, sph_cyl_model.npz
+      the snapshots of the cylinder drop (CYLINDER_DROP_XML: a cylinder,
+      r 0.08 and half-height 0.15, on a free joint over a 0.5 x 0.5 x 0.1
+      box; dt 0.005, Newton 100 x 50; the scene of
+      tests/test_collision_round.py::test_cylinder_drop_trajectory), of
+      tests/models/roll.xml (a cylinder and an ellipsoid on a plane) and of
+      tests/models/sph_cyl.xml (a sphere over a fixed cylinder), with the
+      hulls mjtpu builds for boxes, cylinders and ellipsoids.
+  mjtpu_torch/assets/cylinder_drop_golden.npz, roll_golden.npz,
+  sph_cyl_golden.npz
+      reference trajectories from mjtpu at float64 on the CPU:
+        qpos0, qvel0           B=4 initial states (cylinder_drop_initial_state,
+                               roll_initial_state, sph_cyl_initial_state)
+        qpos, qvel             (steps, 4, ...) after each step
+        contact_dist, contact_pos, contact_frame, contact_geom1,
+        contact_geom2          the contacts of step 1
+  mjtpu_torch/assets/collision_scenes.npz
+      the snapshots of the small collision scenes (scene_xmls: the round
+      pairs of tests/test_collision_round.py, the pairs of
+      tests/test_collision.py's PAIR_SCENES that need this slice's
+      colliders, a tetrahedron on a tetrahedron, and
+      tests/test_broadphase.py's sphere pile with max_geom_pairs 4), in
+      one bundle (io.save_snapshot_bundle).
+  mjtpu_torch/assets/collision_scenes_golden.npz
+      mjtpu's fwd_position at float64 on the CPU for each scene at B=2
+      (scene_initial_state: qpos0 and a seeded perturbation of it):
+        <scene>.qpos0          the states
+        <scene>.dist, pos, frame, geom1, geom2   the contacts
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
         [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
-                     |zoo|ant_rk4|zoo_envs] [--steps N] [--env NAME]
+                     |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes]
+        [--steps N] [--env NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -168,8 +198,22 @@ ZOO_MODELS = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid"
 LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
 ANT_RK4_GOLDEN_FILE = ASSETS / "ant_rk4_golden.npz"
 ENV_GOLDEN_FILE = ASSETS / "zoo_env_golden.npz"
+CYLINDER_DROP_XML = """<mujoco><option timestep="0.005"/><worldbody>
+  <geom type="box" size="0.5 0.5 0.1"/>
+  <body pos="0 0 0.4" euler="0 80 0"><freejoint/>
+    <geom type="cylinder" size="0.08 0.15"/></body>
+  </worldbody></mujoco>"""
+# the models of this slice with a snapshot and a trajectory golden each
+CONTACT_MODELS = ("cylinder_drop", "roll", "sph_cyl")
+SCENES_FILE = ASSETS / "collision_scenes.npz"
+SCENES_GOLDEN_FILE = ASSETS / "collision_scenes_golden.npz"
+# tests/test_collision.py's PAIR_SCENES that this slice's colliders run
+PAIR_SCENES = ("plane_ellipsoid", "plane_cylinder", "plane_cylinder_flat", "plane_mesh",
+               "sphere_cylinder_side", "sphere_cylinder_cap", "sphere_cylinder_rim",
+               "capsule_box", "hfield_box")
+SCENE_BATCH = 2
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
-          "zoo", "ant_rk4", "zoo_envs")
+          "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -288,16 +332,19 @@ def load_pile_mjmodel():
   return mujoco.MjModel.from_xml_path(str(PILE_XML))
 
 
-def box_geom_convex(mjm) -> tuple:
-  """Per geom, mjtpu's hull of each colliding box (mjtpu._src.mesh.box of
-  its grouping key, as mjtpu's collision_driver builds it), else None."""
+def sized_geom_convex(mjm) -> tuple:
+  """Per geom, mjtpu's hull of each colliding box, cylinder and ellipsoid
+  (mjtpu._src.mesh.box, cylinder or ellipsoid of its grouping key, as
+  mjtpu's collision_driver builds it), else None."""
   from mjtpu._src import mesh
 
+  build = {6: mesh.box, 5: mesh.cylinder, 4: mesh.ellipsoid}  # mjGEOM_BOX, CYLINDER, ELLIPSOID
   out = []
   for g in range(mjm.ngeom):
     colliding = mjm.geom_contype[g] or mjm.geom_conaffinity[g]
-    box = mjm.geom_type[g] == 6 and colliding  # mjGEOM_BOX
-    out.append(mesh.box(np.array(tuple(np.round(mjm.geom_size[g], 12)))) if box else None)
+    t = int(mjm.geom_type[g])
+    out.append(build[t](np.array(tuple(np.round(mjm.geom_size[g], 12))))
+               if t in build and colliding else None)
   return tuple(out)
 
 
@@ -639,6 +686,187 @@ def env_golden(names, steps: int = ENV_STEPS) -> dict[str, np.ndarray]:
   return out
 
 
+def load_contact_mjmodel(name: str):
+  """The cylinder drop, roll.xml or sph_cyl.xml."""
+  import mujoco
+
+  if name == "cylinder_drop":
+    return mujoco.MjModel.from_xml_string(CYLINDER_DROP_XML)
+  return mujoco.MjModel.from_xml_path(str(ROOT / "tests" / "models" / f"{name}.xml"))
+
+
+def _free_joints(mjm) -> list[int]:
+  return [int(mjm.jnt_qposadr[j]) for j in range(mjm.njnt) if mjm.jnt_type[j] == 0]  # mjJNT_FREE
+
+
+def _perturb(mjm, qpos, rng, dpos: float, dang: float) -> None:
+  """Moves every free body of the state qpos by up to dpos and turns it by
+  up to dang radians about each axis, in place."""
+  for adr in _free_joints(mjm):
+    qpos[adr:adr + 3] += rng.uniform(-dpos, dpos, 3)
+    rv = rng.uniform(-dang, dang, 3)
+    qpos[adr + 3:adr + 7] = _quat_mul(qpos[adr + 3:adr + 7], _axis_quat(rv, np.linalg.norm(rv)))
+
+
+def cylinder_drop_initial_state(mjm, seed: int = 0):
+  """(qpos, qvel) of the 4 cylinder-drop envs: env 0 the model's drop pose
+  (z 0.4, tilted 80 degrees); env 1 that pose moved by up to 5 cm, turned
+  by up to 0.3 rad and thrown at up to 0.5 m/s and 2 rad/s; envs 2 and 3
+  lying on one of their hull's side faces, 0.5 mm into the box's top (z =
+  0.1), so that the face manifold of the hull is hit from the first step:
+  env 2 at rest, env 3 turned 30 degrees about z and sliding along its
+  axis at 0.3 m/s.  (None stands on its cap: the cap's 16 vertices tie
+  exactly in depth and area, and rounding picks its contact slots; ROADMAP
+  C6.)"""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (BATCH, 1))
+  qvel = np.zeros((BATCH, mjm.nv))
+  _perturb(mjm, qpos[1], rng, 0.05, 0.3)
+  qvel[1] = np.concatenate([rng.uniform(-0.5, 0.5, 3), rng.uniform(-2.0, 2.0, 3)])
+  r, depth = 0.08, 0.0005
+  # a side face's outward normal is at 11.25 degrees from the hull's first
+  # vertex (mjtpu's mesh.cylinder: 16 segments): turned onto +x about the
+  # axis, then +x turned down (and the axis laid along x) about y
+  lying = _quat_mul(_axis_quat((0, 1, 0), np.pi / 2), _axis_quat((0, 0, 1), -np.pi / 16))
+  z = 0.1 + r * np.cos(np.pi / 16) - depth
+  qpos[2, :7] = np.concatenate([[0.05, -0.03, z], lying])
+  yaw = np.pi / 6
+  qpos[3, :7] = np.concatenate([[-0.1, 0.08, z], _quat_mul(_axis_quat((0, 0, 1), yaw), lying)])
+  qvel[3, :3] = 0.3 * np.array([np.cos(yaw), np.sin(yaw), 0.0])
+  return qpos, qvel
+
+
+def roll_initial_state(mjm, seed: int = 0):
+  """(qpos, qvel) of the 4 roll.xml envs: env 0 qpos0 at rest; envs 1-3
+  with each body lowered by up to 2.5 cm, moved and turned (1 cm, 0.2 rad)
+  and thrown at up to 0.5 m/s and 3 rad/s."""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (BATCH, 1))
+  qvel = np.zeros((BATCH, mjm.nv))
+  for e in range(1, BATCH):
+    _perturb(mjm, qpos[e], rng, 0.01, 0.2)
+    qpos[e, 2::7] -= rng.uniform(0.0, 0.025, 2)
+    for b in range(2):
+      qvel[e, 6 * b:6 * b + 6] = np.concatenate([rng.uniform(-0.5, 0.5, 3),
+                                                 rng.uniform(-3.0, 3.0, 3)])
+  return qpos, qvel
+
+
+def sph_cyl_initial_state(mjm, seed: int = 0):
+  """(qpos, qvel) of the 4 sph_cyl.xml envs: env 0 qpos0 (the sphere 12
+  cm over the cylinder) at rest; envs 1-3 the sphere moved by up to 2 cm
+  sideways and lowered by 10 to 12.5 cm, onto the cylinder within the
+  run, falling at up to 0.3 m/s."""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (BATCH, 1))
+  qvel = np.zeros((BATCH, mjm.nv))
+  for e in range(1, BATCH):
+    qpos[e, :2] += rng.uniform(-0.02, 0.02, 2)
+    qpos[e, 2] -= rng.uniform(0.1, 0.125)
+    qvel[e, 2] = -rng.uniform(0.0, 0.3)
+  return qpos, qvel
+
+
+CONTACT_STATES = {"cylinder_drop": cylinder_drop_initial_state, "roll": roll_initial_state,
+                  "sph_cyl": sph_cyl_initial_state}
+
+
+def contact_golden(mjm, name: str, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """A contact model's golden arrays (module docstring); prints the live
+  contacts (dist < 0) per env over the run."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  qpos0, qvel0 = CONTACT_STATES[name](mjm)
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+  d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0))
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {"qpos": [], "qvel": []}
+  live = np.zeros(BATCH, int)
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    live += (np.asarray(d.contact.dist) < 0).sum(axis=1)
+    if i == 0:
+      first = jax.tree.map(np.asarray, d.contact)
+  print(f"{name}: live contact slots per env over {steps} steps {live.tolist()}; after step 1"
+        f" {(first.dist < 0).sum(axis=1).tolist()}")
+  return {"qpos0": qpos0, "qvel0": qvel0, **{k: np.stack(v) for k, v in out.items()},
+          **{f"contact_{k}": getattr(first, k) for k in ("dist", "pos", "frame", "geom1",
+                                                         "geom2")}}
+
+
+def scene_xmls() -> dict[str, str]:
+  """The small collision scenes of collision_scenes.npz, name -> MJCF."""
+  from tests.test_broadphase import _PILE
+  from tests.test_collision import PAIR_SCENES as PAIRS
+  from tests.test_collision import TETRA_ASSET
+  from tests.test_collision_round import SCENES
+
+  return {
+      **SCENES, **{k: PAIRS[k] for k in PAIR_SCENES},
+      # a tetrahedron upside down on another, apex into apex
+      "mesh_mesh": f"""<mujoco>{TETRA_ASSET}<worldbody>
+      <geom type="mesh" mesh="tetra"/>
+      <body pos="0.005 0.003 0.15" euler="180 0 20"><freejoint/>
+        <geom type="mesh" mesh="tetra"/></body>
+      </worldbody></mujoco>""",
+      "broadphase_pile": _PILE.format(
+          custom='<custom><numeric name="max_geom_pairs" data="4"/></custom>'),
+  }
+
+
+def scene_initial_state(mjm, seed: int = 0) -> np.ndarray:
+  """(SCENE_BATCH, nq): qpos0, and qpos0 with every free body moved by up
+  to 2 mm and turned by up to 0.02 rad about each axis."""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (SCENE_BATCH, 1))
+  _perturb(mjm, qpos[1], rng, 0.002, 0.02)
+  return qpos
+
+
+def scenes(names=None) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the scenes' snapshot arrays by name, the scene golden's arrays)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+  import mujoco
+
+  import mjtpu
+  from mjtpu._src import mesh
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, xml in scene_xmls().items():
+    if names and name not in names:
+      continue
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    snapshots[name] = io.snapshot_arrays(mjm, mesh_convex=mesh.get(mjm),
+                                         geom_convex=sized_geom_convex(mjm))
+    qpos = scene_initial_state(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(SCENE_BATCH))
+    d = d.replace(qpos=jnp.asarray(qpos))
+    # the Model closed over: models with mesh hulls do not compare as jit
+    # arguments from one scene to the next
+    c = jax.jit(lambda d: jax.vmap(mjtpu.fwd_position, in_axes=(None, 0))(m, d))(d).contact
+    golden[f"{name}.qpos0"] = qpos
+    for k in ("dist", "pos", "frame", "geom1", "geom2"):
+      golden[f"{name}.{k}"] = np.asarray(getattr(c, k))
+    print(f"{name}: {np.asarray(c.dist).shape[1]} slots, live per env"
+          f" {(np.asarray(c.dist) < 0).sum(axis=1).tolist()}")
+    if not (np.asarray(c.dist) < 0).any(axis=1).all():
+      raise AssertionError(f"scene {name} has an env without a live contact")
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -698,11 +926,13 @@ def main():
   parser.add_argument("--model", action="append", choices=MODELS,
                       help="the model whose files to write (repeatable; default: all)")
   parser.add_argument("--steps", type=int, default=None,
-                      help="steps of the humanoid_terrain, scene_pile, branchy66, ant_bench and"
-                      f" ant_rk4 golden trajectories (default {STEPS}) and env steps of the env"
+                      help="steps of the humanoid_terrain, scene_pile, branchy66, ant_bench,"
+                      " ant_rk4, cylinder_drop, roll and sph_cyl golden trajectories (default {STEPS}) and env steps of the env"
                       f" golden (default {ENV_STEPS})")
   parser.add_argument("--env", action="append", choices=LOCOMOTION,
                       help="the envs of the env golden (repeatable; default: all five)")
+  parser.add_argument("--scene", action="append",
+                      help="the scenes of collision_scenes (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
   steps = args.steps or STEPS
@@ -728,14 +958,14 @@ def main():
     files += [TERRAIN_MODEL_FILE.name, TERRAIN_GOLDEN_FILE.name]
   if "scene_pile" in models:
     mjm = load_pile_mjmodel()
-    io.save_snapshot(mjm, out / PILE_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
+    io.save_snapshot(mjm, out / PILE_MODEL_FILE.name, geom_convex=sized_geom_convex(mjm))
     np.savez_compressed(out / PILE_GOLDEN_FILE.name, **pile_golden(mjm, steps))
     files += [PILE_MODEL_FILE.name, PILE_GOLDEN_FILE.name]
   if "boxes" in models:
     import mujoco
 
     mjm = mujoco.MjModel.from_xml_path(str(BOXES_XML))
-    io.save_snapshot(mjm, out / BOXES_MODEL_FILE.name, geom_convex=box_geom_convex(mjm))
+    io.save_snapshot(mjm, out / BOXES_MODEL_FILE.name, geom_convex=sized_geom_convex(mjm))
     files.append(BOXES_MODEL_FILE.name)
   if "branchy66" in models:
     mjm = load_branchy_mjmodel()
@@ -759,6 +989,17 @@ def main():
     np.savez_compressed(out / ENV_GOLDEN_FILE.name,
                         **env_golden(args.env or LOCOMOTION, args.steps or ENV_STEPS))
     files.append(ENV_GOLDEN_FILE.name)
+  for name in CONTACT_MODELS:
+    if name in models:
+      mjm = load_contact_mjmodel(name)
+      io.save_snapshot(mjm, out / f"{name}_model.npz", geom_convex=sized_geom_convex(mjm))
+      np.savez_compressed(out / f"{name}_golden.npz", **contact_golden(mjm, name, steps))
+      files += [f"{name}_model.npz", f"{name}_golden.npz"]
+  if "collision_scenes" in models:
+    snapshots, scene_golden = scenes(args.scene)
+    io.save_snapshot_bundle(out / SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / SCENES_GOLDEN_FILE.name, **scene_golden)
+    files += [SCENES_FILE.name, SCENES_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -1,7 +1,8 @@
 """Where a mjtpu_torch step's time goes on the GPU.
 
     python scripts/torch_profile_step.py
-        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66|ant_bench|ant_env]
+        [--model humanoid_bench|humanoid_terrain|scene_pile|branchy66|ant_bench|ant_env
+                 |cylinder_drop]
         [--batch 4096] [--dtype float32] [--steps 5] [--out build/profile]
 
 Runs the model from its committed snapshot on CUDA (from qpos0 +-0.01,
@@ -12,7 +13,9 @@ activity).  ``--model ant_env`` runs the Ant env instead
 (``mjtpu_torch.zoo.ENVS["ant"]``, reset and actions uniform in [-1, 1]
 from a torch.Generator seeded 0, as chip_smoke.py runs it): its
 ``--warmup`` and ``--steps`` count env steps (each 5 RK4 physics steps
-and the auto-reset's forward), and so do the per-step figures.  Prints
+and the auto-reset's forward), and so do the per-step figures.
+``--model cylinder_drop`` starts B cylinders turned at random just over
+the box (chip_smoke.py's ``_drop_start``; B must be 4096).  Prints
 the card (nvidia-smi name and power limit), host wall time per step,
 device kernel time per step, the device's busy share
 (kernel time / wall time), kernel launches per step, the solver's
@@ -37,7 +40,7 @@ def main() -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--model", default="humanoid_bench",
                  choices=("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66",
-                          "ant_bench", "ant_env"))
+                          "ant_bench", "ant_env", "cylinder_drop"))
   p.add_argument("--batch", type=int, default=4096)
   p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
   p.add_argument("--steps", type=int, default=5)
@@ -70,6 +73,14 @@ def main() -> int:
                                    dtype=dtype) - 1.0
     m, d = env.model, env.reset(args.batch, gen)
     advance = lambda s: env.step(s, act(), gen)
+  elif args.model == "cylinder_drop":
+    from chip_smoke import _drop_start
+
+    m = mjtpu_torch.model_from_arrays(
+        mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "cylinder_drop_model.npz"),
+        dtype=dtype, device="cuda")
+    d = _drop_start(m)
+    advance = lambda d: mjtpu_torch.step(m, d)
   else:
     m = mjtpu_torch.model_from_arrays(
         mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{args.model}_model.npz"),

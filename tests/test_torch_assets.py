@@ -98,17 +98,56 @@ def _assert_models_equal(a, b, path="model"):
 ZOO_BUILT = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid")
 
 
+CONTACT_MODELS = ("cylinder_drop", "roll", "sph_cyl")
+
+
 @pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66",
-                                   "ant_bench", *ZOO_BUILT])
+                                   "ant_bench", *ZOO_BUILT, *CONTACT_MODELS])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
   load = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
           "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
-          "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel}
+          "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel,
+          **{name: lambda name=name: script.load_contact_mjmodel(name)
+             for name in CONTACT_MODELS}}
   mjm = load[model]() if model in load else script.load_zoo_mjmodel(model)
   snap = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{model}_model.npz"), device="cpu")
   _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"))
+
+
+def test_scene_snapshots_equal_put_model():
+  """Each collision scene of the bundle, loaded, equals put_model of the
+  scene's MjModel (the hulls of its boxes, cylinders, ellipsoids and
+  meshes built by the port's mesh.py, table by table)."""
+  script = _assets_script()
+  xmls = script.scene_xmls()
+  assert io.bundle_names(script.SCENES_FILE) == sorted(xmls)
+  for name, xml in xmls.items():
+    snap = mjtpu_torch.model_from_arrays(io.load_snapshot(script.SCENES_FILE, name),
+                                         device="cpu")
+    live = mjtpu_torch.put_model(mujoco.MjModel.from_xml_string(xml), device="cpu")
+    _assert_models_equal(snap, live, name)
+
+
+def test_scene_files_are_fresh(tmp_path):
+  """Regenerating the cheapest scene (plane-ellipsoid: mjtpu compiles one
+  fwd_position) reproduces its snapshot in the bundle and its golden."""
+  script = _assets_script()
+  new_dir = _regenerate(tmp_path, "--model", "collision_scenes", "--scene", "plane_ellipsoid")
+  assert io.bundle_names(new_dir / script.SCENES_FILE.name) == ["plane_ellipsoid"]
+  with np.load(new_dir / script.SCENES_FILE.name) as new, np.load(script.SCENES_FILE) as old:
+    a, b = io._bundle_arrays(new, "plane_ellipsoid"), io._bundle_arrays(old, "plane_ellipsoid")
+    assert sorted(a) == sorted(b)
+    assert sorted(k for k in a if not k.startswith(io.HULL_PREFIXES)) == sorted(
+        io.SNAPSHOT_FIELDS)
+    for k in a:
+      np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+  with np.load(new_dir / script.SCENES_GOLDEN_FILE.name) as new, \
+      np.load(script.SCENES_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(k for k in old.files if k.startswith("plane_ellipsoid."))
+    for k in new.files:
+      np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
 
 
 def test_hull_tables_match_mjtpu():
@@ -393,7 +432,8 @@ import torch
 import mjtpu_torch
 from mjtpu_torch._src import ray, sensor
 from mjtpu_torch.ops import cholesky, fused, hfield, ldl, sat
-for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66", "ant_bench"):
+for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66", "cylinder_drop",
+             "ant_bench"):
   m = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
   d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))

@@ -138,6 +138,7 @@ def _variant(path, collide_head=False, pair_dim=None, **opt):
       head = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, "head")
       mjm.geom_contype[head] = mjm.geom_conaffinity[head] = 1
       mjm.geom_type[head] = mujoco.mjtGeom.mjGEOM_ELLIPSOID
+      mjm.geom_size[head, 1:] = mjm.geom_size[head, 0]  # a sphere's size has one radius
     if pair_dim is not None:
       mjm.pair_dim[:] = pair_dim
     return mjm
@@ -157,14 +158,17 @@ def _free(geom: str, z: float) -> str:
 _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0.1 0.1 0.1"', 0.5)
 
 
+# ``what`` None: a model that an earlier slice refused and the collision
+# slice (every geom pair mjtpu collides, the max_geom_pairs broadphase)
+# accepts; it must build and step
 @pytest.mark.parametrize("make, what", [
-    (_variant(HB, collide_head=True), "collision between geom types PLANE and ELLIPSOID"),
+    (_variant(HB, collide_head=True), None),
     (_xml(_free('type="capsule" size="0.05 0.1"', 0.5) + _free('type="box" size="0.1 0.1 0.1"', 0.2)),
-     "collision between geom types CAPSULE and BOX"),
+     None),
     (_xml('<geom type="hfield" hfield="h"/>' + _free('type="box" size="0.1 0.1 0.1"', 0.3),
           asset='<hfield name="h" nrow="4" ncol="4" size="1 1 0.1 0.1"/>'),
-     "collision between geom types HFIELD and BOX"),
-    (_xml(_BOXES, custom='<numeric name="max_geom_pairs" data="1"/>'), "max_geom_pairs"),
+     None),
+    (_xml(_BOXES, custom='<numeric name="max_geom_pairs" data="1"/>'), None),
     # two damped pendulums: Euler's implicit damping on a forest takes the
     # blocked symmetric factor_solve, which is not ported
     (_xml('<body pos="0 0 1"><joint type="hinge" axis="0 1 0" damping="0.1"/>'
@@ -189,6 +193,13 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
         "sensors", "equality", "tendon", "rk4", "implicitfast_forest", "elliptic", "pgs",
         "condim1", "condim6", "implicit", "implicitfast_fluid"])
 def test_put_model_refuses_out_of_slice(make, what):
+  """put_model refuses a model outside the slices, naming the feature; the
+  cases that the collision slice took in (what None) build and step."""
+  if what is None:
+    m = mjtpu_torch.put_model(make(), device="cpu")
+    d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
+    assert bool(torch.isfinite(d.qpos).all()) and int(d.nreset.sum()) == 0
+    return
   with pytest.raises(NotImplementedError, match=what):
     mjtpu_torch.put_model(make(), device="cpu")
 

@@ -358,6 +358,30 @@ def test_ldl_refusals():
   assert ldl.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pair", ["cylinder-box", "cylinder-cylinder", "ellipsoid-box",
+                                  "ellipsoid-ellipsoid"])
+def test_sat_round_hulls_match_twin_bit_for_bit(pair, dtype):
+  """The round hulls (mjtpu's inscribed cylinder and ellipsoid hulls, from
+  the committed snapshots) take the shared kernel by the size dispatch,
+  and it equals the twin bit for bit on random, aligned and stacked poses
+  at n = 4096, the cylinder drop's batch."""
+  h1, h2 = chip_smoke.round_hull_pairs()[pair]
+  hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
+  assert sat.variant(*hulls) == "shared" and sat.variants(*hulls) == ("shared",)
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  for poses_kind in ("random", "aligned", "stacked"):
+    poses = chip_smoke._sat_poses(poses_kind, 4096, h1, h2, dtype, gen)
+    want = sat.sat_winners_reference(*poses, *hulls)
+    for kernel in ("shared", None):  # the variant forced, and the dispatch's
+      before = dict(sat.variant_launches)
+      got = sat.sat_winners_batch(*poses, *hulls, kernel=kernel)
+      torch.cuda.synchronize()
+      assert sat.variant_launches == {**before, "shared": before["shared"] + 1}
+      for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)), (kernel, poses_kind, _bit_diff(g, w))
+
+
 def _model(name, device):
   ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz")
   if name == "boxes":  # a cap on Newton's loops, as before they left early
@@ -377,6 +401,9 @@ def _model(name, device):
     ("branchy66", 3, (0, 0, 0, 3), 1e-9),
     # Euler's damping solve takes B1 too
     ("ant_bench", 3, (1, 0, 0, 0), 1e-9),
+    # the cylinder on the box: SAT on the round hull, one launch a step
+    ("cylinder_drop", 3, (0, 0, 1, 0), 1e-9),
+    ("roll", 3, (0, 0, 0, 0), 1e-9),
 ])
 def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
   """Steps on the card against the same steps on the CPU, with the
