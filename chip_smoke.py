@@ -118,8 +118,35 @@ failure raises and the script exits non-zero:
      linesearch rounds per step, nreset 0, B3's and B1's share of the
      step (CUDA events around each seam), one more step traced by
      torch.profiler for its launches and the device's busy share.
+ 22. elliptic parity: humanoid_bench_elliptic (humanoid_bench with
+     elliptic cones, bench.py's humanoid_bench_elliptic), f64, B=4, from
+     the committed goldens, with the solver run to convergence (iterations
+     = ls_iterations = 10) and in the benchmark configuration: each of the
+     400 one-step restarts from mjtpu's states within 1e-8 of mjtpu's
+     batched or one-env (solo) next state, or a tie that a copy of its
+     state a few ULP away resolves to mjtpu's path (ROADMAP C7); the
+     converged run to 1e-8 until mjtpu's two runs part, then to 10 times
+     their spread; the benchmark run's step 1 (qacc, efc_force,
+     contact.dist) to 1e-9, and 1e-8 through step 2 (step 3's restarts
+     are the first that rounding decides); one B1 launch (register, n=27) per Newton iteration; B1's
+     variants against the twin on the restarts' Newton
+     Hessians; then the cone scenes of cone_scenes.npz (condim 4 and 6,
+     pyramidal and elliptic, condim_cg, elliptic.xml, two frictionloss
+     scenes, four elliptic fuzz scenes): step 1's efc_* fields to 1e-10
+     of scale, solve's qacc and efc_force to 1e-10 (the fuzz scenes:
+     1e-7), 100 steps (the fuzz scenes: 25) to 1e-7 (ROADMAP C7); B1's
+     shared kernel on elliptic.xml's n=12 Hessians, f64 and f32.
+ 23. elliptic throughput: f32, B=4096 from bench.py's start (qpos0 +-0.01,
+     numpy seed 1), 20 warm-up and 200 timed steps: env-steps/s and ms per
+     step beside phase 6's pyramidal figure, B1 launches (register, n=27)
+     and Newton iterations and linesearch rounds per step, nreset 0, B1's
+     share of the step, one profiled step's launches and busy share
+     beside the pyramidal bench's; B1's variants against the twin on a
+     warm-up step's Hessians (f32, regulariser and cone blocks in them),
+     and B1's, the twin's and torch.cholesky_solve(cholesky_ex)'s device
+     times on them.
 
-The main paths are phases 6, 8, 11, 14, 16, 19 and 21: each kernel's launch
+The main paths are phases 6, 8, 11, 14, 16, 19, 21 and 23: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
@@ -184,6 +211,26 @@ ENV_BOUND = 1e-10  # tests/test_torch_zoo.py's STEP_BOUND
 ZOO_LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
 ENV_WARMUP = 2
 ENV_TIMED = 5
+ELLIPTIC = "humanoid_bench_elliptic"
+# tests/test_torch_elliptic.py's bounds (ROADMAP C7): the copies of a
+# restart's state, a few ULP apart, that look for mjtpu's path where the
+# port takes another (elliptic_restarts), and the converged run's drift
+# after its first tie, as a multiple of mjtpu's own solo-vs-batched spread
+# over the same 100 steps
+ELLIPTIC_TIE_COPIES = 64
+ELLIPTIC_DRIFT_FACTOR = 10
+# the benchmark configuration's run is held to 1e-8 through step 2: step
+# 3's restarts are the first that rounding decides (a split on the CPU;
+# on the card copies a few ULP away move envs 0 and 1 by up to 7.5e-4)
+ELLIPTIC_HEAD_STEPS = 2
+CONE_BOUND = 1e-10
+# tests/test_torch_frictionloss.py's FUZZ_SOLVE_BOUND, and its
+# FUZZ_TRAJECTORY_BOUND for every cone scene's 100 steps: ties in elliptic
+# middle zones (ROADMAP C7) part elliptic.xml's run on the card by 2.7e-8
+CONE_FUZZ_SOLVE_BOUND = 1e-7
+CONE_TRAJECTORY_BOUND = 1e-7
+# the fuzz scenes' steps held on the card, as on the CPU (the time limit)
+CONE_FUZZ_STEPS = 25
 # phase 3's sizes: the register kernel's n (the main paths' 8, 14, 23, 27
 # and the zoo envs' 6 and 9), which both variants run, and n that only the
 # shared kernel runs (32 and 33 on either side of its rows' striding over
@@ -1135,7 +1182,7 @@ def phase_throughput(card):
       f" = {rate:.0f} env-steps/s ({1e3 * secs / TIMED_STEPS:.3f} ms/step); qpos finite,"
       f" nreset 0; Cholesky kernel {shares['chol_solve']:.4f} ms/step ="
       f" {100 * shares['chol_solve'] / step_ms:.2f}% of step time; card {card}")
-  return counts
+  return counts, (rate, 1e3 * secs / TIMED_STEPS)
 
 
 def phase_terrain_parity():
@@ -1729,6 +1776,347 @@ def phase_drop_throughput(card):
   return counts
 
 
+def _capture_hessians(advance):
+  """(h, grad) of every call of B1's seam (fused.chol_solve) in
+  ``advance()``: the Newton Hessians a step factors, its f32 regulariser
+  and folded cone blocks included."""
+  from mjtpu_torch.ops import fused
+
+  seam, calls = fused.chol_solve, []
+
+  def chol_solve(h, grad):
+    calls.append((h.clone(), grad.clone()))
+    return seam(h, grad)
+
+  fused.chol_solve = chol_solve
+  try:
+    out = advance()
+  finally:
+    fused.chol_solve = seam
+  return calls, out
+
+
+def _hold_chol(h, grad, what) -> float:
+  """Every B1 variant that runs n against the twin on captured Hessians
+  (phase 3's tolerances), the variants equal bit for bit; the worst abs
+  error of the size dispatch's variant."""
+  import torch
+
+  from mjtpu_torch.ops import cholesky
+
+  n, dtype = h.shape[-1], h.dtype
+  ref = cholesky.chol_solve_reference(h, grad)
+  got = {kind: cholesky.cholesky_solve(h, grad, kernel=kind)
+         for kind in cholesky.variants(n, dtype)}
+  torch.cuda.synchronize()
+  limit = 1e-10 if dtype == torch.float64 else 1e-4
+  for kind, x in got.items():
+    rel = float((x - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+    if not (bool(torch.isfinite(x).all()) and rel <= limit):
+      raise AssertionError(f"{what}: {kind} kernel vs twin rel {rel:.3e} > {limit}")
+  first = got[cholesky.variant(n, dtype)]
+  for kind, x in got.items():
+    if not torch.equal(_bits(x), _bits(first)):
+      raise AssertionError(f"{what}: {kind} and {cholesky.variant(n, dtype)} kernels differ in"
+                           f" {int((_bits(x) != _bits(first)).sum())} entries' bits")
+  log(f"[elliptic] B1 on {what}: n={n} B={h.shape[0]} {str(dtype)[6:]}, variants"
+      f" {sorted(got)} within {limit} of the twin (worst"
+      f" {max(float((x - ref).abs().max()) for x in got.values()) / float(ref.abs().max()):.3e}"
+      f" rel), equal bit for bit")
+  return float((first - ref).abs().max())
+
+
+def _elliptic_model(dtype, **opt):
+  import mjtpu_torch
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{ELLIPTIC}_model.npz")
+  for k, v in opt.items():
+    setattr(ns.opt, k, v)
+  return mjtpu_torch.model_from_arrays(ns, dtype=dtype, device="cuda")
+
+
+def _restart_states(golden, prefix):
+  """mjtpu's states before each step of the humanoid_bench_elliptic
+  golden (steps x B rows, env-major within a step): qpos, qvel,
+  qacc_warmstart, ctrl."""
+  import numpy as np
+
+  steps, batch = golden[f"{prefix}qpos"].shape[:2]
+  before = lambda first, rest: np.concatenate([first[None], rest[:-1]]).reshape(
+      (steps * batch,) + rest.shape[2:])
+  return {"qpos": before(golden["qpos0"], golden[f"{prefix}qpos"]),
+          "qvel": before(golden["qvel0"], golden[f"{prefix}qvel"]),
+          "qacc_warmstart": before(np.zeros_like(golden[f"{prefix}warm"][0]),
+                                   golden[f"{prefix}warm"]),
+          "ctrl": np.tile(golden["ctrl"], (steps, 1))}
+
+
+def _step_states(m, state):
+  """One port step from the numpy states ``state`` on m's device: (qpos, qvel)."""
+  import torch
+
+  import mjtpu_torch
+
+  d = mjtpu_torch.make_data(m, batch_size=len(state["qpos"]))
+  d = mjtpu_torch.step(m, mjtpu_torch.replace(
+      d, **{k: torch.as_tensor(v, device=m.device) for k, v in state.items()}))
+  return d.qpos.cpu().numpy(), d.qvel.cpu().numpy()
+
+
+def _ulp_copies(state, rows):
+  """ELLIPTIC_TIE_COPIES copies of each state ``rows``, qpos and qvel
+  moved by 1-3 ULP (numpy seed 0)."""
+  import numpy as np
+
+  rng = np.random.default_rng(0)
+  copies = {k: v[np.repeat(rows, ELLIPTIC_TIE_COPIES)] for k, v in state.items()}
+  for k in ("qpos", "qvel"):
+    ulps = rng.choice([-1.0, 1.0], copies[k].shape) * rng.integers(1, 4, copies[k].shape)
+    copies[k] = copies[k] * (1 + ulps * 2.0 ** -52)
+  return copies
+
+
+def _rows_err(got, want, rows):
+  """Each row's max abs error of (qpos, qvel) ``got`` against ``want[rows]``."""
+  import numpy as np
+
+  return np.maximum(*(np.abs(g - w[rows]).max(1) for g, w in zip(got, want)))
+
+
+def elliptic_restarts(m, golden, prefix=""):
+  """One port step from each of mjtpu's states before a step of the
+  humanoid_bench_elliptic golden (100 steps x 4 envs, one batch, on m's
+  device) against mjtpu's next state from its batched run (the golden's)
+  and from its one-env compile (``solo_*``).  A restart that parts from
+  both by more than 1e-8 is a tie (ROADMAP C7: the sign of a phi' that is
+  zero but for rounding, or where the converged solve stalls) only if a
+  state a few ULP away takes mjtpu's path: it is stepped again from
+  ELLIPTIC_TIE_COPIES copies of its state (_ulp_copies).  Returns ((steps,
+  B) errors to the batched run, the restarts past 1e-8 of both, those of
+  them that no copy brings within 1e-8, mjtpu's own solo-vs-batched
+  splits, B1's captures of the step)."""
+  import numpy as np
+
+  steps, batch = golden[f"{prefix}qpos"].shape[:2]
+  state = _restart_states(golden, prefix)
+  want = [tuple(golden[f"{prefix}{run}{f}"].reshape(steps * batch, -1) for f in ("qpos", "qvel"))
+          for run in ("", "solo_")]
+  calls, got = _capture_hessians(lambda: _step_states(m, state))
+  rows = np.arange(steps * batch)
+  batched, solo = (_rows_err(got, w, rows) for w in want)
+  splits = np.flatnonzero(np.minimum(batched, solo) > 1e-8)
+  unexplained = splits
+  if len(splits):
+    rows = np.repeat(splits, ELLIPTIC_TIE_COPIES)
+    copies = _step_states(m, _ulp_copies(state, splits))
+    near = np.minimum(*(_rows_err(copies, w, rows) for w in want))
+    unexplained = splits[~(near <= 1e-8).reshape(len(splits), -1).any(1)]
+  own = _rows_err(want[1], want[0], np.arange(steps * batch))
+  return (batched.reshape(steps, batch), splits, unexplained, int((own > 1e-8).sum()), calls)
+
+
+def _cone_scene_run(m, golden, name, steps):
+  """The cone scene's first ``steps`` steps from its golden's initial
+  states: step 1's Data, the worst scaled error of each trajectory field,
+  the Hessians of step 1 and the B1 launches and Newton iterations of the
+  run."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import solver
+  from mjtpu_torch.ops import cholesky
+
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, **{k: torch.as_tensor(golden[f"{name}.{k}0"], device="cuda")
+                                for k in ("qpos", "qvel", "qfrc_applied")
+                                if f"{name}.{k}0" in golden})
+  fields = ("qpos", "qvel") + (("sensordata",) if m.nsensordata else ())
+  err = dict.fromkeys(fields, 0.0)
+  cholesky.launches, iterations = 0, solver.loop_counts["iterations"]
+  for i in range(steps):
+    if i == 0:
+      calls, d = _capture_hessians(lambda: mjtpu_torch.step(m, d))
+      first = mjtpu_torch.data_to_numpy(d)
+    else:
+      d = mjtpu_torch.step(m, d)
+    for f in fields:
+      want = golden[f"{name}.{f}"][i]
+      scale = np.maximum(1.0, np.abs(golden[f"{name}.{f}"]).max(axis=(0, 1))) if (
+          f == "sensordata") else 1.0
+      err[f] = max(err[f], float((np.abs(getattr(d, f).cpu().numpy() - want) / scale).max()))
+  if int(d.nreset.sum()):
+    raise AssertionError(f"{name}: nreset {int(d.nreset.sum())}")
+  return first, err, calls, cholesky.launches, solver.loop_counts["iterations"] - iterations
+
+
+def phase_elliptic_parity():
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io, solver
+  from mjtpu_torch.ops import cholesky
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / f"{ELLIPTIC}_golden.npz"))
+  err_of = lambda qpos, qvel, prefix: np.maximum(np.abs(qpos - golden[f"{prefix}qpos"]).max(2),
+                                                 np.abs(qvel - golden[f"{prefix}qvel"]).max(2))
+
+  def restarts(m, prefix, what):
+    err, splits, unexplained, own, calls = elliptic_restarts(m, golden, prefix)
+    log(f"[elliptic parity] {what}, 400 one-step restarts from mjtpu's states: past 1e-8 of its"
+        f" batched run {int((err > 1e-8).sum())}, of its batched and its solo runs {len(splits)},"
+        f" each a tie ({ELLIPTIC_TIE_COPIES} copies a few ULP away: a copy takes mjtpu's path),"
+        f" unexplained {len(unexplained)}; mjtpu's own solo-vs-batched splits {own}")
+    if len(unexplained):
+      raise AssertionError(f"{what}: restarts {unexplained.tolist()} off mjtpu's paths")
+    return err, calls
+
+  # the solver run to convergence (iterations = ls_iterations = 10)
+  conv = dict(iterations=int(golden["converged_iterations"]),
+              ls_iterations=int(golden["converged_ls_iterations"]))
+  mc = _elliptic_model(torch.float64, **conv)
+  _zero_counts()
+  before = solver.loop_counts["iterations"]
+  qpos, qvel, _, d = _golden_run(mc, golden, PARITY_STEPS)
+  iterations = solver.loop_counts["iterations"] - before
+  kinds = dict(cholesky.variant_launches)
+  if not cholesky.launches == iterations == kinds["register"] or int(d.nreset.sum()):
+    raise AssertionError(f"converged: {kinds} B1 launches, {iterations} Newton iterations,"
+                         f" nreset {int(d.nreset.sum())}")
+  restarts(mc, "conv_", "converged solver")
+  # held to 1e-8 until mjtpu's two runs part, then to its own spread
+  own = err_of(golden["conv_solo_run_qpos"], golden["conv_solo_run_qvel"], "conv_")
+  parted = (own > 1e-8).any(1)
+  head = int(parted.argmax()) if parted.any() else PARITY_STEPS
+  err = err_of(qpos, qvel, "conv_")
+  near = min(float(err.max()), float(err_of(qpos, qvel, "conv_solo_run_").max()))
+  limit = ELLIPTIC_DRIFT_FACTOR * float(own.max())
+  log(f"[elliptic parity] {ELLIPTIC} converged solver ({conv}), {PARITY_STEPS} steps B=4 f64:"
+      f" max abs err {err[:head].max():.3e} through step {head} (limit 1e-8: mjtpu's own runs"
+      f" part at step {head + 1}), {near:.3e} over {PARITY_STEPS} to the nearer of mjtpu's two"
+      f" (limit {limit:.3e}: {ELLIPTIC_DRIFT_FACTOR} x their spread); {iterations / PARITY_STEPS:.2f}"
+      f" Newton iterations and B1 launches (register, n=27) per step")
+  if not (head >= 1 and err[:head].max() <= 1e-8 and near <= limit):
+    raise AssertionError(f"converged elliptic run differs from mjtpu: {err[:head].max():.3e}"
+                         f" through step {head}, {near:.3e} over {PARITY_STEPS}")
+
+  # the benchmark configuration (iterations=1, ls_iterations=4)
+  m = _elliptic_model(torch.float64)
+  _zero_counts()
+  qpos, qvel, first, d = _golden_run(m, golden, PARITY_STEPS)
+  kinds = dict(cholesky.variant_launches)
+  if kinds != {"register": PARITY_STEPS, "shared": 0}:
+    raise AssertionError(f"benchmark config: B1 launches {kinds} in {PARITY_STEPS} steps")
+  _step_one(first, golden, "elliptic parity")
+  if not (np.isfinite(qpos).all() and np.isfinite(qvel).all()) or int(d.nreset.sum()):
+    raise AssertionError("benchmark-config elliptic trajectory not finite or reset")
+  _, calls = restarts(m, "", "benchmark config")
+  err = err_of(qpos, qvel, "")
+  head = float(err[:ELLIPTIC_HEAD_STEPS].max())
+  log(f"[elliptic parity] benchmark config, {PARITY_STEPS} steps B=4 f64: max abs err"
+      f" {head:.3e} through step {ELLIPTIC_HEAD_STEPS} (limit 1e-8; step {ELLIPTIC_HEAD_STEPS + 1}'s"
+      f" restarts are ties), {float(err.max()):.3e} over {PARITY_STEPS}; B1 launches {kinds}")
+  if not head <= 1e-8:
+    raise AssertionError(f"benchmark-config elliptic run differs from mjtpu: {head:.3e} through"
+                         f" step {ELLIPTIC_HEAD_STEPS}")
+  (h, grad), = calls
+  f64_err = _hold_chol(h, grad, f"{ELLIPTIC}'s Newton Hessians (the 400 restarts)")
+
+  # the cone and frictionloss scenes
+  bundle = mjtpu_torch.ASSETS / "cone_scenes.npz"
+  scenes = dict(np.load(mjtpu_torch.ASSETS / "cone_scenes_golden.npz"))
+  shared = None
+  for name in io.bundle_names(bundle):
+    m = mjtpu_torch.model_from_arrays(io.load_snapshot(bundle, name), dtype=torch.float64,
+                                      device="cuda")
+    fuzz = name.startswith("fuzz_")
+    steps = CONE_FUZZ_STEPS if fuzz else PARITY_STEPS
+    first, err, calls, launches, iterations = _cone_scene_run(m, scenes, name, steps)
+    stage = {f: _scaled_err(getattr(first, f), scenes[f"{name}.fwd.{f}"])
+             for f in ("efc_J", "efc_D", "efc_aref", "efc_frictionloss", "efc_pos")}
+    # the solve's qacc (Euler's damping solve changes the step's qacc)
+    stage["qacc"] = _scaled_err(first.qacc_warmstart, scenes[f"{name}.fwd.qacc"])
+    stage["efc_force"] = _scaled_err(first.efc_force, scenes[f"{name}.fwd.efc_force"])
+    newton = m.opt.solver == mjtpu_torch.SolverType.NEWTON
+    # Euler's implicit damping solves through B1 once a step (a dense tree)
+    damping = (m.opt.integrator == mjtpu_torch.IntegratorType.EULER and m.has_dof_damping
+               and not m.opt.disableflags & (mjtpu_torch.DisableBit.EULERDAMP
+                                             | mjtpu_torch.DisableBit.DAMPER))
+    want = (iterations if newton else 0) + (steps if damping else 0)
+    bound = CONE_TRAJECTORY_BOUND
+    log(f"[elliptic parity] {name} (cone {int(m.opt.cone)}, nefc"
+        f" {mjtpu_torch.count_constraints(m)[3]}), {steps} steps B=4 f64: step 1"
+        f" {', '.join(f'{k} {v:.1e}' for k, v in stage.items())} of scale; trajectory"
+        f" {', '.join(f'{k} {v:.3e}' for k, v in err.items())} (limit {bound}); B1 launches"
+        f" {launches} (Newton iterations {iterations if newton else 0}"
+        f"{', and the damping solve once a step' if damping else ''})")
+    solve_bound = CONE_FUZZ_SOLVE_BOUND if fuzz else CONE_BOUND
+    if not (max(v for k, v in stage.items() if k not in ("qacc", "efc_force")) <= CONE_BOUND
+            and max(stage["qacc"], stage["efc_force"]) <= solve_bound
+            and max(err.values()) <= bound):
+      raise AssertionError(f"{name} differs from mjtpu: step 1 {stage}, trajectory {err}")
+    if launches != want:
+      raise AssertionError(f"{name}: {launches} B1 launches, {iterations} Newton iterations")
+    if name == "elliptic":
+      shared = calls[0]
+  _hold_chol(*shared, "elliptic.xml's first Newton Hessians (two trees, dense)")
+  _hold_chol(shared[0].float(), shared[1].float(), "elliptic.xml's Hessians cast to f32")
+  return f64_err
+
+
+def phase_elliptic_throughput(card, bench):
+  """The elliptic bench at f32 B=4096 (bench.py's start: qpos0 +-0.01,
+  numpy seed 1), with the pyramidal bench of phase 6 (``bench``: its
+  env-steps/s and ms/step) beside it."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky
+
+  m = _elliptic_model(torch.float32)
+  d = _f32_start(m)
+  # one warm-up step's Newton Hessians (f32, regularised, cones folded)
+  calls, d = _capture_hessians(lambda: mjtpu_torch.step(m, d))
+  d, secs, counts, loops = _timed_main_path(m, d, WARMUP_STEPS - 1, TIMED_STEPS)
+  if counts != _only(chol_solve=TIMED_STEPS) or loops["iterations"] != TIMED_STEPS:
+    raise AssertionError(f"kernel launches in {TIMED_STEPS} timed steps: {counts}, {loops}")
+  rate = BENCH_BATCH * TIMED_STEPS / secs
+  shares, step_ms = _seam_shares(m, d, WARMUP_STEPS)
+  if shares["chol_ns"] != {27}:
+    raise AssertionError(f"Cholesky launches at n={shares['chol_ns']}, not 27")
+  live = int((d.contact.dist < 0).sum())
+  busy, launches = _busy_share(lambda d: mjtpu_torch.step(m, d), d)
+  # humanoid_bench's pyramidal cones, one step past the same start
+  pyr = _elliptic_model(torch.float32, cone=0)
+  pyr_busy, pyr_launches = _busy_share(lambda d: mjtpu_torch.step(pyr, d),
+                                       mjtpu_torch.step(pyr, _f32_start(pyr)))
+  log(f"[elliptic throughput] {ELLIPTIC} f32 B={BENCH_BATCH}: {TIMED_STEPS} steps in"
+      f" {secs:.3f} s = {rate:.0f} env-steps/s ({1e3 * secs / TIMED_STEPS:.3f} ms/step), beside"
+      f" the pyramidal humanoid_bench of phase 6 in this call: {bench[0]:.0f} env-steps/s"
+      f" ({bench[1]:.3f} ms/step); per step: B1 register {counts['chol_solve'] // TIMED_STEPS}"
+      f" launch (n=27), Newton {loops['iterations'] / TIMED_STEPS:.2f} iterations and"
+      f" {loops['ls_rounds'] / TIMED_STEPS:.2f} linesearch rounds; live contacts after the last"
+      f" step {live}; qpos finite, nreset 0; device step {step_ms:.3f} ms, of it B1"
+      f" {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%); one"
+      f" profiled step: {launches} kernel launches (pyramidal: {pyr_launches}), device busy"
+      f" {100 * busy:.1f}% (pyramidal: {100 * pyr_busy:.1f}%); card {card}")
+  (h, grad), = calls
+  err = _hold_chol(h, grad, f"{ELLIPTIC}'s f32 Newton Hessians (B={BENCH_BATCH})")
+  run = lambda: cholesky.cholesky_solve(h, grad)
+  run_p = lambda: cholesky.chol_solve_reference(h, grad)
+  lib = lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(h).L)[..., 0]
+  k1, p1, l1 = cuda_ms(run), cuda_ms(run_p, PLAIN_REPS), cuda_ms(lib, PLAIN_REPS)
+  k2, p2 = cuda_ms(run), cuda_ms(run_p, PLAIN_REPS)
+  b_ms, b_by = bound(*_chol_work(27, BENCH_BATCH, h.element_size()), h.dtype)
+  log(f"[elliptic throughput] B1 register on those Hessians: {k1:.4f} / {k2:.4f} ms, plain twin"
+      f" {p1:.4f} / {p2:.4f} ms, torch.cholesky_solve(cholesky_ex) {l1:.4f} ms, bound"
+      f" {b_ms:.5f} ms ({b_by}) {TIMING}")
+  timed = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": l1, "bound_ms": b_ms,
+           "max_abs_err": err}
+  return counts, timed
+
+
 def main() -> int:
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -1740,29 +2128,52 @@ def main() -> int:
     raise RuntimeError(f"mjtpu_torch imported from {mjtpu_torch.__file__}, not this checkout")
   import torch
 
+  laps = [t0]
+
+  def lap(phases: str) -> None:
+    laps.append(time.perf_counter())
+    log(f"[time] phase {phases}: {laps[-1] - laps[-2]:.1f} s")
+
   phase_build()
+  lap("1-2")
   chol_err, chol_t, chol_variant_ms, chol_shapes = phase_cholesky()
+  lap("3")
   hf_err, hf_t, hf_variant_ms = phase_hfield()
+  lap("4")
   sat_err, sat_t, sat_variant_ms, sat_shapes = phase_sat()
+  lap("9")
   ldl_err, ldl_t, ldl_context, ldl_variant_ms = phase_ldl()
+  lap("12")
   if "--kernels" in sys.argv[1:]:
     log(f"[done] --kernels: phases 1-4, 9 and 12 only; {time.perf_counter() - t0:.1f} s")
     return 0
   phase_parity()
-  paths = {"humanoid_bench": phase_throughput(card)}
+  bench_counts, bench = phase_throughput(card)
+  paths = {"humanoid_bench": bench_counts}
+  lap("5-6")
   phase_terrain_parity()
   paths["humanoid_terrain"] = phase_terrain_throughput(card)
+  lap("7-8")
   phase_pile_parity()
   paths["scene_pile"] = phase_pile_throughput(card)
+  lap("10-11")
   phase_branchy_parity()
   paths["branchy66"] = phase_branchy_throughput(card)
+  lap("13-14")
   phase_ant_parity()
   paths["ant_bench"] = phase_ant_throughput(card)
+  lap("15-16")
   phase_ant_rk4_parity()
   phase_env_parity()
   paths["ant_env"] = phase_env_throughput(card)
+  lap("17-19")
   phase_collision_parity()
   paths["cylinder_drop"] = phase_drop_throughput(card)
+  lap("20-21")
+  elliptic_f64_err = phase_elliptic_parity()
+  lap("22")
+  paths[ELLIPTIC], elliptic_timed = phase_elliptic_throughput(card, bench)
+  lap("23")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -1802,6 +2213,9 @@ def main() -> int:
       # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
       # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6), f32
       record[-1]["shapes"] = chol_shapes
+      # the elliptic bench's own Newton Hessians, f32 B=4096 (timed) and
+      # the f64 restarts' (max_abs_err_f64)
+      record[-1]["elliptic_hessians"] = {**elliptic_timed, "max_abs_err_f64": elliptic_f64_err}
     if name == "sat_winners":
       # the round hulls (the cylinder drop's cylinder-box and three more
       # pairs), shared, n = ROUND_N, f32

@@ -1,11 +1,13 @@
-"""Constraint assembly: efc rows for joint limits and pyramidal contacts.
+"""Constraint assembly: efc rows for dof friction, joint limits and
+contacts.
 
 Port of mjtpu/_src/constraint.py (the slices' part: _kbi,
-_contact_jacobians, _limit_rows for scalar joints, _contact_rows for
-pyramidal cones at condim 1 and 3, make_constraint).  The row layout is
-static per model — [joint limits | contacts (condim-sorted groups)] — and
-rows deactivate themselves with zeroed Jacobians, as in mjtpu.  Equality, frictionloss,
-tendon limits and elliptic cones arrive with later slices; put_model
+_contact_jacobians, _friction_rows for dofs, _limit_rows for scalar
+joints, _contact_rows for pyramidal and elliptic cones at condim 1, 3, 4
+and 6, make_constraint).  The row layout is static per model — [dof
+friction | joint limits | contacts (condim-sorted groups)] — and rows
+deactivate themselves with zeroed Jacobians, as in mjtpu.  Equality,
+tendon rows and ball-joint limits arrive with later slices; put_model
 refuses models that have them.
 """
 
@@ -18,7 +20,7 @@ import torch
 
 from mjtpu_torch._src import math, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, Model, cached, index
+from mjtpu_torch._src.types import ConeType, Data, DisableBit, Model, cached, index
 
 # MuJoCo impedance clamps
 _MINIMP = 0.0001
@@ -29,14 +31,16 @@ class _Rows(NamedTuple):
   """A block of constraint rows (every shape leads with (B, nrow))."""
 
   J: torch.Tensor            # (B, n, nv)
-  # (B, n) violation: the aref input, and the impedance input too (mjtpu
-  # separates the two for equality rows only)
-  pos: torch.Tensor
+  pos: torch.Tensor          # (B, n) violation: the aref input
+  # (B, n) the violation that drives the impedance: pos, but for an
+  # elliptic contact's friction rows (pos 0) the normal's penetration
+  pos_imp: torch.Tensor
   pos_out: torch.Tensor      # (B, n) value written to efc_pos
   margin: torch.Tensor       # (B, n)
   invweight: torch.Tensor    # (B, n)
   solref: torch.Tensor       # (B, n, 2)
   solimp: torch.Tensor       # (B, n, 5)
+  frictionloss: torch.Tensor  # (B, n)
   # regularization scale applied outside the MINVAL floor (see mjtpu's
   # _Rows.r_scale): R = r_scale * max(MINVAL, invweight*(1-imp)/imp)
   r_scale: torch.Tensor      # (B, n)
@@ -71,11 +75,13 @@ def _kbi(m: Model, solref, solimp, pos):
   return k, b, imp
 
 
-def _contact_jacobians(m: Model, d: Data):
+def _contact_jacobians(m: Model, d: Data, rotational: bool = False):
   """Per-contact frame-projected Jacobian differences.
 
   Returns jt (B, ncon, 3, nv): rows f_i . (jacp2 - jacp1) for the three
-  contact-frame axes f_i, and the contact bodies (b1, b2), each (B, ncon).
+  contact-frame axes f_i; jr (B, ncon, 3, nv): rows f_i . (jacr2 - jacr1),
+  which condim 4 and 6 read (None unless ``rotational``); and the contact
+  bodies (b1, b2), each (B, ncon).
   """
   bodyid, rootid = index(m, "geom_bodyid"), index(m, "body_rootid")
   b1 = bodyid[d.contact.geom1.long()]
@@ -100,7 +106,35 @@ def _contact_jacobians(m: Model, d: Data):
   wg1 = torch.einsum("bcik,bjk->bcij", g1, w)
   wg2 = torch.einsum("bcik,bjk->bcij", g2, w)
   jt = mask2 * (fv + wg2) - mask1 * (fv + wg1)
-  return jt, (b1, b2)
+  jr = None
+  if rotational:
+    jr = (mask2 - mask1) * torch.einsum("bcik,bjk->bcij", frame, w)
+  return jt, jr, (b1, b2)
+
+
+def _friction_rows(m: Model, d: Data) -> list[_Rows]:
+  """Dof frictionloss rows: a unit Jacobian row per dof with frictionloss,
+  in dof order, at pos 0 (tendon frictionloss waits for the tendons)."""
+  dofs = np.asarray(m.friction_dofid)
+  if not len(dofs):
+    return []
+  B, n = d.qpos.shape[0], len(dofs)
+
+  def build():
+    onehot = np.zeros((n, m.nv))
+    onehot[np.arange(n), dofs] = 1.0
+    return (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
+            m.dof_invweight0[dofs], m.dof_solref[dofs], m.dof_solimp[dofs],
+            m.dof_frictionloss[dofs])
+
+  onehot, invweight, solref, solimp, frictionloss = cached(m, "constraint.friction_rows", build)
+  rows = lambda x: x.expand((B,) + x.shape)
+  zero = d.qpos.new_zeros((B, n))
+  return [_Rows(
+      J=rows(onehot), pos=zero, pos_imp=zero, pos_out=zero, margin=zero,
+      invweight=rows(invweight), solref=rows(solref), solimp=rows(solimp),
+      frictionloss=rows(frictionloss), r_scale=torch.ones_like(zero),
+  )]
 
 
 def _limit_rows(m: Model, d: Data) -> list[_Rows]:
@@ -160,10 +194,10 @@ def _limit_rows(m: Model, d: Data) -> list[_Rows]:
     rows = lambda x: x.expand((B,) + x.shape)
     parts.append(_Rows(
         J=c["onehot"] * (side * active)[..., None],
-        pos=pos, pos_out=pos,
+        pos=pos, pos_imp=pos, pos_out=pos,
         margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
         solref=rows(c["solref"]), solimp=rows(c["solimp"]),
-        r_scale=torch.ones_like(pos),
+        frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
     ))
   block = _Rows(*(torch.cat([getattr(p, f) for p in parts], dim=1) for f in _Rows._fields))
   if perm is not None:
@@ -172,11 +206,13 @@ def _limit_rows(m: Model, d: Data) -> list[_Rows]:
 
 
 def _contact_rows(m: Model, d: Data) -> list[_Rows]:
-  """Pyramidal contact rows, vectorized per condim group (the contacts
-  arrive condim-sorted from the driver, so each group is contiguous).
-  Condim 1 (frictionless): one row, the normal.  Condim 3: four rows, the
-  pyramid's two edges along each of the two tangents.  put_model refuses
-  other condims."""
+  """Contact rows, vectorized per condim group (the contacts arrive
+  condim-sorted from the driver, so each group is contiguous).  Condim 1
+  (frictionless): one row, the normal.  Condim 3, 4 and 6 rub along their
+  tangents: the two translational ones, then (4 and 6) the rotational
+  ones, torsion about the normal first.  A pyramidal cone gives each
+  tangent a pair of edges, normal +- friction * tangent; an elliptic one
+  gives the normal, then a row per tangent."""
   from mjtpu_torch._src import collision_driver
 
   ncon = collision_driver.ncon(m)
@@ -184,13 +220,8 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
     return []
   B = d.qpos.shape[0]
   con = d.contact
-  jt, (b1, b2) = _contact_jacobians(m, d)
-  iw_body = m.body_invweight0[:, 0]
-  iw_all = iw_body[b1] + iw_body[b2]        # (B, ncon)
-  pos_all = con.dist - con.includemargin
-  active_all = (pos_all < 0).to(pos_all.dtype)
 
-  def groups():
+  def build():
     dims = collision_driver.make_condim(m)
     out = []
     for condim in sorted(set(int(c) for c in dims)):
@@ -198,38 +229,80 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
       out.append((condim, slice(int(idx[0]), int(idx[-1]) + 1)))
     return out
 
+  groups = cached(m, "constraint.contact_groups", build)
+  jt, jr, (b1, b2) = _contact_jacobians(m, d, rotational=groups[-1][0] > 3)
+  iw_body = m.body_invweight0[:, 0]
+  iw_all = iw_body[b1] + iw_body[b2]        # (B, ncon)
+  pos_all = con.dist - con.includemargin
+  active_all = (pos_all < 0).to(pos_all.dtype)
+  elliptic = m.opt.cone == ConeType.ELLIPTIC
+
   rows = []
-  for condim, sl in cached(m, "constraint.contact_groups", groups):
+  for condim, sl in groups:
     k = sl.stop - sl.start
     jn = jt[:, sl, None, 0]                 # (B, k, 1, nv) normal rows
     pos, active, iw = pos_all[:, sl], active_all[:, sl], iw_all[:, sl]
+    solref = con.solref[:, sl]
     if condim == 1:
       n_rows = 1
       J = jn * active[..., None, None]
-      invweight, r_scale = iw, torch.ones_like(iw)
+      invweight, r_scale, posr = iw, torch.ones_like(iw), pos
     else:
-      n_rows = 4
       mu = con.friction[:, sl]              # (B, k, 5)
-      f = mu[..., :2, None]
-      plus, minus = jn + f * jt[:, sl, 1:3], jn - f * jt[:, sl, 1:3]
-      J = torch.stack([plus, minus], dim=3).reshape(B, k, 4, m.nv) * active[..., None, None]
-      # all pyramid rows share the friction[0]-based invweight (mj C); the
-      # 2*mu^2 factor scales outside the R floor (see _Rows.r_scale)
-      invweight = iw + mu[..., 0] ** 2 * iw
-      r_scale = 2.0 * mu[..., 0] ** 2
-    per_row = lambda x: x[:, :, None].expand((B, k, n_rows) + x.shape[2:]).reshape(
-        (B, n_rows * k) + x.shape[2:])
+      tang = jt[:, sl, 1:3]
+      if condim > 3:
+        tang = torch.cat([tang, jr[:, sl, :condim - 3]], dim=2)  # (B, k, condim-1, nv)
+      f = mu[..., :condim - 1, None]
+      if not elliptic:
+        n_rows = 2 * (condim - 1)
+        plus, minus = jn + f * tang, jn - f * tang
+        J = torch.stack([plus, minus], dim=3).reshape(B, k, n_rows, m.nv) * active[..., None, None]
+        # all pyramid rows share the friction[0]-based invweight (mj C); the
+        # 2*mu^2 factor scales outside the R floor (see _Rows.r_scale)
+        invweight = iw + mu[..., 0] ** 2 * iw
+        r_scale, posr = 2.0 * mu[..., 0] ** 2, pos
+      else:
+        n_rows = condim
+        J = torch.cat([jn, tang], dim=2) * active[..., None, None]
+        invweight = iw
+        # friction rows: D_i = D_n * impratio * (mu_i/mu_0)^2, applied
+        # outside the R floor (see _Rows.r_scale)
+        mu_ratio2 = (mu[..., :condim - 1] / torch.clamp_min(mu[..., :1], math.MINVAL)) ** 2
+        r_scale = torch.cat([
+            torch.ones_like(pos)[..., None],
+            1.0 / torch.clamp_min(m.opt.impratio * mu_ratio2, math.MINVAL)], dim=-1)
+        # friction rows take solreffriction where it is not zero
+        srf = con.solreffriction[:, sl]
+        use_srf = torch.any(srf != 0.0, dim=-1, keepdim=True)
+        srf_row = torch.where(use_srf, srf, solref)
+        solref = torch.cat([solref[:, :, None], srf_row[:, :, None].expand(B, k, condim - 1, 2)],
+                           dim=2)
+        # friction rows sit at position 0 (no normal coupling)
+        posr = torch.cat([pos[..., None], pos.new_zeros((B, k, condim - 1))], dim=-1)
     rows.append(_Rows(
         J=J.reshape(B, n_rows * k, m.nv),
-        pos=per_row(pos),
-        pos_out=per_row(con.dist[:, sl]),
-        margin=per_row(con.includemargin[:, sl]),
-        invweight=per_row(invweight),
-        solref=per_row(con.solref[:, sl]),
-        solimp=per_row(con.solimp[:, sl]),
-        r_scale=per_row(r_scale),
+        pos=_per_row(posr, n_rows),
+        pos_imp=_per_row(pos, n_rows),
+        pos_out=_per_row(con.dist[:, sl], n_rows),
+        margin=_per_row(con.includemargin[:, sl], n_rows),
+        invweight=_per_row(invweight, n_rows),
+        solref=_per_row(solref, n_rows, extra=1),
+        solimp=_per_row(con.solimp[:, sl], n_rows, extra=1),
+        frictionloss=pos.new_zeros((B, n_rows * k)),
+        r_scale=_per_row(r_scale, n_rows),
     ))
   return rows
+
+
+def _per_row(x: torch.Tensor, n_rows: int, extra: int = 0) -> torch.Tensor:
+  """A group's per-row values (B, k * n_rows, ...) from ``x``: (B, k, ...)
+  values a contact, repeated over its rows, or (B, k, n_rows, ...) values
+  a row.  ``extra`` is the number of trailing axes of one value (a
+  solref's 1)."""
+  B, k = x.shape[:2]
+  if x.dim() == 2 + extra:
+    x = x[:, :, None].expand((B, k, n_rows) + x.shape[2:])
+  return x.reshape((B, k * n_rows) + x.shape[3:])
 
 
 def make_constraint(m: Model, d: Data) -> Data:
@@ -246,17 +319,19 @@ def make_constraint(m: Model, d: Data) -> Data:
     )
 
   rows: list[_Rows] = []
+  if not (m.opt.disableflags & DisableBit.FRICTIONLOSS):
+    rows += _friction_rows(m, d)
   if not (m.opt.disableflags & DisableBit.LIMIT):
     rows += _limit_rows(m, d)
   if not (m.opt.disableflags & DisableBit.CONTACT):
     rows += _contact_rows(m, d)
 
   cat = lambda f: torch.cat([getattr(r, f) for r in rows], dim=1)
-  J, pos, pos_out = cat("J"), cat("pos"), cat("pos_out")
+  J, pos, pos_imp, pos_out = cat("J"), cat("pos"), cat("pos_imp"), cat("pos_out")
   margin, invweight, r_scale = cat("margin"), cat("invweight"), cat("r_scale")
-  solref, solimp = cat("solref"), cat("solimp")
+  solref, solimp, frictionloss = cat("solref"), cat("solimp"), cat("frictionloss")
 
-  k, b, imp = _kbi(m, solref, solimp, pos)
+  k, b, imp = _kbi(m, solref, solimp, pos_imp)
   jv = torch.einsum("bnv,bv->bn", J, d.qvel)
   aref = -b * jv - k * imp * pos
   R = r_scale * torch.clamp_min(
@@ -266,7 +341,6 @@ def make_constraint(m: Model, d: Data) -> Data:
   D = 1.0 / torch.clamp_min(R, torch.finfo(dtype).tiny)
 
   return replace(
-      d, efc_J=J, efc_pos=pos_out, efc_margin=margin,
-      efc_frictionloss=torch.zeros_like(pos), efc_D=D, efc_aref=aref,
-      efc_force=torch.zeros_like(pos),
+      d, efc_J=J, efc_pos=pos_out, efc_margin=margin, efc_frictionloss=frictionloss,
+      efc_D=D, efc_aref=aref, efc_force=torch.zeros_like(pos),
   )

@@ -41,6 +41,8 @@ from mjtpu_torch._src.types import (
     IntegratorType,
     JointType,
     Model,
+    NIMP,
+    NREF,
     Option,
     SensorType,
     SolverType,
@@ -89,7 +91,7 @@ FLOAT_FIELDS = (
     "body_subtreemass", "body_inertia", "body_invweight0",
     "jnt_solref", "jnt_solimp", "jnt_pos", "jnt_axis", "jnt_stiffness",
     "jnt_range", "jnt_actfrcrange", "jnt_margin",
-    "dof_armature", "dof_damping", "dof_invweight0",
+    "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
     "geom_solmix", "geom_solref", "geom_solimp", "geom_size", "geom_pos",
     "geom_quat", "geom_friction", "geom_margin", "geom_gap", "geom_rbound",
     "site_size", "site_pos", "site_quat", "hfield_data",
@@ -101,10 +103,14 @@ FLOAT_FIELDS = (
     "actuator_forcerange", "actuator_gear", "sensor_cutoff",
 )
 # read only to refuse models outside the slice
-CHECK_FIELDS = ("dof_frictionloss", "body_gravcomp")
+CHECK_FIELDS = ("body_gravcomp",)
 SNAPSHOT_FIELDS = (
     SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
 )
+# the friction rows' solver parameters: a snapshot stores them only where
+# some dof has frictionloss > 0 (the rows are their only reader), so the
+# snapshots of models without friction dofs stay as they were
+FRICTION_FIELDS = ("dof_solref", "dof_solimp")
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -138,7 +144,8 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
   ``mesh_convex`` (default: mesh.get(mjm)) and ``geom_convex`` (default:
   mesh.get_geoms(mjm)), as a snapshot's arrays."""
   arrays = {}
-  for name in SNAPSHOT_FIELDS:
+  friction = np.any(np.asarray(mjm.dof_frictionloss) > 0)
+  for name in SNAPSHOT_FIELDS + (FRICTION_FIELDS if friction else ()):
     v = _get(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
@@ -252,14 +259,13 @@ def _validate(ns) -> None:
   names = {int(s): s.name for s in SensorType}
   for t in sorted(set(int(t) for t in np.asarray(ns.sensor_type))):
     refuse(t not in SENSORS_PORTED, f"{names.get(t, f'type {t}')} sensors")
+  # tendons (their frictionloss rows and limits too) wait for their slice
   refuse(ns.ntendon, "tendons")
   refuse(ns.neq, "equality constraints")
   refuse(ns.nmocap, "mocap bodies")
   refuse(ns.na, "actuator activation states")
-  refuse(np.any(np.asarray(ns.dof_frictionloss) > 0), "frictionloss")
   refuse(np.any(np.asarray(ns.body_gravcomp) > 0), "gravity compensation")
   refuse(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)), "fluid forces")
-  refuse(int(o.cone) != ConeType.PYRAMIDAL, "elliptic cones")
   refuse(int(o.solver) not in (SolverType.CG, SolverType.NEWTON),
          f"solver {int(o.solver)} (only CG and Newton)")
   refuse(int(o.integrator) == IntegratorType.IMPLICIT,
@@ -341,6 +347,12 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["jnt_limit_two_sided"] = jnt_range[:, 1] - jnt_range[:, 0] < 2 * jnt_margin
   fields["has_jnt_spring"] = bool(np.any(np.asarray(ns.jnt_stiffness) > 0))
   fields["has_dof_damping"] = bool(np.any(np.asarray(ns.dof_damping) > 0))
+  fields["friction_dofid"] = fid = np.nonzero(np.asarray(ns.dof_frictionloss) > 0)[0]
+  for name, width in zip(FRICTION_FIELDS, (NREF, NIMP)):
+    # only the friction dofs' rows are read (a snapshot stores them only then)
+    vals = np.zeros((ns.nv, width))
+    vals[fid] = np.asarray(getattr(ns, name))[fid] if len(fid) else 0.0
+    fields[name] = f(vals)
   fields["geom_rbound_np"] = np.array(ns.geom_rbound, dtype=np.float64)
   fields["geom_size_np"] = np.array(ns.geom_size, dtype=np.float64)
   # a snapshot carries the hull tables it was written with (mesh.py)
@@ -358,11 +370,8 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   m = Model(**fields)
   from mjtpu_torch._src import collision_driver
 
-  # refuse unsupported condims up front (candidate_groups refuses a geom
-  # pair without a collider)
-  bad = set(int(c) for c in collision_driver.make_condim(m)) - {1, 3}
-  if bad:
-    raise NotImplementedError(f"mjtpu_torch does not support contact condim {sorted(bad)} yet")
+  # refuse a geom pair without a collider up front (candidate_groups)
+  collision_driver.make_condim(m)
   # mjtpu's ray has no height-field intersector either
   from mjtpu_torch._src import ray
 

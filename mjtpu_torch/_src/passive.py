@@ -39,7 +39,10 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
           qi += 1
       if not out:
         return qpos.new_zeros(qpos.shape[:-1] + (0,))
-      return torch.cat(torch.broadcast_tensors(*out), dim=-1)
+      # broadcast the leading axes only: a slide's 1 column stays 1 beside
+      # a ball's 3
+      lead = torch.broadcast_shapes(*(o.shape[:-1] for o in out))
+      return torch.cat([o.expand(lead + o.shape[-1:]) for o in out], dim=-1)
 
     spring = scan.flat(
         m, fn, "jjqq", "v",

@@ -1,8 +1,11 @@
 """Constraint solver: CG (Polak-Ribiere) and Newton over the primal cost.
 
-Port of mjtpu/_src/solver.py's dense CG and Newton paths (_row_costs,
-_ls_point, _rescale, warmstart selection, precond_grad, C's 3-point
-linesearch, the iteration body), batch-explicit over B envs.
+Port of mjtpu/_src/solver.py's dense CG and Newton paths (_row_costs with
+its frictionloss and elliptic-cone zones, _ls_point, _rescale, warmstart
+selection, precond_grad with the elliptic cone Hessian, C's 3-point
+linesearch, the iteration body), batch-explicit over B envs.  mjtpu's
+opt-in forest PCG Newton (MJTPU_NEWTON_PCG, off by default) is not
+ported.
 
 mjtpu runs its data-dependent loops as ``lax.while_loop`` under
 ``jax.vmap``, which keeps iterating until every lane is done and freezes
@@ -20,20 +23,21 @@ rounds the loops ran; ``EARLY_EXIT = False`` runs them to their bounds.
 
 The primal problem (MuJoCo Computation docs): minimize over qacc
     0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth) + s(J qacc - aref)
-where s() sums one-sided quadratic penalties for limit and pyramidal
-contact rows.  Frictionloss zones and elliptic cones wait for later
-slices; put_model refuses models that need them.
+where s() sums per-row penalties: huber-like for frictionloss rows,
+one-sided quadratic for limit and pyramidal contact rows, and
+cone-projected quadratic for elliptic contacts.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from mjtpu_torch._src import math, smooth
+from mjtpu_torch._src import math, smooth, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, Model, SolverType
+from mjtpu_torch._src.types import ConeType, Data, DisableBit, Model, SolverType, cached
 from mjtpu_torch.ops import fused
 
 # solver iterations and linesearch rounds run (each counts once for the
@@ -79,23 +83,170 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return torch.sum(a * b, dim=-1)
 
 
-def _row_costs(Jaref: torch.Tensor, efc_D: torch.Tensor):
-  """Per-row force / total cost / quadratic-active mask at x = Jaref.
-  Every row of the slice is an inequality row (limit or pyramidal contact),
-  active only where x < 0."""
-  active = Jaref < 0
-  force = torch.where(active, -efc_D * Jaref, 0.0)
-  cost = torch.where(active, 0.5 * efc_D * Jaref * Jaref, 0.0)
-  return force, torch.sum(cost, dim=-1), active
+class _EfcMeta(NamedTuple):
+  """Static row-type structure (host)."""
+
+  nf: int     # the frictionloss rows come first, [0, nf)
+  nefc: int
+  # elliptic contacts by condim, ((dim, first row, K contacts, first
+  # contact), ...).  The driver sorts contacts by condim, so a group's
+  # K * dim rows are contiguous and a slice and a reshape read them as
+  # (B, K, dim) blocks: each group is one batched computation, and the
+  # launches stay flat in K.
+  elliptic_groups: tuple
 
 
-def _ls_point(quad_gauss, quad, Jaref, jv, alpha) -> _LSPoint:
+def _efc_meta(m: Model) -> _EfcMeta:
+  def build():
+    from mjtpu_torch._src import collision_driver
+
+    ne, nf, nl, nefc = support.count_constraints(m)
+    groups = []
+    if m.opt.cone == ConeType.ELLIPTIC:
+      dims = collision_driver.make_condim(m)
+      addr = collision_driver.contact_efc_address(m, ne, nf, nl)
+      for dim in sorted(set(int(c) for c in dims) - {1}):
+        idx = np.nonzero(dims == dim)[0]
+        first, k = int(addr[idx[0]]), len(idx)
+        if not (np.array_equal(idx, idx[0] + np.arange(k))
+                and np.array_equal(addr[idx], first + dim * np.arange(k))):
+          raise AssertionError(f"condim {dim} contacts are not contiguous: {idx}")
+        groups.append((dim, first, k, int(idx[0])))
+    return _EfcMeta(nf, nefc, tuple(groups))
+
+  return cached(m, "solver.efc_meta", build)
+
+
+class _Cone(NamedTuple):
+  """One elliptic group's quantities that depend on efc_D and the
+  friction only (fixed through a solve): mjtpu's _elliptic_geometry
+  transforms the anisotropic cone to a circular one in a D-weighted
+  space, v_i = u_i sqrt(D_i / D_n), of slope mu_t = mu_0 sqrt(D_n / D_t1)."""
+
+  dim: int
+  rows: slice                # the group's K * dim efc rows
+  D: torch.Tensor            # (B, K, dim)
+  v_scale: torch.Tensor      # (B, K, dim - 1)
+  mu_t: torch.Tensor         # (B, K)
+  dm: torch.Tensor           # (B, K) D_n / (1 + mu_t^2)
+
+
+def _cones(meta: _EfcMeta, efc_D: torch.Tensor, friction: torch.Tensor) -> list[_Cone]:
+  cones = []
+  for dim, first, k, c0 in meta.elliptic_groups:
+    rows = slice(first, first + k * dim)
+    D = efc_D[:, rows].reshape(-1, k, dim)
+    d_n = D[..., 0]
+    v_scale = torch.sqrt(D[..., 1:] / torch.clamp_min(d_n, math.MINVAL)[..., None])
+    mu_t = friction[:, c0:c0 + k, 0] * torch.sqrt(d_n / torch.clamp_min(D[..., 1], math.MINVAL))
+    dm = d_n / (1.0 + mu_t * mu_t)
+    cones.append(_Cone(dim, rows, D, v_scale, mu_t, dm))
+  return cones
+
+
+def _block(x: torch.Tensor, c: _Cone) -> torch.Tensor:
+  """(B, K, dim) view of a group's rows of x (B, nefc)."""
+  return x[:, c.rows].reshape(x.shape[0], -1, c.dim)
+
+
+def _splice(x: torch.Tensor, c: _Cone, blk: torch.Tensor) -> torch.Tensor:
+  """x with the group's rows replaced by blk (B, K, dim)."""
+  return torch.cat([x[:, :c.rows.start], blk.reshape(x.shape[0], -1), x[:, c.rows.stop:]], dim=1)
+
+
+def _row_costs(meta: _EfcMeta, cones: list[_Cone], Jaref, efc_D, efc_frictionloss):
+  """Per-row force / total cost / quadratic-active mask at x = Jaref:
+  frictionloss rows are linear beyond +-R*frictionloss, limit and contact
+  rows active only where x < 0, and each elliptic contact's block is
+  priced by its cone zone."""
+  nf = meta.nf
+  x, D = Jaref[:, nf:], efc_D[:, nf:]
+  active = x < 0
+  force = torch.where(active, -D * x, 0.0)
+  cost = torch.where(active, 0.5 * D * x * x, 0.0)
+  quad = active
+  if nf:
+    x, D, f = Jaref[:, :nf], efc_D[:, :nf], efc_frictionloss[:, :nf]
+    R = 1.0 / torch.clamp_min(D, math.MINVAL)
+    lin_neg = x <= -R * f
+    lin_pos = x >= R * f
+    f_force = torch.where(lin_neg, f, torch.where(lin_pos, -f, -D * x))
+    f_cost = torch.where(lin_neg, -f * x - 0.5 * R * f * f,
+                         torch.where(lin_pos, f * x - 0.5 * R * f * f, 0.5 * D * x * x))
+    force = torch.cat([f_force, force], dim=1)
+    cost = torch.cat([f_cost, cost], dim=1)
+    quad = torch.cat([~(lin_neg | lin_pos), quad], dim=1)
+
+  for c in cones:
+    U = _block(Jaref, c)
+    N, T = U[..., 0], math.safe_norm(U[..., 1:] * c.v_scale)
+    top = N >= c.mu_t * T
+    bottom = (c.mu_t * N + T) <= 0
+    nmt = N - c.mu_t * T
+    mid_cost = 0.5 * c.dm * nmt * nmt
+    # middle-zone force: fn = -dm (N - mu T); ft_i = (D_i/D_n) dm mu nmt u_i / T
+    fn_mid = -c.dm * nmt
+    tsafe = torch.clamp_min(T, math.MINVAL)
+    ft_mid = ((c.D[..., 1:] / c.D[..., :1]) * c.dm[..., None] * c.mu_t[..., None]
+              * nmt[..., None] * U[..., 1:] / tsafe[..., None])
+    f_mid = torch.cat([fn_mid[..., None], ft_mid], dim=-1)
+    f_bottom = -c.D * U
+    c_bottom = 0.5 * torch.sum(c.D * U * U, dim=-1)
+    f_blk = torch.where(top[..., None], 0.0, torch.where(bottom[..., None], f_bottom, f_mid))
+    c_blk = torch.where(top, 0.0, torch.where(bottom, c_bottom, mid_cost))
+    force = _splice(force, c, f_blk)
+    # the block's cost on its normal row, zero on its friction rows
+    cost = _splice(cost, c, torch.cat([c_blk[..., None], torch.zeros_like(U[..., 1:])], dim=-1))
+    quad = _splice(quad, c, bottom[..., None].expand(U.shape))
+  return force, torch.sum(cost, dim=-1), quad
+
+
+class _LSCone(NamedTuple):
+  """One elliptic group's linesearch terms that do not depend on alpha."""
+
+  cone: _Cone
+  JV: torch.Tensor      # (B, K, dim) the block's J @ search
+  ju: torch.Tensor      # (B, K, dim - 1) its friction part, scaled
+  dd_bot: torch.Tensor  # (B, K) phi'' of the bottom zone
+  juju: torch.Tensor    # (B, K) |ju|^2
+
+
+def _ls_cones(cones: list[_Cone], jv: torch.Tensor) -> list[_LSCone]:
+  out = []
+  for c in cones:
+    JV = _block(jv, c)
+    ju = JV[..., 1:] * c.v_scale
+    out.append(_LSCone(c, JV, ju, torch.sum(c.D * JV * JV, dim=-1), torch.sum(ju * ju, dim=-1)))
+  return out
+
+
+def _ls_point(quad_gauss, quad, Jaref, jv, alpha, fric=None, cones=()) -> _LSPoint:
   """(cost, phi', phi'') of the piecewise-quadratic total cost at alpha —
   MuJoCo C's LSPoint: per-row quadratic coefficients masked by the active
-  set at x = Jaref + alpha*jv."""
+  set at x = Jaref + alpha*jv, plus the frictionloss rows' linear zones
+  (``fric``: (nf, efc_D, efc_frictionloss)) and each elliptic group's
+  cone zones in place of its rows' one-sided quadratic."""
   x = Jaref + alpha[:, None] * jv
   active = x < 0
+  adjust = None
+  if fric is not None:
+    nf, efc_D, efc_frictionloss = fric
+    xf, f = x[:, :nf], efc_frictionloss[:, :nf]
+    rf = 1.0 / torch.clamp_min(efc_D[:, :nf], math.MINVAL) * f
+    has_f = f > 0
+    fl_ln = has_f & (xf <= -rf)
+    fl_lp = has_f & (xf >= rf)
+    ja, jvf = Jaref[:, :nf], jv[:, :nf]
+    qf0 = (torch.sum(torch.where(fl_ln, f * (-0.5 * rf - ja), 0.0), dim=-1)
+           + torch.sum(torch.where(fl_lp, f * (-0.5 * rf + ja), 0.0), dim=-1))
+    qf1 = (torch.sum(torch.where(fl_ln, -f * jvf, 0.0), dim=-1)
+           + torch.sum(torch.where(fl_lp, f * jvf, 0.0), dim=-1))
+    adjust = torch.stack([qf0, qf1, torch.zeros_like(qf0)], dim=-1)
+    # a friction row is quadratic everywhere but in its linear zones
+    active = torch.cat([~(fl_ln | fl_lp), active[:, nf:]], dim=1)
   qt = quad_gauss + torch.sum(torch.where(active[..., None], quad, 0.0), dim=1)
+  if adjust is not None:
+    qt = qt + adjust
   cost = alpha * alpha * qt[:, 2] + alpha * qt[:, 1] + qt[:, 0]
   # A Newton candidate inside one quadratic piece has phi' algebraically
   # zero.  mjtpu's compiled linesearch evaluates phi' with a fused
@@ -104,9 +255,68 @@ def _ls_point(quad_gauss, quad, Jaref, jv, alpha) -> _LSPoint:
   # 0.0, which neither joins nor ends it.  The exact product follows mjtpu.
   d0 = math.fma(2.0 * alpha, qt[:, 2], qt[:, 1])
   d1 = 2.0 * qt[:, 2]
+
+  # elliptic groups: their rows' one-sided quadratic out, the cone zones in
+  for lc in cones:
+    c, JV = lc.cone, lc.JV
+    X = _block(x, c)
+    N, v = X[..., 0], X[..., 1:] * c.v_scale
+    T = math.safe_norm(v)
+    top = N >= c.mu_t * T
+    bottom = (c.mu_t * N + T) <= 0
+    blk_active = X < 0
+    cost = cost - torch.sum(torch.where(blk_active, 0.5 * c.D * X * X, 0.0), dim=(1, 2))
+    d0 = d0 - torch.sum(torch.where(blk_active, c.D * X * JV, 0.0), dim=(1, 2))
+    d1 = d1 - torch.sum(torch.where(blk_active, c.D * JV * JV, 0.0), dim=(1, 2))
+    # bottom: the full quadratic over the block
+    c_bot = 0.5 * torch.sum(c.D * X * X, dim=-1)
+    d_bot = torch.sum(c.D * X * JV, dim=-1)
+    # middle: the cone cost 0.5 dm (N - mu T)^2; T -> 0 (no slip) is
+    # guarded by the MINVAL floor, as in mjtpu
+    tsafe = torch.clamp_min(T, math.MINVAL)
+    dt = torch.sum(v * lc.ju, dim=-1) / tsafe
+    ddt = (lc.juju - dt * dt) / tsafe
+    nmt = N - c.mu_t * T
+    dnmt = JV[..., 0] - c.mu_t * dt
+    c_mid = 0.5 * c.dm * nmt * nmt
+    d_mid = c.dm * nmt * dnmt
+    dd_mid = c.dm * (dnmt * dnmt + nmt * (-c.mu_t) * ddt)
+    zone = lambda b, mid: torch.sum(
+        torch.where(top, 0.0, torch.where(bottom, b, mid)), dim=-1)
+    cost = cost + zone(c_bot, c_mid)
+    d0 = d0 + zone(d_bot, d_mid)
+    d1 = d1 + zone(lc.dd_bot, dd_mid)
+
   # guard degenerate d1 over the whole |d1| < MINVAL band (see mjtpu)
   d1 = torch.where(torch.abs(d1) < math.MINVAL, math.MINVAL, d1)
   return _LSPoint(alpha=alpha, cost=cost, d0=d0, d1=d1)
+
+
+def _cone_blocks(cones: list[_Cone], efc_J: torch.Tensor, Jaref: torch.Tensor) -> list:
+  """Each elliptic group's exact cone Hessian in the middle zone,
+    H = Dm a a' - (Dm nmt mu / T) S (I - v v') S,  a = (1, -mu S v_hat),
+  zero in the others: [(hcone (B, K, dim, dim), Jblk (B, K, dim, nv))]."""
+  out = []
+  for c in cones:
+    U = _block(Jaref, c)
+    B, K = U.shape[:2]
+    Jblk = efc_J[:, c.rows].reshape(B, K, c.dim, efc_J.shape[-1])
+    N, T = U[..., 0], math.safe_norm(U[..., 1:] * c.v_scale)
+    middle = (N < c.mu_t * T) & ((c.mu_t * N + T) > 0)
+    tsafe = torch.clamp_min(T, math.MINVAL)
+    v_hat = U[..., 1:] * c.v_scale / tsafe[..., None]
+    a = torch.cat([torch.ones_like(N)[..., None], -c.mu_t[..., None] * c.v_scale * v_hat], dim=-1)
+    hcone = c.dm[..., None, None] * a[..., :, None] * a[..., None, :]
+    nmt = N - c.mu_t * T
+    curv = -(c.dm * nmt * c.mu_t / tsafe)
+    eye = torch.eye(c.dim - 1, dtype=U.dtype, device=U.device)
+    pmat = eye - v_hat[..., :, None] * v_hat[..., None, :]
+    corner = hcone[..., 1:, 1:] + curv[..., None, None] * (
+        c.v_scale[..., :, None] * pmat * c.v_scale[..., None, :])
+    hcone = torch.cat([hcone[..., :1, :], torch.cat([hcone[..., 1:, :1], corner], dim=-1)],
+                      dim=-2)
+    out.append((torch.where(middle[..., None, None], hcone, 0.0), Jblk))
+  return out
 
 
 def _rescale(m: Model, value):
@@ -116,13 +326,17 @@ def _rescale(m: Model, value):
 def solve(m: Model, d: Data) -> Data:
   """Solves for constrained qacc (mj_fwdConstraint, CG or Newton)."""
   dtype = d.qpos.dtype
+  meta = _efc_meta(m)
   efc_J, efc_D, efc_aref = d.efc_J, d.efc_D, d.efc_aref
+  efc_frictionloss = d.efc_frictionloss
   qfrc_smooth, qacc_smooth = d.qfrc_smooth, d.qacc_smooth
   efc_JT = efc_J.transpose(-1, -2)
   matvec = lambda a, x: (a @ x[..., None])[..., 0]
+  cones = _cones(meta, efc_D, d.contact.friction)
+  fric = (meta.nf, efc_D, efc_frictionloss) if meta.nf else None
 
   def update_constraint(qacc, Ma, Jaref):
-    force, cost_c, quad = _row_costs(Jaref, efc_D)
+    force, cost_c, quad = _row_costs(meta, cones, Jaref, efc_D, efc_frictionloss)
     gauss = 0.5 * _dot(Ma - qfrc_smooth, qacc - qacc_smooth)
     return force, gauss + cost_c, gauss, quad
 
@@ -137,13 +351,19 @@ def solve(m: Model, d: Data) -> Data:
 
   newton = m.opt.solver == SolverType.NEWTON
 
-  def precond_grad(grad, quad):
+  def precond_grad(grad, quad, Jaref):
     if not newton:
       return smooth.solve_m(m, d, grad)
     Dq = efc_D * quad
     h = d.qM + (efc_JT * Dq[:, None, :]) @ efc_J
     if reg is not None:
       h = h + reg * eye
+    # fold each group's K cone congruences Jblk' hcone Jblk into h: two
+    # batched products a group, whatever its K
+    for hcone, jblk in _cone_blocks(cones, efc_J, Jaref):
+      B = jblk.shape[0]
+      hj = (hcone @ jblk).reshape(B, -1, m.nv)
+      h = h + jblk.reshape(B, -1, m.nv).transpose(-1, -2) @ hj
     return fused.chol_solve(h, grad)
 
   def linesearch(Ma, Jaref, search, gauss, running):
@@ -160,7 +380,8 @@ def solve(m: Model, d: Data) -> Data:
     )
     quad = torch.stack([0.5 * Jaref * Jaref, jv * Jaref, 0.5 * jv * jv], dim=-1) * efc_D[..., None]
 
-    point = lambda a: _ls_point(quad_gauss, quad, Jaref, jv, a)
+    ls_cones = _ls_cones(cones, jv)
+    point = lambda a: _ls_point(quad_gauss, quad, Jaref, jv, a, fric, ls_cones)
 
     p0 = point(torch.zeros_like(gauss))
     p1 = point(p0.alpha - p0.d0 / p0.d1)
@@ -249,7 +470,7 @@ def solve(m: Model, d: Data) -> Data:
       break
     loop_counts["iterations"] += 1
     # the expensive preconditioned gradient runs once per iteration
-    mgrad = precond_grad(ctx.grad, ctx.quad)
+    mgrad = precond_grad(ctx.grad, ctx.quad, ctx.Jaref)
     if newton:
       search = -mgrad
     else:

@@ -28,13 +28,15 @@ from mjtpu_torch._src.types import (
 
 
 def count_constraints(m: Model) -> tuple[int, int, int, int]:
-  """(ne, nf, nl, nefc): static row counts.  The slice has no equality
-  constraints, no frictionloss and no tendons (put_model refuses them), so
-  ne = nf = 0 and the limit rows are those of scalar joints."""
+  """(ne, nf, nl, nefc): static row counts.  The port has no equality
+  constraints and no tendons yet (put_model refuses them), so ne = 0, the
+  friction rows are those of dofs and the limit rows those of scalar
+  joints."""
 
   def build():
     if m.opt.disableflags & DisableBit.CONSTRAINT:
       return 0, 0, 0, 0
+    nf = 0 if m.opt.disableflags & DisableBit.FRICTIONLOSS else len(m.friction_dofid)
     nl = 0
     if not (m.opt.disableflags & DisableBit.LIMIT):
       jt = np.asarray(m.jnt_type)
@@ -52,7 +54,7 @@ def count_constraints(m: Model) -> tuple[int, int, int, int]:
       else:
         rows = condim
       ncon_rows += rows * count
-    return 0, 0, nl, nl + ncon_rows
+    return 0, nf, nl, nf + nl + ncon_rows
 
   return cached(m, "support.count_constraints", build)
 
@@ -67,7 +69,7 @@ def constraint_sizes(m: Model) -> tuple[int, int, int, int, int]:
 
 def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
   """Static (efc_type, efc_id) labels for every row of the fixed efc layout
-  (limits, then contacts), as in mjtpu's support.efc_row_meta."""
+  (dof friction, limits, then contacts), as in mjtpu's support.efc_row_meta."""
 
   def build():
     from mjtpu_torch._src import collision_driver
@@ -75,7 +77,9 @@ def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
     ne, nf, nl, nefc = count_constraints(m)
     types = np.zeros(nefc, np.int32)
     ids = np.zeros(nefc, np.int32)
-    r = 0
+    types[:nf] = int(ConstraintType.FRICTION_DOF)
+    ids[:nf] = np.asarray(m.friction_dofid)[:nf]
+    r = nf
     if nl:
       jt = np.asarray(m.jnt_type)
       two = np.asarray(m.jnt_limit_two_sided).astype(bool)
@@ -184,7 +188,10 @@ def _contact_force_rows(m: Model) -> list[tuple[int, slice, torch.Tensor]]:
     out = []
     for condim in sorted(set(int(c) for c in dims)):
       idx = np.nonzero(dims == condim)[0]
-      n_rows = 1 if condim == 1 else 2 * (condim - 1)
+      if condim == 1 or m.opt.cone == ConeType.ELLIPTIC:
+        n_rows = condim
+      else:
+        n_rows = 2 * (condim - 1)
       rows = addr[idx][:, None] + np.arange(n_rows)[None]
       out.append((condim, slice(int(idx[0]), int(idx[-1]) + 1),
                   torch.as_tensor(rows, dtype=torch.long, device=m.device)))
@@ -195,10 +202,11 @@ def _contact_force_rows(m: Model) -> list[tuple[int, slice, torch.Tensor]]:
 
 def contact_forces(m: Model, d: Data) -> torch.Tensor:
   """(B, ncon, 6) contact wrenches in the contact frame [fn, ft1, ft2,
-  torques], decoded from efc_force: a condim-1 row is the normal force; a
+  torques], decoded from efc_force: a condim-1 row is the normal force; an
+  elliptic contact's rows are the wrench's first condim components; a
   pyramidal contact's normal force is the sum of its rows and each
   friction component the difference of a row pair times its friction
-  (mju_decodePyramid).  Elliptic cones: put_model refuses them."""
+  (mju_decodePyramid)."""
   from mjtpu_torch._src import collision_driver
 
   B = d.qpos.shape[0]
@@ -209,8 +217,8 @@ def contact_forces(m: Model, d: Data) -> torch.Tensor:
   for condim, sl, rows in _contact_force_rows(m):
     f = d.efc_force[:, rows]  # (B, k, rows)
     k = rows.shape[0]
-    if condim == 1:
-      parts.append(torch.cat([f, f.new_zeros((B, k, 5))], dim=-1))
+    if condim == 1 or m.opt.cone == ConeType.ELLIPTIC:
+      parts.append(torch.cat([f, f.new_zeros((B, k, 6 - condim))], dim=-1))
       continue
     mu = d.contact.friction[:, sl]
     total = f[..., 0]

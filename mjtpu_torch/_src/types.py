@@ -403,6 +403,12 @@ class Model:
   dof_armature: torch.Tensor = None
   dof_damping: torch.Tensor = None
   dof_invweight0: torch.Tensor = None
+  dof_frictionloss: torch.Tensor = None
+  # the solver parameters of the dofs' friction rows, their only reader:
+  # mjModel's values at the dofs with frictionloss > 0, zero at the others
+  # (a snapshot of a model without friction dofs does not store them)
+  dof_solref: torch.Tensor = None
+  dof_solimp: torch.Tensor = None
   # ---- geoms ----
   geom_type: np.ndarray = static(None)
   geom_contype: np.ndarray = static(None)
@@ -508,6 +514,7 @@ class Model:
   # (njnt,) bool: range narrower than 2*margin, so C can emit both the
   # lower and the upper limit row at once (support.count_constraints)
   jnt_limit_two_sided: np.ndarray = static(None)
+  friction_dofid: np.ndarray = static(None)  # dofs with frictionloss > 0
   has_jnt_spring: bool = static(False)
   has_dof_damping: bool = static(False)
   cache: dict = dataclasses.field(

@@ -152,11 +152,40 @@
         <scene>.qpos0          the states
         <scene>.dist, pos, frame, geom1, geom2   the contacts
 
+  mjtpu_torch/assets/humanoid_bench_elliptic_model.npz
+      the snapshot of humanoid_bench.xml with opt.cone elliptic (bench.py's
+      humanoid_bench_elliptic).
+  mjtpu_torch/assets/humanoid_bench_elliptic_golden.npz
+      mjtpu at float64 on the CPU from humanoid_bench's initial states
+      (initial_state, numpy seed 0):
+        qpos, qvel, warm       (steps, 4, ...) after each step; warm is the
+                               qacc_warmstart a restart from that state needs
+        qacc, efc_force, contact_dist   after the first step
+        fwd.<field>            the forward Data of step 1 (port_fields)
+        solo_qpos, solo_qvel   (steps, 4, ...) one step of mjtpu compiled for
+                               one env (jit(step)) from the batched run's
+                               state before each step
+        solo_run_qpos, solo_run_qvel
+                               (steps, 4, ...) that compile's own run from
+                               the initial states, env by env
+        conv_qpos, conv_qvel, conv_warm, conv_solo_qpos, conv_solo_qvel,
+        conv_solo_run_qpos, conv_solo_run_qvel
+                               the same with the solver run to convergence
+                               (opt.iterations and opt.ls_iterations =
+                               CONVERGED, stored as converged_iterations)
+  mjtpu_torch/assets/cone_scenes.npz, cone_scenes_golden.npz
+      the bundle of cone_scene_xmls (the condim and elliptic test models,
+      two frictionloss scenes, the elliptic fuzz scenes put_model takes)
+      and, per scene from cone_initial_state, mjtpu's run at float64:
+      <scene>.qpos0, .qvel0 (.qfrc_applied0), .qpos, .qvel (.sensordata)
+      over the steps, and .fwd.<field> of step 1.
+
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
         [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
-                     |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes]
+                     |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes
+                     |humanoid_bench_elliptic|cone_scenes]
         [--steps N] [--env NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -212,8 +241,44 @@ PAIR_SCENES = ("plane_ellipsoid", "plane_cylinder", "plane_cylinder_flat", "plan
                "sphere_cylinder_side", "sphere_cylinder_cap", "sphere_cylinder_rim",
                "capsule_box", "hfield_box")
 SCENE_BATCH = 2
+ELLIPTIC_MODEL_FILE = ASSETS / "humanoid_bench_elliptic_model.npz"
+ELLIPTIC_GOLDEN_FILE = ASSETS / "humanoid_bench_elliptic_golden.npz"
+CONE_SCENES_FILE = ASSETS / "cone_scenes.npz"
+CONE_GOLDEN_FILE = ASSETS / "cone_scenes_golden.npz"
+# the test models of the friction-row and cone slice
+CONE_XMLS = ("condim4_elliptic", "condim4_pyramidal", "condim6_elliptic", "condim_cg", "elliptic")
+# tests/test_solver.py::test_frictionloss_saturation's slide joint
+FRICTIONLOSS_SLIDE_XML = """<mujoco><option timestep="0.002"/><worldbody><body>
+  <joint name="s" type="slide" axis="1 0 0" frictionloss="3.0"/>
+  <geom size="0.1" mass="1"/></body></worldbody></mujoco>"""
+# hinges with frictionloss and limits beside an elliptic condim-6 sphere:
+# friction rows before the limit rows, read by jointlimitfrc, and a touch
+# sensor on the sphere, read from the elliptic contact forces
+FRICTIONLOSS_CHAIN_XML = """<mujoco><option timestep="0.002" cone="elliptic" impratio="2"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.5">
+      <joint name="j1" type="hinge" axis="0 1 0" frictionloss="0.2" limited="true"
+             range="-0.3 0.3"/>
+      <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04" mass="0.5"/>
+      <body pos="0.3 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0" frictionloss="0.05" limited="true"
+               range="-1 1"/>
+        <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03" mass="0.3"/>
+      </body>
+    </body>
+    <body pos="1 0 0.3"><freejoint/>
+      <geom type="sphere" size="0.1" mass="0.5" condim="6" friction="0.7 0.02 0.002"/>
+      <site name="ball" size="0.11"/>
+    </body>
+  </worldbody>
+  <sensor><jointlimitfrc joint="j1"/><jointlimitfrc joint="j2"/><touch site="ball"/></sensor>
+</mujoco>"""
+# tests/test_fuzz.py::test_fuzz_elliptic_cone's scenes
+FUZZ_SEEDS = range(5)
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
-          "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes")
+          "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
+          "humanoid_bench_elliptic", "cone_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -221,7 +286,8 @@ PILE_EVERY = 5
 BATCH = 4
 STEPS = 100
 # solver iterations / linesearch iterations that run humanoid_bench's
-# Newton solve to convergence (it stops after at most 4 iterations)
+# Newton solve to convergence (it stops after at most 4 iterations; with
+# elliptic cones after 3.6 on average, ROADMAP C7)
 CONVERGED = 10
 
 
@@ -867,6 +933,201 @@ def scenes(names=None) -> tuple[dict, dict[str, np.ndarray]]:
   return snapshots, golden
 
 
+def load_elliptic_mjmodel():
+  """humanoid_bench with elliptic cones: bench.py's humanoid_bench_elliptic
+  (MJTPU_BENCH_CONE=elliptic)."""
+  mjm = load_mjmodel()
+  mjm.opt.cone = 1  # mjCONE_ELLIPTIC
+  return mjm
+
+
+def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel")):
+  """Steps mjtpu (f64, CPU, jit(vmap(step))) from the state fields
+  ``start`` (B envs): ({field: (steps, B, ...)} after each step, the
+  forward Data of step 1 as port_fields under "fwd.": qpos, qvel and
+  time put back, qacc the solver's)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  batch = len(start["qpos"])
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(batch))
+  d = d.replace(**{k: jnp.asarray(v) for k, v in start.items()})
+  d0 = d
+  step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+  out = {k: [] for k in fields}
+  for i in range(steps):
+    d = step(m, d)
+    for k in out:
+      out[k].append(np.asarray(getattr(d, k)))
+    if i == 0:
+      fwd = jax.tree.map(np.asarray, d.replace(
+          qpos=d0.qpos, qvel=d0.qvel, time=d0.time, qacc=d.qacc_warmstart))
+  return {k: np.stack(v) for k, v in out.items()}, port_fields(fwd, "fwd.")
+
+
+def _mjtpu_solo(mjm, start: dict, run: dict, steps: int) -> dict[str, np.ndarray]:
+  """mjtpu compiled for one env (jit(step), f64, CPU), env by env: one
+  step from the batched ``run``'s state before each of its steps
+  (solo_qpos, solo_qvel) and its own run from ``start`` (solo_run_qpos,
+  solo_run_qvel), each (steps, B, ...)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+
+  m = mjtpu.put_model(mjm, dtype=jnp.float64)
+  step = jax.jit(lambda d: mjtpu.step(m, d))
+  d0 = mjtpu.make_data(m)
+  before = lambda k, first: np.concatenate([first[None], run[k][:steps - 1]])
+  prev = {"qpos": before("qpos", start["qpos"]), "qvel": before("qvel", start["qvel"]),
+          "qacc_warmstart": before("qacc_warmstart", np.zeros_like(run["qacc_warmstart"][0]))}
+  out = {k: np.zeros((steps,) + run[k].shape[1:]) for k in ("qpos", "qvel")}
+  solo = {f"run_{k}": np.zeros_like(v) for k, v in out.items()}
+  for e in range(len(start["qpos"])):
+    ctrl = jnp.asarray(start["ctrl"][e])
+    d = d0.replace(qpos=jnp.asarray(start["qpos"][e]), qvel=jnp.asarray(start["qvel"][e]), ctrl=ctrl)
+    for i in range(steps):
+      got = step(d0.replace(ctrl=ctrl, **{k: jnp.asarray(v[i, e]) for k, v in prev.items()}))
+      d = step(d)
+      for k in ("qpos", "qvel"):
+        out[k][i, e] = np.asarray(getattr(got, k))
+        solo[f"run_{k}"][i, e] = np.asarray(getattr(d, k))
+  return {f"solo_{k}": v for k, v in {**out, **solo}.items()}
+
+
+def elliptic_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The humanoid_bench_elliptic golden's arrays (module docstring)."""
+  import copy
+
+  qpos0, qvel0, ctrl = initial_state(mjm)
+  start = {"qpos": qpos0, "qvel": qvel0, "ctrl": ctrl}
+  fields = ("qpos", "qvel", "qacc_warmstart")
+  run, fwd = _mjtpu_run(mjm, start, steps, fields)
+  conv = copy.copy(mjm)
+  conv.opt.iterations = conv.opt.ls_iterations = CONVERGED
+  conv_run, _ = _mjtpu_run(conv, start, steps, fields)
+  live = (fwd["fwd.contact.dist"] < 0).sum(axis=1)
+  print(f"humanoid_bench_elliptic: live contacts per env at step 1 {live.tolist()}")
+  solo = _mjtpu_solo(mjm, start, run, steps)
+  conv_solo = _mjtpu_solo(conv, start, conv_run, steps)
+  return {
+      "qpos0": qpos0, "qvel0": qvel0, "ctrl": ctrl, "qpos": run["qpos"], "qvel": run["qvel"],
+      "warm": run["qacc_warmstart"], "qacc": fwd["fwd.qacc"], "efc_force": fwd["fwd.efc_force"],
+      "contact_dist": fwd["fwd.contact.dist"], "conv_qpos": conv_run["qpos"],
+      "conv_qvel": conv_run["qvel"], "conv_warm": conv_run["qacc_warmstart"], **solo,
+      **{f"conv_{k}": v for k, v in conv_solo.items()},
+      "converged_iterations": np.array(CONVERGED),
+      "converged_ls_iterations": np.array(CONVERGED), **fwd,
+  }
+
+
+def cone_scene_xmls() -> dict[str, str]:
+  """The scenes of cone_scenes.npz, name -> MJCF: the test models, the
+  two frictionloss scenes and the elliptic fuzz scenes that put_model
+  takes (it prints why it refuses the others)."""
+  import mujoco
+
+  import mjtpu_torch
+  from mjtpu._src.test_util import create_mjcf
+
+  xmls = {name: (ROOT / "tests" / "models" / f"{name}.xml").read_text() for name in CONE_XMLS}
+  xmls["frictionloss_slide"] = FRICTIONLOSS_SLIDE_XML
+  xmls["frictionloss_chain"] = FRICTIONLOSS_CHAIN_XML
+  for seed in FUZZ_SEEDS:
+    xml = create_mjcf(seed + 500, geom_types=("sphere", "capsule"), cone="elliptic",
+                      contact_pairs=True, frictionloss=(seed % 2 == 0))
+    try:
+      mjtpu_torch.put_model(mujoco.MjModel.from_xml_string(xml), device="cpu")
+    except NotImplementedError as e:
+      print(f"fuzz seed {seed}: refused: {e}")
+      continue
+    xmls[f"fuzz_{seed}"] = xml
+  return xmls
+
+
+def _subtree_lowest(mjm, mjd, root: int) -> float:
+  """The lowest world z over the sphere and capsule geoms of ``root``'s
+  tree."""
+  low = np.inf
+  for g in range(mjm.ngeom):
+    t = mjm.geom_type[g]
+    if mjm.body_rootid[mjm.geom_bodyid[g]] != root or t not in (2, 3):
+      continue
+    half = abs(mjd.geom_xmat[g, 8]) * mjm.geom_size[g, 1] if t == 3 else 0.0
+    low = min(low, mjd.geom_xpos[g, 2] - half - mjm.geom_size[g, 0])
+  return low
+
+
+def cone_initial_state(mjm, name: str, seed: int = 0) -> dict[str, np.ndarray]:
+  """The state fields of a cone scene's 4 envs: every free tree lowered
+  until its lowest point is 0 to 2 mm into the floor (z = 0), condim_cg's
+  second sphere laid on its first instead, 5 mm off the top; env 0 at rest
+  (no slip: the cone's T = 0), envs 1-3 sliding at up to 0.5 m/s and
+  spinning at up to 5 rad/s; hinges and slides within +-0.5 of qpos0 and
+  moving at up to 1 rad/s (frictionloss_slide: pushed by 10, 1, -10 and
+  0.5 N instead, its two regimes both ways)."""
+  import mujoco
+
+  rng = np.random.default_rng(seed)
+  mjd = mujoco.MjData(mjm)
+  qpos = np.tile(mjm.qpos0, (BATCH, 1))
+  qvel = np.zeros((BATCH, mjm.nv))
+  for e in range(BATCH):
+    for j in range(mjm.njnt):
+      q, v = mjm.jnt_qposadr[j], mjm.jnt_dofadr[j]
+      if mjm.jnt_type[j] in (2, 3):  # slide, hinge
+        lo, hi = (mjm.jnt_range[j] if mjm.jnt_limited[j] else (-np.inf, np.inf))
+        qpos[e, q] = np.clip(mjm.qpos0[q] + rng.uniform(-0.5, 0.5), lo, hi)
+        qvel[e, v] = rng.uniform(-1.0, 1.0) if e else 0.0
+    mjd.qpos[:] = qpos[e]
+    mujoco.mj_kinematics(mjm, mjd)
+    for j in range(mjm.njnt):
+      if mjm.jnt_type[j] != 0:  # mjJNT_FREE
+        continue
+      q, v, b = mjm.jnt_qposadr[j], mjm.jnt_dofadr[j], mjm.jnt_bodyid[j]
+      qpos[e, q + 2] -= _subtree_lowest(mjm, mjd, b) + rng.uniform(0.0, 0.002)
+      if e:
+        qvel[e, v:v + 6] = np.concatenate([rng.uniform(-0.5, 0.5, 2), [0.0],
+                                           rng.uniform(-5.0, 5.0, 3)])
+    if name == "condim_cg":
+      # sphere 2 (r 0.1, 0.12 m off in x) on sphere 1, 5 mm into it
+      qpos[e, 9] = qpos[e, 2] + np.sqrt(0.195 ** 2 - 0.12 ** 2)
+  start = {"qpos": qpos, "qvel": qvel}
+  if name == "frictionloss_slide":
+    start["qfrc_applied"] = np.array([[10.0], [1.0], [-10.0], [0.5]])
+  return start
+
+
+def cone_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the cone scenes' snapshot arrays by name, the cone golden's
+  arrays)."""
+  import mujoco
+
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, xml in cone_scene_xmls().items():
+    if names and name not in names:
+      continue
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    snapshots[name] = io.snapshot_arrays(mjm)
+    start = cone_initial_state(mjm, name)
+    fields = ("qpos", "qvel") + (("sensordata",) if mjm.nsensordata else ())
+    run, fwd = _mjtpu_run(mjm, start, steps, fields)
+    golden.update({f"{name}.{k}0": v for k, v in start.items()})
+    golden.update({f"{name}.{k}": v for k, v in {**run, **fwd}.items()})
+    live = (run["qpos"].shape, (fwd["fwd.contact.dist"] < 0).sum(axis=1).tolist())
+    print(f"{name}: nefc {fwd['fwd.efc_D'].shape[1]}, live contacts per env at step 1 {live[1]}")
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -927,12 +1188,14 @@ def main():
                       help="the model whose files to write (repeatable; default: all)")
   parser.add_argument("--steps", type=int, default=None,
                       help="steps of the humanoid_terrain, scene_pile, branchy66, ant_bench,"
-                      " ant_rk4, cylinder_drop, roll and sph_cyl golden trajectories (default {STEPS}) and env steps of the env"
+                      " ant_rk4, cylinder_drop, roll, sph_cyl, humanoid_bench_elliptic and cone"
+                      f" scene golden trajectories (default {STEPS}) and env steps of the env"
                       f" golden (default {ENV_STEPS})")
   parser.add_argument("--env", action="append", choices=LOCOMOTION,
                       help="the envs of the env golden (repeatable; default: all five)")
   parser.add_argument("--scene", action="append",
-                      help="the scenes of collision_scenes (repeatable; default: all)")
+                      help="the scenes of collision_scenes and cone_scenes (repeatable; default:"
+                      " all)")
   args = parser.parse_args()
   out = args.out
   steps = args.steps or STEPS
@@ -1000,6 +1263,16 @@ def main():
     io.save_snapshot_bundle(out / SCENES_FILE.name, snapshots)
     np.savez_compressed(out / SCENES_GOLDEN_FILE.name, **scene_golden)
     files += [SCENES_FILE.name, SCENES_GOLDEN_FILE.name]
+  if "humanoid_bench_elliptic" in models:
+    mjm = load_elliptic_mjmodel()
+    io.save_snapshot(mjm, out / ELLIPTIC_MODEL_FILE.name)
+    np.savez_compressed(out / ELLIPTIC_GOLDEN_FILE.name, **elliptic_golden(mjm, steps))
+    files += [ELLIPTIC_MODEL_FILE.name, ELLIPTIC_GOLDEN_FILE.name]
+  if "cone_scenes" in models:
+    snapshots, cone_golden = cone_scenes(args.scene, steps)
+    io.save_snapshot_bundle(out / CONE_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / CONE_GOLDEN_FILE.name, **cone_golden)
+    files += [CONE_SCENES_FILE.name, CONE_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

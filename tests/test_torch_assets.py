@@ -102,10 +102,12 @@ CONTACT_MODELS = ("cylinder_drop", "roll", "sph_cyl")
 
 
 @pytest.mark.parametrize("model", ["humanoid_bench", "humanoid_terrain", "boxes", "branchy66",
-                                   "ant_bench", *ZOO_BUILT, *CONTACT_MODELS])
+                                   "ant_bench", *ZOO_BUILT, *CONTACT_MODELS,
+                                   "humanoid_bench_elliptic"])
 def test_snapshot_model_equals_put_model(model):
   script = _assets_script()
   load = {"humanoid_bench": script.load_mjmodel, "humanoid_terrain": script.load_terrain_mjmodel,
+          "humanoid_bench_elliptic": script.load_elliptic_mjmodel,
           "boxes": lambda: mujoco.MjModel.from_xml_path(str(script.BOXES_XML)),
           "branchy66": script.load_branchy_mjmodel, "ant_bench": script.load_ant_mjmodel,
           **{name: lambda name=name: script.load_contact_mjmodel(name)
@@ -148,6 +150,49 @@ def test_scene_files_are_fresh(tmp_path):
     assert sorted(new.files) == sorted(k for k in old.files if k.startswith("plane_ellipsoid."))
     for k in new.files:
       np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
+
+
+def test_cone_scene_snapshots_equal_put_model():
+  """Each scene of the cone bundle, loaded, equals put_model of its MJCF;
+  the snapshots of scenes with dof frictionloss carry the friction rows'
+  solver parameters (io.FRICTION_FIELDS), the others do not."""
+  script = _assets_script()
+  xmls = script.cone_scene_xmls()
+  assert io.bundle_names(script.CONE_SCENES_FILE) == sorted(xmls)
+  with np.load(script.CONE_SCENES_FILE) as z:
+    for name, xml in xmls.items():
+      mjm = mujoco.MjModel.from_xml_string(xml)
+      keys = set(io._bundle_arrays(z, name))
+      assert keys >= set(io.SNAPSHOT_FIELDS)
+      friction = bool((mjm.dof_frictionloss > 0).any())
+      assert (keys >= set(io.FRICTION_FIELDS)) == friction, name
+      snap = mjtpu_torch.model_from_arrays(io.load_snapshot(script.CONE_SCENES_FILE, name),
+                                           device="cpu")
+      _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"), name)
+      assert len(snap.friction_dofid) == int((mjm.dof_frictionloss > 0).sum())
+
+
+def test_cone_scene_files_are_fresh(tmp_path):
+  """Regenerating the frictionloss slide (the cheapest scene: mjtpu
+  compiles one step of one dof; its first 5 steps) reproduces its snapshot
+  in the cone bundle, with the friction rows' fields, and its golden's
+  entries."""
+  script = _assets_script()
+  name = "frictionloss_slide"
+  new_dir = _regenerate(tmp_path, "--model", "cone_scenes", "--scene", name, "--steps", "5")
+  assert io.bundle_names(new_dir / script.CONE_SCENES_FILE.name) == [name]
+  with np.load(new_dir / script.CONE_SCENES_FILE.name) as new, \
+      np.load(script.CONE_SCENES_FILE) as old:
+    a, b = io._bundle_arrays(new, name), io._bundle_arrays(old, name)
+    assert sorted(a) == sorted(b) == sorted(io.SNAPSHOT_FIELDS + io.FRICTION_FIELDS)
+    for k in a:
+      np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+  with np.load(new_dir / script.CONE_GOLDEN_FILE.name) as new, \
+      np.load(script.CONE_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(k for k in old.files if k.startswith(f"{name}."))
+    for k in new.files:
+      want = old[k][:5] if k.split(".")[1] in ("qpos", "qvel", "sensordata") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
 
 
 def test_hull_tables_match_mjtpu():
@@ -409,6 +454,45 @@ def test_terrain_golden_file_is_fresh(regenerated_terrain):
       np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
 
 
+ELLIPTIC_PREFIX = 5
+
+
+@pytest.fixture(scope="module")
+def regenerated_elliptic(tmp_path_factory):
+  """humanoid_bench_elliptic's data files written afresh, both golden runs
+  over their first ELLIPTIC_PREFIX steps (the rest is held by
+  tests/test_torch_elliptic.py against the port)."""
+  return _regenerate(tmp_path_factory.mktemp("elliptic"), "--model", "humanoid_bench_elliptic",
+                     "--steps", str(ELLIPTIC_PREFIX))
+
+
+def test_elliptic_snapshot_file_is_fresh(regenerated_elliptic):
+  script = _assets_script()
+  assert _snapshot_keys(script.ELLIPTIC_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
+  with np.load(regenerated_elliptic / script.ELLIPTIC_MODEL_FILE.name) as new, \
+      np.load(script.ELLIPTIC_MODEL_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert int(old["opt.cone"]) == types.ConeType.ELLIPTIC
+    for k in new.files:
+      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+
+
+def test_elliptic_golden_file_is_fresh(regenerated_elliptic):
+  """Regenerating the elliptic golden with mjtpu reproduces the committed
+  file's forward fields and the first ELLIPTIC_PREFIX steps of both
+  configurations' runs, batched and solo."""
+  script = _assets_script()
+  name = script.ELLIPTIC_GOLDEN_FILE.name
+  runs = tuple(f"{c}{r}{f}" for c in ("", "conv_") for r in ("", "solo_", "solo_run_")
+               for f in ("qpos", "qvel")) + ("warm", "conv_warm")
+  with np.load(regenerated_elliptic / name) as new, np.load(script.ELLIPTIC_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(old.files)
+    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
+    for k in new.files:
+      want = old[k][:ELLIPTIC_PREFIX] if k in runs else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
+
+
 def test_golden_file_is_fresh(regenerated):
   """Regenerating the golden trajectories with mjtpu reproduces the file."""
   script = _assets_script()
@@ -433,7 +517,7 @@ import mjtpu_torch
 from mjtpu_torch._src import ray, sensor
 from mjtpu_torch.ops import cholesky, fused, hfield, ldl, sat
 for name in ("humanoid_bench", "humanoid_terrain", "scene_pile", "branchy66", "cylinder_drop",
-             "ant_bench"):
+             "humanoid_bench_elliptic", "ant_bench"):
   m = mjtpu_torch.model_from_arrays(
       mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{name}_model.npz"), device="cpu")
   d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))

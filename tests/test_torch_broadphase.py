@@ -97,8 +97,12 @@ def test_compacted_steps_track_uncompacted():
 
 @pytest.mark.parametrize("condim", [4, 6])
 def test_put_model_refuses_condim_by_name(condim):
-  """Condim 4 and 6 contacts wait for their slice."""
+  """Condim 4 and 6 contacts, refused until the cone slice, now build and
+  step (the name is kept from then): the contact's efc rows are those of
+  its condim."""
   mjm = load_mj("condim4_pyramidal.xml")
   mjm.geom_condim[:] = condim
-  with pytest.raises(NotImplementedError, match=rf"contact condim \[{condim}\]"):
-    mjtpu_torch.put_model(mjm, device="cpu")
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  assert mjtpu_torch.count_constraints(m)[3] == 2 * (condim - 1)
+  d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
+  assert bool(torch.isfinite(d.qpos).all())

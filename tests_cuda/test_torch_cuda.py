@@ -404,6 +404,9 @@ def _model(name, device):
     # the cylinder on the box: SAT on the round hull, one launch a step
     ("cylinder_drop", 3, (0, 0, 1, 0), 1e-9),
     ("roll", 3, (0, 0, 0, 0), 1e-9),
+    # one step: the truncated linesearch may take another iterate path on
+    # another device within a few (ROADMAP C7)
+    ("humanoid_bench_elliptic", 1, (0, 0, 0, 0), 1e-9),
 ])
 def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
   """Steps on the card against the same steps on the CPU, with the
@@ -485,3 +488,40 @@ def test_ant_env_step_on_cuda_matches_cpu():
     want = getattr(cpu, k)[:3].numpy()
     np.testing.assert_allclose(getattr(gpu, k)[:3].cpu().numpy(), want, rtol=0,
                                atol=1e-9 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_on_elliptic_hessians(dtype):
+  """B1 against its twin on the Newton Hessians of the elliptic bench (a
+  step from the golden's state after step 1: cone blocks in the middle
+  zone folded in; at f32 the regulariser too) and of elliptic.xml (n=12,
+  two trees: the shared kernel), every variant within phase 3's
+  tolerance of the twin and equal bit for bit."""
+  from mjtpu_torch._src import io
+
+  golden = np.load(mjtpu_torch.ASSETS / "humanoid_bench_elliptic_golden.npz")
+  m = chip_smoke._elliptic_model(dtype)
+  d = mjtpu_torch.replace(
+      mjtpu_torch.make_data(m, batch_size=4),
+      **{k: torch.as_tensor(golden[g][0] if g != "ctrl" else golden[g], dtype=dtype,
+                            device="cuda")
+         for k, g in (("qpos", "qpos"), ("qvel", "qvel"), ("qacc_warmstart", "warm"),
+                      ("ctrl", "ctrl"))})
+  calls, _ = chip_smoke._capture_hessians(lambda: mjtpu_torch.step(m, d))
+  assert len(calls) == 1 and calls[0][0].shape == (4, 27, 27)
+  chip_smoke._hold_chol(*calls[0], "the elliptic bench")
+  assert cholesky.variant(27, dtype) == "register"
+
+  scenes = np.load(mjtpu_torch.ASSETS / "cone_scenes_golden.npz")
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "cone_scenes.npz", "elliptic"), dtype=dtype,
+      device="cuda")
+  d = mjtpu_torch.replace(
+      mjtpu_torch.make_data(m, batch_size=4),
+      qpos=torch.as_tensor(scenes["elliptic.qpos0"], dtype=dtype, device="cuda"),
+      qvel=torch.as_tensor(scenes["elliptic.qvel0"], dtype=dtype, device="cuda"))
+  calls, _ = chip_smoke._capture_hessians(lambda: mjtpu_torch.step(m, d))
+  assert calls and calls[0][0].shape == (4, 12, 12)
+  assert cholesky.variant(12, dtype) == "shared"
+  for h, grad in calls:
+    chip_smoke._hold_chol(h, grad, "elliptic.xml")
