@@ -11,13 +11,13 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32 and
-     f64) and batches whose pivots hit the floor; every variant that can
-     run an n (the register kernel at n=6, 8, 9, 14, 23 and 27, the shared
-     one everywhere) within the tolerance of the twin, and the two equal
-     bit for bit; times of both at n=27, 23, 14, 9, 8 and 6 (bench's,
-     terrain's, the Ant env's, walker2d's and halfcheetah's, ant_bench's
-     and hopper's shapes), B=4096, beside
+     (n in 1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32
+     and f64) and batches whose pivots hit the floor; every variant that
+     can run an n (the register kernel at n=5, 6, 8, 9, 14, 23 and 27, the
+     shared one everywhere) within the tolerance of the twin, and the two
+     equal bit for bit; times of both at n=27, 23, 14, 9, 8, 6 and 5
+     (bench's, terrain's, the Ant env's, walker2d's and halfcheetah's,
+     ant_bench's, hopper's and the swimmer env's shapes), B=4096, beside
      torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
@@ -145,8 +145,24 @@ failure raises and the script exits non-zero:
      warm-up step's Hessians (f32, regulariser and cone blocks in them),
      and B1's, the twin's and torch.cholesky_solve(cholesky_ex)'s device
      times on them.
+ 24. fluid parity: f64, B=4 on the card, the committed goldens of
+     fluid_scenes.npz (tests/test_fluid.py's mixed ellipsoid-fluid model,
+     two gravcomp scenes with and without actuators, the box model with
+     wind): step 1's qfrc_fluid, qfrc_gravcomp, qfrc_passive and
+     qfrc_actuator to 1e-12 of scale, 100 steps to 1e-8; the swimmer and
+     the three satellite envs, 3 env steps against
+     swimmer_satellite_env_golden.npz as phase 18 (1e-10, done and steps
+     exact); ant_bench with DisableBit.CONSTRAINT (ROADMAP C8), 20 steps,
+     every touch reading 0.
+ 25. swimmer env throughput: f32, B=4096, ENVS["swimmer"]() on the card
+     as phase 19 (2 warm-up and 5 timed env steps): env steps/s, ms per
+     env step, B1 launches per env step by variant (all register, at n=5,
+     one per Newton iteration), nreset 0, B1's share of an env step, and
+     one profiled env step's launches and the device's busy share; then
+     the three satellite envs, a few f32 B=4096 env steps each: finite,
+     nreset 0, their B1 launches by variant.
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21 and 23: each kernel's launch
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23 and 25: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
@@ -209,6 +225,18 @@ DROP_WARMUP = 5
 DROP_TIMED = 20
 ENV_BOUND = 1e-10  # tests/test_torch_zoo.py's STEP_BOUND
 ZOO_LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
+# the swimmer (fluid forces) and the satellite envs (cmg.py, satellite.py)
+SATELLITE_ENVS = ("swimmer", "satellite", "satellite_large", "satellite_small")
+# tests/test_torch_fluid.py's bounds: step 1's passive and actuator forces
+# of each field's scale, the 100-step trajectories, the constraint-free
+# ant_bench's steps (ROADMAP C8)
+FLUID_FORCES = ("qfrc_fluid", "qfrc_gravcomp", "qfrc_passive", "qfrc_actuator")
+FLUID_FORCE_BOUND = 1e-12
+FLUID_TRAJECTORY_BOUND = 1e-8
+C8_STEPS = 20
+# the satellite envs' env steps at f32 B=4096 (warm-up, timed)
+SATELLITE_WARMUP = 1
+SATELLITE_TIMED = 2
 ENV_WARMUP = 2
 ENV_TIMED = 5
 ELLIPTIC = "humanoid_bench_elliptic"
@@ -231,14 +259,14 @@ CONE_FUZZ_SOLVE_BOUND = 1e-7
 CONE_TRAJECTORY_BOUND = 1e-7
 # the fuzz scenes' steps held on the card, as on the CPU (the time limit)
 CONE_FUZZ_STEPS = 25
-# phase 3's sizes: the register kernel's n (the main paths' 8, 14, 23, 27
-# and the zoo envs' 6 and 9), which both variants run, and n that only the
+# phase 3's sizes: the register kernel's n (the main paths' 5, 8, 14, 23,
+# 27 and the zoo envs' 6 and 9), which both variants run, and n that only the
 # shared kernel runs (32 and 33 on either side of its rows' striding over
 # the lanes)
-CHOL_NS = (1, 6, 8, 9, 14, 23, 27, 32, 33, 40)
+CHOL_NS = (1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40)
 # the register kernel's n, timed in phase 3: bench, terrain, the Ant env,
-# walker2d and halfcheetah, ant_bench, hopper
-CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6)
+# walker2d and halfcheetah, ant_bench, hopper, the swimmer env
+CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6, 5)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
@@ -1534,7 +1562,12 @@ def phase_ant_rk4_parity():
     raise AssertionError(f"Cholesky launches {cholesky.launches} ({kinds}), Newton {loops}")
 
 
-def phase_env_parity():
+def _env_golden_err(name, golden) -> float:
+  """Steps ``zoo.ENVS[name]`` at f64 on the card from an env golden's
+  states through its actions (3 env steps): the max abs error of obs and
+  reward against mjtpu's env; fails unless done and steps are mjtpu's.
+  Env 3 ends its episode at the first step and then restarts from mjtpu's
+  PRNG: only that step's reward, done and steps compare."""
   import dataclasses
 
   import numpy as np
@@ -1543,35 +1576,39 @@ def phase_env_parity():
   import mjtpu_torch
   from mjtpu_torch import zoo
 
+  env = zoo.ENVS[name](dtype=torch.float64)
+  m = env.model
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden[f"{name}.qpos0"], device="cuda"),
+                          qvel=torch.as_tensor(golden[f"{name}.qvel0"], device="cuda"))
+  state = dataclasses.replace(env._init_state(mjtpu_torch.forward(m, d)), steps=torch.as_tensor(
+      golden[f"{name}.steps0"], device="cuda"))
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  err = 0.0
+  actions = golden[f"{name}.action"]
+  for t in range(actions.shape[0]):
+    state = env.step(state, torch.as_tensor(actions[t], device="cuda"), gen)
+    live = 4 if t == 0 else 3
+    for k, n in (("obs", 3), ("reward", live)):
+      got = getattr(state, k)[:n].cpu().numpy()
+      err = max(err, float(np.abs(got - golden[f"{name}.{k}"][t][:n]).max()))
+    for k in ("done", "steps"):
+      if not np.array_equal(getattr(state, k)[:live].cpu().numpy(),
+                            golden[f"{name}.{k}"][t][:live]):
+        raise AssertionError(f"{name} env step {t + 1} {k}: {getattr(state, k).tolist()}"
+                             f" against mjtpu's {golden[f'{name}.{k}'][t].tolist()}")
+  if not err <= ENV_BOUND:
+    raise AssertionError(f"{name}: obs or reward differ from mjtpu's env by {err:.3e}")
+  return err
+
+
+def phase_env_parity():
+  import numpy as np
+
+  import mjtpu_torch
+
   golden = dict(np.load(mjtpu_torch.ASSETS / "zoo_env_golden.npz"))
-  worst = {}
-  for name in ZOO_LOCOMOTION:
-    env = zoo.ENVS[name](dtype=torch.float64)
-    m = env.model
-    d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
-    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden[f"{name}.qpos0"], device="cuda"),
-                            qvel=torch.as_tensor(golden[f"{name}.qvel0"], device="cuda"))
-    state = dataclasses.replace(env._init_state(mjtpu_torch.forward(m, d)), steps=torch.as_tensor(
-        golden[f"{name}.steps0"], device="cuda"))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    err = 0.0
-    actions = golden[f"{name}.action"]
-    for t in range(actions.shape[0]):
-      state = env.step(state, torch.as_tensor(actions[t], device="cuda"), gen)
-      # env 3 is forced done at the first step and then restarted from
-      # mjtpu's PRNG: only that step's reward, done and steps compare
-      live = 4 if t == 0 else 3
-      for k, n in (("obs", 3), ("reward", live)):
-        got = getattr(state, k)[:n].cpu().numpy()
-        err = max(err, float(np.abs(got - golden[f"{name}.{k}"][t][:n]).max()))
-      for k in ("done", "steps"):
-        if not np.array_equal(getattr(state, k)[:live].cpu().numpy(),
-                              golden[f"{name}.{k}"][t][:live]):
-          raise AssertionError(f"{name} env step {t + 1} {k}: {getattr(state, k).tolist()}"
-                               f" against mjtpu's {golden[f'{name}.{k}'][t].tolist()}")
-    worst[name] = err
-    if not err <= ENV_BOUND:
-      raise AssertionError(f"{name}: obs or reward differ from mjtpu's env by {err:.3e}")
+  worst = {name: _env_golden_err(name, golden) for name in ZOO_LOCOMOTION}
   log(f"[env parity] {', '.join(ZOO_LOCOMOTION)} f64 B=4, 3 env steps through"
       f" mjtpu_torch.zoo.ENVS: max abs err of obs and reward "
       + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -1579,16 +1616,23 @@ def phase_env_parity():
       " first step included")
 
 
-def phase_env_throughput(card):
+def _env_throughput(name, profile=False):
+  """``zoo.ENVS[name]`` at f32 B=4096 on the card, reset from a seeded
+  torch.Generator, ENV_WARMUP warm-up and ENV_TIMED timed env steps with
+  actions uniform in [-1, 1]: the main path's launches (one B1 launch per
+  Newton iteration, all at n = nv, register), nreset 0 (summed after every
+  env step: a done env is reset), B1's share of one more env step, and
+  with ``profile`` the device's busy share of one profiled env step.
+  Returns (counts, the log line's figures)."""
   import torch
 
   from mjtpu_torch import zoo
   from mjtpu_torch._src import solver
   from mjtpu_torch.ops import cholesky
 
-  env = zoo.ENVS["ant"]()  # float32, on cuda
+  env = zoo.ENVS[name]()  # float32, on cuda
   if env.model.dtype != torch.float32 or env.device.type != "cuda":
-    raise AssertionError(f"the Ant env built at {env.model.dtype} on {env.device}")
+    raise AssertionError(f"the {name} env built at {env.model.dtype} on {env.device}")
   batch = BENCH_BATCH
   gen = torch.Generator(device="cuda").manual_seed(0)
   act = lambda: 2.0 * torch.rand(batch, env.action_size, generator=gen, device="cuda") - 1.0
@@ -1615,24 +1659,46 @@ def phase_env_throughput(card):
   kinds = dict(cholesky.variant_launches)
   physics = ENV_TIMED * env.frame_skip
   if counts != _only(chol_solve=loops["iterations"]) or not counts["chol_solve"]:
-    raise AssertionError(f"kernel launches in {ENV_TIMED} env steps: {counts}, Newton {loops}")
+    raise AssertionError(f"{name} env: kernel launches in {ENV_TIMED} env steps: {counts},"
+                         f" Newton {loops}")
   if not bool(torch.isfinite(state.data.qpos).all()) or int(nreset):
-    raise AssertionError(f"Ant env run not finite or reset: nreset {int(nreset)}")
-  shares, step_ms = _seam_shares(env.model, state, 1,
-                                 advance=lambda s: env.step(s, act(), gen))
+    raise AssertionError(f"{name} env run not finite or reset: nreset {int(nreset)}")
+  advance = lambda s: env.step(s, act(), gen)
+  shares, step_ms = _seam_shares(env.model, state, 1, advance=advance)
   if shares["chol_ns"] != {env.model.nv}:
     raise AssertionError(f"Cholesky launches at n={shares['chol_ns']}, not {env.model.nv}")
-  log(f"[env throughput] Ant env (ant.xml, RK4) f32 B={batch} through ENVS['ant']:"
-      f" {ENV_WARMUP} warm-up and {ENV_TIMED} timed env steps in {secs:.3f} s ="
-      f" {batch * ENV_TIMED / secs:.0f} env steps/s, {batch * physics / secs:.0f} physics"
-      f" steps/s, {1e3 * secs / ENV_TIMED:.3f} ms per env step ({env.frame_skip} physics steps"
-      f" x 4 forward passes + the reset forward); per physics step: Newton"
-      f" {loops['iterations'] / physics:.2f} iterations, {loops['ls_rounds'] / physics:.2f}"
-      f" linesearch rounds; B1 launches {counts['chol_solve']} by variant"
-      f" {kinds} (all at n={env.model.nv}, one per Newton"
-      f" iteration); auto-resets {int(resets)} of {batch * ENV_TIMED}; qpos finite, nreset 0;"
-      f" device env step {step_ms:.3f} ms, of it B1 {shares['chol_solve']:.4f} ms"
-      f" ({100 * shares['chol_solve'] / step_ms:.2f}%); card {card}")
+  busy = _busy_share(advance, state) if profile else None
+  fig = dict(rate=batch * ENV_TIMED / secs, physics_rate=batch * physics / secs,
+             ms=1e3 * secs / ENV_TIMED, iterations=loops["iterations"] / physics,
+             ls_rounds=loops["ls_rounds"] / physics, launches=counts["chol_solve"] / ENV_TIMED,
+             kinds=kinds, resets=int(resets), step_ms=step_ms, b1_ms=shares["chol_solve"],
+             busy=busy, frame_skip=env.frame_skip, nv=env.model.nv)
+  return counts, fig
+
+
+def _env_line(fig, card) -> str:
+  """The throughput log line of an env's figures (_env_throughput)."""
+  line = (f"{ENV_WARMUP} warm-up and {ENV_TIMED} timed env steps ="
+          f" {fig['rate']:.0f} env steps/s, {fig['physics_rate']:.0f} physics steps/s,"
+          f" {fig['ms']:.3f} ms per env step ({fig['frame_skip']} physics steps x 4 forward"
+          f" passes + the reset forward); per physics step: Newton {fig['iterations']:.2f}"
+          f" iterations, {fig['ls_rounds']:.2f} linesearch rounds; B1 launches per env step"
+          f" {fig['launches']:.2f}, by variant in all {fig['kinds']} (all at n={fig['nv']},"
+          f" one per Newton iteration); auto-resets {fig['resets']} of"
+          f" {BENCH_BATCH * ENV_TIMED}; qpos finite, nreset 0; device env step"
+          f" {fig['step_ms']:.3f} ms, of it B1 {fig['b1_ms']:.4f} ms"
+          f" ({100 * fig['b1_ms'] / fig['step_ms']:.2f}%)")
+  if fig["busy"] is not None:
+    busy, launches = fig["busy"]
+    line += (f"; one profiled env step: {launches} kernel launches, device busy"
+             f" {100 * busy:.1f}% of its wall time")
+  return line + f"; card {card}"
+
+
+def phase_env_throughput(card):
+  counts, fig = _env_throughput("ant")
+  log(f"[env throughput] Ant env (ant.xml, RK4) f32 B={BENCH_BATCH} through ENVS['ant']: "
+      + _env_line(fig, card))
   return counts
 
 
@@ -2117,6 +2183,116 @@ def phase_elliptic_throughput(card, bench):
   return counts, timed
 
 
+def phase_fluid_parity():
+  """The fluid scenes, the swimmer and satellite envs and the
+  constraint-free ant_bench at f64 on the card (phase 24)."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+  from mjtpu_torch._src.types import DisableBit, SensorType
+
+  scenes = mjtpu_torch.ASSETS / "fluid_scenes.npz"
+  golden = dict(np.load(mjtpu_torch.ASSETS / "fluid_scenes_golden.npz"))
+  forces, traj = {}, {}
+  for name in io.bundle_names(scenes):
+    m = mjtpu_torch.model_from_arrays(io.load_snapshot(scenes, name), device="cuda")
+    d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+    d = mjtpu_torch.replace(d, **{k: torch.as_tensor(golden[f"{name}.{k}0"], device="cuda")
+                                  for k in ("qpos", "qvel", "ctrl")})
+    fwd = mjtpu_torch.forward(m, d)
+    forces[name] = max(_scaled_err(getattr(fwd, f).cpu().numpy(), golden[f"{name}.fwd.{f}"])
+                       for f in FLUID_FORCES)
+    err = 0.0
+    for t in range(golden[f"{name}.qpos"].shape[0]):
+      d = mjtpu_torch.step(m, d)
+      for f in ("qpos", "qvel"):
+        err = max(err, float(np.abs(getattr(d, f).cpu().numpy() - golden[f"{name}.{f}"][t]).max()))
+    traj[name] = err
+    if not (forces[name] <= FLUID_FORCE_BOUND and err <= FLUID_TRAJECTORY_BOUND):
+      raise AssertionError(f"fluid scene {name}: step-1 forces {forces[name]:.3e} of scale,"
+                           f" trajectory {err:.3e}")
+  log(f"[fluid parity] {len(forces)} fluid scenes f64 B=4: step 1's "
+      f"{', '.join(FLUID_FORCES)}, max err of scale "
+      + ", ".join(f"{k} {v:.3e}" for k, v in forces.items())
+      + f" (limit {FLUID_FORCE_BOUND}); 100 steps max abs err "
+      + ", ".join(f"{k} {v:.3e}" for k, v in traj.items())
+      + f" (limit {FLUID_TRAJECTORY_BOUND})")
+
+  env_golden = dict(np.load(mjtpu_torch.ASSETS / "swimmer_satellite_env_golden.npz"))
+  worst = {name: _env_golden_err(name, env_golden) for name in SATELLITE_ENVS}
+  log(f"[fluid parity] {', '.join(SATELLITE_ENVS)} f64 B=4, 3 env steps through"
+      f" mjtpu_torch.zoo.ENVS: max abs err of obs and reward "
+      + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+      + f" (limit {ENV_BOUND}); done and steps equal to mjtpu's env")
+
+  # ROADMAP C8: ant_bench with the constraints disabled has no contact
+  # force to read; every touch reading is 0 (MuJoCo C: no contact at all)
+  ant = dict(np.load(mjtpu_torch.ASSETS / "ant_bench_golden.npz"))
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "ant_bench_model.npz")
+  ns.opt.disableflags = int(ns.opt.disableflags) | int(DisableBit.CONSTRAINT)
+  m = mjtpu_torch.model_from_arrays(ns, dtype=torch.float64, device="cuda")
+  touch = [a for t, a in zip(m.sensor_type, m.sensor_adr) if t == SensorType.TOUCH]
+  d = mjtpu_torch.make_data(m, batch_size=ant["qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, qpos=torch.as_tensor(ant["qpos0"], device="cuda"),
+                          qvel=torch.as_tensor(ant["qvel0"], device="cuda"),
+                          ctrl=torch.as_tensor(ant["ctrl"], device="cuda"))
+  for t in range(C8_STEPS):
+    d = mjtpu_torch.step(m, d)
+    if d.sensordata[:, touch].any() or not bool(torch.isfinite(d.sensordata).all()):
+      raise AssertionError(f"ant_bench without constraints, step {t + 1}: touch"
+                           f" {d.sensordata[:, touch].tolist()}")
+  log(f"[fluid parity] ant_bench with DisableBit.CONSTRAINT (ROADMAP C8) f64 B=4:"
+      f" {C8_STEPS} steps, sensordata finite, all {len(touch)} touch readings 0 in every step")
+
+
+def _satellite_run(name) -> str:
+  """A few f32 B=4096 env steps of a satellite env: finite, nreset 0, and
+  the B1 launches it takes by variant (not a main path: its n may take the
+  shared kernel)."""
+  import torch
+
+  from mjtpu_torch import zoo
+  from mjtpu_torch.ops import cholesky
+
+  env = zoo.ENVS[name]()
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  act = lambda: 2.0 * torch.rand(BENCH_BATCH, env.action_size, generator=gen,
+                                 device="cuda") - 1.0
+  state = env.reset(BENCH_BATCH, gen)
+  for _ in range(SATELLITE_WARMUP):
+    state = env.step(state, act(), gen)
+  torch.cuda.synchronize()
+  before = dict(cholesky.variant_launches)
+  nreset = torch.zeros((), dtype=torch.int64, device="cuda")
+  t0 = time.perf_counter()
+  for _ in range(SATELLITE_TIMED):
+    state = env.step(state, act(), gen)
+    nreset += state.data.nreset.sum()
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  kinds = {k: v - before[k] for k, v in cholesky.variant_launches.items()}
+  finite = bool(torch.isfinite(state.obs).all() & torch.isfinite(state.data.qpos).all())
+  if not finite or int(nreset):
+    raise AssertionError(f"{name} env f32: obs or qpos not finite or reset: nreset {int(nreset)}")
+  return (f"{name} (nv={env.model.nv}, frame_skip {env.frame_skip}): {SATELLITE_TIMED} env"
+          f" steps after {SATELLITE_WARMUP} in {secs:.3f} s"
+          f" ({BENCH_BATCH * SATELLITE_TIMED / secs:.0f} env steps/s), obs and qpos finite,"
+          f" nreset 0, B1 launches {kinds}")
+
+
+def phase_swimmer_throughput(card):
+  """The swimmer env at f32 B=4096 (the main path, phase 25), then the
+  satellite envs."""
+  counts, fig = _env_throughput("swimmer", profile=True)
+  log(f"[swimmer throughput] swimmer env (swimmer.xml, RK4, fluid forces) f32 B={BENCH_BATCH}"
+      " through ENVS['swimmer']: " + _env_line(fig, card))
+  for name in SATELLITE_ENVS[1:]:
+    log(f"[satellite throughput] f32 B={BENCH_BATCH}: {_satellite_run(name)}; card {card}")
+  return counts
+
+
 def main() -> int:
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -2174,6 +2350,10 @@ def main() -> int:
   lap("22")
   paths[ELLIPTIC], elliptic_timed = phase_elliptic_throughput(card, bench)
   lap("23")
+  phase_fluid_parity()
+  lap("24")
+  paths["swimmer_env"] = phase_swimmer_throughput(card)
+  lap("25")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -2211,7 +2391,8 @@ def main() -> int:
                       variant_ms=variant_ms[name])
     if name == "chol_solve":
       # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
-      # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6), f32
+      # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6, the
+      # swimmer env n=5), f32
       record[-1]["shapes"] = chol_shapes
       # the elliptic bench's own Newton Hessians, f32 B=4096 (timed) and
       # the f64 restarts' (max_abs_err_f64)

@@ -18,8 +18,18 @@ rangefinder rays, cameras and lights), all in mjtpu/zoo/assets, and the
 The zoo's Gym locomotion envs run through ``mjtpu_torch.zoo`` (ant,
 hopper, walker2d, halfcheetah, cartpole and the humanoids: ``ENVS[name]()``,
 ``reset``, ``step`` with auto-reset), with the RK4 integrator
-(``rungekutta4``) that ant, hopper and walker2d take.  ``put_model``
-refuses models outside them with NotImplementedError.
+(``rungekutta4``) that ant, hopper and walker2d take.  Every geom pair
+mjtpu collides is collided (cylinders, ellipsoids, mesh-mesh, convex on
+terrain, the ``max_geom_pairs`` broadphase); contacts take condim 1, 3, 4
+and 6 with pyramidal or elliptic cones, and dofs their frictionloss rows.
+Passive forces take gravity compensation (through qfrc_passive, or the
+actuators for a joint with actuatorgravcomp) and fluid forces (the
+per-geom ellipsoid model and the inertia-box model, with wind), so the
+zoo also runs the swimmer and the three satellite envs (``zoo.cmg``,
+``zoo.satellite``): every env mjtpu's zoo has, without pixel
+observations.  ``put_model`` refuses models outside the slices with
+NotImplementedError naming the feature (fluid forces under the implicit
+integrators among them).
 """
 
 import pathlib

@@ -81,9 +81,8 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   """Actuator forces (mj_fwdActuation): stateless actuators with fixed or
   affine gain and no or affine bias."""
   if not m.nu or (m.opt.disableflags & DisableBit.ACTUATION):
-    return replace(
-        d, actuator_force=torch.zeros_like(d.ctrl), qfrc_actuator=torch.zeros_like(d.qvel)
-    )
+    return replace(d, actuator_force=torch.zeros_like(d.ctrl),
+                   qfrc_actuator=_actgravcomp(m, d, torch.zeros_like(d.qvel)))
 
   c = cached(m, "forward.actuation", lambda: _actuation_tables(m))
   ctrl = d.ctrl
@@ -109,7 +108,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     )
     force = torch.where(c["forcelimited"], clamped, force)
 
-  qfrc_actuator = torch.einsum("buv,bu->bv", d.actuator_moment, force)
+  qfrc_actuator = _actgravcomp(m, d, torch.einsum("buv,bu->bv", d.actuator_moment, force))
 
   # clamp per-dof actuator force (jnt_actfrcrange)
   if c["actfrclimited"] is not None:
@@ -117,6 +116,15 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     clamped = torch.minimum(torch.maximum(qfrc_actuator, lo), hi)
     qfrc_actuator = torch.where(c["actfrclimited"], clamped, qfrc_actuator)
   return replace(d, actuator_force=force, qfrc_actuator=qfrc_actuator)
+
+
+def _actgravcomp(m: Model, d: Data, qfrc: torch.Tensor) -> torch.Tensor:
+  """qfrc plus the gravity compensation of the dofs whose joint routes it
+  through the actuators (jnt_actgravcomp; passive leaves it out of
+  qfrc_passive)."""
+  if not m.has_gravcomp:
+    return qfrc
+  return qfrc + torch.where(passive_mod.actgrav_dofs(m), d.qfrc_gravcomp, 0.0)
 
 
 def _actuation_tables(m: Model) -> dict:

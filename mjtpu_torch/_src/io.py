@@ -41,6 +41,7 @@ from mjtpu_torch._src.types import (
     IntegratorType,
     JointType,
     Model,
+    NFLUID,
     NIMP,
     NREF,
     Option,
@@ -88,7 +89,7 @@ STATIC_FIELDS = (
 FLOAT_FIELDS = (
     "qpos0", "qpos_spring",
     "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
-    "body_subtreemass", "body_inertia", "body_invweight0",
+    "body_subtreemass", "body_inertia", "body_gravcomp", "body_invweight0",
     "jnt_solref", "jnt_solimp", "jnt_pos", "jnt_axis", "jnt_stiffness",
     "jnt_range", "jnt_actfrcrange", "jnt_margin",
     "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
@@ -102,15 +103,16 @@ FLOAT_FIELDS = (
     "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
     "actuator_forcerange", "actuator_gear", "sensor_cutoff",
 )
-# read only to refuse models outside the slice
-CHECK_FIELDS = ("body_gravcomp",)
-SNAPSHOT_FIELDS = (
-    SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + CHECK_FIELDS + ("names",)
-)
-# the friction rows' solver parameters: a snapshot stores them only where
-# some dof has frictionloss > 0 (the rows are their only reader), so the
-# snapshots of models without friction dofs stay as they were
+SNAPSHOT_FIELDS = SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + ("names",)
+# fields a snapshot stores only where their reader runs, so the snapshots
+# of models without it stay as they were (model_from_arrays reads zeros
+# in their place): the friction rows' solver parameters where some dof
+# has frictionloss > 0, the ellipsoid fluid coefficients where the model
+# has fluid forces, the actuator-channel flag where it has gravity
+# compensation
 FRICTION_FIELDS = ("dof_solref", "dof_solimp")
+FLUID_FIELDS = ("geom_fluid",)
+GRAVCOMP_FIELDS = ("jnt_actgravcomp",)
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -137,6 +139,12 @@ def _get(ns, name: str):
   return ns
 
 
+def has_fluid(o) -> bool:
+  """Whether the options ``o`` (an MjOption or a snapshot's) set a medium:
+  density, viscosity or wind (mjtpu's has_fluid_params)."""
+  return bool(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)))
+
+
 def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
                     geom_convex: tuple | None = None) -> dict[str, np.ndarray]:
   """Every attribute model_from_arrays reads from ``mjm`` (an MjModel or
@@ -144,8 +152,10 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
   ``mesh_convex`` (default: mesh.get(mjm)) and ``geom_convex`` (default:
   mesh.get_geoms(mjm)), as a snapshot's arrays."""
   arrays = {}
-  friction = np.any(np.asarray(mjm.dof_frictionloss) > 0)
-  for name in SNAPSHOT_FIELDS + (FRICTION_FIELDS if friction else ()):
+  extra = ((FRICTION_FIELDS if np.any(np.asarray(mjm.dof_frictionloss) > 0) else ())
+           + (FLUID_FIELDS if has_fluid(mjm.opt) else ())
+           + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ()))
+  for name in SNAPSHOT_FIELDS + extra:
     v = _get(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
@@ -264,8 +274,11 @@ def _validate(ns) -> None:
   refuse(ns.neq, "equality constraints")
   refuse(ns.nmocap, "mocap bodies")
   refuse(ns.na, "actuator activation states")
-  refuse(np.any(np.asarray(ns.body_gravcomp) > 0), "gravity compensation")
-  refuse(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)), "fluid forces")
+  # mjtpu adds the fluid forces' velocity derivative to qDeriv by
+  # jax.jacfwd, which the port does not have yet
+  refuse(has_fluid(o) and int(o.integrator) in (IntegratorType.IMPLICIT,
+                                                 IntegratorType.IMPLICITFAST),
+         "fluid forces under the implicit integrators")
   refuse(int(o.solver) not in (SolverType.CG, SolverType.NEWTON),
          f"solver {int(o.solver)} (only CG and Newton)")
   refuse(int(o.integrator) == IntegratorType.IMPLICIT,
@@ -333,7 +346,7 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
       integrator=IntegratorType(int(o.integrator)), cone=ConeType(int(o.cone)),
       solver=SolverType(int(o.solver)), iterations=int(o.iterations),
       ls_iterations=int(o.ls_iterations), disableflags=int(o.disableflags),
-      enableflags=int(o.enableflags),
+      enableflags=int(o.enableflags), has_fluid_params=has_fluid(o),
   )
   fields["stat"] = Statistic(meaninertia=f(ns.stat.meaninertia))
   for name in STATIC_FIELDS:
@@ -347,6 +360,12 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["jnt_limit_two_sided"] = jnt_range[:, 1] - jnt_range[:, 0] < 2 * jnt_margin
   fields["has_jnt_spring"] = bool(np.any(np.asarray(ns.jnt_stiffness) > 0))
   fields["has_dof_damping"] = bool(np.any(np.asarray(ns.dof_damping) > 0))
+  fields["has_gravcomp"] = bool(np.any(np.asarray(ns.body_gravcomp) > 0))
+  # zeros where a snapshot does not store them (FLUID_FIELDS, GRAVCOMP_FIELDS)
+  fields["jnt_actgravcomp"] = np.array(getattr(ns, "jnt_actgravcomp", np.zeros(ns.njnt)),
+                                       dtype=bool)
+  geom_fluid = np.array(getattr(ns, "geom_fluid", np.zeros((ns.ngeom, NFLUID))), dtype=np.float64)
+  fields["geom_fluid"], fields["geom_fluid_np"] = f(geom_fluid), geom_fluid
   fields["friction_dofid"] = fid = np.nonzero(np.asarray(ns.dof_frictionloss) > 0)[0]
   for name, width in zip(FRICTION_FIELDS, (NREF, NIMP)):
     # only the friction dofs' rows are read (a snapshot stores them only then)
@@ -425,7 +444,8 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       actuator_velocity=zero(m.nu), actuator_force=zero(m.nu),
       crb=zero(nbody, 10), qM=zero(nv, nv), qLD=zero(nv, nv), qLDiagInv=zero(nv),
       cvel=zero(nbody, 6), cdof_dot=zero(nv, 6), qfrc_bias=zero(nv),
-      qfrc_spring=zero(nv), qfrc_damper=zero(nv), qfrc_passive=zero(nv),
+      qfrc_spring=zero(nv), qfrc_damper=zero(nv), qfrc_gravcomp=zero(nv),
+      qfrc_fluid=zero(nv), qfrc_passive=zero(nv),
       subtree_linvel=zero(nbody, 3), subtree_angmom=zero(nbody, 3),
       contact=contact, efc_J=zero(nefc, nv), efc_pos=zero(nefc),
       efc_margin=zero(nefc), efc_frictionloss=zero(nefc), efc_D=zero(nefc),

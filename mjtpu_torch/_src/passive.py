@@ -1,8 +1,11 @@
-"""Passive forces: joint springs and dampers.
+"""Passive forces: joint springs and dampers, gravity compensation, fluid.
 
-Port of mjtpu/_src/passive.py's spring-damper part (mj_passive).  Gravity
-compensation and fluid forces wait for a later slice; put_model refuses
-models that use them, so their terms are exact zeros here.
+Port of mjtpu/_src/passive.py (mj_passive): spring-dampers per joint type;
+body gravity compensation through the bodies' Jacobians; fluid forces by
+the per-geom ellipsoid model for bodies with a fluidshape="ellipsoid"
+geom and by the inertia-box model for every other body.  Each map runs
+over all bodies or all fluid geoms at once, as (B, nbody) or (B, G)
+tensors, so the launches do not grow with the model.
 """
 
 from __future__ import annotations
@@ -10,9 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjtpu_torch._src import math, scan
+from mjtpu_torch._src import math, scan, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, JointType, Model
+from mjtpu_torch._src.types import Data, DisableBit, GeomType, JointType, Model, cached, index
 
 
 def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,18 +58,229 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
   return qfrc_spring, qfrc_damper
 
 
+def _gravcomp(m: Model, d: Data) -> torch.Tensor:
+  """Gravity-compensation generalized force (B, nv): each body's
+  -gravity * mass * gravcomp at its centre of mass."""
+  force = -m.opt.gravity * (m.body_mass * m.body_gravcomp)[:, None]   # (nbody, 3)
+  return support.wrench_qfrc(m, d, d.xipos, force.expand(d.xipos.shape))
+
+
+def _fluid_geoms(m: Model) -> np.ndarray:
+  """Static ids of geoms with per-geom fluid coefficients (fluidshape=
+  'ellipsoid'); geom_fluid[:, 0] is the compiler's interaction flag."""
+  if m.geom_fluid_np is None or not m.ngeom:
+    return np.zeros(0, dtype=int)
+  return np.nonzero(m.geom_fluid_np[:, 0] != 0)[0]
+
+
+def _geom_semiaxes(m: Model, gids: torch.Tensor) -> torch.Tensor:
+  """(G, 3) ellipsoid semiaxes of the geoms ``gids`` (mj_geomSemiAxes):
+  sphere (r,r,r), capsule (r,r,half_len+r), cylinder (r,r,half_len),
+  ellipsoid/box = size."""
+  size = m.geom_size[gids]
+  r, h = size[:, 0], size[:, 1]
+  gtype = torch.as_tensor(np.asarray(m.geom_type), device=m.device)[gids][:, None]
+  out = torch.where(gtype == GeomType.SPHERE, torch.stack([r, r, r], dim=-1), size)
+  out = torch.where(gtype == GeomType.CAPSULE, torch.stack([r, r, h + r], dim=-1), out)
+  return torch.where(gtype == GeomType.CYLINDER, torch.stack([r, r, h], dim=-1), out)
+
+
+def _cube(x: torch.Tensor) -> torch.Tensor:
+  return x * (x * x)  # x**3 as XLA's integer power computes it
+
+
+def _fourth(x: torch.Tensor) -> torch.Tensor:
+  x2 = x * x
+  return x2 * x2  # x**4 as XLA's integer power computes it
+
+
+def _ellipsoid_tables(m: Model) -> dict:
+  """The fluid geoms' indices and shape terms, constants of the Model
+  (G, ...)."""
+  pi = torch.pi
+  long = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
+  geoms = _fluid_geoms(m)
+  gbody = np.asarray(m.geom_bodyid)[geoms]
+  gids = long(geoms)
+  r = _geom_semiaxes(m, gids)
+  rs = torch.sort(r, dim=-1).values
+  r0, r1, r2 = r[:, 0], r[:, 1], r[:, 2]
+  rmax_perp = torch.stack([torch.maximum(r1, r2), torch.maximum(r0, r2),
+                           torch.maximum(r0, r1)], dim=-1)
+  moi = (8.0 / 15.0) * pi * r * _fourth(rmax_perp)
+  return dict(
+      gids=gids, gbody=long(gbody),
+      bodies={"mask": support.dof_ancestor_mask_t(m)[long(gbody)],
+              "rootid": long(np.asarray(m.body_rootid)[gbody])},
+      d_eq=((2.0 / 3.0) * ((r0 + r1) + r2))[:, None],
+      dd=torch.stack([r1 * r2, r0 * r2, r0 * r1], dim=-1),
+      a_max=(pi * rs[:, 1] * rs[:, 2])[:, None],
+      volume=((4.0 / 3.0) * pi * r0 * r1 * r2)[:, None],
+      moi=moi,
+      moi_max=((8.0 / 15.0) * pi * rs[:, 1] * _fourth(rs[:, 2]))[:, None],
+      coef=m.geom_fluid[gids],
+  )
+
+
+def _ellipsoid_fluid_model(m: Model, d: Data) -> torch.Tensor:
+  """Per-geom ellipsoid fluid model (mj_ellipsoidFluidModel), (B, nv):
+
+    Kirchhoff added mass  F += p×ω,  T += p×v + h×ω
+                          p = ρ·m_V∘v,  h = ρ·I_V∘ω      (virtual mass/inertia)
+    Stokes (viscosity β)  F -= 3π d_eq β v,  T -= π d_eq³ β ω,  d_eq = ⅔Σrᵢ
+    blunt drag            F -= C_B ρ A_proj ‖v‖ v
+                          A_proj = π √(Σdᵢ⁴vᵢ² / Σdᵢ²vᵢ²),  dᵢ = rⱼrₖ
+    slender drag          F -= C_S ρ (A_max − A_proj) ‖v‖ v,  A_max = π r_mid r_max
+    Kutta lift            F += C_K ρ π √(Σdᵢ²vᵢ²/Σdᵢ⁴vᵢ²)/‖v‖ ((n×v)×v),
+                          n = d²∘v
+    Magnus lift           F += C_M ρ V (ω×v),  V = 4/3 π r₁r₂r₃
+    angular drag          T -= ρ ω √(Σⱼ(Mⱼωⱼ)²),
+                          Mⱼ = C_A·IIⱼ + C_S·(I_max−IIⱼ),
+                          IIⱼ = 8/15 π rⱼ max(rₖ,rₗ)⁴,  I_max = 8/15 π r_mid r_max⁴
+
+  all in the geom frame with v = linear velocity of the geom center minus
+  wind, ω = angular velocity; every fluid geom of the batch at once."""
+  s = cached(m, "passive.ellipsoid", lambda: _ellipsoid_tables(m))
+  pi = torch.pi
+  rho, beta = m.opt.density, m.opt.viscosity
+  xpos, xmat = d.geom_xpos[:, s["gids"]], d.geom_xmat[:, s["gids"]]
+  xmat_t = xmat.transpose(-1, -2)
+  lvel = math.transform_motion(d.cvel[:, s["gbody"]],
+                               xpos - d.subtree_com[:, s["bodies"]["rootid"]], xmat_t)
+  w = lvel[..., :3]
+  v = lvel[..., 3:] - math.mat_vec(xmat_t, m.opt.wind)
+  coef = s["coef"]
+  c_blunt, c_slender, c_ang, c_kutta, c_magnus = (coef[:, k, None] for k in range(1, 6))
+  vmass, vinertia = coef[:, 6:9], coef[:, 9:12]
+
+  # Kirchhoff added-mass momentum coupling (zero-acceleration terms)
+  p = rho * vmass * v
+  h = rho * vinertia * w
+  frc = math.cross(p, w)
+  trq = math.cross(p, v) + math.cross(h, w)
+
+  # Stokes linear resistance at the equivalent sphere
+  frc = frc - 3.0 * pi * s["d_eq"] * beta * v
+  trq = trq - pi * _cube(s["d_eq"]) * beta * w
+
+  dd2 = s["dd"] * s["dd"]
+  s2 = torch.sum(dd2 * v * v, dim=-1, keepdim=True)
+  s4 = torch.sum(_fourth(s["dd"]) * v * v, dim=-1, keepdim=True)
+  vnorm = math.norm3(v)[..., None]
+  a_proj = pi * torch.sqrt(s4 / torch.clamp_min(s2, math.MINVAL))
+  frc = frc - rho * (
+      c_blunt * a_proj + c_slender * torch.clamp_min(s["a_max"] - a_proj, 0.0)
+  ) * vnorm * v
+
+  n = dd2 * v
+  kutta = pi * torch.sqrt(s2 / torch.clamp_min(s4, math.MINVAL))
+  kutta = kutta / torch.clamp_min(vnorm, math.MINVAL)
+  frc = frc + c_kutta * rho * kutta * math.cross(math.cross(n, v), v)
+
+  frc = frc + c_magnus * rho * s["volume"] * math.cross(w, v)
+
+  mmix = c_ang * s["moi"] + c_slender * (s["moi_max"] - s["moi"])
+  trq = trq - rho * w * torch.sqrt(torch.sum((mmix * w) ** 2, dim=-1, keepdim=True))
+
+  return support.wrench_qfrc(m, d, xpos, math.mat_vec(xmat, frc), math.mat_vec(xmat, trq),
+                      bodies=s["bodies"])
+
+
+def _box_bodies(m: Model) -> np.ndarray:
+  """(nbody,) host bool: the bodies without a fluidshape="ellipsoid" geom,
+  which take the inertia-box model."""
+  use_box = np.ones(m.nbody, dtype=bool)
+  use_box[np.asarray(m.geom_bodyid)[_fluid_geoms(m)]] = False
+  return use_box
+
+
+def _box_tables(m: Model) -> dict:
+  """Each body's equivalent inertia box, its drag terms, and which bodies
+  take the model (mass > 0 and no fluidshape="ellipsoid" geom): constants
+  of the Model (nbody, ...)."""
+  mass = torch.clamp_min(m.body_mass, math.MINVAL)
+  ix, iy, iz = m.body_inertia[:, 0], m.body_inertia[:, 1], m.body_inertia[:, 2]
+  side = lambda a, b, c: torch.sqrt(torch.clamp_min((a + b - c) * 6.0 / mass, math.MINVAL))
+  box = torch.stack([side(iy, iz, ix), side(iz, ix, iy), side(ix, iy, iz)], dim=-1)
+  b0, b1, b2 = box[:, 0], box[:, 1], box[:, 2]
+  keep = (m.body_mass > 0) & torch.as_tensor(_box_bodies(m), device=m.device)
+  return dict(
+      diam=(((b0 + b1) + b2) / 3.0)[:, None],
+      ang_scale=torch.stack([b0 * (_fourth(b1) + _fourth(b2)), b1 * (_fourth(b0) + _fourth(b2)),
+                             b2 * (_fourth(b0) + _fourth(b1))], dim=-1) / 64.0,
+      lin_area=torch.stack([b1 * b2, b0 * b2, b0 * b1], dim=-1),
+      keep=keep[:, None].to(m.dtype),
+  )
+
+
+def _inertia_box_fluid_model(m: Model, d: Data) -> torch.Tensor:
+  """Fluid forces via the inertia-box approximation (mj_inertiaBoxFluidModel),
+  (B, nv), over every body that has mass and no ellipsoid-model geom."""
+  s = cached(m, "passive.box", lambda: _box_tables(m))
+  pi = torch.pi
+  ximat_t = d.ximat.transpose(-1, -2)
+  # local 6D velocity at the inertial frame (rows of ximat^T = local axes),
+  # wind in the local frame (linear only)
+  lvel = math.transform_motion(d.cvel, d.xipos - d.subtree_com[:, index(m, "body_rootid")],
+                               ximat_t)
+  lang = lvel[..., :3]
+  llin = lvel[..., 3:] - math.mat_vec(ximat_t, m.opt.wind)
+  diam, visc, density = s["diam"], m.opt.viscosity, m.opt.density
+  # viscous resistance, then quadratic drag
+  ltrq = -pi * _cube(diam) * visc * lang
+  lfrc = -3.0 * pi * diam * visc * llin
+  ltrq = ltrq + -density * s["ang_scale"] * torch.abs(lang) * lang
+  lfrc = lfrc + -0.5 * density * s["lin_area"] * torch.abs(llin) * llin
+  torque = math.mat_vec(d.ximat, ltrq) * s["keep"]
+  force = math.mat_vec(d.ximat, lfrc) * s["keep"]
+  return support.wrench_qfrc(m, d, d.xipos, force, torque)
+
+
+def _fluid(m: Model, d: Data) -> torch.Tensor:
+  """Fluid forces per body (mj_passive): bodies with any
+  fluidshape='ellipsoid' geom take the per-geom ellipsoid model, every
+  other body the inertia-box approximation."""
+  if not len(_fluid_geoms(m)):
+    return _inertia_box_fluid_model(m, d)
+  qfrc = _ellipsoid_fluid_model(m, d)
+  if _box_bodies(m)[1:].any():  # the world body never contributes
+    qfrc = qfrc + _inertia_box_fluid_model(m, d)
+  return qfrc
+
+
+def actgrav_dofs(m: Model) -> torch.Tensor:
+  """(nv,) bool: the dofs whose joint takes its gravity compensation
+  through the actuators (jnt_actgravcomp)."""
+  return cached(m, "passive.actgrav_dofs", lambda: torch.as_tensor(
+      np.asarray(m.jnt_actgravcomp)[np.asarray(m.dof_jntid)], device=m.device))
+
+
 def passive(m: Model, d: Data) -> Data:
   """Passive forces (mj_passive)."""
   zero = torch.zeros_like(d.qvel)
   if (m.opt.disableflags & DisableBit.PASSIVE) == DisableBit.PASSIVE:
-    return replace(d, qfrc_spring=zero, qfrc_damper=zero, qfrc_passive=zero)
+    return replace(d, qfrc_spring=zero, qfrc_damper=zero, qfrc_gravcomp=zero,
+                   qfrc_fluid=zero, qfrc_passive=zero)
 
   qfrc_spring, qfrc_damper = _spring_damper(m, d)
   if m.opt.disableflags & DisableBit.SPRING:
     qfrc_spring = zero
   if m.opt.disableflags & DisableBit.DAMPER:
     qfrc_damper = zero
-  return replace(
-      d, qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
-      qfrc_passive=qfrc_spring + qfrc_damper,
-  )
+
+  qfrc_gravcomp = zero
+  if m.has_gravcomp and not (m.opt.disableflags & DisableBit.GRAVITY):
+    qfrc_gravcomp = _gravcomp(m, d)
+
+  qfrc_fluid = zero
+  if m.opt.has_fluid_params:
+    qfrc_fluid = _fluid(m, d)
+
+  qfrc_passive = qfrc_spring + qfrc_damper + qfrc_fluid
+  if m.has_gravcomp:
+    # gravcomp routed through the actuators (jnt_actgravcomp) is added in
+    # fwd_actuation
+    qfrc_passive = qfrc_passive + torch.where(actgrav_dofs(m), 0.0, qfrc_gravcomp)
+  return replace(d, qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
+                 qfrc_gravcomp=qfrc_gravcomp, qfrc_fluid=qfrc_fluid,
+                 qfrc_passive=qfrc_passive)

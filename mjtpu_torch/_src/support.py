@@ -158,16 +158,30 @@ def jac(m: Model, d: Data, point: torch.Tensor, body_id: int):
   return jacp, jacr
 
 
-def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
-  """Maps d.xfrc_applied over all bodies to generalized forces (B, nv)."""
-  mask = dof_ancestor_mask_t(m)                                    # (nbody, nv)
-  offset = d.xipos - d.subtree_com[:, index(m, "body_rootid")]   # (B, nbody, 3)
+def wrench_qfrc(m: Model, d: Data, point: torch.Tensor, force: torch.Tensor,
+                torque: torch.Tensor | None = None, bodies: dict | None = None
+                ) -> torch.Tensor:
+  """(B, nv) generalized force of world forces ``force`` (B, K, 3) at world
+  points ``point`` (B, K, 3) and torques ``torque`` (B, K, 3), one on each
+  of K bodies: every body in order, or those whose dof_ancestor_mask_t
+  rows and root ids ``bodies`` gives ({"mask": (K, nv), "rootid": (K,)})."""
+  if bodies is None:
+    mask, rootid = dof_ancestor_mask_t(m), index(m, "body_rootid")
+  else:
+    mask, rootid = bodies["mask"], bodies["rootid"]
+  offset = point - d.subtree_com[:, rootid]                               # (B, K, 3)
   jacp = d.cdof[:, None, :, 3:] + math.cross(
       d.cdof[:, None, :, :3], offset[:, :, None, :]
-  )  # (B, nbody, nv, 3)
-  qfrc_p = torch.einsum("nv,bnvi,bni->bv", mask, jacp, d.xfrc_applied[..., :3])
-  qfrc_r = torch.einsum("nv,bvi,bni->bv", mask, d.cdof[..., :3], d.xfrc_applied[..., 3:])
-  return qfrc_p + qfrc_r
+  )  # (B, K, nv, 3)
+  qfrc = torch.einsum("nv,bnvi,bni->bv", mask, jacp, force)
+  if torque is not None:
+    qfrc = qfrc + torch.einsum("nv,bvi,bni->bv", mask, d.cdof[..., :3], torque)
+  return qfrc
+
+
+def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
+  """Maps d.xfrc_applied over all bodies to generalized forces (B, nv)."""
+  return wrench_qfrc(m, d, d.xipos, d.xfrc_applied[..., :3], d.xfrc_applied[..., 3:])
 
 
 # ---------------------------------------------------------------------------
@@ -206,13 +220,15 @@ def contact_forces(m: Model, d: Data) -> torch.Tensor:
   elliptic contact's rows are the wrench's first condim components; a
   pyramidal contact's normal force is the sum of its rows and each
   friction component the difference of a row pair times its friction
-  (mju_decodePyramid)."""
+  (mju_decodePyramid).  Without constraint rows every wrench is zero."""
   from mjtpu_torch._src import collision_driver
 
   B = d.qpos.shape[0]
   ncon = collision_driver.ncon(m)
-  if ncon == 0:
-    return d.qpos.new_zeros((B, 0, 6))
+  if count_constraints(m)[3] == 0:
+    # no contact rows (constraints disabled), so no contact force: MuJoCo
+    # C detects no contact at all then (mjtpu raises here)
+    return d.qpos.new_zeros((B, ncon, 6))
   parts = []
   for condim, sl, rows in _contact_force_rows(m):
     f = d.efc_force[:, rows]  # (B, k, rows)

@@ -33,6 +33,7 @@ from mjtpu_torch._src.dataclasses import static
 MINVAL = 1e-15  # mjMINVAL
 NREF = 2        # mjNREF
 NIMP = 5        # mjNIMP
+NFLUID = 12     # mjNFLUID
 MAXVAL = 1e10
 
 
@@ -322,6 +323,8 @@ class Option:
   ls_iterations: int = static()
   disableflags: int = static()
   enableflags: int = static()
+  # density, viscosity or wind set: passive adds the fluid forces
+  has_fluid_params: bool = static(False)
 
 
 @dataclasses.dataclass
@@ -380,6 +383,7 @@ class Model:
   body_mass: torch.Tensor = None
   body_subtreemass: torch.Tensor = None
   body_inertia: torch.Tensor = None
+  body_gravcomp: torch.Tensor = None
   body_invweight0: torch.Tensor = None
   # ---- joints ----
   jnt_type: np.ndarray = static(None)
@@ -388,6 +392,9 @@ class Model:
   jnt_bodyid: np.ndarray = static(None)
   jnt_limited: np.ndarray = static(None)
   jnt_actfrclimited: np.ndarray = static(None)
+  # True where the joint's dofs take their gravity compensation through
+  # qfrc_actuator, not qfrc_passive
+  jnt_actgravcomp: np.ndarray = static(None)
   jnt_solref: torch.Tensor = None
   jnt_solimp: torch.Tensor = None
   jnt_pos: torch.Tensor = None
@@ -428,6 +435,10 @@ class Model:
   geom_margin: torch.Tensor = None
   geom_gap: torch.Tensor = None
   geom_rbound: torch.Tensor = None
+  # the ellipsoid fluid model's coefficients (NFLUID a geom; column 0 is
+  # the compiler's fluidshape="ellipsoid" flag), zero where unused
+  geom_fluid: torch.Tensor = None
+  geom_fluid_np: np.ndarray = static(None)   # host copy: ellipsoid-fluid dispatch
   geom_rbound_np: np.ndarray = static(None)  # host copy: hfield subgrid sizing
   geom_size_np: np.ndarray = static(None)    # host copy: box grouping by exact size
   # per geom: the hull of a colliding box (mesh.box of its grouping key),
@@ -517,6 +528,7 @@ class Model:
   friction_dofid: np.ndarray = static(None)  # dofs with frictionloss > 0
   has_jnt_spring: bool = static(False)
   has_dof_damping: bool = static(False)
+  has_gravcomp: bool = static(False)  # any body_gravcomp > 0
   cache: dict = dataclasses.field(
       init=False, repr=False, compare=False, metadata={"static": True}
   )
@@ -636,6 +648,8 @@ class Data:
   qfrc_bias: torch.Tensor
   qfrc_spring: torch.Tensor
   qfrc_damper: torch.Tensor
+  qfrc_gravcomp: torch.Tensor
+  qfrc_fluid: torch.Tensor
   qfrc_passive: torch.Tensor
   subtree_linvel: torch.Tensor
   subtree_angmom: torch.Tensor

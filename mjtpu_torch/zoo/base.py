@@ -15,8 +15,8 @@ Usage:
     state = env.step(state, action, gen)             # auto-resets done envs
 
 Not ported, each refused with NotImplementedError naming it: pixel
-observations (mjtpu's render.py), the ``model=`` override of reset and
-step (domain randomization), and the satellite envs.
+observations (mjtpu's render.py) and the ``model=`` override of reset and
+step (domain randomization).
 """
 
 from __future__ import annotations

@@ -94,8 +94,8 @@ class Walker2d(MjtpuEnv):
 
 @register_env("swimmer")
 class Swimmer(MjtpuEnv):
-  """Registered as in mjtpu; building it raises put_model's refusal of
-  fluid forces (its viscous medium)."""
+  """A three-link swimmer in a viscous medium (RK4; fluid forces by the
+  inertia-box model)."""
 
   snapshot = "swimmer_model.npz"
   frame_skip = 4
@@ -170,28 +170,3 @@ class HumanoidRich(Humanoid):
     base = super()._obs(data)
     contact = torch.tanh(0.1 * data.qfrc_constraint)
     return torch.cat([base, contact, data.subtree_com[:, 1]], dim=-1)
-
-
-class _Satellite(MjtpuEnv):
-  """mjtpu's satellite envs (zoo/satellite.py with the CMG math of cmg.py)
-  are not ported: building one raises."""
-
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(
-        f"mjtpu_torch.zoo does not support the satellite envs ({self.name}: zoo/satellite.py,"
-        " cmg.py) yet")
-
-
-@register_env("satellite")
-class Satellite(_Satellite):
-  pass
-
-
-@register_env("satellite_large")
-class SatelliteLarge(_Satellite):
-  pass
-
-
-@register_env("satellite_small")
-class SatelliteSmall(_Satellite):
-  pass

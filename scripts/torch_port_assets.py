@@ -89,7 +89,8 @@
 
   mjtpu_torch/assets/<env>_model.npz for the zoo envs' models in
   mjtpu/zoo/assets (--model zoo): ant, hopper, walker2d, halfcheetah,
-      cartpole, humanoid and swimmer (which put_model refuses: fluid).
+      cartpole, humanoid, swimmer (with io.FLUID_FIELDS: fluid forces),
+      satellite, satellite_large and satellite_small.
   mjtpu_torch/assets/ant_rk4_golden.npz
       a reference trajectory of mjtpu/zoo/assets/ant.xml (RK4) from mjtpu
       at float64 on the CPU:
@@ -179,21 +180,33 @@
       and, per scene from cone_initial_state, mjtpu's run at float64:
       <scene>.qpos0, .qvel0 (.qfrc_applied0), .qpos, .qvel (.sensordata)
       over the steps, and .fwd.<field> of step 1.
+  mjtpu_torch/assets/fluid_scenes.npz, fluid_scenes_golden.npz
+      the bundle of fluid_scene_xmls (tests/test_fluid.py's mixed
+      ellipsoid-fluid model, GRAVCOMP_XML with and without its actuators,
+      BOX_WIND_XML) and, per scene from fluid_initial_state, mjtpu's run at
+      float64: <scene>.qpos0, .qvel0, .ctrl0, .qpos, .qvel over the steps,
+      and .fwd.<field> of step 1.
+  mjtpu_torch/assets/swimmer_satellite_env_golden.npz
+      mjtpu's env.step as zoo_env_golden.npz, for the swimmer and the three
+      satellite envs (--model satellite_envs); none ends an episode early,
+      so env 3 starts one step before its episode_length; the CMG envs
+      start with their rotors spinning, as their reset does.
 
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
     JAX_PLATFORMS=cpu PYTHONPATH=$(pwd) python scripts/torch_port_assets.py \
         [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
                      |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes
-                     |humanoid_bench_elliptic|cone_scenes]
+                     |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs]
         [--steps N] [--env NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
 AVX2: 1.6e-8 in qvel over 100 steps).  The script caps XLA at AVX2
 (``--xla_cpu_max_isa=AVX2``) so every x86 host with AVX2 writes the same
-trajectory.  tests/test_torch_assets.py runs it into a temporary directory
-and holds the result to the committed files.
+trajectory.  tests/test_torch_assets.py and tests/test_torch_assets_*.py
+run it into a temporary directory and hold the result to the committed
+files.
 """
 
 from __future__ import annotations
@@ -223,8 +236,13 @@ ANT_XML = ROOT / "mjtpu" / "zoo" / "assets" / "ant_bench.xml"
 ANT_MODEL_FILE = ASSETS / "ant_bench_model.npz"
 ANT_GOLDEN_FILE = ASSETS / "ant_bench_golden.npz"
 ZOO = ROOT / "mjtpu" / "zoo" / "assets"
-ZOO_MODELS = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid", "swimmer")
+ZOO_MODELS = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid", "swimmer",
+              "satellite", "satellite_large", "satellite_small")
 LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
+# the envs of the second env golden: the swimmer (fluid forces) and the
+# satellites (cmg.py, satellite.py)
+SATELLITE_ENVS = ("swimmer", "satellite", "satellite_large", "satellite_small")
+SATELLITE_ENV_GOLDEN_FILE = ASSETS / "swimmer_satellite_env_golden.npz"
 ANT_RK4_GOLDEN_FILE = ASSETS / "ant_rk4_golden.npz"
 ENV_GOLDEN_FILE = ASSETS / "zoo_env_golden.npz"
 CYLINDER_DROP_XML = """<mujoco><option timestep="0.005"/><worldbody>
@@ -276,9 +294,64 @@ FRICTIONLOSS_CHAIN_XML = """<mujoco><option timestep="0.002" cone="elliptic" imp
 </mujoco>"""
 # tests/test_fuzz.py::test_fuzz_elliptic_cone's scenes
 FUZZ_SEEDS = range(5)
+FLUID_SCENES_FILE = ASSETS / "fluid_scenes.npz"
+FLUID_GOLDEN_FILE = ASSETS / "fluid_scenes_golden.npz"
+# two trees: a hinge chain whose root joint takes its gravity compensation
+# through the actuators (actuatorgravcomp), under bodies at gravcomp 1 and
+# 0.5, and a free body at gravcomp 1 with a slide child at 0.5 that also
+# routes it through the actuators; motors on the chain's two hinges
+GRAVCOMP_XML = """<mujoco><option timestep="0.002"/>
+  <default><geom contype="0" conaffinity="0"/></default>
+  <worldbody>
+    <body pos="0 0 1" gravcomp="1">
+      <joint name="j0" type="hinge" axis="0 1 0" actuatorgravcomp="true"/>
+      <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04" mass="1"/>
+      <body pos="0.3 0 0" gravcomp="0.5">
+        <joint name="j1" type="hinge" axis="0 1 0"/>
+        <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04" mass="0.8"/>
+        <body pos="0.3 0 0">
+          <joint type="ball"/>
+          <geom type="box" size="0.05 0.06 0.07" mass="0.5"/>
+        </body>
+      </body>
+    </body>
+    <body pos="1 0 1" gravcomp="1">
+      <freejoint/>
+      <geom type="sphere" size="0.1" mass="0.3"/>
+      <body pos="0 0 -0.2" gravcomp="0.5">
+        <joint type="slide" axis="0 0 1" actuatorgravcomp="true"/>
+        <geom type="sphere" size="0.05" mass="0.2"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="j0" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
+    <motor joint="j1" gear="2"/>
+  </actuator>
+</mujoco>"""
+# the inertia-box fluid model alone, with wind, on a free box with two
+# hinged links (one at gravcomp 0.5)
+BOX_WIND_XML = """<mujoco>
+  <option density="1.2" viscosity="0.05" wind="1.5 -0.5 0.3"/>
+  <default><geom contype="0" conaffinity="0"/></default>
+  <worldbody>
+    <body pos="0 0 1">
+      <freejoint/>
+      <geom type="box" size="0.2 0.1 0.05" mass="1"/>
+      <body pos="0.2 0 0" gravcomp="0.5">
+        <joint type="hinge" axis="0 0 1"/>
+        <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03" mass="0.3"/>
+      </body>
+      <body pos="-0.2 0 0">
+        <joint type="hinge" axis="0 1 0"/>
+        <geom type="ellipsoid" size="0.1 0.05 0.02" mass="0.2"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>"""
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
-          "humanoid_bench_elliptic", "cone_scenes")
+          "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -694,7 +767,7 @@ def ant_rk4_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
 
 
 def env_initial_state(name: str, env, seed: int = 0):
-  """(qpos, qvel, steps) of the env golden's 4 envs (module docstring)."""
+  """(qpos, qvel, steps) of an env golden's 4 envs (module docstring)."""
   mjm = env.mj_model
   rng = np.random.default_rng(seed)
   noise = env.reset_noise
@@ -707,13 +780,15 @@ def env_initial_state(name: str, env, seed: int = 0):
     qpos[3, 2] = 0.5 if name == "hopper" else 1.5  # tilted past the bound
   elif name == "cartpole":
     qpos[3, 1] = 1.5         # the pole past 1 rad
-  elif name == "halfcheetah":
+  elif name in ("halfcheetah",) + SATELLITE_ENVS:  # these never end early
     steps[3] = env.episode_length - 1
+  if hasattr(env, "_rotor_dofs"):
+    qvel[:, env._rotor_dofs()] = env.rotor_speed  # spinning, as their reset starts them
   return qpos, qvel, steps
 
 
 def env_golden(names, steps: int = ENV_STEPS) -> dict[str, np.ndarray]:
-  """The env golden file's arrays for ``names`` (module docstring)."""
+  """An env golden file's arrays for ``names`` (module docstring)."""
   import jax
 
   jax.config.update("jax_enable_x64", True)
@@ -1128,6 +1203,57 @@ def cone_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndar
   return snapshots, golden
 
 
+def fluid_scene_xmls() -> dict[str, str]:
+  """The scenes of fluid_scenes.npz, name -> MJCF: tests/test_fluid.py's
+  mixed model (ellipsoid-model geoms of five types, a body on the box
+  model, wind), GRAVCOMP_XML with and without its actuators (nu = 0:
+  fwd_actuation's early return) and BOX_WIND_XML."""
+  import re
+
+  from tests.test_fluid import MIXED_XML
+
+  return {"mixed": MIXED_XML, "gravcomp": GRAVCOMP_XML,
+          "gravcomp_noact": re.sub(r"<actuator>.*</actuator>", "", GRAVCOMP_XML, flags=re.S),
+          "box_wind": BOX_WIND_XML}
+
+
+def fluid_initial_state(mjm, seed: int = 0) -> dict[str, np.ndarray]:
+  """The state fields of a fluid scene's 4 envs: qpos0 +-0.3 with every
+  quaternion normalized, qvel and ctrl uniform in [-1, 1]."""
+  import mujoco
+
+  rng = np.random.default_rng(seed)
+  qpos = mjm.qpos0[None] + rng.uniform(-0.3, 0.3, (BATCH, mjm.nq))
+  for q in qpos:
+    mujoco.mj_normalizeQuat(mjm, q)
+  return {"qpos": qpos, "qvel": rng.uniform(-1.0, 1.0, (BATCH, mjm.nv)),
+          "ctrl": rng.uniform(-1.0, 1.0, (BATCH, mjm.nu))}
+
+
+def fluid_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the fluid scenes' snapshot arrays by name, the fluid golden's
+  arrays: per scene its start, mjtpu's qpos and qvel after each step and
+  the forward Data of step 1)."""
+  import mujoco
+
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, xml in fluid_scene_xmls().items():
+    if names and name not in names:
+      continue
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    snapshots[name] = io.snapshot_arrays(mjm)
+    start = fluid_initial_state(mjm)
+    run, fwd = _mjtpu_run(mjm, start, steps)
+    golden.update({f"{name}.{k}0": v for k, v in start.items()})
+    golden.update({f"{name}.{k}": v for k, v in {**run, **fwd}.items()})
+    scale = {k: float(np.abs(fwd[f"fwd.qfrc_{k}"]).max()) for k in ("fluid", "gravcomp")}
+    print(f"{name}: step-1 max |qfrc_fluid| {scale['fluid']:.3e}, |qfrc_gravcomp|"
+          f" {scale['gravcomp']:.3e}")
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -1191,11 +1317,11 @@ def main():
                       " ant_rk4, cylinder_drop, roll, sph_cyl, humanoid_bench_elliptic and cone"
                       f" scene golden trajectories (default {STEPS}) and env steps of the env"
                       f" golden (default {ENV_STEPS})")
-  parser.add_argument("--env", action="append", choices=LOCOMOTION,
-                      help="the envs of the env golden (repeatable; default: all five)")
+  parser.add_argument("--env", action="append", choices=LOCOMOTION + SATELLITE_ENVS,
+                      help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
-                      help="the scenes of collision_scenes and cone_scenes (repeatable; default:"
-                      " all)")
+                      help="the scenes of collision_scenes, cone_scenes and fluid_scenes"
+                      " (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
   steps = args.steps or STEPS
@@ -1248,10 +1374,12 @@ def main():
     np.savez_compressed(out / ANT_RK4_GOLDEN_FILE.name,
                         **ant_rk4_golden(load_zoo_mjmodel("ant"), steps))
     files.append(ANT_RK4_GOLDEN_FILE.name)
-  if "zoo_envs" in models:
-    np.savez_compressed(out / ENV_GOLDEN_FILE.name,
-                        **env_golden(args.env or LOCOMOTION, args.steps or ENV_STEPS))
-    files.append(ENV_GOLDEN_FILE.name)
+  for key, envs, path in (("zoo_envs", LOCOMOTION, ENV_GOLDEN_FILE),
+                           ("satellite_envs", SATELLITE_ENVS, SATELLITE_ENV_GOLDEN_FILE)):
+    if key in models:
+      names = [e for e in args.env or envs if e in envs]
+      np.savez_compressed(out / path.name, **env_golden(names, args.steps or ENV_STEPS))
+      files.append(path.name)
   for name in CONTACT_MODELS:
     if name in models:
       mjm = load_contact_mjmodel(name)
@@ -1273,6 +1401,11 @@ def main():
     io.save_snapshot_bundle(out / CONE_SCENES_FILE.name, snapshots)
     np.savez_compressed(out / CONE_GOLDEN_FILE.name, **cone_golden)
     files += [CONE_SCENES_FILE.name, CONE_GOLDEN_FILE.name]
+  if "fluid_scenes" in models:
+    snapshots, fluid_golden = fluid_scenes(args.scene, steps)
+    io.save_snapshot_bundle(out / FLUID_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / FLUID_GOLDEN_FILE.name, **fluid_golden)
+    files += [FLUID_SCENES_FILE.name, FLUID_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -1,7 +1,11 @@
 """The port's hard-coded enums and committed data files, held to their
 sources: the ``mujoco`` bindings, a fresh MjModel, and a fresh mjtpu run.
 Also: the port imports and steps the committed model with jax, mjtpu and
-mujoco absent, as on the machine with the GPU."""
+mujoco absent, as on the machine with the GPU.
+
+The regenerations of the models' goldens are in test_torch_assets_*.py,
+one file each (so that --dist loadfile spreads them over the workers);
+they share this file's helpers."""
 
 import dataclasses
 import importlib.util
@@ -70,6 +74,7 @@ def test_constants_match_bindings():
   assert types.MINVAL == mujoco.mjMINVAL
   assert types.NREF == mujoco.mjNREF
   assert types.NIMP == mujoco.mjNIMP
+  assert types.NFLUID == mujoco.mjNFLUID
 
 
 def _assert_models_equal(a, b, path="model"):
@@ -95,7 +100,8 @@ def _assert_models_equal(a, b, path="model"):
       assert type(x) is type(y) and x == y, where
 
 
-ZOO_BUILT = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid")
+ZOO_BUILT = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole", "humanoid", "swimmer",
+             "satellite", "satellite_large", "satellite_small")
 
 
 CONTACT_MODELS = ("cylinder_drop", "roll", "sph_cyl")
@@ -231,275 +237,9 @@ def _regenerate(out, *args):
   return out
 
 
-@pytest.fixture(scope="module")
-def regenerated(tmp_path_factory):
-  """humanoid_bench's data files written afresh."""
-  return _regenerate(tmp_path_factory.mktemp("assets"), "--model", "humanoid_bench")
-
-
-TERRAIN_PREFIX = 5
-
-
-@pytest.fixture(scope="module")
-def regenerated_terrain(tmp_path_factory):
-  """humanoid_terrain's data files written afresh, its golden over the
-  first TERRAIN_PREFIX steps only (the rest of the committed trajectory is
-  held by tests/test_torch_terrain.py's one-step restarts)."""
-  return _regenerate(tmp_path_factory.mktemp("terrain"), "--model", "humanoid_terrain",
-                     "--steps", str(TERRAIN_PREFIX))
-
-
 def _snapshot_keys(path) -> list[str]:
   with np.load(path) as z:
     return sorted(k for k in z.files if not k.startswith(io.HULL_PREFIXES))
-
-
-def test_snapshot_file_is_fresh(regenerated):
-  script = _assets_script()
-  assert _snapshot_keys(script.MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated / script.MODEL_FILE.name) as new, np.load(script.MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-def test_terrain_snapshot_file_is_fresh(regenerated_terrain):
-  script = _assets_script()
-  name = script.TERRAIN_MODEL_FILE.name
-  assert _snapshot_keys(script.TERRAIN_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated_terrain / name) as new, np.load(script.TERRAIN_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert sum(k.startswith("hull.") for k in new.files) == len(io.HULL_FIELDS)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-PILE_PREFIX = 5
-
-
-@pytest.fixture(scope="module")
-def regenerated_pile(tmp_path_factory):
-  """scene_pile's data files written afresh, its golden over the first
-  PILE_PREFIX steps only (the golden keeps every 5th step: one entry)."""
-  return _regenerate(tmp_path_factory.mktemp("pile"), "--model", "scene_pile",
-                     "--steps", str(PILE_PREFIX))
-
-
-def test_pile_snapshot_file_is_fresh(regenerated_pile):
-  """The pile snapshot, with mjtpu's box hulls (one per box geom), is what
-  the script writes."""
-  script = _assets_script()
-  name = script.PILE_MODEL_FILE.name
-  assert _snapshot_keys(script.PILE_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated_pile / name) as new, np.load(script.PILE_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert sum(k.startswith("geomhull.") for k in new.files) == 16 * len(io.HULL_FIELDS)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-def test_pile_golden_file_is_fresh(regenerated_pile):
-  """Regenerating the pile golden with mjtpu reproduces the committed
-  file's step-1 fields and its state after step PILE_PREFIX."""
-  script = _assets_script()
-  name = script.PILE_GOLDEN_FILE.name
-  with np.load(regenerated_pile / name) as new, np.load(script.PILE_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[0] * script.PILE_EVERY == script.STEPS
-    for k in new.files:
-      want = old[k][:PILE_PREFIX // script.PILE_EVERY] if k in ("qpos", "qvel") else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-def test_boxes_snapshot_file_is_fresh(tmp_path):
-  script = _assets_script()
-  new_dir = _regenerate(tmp_path, "--model", "boxes")
-  with np.load(new_dir / script.BOXES_MODEL_FILE.name) as new, \
-      np.load(script.BOXES_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert sum(k.startswith("geomhull.") for k in new.files) == 2 * len(io.HULL_FIELDS)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-@pytest.fixture(scope="module")
-def regenerated_branchy(tmp_path_factory):
-  """The branchy66 data files written afresh (the whole 100-step golden:
-  the tree has no contacts, so its steps cost little beside the compile)."""
-  return _regenerate(tmp_path_factory.mktemp("branchy"), "--model", "branchy66")
-
-
-def test_branchy_snapshot_file_is_fresh(regenerated_branchy):
-  script = _assets_script()
-  assert _snapshot_keys(script.BRANCHY_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated_branchy / script.BRANCHY_MODEL_FILE.name) as new, \
-      np.load(script.BRANCHY_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-def test_branchy_golden_file_is_fresh(regenerated_branchy):
-  """Regenerating the branchy golden with mjtpu reproduces the committed
-  file: its 100 steps and its step-1 fields."""
-  script = _assets_script()
-  name = script.BRANCHY_GOLDEN_FILE.name
-  with np.load(regenerated_branchy / name) as new, np.load(script.BRANCHY_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
-    for k in new.files:
-      np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
-
-
-ANT_PREFIX = 5
-
-
-@pytest.fixture(scope="module")
-def regenerated_ant(tmp_path_factory):
-  """ant_bench's data files written afresh, its golden over the first
-  ANT_PREFIX steps only (the rest of the committed trajectory is held by
-  tests/test_torch_ant.py against the port)."""
-  return _regenerate(tmp_path_factory.mktemp("ant"), "--model", "ant_bench",
-                     "--steps", str(ANT_PREFIX))
-
-
-def test_ant_snapshot_file_is_fresh(regenerated_ant):
-  script = _assets_script()
-  assert _snapshot_keys(script.ANT_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated_ant / script.ANT_MODEL_FILE.name) as new, \
-      np.load(script.ANT_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-def test_ant_golden_file_is_fresh(regenerated_ant):
-  """Regenerating the ant golden with mjtpu reproduces the committed
-  file's first ANT_PREFIX steps and its forward fields; the golden has
-  touch readings that are not zero."""
-  script = _assets_script()
-  name = script.ANT_GOLDEN_FILE.name
-  with np.load(regenerated_ant / name) as new, np.load(script.ANT_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
-    assert (old["sensordata"][..., :9] != 0).any()  # the 9 touch sensors
-    for k in new.files:
-      want = old[k][:ANT_PREFIX] if k in ("qpos", "qvel", "sensordata") else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-def test_zoo_snapshot_files_are_fresh(tmp_path):
-  """The zoo envs' snapshots (swimmer's too, which put_model refuses for
-  its fluid) are what the script writes."""
-  script = _assets_script()
-  new_dir = _regenerate(tmp_path, "--model", "zoo")
-  assert script.ZOO_MODELS == ZOO_BUILT + ("swimmer",)
-  for name in script.ZOO_MODELS:
-    old_file = mjtpu_torch.ASSETS / f"{name}_model.npz"
-    assert _snapshot_keys(old_file) == sorted(io.SNAPSHOT_FIELDS)
-    with np.load(new_dir / old_file.name) as new, np.load(old_file) as old:
-      assert sorted(new.files) == sorted(old.files)
-      for k in new.files:
-        np.testing.assert_array_equal(new[k], old[k], err_msg=f"{name} {k}")
-
-
-ANT_RK4_PREFIX = 2
-
-
-def test_ant_rk4_golden_file_is_fresh(tmp_path):
-  """Regenerating the ant RK4 golden with mjtpu reproduces the committed
-  file's step-1 passes and fields and its first ANT_RK4_PREFIX steps (the
-  rest of the trajectory is held by tests/test_torch_rk4.py against the
-  port)."""
-  script = _assets_script()
-  new_dir = _regenerate(tmp_path, "--model", "ant_rk4", "--steps", str(ANT_RK4_PREFIX))
-  name = script.ANT_RK4_GOLDEN_FILE.name
-  with np.load(new_dir / name) as new, np.load(script.ANT_RK4_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
-    assert old["pass_qacc"].shape == (4, script.BATCH, 14)
-    for k in new.files:
-      want = old[k][:ANT_RK4_PREFIX] if k in ("qpos", "qvel") else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-def test_env_golden_file_is_fresh(tmp_path):
-  """Regenerating cartpole's part of the env golden with mjtpu reproduces
-  the committed file's first env step (mjtpu's compile of the other envs'
-  env.step takes 40-90 s each on the CPU; their entries are held by
-  tests/test_torch_zoo.py against the port)."""
-  script = _assets_script()
-  new_dir = _regenerate(tmp_path, "--model", "zoo_envs", "--env", "cartpole", "--steps", "1")
-  name = script.ENV_GOLDEN_FILE.name
-  with np.load(new_dir / name) as new, np.load(script.ENV_GOLDEN_FILE) as old:
-    assert sorted(old.files) == sorted(f"{env}.{k}" for env in script.LOCOMOTION for k in (
-        "qpos0", "qvel0", "steps0", "action", "obs", "reward", "done", "steps"))
-    assert sorted(new.files) == sorted(k for k in old.files if k.startswith("cartpole."))
-    for k in new.files:
-      want = old[k][:1] if new[k].ndim and k.split(".")[1] in (
-          "action", "obs", "reward", "done", "steps") else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-def test_terrain_golden_file_is_fresh(regenerated_terrain):
-  """Regenerating the terrain golden with mjtpu reproduces the committed
-  file's first TERRAIN_PREFIX steps and its step-1 fields."""
-  script = _assets_script()
-  name = script.TERRAIN_GOLDEN_FILE.name
-  with np.load(regenerated_terrain / name) as new, np.load(script.TERRAIN_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[0] == script.STEPS
-    for k in new.files:
-      want = old[k][:TERRAIN_PREFIX] if k in ("qpos", "qvel") else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-ELLIPTIC_PREFIX = 5
-
-
-@pytest.fixture(scope="module")
-def regenerated_elliptic(tmp_path_factory):
-  """humanoid_bench_elliptic's data files written afresh, both golden runs
-  over their first ELLIPTIC_PREFIX steps (the rest is held by
-  tests/test_torch_elliptic.py against the port)."""
-  return _regenerate(tmp_path_factory.mktemp("elliptic"), "--model", "humanoid_bench_elliptic",
-                     "--steps", str(ELLIPTIC_PREFIX))
-
-
-def test_elliptic_snapshot_file_is_fresh(regenerated_elliptic):
-  script = _assets_script()
-  assert _snapshot_keys(script.ELLIPTIC_MODEL_FILE) == sorted(io.SNAPSHOT_FIELDS)
-  with np.load(regenerated_elliptic / script.ELLIPTIC_MODEL_FILE.name) as new, \
-      np.load(script.ELLIPTIC_MODEL_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert int(old["opt.cone"]) == types.ConeType.ELLIPTIC
-    for k in new.files:
-      np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-
-
-def test_elliptic_golden_file_is_fresh(regenerated_elliptic):
-  """Regenerating the elliptic golden with mjtpu reproduces the committed
-  file's forward fields and the first ELLIPTIC_PREFIX steps of both
-  configurations' runs, batched and solo."""
-  script = _assets_script()
-  name = script.ELLIPTIC_GOLDEN_FILE.name
-  runs = tuple(f"{c}{r}{f}" for c in ("", "conv_") for r in ("", "solo_", "solo_run_")
-               for f in ("qpos", "qvel")) + ("warm", "conv_warm")
-  with np.load(regenerated_elliptic / name) as new, np.load(script.ELLIPTIC_GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    assert old["qpos"].shape[:2] == (script.STEPS, script.BATCH)
-    for k in new.files:
-      want = old[k][:ELLIPTIC_PREFIX] if k in runs else old[k]
-      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)
-
-
-def test_golden_file_is_fresh(regenerated):
-  """Regenerating the golden trajectories with mjtpu reproduces the file."""
-  script = _assets_script()
-  with np.load(regenerated / script.GOLDEN_FILE.name) as new, np.load(script.GOLDEN_FILE) as old:
-    assert sorted(new.files) == sorted(old.files)
-    for k in new.files:
-      np.testing.assert_allclose(new[k], old[k], rtol=0, atol=1e-12, err_msg=k)
 
 
 _NO_JAX = r"""
@@ -529,6 +269,10 @@ env = zoo.ENVS["ant"](device="cpu")
 gen = torch.Generator().manual_seed(0)
 state = env.step(env.reset(2, gen), torch.zeros(2, env.action_size), gen)
 assert state.obs.shape == (2, 27) and bool(torch.isfinite(state.obs).all())
+for name in ("swimmer", "satellite", "satellite_small"):  # fluid forces, cmg.py, CMG rotors
+  env = zoo.ENVS[name](device="cpu")
+  state = env.step(env.reset(2, gen), torch.zeros(2, env.action_size), gen)
+  assert bool(torch.isfinite(state.obs).all()), name
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "mjtpu", "mujoco"))
 assert not bad, bad
 print("ok")

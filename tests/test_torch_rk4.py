@@ -202,14 +202,18 @@ def test_twin_matches_mjtpu_base_at_zoo_width(n, clamp):
     ("implicit", "the implicit integrator"),
 ])
 def test_put_model_refuses_by_name(name, what):
-  """RK4 models pass the integrator gate; the swimmer (RK4 in a viscous
-  medium) is refused for its fluid, the full Implicit integrator by name."""
+  """RK4 models pass the integrator gate (the swimmer, RK4 in a viscous
+  medium, builds: tests/test_torch_satellite.py); the swimmer under
+  ImplicitFast is refused for its fluid (the fluid forces' velocity
+  derivative is not ported), the full Implicit integrator by name."""
   if name == "implicit":
     mjm = load_mj("pendulum_rk4.xml")
     mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICIT
   else:
     mjm = mujoco.MjModel.from_xml_path(str(mjtpu_torch.ASSETS.parent.parent / "mjtpu" / "zoo"
                                            / "assets" / name))
+    mjtpu_torch.put_model(mjm, device="cpu")  # RK4 in a fluid
+    mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICITFAST
   with pytest.raises(NotImplementedError, match=what):
     mjtpu_torch.put_model(mjm, device="cpu")
 

@@ -161,7 +161,7 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
 # ``what`` None: a model that an earlier slice refused and a later one
 # accepts (the collision slice: every geom pair mjtpu collides, the
 # max_geom_pairs broadphase; the cone slice: elliptic cones, condim 4 and
-# 6); it must build and step
+# 6; the fluid slice: fluid forces under RK4); it must build and step
 @pytest.mark.parametrize("make, what", [
     (_variant(HB, collide_head=True), None),
     (_xml(_free('type="capsule" size="0.05 0.1"', 0.5) + _free('type="box" size="0.1 0.1 0.1"', 0.2)),
@@ -178,9 +178,9 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
     (_variant("sensors.xml"), "sensors"),
     (_variant("equality.xml"), "equality"),
     (_variant("friction_tendon.xml"), "tendons"),
-    # RK4 is in the slice since the zoo envs: an RK4 model in a fluid (the
-    # zoo's swimmer) is refused for the fluid
-    (_variant("pendulum_rk4.xml", density=1.2), "fluid"),
+    # RK4 is in the slice since the zoo envs, fluid forces since the fluid
+    # slice: an RK4 model in a fluid (as the zoo's swimmer) builds and steps
+    (_variant("pendulum_rk4.xml", density=1.2), None),
     (_variant("boxes.xml", integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST),
      "ImplicitFast on a multi-tree"),
     (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), None),

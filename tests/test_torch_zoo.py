@@ -14,8 +14,9 @@
     Data field of a done env is the fresh state's, every other env's the
     stepped one's, steps set to 0 where done, bit for bit;
   * reset's draws come from the explicit generator only; the refusals
-    (swimmer's fluid, pixel observations, the model= override, the
-    satellite envs); the default device.
+    (pixel observations, fluid under ImplicitFast, the model= override);
+    the default device.  The swimmer's and the satellite envs' env.step:
+    tests/test_torch_satellite.py.
 """
 
 import dataclasses
@@ -35,7 +36,8 @@ torch.set_num_threads(1)
 
 GOLDEN = mjtpu_torch.ASSETS / "zoo_env_golden.npz"
 LOCOMOTION = ("ant", "hopper", "walker2d", "halfcheetah", "cartpole")
-BUILT = LOCOMOTION + ("humanoid", "humanoid_terrain", "humanoid_rich")
+BUILT = LOCOMOTION + ("humanoid", "humanoid_terrain", "humanoid_rich", "swimmer", "satellite",
+                      "satellite_large", "satellite_small")
 FUNCTION_BOUND = 1e-12
 STEP_BOUND = 1e-10
 
@@ -79,7 +81,7 @@ def test_obs_and_reward_done_match_mjtpu(name):
   gen = torch.Generator().manual_seed(0)
   prev = env.reset(4, gen).data
   action = torch.rand(4, env.action_size, generator=gen, dtype=torch.float64) * 2.4 - 1.2
-  data = mjtpu_torch.step(env.model, mjtpu_torch.replace(prev, ctrl=action))
+  data = mjtpu_torch.step(env.model, mjtpu_torch.replace(prev, ctrl=env._prepare_ctrl(action)))
   prev_j, data_j = _mjtpu_data(env_j, prev), _mjtpu_data(env_j, data)
   np.testing.assert_allclose(env._obs(data).numpy(), np.asarray(jax.vmap(env_j._obs)(data_j)),
                              rtol=0, atol=FUNCTION_BOUND)
@@ -177,13 +179,17 @@ def test_reset_draws_from_the_generator_only():
   assert a.obs.shape == (6, 27) and a.data.qvel.abs().max() > 0
 
 
+def _swimmer_implicitfast():
+  """The swimmer env's model with its integrator set to ImplicitFast."""
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / zoo.ENVS["swimmer"].snapshot)
+  ns.opt.integrator = int(mjtpu_torch.IntegratorType.IMPLICITFAST)
+  return mjtpu_torch.model_from_arrays(ns, device="cpu")
+
+
 @pytest.mark.parametrize("make, what", [
-    (lambda: zoo.ENVS["swimmer"](dtype=torch.float64, device="cpu"), "fluid forces"),
     (lambda: zoo.ENVS["ant"](device="cpu", pixel_obs=True), "pixel observations"),
-    (lambda: zoo.ENVS["satellite"](device="cpu"), "satellite envs"),
-    (lambda: zoo.ENVS["satellite_large"](device="cpu"), "satellite envs"),
-    (lambda: zoo.ENVS["satellite_small"](device="cpu"), "satellite envs"),
-], ids=["swimmer", "pixel_obs", "satellite", "satellite_large", "satellite_small"])
+    (_swimmer_implicitfast, "fluid forces under the implicit integrators"),
+], ids=["pixel_obs", "swimmer_implicitfast"])
 def test_env_refusals(make, what):
   with pytest.raises(NotImplementedError, match=what):
     make()

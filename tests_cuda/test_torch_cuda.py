@@ -36,17 +36,17 @@ def test_kernel_matches_twin(batch, n, dtype):
 
 @pytest.mark.parametrize("clamp", [False, True], ids=["spd", "clamped"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 6, 8, 9, 14, 23, 27, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40])
 def test_chol_variants_match_twin(n, dtype, clamp):
   """Every variant that can run an n (the register kernel at the main
-  paths' and the zoo envs' n, 6, 8, 9, 14, 23 and 27; the shared kernel
+  paths' and the zoo envs' n, 5, 6, 8, 9, 14, 23 and 27; the shared kernel
   everywhere) within phase 3's
   tolerance of the twin, the register kernel equal to the shared one bit
   for bit, launches counted by variant."""
   gen = torch.Generator(device="cuda").manual_seed(n)
   mat, rhs = chip_smoke._spd(n, 130, dtype, gen, clamp)
   ref = cholesky.chol_solve_reference(mat, rhs)
-  assert cholesky.variant(n, dtype) == ("register" if n in (6, 8, 9, 14, 23, 27) else "shared")
+  assert cholesky.variant(n, dtype) == ("register" if n in cholesky.REGISTER_WIDTHS else "shared")
   got = {}
   for kind in cholesky.variants(n, dtype):
     before = dict(cholesky.variant_launches)
@@ -451,31 +451,31 @@ def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
                                atol=tol * max(1.0, np.abs(out["cpu"][k]).max(initial=0.0)))
 
 
-def test_ant_env_step_on_cuda_matches_cpu():
-  """One env step of the Ant env (ant.xml, RK4: 5 physics steps of 4
-  forward passes and the reset forward) on the card against the same step
-  on the CPU, from the env golden's states: obs and reward of the envs
-  that are not done to 1e-9 of scale, done and steps equal (env 3 is done:
-  its fresh state comes from each device's generator); on the card one B1
+def _env_step_on_cuda_matches_cpu(name, golden_file):
+  """One env step of ``zoo.ENVS[name]`` on the card against the same step
+  on the CPU, from an env golden's states: obs and reward of the envs that
+  are not done to 1e-9 of scale, done and steps equal (env 3 is done: its
+  fresh state comes from each device's generator); on the card one B1
   launch, register, per Newton iteration."""
   import dataclasses
 
   from mjtpu_torch import zoo
   from mjtpu_torch._src import solver
 
-  golden = np.load(mjtpu_torch.ASSETS / "zoo_env_golden.npz")
+  golden = np.load(mjtpu_torch.ASSETS / golden_file)
   out = {}
   for device in ("cpu", "cuda"):
-    env = zoo.ENVS["ant"](dtype=torch.float64, device=device)
+    env = zoo.ENVS[name](dtype=torch.float64, device=device)
     d = mjtpu_torch.make_data(env.model, batch_size=4)
-    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden["ant.qpos0"], device=device),
-                            qvel=torch.as_tensor(golden["ant.qvel0"], device=device))
+    d = mjtpu_torch.replace(d, qpos=torch.as_tensor(golden[f"{name}.qpos0"], device=device),
+                            qvel=torch.as_tensor(golden[f"{name}.qvel0"], device=device))
     state = env._init_state(mjtpu_torch.forward(env.model, d))
-    state = dataclasses.replace(state, steps=torch.as_tensor(golden["ant.steps0"], device=device))
+    state = dataclasses.replace(state, steps=torch.as_tensor(golden[f"{name}.steps0"],
+                                                             device=device))
     gen = torch.Generator(device=device).manual_seed(0)
     before = dict(cholesky.variant_launches)
     newton = solver.loop_counts["iterations"]
-    state = env.step(state, torch.as_tensor(golden["ant.action"][0], device=device), gen)
+    state = env.step(state, torch.as_tensor(golden[f"{name}.action"][0], device=device), gen)
     iterations = solver.loop_counts["iterations"] - newton
     kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
     out[device] = state, iterations, kinds
@@ -488,6 +488,18 @@ def test_ant_env_step_on_cuda_matches_cpu():
     want = getattr(cpu, k)[:3].numpy()
     np.testing.assert_allclose(getattr(gpu, k)[:3].cpu().numpy(), want, rtol=0,
                                atol=1e-9 * max(1.0, np.abs(want).max()))
+
+
+def test_ant_env_step_on_cuda_matches_cpu():
+  """The Ant env (ant.xml, RK4: 5 physics steps of 4 forward passes and
+  the reset forward), B1 at n=14."""
+  _env_step_on_cuda_matches_cpu("ant", "zoo_env_golden.npz")
+
+
+def test_swimmer_env_step_on_cuda_matches_cpu():
+  """The swimmer env (swimmer.xml, RK4, fluid forces: 4 physics steps of 4
+  forward passes and the reset forward), B1 at n=5."""
+  _env_step_on_cuda_matches_cpu("swimmer", "swimmer_satellite_env_golden.npz")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
