@@ -11,13 +11,14 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32
+     (n in 1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32
      and f64) and batches whose pivots hit the floor; every variant that
-     can run an n (the register kernel at n=5, 6, 8, 9, 14, 23 and 27, the
-     shared one everywhere) within the tolerance of the twin, and the two
-     equal bit for bit; times of both at n=27, 23, 14, 9, 8, 6 and 5
+     can run an n (the register kernel at n=2, 5, 6, 8, 9, 14, 23 and 27,
+     the shared one everywhere) within the tolerance of the twin, and the
+     two equal bit for bit; times of both at n=27, 23, 14, 9, 8, 6, 5 and 2
      (bench's, terrain's, the Ant env's, walker2d's and halfcheetah's,
-     ant_bench's, hopper's and the swimmer env's shapes), B=4096, beside
+     ant_bench's, hopper's, the swimmer env's and the tendon scene's and
+     muscle.xml's shapes), B=4096, beside
      torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
@@ -162,12 +163,37 @@ failure raises and the script exits non-zero:
      the three satellite envs, a few f32 B=4096 env steps each: finite,
      nreset 0, their B1 launches by variant.
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23 and 25: each kernel's launch
+ 26. tendon parity: f64, B=4 on the card, every scene of tendon_scenes.npz
+     (tests/test_tendon.py's mixed model, its sphere, cylinder and pulley
+     wraps, friction_tendon.xml, muscle.xml, sensors.xml, the slider-crank
+     and adhesion models, the tendon limit sensors) against its mjtpu
+     golden at the CPU test's bounds (tendon_scene_errors): the tendons at
+     40 seeded poses a wrap scene to 1e-12 of scale with equal wrap flags,
+     step 1's actuation and passive forces to 1e-12 and efc rows to 1e-10
+     of scale, 100 steps to 1e-8; one B1 launch per Newton iteration, and
+     one a step where Euler's damping solves a dense tree.
+ 27. tendon throughput, the main path: the mixed tendon scene at f32
+     B=4096 from its snapshot (qpos0 +-0.01, ctrl in [-1, 1], numpy seed
+     1), 3 warm-up and 200 timed steps: env-steps/s, ms per step, B1
+     launches per step (register only, n=2, one per Newton iteration),
+     Newton iterations and linesearch rounds per step, nreset 0, B1's share
+     of the step, one profiled step's launches and busy share; then
+     muscle.xml the same way with 20 timed steps (B1 also once a step for
+     Euler's damping).
+
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25 and 27: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
 the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
+
+The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24 and 26, and phase
+22's cone scenes (``22-cones``), run each in a process of its own
+(``python3 chip_smoke.py --phase 24``), started just after phase 21 and
+awaited after the rest of phase 22, so their host-bound steps at B=4
+overlap it; no phase is timed while they run (the timed phases 23, 25
+and 27 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -259,14 +285,29 @@ CONE_FUZZ_SOLVE_BOUND = 1e-7
 CONE_TRAJECTORY_BOUND = 1e-7
 # the fuzz scenes' steps held on the card, as on the CPU (the time limit)
 CONE_FUZZ_STEPS = 25
-# phase 3's sizes: the register kernel's n (the main paths' 5, 8, 14, 23,
-# 27 and the zoo envs' 6 and 9), which both variants run, and n that only the
-# shared kernel runs (32 and 33 on either side of its rows' striding over
-# the lanes)
-CHOL_NS = (1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40)
+# tests/test_torch_tendon.py's bounds: the tendons at the wrap scenes'
+# seeded poses and step 1's actuation and passive forces of each field's
+# scale, step 1's efc rows of scale, the 100-step trajectories (absolute;
+# sensordata of each sensor's scale)
+TENDON_POSE_FIELDS = ("ten_length", "ten_J", "ten_wrap_xpos")
+TENDON_FORCES = ("actuator_length", "actuator_moment", "act_dot", "actuator_force",
+                 "qfrc_passive")
+TENDON_EFC = ("efc_J", "efc_pos", "efc_margin", "efc_frictionloss", "efc_D", "efc_aref")
+TENDON_POSE_BOUND = 1e-12
+TENDON_FORCE_BOUND = 1e-12
+TENDON_EFC_BOUND = 1e-10
+TENDON_TRAJECTORY_BOUND = 1e-8
+TENDON_WARMUP = 3
+MUSCLE_TIMED = 20
+# phase 3's sizes: the register kernel's n (the main paths' 2, 5, 8, 14,
+# 23, 27 and the zoo envs' 6 and 9), which both variants run, and n that
+# only the shared kernel runs (32 and 33 on either side of its rows'
+# striding over the lanes)
+CHOL_NS = (1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40)
 # the register kernel's n, timed in phase 3: bench, terrain, the Ant env,
-# walker2d and halfcheetah, ant_bench, hopper, the swimmer env
-CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6, 5)
+# walker2d and halfcheetah, ant_bench, hopper, the swimmer env, the tendon
+# scene and muscle.xml
+CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6, 5, 2)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
@@ -2021,7 +2062,7 @@ def phase_elliptic_parity():
   import torch
 
   import mjtpu_torch
-  from mjtpu_torch._src import io, solver
+  from mjtpu_torch._src import solver
   from mjtpu_torch.ops import cholesky
 
   golden = dict(np.load(mjtpu_torch.ASSETS / f"{ELLIPTIC}_golden.npz"))
@@ -2087,9 +2128,18 @@ def phase_elliptic_parity():
     raise AssertionError(f"benchmark-config elliptic run differs from mjtpu: {head:.3e} through"
                          f" step {ELLIPTIC_HEAD_STEPS}")
   (h, grad), = calls
-  f64_err = _hold_chol(h, grad, f"{ELLIPTIC}'s Newton Hessians (the 400 restarts)")
+  return _hold_chol(h, grad, f"{ELLIPTIC}'s Newton Hessians (the 400 restarts)")
 
-  # the cone and frictionloss scenes
+
+def phase_cone_parity():
+  """Phase 22's cone and frictionloss scenes at f64 against their golden,
+  and B1 against its twin on elliptic.xml's Hessians."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
   bundle = mjtpu_torch.ASSETS / "cone_scenes.npz"
   scenes = dict(np.load(mjtpu_torch.ASSETS / "cone_scenes_golden.npz"))
   shared = None
@@ -2128,7 +2178,6 @@ def phase_elliptic_parity():
       shared = calls[0]
   _hold_chol(*shared, "elliptic.xml's first Newton Hessians (two trees, dense)")
   _hold_chol(shared[0].float(), shared[1].float(), "elliptic.xml's Hessians cast to f32")
-  return f64_err
 
 
 def phase_elliptic_throughput(card, bench):
@@ -2247,6 +2296,172 @@ def phase_fluid_parity():
       f" {C8_STEPS} steps, sensordata finite, all {len(touch)} touch readings 0 in every step")
 
 
+def tendon_scene(name, golden, device):
+  """(Model, Data) at f64 of a tendon scene (tendon_scenes.npz) at its
+  golden's start, on ``device``."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "tendon_scenes.npz", name), device=device)
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+  start = {k: torch.as_tensor(golden[f"{name}.{k}0"], dtype=m.dtype, device=device)
+           for k in ("qpos", "qvel", "ctrl", "act") if f"{name}.{k}0" in golden}
+  return m, mjtpu_torch.replace(d, **start)
+
+
+def tendon_scene_errors(name, golden, device, steps=None) -> dict:
+  """A tendon scene's errors against its golden (tests/test_torch_tendon.py
+  and phase 26 share it), each over its bound's scale: "pose.<field>" the
+  tendons at the wrap scenes' seeded poses (fwd_position), of max(1, max
+  |mjtpu's|), and "pose.flags" the wrap flags that differ (a count);
+  "force.<field>" step 1's actuation and passive forces and "efc.<field>"
+  its efc rows, of scale; "trajectory.<field>" qpos, qvel and act over
+  ``steps`` (default all) steps, absolute, and sensordata of each
+  sensor's scale."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  m, d = tendon_scene(name, golden, device)
+  out = {}
+  if f"{name}.poses.qpos" in golden:
+    poses = golden[f"{name}.poses.qpos"]
+    dp = mjtpu_torch.make_data(m, batch_size=poses.shape[0])
+    dp = mjtpu_torch.fwd_position(m, mjtpu_torch.replace(
+        dp, qpos=torch.as_tensor(poses, device=device)))
+    for f in TENDON_POSE_FIELDS:
+      out[f"pose.{f}"] = _scaled_err(getattr(dp, f).cpu().numpy(), golden[f"{name}.poses.{f}"])
+    out["pose.flags"] = int((dp.ten_wrap_active.cpu().numpy()
+                             != golden[f"{name}.poses.ten_wrap_active"]).sum())
+  fwd = mjtpu_torch.forward(m, d)
+  for group, fields in (("force", TENDON_FORCES), ("efc", TENDON_EFC)):
+    for f in fields:
+      want = golden[f"{name}.fwd.{f}"]
+      out[f"{group}.{f}"] = _scaled_err(getattr(fwd, f).cpu().numpy(), want) if want.size else 0.0
+  fields = [f for f in ("qpos", "qvel", "act", "sensordata") if f"{name}.{f}" in golden]
+  if "sensordata" in fields:
+    scale = _sensor_scale(m, {"sensordata": golden[f"{name}.sensordata"]})
+  err = dict.fromkeys(fields, 0.0)
+  for t in range(steps or golden[f"{name}.qpos"].shape[0]):
+    d = mjtpu_torch.step(m, d)
+    for f in fields:
+      e = np.abs(getattr(d, f).cpu().numpy() - golden[f"{name}.{f}"][t])
+      err[f] = max(err[f], float((e / scale if f == "sensordata" else e).max(initial=0.0)))
+  out.update({f"trajectory.{f}": v for f, v in err.items()})
+  return out
+
+
+def tendon_bound(key: str) -> float:
+  """The bound of a tendon_scene_errors entry."""
+  return {"pose": TENDON_POSE_BOUND, "force": TENDON_FORCE_BOUND, "efc": TENDON_EFC_BOUND,
+          "trajectory": TENDON_TRAJECTORY_BOUND}[key.split(".")[0]] if key != "pose.flags" else 0
+
+
+def _damping_solves(m) -> int:
+  """B1 launches a step besides Newton's: one where Euler's implicit
+  damping solves one dense tree (smooth.factor_solve through
+  fused.chol_solve), else none."""
+  from mjtpu_torch._src import smooth, sparse
+  from mjtpu_torch._src.types import DisableBit, IntegratorType
+
+  return int(m.has_dof_damping and m.opt.integrator == IntegratorType.EULER
+             and not m.opt.disableflags & (DisableBit.EULERDAMP | DisableBit.DAMPER)
+             and smooth.mass_blocks(m) is None and sparse.tables(m) is None)
+
+
+def phase_tendon_parity():
+  """Every scene of tendon_scenes.npz at f64 on the card against its
+  mjtpu golden, at the CPU test's bounds (phase 26); one B1 launch per
+  Newton iteration (and one a step for a dense tree's Euler damping)."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io, solver
+  from mjtpu_torch.ops import cholesky
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "tendon_scenes_golden.npz"))
+  names = io.bundle_names(mjtpu_torch.ASSETS / "tendon_scenes.npz")
+  worst, kinds = {}, dict.fromkeys(cholesky.variant_launches, 0)
+  for name in names:
+    m, _ = tendon_scene(name, golden, "cpu")
+    before, newton = dict(cholesky.variant_launches), solver.loop_counts["iterations"]
+    errs = tendon_scene_errors(name, golden, "cuda")
+    steps = golden[f"{name}.qpos"].shape[0]
+    launched = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    # Newton's iterations in step 1's forward and in the steps, and each
+    # step's damping solve (the poses' fwd_position solves nothing)
+    want = solver.loop_counts["iterations"] - newton + steps * _damping_solves(m)
+    if sum(launched.values()) != want:
+      raise AssertionError(f"tendon scene {name}: B1 launches {launched}, want {want}")
+    bad = {k: v for k, v in errs.items() if v > tendon_bound(k)}
+    if bad:
+      raise AssertionError(f"tendon scene {name} f64 on the card: {bad}")
+    for k, v in launched.items():
+      kinds[k] += v
+    for k, v in errs.items():
+      group = k.split(".")[0]
+      worst[group] = max(worst.get(group, 0.0), v if k != "pose.flags" else 0.0)
+  log(f"[tendon parity] {len(names)} tendon scenes f64 B=4 (tendon_scenes.npz): max err, pose"
+      f" tendons {worst['pose']:.3e} of scale (limit {TENDON_POSE_BOUND}, wrap flags equal),"
+      f" step 1's {', '.join(TENDON_FORCES)} {worst['force']:.3e} of scale (limit"
+      f" {TENDON_FORCE_BOUND}), efc rows {worst['efc']:.3e} (limit {TENDON_EFC_BOUND}), 100 steps"
+      f" {worst['trajectory']:.3e} (limit {TENDON_TRAJECTORY_BOUND}); B1 launches {kinds}, one per"
+      " Newton iteration and one a step for a dense tree's Euler damping")
+
+
+def _tendon_path(name, timed, card, profile):
+  """A tendon scene at f32 B=4096 from the bundle's snapshot, qpos0
+  +-0.01 and ctrl in [-1, 1] (numpy seed 1): TENDON_WARMUP warm-up and
+  ``timed`` timed steps as a main path (B1 register only); its line, and
+  its counts."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "tendon_scenes.npz", name), dtype=torch.float32,
+      device="cuda")
+  d, secs, counts, loops = _timed_main_path(m, _f32_start(m), TENDON_WARMUP, timed)
+  damping = timed * _damping_solves(m)
+  if counts != _only(chol_solve=loops["iterations"] + damping):
+    raise AssertionError(f"{name}: kernel launches in {timed} timed steps: {counts}, Newton"
+                         f" {loops}, damping solves {damping}")
+  rate = BENCH_BATCH * timed / secs
+  shares, step_ms = _seam_shares(m, d, 2)
+  if shares["chol_ns"] != {m.nv}:
+    raise AssertionError(f"{name}: B1 took n in {shares['chol_ns']}, not {m.nv}")
+  line = (f"f32 B={BENCH_BATCH} (nv={m.nv}, ntendon={m.ntendon}, na={m.na}, nefc"
+          f" {mjtpu_torch.count_constraints(m)[3]}): {TENDON_WARMUP} warm-up and {timed} timed"
+          f" steps in {secs:.3f} s = {rate:.0f} env-steps/s ({1e3 * secs / timed:.3f} ms/step);"
+          f" qpos finite, nreset 0; per step: B1 register {counts['chol_solve'] / timed:.2f}"
+          f" launches (n={m.nv}; Newton {loops['iterations'] / timed:.2f} iterations and"
+          f" {loops['ls_rounds'] / timed:.2f} linesearch rounds, Euler damping solves"
+          f" {damping / timed:.0f}); device step {step_ms:.3f} ms, of it B1"
+          f" {shares['chol_solve']:.4f} ms ({100 * shares['chol_solve'] / step_ms:.2f}%)")
+  if profile:
+    busy, launches = _busy_share(lambda d: mjtpu_torch.step(m, d), d)
+    line += (f"; one profiled step: {launches} kernel launches, device busy {100 * busy:.1f}%"
+             " of its wall time")
+  return f"{line}; card {card}", counts
+
+
+def phase_tendon_throughput(card):
+  """The tendon main path (phase 27): the mixed tendon scene at f32
+  B=4096, TIMED_STEPS timed steps, then muscle.xml, MUSCLE_TIMED."""
+  line, mixed = _tendon_path("mixed", TIMED_STEPS, card, profile=True)
+  log(f"[tendon throughput] mixed tendon scene (tests/test_tendon.py's _MIXED_XML: spatial"
+      " tendon on a cylinder with limit and frictionloss, fixed tendon spring, tendon motor)"
+      f" {line}")
+  line, muscle = _tendon_path("muscle", MUSCLE_TIMED, card, profile=True)
+  log(f"[tendon throughput] muscle.xml (four dyntypes, two muscles on fixed tendons) {line}")
+  return mixed, muscle
+
+
 def _satellite_run(name) -> str:
   """A few f32 B=4096 env steps of a satellite env: finite, nreset 0, and
   the B1 launches it takes by variant (not a main path: its n may take the
@@ -2293,7 +2508,52 @@ def phase_swimmer_throughput(card):
   return counts
 
 
+# the parity phases that run in a process of their own beside phase 22
+SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26")
+SIDE_TIMEOUT_S = 600
+
+
+def _start_side_phase(phase: str):
+  """Starts ``python3 chip_smoke.py --phase <phase>`` from this checkout,
+  its output to a temporary file: (the process, the file)."""
+  import tempfile
+
+  out = tempfile.TemporaryFile(mode="w+")
+  proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", phase],
+                          cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True)
+  return proc, out
+
+
+def _finish_side_phase(phase: str, proc, out) -> None:
+  """Waits for a side phase, logs its output and fails if it failed."""
+  try:
+    proc.wait(timeout=SIDE_TIMEOUT_S)
+  finally:
+    out.seek(0)
+    text = out.read()
+    out.close()
+  for line in text.splitlines():
+    log(f"[phase {phase}] {line}")
+  if proc.returncode != 0:
+    raise AssertionError(f"phase {phase} failed in its own process (exit {proc.returncode})")
+
+
+def _side_main(phase: str) -> int:
+  """One parity phase alone (``--phase``): the card set up as main() sets
+  it, the kernels loaded from main()'s build."""
+  if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+  phase_device()
+  {"5": phase_parity, "7": phase_terrain_parity, "10": phase_pile_parity,
+   "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
+   "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
+   "24": phase_fluid_parity, "26": phase_tendon_parity}[phase]()
+  return 0
+
+
 def main() -> int:
+  if "--phase" in sys.argv[1:]:
+    return _side_main(sys.argv[sys.argv.index("--phase") + 1])
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
   t0 = time.perf_counter()
@@ -2323,37 +2583,42 @@ def main() -> int:
   if "--kernels" in sys.argv[1:]:
     log(f"[done] --kernels: phases 1-4, 9 and 12 only; {time.perf_counter() - t0:.1f} s")
     return 0
-  phase_parity()
   bench_counts, bench = phase_throughput(card)
   paths = {"humanoid_bench": bench_counts}
-  lap("5-6")
-  phase_terrain_parity()
+  lap("6")
   paths["humanoid_terrain"] = phase_terrain_throughput(card)
-  lap("7-8")
-  phase_pile_parity()
+  lap("8")
   paths["scene_pile"] = phase_pile_throughput(card)
-  lap("10-11")
-  phase_branchy_parity()
+  lap("11")
   paths["branchy66"] = phase_branchy_throughput(card)
-  lap("13-14")
-  phase_ant_parity()
+  lap("14")
   paths["ant_bench"] = phase_ant_throughput(card)
-  lap("15-16")
-  phase_ant_rk4_parity()
-  phase_env_parity()
+  lap("16")
   paths["ant_env"] = phase_env_throughput(card)
-  lap("17-19")
-  phase_collision_parity()
+  lap("19")
   paths["cylinder_drop"] = phase_drop_throughput(card)
-  lap("20-21")
-  elliptic_f64_err = phase_elliptic_parity()
-  lap("22")
+  lap("21")
+  # the parity phases (SIDE_PHASES) run in processes of their own beside
+  # phase 22's: their steps are host-bound at B=4 and leave the card and
+  # the other cores idle; nothing is timed until all have ended
+  side = {phase: _start_side_phase(phase) for phase in SIDE_PHASES}
+  try:
+    elliptic_f64_err = phase_elliptic_parity()
+    lap(f"22 (phases {', '.join(SIDE_PHASES)} beside it)")
+    for phase, (proc, out) in side.items():
+      _finish_side_phase(phase, proc, out)
+  finally:
+    for proc, _ in side.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  lap(f"{', '.join(SIDE_PHASES)} (their rest after 22)")
   paths[ELLIPTIC], elliptic_timed = phase_elliptic_throughput(card, bench)
   lap("23")
-  phase_fluid_parity()
-  lap("24")
   paths["swimmer_env"] = phase_swimmer_throughput(card)
   lap("25")
+  paths["tendon_mixed"], paths["muscle"] = phase_tendon_throughput(card)
+  lap("27")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -2392,7 +2657,7 @@ def main() -> int:
     if name == "chol_solve":
       # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
       # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6, the
-      # swimmer env n=5), f32
+      # swimmer env n=5, the tendon scene and muscle.xml n=2), f32
       record[-1]["shapes"] = chol_shapes
       # the elliptic bench's own Newton Hessians, f32 B=4096 (timed) and
       # the f64 restarts' (max_abs_err_f64)

@@ -27,8 +27,14 @@ actuators for a joint with actuatorgravcomp) and fluid forces (the
 per-geom ellipsoid model and the inertia-box model, with wind), so the
 zoo also runs the swimmer and the three satellite envs (``zoo.cmg``,
 ``zoo.satellite``): every env mjtpu's zoo has, without pixel
-observations.  ``put_model`` refuses models outside the slices with
-NotImplementedError naming the feature (fluid forces under the implicit
+observations.  Tendons run too, fixed and spatial (sphere and cylinder
+wraps, side sites, pulleys; ``tendon``, ``tendon_armature``), with their
+springs, dampers, frictionloss and limit rows and sensors, as do every
+actuator transmission mjtpu has, activation dynamics with muscles, and
+Euler's implicit damping on a forest.  ``put_model`` refuses models
+outside the slices with NotImplementedError naming the feature
+(equality constraints, mocap bodies, ball-joint limits, ImplicitFast on a
+forest, the Implicit integrator and fluid forces under the implicit
 integrators among them).
 """
 
@@ -77,6 +83,8 @@ from mjtpu_torch._src.smooth import (
     rne_postconstraint,
     solve_m,
     subtree_vel,
+    tendon,
+    tendon_armature,
     transmission,
 )
 from mjtpu_torch._src.solver import solve
@@ -112,6 +120,7 @@ from mjtpu_torch._src.types import (
     SolverType,
     Statistic,
     TrnType,
+    WrapType,
 )
 
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"

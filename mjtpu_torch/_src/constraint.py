@@ -1,14 +1,14 @@
-"""Constraint assembly: efc rows for dof friction, joint limits and
-contacts.
+"""Constraint assembly: efc rows for dof and tendon friction, joint and
+tendon limits, and contacts.
 
 Port of mjtpu/_src/constraint.py (the slices' part: _kbi,
-_contact_jacobians, _friction_rows for dofs, _limit_rows for scalar
-joints, _contact_rows for pyramidal and elliptic cones at condim 1, 3, 4
-and 6, make_constraint).  The row layout is static per model — [dof
-friction | joint limits | contacts (condim-sorted groups)] — and rows
-deactivate themselves with zeroed Jacobians, as in mjtpu.  Equality,
-tendon rows and ball-joint limits arrive with later slices; put_model
-refuses models that have them.
+_contact_jacobians, _friction_rows for dofs and tendons, _limit_rows for
+scalar joints and tendons, _contact_rows for pyramidal and elliptic cones
+at condim 1, 3, 4 and 6, make_constraint).  The row layout is static per
+model — [dof friction | tendon friction | joint limits | tendon limits |
+contacts (condim-sorted groups)] — and rows deactivate themselves with
+zeroed Jacobians, as in mjtpu.  Equality rows and ball-joint limits arrive
+with a later slice; put_model refuses models that have them.
 """
 
 from __future__ import annotations
@@ -113,31 +113,89 @@ def _contact_jacobians(m: Model, d: Data, rotational: bool = False):
 
 
 def _friction_rows(m: Model, d: Data) -> list[_Rows]:
-  """Dof frictionloss rows: a unit Jacobian row per dof with frictionloss,
-  in dof order, at pos 0 (tendon frictionloss waits for the tendons)."""
-  dofs = np.asarray(m.friction_dofid)
-  if not len(dofs):
-    return []
-  B, n = d.qpos.shape[0], len(dofs)
+  """Frictionloss rows at pos 0: a unit Jacobian row per dof with
+  frictionloss, in dof order, then the Jacobian row of each tendon with
+  frictionloss, in tendon order."""
+  B = d.qpos.shape[0]
+  dofs, tens = np.asarray(m.friction_dofid), np.asarray(m.friction_tenid)
 
   def build():
-    onehot = np.zeros((n, m.nv))
-    onehot[np.arange(n), dofs] = 1.0
-    return (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
-            m.dof_invweight0[dofs], m.dof_solref[dofs], m.dof_solimp[dofs],
-            m.dof_frictionloss[dofs])
+    out = {}
+    if len(dofs):
+      onehot = np.zeros((len(dofs), m.nv))
+      onehot[np.arange(len(dofs)), dofs] = 1.0
+      out["dof"] = (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
+                    m.dof_invweight0[dofs], m.dof_solref[dofs], m.dof_solimp[dofs],
+                    m.dof_frictionloss[dofs])
+    if len(tens):
+      out["tendon"] = (torch.as_tensor(tens, device=m.device), m.tendon_invweight0[tens],
+                       m.tendon_solref_fri[tens], m.tendon_solimp_fri[tens],
+                       m.tendon_frictionloss[tens])
+    return out
 
-  onehot, invweight, solref, solimp, frictionloss = cached(m, "constraint.friction_rows", build)
+  tables = cached(m, "constraint.friction_rows", build)
   rows = lambda x: x.expand((B,) + x.shape)
-  zero = d.qpos.new_zeros((B, n))
-  return [_Rows(
-      J=rows(onehot), pos=zero, pos_imp=zero, pos_out=zero, margin=zero,
-      invweight=rows(invweight), solref=rows(solref), solimp=rows(solimp),
-      frictionloss=rows(frictionloss), r_scale=torch.ones_like(zero),
-  )]
+  out = []
+  for kind, (jac, invweight, solref, solimp, frictionloss) in tables.items():
+    jac = rows(jac) if kind == "dof" else d.ten_J[:, jac]
+    zero = d.qpos.new_zeros((B, invweight.shape[0]))
+    out.append(_Rows(
+        J=jac, pos=zero, pos_imp=zero, pos_out=zero, margin=zero,
+        invweight=rows(invweight), solref=rows(solref), solimp=rows(solimp),
+        frictionloss=rows(frictionloss), r_scale=torch.ones_like(zero),
+    ))
+  return out
 
 
 def _limit_rows(m: Model, d: Data) -> list[_Rows]:
+  """Limit rows: those of scalar joints, then those of tendons."""
+  return _joint_limit_rows(m, d) + _tendon_limit_rows(m, d)
+
+
+def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
+  """Limit rows of tendons, in tendon order: one row each, at the nearer
+  side, or, where some limited tendon's range is narrower than 2*margin
+  (support.tendon_limit_rows_per), two each, lower then upper; +J pushes
+  the length up (the lower limit), -J down, as the joints' rows."""
+  tens = np.nonzero(np.asarray(m.tendon_limited))[0]
+  if not len(tens):
+    return []
+  B, dtype = d.qpos.shape[0], d.qpos.dtype
+  per = support.tendon_limit_rows_per(m)
+
+  def build():
+    rep = lambda x: torch.repeat_interleave(x, per, dim=0)
+    return dict(
+        ids=torch.as_tensor(tens, device=m.device), lo=m.tendon_range[tens, 0],
+        hi=m.tendon_range[tens, 1], margin=m.tendon_margin[tens],
+        margin_rows=rep(m.tendon_margin[tens]), invweight=rep(m.tendon_invweight0[tens]),
+        solref=rep(m.tendon_solref_lim[tens]), solimp=rep(m.tendon_solimp_lim[tens]),
+        side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(tens)),
+    )
+
+  c = cached(m, "constraint.tendon_limit_rows", build)
+  length = d.ten_length[:, c["ids"]]
+  jac = d.ten_J[:, c["ids"]]
+  dist_min = length - c["lo"]
+  dist_max = c["hi"] - length
+  if per == 2:
+    pos = torch.stack([dist_min, dist_max], dim=-1).reshape(B, 2 * len(tens)) - c["margin_rows"]
+    side = c["side"]
+    jac = torch.repeat_interleave(jac, 2, dim=1)
+  else:
+    pos = torch.minimum(dist_min, dist_max) - c["margin"]
+    side = torch.where(dist_min < dist_max, 1.0, -1.0).to(dtype)
+  active = (pos < 0).to(dtype)
+  rows = lambda x: x.expand((B,) + x.shape)
+  return [_Rows(
+      J=(side * active)[..., None] * jac, pos=pos, pos_imp=pos, pos_out=pos,
+      margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
+      solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+      frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
+  )]
+
+
+def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
   """Limit rows of scalar joints: one-sided rows (range wider than
   2*margin) and two-sided pairs, permuted back to mj joint order."""
   B = d.qpos.shape[0]

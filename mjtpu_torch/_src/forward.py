@@ -1,10 +1,11 @@
 """Forward dynamics orchestration + the Euler, ImplicitFast and RK4 integrators.
 
 Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
-fwd_* stages, forward with the three sensor stages, _advance, euler (with
-implicit joint damping), implicit (ImplicitFast), rungekutta4 and step,
-batch-explicit over B envs.  put_model refuses the full Implicit
-integrator.
+fwd_* stages (tendons, actuator activation dynamics and muscles
+included), forward with the three sensor stages, _advance (the exact
+filter update, the activation clamp), euler (with implicit joint
+damping), implicit (ImplicitFast), rungekutta4 and step, batch-explicit
+over B envs.  put_model refuses the full Implicit integrator.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from mjtpu_torch._src.types import (
     BiasType,
     Data,
     DisableBit,
+    DynType,
     GainType,
     IntegratorType,
     JointType,
@@ -59,7 +61,10 @@ def fwd_position(m: Model, d: Data) -> Data:
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
   d = smooth.camlight(m, d)
+  d = smooth.tendon(m, d)
   d = smooth.crb(m, d)
+  if m.has_tendon_armature:
+    d = smooth.tendon_armature(m, d)
   d = smooth.factor_m(m, d)
   d = collision_driver.collision(m, d)
   d = constraint.make_constraint(m, d)
@@ -71,6 +76,8 @@ def fwd_velocity(m: Model, d: Data) -> Data:
   """Velocity-dependent computations (mj_fwdVelocity)."""
   actuator_velocity = torch.einsum("buv,bv->bu", d.actuator_moment, d.qvel)
   d = replace(d, actuator_velocity=actuator_velocity)
+  if m.ntendon:
+    d = replace(d, ten_velocity=torch.einsum("btv,bv->bt", d.ten_J, d.qvel))
   d = smooth.com_vel(m, d)
   d = passive_mod.passive(m, d)
   d = smooth.rne(m, d)
@@ -78,10 +85,13 @@ def fwd_velocity(m: Model, d: Data) -> Data:
 
 
 def fwd_actuation(m: Model, d: Data) -> Data:
-  """Actuator forces (mj_fwdActuation): stateless actuators with fixed or
-  affine gain and no or affine bias."""
+  """Actuator forces and activation derivatives (mj_fwdActuation): ctrl
+  clamped; act_dot of the integrator, filter, filterexact and muscle
+  dynamics; each actuator's input its last activation (one step ahead
+  with actearly) where it has one, else its ctrl; fixed, affine and
+  muscle gains, no, affine and muscle biases."""
   if not m.nu or (m.opt.disableflags & DisableBit.ACTUATION):
-    return replace(d, actuator_force=torch.zeros_like(d.ctrl),
+    return replace(d, act_dot=torch.zeros_like(d.act), actuator_force=torch.zeros_like(d.ctrl),
                    qfrc_actuator=_actgravcomp(m, d, torch.zeros_like(d.qvel)))
 
   c = cached(m, "forward.actuation", lambda: _actuation_tables(m))
@@ -92,6 +102,25 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     )
     ctrl = torch.where(c["ctrllimited"], clamped, ctrl)
 
+  act_dot = torch.zeros_like(d.act)
+  for dyn, ids, slots in c["dyn"]:
+    if dyn == DynType.INTEGRATOR:
+      val = ctrl[:, ids]
+    elif dyn in (DynType.FILTER, DynType.FILTEREXACT):
+      val = (ctrl[:, ids] - d.act[:, slots]) / torch.clamp_min(m.actuator_dynprm[ids, 0],
+                                                                math.MINVAL)
+    else:  # MUSCLE
+      val = support.muscle_dynamics(ctrl[:, ids], d.act[:, slots], m.actuator_dynprm[ids])
+    act_dot[:, slots] = val
+
+  ainput = ctrl
+  if m.na:
+    stateful, last, early = support.act_input(m)
+    act_in = d.act[:, last]
+    if early is not None:
+      act_in = torch.where(early, act_in + m.opt.timestep * act_dot[:, last], act_in)
+    ainput = torch.where(stateful, act_in, ctrl)
+
   gain, bias = torch.zeros_like(ctrl), torch.zeros_like(ctrl)
   if c["fixed"] is not None:
     gain[:, c["fixed"]] = m.actuator_gainprm[c["fixed"], 0]
@@ -100,8 +129,17 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if ids is not None:
       out[:, ids] = (prm[ids, 0] + prm[ids, 1] * d.actuator_length[:, ids]
                      + prm[ids, 2] * d.actuator_velocity[:, ids])
+  ids = c["muscle_gain"]
+  if ids is not None:
+    gain[:, ids] = support.muscle_gain(
+        d.actuator_length[:, ids], d.actuator_velocity[:, ids], m.actuator_lengthrange[ids],
+        m.actuator_acc0[ids], m.actuator_gainprm[ids])
+  ids = c["muscle_bias"]
+  if ids is not None:
+    bias[:, ids] = support.muscle_bias(d.actuator_length[:, ids], m.actuator_lengthrange[ids],
+                                       m.actuator_acc0[ids], m.actuator_biasprm[ids])
 
-  force = gain * ctrl + bias
+  force = gain * ainput + bias
   if c["forcelimited"] is not None:
     clamped = torch.minimum(
         torch.maximum(force, m.actuator_forcerange[:, 0]), m.actuator_forcerange[:, 1]
@@ -115,7 +153,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     lo, hi = c["actfrcrange"]
     clamped = torch.minimum(torch.maximum(qfrc_actuator, lo), hi)
     qfrc_actuator = torch.where(c["actfrclimited"], clamped, qfrc_actuator)
-  return replace(d, actuator_force=force, qfrc_actuator=qfrc_actuator)
+  return replace(d, act_dot=act_dot, actuator_force=force, qfrc_actuator=qfrc_actuator)
 
 
 def _actgravcomp(m: Model, d: Data, qfrc: torch.Tensor) -> torch.Tensor:
@@ -135,11 +173,21 @@ def _actuation_tables(m: Model) -> dict:
   ids = lambda sel: torch.as_tensor(np.nonzero(sel)[0], device=dev) if np.any(sel) else None
   dof_jnt = np.asarray(m.dof_jntid)
   rng = m.jnt_actfrcrange[dof_jnt]
+  # each dyntype's actuators and their last activation slots
+  last = np.asarray(m.actuator_actadr) + np.asarray(m.actuator_actnum) - 1
+  dyntype = np.asarray(m.actuator_dyntype)
+  long = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
+  dyn = [(kind, long(np.nonzero(dyntype == kind)[0]), long(last[dyntype == kind]))
+         for kind in (DynType.INTEGRATOR, DynType.FILTER, DynType.FILTEREXACT, DynType.MUSCLE)
+         if np.any(dyntype == kind)]
   return dict(
       ctrllimited=torch.as_tensor(np.asarray(m.actuator_ctrllimited, dtype=bool), device=dev),
+      dyn=dyn,
       fixed=ids(np.asarray(m.actuator_gaintype) == GainType.FIXED),
       affine_gain=ids(np.asarray(m.actuator_gaintype) == GainType.AFFINE),
       affine_bias=ids(np.asarray(m.actuator_biastype) == BiasType.AFFINE),
+      muscle_gain=ids(np.asarray(m.actuator_gaintype) == GainType.MUSCLE),
+      muscle_bias=ids(np.asarray(m.actuator_biastype) == BiasType.MUSCLE),
       forcelimited=mask(m.actuator_forcelimited),
       actfrclimited=mask(np.asarray(m.jnt_actfrclimited, dtype=bool)[dof_jnt]),
       actfrcrange=(rng[:, 0], rng[:, 1]),
@@ -198,15 +246,46 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torc
   return qpos if out is None else out
 
 
+def _act_tables(m: Model) -> dict:
+  """The activation update's static tables: the filterexact actuators
+  (ids, their last activation slots) and, over the activation slots, the
+  actlimited mask and ranges; None where a group is empty."""
+  dev = m.device
+  actadr, actnum = np.asarray(m.actuator_actadr), np.asarray(m.actuator_actnum)
+  exact = np.nonzero(np.asarray(m.actuator_dyntype) == DynType.FILTEREXACT)[0]
+  limited = np.nonzero(np.asarray(m.actuator_actlimited, dtype=bool) & (actadr >= 0))[0]
+  out = {"exact": None, "limited": None}
+  if len(exact):
+    out["exact"] = (torch.as_tensor(exact, device=dev),
+                    torch.as_tensor((actadr + actnum - 1)[exact], device=dev))
+  if len(limited):
+    owner = np.full(m.na, -1)
+    for u in limited:
+      owner[actadr[u] : actadr[u] + actnum[u]] = u
+    rows = m.actuator_actrange[torch.as_tensor(np.maximum(owner, 0), device=dev)]
+    out["limited"] = (torch.as_tensor(owner >= 0, device=dev), rows[:, 0], rows[:, 1])
+  return out
+
+
 def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
              qvel: torch.Tensor | None = None) -> Data:
   """Integrates state with the semi-implicit update (mj_advance).  The
   velocity state always takes qvel + h * qacc; ``qvel`` (RK4's combined
-  velocity) overrides only the velocity the position update uses.
-  put_model refuses activation dynamics, so ``act`` integrates linearly
-  (and is empty in every model the port takes)."""
+  velocity) overrides only the velocity the position update uses.  The
+  activations integrate linearly, filterexact ones exactly, and clamp to
+  their range where actlimited."""
   h = m.opt.timestep
-  act = d.act + act_dot * h if m.na else d.act
+  act = d.act
+  if m.na:
+    c = cached(m, "forward.act", lambda: _act_tables(m))
+    act = act + act_dot * h
+    if c["exact"] is not None:
+      ids, slots = c["exact"]
+      tau = torch.clamp_min(m.actuator_dynprm[ids, 0], math.MINVAL)
+      act[:, slots] = d.act[:, slots] + act_dot[:, slots] * tau * (1.0 - torch.exp(-h / tau))
+    if c["limited"] is not None:
+      limited, lo, hi = c["limited"]
+      act = torch.where(limited, torch.minimum(torch.maximum(act, lo), hi), act)
   qvel_state = d.qvel + qacc * h
   qpos = _integrate_pos(m, d.qpos, qvel_state if qvel is None else qvel, h)
   return replace(d, act=act, qpos=qpos, qvel=qvel_state, qacc=qacc, time=d.time + h)

@@ -34,8 +34,6 @@ from mjtpu_torch._src.types import (
     Contact,
     ConvexMesh,
     Data,
-    DisableBit,
-    DynType,
     GainType,
     GeomType,
     IntegratorType,
@@ -113,6 +111,39 @@ SNAPSHOT_FIELDS = SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + (
 FRICTION_FIELDS = ("dof_solref", "dof_solimp")
 FLUID_FIELDS = ("geom_fluid",)
 GRAVCOMP_FIELDS = ("jnt_actgravcomp",)
+# the tendons and their wraps, stored where the model has a tendon; the
+# activation states' and the state-dependent transmissions' fields, where
+# it has an activation state, a muscle gain or bias, or a slider-crank.
+# Each field's value where the snapshot leaves it out: (fill, trailing
+# shape, numpy dtype), with the model's ntendon (or nu) rows
+TENDON_FIELDS = {
+    "nwrap": (0, None, np.int64),
+    "tendon_adr": (0, (), np.int32), "tendon_num": (0, (), np.int32),
+    "tendon_limited": (False, (), bool),
+    "tendon_solref_lim": (0.0, (NREF,), np.float64),
+    "tendon_solimp_lim": (0.0, (NIMP,), np.float64),
+    "tendon_solref_fri": (0.0, (NREF,), np.float64),
+    "tendon_solimp_fri": (0.0, (NIMP,), np.float64),
+    "tendon_range": (0.0, (2,), np.float64), "tendon_margin": (0.0, (), np.float64),
+    "tendon_stiffness": (0.0, (), np.float64), "tendon_damping": (0.0, (), np.float64),
+    "tendon_armature": (0.0, (), np.float64), "tendon_frictionloss": (0.0, (), np.float64),
+    "tendon_lengthspring": (0.0, (2,), np.float64), "tendon_length0": (0.0, (), np.float64),
+    "tendon_invweight0": (0.0, (), np.float64),
+    "wrap_type": (0, (), np.int32), "wrap_objid": (0, (), np.int32),
+    "wrap_prm": (0.0, (), np.float64),
+}
+ACT_FIELDS = {
+    "actuator_actadr": (-1, (), np.int32), "actuator_actnum": (0, (), np.int32),
+    "actuator_actlimited": (False, (), bool), "actuator_actearly": (False, (), bool),
+    "actuator_dynprm": (0.0, (10,), np.float64), "actuator_actrange": (0.0, (2,), np.float64),
+    "actuator_cranklength": (0.0, (), np.float64), "actuator_acc0": (0.0, (), np.float64),
+    "actuator_lengthrange": (0.0, (2,), np.float64),
+}
+# the fields of TENDON_FIELDS and ACT_FIELDS that the port keeps on the
+# host (index tables and the wraps' static parameters)
+_HOST_FIELDS = frozenset(("nwrap", "tendon_adr", "tendon_num", "tendon_limited", "wrap_type",
+                          "wrap_objid", "wrap_prm", "actuator_actadr", "actuator_actnum",
+                          "actuator_actlimited", "actuator_actearly"))
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -123,13 +154,14 @@ HULL_PREFIXES = ("hull.", "geomhull.")
 # the sensor types the port computes (mjtpu's sensor_pos, sensor_vel and
 # sensor_acc); put_model refuses every other type by name
 SENSORS_PORTED = frozenset(SensorType[n] for n in (
-    "MAGNETOMETER", "RANGEFINDER", "JOINTPOS", "ACTUATORPOS", "BALLQUAT", "FRAMEPOS",
-    "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "SUBTREECOM", "CLOCK",
-    "INSIDESITE", "JOINTLIMITPOS",
-    "VELOCIMETER", "GYRO", "JOINTVEL", "ACTUATORVEL", "BALLANGVEL", "SUBTREELINVEL",
-    "SUBTREEANGMOM", "FRAMELINVEL", "FRAMEANGVEL", "JOINTLIMITVEL",
+    "MAGNETOMETER", "RANGEFINDER", "JOINTPOS", "TENDONPOS", "ACTUATORPOS", "BALLQUAT",
+    "FRAMEPOS", "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "SUBTREECOM", "CLOCK",
+    "INSIDESITE", "JOINTLIMITPOS", "TENDONLIMITPOS",
+    "VELOCIMETER", "GYRO", "JOINTVEL", "TENDONVEL", "ACTUATORVEL", "BALLANGVEL",
+    "SUBTREELINVEL", "SUBTREEANGMOM", "FRAMELINVEL", "FRAMEANGVEL", "JOINTLIMITVEL",
+    "TENDONLIMITVEL",
     "ACCELEROMETER", "FRAMELINACC", "FRAMEANGACC", "FORCE", "TORQUE", "ACTUATORFRC",
-    "JOINTACTFRC", "JOINTLIMITFRC", "TOUCH",
+    "JOINTACTFRC", "TENDONACTFRC", "JOINTLIMITFRC", "TENDONLIMITFRC", "TOUCH",
 ))
 
 
@@ -145,6 +177,33 @@ def has_fluid(o) -> bool:
   return bool(o.density > 0 or o.viscosity > 0 or np.any(np.asarray(o.wind)))
 
 
+def has_tendon_fields(ns) -> bool:
+  """Whether a snapshot of ``ns`` stores TENDON_FIELDS: it has a tendon."""
+  return int(ns.ntendon) > 0
+
+
+def has_act_fields(ns) -> bool:
+  """Whether a snapshot of ``ns`` stores ACT_FIELDS: it has an activation
+  state, a muscle gain or bias, or a slider-crank transmission."""
+  return bool(int(ns.na) > 0
+              or np.any(np.asarray(ns.actuator_gaintype) == GainType.MUSCLE)
+              or np.any(np.asarray(ns.actuator_biastype) == BiasType.MUSCLE)
+              or np.any(np.asarray(ns.actuator_trntype) == TrnType.SLIDERCRANK))
+
+
+def _optional_field(ns, name: str, spec, stored: bool):
+  """A field of TENDON_FIELDS or ACT_FIELDS: ns's where a snapshot stores
+  it, else its fill at the model's row count, so a live MjModel and its
+  snapshot give the same Model."""
+  fill, shape, dtype = spec
+  if stored:
+    return np.array(getattr(ns, name), dtype=dtype)
+  if shape is None:
+    return np.array(fill, dtype=dtype)
+  rows = int(ns.nu) if name.startswith("actuator") else 0  # no tendon, no wrap
+  return np.full((rows,) + shape, fill, dtype=dtype)
+
+
 def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
                     geom_convex: tuple | None = None) -> dict[str, np.ndarray]:
   """Every attribute model_from_arrays reads from ``mjm`` (an MjModel or
@@ -154,7 +213,9 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
   arrays = {}
   extra = ((FRICTION_FIELDS if np.any(np.asarray(mjm.dof_frictionloss) > 0) else ())
            + (FLUID_FIELDS if has_fluid(mjm.opt) else ())
-           + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ()))
+           + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ())
+           + (tuple(TENDON_FIELDS) if has_tendon_fields(mjm) else ())
+           + (tuple(ACT_FIELDS) if has_act_fields(mjm) else ()))
   for name in SNAPSHOT_FIELDS + extra:
     v = _get(mjm, name)
     if name == "names":
@@ -269,11 +330,8 @@ def _validate(ns) -> None:
   names = {int(s): s.name for s in SensorType}
   for t in sorted(set(int(t) for t in np.asarray(ns.sensor_type))):
     refuse(t not in SENSORS_PORTED, f"{names.get(t, f'type {t}')} sensors")
-  # tendons (their frictionloss rows and limits too) wait for their slice
-  refuse(ns.ntendon, "tendons")
   refuse(ns.neq, "equality constraints")
   refuse(ns.nmocap, "mocap bodies")
-  refuse(ns.na, "actuator activation states")
   # mjtpu adds the fluid forces' velocity derivative to qDeriv by
   # jax.jacfwd, which the port does not have yet
   refuse(has_fluid(o) and int(o.integrator) in (IntegratorType.IMPLICIT,
@@ -292,29 +350,14 @@ def _validate(ns) -> None:
   ball_lim = (jnt_type == JointType.BALL) & np.asarray(ns.jnt_limited).astype(bool)
   refuse(ball_lim.any(), "ball joint limits")
 
-  trn = np.asarray(ns.actuator_trntype)
-  jid = np.where(np.isin(trn, (TrnType.JOINT, TrnType.JOINTINPARENT)),
-                 np.asarray(ns.actuator_trnid)[:, 0] if ns.nu else 0, -1)
-  scalar = (jid >= 0) & np.isin(jnt_type[np.maximum(jid, 0)], (JointType.SLIDE, JointType.HINGE))
-  refuse(ns.nu and not scalar.all(), "actuator transmissions other than scalar joints")
-  refuse(np.any(np.asarray(ns.actuator_dyntype) != DynType.NONE), "actuator dynamics")
-  refuse(not np.isin(ns.actuator_gaintype, (GainType.FIXED, GainType.AFFINE)).all(),
-         "actuator gain types other than fixed and affine")
-  refuse(not np.isin(ns.actuator_biastype, (BiasType.NONE, BiasType.AFFINE)).all(),
-         "actuator bias types other than none and affine")
-
   # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks),
   # with the levelwise sparse LDL for a large branchy tree
-  # (sparse.structure) and densely otherwise; the port has all three, but
-  # not the blocked factor_solve that the implicit solves of a forest take
+  # (sparse.structure) and densely otherwise; the port has all three, and
+  # the blocked symmetric factor_solve of Euler's damping, but not the
+  # blocked LU that ImplicitFast's solve of a forest takes
   blocks = smooth.block_partition(ns.nv, ns.body_rootid, ns.dof_bodyid)
   refuse(blocks is not None and int(o.integrator) == IntegratorType.IMPLICITFAST,
          "ImplicitFast on a multi-tree model (the blocked factor_solve)")
-  damping = np.any(np.asarray(ns.dof_damping) > 0)
-  refuse(blocks is not None and int(o.integrator) == IntegratorType.EULER and damping
-         and not (int(o.disableflags) & (DisableBit.EULERDAMP | DisableBit.DAMPER)),
-         "Euler's implicit joint damping on a multi-tree model (the blocked symmetric"
-         " factor_solve)")
 
 
 def _device(device) -> torch.device:
@@ -378,13 +421,34 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["mesh_convex"] = ns.mesh_convex if hasattr(ns, "mesh_convex") else mesh.get(ns)
   fields["geom_convex"] = ns.geom_convex if hasattr(ns, "geom_convex") else mesh.get_geoms(ns)
 
-  # every transmission is a scalar joint (_validate): the moment row of
-  # actuator u is gear[u, 0] at its joint's dof
-  sm = np.zeros((ns.nu, ns.nv))
-  if ns.nu:
-    jid = np.asarray(ns.actuator_trnid)[:, 0]
-    sm[np.arange(ns.nu), np.asarray(ns.jnt_dofadr)[jid]] = np.asarray(ns.actuator_gear)[:, 0]
-  fields["actuator_static_moment"] = f(sm)
+  opt_np = {name: _optional_field(ns, name, spec, stored)
+            for group, stored in ((TENDON_FIELDS, has_tendon_fields(ns)),
+                                  (ACT_FIELDS, has_act_fields(ns)))
+            for name, spec in group.items()}
+  for name, v in opt_np.items():
+    fields[name] = v if name in _HOST_FIELDS else f(v)
+  fields["nwrap"] = int(opt_np["nwrap"])
+  ten_range = opt_np["tendon_range"]
+  fields["tendon_limit_two_sided"] = ten_range[:, 1] - ten_range[:, 0] < 2 * opt_np["tendon_margin"]
+  fields["friction_tenid"] = np.nonzero(opt_np["tendon_frictionloss"] > 0)[0]
+  for flag, name in (("has_tendon_spring", "tendon_stiffness"),
+                     ("has_tendon_damping", "tendon_damping"),
+                     ("has_tendon_armature", "tendon_armature")):
+    fields[flag] = bool(np.any(opt_np[name] > 0))
+
+  # where every transmission is a scalar joint the moment matrix is model
+  # constant: the row of actuator u is gear[u, 0] at its joint's dof
+  fields["actuator_static_moment"] = None
+  trn = np.asarray(ns.actuator_trntype)
+  jid = np.where(np.isin(trn, (TrnType.JOINT, TrnType.JOINTINPARENT)),
+                 np.asarray(ns.actuator_trnid)[:, 0] if ns.nu else 0, -1)
+  scalar = (jid >= 0) & np.isin(np.asarray(ns.jnt_type)[np.maximum(jid, 0)],
+                                (JointType.SLIDE, JointType.HINGE))
+  if scalar.all():
+    sm = np.zeros((ns.nu, ns.nv))
+    if ns.nu:
+      sm[np.arange(ns.nu), np.asarray(ns.jnt_dofadr)[jid]] = np.asarray(ns.actuator_gear)[:, 0]
+    fields["actuator_static_moment"] = f(sm)
 
   m = Model(**fields)
   from mjtpu_torch._src import collision_driver
@@ -413,9 +477,10 @@ device_put = put_model
 
 def make_data(m: Model, batch_size: int = 1) -> Data:
   """Allocates a batched Data (B = batch_size) with every env at qpos0."""
-  from mjtpu_torch._src import collision_driver
+  from mjtpu_torch._src import collision_driver, tendon_wrap
 
   B, dtype, device = batch_size, m.dtype, m.device
+  nwrap = tendon_wrap.n_wrap_geoms(m)
   ne, nf, nl, ncon, nefc = support.constraint_sizes(m)
   zero = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=device)
   eye3 = lambda n: torch.eye(3, dtype=dtype, device=device).expand(B, n, 3, 3).clone()
@@ -440,6 +505,9 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       cam_xpos=zero(m.ncam, 3), cam_xmat=eye3(m.ncam),
       light_xpos=zero(m.nlight, 3), light_xdir=zero(m.nlight, 3),
       subtree_com=zero(nbody, 3), cdof=zero(nv, 6), cinert=zero(nbody, 10),
+      ten_length=zero(m.ntendon), ten_J=zero(m.ntendon, nv), ten_velocity=zero(m.ntendon),
+      ten_wrap_xpos=zero(nwrap, 2, 3),
+      ten_wrap_active=torch.zeros((B, nwrap), dtype=torch.bool, device=device),
       actuator_length=zero(m.nu), actuator_moment=zero(m.nu, nv),
       actuator_velocity=zero(m.nu), actuator_force=zero(m.nu),
       crb=zero(nbody, 10), qM=zero(nv, nv), qLD=zero(nv, nv), qLDiagInv=zero(nv),

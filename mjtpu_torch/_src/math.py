@@ -95,6 +95,19 @@ def rotate(vec: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
   return r + 2.0 * s * cross(u, vec)
 
 
+def rotate_inv(vec: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+  """Rotates vec by the inverse of quat."""
+  return rotate(vec, quat_inv(quat))
+
+
+def quat_to_vel(q: torch.Tensor) -> torch.Tensor:
+  """Quaternion -> angular-velocity-style 3-vector (axis * angle)."""
+  axis, sin_a_2 = normalize_with_norm(q[..., 1:])
+  angle = 2.0 * torch.atan2(sin_a_2, q[..., 0])
+  angle = torch.where(angle > torch.pi, angle - 2.0 * torch.pi, angle)
+  return axis * angle[..., None]
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
   """Unit quaternion -> 3x3 rotation matrix."""
   w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

@@ -1,6 +1,8 @@
-"""Passive forces: joint springs and dampers, gravity compensation, fluid.
+"""Passive forces: joint and tendon springs and dampers, gravity
+compensation, fluid.
 
-Port of mjtpu/_src/passive.py (mj_passive): spring-dampers per joint type;
+Port of mjtpu/_src/passive.py (mj_passive): spring-dampers per joint type
+and per tendon (the tendon spring's deadband);
 body gravity compensation through the bodies' Jacobians; fluid forces by
 the per-geom ellipsoid model for bodies with a fluidshape="ellipsoid"
 geom and by the inertia-box model for every other body.  Each map runs
@@ -55,7 +57,22 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
       qfrc_spring = spring
 
   qfrc_damper = -m.dof_damping * d.qvel
+
+  # tendon springs (a deadband between the two spring lengths) and dampers
+  if m.has_tendon_spring:
+    lower, upper = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    length = d.ten_length
+    displacement = torch.where(length > upper, upper - length,
+                               torch.where(length < lower, lower - length, 0.0))
+    qfrc_spring = qfrc_spring + _ten_force(d, m.tendon_stiffness * displacement)
+  if m.has_tendon_damping:
+    qfrc_damper = qfrc_damper + _ten_force(d, -m.tendon_damping * d.ten_velocity)
   return qfrc_spring, qfrc_damper
+
+
+def _ten_force(d: Data, force: torch.Tensor) -> torch.Tensor:
+  """ten_J^T force: (B, nv) generalized force of tendon forces (B, ntendon)."""
+  return (d.ten_J.transpose(-1, -2) @ force[..., None])[..., 0]
 
 
 def _gravcomp(m: Model, d: Data) -> torch.Tensor:

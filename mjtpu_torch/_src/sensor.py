@@ -29,6 +29,7 @@ from mjtpu_torch._src.types import (
     ObjType,
     SensorType,
     Stage,
+    TrnType,
     cached,
     index,
 )
@@ -249,10 +250,15 @@ def _inside_sites(m: Model, g: _Group, sites: np.ndarray, q: torch.Tensor) -> to
   return out
 
 
-def _limit_rows(m: Model, ids: np.ndarray) -> np.ndarray:
-  """(K, 2) efc rows of each joint's lower and upper limit, -1 where the
-  model emits none; a joint with one limit row repeats it (mjtpu's
-  _limit_efc_rows, support.efc_row_meta's layout)."""
+_TENDON_LIMIT = frozenset((SensorType.TENDONLIMITPOS, SensorType.TENDONLIMITVEL,
+                           SensorType.TENDONLIMITFRC))
+
+
+def _limit_rows(m: Model, ids: np.ndarray, tendon: bool = False) -> np.ndarray:
+  """(K, 2) efc rows of each joint's (or tendon's) lower and upper limit,
+  -1 where the model emits none; an object with one limit row repeats it
+  (mjtpu's _limit_efc_rows, support.efc_row_meta's layout: the limited
+  joints in joint order, then the limited tendons)."""
   ne, nf, nl, _ = support.count_constraints(m)
   rows = np.full((len(ids), 2), -1)
   if nl == 0:
@@ -264,6 +270,10 @@ def _limit_rows(m: Model, ids: np.ndarray) -> np.ndarray:
     n = 2 if (jt[j] != JointType.BALL and two[j]) else 1
     lookup[int(j)] = (start, start + n - 1)
     start += n
+  if tendon:
+    per = support.tendon_limit_rows_per(m)
+    lookup = {int(t): (start + per * k, start + per * k + per - 1)
+              for k, t in enumerate(np.nonzero(np.asarray(m.tendon_limited))[0])}
   for k, j in enumerate(np.asarray(ids)):
     if int(j) in lookup:
       rows[k] = lookup[int(j)]
@@ -271,12 +281,12 @@ def _limit_rows(m: Model, ids: np.ndarray) -> np.ndarray:
 
 
 def _limit_read(m: Model, d: Data, g: _Group, field) -> torch.Tensor:
-  """A joint limit sensor reads the first live limit row of its joint
-  (C makes a row only while that side's dist < margin): the lower row
-  where active, else the upper, else 0.  ``field(rows)`` reads the
-  (B, K) values of static rows (K,)."""
+  """A joint (tendon) limit sensor reads the first live limit row of its
+  joint (tendon) (C makes a row only while that side's dist < margin):
+  the lower row where active, else the upper, else 0.  ``field(rows)``
+  reads the (B, K) values of static rows (K,)."""
   if "limit_rows" not in g.extra:
-    rows = _limit_rows(m, g.objid)
+    rows = _limit_rows(m, g.objid, g.stype in _TENDON_LIMIT)
     ok = rows[:, 0] >= 0
     t = lambda x: torch.as_tensor(x, device=m.device)
     g.extra["limit_rows"] = (bool(ok.any()), t(ok), t(np.where(ok, rows[:, 0], 0)),
@@ -290,6 +300,17 @@ def _limit_read(m: Model, d: Data, g: _Group, field) -> torch.Tensor:
   hi_active = ok & (pos_hi < 0)
   val = torch.where(lo_active, field(r_lo, pos_lo), field(r_hi, pos_hi))
   return torch.where(lo_active | hi_active, val, 0.0)
+
+
+def _tendon_actuators(m: Model, g: _Group) -> torch.Tensor:
+  """(K, nu) 0/1: actuator u has a tendon transmission to sensor k's
+  tendon, cached on the group."""
+  if "tendon_actuators" not in g.extra:
+    trn = np.asarray(m.actuator_trntype) == TrnType.TENDON
+    target = np.asarray(m.actuator_trnid)[:, 0]
+    mask = trn[None, :] & (target[None, :] == np.asarray(g.objid)[:, None])
+    g.extra["tendon_actuators"] = torch.as_tensor(mask, dtype=m.dtype, device=m.device)
+  return g.extra["tendon_actuators"]
 
 
 def _rangefinder(m: Model, d: Data, g: _Group) -> torch.Tensor:
@@ -357,7 +378,9 @@ def sensor_pos(m: Model, d: Data) -> Data:
       p, _ = _obj_pos_mat(d, g.objtype, objid)
       q = math.mat_t_vec(d.site_xmat[:, refid], p - d.site_xpos[:, refid])
       val = _inside_sites(m, g, g.refid, q)
-    elif st == SensorType.JOINTLIMITPOS:
+    elif st == SensorType.TENDONPOS:
+      val = d.ten_length[:, objid]
+    elif st in (SensorType.JOINTLIMITPOS, SensorType.TENDONLIMITPOS):
       val = _limit_read(m, d, g, lambda r, pos: pos)
     else:
       raise NotImplementedError(f"pos sensor {st.name}")
@@ -405,7 +428,9 @@ def sensor_vel(m: Model, d: Data) -> Data:
         val = math.mat_t_vec(rmat, rel)
       else:
         val = vel[..., 3:] if lin else vel[..., :3]
-    elif st == SensorType.JOINTLIMITVEL:
+    elif st == SensorType.TENDONVEL:
+      val = d.ten_velocity[:, objid]
+    elif st in (SensorType.JOINTLIMITVEL, SensorType.TENDONLIMITVEL):
       val = _limit_read(m, d, g, lambda r, pos: torch.einsum(
           "bkv,bv->bk", d.efc_J[:, r], d.qvel))
     else:
@@ -463,7 +488,10 @@ def sensor_acc(m: Model, d: Data) -> Data:
       val = d.actuator_force[:, objid]
     elif st == SensorType.JOINTACTFRC:
       val = d.qfrc_actuator[:, index(m, "jnt_dofadr")[objid]]
-    elif st == SensorType.JOINTLIMITFRC:
+    elif st == SensorType.TENDONACTFRC:
+      # the total force of the actuators whose transmission is the tendon
+      val = d.actuator_force @ _tendon_actuators(m, g).T
+    elif st in (SensorType.JOINTLIMITFRC, SensorType.TENDONLIMITFRC):
       val = _limit_read(m, d, g, lambda r, pos: d.efc_force[:, r])
     elif st == SensorType.TOUCH:
       val = _touch(m, d, g)

@@ -1,13 +1,15 @@
 """Smooth (unconstrained) dynamics pipeline — the main-path part.
 
-Port of mjtpu/_src/smooth.py: kinematics, com_pos, camlight, crb,
-factor_m and solve_m (forest-blocked through mass_blocks for several
-trees, the levelwise sparse LDL of sparse.py for a large branchy tree,
-dense otherwise), factor_solve for one tree, com_vel, rne, transmission
-for joint transmissions, and what the sensors read: rne_postconstraint
-and subtree_vel.  Tree traversals use scan.body_tree (levelwise groups,
-batch-explicit).  The blocked factor_solve is not ported yet: put_model
-refuses models that would take it.
+Port of mjtpu/_src/smooth.py: kinematics, com_pos, camlight, tendon
+(fixed and spatial) and tendon_armature, crb, factor_m and solve_m
+(forest-blocked through mass_blocks for several trees, the levelwise
+sparse LDL of sparse.py for a large branchy tree, dense otherwise),
+factor_solve (for a forest its symmetric blocked solve only), com_vel,
+rne, transmission (every transmission mjtpu has), and what the sensors
+read: rne_postconstraint and subtree_vel.  Tree traversals use
+scan.body_tree (levelwise groups, batch-explicit).  The blocked LU
+factor_solve is not ported yet: put_model refuses models that would take
+it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjtpu_torch._src import math, scan, sparse
+from mjtpu_torch._src import math, scan, sparse, support
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import (
     CamLightType,
@@ -23,6 +25,8 @@ from mjtpu_torch._src.types import (
     DisableBit,
     JointType,
     Model,
+    TrnType,
+    WrapType,
     cached,
     index,
 )
@@ -233,6 +237,66 @@ def camlight(m: Model, d: Data) -> Data:
   return replace(d, **changes)
 
 
+def _fixed_tendon_tables(m: Model) -> dict | None:
+  """The fixed tendons' joint entries: their joints' qpos addresses and
+  coefficients, the gather table that sums them into their tendons in
+  entry order, and the model-constant Jacobian (ntendon, nv) they make;
+  None without a fixed tendon."""
+  wrap_type = np.asarray(m.wrap_type)
+  jsel = np.nonzero(wrap_type == int(WrapType.JOINT))[0]
+  if not len(jsel):
+    return None
+  jnt = np.asarray(m.wrap_objid)[jsel]
+  coef = np.asarray(m.wrap_prm)[jsel]
+  ten_id = np.repeat(np.arange(m.ntendon), np.asarray(m.tendon_num))[jsel]
+  jac = np.zeros((m.ntendon, m.nv))
+  np.add.at(jac, (ten_id, np.asarray(m.jnt_dofadr)[jnt]), coef)
+  return dict(
+      qadr=torch.as_tensor(np.asarray(m.jnt_qposadr)[jnt], device=m.device),
+      coef=torch.as_tensor(coef, dtype=m.dtype, device=m.device),
+      table=scan.segment_table([np.nonzero(ten_id == t)[0] for t in range(m.ntendon)],
+                               len(jsel), m.device),
+      J=torch.as_tensor(jac, dtype=m.dtype, device=m.device),
+  )
+
+
+def tendon(m: Model, d: Data) -> Data:
+  """Tendon lengths and Jacobians (mj_tendon): fixed tendons are linear in
+  qpos (their Jacobian a model constant); spatial tendons walk their
+  site/geom/pulley chains with the exact mju_wrap geometry
+  (tendon_wrap.py).  Each tendon is one or the other, so the two passes
+  fill disjoint rows."""
+  if not m.ntendon:
+    return d
+  from mjtpu_torch._src import tendon_wrap
+
+  fixed = cached(m, "smooth.fixed_tendon", lambda: _fixed_tendon_tables(m))
+  B = d.qpos.shape[0]
+  changes = {}
+  if fixed is not None:
+    ten_length = scan.segment_sum(fixed["coef"] * d.qpos[:, fixed["qadr"]], fixed["table"])
+    ten_J = fixed["J"].expand((B,) + fixed["J"].shape)
+  if np.any(np.asarray(m.wrap_type) != int(WrapType.JOINT)):
+    length, jac, wrap_xpos, wrap_active = tendon_wrap.spatial_tendon(m, d)
+    if fixed is not None:
+      length, jac = ten_length + length, ten_J + jac
+    ten_length, ten_J = length, jac
+    changes.update(ten_wrap_xpos=wrap_xpos, ten_wrap_active=wrap_active)
+  return replace(d, ten_length=ten_length, ten_J=ten_J, **changes)
+
+
+def tendon_armature(m: Model, d: Data) -> Data:
+  """Adds the tendons' armature inertia J^T A J to qM (MuJoCo 3.9+),
+  masked to the kinematic-chain pattern: MuJoCo's sparse qM cannot hold a
+  coupling between dofs of which neither is the other's ancestor, so C
+  drops those terms, and qM stays block diagonal per tree."""
+  if not m.ntendon:
+    return d
+  ja = d.ten_J * m.tendon_armature[:, None]
+  add = d.ten_J.transpose(-1, -2) @ ja
+  return replace(d, qM=d.qM + add * chain_pattern(m))
+
+
 def dof_chain_mask(m: Model) -> torch.Tensor:
   """(nv, nv) mask: M[i, j] = 1 iff j == i or j is an ancestor dof of i."""
 
@@ -367,14 +431,24 @@ def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
 
 def factor_solve(m: Model, mat: torch.Tensor, rhs: torch.Tensor,
                  symmetric: bool = True) -> torch.Tensor:
-  """Solves mat @ x = rhs per env, mat (B, nv, nv) with qM's one-tree
-  pattern (the implicit integrators' qM + h * damping or qM - h * qDeriv).
+  """Solves mat @ x = rhs per env, mat (B, nv, nv) with qM's pattern (the
+  implicit integrators' qM + h * damping or qM - h * qDeriv).  One tree,
   symmetric: for a tree that sparse.structure takes, the levelwise LDL
   factor and solve in one launch of kernel B2 (mat keeps qM's chain
   pattern), else the pivot-clamped Cholesky of ops.fused.chol_solve
   (kernel B1); symmetric=False: a batched LU (ImplicitFast's matrix is not
   symmetric), through lu_factor_ex, which unlike lu_factor does not sync
-  the host to check for errors on CUDA."""
+  the host to check for errors on CUDA.  A forest, symmetric (Euler's
+  damping): mjtpu's blocked solve, the pivot-clamped Cholesky of each
+  block, per block size group, as factor_m; its LU (ImplicitFast on a
+  forest) is not ported, and put_model refuses the models that need it."""
+  if mass_blocks(m) is not None:
+    if not symmetric:
+      raise NotImplementedError("the blocked LU factor_solve is not ported")
+    out = torch.zeros_like(rhs)
+    for _, rows, ii, jj in block_indices(m):
+      out[:, rows] = math.cho_solve(math.safe_cholesky(mat[:, ii, jj]), rhs[:, rows])
+    return out
   if symmetric:
     t = sparse.tables(m)
     if t is not None:
@@ -451,23 +525,168 @@ def rne(m: Model, d: Data) -> Data:
   return replace(d, qfrc_bias=qfrc_bias)
 
 
+def _transmission_tables(m: Model) -> dict:
+  """Static transmission groups: the scalar-joint actuators (ids, their
+  joints' qpos and dof addresses), the tendon actuators (ids, tendons),
+  both as device tensors, and every other actuator with its type and
+  integer ids (handled one at a time)."""
+  trntype = np.asarray(m.actuator_trntype)
+  trnid = np.asarray(m.actuator_trnid)
+  jnt_type = np.asarray(m.jnt_type)
+  long = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=m.device)
+  is_joint = np.isin(trntype, (TrnType.JOINT, TrnType.JOINTINPARENT))
+  # trnid is a joint only for joint transmissions: clip before the jnt_type
+  # gather, other ids can exceed njnt
+  scalar = is_joint & np.isin(jnt_type[np.where(is_joint, trnid[:, 0], 0)],
+                              (JointType.SLIDE, JointType.HINGE))
+  ids = np.nonzero(scalar)[0]
+  j = trnid[ids, 0]
+  ten = np.nonzero(trntype == TrnType.TENDON)[0]
+  rest = []
+  for u in np.nonzero(~scalar & (trntype != TrnType.TENDON))[0]:
+    kind = TrnType(int(trntype[u]))
+    entry = dict(u=int(u), kind=kind, id0=int(trnid[u, 0]), id1=int(trnid[u, 1]))
+    if kind in (TrnType.JOINT, TrnType.JOINTINPARENT):
+      jid = entry["id0"]
+      entry.update(ball=int(jnt_type[jid]) == JointType.BALL,
+                   qadr=int(m.jnt_qposadr[jid]), dadr=int(m.jnt_dofadr[jid]))
+    elif kind == TrnType.BODY:
+      geoms = np.nonzero(np.asarray(m.geom_bodyid) == entry["id0"])[0]
+      entry["geoms"] = long(geoms) if len(geoms) else None
+    rest.append(entry)
+  return dict(
+      joint=(long(ids), long(np.asarray(m.jnt_qposadr)[j]), long(np.asarray(m.jnt_dofadr)[j]))
+      if len(ids) else None,
+      tendon=(long(ten), long(trnid[ten, 0])) if len(ten) else None,
+      rest=rest,
+  )
+
+
+def _site_jac(m: Model, d: Data, sid: int):
+  """(jacp, jacr), each (B, nv, 3), of site ``sid``'s origin."""
+  return support.jac(m, d, d.site_xpos[:, sid], int(m.site_bodyid[sid]))
+
+
+def _rows_dot(jac: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+  """jac (B, nv, 3) @ vec (B, 3) or (3,): (B, nv)."""
+  return math.dot3(jac, vec[..., None, :])
+
+
+def _transmit(m: Model, d: Data, e: dict, length, moment) -> None:
+  """Writes one actuator's length (B,) and moment row (B, nv) of a ball
+  or free joint, site, slider-crank or body (adhesion) transmission into
+  ``length`` and ``moment``."""
+  u, kind, gear = e["u"], e["kind"], m.actuator_gear[e["u"]]
+  if kind in (TrnType.JOINT, TrnType.JOINTINPARENT):
+    qadr, dadr = e["qadr"], e["dadr"]
+    if e["ball"]:
+      q = d.qpos[:, qadr : qadr + 4]
+      gearaxis = math.rotate_inv(gear[:3], q) if kind == TrnType.JOINTINPARENT \
+          else gear[:3].expand(q.shape[:1] + (3,))
+      length[:, u] = math.dot3(math.quat_to_vel(q), gear[:3])
+      moment[:, u, dadr : dadr + 3] = gearaxis
+    else:  # FREE: length stays 0
+      q = d.qpos[:, qadr + 3 : qadr + 7]
+      gearaxis = math.rotate_inv(gear[3:], q) if kind == TrnType.JOINTINPARENT \
+          else gear[3:].expand(q.shape[:1] + (3,))
+      moment[:, u, dadr : dadr + 3] = gear[:3]
+      moment[:, u, dadr + 3 : dadr + 6] = gearaxis
+  elif kind == TrnType.SITE:
+    sid, refid = e["id0"], e["id1"]
+    jacp, jacr = _site_jac(m, d, sid)
+    if refid == -1:  # length stays 0
+      frame = d.site_xmat[:, sid]
+      moment[:, u] = (_rows_dot(jacp, math.mat_vec(frame, gear[:3]))
+                      + _rows_dot(jacr, math.mat_vec(frame, gear[3:])))
+    else:
+      jacp2, jacr2 = _site_jac(m, d, refid)
+      frame = d.site_xmat[:, refid]
+      vecp = math.mat_t_vec(frame, d.site_xpos[:, sid] - d.site_xpos[:, refid])
+      quat_rel = math.quat_mul(math.quat_inv(math.mat_to_quat(frame)),
+                               math.mat_to_quat(d.site_xmat[:, sid]))
+      vecr = math.quat_to_vel(quat_rel)
+      length[:, u] = math.dot3(vecp, gear[:3]) + math.dot3(vecr, gear[3:])
+      djacp = math.mat_t_vec(frame[:, None], jacp - jacp2)
+      djacr = math.mat_t_vec(frame[:, None], jacr - jacr2)
+      moment[:, u] = _rows_dot(djacp, gear[:3]) + _rows_dot(djacr, gear[3:])
+  elif kind == TrnType.SLIDERCRANK:
+    # length = gear0 * (a.v - sqrt((a.v)^2 + rod^2 - v.v)) with a the
+    # slider site's z axis and v = crank_pos - slider_pos; the moment is
+    # the analytic dL/dq through both site Jacobians and the turning axis
+    cid, sid = e["id0"], e["id1"]
+    rod = m.actuator_cranklength[u]
+    axis = d.site_xmat[:, sid, :, 2]
+    vec = d.site_xpos[:, cid] - d.site_xpos[:, sid]
+    av = math.dot3(axis, vec)
+    # a rod shorter than the crank offset is unreachable: clamp as C's
+    # ok=0 branch does rather than give NaN
+    det = torch.sqrt(torch.clamp_min(av * av + rod * rod - math.dot3(vec, vec), math.MINVAL))
+    length[:, u] = gear[0] * (av - det)
+    scale = 1.0 - av / det
+    dldv = scale[:, None] * axis + vec / det[:, None]
+    jacp_c, _ = _site_jac(m, d, cid)
+    jacp_s, jacr_s = _site_jac(m, d, sid)
+    mom = _rows_dot(jacp_c - jacp_s, dldv) + _rows_dot(
+        jacr_s, scale[:, None] * math.cross(axis, vec))
+    moment[:, u] = gear[0] * mom
+  elif kind == TrnType.BODY:
+    # adhesion: length 0; the moment is minus the mean of the normal rows
+    # of every detected contact (dist < margin, gap-band contacts too)
+    # on the body's geoms; gear is ignored
+    from mjtpu_torch._src import collision_driver, constraint
+
+    if e["geoms"] is None or not collision_driver.ncon(m):
+      return
+    jt, _, _ = constraint._contact_jacobians(m, d)
+    g = e["geoms"]
+    con = d.contact
+    involved = (torch.any(con.geom1[..., None] == g, dim=-1)
+                | torch.any(con.geom2[..., None] == g, dim=-1))
+    mask = involved & (con.dist < con.margin)
+    count = torch.sum(mask.to(jt.dtype), dim=-1)
+    total = torch.sum(torch.where(mask[..., None], jt[:, :, 0, :], 0.0), dim=1)
+    moment[:, u] = -total / torch.clamp_min(count, 1.0)[:, None]
+  else:
+    raise NotImplementedError(f"transmission {kind!r}")
+
+
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths and moment arms (mj_transmission) for scalar-joint
-  transmissions, whose moment matrix is model-constant (put_model bakes it
-  and refuses every other transmission)."""
+  """Actuator lengths and moment arms (mj_transmission).  Where every
+  actuator is a scalar-joint transmission the moment matrix is the
+  model's constant (put_model bakes it); otherwise scalar joints and
+  tendons are batched per group, and each other actuator (ball and free
+  joints, sites, slider-cranks, bodies) runs on its own, over the batch."""
   if not m.nu:
     return d
-  qadr, g0 = cached(m, "smooth.transmission", lambda: (
-      torch.as_tensor(np.asarray(m.jnt_qposadr)[np.asarray(m.actuator_trnid)[:, 0]],
-                      device=m.device),
-      m.actuator_gear[:, 0],
-  ))
   B = d.qpos.shape[0]
-  return replace(
-      d,
-      actuator_length=d.qpos[:, qadr] * g0,
-      actuator_moment=m.actuator_static_moment.expand((B,) + m.actuator_static_moment.shape),
-  )
+  if m.actuator_static_moment is not None:
+    qadr, g0 = cached(m, "smooth.transmission", lambda: (
+        torch.as_tensor(np.asarray(m.jnt_qposadr)[np.asarray(m.actuator_trnid)[:, 0]],
+                        device=m.device),
+        m.actuator_gear[:, 0],
+    ))
+    return replace(
+        d,
+        actuator_length=d.qpos[:, qadr] * g0,
+        actuator_moment=m.actuator_static_moment.expand((B,) + m.actuator_static_moment.shape),
+    )
+
+  t = cached(m, "smooth.transmission_groups", lambda: _transmission_tables(m))
+  length = d.qpos.new_zeros((B, m.nu))
+  moment = d.qpos.new_zeros((B, m.nu, m.nv))
+  if t["joint"] is not None:
+    ids, qadr, dadr = t["joint"]
+    g0 = m.actuator_gear[ids, 0]
+    length[:, ids] = d.qpos[:, qadr] * g0
+    moment[:, ids, dadr] = g0
+  if t["tendon"] is not None:
+    ids, ten = t["tendon"]
+    g0 = m.actuator_gear[ids, 0]
+    length[:, ids] = d.ten_length[:, ten] * g0
+    moment[:, ids] = d.ten_J[:, ten] * g0[:, None]
+  for e in t["rest"]:
+    _transmit(m, d, e, length, moment)
+  return replace(d, actuator_length=length, actuator_moment=moment)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Support functions: constraint counting, Jacobians, applied forces,
-contact forces.
+contact forces, the muscle model.
 
 Port of mjtpu/_src/support.py (the slice's part).  Sizes are host functions
 of the Model's static fields, cached per Model.
@@ -27,16 +27,27 @@ from mjtpu_torch._src.types import (
 # ---------------------------------------------------------------------------
 
 
+def tendon_limit_rows_per(m: Model) -> int:
+  """Static rows per limited tendon: 2 where any limited tendon's range is
+  narrower than 2*margin (C can then emit both sides at once), else 1."""
+  lim = np.asarray(m.tendon_limited).astype(bool)
+  if lim.any() and np.asarray(m.tendon_limit_two_sided)[lim].any():
+    return 2
+  return 1
+
+
 def count_constraints(m: Model) -> tuple[int, int, int, int]:
   """(ne, nf, nl, nefc): static row counts.  The port has no equality
-  constraints and no tendons yet (put_model refuses them), so ne = 0, the
-  friction rows are those of dofs and the limit rows those of scalar
-  joints."""
+  constraints yet (put_model refuses them), so ne = 0; the friction rows
+  are those of dofs, then tendons; the limit rows those of scalar joints
+  (two where the range is narrower than 2*margin), then tendons
+  (tendon_limit_rows_per each)."""
 
   def build():
     if m.opt.disableflags & DisableBit.CONSTRAINT:
       return 0, 0, 0, 0
-    nf = 0 if m.opt.disableflags & DisableBit.FRICTIONLOSS else len(m.friction_dofid)
+    nf = 0 if m.opt.disableflags & DisableBit.FRICTIONLOSS else (
+        len(m.friction_dofid) + len(m.friction_tenid))
     nl = 0
     if not (m.opt.disableflags & DisableBit.LIMIT):
       jt = np.asarray(m.jnt_type)
@@ -44,6 +55,7 @@ def count_constraints(m: Model) -> tuple[int, int, int, int]:
       scalar = lim & np.isin(jt, (int(JointType.SLIDE), int(JointType.HINGE)))
       two = np.asarray(m.jnt_limit_two_sided)
       nl = int((scalar & two).sum() * 2 + (scalar & ~two).sum())
+      nl += tendon_limit_rows_per(m) * int(np.asarray(m.tendon_limited).astype(bool).sum())
 
     from mjtpu_torch._src import collision_driver
 
@@ -69,7 +81,8 @@ def constraint_sizes(m: Model) -> tuple[int, int, int, int, int]:
 
 def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
   """Static (efc_type, efc_id) labels for every row of the fixed efc layout
-  (dof friction, limits, then contacts), as in mjtpu's support.efc_row_meta."""
+  (dof friction, tendon friction, joint limits, tendon limits, then
+  contacts), as in mjtpu's support.efc_row_meta."""
 
   def build():
     from mjtpu_torch._src import collision_driver
@@ -77,9 +90,14 @@ def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
     ne, nf, nl, nefc = count_constraints(m)
     types = np.zeros(nefc, np.int32)
     ids = np.zeros(nefc, np.int32)
-    types[:nf] = int(ConstraintType.FRICTION_DOF)
-    ids[:nf] = np.asarray(m.friction_dofid)[:nf]
-    r = nf
+    r = 0
+    if nf:
+      for kind, objs in ((ConstraintType.FRICTION_DOF, m.friction_dofid),
+                         (ConstraintType.FRICTION_TENDON, m.friction_tenid)):
+        n = len(objs)
+        types[r : r + n] = int(kind)
+        ids[r : r + n] = np.asarray(objs)
+        r += n
     if nl:
       jt = np.asarray(m.jnt_type)
       two = np.asarray(m.jnt_limit_two_sided).astype(bool)
@@ -89,6 +107,11 @@ def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
         types[r : r + n] = int(ConstraintType.LIMIT_JOINT)
         ids[r : r + n] = j
         r += n
+      per = tendon_limit_rows_per(m)
+      for t in np.nonzero(np.asarray(m.tendon_limited))[0]:
+        types[r : r + per] = int(ConstraintType.LIMIT_TENDON)
+        ids[r : r + per] = t
+        r += per
     if r != ne + nf + nl:
       raise AssertionError((r, ne, nf, nl))
 
@@ -296,3 +319,112 @@ def contact_body_wrenches(m: Model, d: Data) -> torch.Tensor:
   bodies = torch.arange(m.nbody, device=wrench.device)[None, :, None]
   sign = (b2[:, None, :] == bodies).to(wrench.dtype) - (b1[:, None, :] == bodies).to(wrench.dtype)
   return sign @ wrench
+
+
+def act_input(m: Model) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+  """Where each actuator reads its input from, as device tensors: (nu,)
+  whether it has an activation state, (nu,) its last activation slot (0
+  for a stateless one), and (nu,) whether it reads that activation one
+  step ahead (actearly; None where no actuator does)."""
+
+  def build():
+    actadr, actnum = np.asarray(m.actuator_actadr), np.asarray(m.actuator_actnum)
+    stateful = actadr >= 0
+    early = np.asarray(m.actuator_actearly, dtype=bool) & stateful
+    t = lambda x: torch.as_tensor(x, device=m.device)
+    return (t(stateful), t(np.maximum(actadr + actnum - 1, 0).astype(np.int64)),
+            t(early) if early.any() else None)
+
+  return cached(m, "support.act_input", build)
+
+
+# ---------------------------------------------------------------------------
+# muscle model (mju_muscle*), elementwise over any leading axes
+# ---------------------------------------------------------------------------
+
+
+def _sq(x: torch.Tensor) -> torch.Tensor:
+  return x * x  # x**2 as XLA's integer power computes it
+
+
+def muscle_gain_length(length, lmin, lmax):
+  """Active force-length curve (piecewise quadratic bump, mju_muscleGainLength)."""
+  a = 0.5 * (lmin + 1.0)
+  b = 0.5 * (1.0 + lmax)
+  out = torch.where(
+      length <= a,
+      0.5 * _sq((length - lmin) / torch.clamp_min(a - lmin, math.MINVAL)),
+      1.0 - 0.5 * _sq((1.0 - length) / torch.clamp_min(1.0 - a, math.MINVAL)),
+  )
+  out = torch.where(
+      length > 1.0,
+      torch.where(
+          length <= b,
+          1.0 - 0.5 * _sq((length - 1.0) / torch.clamp_min(b - 1.0, math.MINVAL)),
+          0.5 * _sq((lmax - length) / torch.clamp_min(lmax - b, math.MINVAL)),
+      ),
+      out,
+  )
+  return torch.where((length <= lmin) | (length >= lmax), 0.0, out)
+
+
+def _muscle_normalized(len_, lengthrange, prm):
+  range0, range1 = prm[..., 0], prm[..., 1]
+  l0 = (lengthrange[..., 1] - lengthrange[..., 0]) / torch.clamp_min(range1 - range0, math.MINVAL)
+  ln = range0 + (len_ - lengthrange[..., 0]) / torch.clamp_min(l0, math.MINVAL)
+  return ln, l0
+
+
+def _muscle_peak(prm, acc0):
+  """The peak force: prm's force, or scale / acc0 where it is negative."""
+  force, scale = prm[..., 2], prm[..., 3]
+  return torch.where(force < 0.0, scale / torch.clamp_min(acc0, math.MINVAL), force)
+
+
+def muscle_gain(len_, vel, lengthrange, acc0, prm):
+  """Muscle active gain (mju_muscleGain).  prm = (range0, range1, force,
+  scale, lmin, lmax, vmax, fpmax, fvmax)."""
+  lmin, lmax, vmax, fvmax = prm[..., 4], prm[..., 5], prm[..., 6], prm[..., 8]
+  ln, l0 = _muscle_normalized(len_, lengthrange, prm)
+  v = vel / torch.clamp_min(l0 * vmax, math.MINVAL)
+  fl = muscle_gain_length(ln, lmin, lmax)
+  y = fvmax - 1.0
+  fv = torch.where(v <= 0.0, (v + 1.0) * (v + 1.0),
+                   fvmax - ((y - v) * (y - v)) / torch.clamp_min(y, math.MINVAL))
+  fv = torch.where(v <= -1.0, 0.0, torch.where(v > y, fvmax, fv))
+  return -_muscle_peak(prm, acc0) * fl * fv
+
+
+def muscle_bias(len_, lengthrange, acc0, prm):
+  """Muscle passive bias force (mju_muscleBias): a quadratic ramp to
+  fpmax/2 at x = 1, then linear."""
+  lmax, fpmax = prm[..., 5], prm[..., 7]
+  ln, _ = _muscle_normalized(len_, lengthrange, prm)
+  b = 0.5 * (1.0 + lmax)
+  x = (ln - 1.0) / torch.clamp_min(b - 1.0, math.MINVAL)
+  fp = torch.where(x <= 1.0, 0.5 * fpmax * x * x, fpmax * (0.5 + (x - 1.0)))
+  fp = torch.where(x <= 0.0, 0.0, fp)
+  return -_muscle_peak(prm, acc0) * fp
+
+
+def sigmoid(x):
+  """Smootherstep sigmoid on [0, 1] (mju_sigmoid)."""
+  s = x * x * x * (3.0 * x * (2.0 * x - 5.0) + 10.0)
+  return torch.clamp(torch.where(x <= 0.0, 0.0, torch.where(x >= 1.0, 1.0, s)), 0.0, 1.0)
+
+
+def muscle_dynamics(ctrl, act, prm):
+  """Muscle activation dynamics (mju_muscleDynamics).  prm = (tau_act,
+  tau_deact, smoothing_width)."""
+  ctrlclamp = torch.clamp(ctrl, 0.0, 1.0)
+  actclamp = torch.clamp(act, 0.0, 1.0)
+  tau_act = prm[..., 0] * (0.5 + 1.5 * actclamp)
+  tau_deact = prm[..., 1] / (0.5 + 1.5 * actclamp)
+  dctrl = ctrlclamp - act
+  # smoothing between the deactivation and activation time constants
+  width = prm[..., 2]
+  hard = torch.where(dctrl > 0.0, tau_act, tau_deact)
+  soft = tau_deact + (tau_act - tau_deact) * sigmoid(
+      dctrl / torch.clamp_min(width, math.MINVAL) + 0.5)
+  tau = torch.where(width < math.MINVAL, hard, soft)
+  return dctrl / torch.clamp_min(tau, math.MINVAL)

@@ -12,8 +12,10 @@ runs:
 
 The slices cover the fields the humanoid_bench, humanoid_terrain,
 scene_pile, branchy66 and ant_bench main paths read and write (sensors,
-cameras and lights since ant_bench); the rest of mjtpu's Model/Data
-(tendons, equality, energy, ...) arrives with the slices that need it.
+cameras and lights since ant_bench), and tendons, their wraps and the
+actuators' activation states (the tendon slice); the rest of mjtpu's
+Model/Data (equality, mocap, energy, ...) arrives with the slices that
+need it.
 """
 
 from __future__ import annotations
@@ -136,6 +138,17 @@ class EqType(enum.IntEnum):
   WELD = 1
   JOINT = 2
   TENDON = 3
+
+
+class WrapType(enum.IntEnum):
+  """Tendon wrap types (mjtWrap)."""
+
+  NONE = 0
+  JOINT = 1
+  PULLEY = 2
+  SITE = 3
+  SPHERE = 4
+  CYLINDER = 5
 
 
 class TrnType(enum.IntEnum):
@@ -356,6 +369,8 @@ class Model:
   nsite: int = static()
   npair: int = static()
   nexclude: int = static()
+  ntendon: int = static()
+  nwrap: int = static()
   nmesh: int = static()
   nhfield: int = static()
   ncam: int = static()
@@ -489,19 +504,48 @@ class Model:
   pair_gap: torch.Tensor = None
   pair_friction: torch.Tensor = None
   exclude_signature: np.ndarray = static(None)
+  # ---- tendons and their wraps ----
+  tendon_adr: np.ndarray = static(None)
+  tendon_num: np.ndarray = static(None)
+  tendon_limited: np.ndarray = static(None)
+  tendon_solref_lim: torch.Tensor = None
+  tendon_solimp_lim: torch.Tensor = None
+  tendon_solref_fri: torch.Tensor = None
+  tendon_solimp_fri: torch.Tensor = None
+  tendon_range: torch.Tensor = None
+  tendon_margin: torch.Tensor = None
+  tendon_stiffness: torch.Tensor = None
+  tendon_damping: torch.Tensor = None
+  tendon_armature: torch.Tensor = None
+  tendon_frictionloss: torch.Tensor = None
+  tendon_lengthspring: torch.Tensor = None
+  tendon_length0: torch.Tensor = None
+  tendon_invweight0: torch.Tensor = None
+  wrap_type: np.ndarray = static(None)
+  wrap_objid: np.ndarray = static(None)
+  wrap_prm: np.ndarray = static(None)
   # ---- actuators ----
   actuator_trntype: np.ndarray = static(None)
   actuator_dyntype: np.ndarray = static(None)
   actuator_gaintype: np.ndarray = static(None)
   actuator_biastype: np.ndarray = static(None)
   actuator_trnid: np.ndarray = static(None)
+  actuator_actadr: np.ndarray = static(None)
+  actuator_actnum: np.ndarray = static(None)
   actuator_ctrllimited: np.ndarray = static(None)
   actuator_forcelimited: np.ndarray = static(None)
+  actuator_actlimited: np.ndarray = static(None)
+  actuator_actearly: np.ndarray = static(None)
+  actuator_dynprm: torch.Tensor = None
   actuator_gainprm: torch.Tensor = None
   actuator_biasprm: torch.Tensor = None
   actuator_ctrlrange: torch.Tensor = None
   actuator_forcerange: torch.Tensor = None
   actuator_gear: torch.Tensor = None
+  actuator_actrange: torch.Tensor = None
+  actuator_cranklength: torch.Tensor = None
+  actuator_acc0: torch.Tensor = None
+  actuator_lengthrange: torch.Tensor = None
   # ---- sensors ----
   sensor_type: np.ndarray = static(None)
   sensor_datatype: np.ndarray = static(None)
@@ -513,8 +557,9 @@ class Model:
   sensor_dim: np.ndarray = static(None)
   sensor_adr: np.ndarray = static(None)
   sensor_cutoff: torch.Tensor = None
-  # model-constant (nu, nv) moment matrix: every actuator of the slice is a
-  # scalar-joint transmission, whose moment row is gear[0] at the joint dof
+  # model-constant (nu, nv) moment matrix where every actuator is a
+  # scalar-joint transmission, whose moment row is gear[0] at the joint
+  # dof; None where some actuator's moment depends on the state
   actuator_static_moment: torch.Tensor = None
   # ---- custom numerics / names (max_contact_points lookup) ----
   numeric_adr: np.ndarray = static(None)
@@ -525,10 +570,15 @@ class Model:
   # (njnt,) bool: range narrower than 2*margin, so C can emit both the
   # lower and the upper limit row at once (support.count_constraints)
   jnt_limit_two_sided: np.ndarray = static(None)
+  tendon_limit_two_sided: np.ndarray = static(None)  # (ntendon,) the same for tendons
   friction_dofid: np.ndarray = static(None)  # dofs with frictionloss > 0
+  friction_tenid: np.ndarray = static(None)  # tendons with frictionloss > 0
   has_jnt_spring: bool = static(False)
   has_dof_damping: bool = static(False)
   has_gravcomp: bool = static(False)  # any body_gravcomp > 0
+  has_tendon_spring: bool = static(False)  # any tendon_stiffness > 0
+  has_tendon_damping: bool = static(False)  # any tendon_damping > 0
+  has_tendon_armature: bool = static(False)  # any tendon_armature > 0
   cache: dict = dataclasses.field(
       init=False, repr=False, compare=False, metadata={"static": True}
   )
@@ -632,6 +682,14 @@ class Data:
   subtree_com: torch.Tensor
   cdof: torch.Tensor
   cinert: torch.Tensor
+  # tendons: lengths, Jacobians (B, ntendon, nv), velocities; one (2, 3)
+  # world pair of wrap points per sphere or cylinder wrap entry
+  # (tendon_wrap.build_program's order), active where it wrapped this step
+  ten_length: torch.Tensor
+  ten_J: torch.Tensor
+  ten_velocity: torch.Tensor
+  ten_wrap_xpos: torch.Tensor
+  ten_wrap_active: torch.Tensor
   # actuation
   actuator_length: torch.Tensor
   actuator_moment: torch.Tensor

@@ -45,6 +45,7 @@ ENUMS = [
     (types.JacobianType, mujoco.mjtJacobian, "mjJAC_"),
     (types.SolverType, mujoco.mjtSolver, "mjSOL_"),
     (types.EqType, mujoco.mjtEq, "mjEQ_"),
+    (types.WrapType, mujoco.mjtWrap, "mjWRAP_"),
     (types.TrnType, mujoco.mjtTrn, "mjTRN_"),
     (types.DynType, mujoco.mjtDyn, "mjDYN_"),
     (types.GainType, mujoco.mjtGain, "mjGAIN_"),
@@ -273,6 +274,14 @@ for name in ("swimmer", "satellite", "satellite_small"):  # fluid forces, cmg.py
   env = zoo.ENVS[name](device="cpu")
   state = env.step(env.reset(2, gen), torch.zeros(2, env.action_size), gen)
   assert bool(torch.isfinite(state.obs).all()), name
+for name in ("mixed", "muscle"):  # the tendon slice's main paths, from the tendon bundle
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "tendon_scenes.npz", name), device="cpu")
+  d = mjtpu_torch.make_data(m, batch_size=2)
+  d = mjtpu_torch.replace(d, ctrl=torch.full((2, m.nu), 0.5, dtype=m.dtype))
+  for _ in range(2):
+    d = mjtpu_torch.step(m, d)
+  assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.ten_length).all()), name
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "mjtpu", "mujoco"))
 assert not bad, bad
 print("ok")

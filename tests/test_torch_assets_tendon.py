@@ -1,0 +1,56 @@
+"""The tendon scene bundle (scripts/torch_port_assets.py), held to its
+sources: put_model of each scene's MJCF, and a fresh mjtpu run of one
+wrap scene."""
+
+import mujoco
+import numpy as np
+
+import mjtpu_torch
+from mjtpu_torch._src import io
+from tests.test_torch_assets import _assert_models_equal, _assets_script, _regenerate
+
+
+def test_tendon_scene_snapshots_equal_put_model():
+  """Each scene of the tendon bundle, loaded, equals put_model of its
+  MJCF; a scene's snapshot holds the tendon fields where it has a tendon
+  (io.TENDON_FIELDS) and the activation and transmission fields where it
+  has an activation state, a muscle or a slider-crank (io.ACT_FIELDS), the
+  friction rows' fields where a dof has frictionloss (io.FRICTION_FIELDS),
+  and nothing else past io.SNAPSHOT_FIELDS and the hull tables."""
+  script = _assets_script()
+  with np.load(script.TENDON_SCENES_FILE) as z:
+    for name, xml in script.tendon_scene_xmls().items():
+      mjm = mujoco.MjModel.from_xml_string(xml)
+      keys = [k for k in io._bundle_arrays(z, name) if not k.startswith(io.HULL_PREFIXES)]
+      assert sorted(keys) == sorted(
+          io.SNAPSHOT_FIELDS + (tuple(io.TENDON_FIELDS) if mjm.ntendon else ())
+          + (tuple(io.ACT_FIELDS) if io.has_act_fields(mjm) else ())
+          + (io.FRICTION_FIELDS if (mjm.dof_frictionloss > 0).any() else ())), name
+      snap = mjtpu_torch.model_from_arrays(io.load_snapshot(script.TENDON_SCENES_FILE, name),
+                                           device="cpu")
+      _assert_models_equal(snap, mjtpu_torch.put_model(mjm, device="cpu"), name)
+  slidercrank = mujoco.MjModel.from_xml_string(script.tendon_scene_xmls()["slidercrank"])
+  assert slidercrank.na == 0 and io.has_act_fields(slidercrank)
+
+
+def test_tendon_files_are_fresh(tmp_path):
+  """Regenerating the sphere wrap scene (mjtpu compiles one step and one
+  fwd_position; its first step) reproduces its snapshot in the bundle and
+  its golden's entries, the seeded poses' tendons too."""
+  script = _assets_script()
+  name = "sphere"
+  new_dir = _regenerate(tmp_path, "--model", "tendon_scenes", "--scene", name, "--steps", "1")
+  assert io.bundle_names(new_dir / script.TENDON_SCENES_FILE.name) == [name]
+  with np.load(new_dir / script.TENDON_SCENES_FILE.name) as new, \
+      np.load(script.TENDON_SCENES_FILE) as old:
+    a, b = io._bundle_arrays(new, name), io._bundle_arrays(old, name)
+    assert sorted(a) == sorted(b)
+    for k in a:
+      np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+  with np.load(new_dir / script.TENDON_GOLDEN_FILE.name) as new, \
+      np.load(script.TENDON_GOLDEN_FILE) as old:
+    assert sorted(new.files) == sorted(k for k in old.files if k.startswith(f"{name}."))
+    assert f"{name}.poses.ten_J" in new.files
+    for k in new.files:
+      want = old[k][:1] if k.split(".")[1] in ("qpos", "qvel", "act", "sensordata") else old[k]
+      np.testing.assert_allclose(new[k], want, rtol=0, atol=1e-12, err_msg=k)

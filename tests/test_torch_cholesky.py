@@ -128,12 +128,12 @@ def test_shared_memory_bound():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_size_dispatch_and_launch_geometry(dtype):
-  """The main paths' and the zoo envs' n (REGISTER_WIDTHS: 5, 6, 8, 9,
+  """The main paths' and the zoo envs' n (REGISTER_WIDTHS: 2, 5, 6, 8, 9,
   14, 23, 27) take the register kernel (an instance of each n), one warp an
   env, 4 a block; every other n up to max_n the shared one; past that none
   (tests_cuda: it raises on the card).  The n are the ones csrc/cholesky.cu
   instantiates."""
-  assert cholesky.REGISTER_WIDTHS == (5, 6, 8, 9, 14, 23, 27)
+  assert cholesky.REGISTER_WIDTHS == (2, 5, 6, 8, 9, 14, 23, 27)
   for n in cholesky.REGISTER_WIDTHS:
     assert cholesky.variant(n, dtype) == "register"
     assert cholesky.variants(n, dtype) == ("register", "shared")

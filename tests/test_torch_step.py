@@ -161,7 +161,9 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
 # ``what`` None: a model that an earlier slice refused and a later one
 # accepts (the collision slice: every geom pair mjtpu collides, the
 # max_geom_pairs broadphase; the cone slice: elliptic cones, condim 4 and
-# 6; the fluid slice: fluid forces under RK4); it must build and step
+# 6; the fluid slice: fluid forces under RK4; the tendon slice: tendons,
+# every transmission, activation dynamics, Euler's damping on a forest);
+# it must build and step
 @pytest.mark.parametrize("make, what", [
     (_variant(HB, collide_head=True), None),
     (_xml(_free('type="capsule" size="0.05 0.1"', 0.5) + _free('type="box" size="0.1 0.1 0.1"', 0.2)),
@@ -171,13 +173,15 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
      None),
     (_xml(_BOXES, custom='<numeric name="max_geom_pairs" data="1"/>'), None),
     # two damped pendulums: Euler's implicit damping on a forest takes the
-    # blocked symmetric factor_solve, which is not ported
+    # blocked symmetric factor_solve (the tendon slice)
     (_xml('<body pos="0 0 1"><joint type="hinge" axis="0 1 0" damping="0.1"/>'
           '<geom type="capsule" fromto="0 0 0 0 0 -0.3" size="0.02"/></body>' * 2),
-     "implicit joint damping on a multi-tree model"),
-    (_variant("sensors.xml"), "sensors"),
+     None),
+    # tendon sensors, a ball-joint transmission and tendon actuators (the
+    # tendon slice)
+    (_variant("sensors.xml"), None),
     (_variant("equality.xml"), "equality"),
-    (_variant("friction_tendon.xml"), "tendons"),
+    (_variant("friction_tendon.xml"), None),
     # RK4 is in the slice since the zoo envs, fluid forces since the fluid
     # slice: an RK4 model in a fluid (as the zoo's swimmer) builds and steps
     (_variant("pendulum_rk4.xml", density=1.2), None),

@@ -36,11 +36,11 @@ def test_kernel_matches_twin(batch, n, dtype):
 
 @pytest.mark.parametrize("clamp", [False, True], ids=["spd", "clamped"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40])
 def test_chol_variants_match_twin(n, dtype, clamp):
   """Every variant that can run an n (the register kernel at the main
-  paths' and the zoo envs' n, 5, 6, 8, 9, 14, 23 and 27; the shared kernel
-  everywhere) within phase 3's
+  paths' and the zoo envs' n, 2, 5, 6, 8, 9, 14, 23 and 27; the shared
+  kernel everywhere) within phase 3's
   tolerance of the twin, the register kernel equal to the shared one bit
   for bit, launches counted by variant."""
   gen = torch.Generator(device="cuda").manual_seed(n)
@@ -449,6 +449,37 @@ def test_step_on_cuda_matches_cpu(name, steps, per_step, tol):
   for k in (0, 2):
     np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0,
                                atol=tol * max(1.0, np.abs(out["cpu"][k]).max(initial=0.0)))
+
+
+# per step: B1 launches besides one per Newton iteration (muscle.xml's
+# Euler damping solve takes one)
+@pytest.mark.parametrize("name, per_step", [("mixed", 0), ("muscle", 1)])
+def test_tendon_scene_step_on_cuda_matches_cpu(name, per_step):
+  """The tendon slice's main paths (tendon_scenes.npz's mixed scene and
+  muscle.xml) at f64 from their golden's start: 5 steps on the card
+  against the same steps on the CPU, qpos, qvel, act, sensordata and the
+  tendons to 1e-9 of scale; on the card the B1 launches are all register,
+  n=2, one per Newton iteration (and muscle.xml's one a step)."""
+  from mjtpu_torch._src import solver
+
+  golden = np.load(mjtpu_torch.ASSETS / "tendon_scenes_golden.npz")
+  out = {}
+  for device in ("cpu", "cuda"):
+    m, d = chip_smoke.tendon_scene(name, golden, device)
+    before = dict(cholesky.variant_launches)
+    newton = solver.loop_counts["iterations"]
+    for _ in range(5):
+      d = mjtpu_torch.step(m, d)
+    iterations = solver.loop_counts["iterations"] - newton
+    kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    out[device] = d, iterations, kinds
+  (cpu, _, cpu_kinds), (gpu, iterations, kinds) = out["cpu"], out["cuda"]
+  assert cpu_kinds == {"register": 0, "shared": 0}
+  assert kinds == {"register": iterations + 5 * per_step, "shared": 0} and iterations > 0
+  for f in ("qpos", "qvel", "act", "sensordata", "ten_length", "ten_J"):
+    want = getattr(cpu, f).numpy()
+    np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(), want, rtol=0,
+                               atol=1e-9 * max(1.0, np.abs(want).max(initial=0.0)), err_msg=f)
 
 
 def _env_step_on_cuda_matches_cpu(name, golden_file):
