@@ -11,14 +11,14 @@ failure raises and the script exits non-zero:
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc builds the four kernels for sm_90a, in parallel.
   3. Cholesky kernel (B1) vs its plain twin on the card: random SPD batches
-     (n in 1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096; f32
-     and f64) and batches whose pivots hit the floor; every variant that
-     can run an n (the register kernel at n=2, 5, 6, 8, 9, 14, 23 and 27,
-     the shared one everywhere) within the tolerance of the twin, and the
-     two equal bit for bit; times of both at n=27, 23, 14, 9, 8, 6, 5 and 2
-     (bench's, terrain's, the Ant env's, walker2d's and halfcheetah's,
-     ant_bench's, hopper's, the swimmer env's and the tendon scene's and
-     muscle.xml's shapes), B=4096, beside
+     (n in 1, 2, 5, 6, 8, 9, 12, 14, 23, 27, 32, 33, 40; B in 1, 130, 4096;
+     f32 and f64) and batches whose pivots hit the floor; every variant
+     that can run an n (the register kernel at n=2, 5, 6, 8, 9, 12, 14, 23
+     and 27, the shared one everywhere) within the tolerance of the twin,
+     and the two equal bit for bit; times of both at n=27, 23, 14, 12, 9,
+     8, 6, 5 and 2 (bench's, terrain's, the Ant env's, mocap.xml's,
+     walker2d's and halfcheetah's, ant_bench's, hopper's, the swimmer
+     env's and the tendon scene's and muscle.xml's shapes), B=4096, beside
      torch.cholesky_solve(torch.linalg.cholesky_ex).
   4. height-field kernel (B4) vs its plain twin on the card: subgrids
      (0, 0), (2, 2), (8, 8); spheres and capsules; n in 1, 130, 49152; f32
@@ -136,7 +136,8 @@ failure raises and the script exits non-zero:
      scenes, four elliptic fuzz scenes): step 1's efc_* fields to 1e-10
      of scale, solve's qacc and efc_force to 1e-10 (the fuzz scenes:
      1e-7), 100 steps (the fuzz scenes: 25) to 1e-7 (ROADMAP C7); B1's
-     shared kernel on elliptic.xml's n=12 Hessians, f64 and f32.
+     register kernel (the size dispatch's) and shared one on
+     elliptic.xml's n=12 Hessians, f64 and f32.
  23. elliptic throughput: f32, B=4096 from bench.py's start (qpos0 +-0.01,
      numpy seed 1), 20 warm-up and 200 timed steps: env-steps/s and ms per
      step beside phase 6's pyramidal figure, B1 launches (register, n=27)
@@ -181,19 +182,39 @@ failure raises and the script exits non-zero:
      muscle.xml the same way with 20 timed steps (B1 also once a step for
      Euler's damping).
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25 and 27: each kernel's launch
+ 28. equality parity: f64, B=4 on the card, every scene of
+     equality_scenes.npz (mocap.xml under Euler and ImplicitFast, weld.xml,
+     equality.xml with per-env eq_active, ball_free.xml under Euler and
+     ImplicitFast, two forests under ImplicitFast, the ball-limit models,
+     the limit sensors with a ball joint, a tendon equality, EQ_ORDER_XML,
+     two equality fuzz scenes) against its mjtpu golden at the CPU test's
+     bounds (equality_scene_errors): every body's frame to 1e-14, step 1's
+     efc rows, qacc and efc_force to 1e-10 of scale, rne_postconstraint's
+     cfrc_ext to 1e-10 of MuJoCo C's, the world body's row of mjtpu's
+     (ROADMAP C11), 100 steps to 1e-8
+     with the mocap targets the golden sets; one B1 launch per Newton
+     iteration.
+ 29. mocap throughput, the main path: mocap.xml at f32 B=4096 (qpos0
+     +-0.01, numpy seed 1), every env's two mocap bodies moved before each
+     step by mocap_targets on the card from the step index and the env's
+     phase, 3 warm-up and 30 timed steps: env-steps/s, ms per step, B1
+     launches per step (register only, n=12, one per Newton iteration),
+     Newton iterations and linesearch rounds per step, nreset 0, B1's share
+     of the step, one profiled step's launches and busy share.
+
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27 and 29: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
 the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
 
-The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24 and 26, and phase
+The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26 and 28, and phase
 22's cone scenes (``22-cones``), run each in a process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
-overlap it; no phase is timed while they run (the timed phases 23, 25
-and 27 come after all have ended).
+overlap it; no phase is timed while they run (the timed phases 23, 25,
+27 and 29 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -299,15 +320,30 @@ TENDON_EFC_BOUND = 1e-10
 TENDON_TRAJECTORY_BOUND = 1e-8
 TENDON_WARMUP = 3
 MUSCLE_TIMED = 20
-# phase 3's sizes: the register kernel's n (the main paths' 2, 5, 8, 14,
-# 23, 27 and the zoo envs' 6 and 9), which both variants run, and n that
-# only the shared kernel runs (32 and 33 on either side of its rows'
+# mocap.xml's envs each move their targets from their own phase, uniform in
+# [0, MOCAP_PHASE_S) s (mocap_targets)
+MOCAP_PHASE_S = 2.0
+# the equality scenes' bounds (tests/test_torch_equality.py): every body's
+# xpos and xquat, of max(1, scale); step 1's efc rows, qacc, efc_force and
+# rne_postconstraint's cfrc_ext (against MuJoCo C's), of scale; 100 steps
+EQ_POSE_BOUND = 1e-14
+EQ_EFC_BOUND = 1e-10
+EQ_SOLVE_BOUND = 1e-10
+EQ_CFRC_BOUND = 1e-10
+EQ_TRAJECTORY_BOUND = 1e-8
+EQ_EFC = ("efc_J", "efc_pos", "efc_margin", "efc_frictionloss", "efc_D", "efc_aref")
+# the equality main path's warm-up and timed steps
+MOCAP_WARMUP = 3
+MOCAP_TIMED = 30
+# phase 3's sizes: the register kernel's n (the main paths' 2, 5, 8, 12,
+# 14, 23, 27 and the zoo envs' 6 and 9), which both variants run, and n
+# that only the shared kernel runs (32 and 33 on either side of its rows'
 # striding over the lanes)
-CHOL_NS = (1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40)
+CHOL_NS = (1, 2, 5, 6, 8, 9, 12, 14, 23, 27, 32, 33, 40)
 # the register kernel's n, timed in phase 3: bench, terrain, the Ant env,
-# walker2d and halfcheetah, ant_bench, hopper, the swimmer env, the tendon
-# scene and muscle.xml
-CHOL_TIMED_NS = (27, 23, 14, 9, 8, 6, 5, 2)
+# mocap.xml, walker2d and halfcheetah, ant_bench, hopper, the swimmer env,
+# the tendon scene and muscle.xml
+CHOL_TIMED_NS = (27, 23, 14, 12, 9, 8, 6, 5, 2)
 # calls per timing window: a kernel's, and a plain twin's or library call's
 # (those take milliseconds each)
 KERNEL_REPS = 50
@@ -374,6 +410,22 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
   t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
   t_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)[6:]]
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mocap_targets(base_pos, t):
+  """mocap.xml's two mocap bodies at times t (B,), the moving-target
+  schedule of tests/test_mocap.py: both moved from their frames base_pos
+  (2, 3) by (0.2 sin 3t, 0, 0.1 t), the first turned by 0.8 t about z,
+  the second not turned: (pos (B, 2, 3), quat (B, 2, 4)) on t's device, so
+  a run on the card computes them there from the step index."""
+  import torch
+
+  zero, one = torch.zeros_like(t), torch.ones_like(t)
+  pos = base_pos + torch.stack([0.2 * torch.sin(3.0 * t), zero, 0.1 * t], dim=-1)[:, None]
+  half = 0.4 * t
+  quat = torch.stack([torch.stack([torch.cos(half), zero, zero, torch.sin(half)], dim=-1),
+                      torch.stack([one, zero, zero, zero], dim=-1)], dim=1)
+  return pos, quat
 
 
 def phase_device():
@@ -1151,24 +1203,26 @@ def _read_counts(expect: dict | None = None) -> dict:
   return counts
 
 
-def _timed_main_path(m, d, warmup, timed, expect=None):
+def _timed_main_path(m, d, warmup, timed, expect=None, advance=None):
   """Warm-up steps, then the main path's run: every kernel count set to 0
-  just before it and read just after (``expect``: _read_counts').  Returns
-  (d, secs, counts, the solver's iterations and linesearch rounds in the
+  just before it and read just after (``expect``: _read_counts'; a step
+  is ``advance(d)``, by default mjtpu_torch.step(m, d)).  Returns (d,
+  secs, counts, the solver's iterations and linesearch rounds in the
   timed steps)."""
   import torch
 
   import mjtpu_torch
   from mjtpu_torch._src import solver
 
+  advance = advance or (lambda d: mjtpu_torch.step(m, d))
   for _ in range(warmup):
-    d = mjtpu_torch.step(m, d)
+    d = advance(d)
   torch.cuda.synchronize()
   _zero_counts()
   loops = dict(solver.loop_counts)
   t0 = time.perf_counter()
   for _ in range(timed):
-    d = mjtpu_torch.step(m, d)
+    d = advance(d)
   torch.cuda.synchronize()
   secs = time.perf_counter() - t0
   loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
@@ -2142,7 +2196,7 @@ def phase_cone_parity():
 
   bundle = mjtpu_torch.ASSETS / "cone_scenes.npz"
   scenes = dict(np.load(mjtpu_torch.ASSETS / "cone_scenes_golden.npz"))
-  shared = None
+  hessians = None
   for name in io.bundle_names(bundle):
     m = mjtpu_torch.model_from_arrays(io.load_snapshot(bundle, name), dtype=torch.float64,
                                       device="cuda")
@@ -2175,9 +2229,10 @@ def phase_cone_parity():
     if launches != want:
       raise AssertionError(f"{name}: {launches} B1 launches, {iterations} Newton iterations")
     if name == "elliptic":
-      shared = calls[0]
-  _hold_chol(*shared, "elliptic.xml's first Newton Hessians (two trees, dense)")
-  _hold_chol(shared[0].float(), shared[1].float(), "elliptic.xml's Hessians cast to f32")
+      hessians = calls[0]
+  # n=12: the register kernel, and the shared one beside it
+  _hold_chol(*hessians, "elliptic.xml's first Newton Hessians (two trees, dense)")
+  _hold_chol(hessians[0].float(), hessians[1].float(), "elliptic.xml's Hessians cast to f32")
 
 
 def phase_elliptic_throughput(card, bench):
@@ -2450,6 +2505,195 @@ def _tendon_path(name, timed, card, profile):
   return f"{line}; card {card}", counts
 
 
+def equality_scene(name, golden, device):
+  """(Model, Data) at f64 of an equality scene (equality_scenes.npz) at its
+  golden's start, on ``device``."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "equality_scenes.npz", name), device=device)
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+  start = {k: torch.as_tensor(golden[f"{name}.{k}0"], device=device)
+           for k in ("qpos", "qvel", "ctrl", "act", "eq_active") if f"{name}.{k}0" in golden}
+  return m, mjtpu_torch.replace(d, **start)
+
+
+def _mocap_at(d, golden, name, t):
+  """``d`` with the golden's mocap targets of step t + 1 (a scene without
+  mocap bodies: ``d``)."""
+  import torch
+
+  import mjtpu_torch
+
+  if f"{name}.mocap_pos" not in golden:
+    return d
+  at = lambda k: torch.as_tensor(golden[f"{name}.{k}"][t], device=d.qpos.device)
+  return mjtpu_torch.replace(d, mocap_pos=at("mocap_pos"), mocap_quat=at("mocap_quat"))
+
+
+def equality_scene_errors(name, golden, device, steps=None) -> dict:
+  """An equality scene's errors against its golden (tests/test_torch_equality.py
+  and phase 28 share it), each over its bound's scale: "pose.<field>"
+  every body's frame at step 1, of max(1, max |mjtpu's|); "efc.<field>"
+  step 1's efc rows and "efc.labels" the static row labels that differ
+  from mjtpu's (a count); "solve.<field>" step 1's qacc and efc_force;
+  "cfrc.c" rne_postconstraint's cfrc_ext against MuJoCo C's, of scale,
+  but for the world body's row, which C leaves at zero and the port gives
+  mjtpu's contact wrench ("cfrc.world" against mjtpu's, ROADMAP C11);
+  "trajectory.<field>" qpos, qvel and act over ``steps`` (default all)
+  steps, absolute, and sensordata of each sensor's scale.  Also
+  "cfrc.mjtpu", the port's cfrc_ext against mjtpu's (ROADMAP C11: not
+  bounded where mjtpu parts from C)."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import smooth, support
+
+  g = lambda f: golden[f"{name}.{f}"]
+  host = lambda x: x.cpu().numpy()
+  m, d = equality_scene(name, golden, device)
+  fwd = mjtpu_torch.forward(m, _mocap_at(d, golden, name, 0))
+  out = {f"pose.{f}": _scaled_err(host(getattr(fwd, f)), g(f"fwd.{f}")) for f in ("xpos", "xquat")}
+  for f in EQ_EFC:
+    want = g(f"fwd.{f}")
+    out[f"efc.{f}"] = _scaled_err(host(getattr(fwd, f)), want) if want.size else 0.0
+  types, ids = support.efc_row_meta(m)
+  out["efc.labels"] = int((types != g("efc_type")).sum() + (ids != g("efc_id")).sum())
+  out["solve.qacc"] = _scaled_err(host(fwd.qacc_warmstart), g("fwd.qacc"))
+  want = g("fwd.efc_force")
+  out["solve.efc_force"] = _scaled_err(host(fwd.efc_force), want) if want.size else 0.0
+  cfrc = host(smooth.rne_postconstraint(m, fwd).cfrc_ext)
+  out["cfrc.c"] = _scaled_err(cfrc[:, 1:], g("c.cfrc_ext")[:, 1:])
+  out["cfrc.world"] = _scaled_err(cfrc[:, 0], g("rnepost.cfrc_ext")[:, 0])
+  out["cfrc.mjtpu"] = _scaled_err(cfrc, g("rnepost.cfrc_ext"))
+  fields = [f for f in ("qpos", "qvel", "act", "sensordata") if f"{name}.{f}" in golden]
+  if "sensordata" in fields:
+    scale = _sensor_scale(m, {"sensordata": g("sensordata")})
+  err = dict.fromkeys(fields, 0.0)
+  for t in range(steps or g("qpos").shape[0]):
+    d = mjtpu_torch.step(m, _mocap_at(d, golden, name, t))
+    for f in fields:
+      e = np.abs(host(getattr(d, f)) - g(f)[t])
+      err[f] = max(err[f], float((e / scale if f == "sensordata" else e).max(initial=0.0)))
+  out.update({f"trajectory.{f}": v for f, v in err.items()})
+  return out
+
+
+def equality_bound(key: str) -> float | None:
+  """The bound of an equality_scene_errors entry (None: not bounded)."""
+  if key in ("efc.labels", "cfrc.c", "cfrc.world", "cfrc.mjtpu"):
+    return {"efc.labels": 0, "cfrc.c": EQ_CFRC_BOUND, "cfrc.world": EQ_CFRC_BOUND,
+            "cfrc.mjtpu": None}[key]
+  return {"pose": EQ_POSE_BOUND, "efc": EQ_EFC_BOUND, "solve": EQ_SOLVE_BOUND,
+          "trajectory": EQ_TRAJECTORY_BOUND}[key.split(".")[0]]
+
+
+def phase_equality_parity():
+  """Every scene of equality_scenes.npz at f64 on the card against its
+  mjtpu golden, at the CPU test's bounds (phase 28), and
+  rne_postconstraint's cfrc_ext against MuJoCo C's; one B1 launch per
+  Newton iteration (and one a step for a dense tree's Euler damping)."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io, solver
+  from mjtpu_torch.ops import cholesky
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "equality_scenes_golden.npz"))
+  names = io.bundle_names(mjtpu_torch.ASSETS / "equality_scenes.npz")
+  worst, kinds = {}, dict.fromkeys(cholesky.variant_launches, 0)
+  for name in names:
+    m, _ = equality_scene(name, golden, "cpu")
+    before, newton = dict(cholesky.variant_launches), solver.loop_counts["iterations"]
+    errs = equality_scene_errors(name, golden, "cuda")
+    steps = golden[f"{name}.qpos"].shape[0]
+    launched = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    want = solver.loop_counts["iterations"] - newton + steps * _damping_solves(m)
+    if sum(launched.values()) != want:
+      raise AssertionError(f"equality scene {name}: B1 launches {launched}, want {want}")
+    bad = {k: v for k, v in errs.items()
+           if equality_bound(k) is not None and v > equality_bound(k)}
+    if bad:
+      raise AssertionError(f"equality scene {name} f64 on the card: {bad}")
+    for k, v in launched.items():
+      kinds[k] += v
+    for k, v in errs.items():
+      group = k if k.startswith("cfrc") else k.split(".")[0]
+      worst[group] = max(worst.get(group, 0.0), v)
+  log(f"[equality parity] {len(names)} equality scenes f64 B=4 (equality_scenes.npz): max err,"
+      f" every body's frame {worst['pose']:.3e} of scale (limit {EQ_POSE_BOUND}), step 1's efc"
+      f" rows {worst['efc']:.3e} (limit {EQ_EFC_BOUND}, row labels equal), qacc and efc_force"
+      f" {worst['solve']:.3e} (limit {EQ_SOLVE_BOUND}), cfrc_ext against MuJoCo C"
+      f" {worst['cfrc.c']:.3e} (limit {EQ_CFRC_BOUND}; the world body's row against mjtpu"
+      f" {worst['cfrc.world']:.3e}, every row {worst['cfrc.mjtpu']:.3e}, ROADMAP C11), 100 steps {worst['trajectory']:.3e} (limit {EQ_TRAJECTORY_BOUND}); B1"
+      f" launches {kinds}, one per Newton iteration and one a step for a dense tree's Euler"
+      " damping")
+
+
+def _mocap_path(card):
+  """mocap.xml at f32 B=4096 (phase 29, the equality main path): every
+  env's two mocap bodies moved before each step by mocap_targets, on the
+  card from the step index and the env's phase; MOCAP_WARMUP warm-up and
+  MOCAP_TIMED timed steps (B1 register at n=12 only, one launch per Newton
+  iteration); its line and counts."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "equality_scenes.npz", "mocap"),
+      dtype=torch.float32, device="cuda")
+  d = _f32_start(m)
+  mid = np.asarray(m.body_mocapid)
+  bodies = np.nonzero(mid >= 0)[0]
+  bodies = bodies[np.argsort(mid[bodies])]  # in mocap order
+  base = m.body_pos[torch.as_tensor(bodies, device="cuda")]
+  phase = torch.rand(BENCH_BATCH, generator=torch.Generator(device="cuda").manual_seed(1),
+                     device="cuda") * MOCAP_PHASE_S
+  clock = {"step": 0}
+
+  def advance(d):
+    pos, quat = mocap_targets(base, phase + clock["step"] * m.opt.timestep)
+    clock["step"] += 1
+    return mjtpu_torch.step(m, mjtpu_torch.replace(d, mocap_pos=pos, mocap_quat=quat))
+
+  d, secs, counts, loops = _timed_main_path(m, d, MOCAP_WARMUP, MOCAP_TIMED, advance=advance)
+  if counts != _only(chol_solve=loops["iterations"]):
+    raise AssertionError(f"mocap.xml: kernel launches in {MOCAP_TIMED} timed steps: {counts},"
+                         f" Newton {loops}")
+  moved = float((d.xpos[:, int(bodies[0])] - base[0]).norm(dim=-1).max())
+  rate = BENCH_BATCH * MOCAP_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, 2, advance=advance)
+  if shares["chol_ns"] != {m.nv}:
+    raise AssertionError(f"mocap.xml: B1 took n in {shares['chol_ns']}, not {m.nv}")
+  busy, launches = _busy_share(advance, d)
+  line = (f"f32 B={BENCH_BATCH} (nv={m.nv}, neq={m.neq} weld, nmocap={m.nmocap}, nefc"
+          f" {mjtpu_torch.count_constraints(m)[3]}, contact slots"
+          f" {d.contact.dist.shape[1]}): {MOCAP_WARMUP} warm-up and {MOCAP_TIMED} timed steps in"
+          f" {secs:.3f} s = {rate:.0f} env-steps/s ({1e3 * secs / MOCAP_TIMED:.3f} ms/step); qpos"
+          f" finite, nreset 0, the target box up to {moved:.3f} m from its model frame;"
+          f" per step: B1 register {counts['chol_solve'] / MOCAP_TIMED:.2f} launches"
+          f" (n={m.nv}; Newton {loops['iterations'] / MOCAP_TIMED:.2f} iterations and"
+          f" {loops['ls_rounds'] / MOCAP_TIMED:.2f} linesearch rounds); device step"
+          f" {step_ms:.3f} ms, of it B1 {shares['chol_solve']:.4f} ms"
+          f" ({100 * shares['chol_solve'] / step_ms:.2f}%); one profiled step: {launches} kernel"
+          f" launches, device busy {100 * busy:.1f}% of its wall time; card {card}")
+  return line, counts
+
+
+def phase_mocap_throughput(card):
+  """The equality main path (phase 29)."""
+  line, counts = _mocap_path(card)
+  log(f"[mocap throughput] mocap.xml (a free payload welded to a moving mocap box, a free ball"
+      f" on it, Euler, Newton 100 x 50) {line}")
+  return counts
+
+
 def phase_tendon_throughput(card):
   """The tendon main path (phase 27): the mixed tendon scene at f32
   B=4096, TIMED_STEPS timed steps, then muscle.xml, MUSCLE_TIMED."""
@@ -2509,7 +2753,7 @@ def phase_swimmer_throughput(card):
 
 
 # the parity phases that run in a process of their own beside phase 22
-SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26")
+SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28")
 SIDE_TIMEOUT_S = 600
 
 
@@ -2547,7 +2791,7 @@ def _side_main(phase: str) -> int:
   {"5": phase_parity, "7": phase_terrain_parity, "10": phase_pile_parity,
    "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
    "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
-   "24": phase_fluid_parity, "26": phase_tendon_parity}[phase]()
+   "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity}[phase]()
   return 0
 
 
@@ -2619,6 +2863,8 @@ def main() -> int:
   lap("25")
   paths["tendon_mixed"], paths["muscle"] = phase_tendon_throughput(card)
   lap("27")
+  paths["mocap"] = phase_mocap_throughput(card)
+  lap("29")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -2656,8 +2902,9 @@ def main() -> int:
                       variant_ms=variant_ms[name])
     if name == "chol_solve":
       # the register kernel's shapes (bench n=27, terrain n=23, the Ant env
-      # n=14, walker2d and halfcheetah n=9, ant_bench n=8, hopper n=6, the
-      # swimmer env n=5, the tendon scene and muscle.xml n=2), f32
+      # n=14, mocap.xml n=12, walker2d and halfcheetah n=9, ant_bench n=8,
+      # hopper n=6, the swimmer env n=5, the tendon scene and muscle.xml
+      # n=2), f32
       record[-1]["shapes"] = chol_shapes
       # the elliptic bench's own Newton Hessians, f32 B=4096 (timed) and
       # the f64 restarts' (max_abs_err_f64)

@@ -31,11 +31,14 @@ observations.  Tendons run too, fixed and spatial (sphere and cylinder
 wraps, side sites, pulleys; ``tendon``, ``tendon_armature``), with their
 springs, dampers, frictionloss and limit rows and sensors, as do every
 actuator transmission mjtpu has, activation dynamics with muscles, and
-Euler's implicit damping on a forest.  ``put_model`` refuses models
-outside the slices with NotImplementedError naming the feature
-(equality constraints, mocap bodies, ball-joint limits, ImplicitFast on a
-forest, the Implicit integrator and fluid forces under the implicit
-integrators among them).
+Euler's implicit damping on a forest.  Equality constraints run too
+(connect, weld, joint and tendon couplings, each env's ``eq_active``), as
+do mocap bodies (each env's ``mocap_pos`` and ``mocap_quat``), ball-joint
+limits and ImplicitFast on a forest (the blocked LU of
+``factor_solve``).  ``put_model`` refuses models outside the slices with
+NotImplementedError naming the feature (the Implicit integrator, fluid
+forces under the implicit integrators, the enable flags and seven sensor
+types among them).
 """
 
 import pathlib

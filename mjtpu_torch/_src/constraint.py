@@ -1,14 +1,17 @@
-"""Constraint assembly: efc rows for dof and tendon friction, joint and
-tendon limits, and contacts.
+"""Constraint assembly: efc rows for equality constraints, dof and tendon
+friction, joint and tendon limits, and contacts.
 
-Port of mjtpu/_src/constraint.py (the slices' part: _kbi,
-_contact_jacobians, _friction_rows for dofs and tendons, _limit_rows for
-scalar joints and tendons, _contact_rows for pyramidal and elliptic cones
-at condim 1, 3, 4 and 6, make_constraint).  The row layout is static per
-model — [dof friction | tendon friction | joint limits | tendon limits |
-contacts (condim-sorted groups)] — and rows deactivate themselves with
-zeroed Jacobians, as in mjtpu.  Equality rows and ball-joint limits arrive
-with a later slice; put_model refuses models that have them.
+Port of mjtpu/_src/constraint.py: _kbi, _contact_jacobians, _eq_rows
+(connect, weld with its torquescale, joint and tendon couplings),
+_friction_rows for dofs and tendons, _limit_rows for scalar and ball
+joints and tendons, _contact_rows for pyramidal and elliptic cones at
+condim 1, 3, 4 and 6, make_constraint.  The row layout is static per
+model — [equality (eq order) | dof friction | tendon friction | joint
+limits | tendon limits | contacts (condim-sorted groups)] — and rows
+deactivate themselves with zeroed Jacobians, as in mjtpu.  mjtpu builds
+the equality rows one equality at a time; here each type is one batched
+computation over (B, K equalities), permuted back to eq order, so the
+launches stay flat in neq.
 """
 
 from __future__ import annotations
@@ -18,9 +21,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mjtpu_torch._src import math, support
+from mjtpu_torch._src import math, scan, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import ConeType, Data, DisableBit, Model, cached, index
+from mjtpu_torch._src.types import (
+    ConeType,
+    Data,
+    DisableBit,
+    EqType,
+    JointType,
+    Model,
+    cached,
+    index,
+)
 
 # MuJoCo impedance clamps
 _MINIMP = 0.0001
@@ -112,6 +124,195 @@ def _contact_jacobians(m: Model, d: Data, rotational: bool = False):
   return jt, jr, (b1, b2)
 
 
+def _quat_vec_map(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """(..., 3, 3) A with A @ w == vec(u * (0, w) * v) for quaternions u, v
+  (..., 4)."""
+  u0, uv = u[..., 0, None, None], u[..., 1:]
+  v0, vv = v[..., 0, None, None], v[..., 1:]
+  eye = torch.eye(3, dtype=u.dtype, device=u.device)
+  su, sv = math.cross_skew(uv), math.cross_skew(vv)
+  return (-(vv[..., :, None] * uv[..., None, :]) + (v0 * u0) * eye + v0 * su - u0 * sv
+          - sv @ su)
+
+
+def _vel_products(m: Model, d: Data):
+  """(cvel, cacc_bias), each (B, nbody, 6): com-frame velocities and the
+  velocity-product accelerations (no gravity, qacc = 0) that the
+  equality rows' J̇q̇ bias reads.  make_constraint runs before com_vel, so
+  this runs its own, as mjtpu does."""
+  from mjtpu_torch._src import smooth
+
+  d_v = smooth.com_vel(m, d)
+
+  def cacc_fn(carry, cdof_dot, qvel):
+    cacc = cdof_dot.new_zeros(cdof_dot.shape[:-2] + (6,)) if carry is None else carry
+    return cacc + torch.einsum("...wi,...w->...i", cdof_dot, qvel)
+
+  return d_v.cvel, scan.body_tree(m, cacc_fn, "vv", "b", d_v.cdof_dot, d.qvel)
+
+
+def _point_acc_bias(m: Model, d: Data, cvel, cacc_bias, p, b):
+  """(B, K, 3) classical acceleration of the body-fixed points p (B, K, 3)
+  of bodies b (K,) with qacc = 0 and no gravity."""
+  off = p - d.subtree_com[:, index(m, "body_rootid")[b]]
+  w, cb = cvel[:, b], cacc_bias[:, b]
+  v_p = w[..., 3:] - math.cross(off, w[..., :3])
+  a_lin = cb[..., 3:] - math.cross(off, cb[..., :3])
+  return a_lin + math.cross(w[..., :3], v_p)
+
+
+def _poly(data, dif):
+  """The coupling polynomial's value and slope at dif (B, K): data (K, 5)
+  its coefficients, constant term first."""
+  powers = torch.arange(5, dtype=dif.dtype, device=dif.device)
+  pows = dif[..., None] ** powers
+  value = torch.sum(data * pows, dim=-1)
+  deriv = torch.sum(data[:, 1:] * powers[1:] * pows[..., :4], dim=-1)
+  return value, deriv
+
+
+def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
+  """Per equality type present, in EqType order: (type, its constants over
+  its K equalities); and the permutation from that type-grouped row order
+  back to eq order (None if the identity)."""
+
+  def build():
+    eq_type = np.asarray(m.eq_type)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=m.device)
+    obj1, obj2 = np.asarray(m.eq_obj1id), np.asarray(m.eq_obj2id)
+    groups, starts, base = [], {}, 0
+    for et in EqType:
+      ids = np.nonzero(eq_type == int(et))[0]
+      if not len(ids):
+        continue
+      per = support.EQ_ROWS[int(et)]
+      for k, e in enumerate(ids):
+        starts[int(e)] = (base + per * k, per)
+      base += per * len(ids)
+      rep = lambda x: torch.repeat_interleave(x, per, dim=0)
+      c = dict(ids=t(ids), data=m.eq_data[ids], solref=rep(m.eq_solref[ids]),
+               solimp=rep(m.eq_solimp[ids]))
+      o1, o2 = obj1[ids], obj2[ids]
+      if et in (EqType.CONNECT, EqType.WELD):
+        c.update(b1=t(o1), b2=t(o2))
+        iw = m.body_invweight0[o1] + m.body_invweight0[o2]          # (K, 2)
+        c["invweight"] = (rep(iw[:, 0]) if et == EqType.CONNECT else
+                          torch.cat([iw[:, :1].expand(-1, 3), iw[:, 1:].expand(-1, 3)],
+                                    dim=1).reshape(-1))
+      else:
+        has2 = o2 > -1
+        o2 = np.where(has2, o2, 0)
+        c["has2"] = torch.as_tensor(has2, dtype=m.dtype, device=m.device)
+        if et == EqType.JOINT:
+          qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
+          c.update(q1=t(qadr[o1]), q2=t(qadr[o2]), ref1=m.qpos0[qadr[o1]],
+                   ref2=m.qpos0[qadr[o2]])
+          onehot = lambda adr: torch.as_tensor(np.eye(m.nv)[adr], dtype=m.dtype,
+                                               device=m.device)
+          c["dof1"] = onehot(dadr[o1])
+          c["dof2"] = onehot(dadr[o2]) * c["has2"][:, None]
+          iw1, iw2 = m.dof_invweight0[dadr[o1]], m.dof_invweight0[dadr[o2]]
+        else:
+          c.update(t1=t(o1), t2=t(o2), ref1=m.tendon_length0[o1], ref2=m.tendon_length0[o2])
+          iw1, iw2 = m.tendon_invweight0[o1], m.tendon_invweight0[o2]
+        c["invweight"] = torch.where(c["has2"] > 0, iw1 + iw2, iw1)
+      groups.append((int(et), c))
+    perm = np.concatenate([np.arange(s, s + n) for s, n in
+                           (starts[e] for e in range(len(eq_type)))])
+    return groups, None if np.array_equal(perm, np.arange(len(perm))) else t(perm)
+
+  return cached(m, "constraint.eq_tables", build)
+
+
+def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
+  """Equality constraint rows, in eq order, and their J̇q̇ bias (B, ne),
+  which aref subtracts so that a row prescribes the true residual
+  acceleration (MuJoCo C; the connect and weld rows', zero for the joint
+  and tendon ones).  An equality whose eq_active is off keeps its rows
+  with J, pos and bias zeroed."""
+  B, dtype = d.qpos.shape[0], d.qpos.dtype
+  groups, perm = _eq_tables(m)
+  if any(et in (EqType.CONNECT, EqType.WELD) for et, _ in groups):
+    cvel, cacc_bias = _vel_products(m, d)
+  rows = lambda x: x.expand((B,) + x.shape)
+  parts, biases = [], []
+  for et, c in groups:
+    active = d.eq_active[:, c["ids"]].to(dtype)                       # (B, K)
+    K = active.shape[1]
+    if et in (EqType.CONNECT, EqType.WELD):
+      b1, b2, data = c["b1"], c["b2"], c["data"]
+      # a connect's data: anchor in body1, anchor in body2; a weld's:
+      # anchor in body2, anchor in body1, relpose quaternion, torquescale
+      a1, a2 = (data[:, 0:3], data[:, 3:6]) if et == EqType.CONNECT else (
+          data[:, 3:6], data[:, 0:3])
+      pos1 = math.mat_vec(d.xmat[:, b1], a1) + d.xpos[:, b1]
+      pos2 = math.mat_vec(d.xmat[:, b2], a2) + d.xpos[:, b2]
+      cpos = pos1 - pos2
+      jacp1, jacr1 = support.jac_rows(m, d, pos1, b1)
+      jacp2, jacr2 = support.jac_rows(m, d, pos2, b2)
+      J = jacp1 - jacp2                                                # (B, K, 3, nv)
+      bias = (_point_acc_bias(m, d, cvel, cacc_bias, pos1, b1)
+              - _point_acc_bias(m, d, cvel, cacc_bias, pos2, b2))
+      if et == EqType.CONNECT:
+        pos_imp = math.norm3(cpos)[..., None].expand(B, K, 3)
+      else:
+        relpose, ts = data[:, 6:10], data[:, 10:11]
+        # rotational residual r = ts vec(q2^-1 (q1 relpose)); its rate is
+        # ts/2 A (w1 - w2), A = _quat_vec_map(u, v)
+        u = math.quat_inv(d.xquat[:, b2])
+        v = math.quat_mul(d.xquat[:, b1], relpose)
+        crot = math.quat_mul(u, v)[..., 1:] * ts
+        jr = (0.5 * ts)[..., None] * (_quat_vec_map(u, v) @ (jacr1 - jacr2))
+        w1, w2 = cvel[:, b1, :3], cvel[:, b2, :3]
+        dw = w1 - w2
+        dwb = cacc_bias[:, b1, :3] - cacc_bias[:, b2, :3]
+        P = lambda w: torch.cat([torch.zeros_like(w[..., :1]), w], dim=-1)
+        qm = math.quat_mul
+        qdd = 0.5 * (qm(u, qm(P(dwb), v)) + 0.5 * qm(u, qm(P(dw), qm(P(w1), v)))
+                     - 0.5 * qm(u, qm(P(w2), qm(P(dw), v))))
+        J = torch.cat([J, jr], dim=2)
+        cpos = torch.cat([cpos, crot], dim=-1)
+        bias = torch.cat([bias, ts * qdd[..., 1:]], dim=-1)
+        # the norm of the gated residual, as mjtpu's (a connect's is not gated)
+        pos_imp = math.safe_norm(cpos * active[..., None])[..., None].expand(B, K, 6)
+      n = J.shape[2]
+      J = (J * active[..., None, None]).reshape(B, K * n, m.nv)
+      cpos = (cpos * active[..., None]).reshape(B, K * n)
+      bias = (bias * active[..., None]).reshape(B, K * n)
+      pos_imp = pos_imp.reshape(B, K * n)
+    else:
+      has2 = c["has2"]
+      if et == EqType.JOINT:
+        pos1 = d.qpos[:, c["q1"]] - c["ref1"]
+        dif = (d.qpos[:, c["q2"]] - c["ref2"]) * has2
+      else:
+        pos1 = d.ten_length[:, c["t1"]] - c["ref1"]
+        dif = (d.ten_length[:, c["t2"]] - c["ref2"]) * has2
+      value, deriv = _poly(c["data"][:, :5], dif)
+      cpos_raw = pos1 - value
+      if et == EqType.JOINT:
+        J = c["dof1"] - deriv[..., None] * c["dof2"]
+      else:
+        J = d.ten_J[:, c["t1"]] - (deriv * has2)[..., None] * d.ten_J[:, c["t2"]]
+      J = J * active[..., None]
+      cpos = cpos_raw * active
+      pos_imp = torch.abs(cpos_raw)
+      bias = torch.zeros_like(cpos)
+    zero = torch.zeros_like(cpos)
+    parts.append(_Rows(
+        J=J, pos=cpos, pos_imp=pos_imp, pos_out=cpos, margin=zero,
+        invweight=rows(c["invweight"]), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+        frictionloss=zero, r_scale=torch.ones_like(zero),
+    ))
+    biases.append(bias)
+  block = _Rows(*(torch.cat([getattr(p, f) for p in parts], dim=1) for f in _Rows._fields))
+  bias = torch.cat(biases, dim=1)
+  if perm is not None:
+    block = _Rows(*(getattr(block, f)[:, perm] for f in _Rows._fields))
+    bias = bias[:, perm]
+  return [block], bias
+
+
 def _friction_rows(m: Model, d: Data) -> list[_Rows]:
   """Frictionloss rows at pos 0: a unit Jacobian row per dof with
   frictionloss, in dof order, then the Jacobian row of each tendon with
@@ -148,7 +349,7 @@ def _friction_rows(m: Model, d: Data) -> list[_Rows]:
 
 
 def _limit_rows(m: Model, d: Data) -> list[_Rows]:
-  """Limit rows: those of scalar joints, then those of tendons."""
+  """Limit rows: those of joints, then those of tendons."""
   return _joint_limit_rows(m, d) + _tendon_limit_rows(m, d)
 
 
@@ -196,8 +397,9 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
 
 
 def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
-  """Limit rows of scalar joints: one-sided rows (range wider than
-  2*margin) and two-sided pairs, permuted back to mj joint order."""
+  """Limit rows of joints, by category — scalar joints' one-sided rows
+  (range wider than 2*margin) and two-sided pairs, ball joints' rows on
+  their rotation angle — permuted back to mj joint order."""
   B = d.qpos.shape[0]
   limited = np.nonzero(np.asarray(m.jnt_limited))[0]
   if not len(limited):
@@ -205,12 +407,16 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
   dtype = d.qpos.dtype
 
   def build():
-    """Per category (one-sided, two-sided): the model constants of its
-    rows; and the permutation back to joint order (None if identity)."""
+    """Per category (one-sided, two-sided, ball): the model constants of
+    its rows; and the permutation back to joint order (None if
+    identity)."""
     two = np.asarray(m.jnt_limit_two_sided).astype(bool)
-    sh1, sh2 = limited[~two[limited]], limited[two[limited]]
+    ball = np.asarray(m.jnt_type)[limited] == JointType.BALL
+    sh1 = limited[~ball & ~two[limited]]
+    sh2 = limited[~ball & two[limited]]
+    balls = limited[ball]
     starts, base = {}, 0
-    for cat, per in ((sh1, 1), (sh2, 2)):
+    for cat, per in ((sh1, 1), (sh2, 2), (balls, 1)):
       for p, j in enumerate(cat):
         starts[j] = (base + per * p, per)
       base += per * len(cat)
@@ -230,12 +436,40 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
           margin_rows=rep(m.jnt_margin[cat]), invweight=rep(m.dof_invweight0[dadr[cat]]),
           solref=rep(m.jnt_solref[cat]), solimp=rep(m.jnt_solimp[cat]),
       ))
+    if len(balls):
+      # J[i, dadr_i + k] = -axis_i[k] * active_i: a (n, 3, nv) placement
+      place = np.zeros((len(balls), 3, m.nv))
+      place[np.arange(len(balls))[:, None], np.arange(3), dadr[balls][:, None] + np.arange(3)] = 1
+      rng = m.jnt_range[balls]
+      cats.append(dict(
+          per=None, quat=torch.as_tensor(qadr[balls][:, None] + np.arange(4), device=m.device),
+          place=torch.as_tensor(place, dtype=m.dtype, device=m.device),
+          limit=torch.maximum(torch.abs(rng[:, 0]), torch.abs(rng[:, 1])),
+          margin=m.jnt_margin[balls], invweight=m.dof_invweight0[dadr[balls]],
+          solref=m.jnt_solref[balls], solimp=m.jnt_solimp[balls],
+          x_axis=torch.tensor([1.0, 0.0, 0.0], dtype=m.dtype, device=m.device)))
     identity = np.array_equal(perm, np.arange(len(perm)))
     return cats, None if identity else torch.as_tensor(perm, device=m.device)
 
   cats, perm = cached(m, "constraint.limit_rows", build)
   parts = []
+  rows = lambda x: x.expand((B,) + x.shape)
   for c in cats:
+    if c["per"] is None:
+      # a ball joint: its rotation angle against the larger |range|
+      axis, angle = math.normalize_with_norm(math.quat_to_vel(d.qpos[:, c["quat"]]))
+      # C's mju_normalize3 leaves (1, 0, 0) for a zero rotation, where the
+      # row can be live through the margin
+      axis = torch.where((angle < math.MINVAL)[..., None], c["x_axis"], axis)
+      pos = c["limit"] - angle - c["margin"]
+      active = (pos < 0).to(dtype)
+      J = torch.einsum("bnk,nkv->bnv", -axis * active[..., None], c["place"])
+      parts.append(_Rows(
+          J=J, pos=pos, pos_imp=pos, pos_out=pos, margin=rows(c["margin"]),
+          invweight=rows(c["invweight"]), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+          frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
+      ))
+      continue
     q = d.qpos[:, c["qadr"]]
     dist_min = q - c["lo"]
     dist_max = c["hi"] - q
@@ -249,7 +483,6 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       pos = pos - c["margin_rows"]
       side = c["side"]
     active = (pos < 0).to(dtype)
-    rows = lambda x: x.expand((B,) + x.shape)
     parts.append(_Rows(
         J=c["onehot"] * (side * active)[..., None],
         pos=pos, pos_imp=pos, pos_out=pos,
@@ -377,6 +610,9 @@ def make_constraint(m: Model, d: Data) -> Data:
     )
 
   rows: list[_Rows] = []
+  eq_bias = None
+  if m.neq and not (m.opt.disableflags & DisableBit.EQUALITY):
+    rows, eq_bias = _eq_rows(m, d)
   if not (m.opt.disableflags & DisableBit.FRICTIONLOSS):
     rows += _friction_rows(m, d)
   if not (m.opt.disableflags & DisableBit.LIMIT):
@@ -392,6 +628,10 @@ def make_constraint(m: Model, d: Data) -> Data:
   k, b, imp = _kbi(m, solref, solimp, pos_imp)
   jv = torch.einsum("bnv,bv->bn", J, d.qvel)
   aref = -b * jv - k * imp * pos
+  if eq_bias is not None:
+    # the equality rows come first; every other row's bias is 0
+    ne = eq_bias.shape[1]
+    aref = torch.cat([aref[:, :ne] - eq_bias, aref[:, ne:]], dim=1)
   R = r_scale * torch.clamp_min(
       invweight * (1.0 - imp) / torch.clamp_min(imp, math.MINVAL), math.MINVAL
   )

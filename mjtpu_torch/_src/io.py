@@ -27,18 +27,20 @@ import types
 import numpy as np
 import torch
 
-from mjtpu_torch._src import mesh, smooth, support
+from mjtpu_torch._src import mesh, support
 from mjtpu_torch._src.types import (
     BiasType,
     ConeType,
     Contact,
     ConvexMesh,
     Data,
+    EqType,
     GainType,
     GeomType,
     IntegratorType,
     JointType,
     Model,
+    NEQDATA,
     NFLUID,
     NIMP,
     NREF,
@@ -139,11 +141,22 @@ ACT_FIELDS = {
     "actuator_cranklength": (0.0, (), np.float64), "actuator_acc0": (0.0, (), np.float64),
     "actuator_lengthrange": (0.0, (2,), np.float64),
 }
+# the equality constraints' fields, stored where the model has one (rows:
+# neq); the mocap index of each body, where the model has a mocap body
+# (rows: nbody, -1 where a snapshot leaves it out)
+EQ_FIELDS = {
+    "eq_type": (0, (), np.int32), "eq_obj1id": (0, (), np.int32),
+    "eq_obj2id": (0, (), np.int32), "eq_objtype": (0, (), np.int32),
+    "eq_active0": (False, (), bool), "eq_solref": (0.0, (NREF,), np.float64),
+    "eq_solimp": (0.0, (NIMP,), np.float64), "eq_data": (0.0, (NEQDATA,), np.float64),
+}
+MOCAP_FIELDS = {"body_mocapid": (-1, (), np.int32)}
 # the fields of TENDON_FIELDS and ACT_FIELDS that the port keeps on the
 # host (index tables and the wraps' static parameters)
 _HOST_FIELDS = frozenset(("nwrap", "tendon_adr", "tendon_num", "tendon_limited", "wrap_type",
                           "wrap_objid", "wrap_prm", "actuator_actadr", "actuator_actnum",
-                          "actuator_actlimited", "actuator_actearly"))
+                          "actuator_actlimited", "actuator_actearly", "eq_type", "eq_obj1id",
+                          "eq_obj2id", "eq_objtype", "eq_active0", "body_mocapid"))
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -191,16 +204,29 @@ def has_act_fields(ns) -> bool:
               or np.any(np.asarray(ns.actuator_trntype) == TrnType.SLIDERCRANK))
 
 
+def has_eq_fields(ns) -> bool:
+  """Whether a snapshot of ``ns`` stores EQ_FIELDS: it has an equality
+  constraint."""
+  return int(ns.neq) > 0
+
+
+def has_mocap_fields(ns) -> bool:
+  """Whether a snapshot of ``ns`` stores MOCAP_FIELDS: it has a mocap
+  body."""
+  return int(ns.nmocap) > 0
+
+
 def _optional_field(ns, name: str, spec, stored: bool):
-  """A field of TENDON_FIELDS or ACT_FIELDS: ns's where a snapshot stores
-  it, else its fill at the model's row count, so a live MjModel and its
-  snapshot give the same Model."""
+  """A field of TENDON_FIELDS, ACT_FIELDS, EQ_FIELDS or MOCAP_FIELDS:
+  ns's where a snapshot stores it, else its fill at the model's row count,
+  so a live MjModel and its snapshot give the same Model."""
   fill, shape, dtype = spec
   if stored:
     return np.array(getattr(ns, name), dtype=dtype)
   if shape is None:
     return np.array(fill, dtype=dtype)
-  rows = int(ns.nu) if name.startswith("actuator") else 0  # no tendon, no wrap
+  # no tendon, wrap or equality where the field is left out
+  rows = {"actuator": int(ns.nu), "body": int(ns.nbody)}.get(name.split("_")[0], 0)
   return np.full((rows,) + shape, fill, dtype=dtype)
 
 
@@ -215,7 +241,9 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
            + (FLUID_FIELDS if has_fluid(mjm.opt) else ())
            + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ())
            + (tuple(TENDON_FIELDS) if has_tendon_fields(mjm) else ())
-           + (tuple(ACT_FIELDS) if has_act_fields(mjm) else ()))
+           + (tuple(ACT_FIELDS) if has_act_fields(mjm) else ())
+           + (tuple(EQ_FIELDS) if has_eq_fields(mjm) else ())
+           + (tuple(MOCAP_FIELDS) if has_mocap_fields(mjm) else ()))
   for name in SNAPSHOT_FIELDS + extra:
     v = _get(mjm, name)
     if name == "names":
@@ -330,8 +358,9 @@ def _validate(ns) -> None:
   names = {int(s): s.name for s in SensorType}
   for t in sorted(set(int(t) for t in np.asarray(ns.sensor_type))):
     refuse(t not in SENSORS_PORTED, f"{names.get(t, f'type {t}')} sensors")
-  refuse(ns.neq, "equality constraints")
-  refuse(ns.nmocap, "mocap bodies")
+  eq_type = np.asarray(getattr(ns, "eq_type", ()))
+  for t in sorted(set(int(t) for t in eq_type) - {int(e) for e in EqType}):
+    refuse(True, f"equality constraint type {t}")
   # mjtpu adds the fluid forces' velocity derivative to qDeriv by
   # jax.jacfwd, which the port does not have yet
   refuse(has_fluid(o) and int(o.integrator) in (IntegratorType.IMPLICIT,
@@ -345,19 +374,6 @@ def _validate(ns) -> None:
                                    IntegratorType.RK4),
          f"integrator {int(o.integrator)} (only Euler, ImplicitFast and RK4)")
   refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
-
-  jnt_type = np.asarray(ns.jnt_type)
-  ball_lim = (jnt_type == JointType.BALL) & np.asarray(ns.jnt_limited).astype(bool)
-  refuse(ball_lim.any(), "ball joint limits")
-
-  # mjtpu factors qM per tree for a multi-tree model (smooth.mass_blocks),
-  # with the levelwise sparse LDL for a large branchy tree
-  # (sparse.structure) and densely otherwise; the port has all three, and
-  # the blocked symmetric factor_solve of Euler's damping, but not the
-  # blocked LU that ImplicitFast's solve of a forest takes
-  blocks = smooth.block_partition(ns.nv, ns.body_rootid, ns.dof_bodyid)
-  refuse(blocks is not None and int(o.integrator) == IntegratorType.IMPLICITFAST,
-         "ImplicitFast on a multi-tree model (the blocked factor_solve)")
 
 
 def _device(device) -> torch.device:
@@ -423,7 +439,9 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
 
   opt_np = {name: _optional_field(ns, name, spec, stored)
             for group, stored in ((TENDON_FIELDS, has_tendon_fields(ns)),
-                                  (ACT_FIELDS, has_act_fields(ns)))
+                                  (ACT_FIELDS, has_act_fields(ns)),
+                                  (EQ_FIELDS, has_eq_fields(ns)),
+                                  (MOCAP_FIELDS, has_mocap_fields(ns)))
             for name, spec in group.items()}
   for name, v in opt_np.items():
     fields[name] = v if name in _HOST_FIELDS else f(v)
@@ -493,11 +511,19 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
         collision_driver.contact_efc_address(m, ne, nf, nl), device=device)
   xquat = zero(nbody, 4)
   xquat[..., 0] = 1.0
+  # the mocap bodies' frames start at the model's body frames (mj_makeData)
+  mid = np.asarray(m.body_mocapid)
+  mocap_body = np.zeros(m.nmocap, dtype=np.int64)
+  mocap_body[mid[mid >= 0]] = np.nonzero(mid >= 0)[0]
+  per_env = lambda x: x[None].expand((B,) + x.shape).clone()
 
   return Data(
       time=zero(), qpos=m.qpos0.expand(B, m.nq).clone(), qvel=zero(nv), act=zero(m.na),
       qacc_warmstart=zero(nv), ctrl=zero(m.nu), qfrc_applied=zero(nv),
-      xfrc_applied=zero(nbody, 6), qacc=zero(nv), act_dot=zero(m.na),
+      xfrc_applied=zero(nbody, 6),
+      eq_active=per_env(torch.as_tensor(np.asarray(m.eq_active0, dtype=bool), device=device)),
+      mocap_pos=per_env(m.body_pos[mocap_body]), mocap_quat=per_env(m.body_quat[mocap_body]),
+      qacc=zero(nv), act_dot=zero(m.na),
       xpos=zero(nbody, 3), xquat=xquat, xmat=eye3(nbody), xipos=zero(nbody, 3),
       ximat=eye3(nbody), xanchor=zero(njnt, 3), xaxis=zero(njnt, 3),
       geom_xpos=zero(m.ngeom, 3), geom_xmat=eye3(m.ngeom),
@@ -526,7 +552,8 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
   )
 
 
-_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "ctrl", "qfrc_applied", "xfrc_applied")
+_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "ctrl", "qfrc_applied", "xfrc_applied",
+                 "mocap_pos", "mocap_quat")
 
 
 def put_data(m: Model, mjds) -> Data:
@@ -539,6 +566,9 @@ def put_data(m: Model, mjds) -> Data:
     val = np.stack([np.array(getattr(x, name), dtype=np.float64) for x in mjds])
     changes[name] = torch.as_tensor(val, dtype=m.dtype, device=m.device).reshape(
         getattr(d, name).shape)
+  changes["eq_active"] = torch.as_tensor(
+      np.stack([np.array(x.eq_active, dtype=bool) for x in mjds]), device=m.device).reshape(
+          d.eq_active.shape)
   return dataclasses.replace(d, **changes)
 
 

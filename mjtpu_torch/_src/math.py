@@ -180,6 +180,14 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def cross_skew(v: torch.Tensor) -> torch.Tensor:
+  """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
+  z = torch.zeros_like(v[..., 0])
+  x, y, w = v[..., 0], v[..., 1], v[..., 2]
+  return torch.stack([torch.stack([z, -w, y], -1), torch.stack([w, z, -x], -1),
+                      torch.stack([-y, x, z], -1)], -2)
+
+
 def motion_cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Cross product of two motion 6-vectors (mju_crossMotion)."""
   ang = cross(u[..., :3], v[..., :3])

@@ -4,12 +4,10 @@ Port of mjtpu/_src/smooth.py: kinematics, com_pos, camlight, tendon
 (fixed and spatial) and tendon_armature, crb, factor_m and solve_m
 (forest-blocked through mass_blocks for several trees, the levelwise
 sparse LDL of sparse.py for a large branchy tree, dense otherwise),
-factor_solve (for a forest its symmetric blocked solve only), com_vel,
+factor_solve (per block for a forest, Cholesky or LU), com_vel,
 rne, transmission (every transmission mjtpu has), and what the sensors
 read: rne_postconstraint and subtree_vel.  Tree traversals use
-scan.body_tree (levelwise groups, batch-explicit).  The blocked LU
-factor_solve is not ported yet: put_model refuses models that would take
-it.
+scan.body_tree (levelwise groups, batch-explicit).
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from mjtpu_torch._src.types import (
     CamLightType,
     Data,
     DisableBit,
+    EqType,
     JointType,
     Model,
     TrnType,
@@ -33,8 +32,31 @@ from mjtpu_torch._src.types import (
 from mjtpu_torch.ops import fused
 
 
+def _mocap_bodies(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
+  """((nbody, 1) bool: the body is a mocap body, (nbody,) its mocap index,
+  0 for the other bodies), on the model's device."""
+
+  def build():
+    mid = np.asarray(m.body_mocapid)
+    return (torch.as_tensor(mid >= 0, device=m.device)[:, None],
+            torch.as_tensor(np.maximum(mid, 0), dtype=torch.long, device=m.device))
+
+  return cached(m, "smooth.mocap_bodies", build)
+
+
 def kinematics(m: Model, d: Data) -> Data:
-  """Forward kinematics (mj_kinematics)."""
+  """Forward kinematics (mj_kinematics).  A mocap body (a jointless child
+  of the world) takes its frame from each env's mocap_pos/mocap_quat in
+  place of body_pos/body_quat, before the tree scan, as in mjtpu: the
+  frame reaches its children, and the scan's normalize of the quaternion
+  is C's mju_normalize4 of mocap_quat."""
+  body_pos, body_quat = m.body_pos[None], m.body_quat[None]
+  if m.nmocap:
+    # (B, nbody, .) frames by a gather and a select: no scatter, no copy
+    # from the host
+    is_mocap, mocap_id = _mocap_bodies(m)
+    body_pos = torch.where(is_mocap, d.mocap_pos[:, mocap_id], body_pos)
+    body_quat = torch.where(is_mocap, d.mocap_quat[:, mocap_id], body_quat)
 
   def fn(carry, jnt_types, jnt_pos, jnt_axis, qpos, qpos0, body_pos, body_quat):
     if carry is None:
@@ -94,7 +116,7 @@ def kinematics(m: Model, d: Data) -> Data:
   qpos, xanchor, xaxis, xpos, xquat, xmat = scan.body_tree(
       m, fn, "jjjqqbb", "qjjbbb",
       np.asarray(m.jnt_type), m.jnt_pos[None], m.jnt_axis[None],
-      d.qpos, m.qpos0[None], m.body_pos[None], m.body_quat[None],
+      d.qpos, m.qpos0[None], body_pos, body_quat,
   )
   if xanchor is None:  # model with no joints
     xanchor, xaxis = d.xanchor, d.xaxis
@@ -437,23 +459,30 @@ def factor_solve(m: Model, mat: torch.Tensor, rhs: torch.Tensor,
   factor and solve in one launch of kernel B2 (mat keeps qM's chain
   pattern), else the pivot-clamped Cholesky of ops.fused.chol_solve
   (kernel B1); symmetric=False: a batched LU (ImplicitFast's matrix is not
-  symmetric), through lu_factor_ex, which unlike lu_factor does not sync
-  the host to check for errors on CUDA.  A forest, symmetric (Euler's
-  damping): mjtpu's blocked solve, the pivot-clamped Cholesky of each
-  block, per block size group, as factor_m; its LU (ImplicitFast on a
-  forest) is not ported, and put_model refuses the models that need it."""
+  symmetric).  A forest: mjtpu's blocked solve, per block size group, one
+  batched factor and solve over (B, blocks) a group, as factor_m: the
+  pivot-clamped Cholesky of each block (Euler's damping), or its LU
+  (ImplicitFast; mjtpu's jax.scipy.linalg.lu_factor, outside any Pallas
+  kernel).  The LU is lu_factor_ex's, which unlike lu_factor does not
+  sync the host to check for errors on CUDA."""
   if mass_blocks(m) is not None:
-    if not symmetric:
-      raise NotImplementedError("the blocked LU factor_solve is not ported")
     out = torch.zeros_like(rhs)
     for _, rows, ii, jj in block_indices(m):
-      out[:, rows] = math.cho_solve(math.safe_cholesky(mat[:, ii, jj]), rhs[:, rows])
+      sub, r = mat[:, ii, jj], rhs[:, rows]
+      out[:, rows] = (math.cho_solve(math.safe_cholesky(sub), r) if symmetric
+                      else _lu_solve(sub, r))
     return out
   if symmetric:
     t = sparse.tables(m)
     if t is not None:
       return fused.ldl_factor_solve(t, mat, rhs)
     return fused.chol_solve(mat, rhs)
+  return _lu_solve(mat, rhs)
+
+
+def _lu_solve(mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+  """Solves mat x = rhs, mat (..., n, n), rhs (..., n), by partial-pivot
+  LU, with no host sync."""
   lu, piv, _ = torch.linalg.lu_factor_ex(mat)
   return torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]
 
@@ -694,13 +723,71 @@ def transmission(m: Model, d: Data) -> Data:
 # ---------------------------------------------------------------------------
 
 
+def _eq_wrench_tables(m: Model) -> dict | None:
+  """The connect and weld equalities' constants for cfrc_ext, in eq order:
+  their bodies, each body's anchor (a connect's data holds body1's first,
+  a weld's body2's), efc rows of force (K, 3) and torque (K, 3) (a
+  connect's torque rows are its force rows, masked by ``weld``), and the
+  segment_table that sums the 2K wrenches (+ on body1, then - on body2)
+  into each body; None where there is none."""
+
+  def build():
+    from mjtpu_torch._src import support
+
+    eq_type = np.asarray(m.eq_type)
+    ids = np.nonzero(np.isin(eq_type, (EqType.CONNECT, EqType.WELD)))[0]
+    if not len(ids):
+      return None
+    # each equality's first efc row: the static layout's, C's row walk
+    # (which steps over a tendon equality's row too)
+    first = np.cumsum([0] + [support.EQ_ROWS[int(t)] for t in eq_type])[ids]
+    weld = eq_type[ids] == EqType.WELD
+    t = lambda x: torch.as_tensor(x, device=m.device)
+    b1, b2 = np.asarray(m.eq_obj1id)[ids], np.asarray(m.eq_obj2id)[ids]
+    k = len(ids)
+    data = m.eq_data[ids]
+    w = torch.as_tensor(weld, device=m.device)[:, None]
+    return dict(
+        b1=t(b1), b2=t(b2), anchor1=torch.where(w, data[:, 3:6], data[:, 0:3]),
+        anchor2=torch.where(w, data[:, 0:3], data[:, 3:6]),
+        force=t(first[:, None] + np.arange(3)),
+        torque=t(first[:, None] + 3 * weld[:, None] + np.arange(3)),
+        weld=torch.as_tensor(weld, dtype=m.dtype, device=m.device)[:, None],
+        table=scan.segment_table(
+            [np.concatenate([np.nonzero(b1 == b)[0], k + np.nonzero(b2 == b)[0]])
+             for b in range(m.nbody)], 2 * k, m.device))
+
+  return cached(m, "smooth.eq_wrench_tables", build)
+
+
+def _eq_body_wrenches(m: Model, d: Data, c: dict) -> torch.Tensor:
+  """(B, nbody, 6) the connect and weld forces on each body, as MuJoCo C's
+  mj_rnePostConstraint applies them: the rows' force f, and a weld's rows'
+  torque t, +(t + (p1 - c1) x f, f) on body1 and -(t + (p2 - c2) x f, f)
+  on body2, p each body's anchor point in the world, c its root subtree
+  com."""
+  root = index(m, "body_rootid")
+  force = d.efc_force[:, c["force"]]                                  # (B, K, 3)
+  torque = d.efc_force[:, c["torque"]] * c["weld"]
+
+  def wrench(b, anchor):
+    p = math.mat_vec(d.xmat[:, b], anchor) + d.xpos[:, b]
+    return torch.cat([torque + math.cross(p - d.subtree_com[:, root[b]], force), force], -1)
+
+  w1, w2 = wrench(c["b1"], c["anchor1"]), wrench(c["b2"], c["anchor2"])
+  return scan.segment_sum(torch.cat([w1, -w2], dim=1), c["table"])
+
+
 def rne_postconstraint(m: Model, d: Data) -> Data:
   """Com-frame accelerations and interaction forces with the constrained
   qacc (mj_rnePostConstraint): fills cacc, cfrc_int and cfrc_ext.
 
-  cfrc_ext holds the applied forces (xfrc_applied) and the contact
-  wrenches; mjtpu's equality (connect and weld) part is not ported, and
-  cannot be reached: put_model refuses equality constraints."""
+  cfrc_ext holds the applied forces (xfrc_applied), the contact wrenches
+  and the connect and weld forces.  The last follow MuJoCo C where mjtpu
+  parts from it (ROADMAP C11): each body takes the force at its own
+  anchor (mjtpu puts both at body1's frame of the first anchor), and each
+  equality's force is read at its rows of the static layout (mjtpu's row
+  count does not step over a tendon equality's row)."""
   from mjtpu_torch._src import collision_driver, support
 
   root_com = d.subtree_com[:, index(m, "body_rootid")]
@@ -710,6 +797,9 @@ def rne_postconstraint(m: Model, d: Data) -> Data:
   cfrc_ext[:, 0] = 0.0
   if collision_driver.ncon(m):
     cfrc_ext = cfrc_ext + support.contact_body_wrenches(m, d)
+  eq = _eq_wrench_tables(m) if support.count_constraints(m)[0] else None
+  if eq is not None:
+    cfrc_ext = cfrc_ext + _eq_body_wrenches(m, d, eq)
 
   base_acc = _base_acc(m, d)
 

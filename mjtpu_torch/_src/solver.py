@@ -1,7 +1,7 @@
 """Constraint solver: CG (Polak-Ribiere) and Newton over the primal cost.
 
 Port of mjtpu/_src/solver.py's dense CG and Newton paths (_row_costs with
-its frictionloss and elliptic-cone zones, _ls_point, _rescale, warmstart
+its equality, frictionloss and elliptic-cone zones, _ls_point, _rescale, warmstart
 selection, precond_grad with the elliptic cone Hessian, C's 3-point
 linesearch, the iteration body), batch-explicit over B envs.  mjtpu's
 opt-in forest PCG Newton (MJTPU_NEWTON_PCG, off by default) is not
@@ -86,7 +86,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _EfcMeta(NamedTuple):
   """Static row-type structure (host)."""
 
-  nf: int     # the frictionloss rows come first, [0, nf)
+  nf: int     # the frictionloss rows, [ne, ne + nf)
   nefc: int
   # elliptic contacts by condim, ((dim, first row, K contacts, first
   # contact), ...).  The driver sorts contacts by condim, so a group's
@@ -94,6 +94,7 @@ class _EfcMeta(NamedTuple):
   # (B, K, dim) blocks: each group is one batched computation, and the
   # launches stay flat in K.
   elliptic_groups: tuple
+  ne: int = 0  # the equality rows come first, [0, ne): quadratic everywhere
 
 
 def _efc_meta(m: Model) -> _EfcMeta:
@@ -112,7 +113,7 @@ def _efc_meta(m: Model) -> _EfcMeta:
                 and np.array_equal(addr[idx], first + dim * np.arange(k))):
           raise AssertionError(f"condim {dim} contacts are not contiguous: {idx}")
         groups.append((dim, first, k, int(idx[0])))
-    return _EfcMeta(nf, nefc, tuple(groups))
+    return _EfcMeta(nf, nefc, tuple(groups), ne)
 
   return cached(m, "solver.efc_meta", build)
 
@@ -156,17 +157,18 @@ def _splice(x: torch.Tensor, c: _Cone, blk: torch.Tensor) -> torch.Tensor:
 
 def _row_costs(meta: _EfcMeta, cones: list[_Cone], Jaref, efc_D, efc_frictionloss):
   """Per-row force / total cost / quadratic-active mask at x = Jaref:
-  frictionloss rows are linear beyond +-R*frictionloss, limit and contact
-  rows active only where x < 0, and each elliptic contact's block is
-  priced by its cone zone."""
-  nf = meta.nf
-  x, D = Jaref[:, nf:], efc_D[:, nf:]
+  equality rows are quadratic everywhere, frictionloss rows linear beyond
+  +-R*frictionloss, limit and contact rows active only where x < 0, and
+  each elliptic contact's block is priced by its cone zone."""
+  ne, nf = meta.ne, meta.nf
+  x, D = Jaref[:, ne + nf:], efc_D[:, ne + nf:]
   active = x < 0
   force = torch.where(active, -D * x, 0.0)
   cost = torch.where(active, 0.5 * D * x * x, 0.0)
   quad = active
   if nf:
-    x, D, f = Jaref[:, :nf], efc_D[:, :nf], efc_frictionloss[:, :nf]
+    fr = slice(ne, ne + nf)
+    x, D, f = Jaref[:, fr], efc_D[:, fr], efc_frictionloss[:, fr]
     R = 1.0 / torch.clamp_min(D, math.MINVAL)
     lin_neg = x <= -R * f
     lin_pos = x >= R * f
@@ -176,6 +178,11 @@ def _row_costs(meta: _EfcMeta, cones: list[_Cone], Jaref, efc_D, efc_frictionlos
     force = torch.cat([f_force, force], dim=1)
     cost = torch.cat([f_cost, cost], dim=1)
     quad = torch.cat([~(lin_neg | lin_pos), quad], dim=1)
+  if ne:
+    x, D = Jaref[:, :ne], efc_D[:, :ne]
+    force = torch.cat([-D * x, force], dim=1)
+    cost = torch.cat([0.5 * D * x * x, cost], dim=1)
+    quad = torch.cat([torch.ones_like(x, dtype=torch.bool), quad], dim=1)
 
   for c in cones:
     U = _block(Jaref, c)
@@ -220,30 +227,34 @@ def _ls_cones(cones: list[_Cone], jv: torch.Tensor) -> list[_LSCone]:
   return out
 
 
-def _ls_point(quad_gauss, quad, Jaref, jv, alpha, fric=None, cones=()) -> _LSPoint:
+def _ls_point(quad_gauss, quad, Jaref, jv, alpha, fric=None, cones=(), ne=0) -> _LSPoint:
   """(cost, phi', phi'') of the piecewise-quadratic total cost at alpha —
   MuJoCo C's LSPoint: per-row quadratic coefficients masked by the active
-  set at x = Jaref + alpha*jv, plus the frictionloss rows' linear zones
-  (``fric``: (nf, efc_D, efc_frictionloss)) and each elliptic group's
-  cone zones in place of its rows' one-sided quadratic."""
+  set at x = Jaref + alpha*jv (the ``ne`` equality rows always active),
+  plus the frictionloss rows' linear zones (``fric``: (nf, efc_D,
+  efc_frictionloss), rows [ne, ne + nf)) and each elliptic group's cone
+  zones in place of its rows' one-sided quadratic."""
   x = Jaref + alpha[:, None] * jv
   active = x < 0
+  if ne:
+    active = torch.cat([torch.ones_like(active[:, :ne]), active[:, ne:]], dim=1)
   adjust = None
   if fric is not None:
     nf, efc_D, efc_frictionloss = fric
-    xf, f = x[:, :nf], efc_frictionloss[:, :nf]
-    rf = 1.0 / torch.clamp_min(efc_D[:, :nf], math.MINVAL) * f
+    fr = slice(ne, ne + nf)
+    xf, f = x[:, fr], efc_frictionloss[:, fr]
+    rf = 1.0 / torch.clamp_min(efc_D[:, fr], math.MINVAL) * f
     has_f = f > 0
     fl_ln = has_f & (xf <= -rf)
     fl_lp = has_f & (xf >= rf)
-    ja, jvf = Jaref[:, :nf], jv[:, :nf]
+    ja, jvf = Jaref[:, fr], jv[:, fr]
     qf0 = (torch.sum(torch.where(fl_ln, f * (-0.5 * rf - ja), 0.0), dim=-1)
            + torch.sum(torch.where(fl_lp, f * (-0.5 * rf + ja), 0.0), dim=-1))
     qf1 = (torch.sum(torch.where(fl_ln, -f * jvf, 0.0), dim=-1)
            + torch.sum(torch.where(fl_lp, f * jvf, 0.0), dim=-1))
     adjust = torch.stack([qf0, qf1, torch.zeros_like(qf0)], dim=-1)
     # a friction row is quadratic everywhere but in its linear zones
-    active = torch.cat([~(fl_ln | fl_lp), active[:, nf:]], dim=1)
+    active = torch.cat([active[:, :ne], ~(fl_ln | fl_lp), active[:, ne + nf:]], dim=1)
   qt = quad_gauss + torch.sum(torch.where(active[..., None], quad, 0.0), dim=1)
   if adjust is not None:
     qt = qt + adjust
@@ -381,7 +392,7 @@ def solve(m: Model, d: Data) -> Data:
     quad = torch.stack([0.5 * Jaref * Jaref, jv * Jaref, 0.5 * jv * jv], dim=-1) * efc_D[..., None]
 
     ls_cones = _ls_cones(cones, jv)
-    point = lambda a: _ls_point(quad_gauss, quad, Jaref, jv, a, fric, ls_cones)
+    point = lambda a: _ls_point(quad_gauss, quad, Jaref, jv, a, fric, ls_cones, meta.ne)
 
     p0 = point(torch.zeros_like(gauss))
     p1 = point(p0.alpha - p0.d0 / p0.d1)

@@ -16,6 +16,7 @@ from mjtpu_torch._src.types import (
     ConstraintType,
     Data,
     DisableBit,
+    EqType,
     JointType,
     Model,
     cached,
@@ -36,16 +37,25 @@ def tendon_limit_rows_per(m: Model) -> int:
   return 1
 
 
+# efc rows of each equality type: a connect's 3, a weld's 6, a joint's and
+# a tendon's 1
+EQ_ROWS = {int(EqType.CONNECT): 3, int(EqType.WELD): 6, int(EqType.JOINT): 1,
+           int(EqType.TENDON): 1}
+
+
 def count_constraints(m: Model) -> tuple[int, int, int, int]:
-  """(ne, nf, nl, nefc): static row counts.  The port has no equality
-  constraints yet (put_model refuses them), so ne = 0; the friction rows
-  are those of dofs, then tendons; the limit rows those of scalar joints
-  (two where the range is narrower than 2*margin), then tendons
+  """(ne, nf, nl, nefc): static row counts.  The equality rows are
+  EQ_ROWS of each equality, active or not (an inactive one zeroes its
+  rows); the friction rows those of dofs, then tendons; the limit rows
+  those of joints (a scalar joint two where its range is narrower than
+  2*margin, else one; a ball joint one), then tendons
   (tendon_limit_rows_per each)."""
 
   def build():
     if m.opt.disableflags & DisableBit.CONSTRAINT:
       return 0, 0, 0, 0
+    ne = 0 if m.opt.disableflags & DisableBit.EQUALITY else sum(
+        EQ_ROWS[int(t)] for t in np.asarray(m.eq_type))
     nf = 0 if m.opt.disableflags & DisableBit.FRICTIONLOSS else (
         len(m.friction_dofid) + len(m.friction_tenid))
     nl = 0
@@ -53,8 +63,9 @@ def count_constraints(m: Model) -> tuple[int, int, int, int]:
       jt = np.asarray(m.jnt_type)
       lim = np.asarray(m.jnt_limited).astype(bool)
       scalar = lim & np.isin(jt, (int(JointType.SLIDE), int(JointType.HINGE)))
+      ball = lim & (jt == int(JointType.BALL))
       two = np.asarray(m.jnt_limit_two_sided)
-      nl = int((scalar & two).sum() * 2 + (scalar & ~two).sum())
+      nl = int((scalar & two).sum() * 2 + (scalar & ~two).sum() + ball.sum())
       nl += tendon_limit_rows_per(m) * int(np.asarray(m.tendon_limited).astype(bool).sum())
 
     from mjtpu_torch._src import collision_driver
@@ -66,7 +77,7 @@ def count_constraints(m: Model) -> tuple[int, int, int, int]:
       else:
         rows = condim
       ncon_rows += rows * count
-    return 0, nf, nl, nf + nl + ncon_rows
+    return ne, nf, nl, ne + nf + nl + ncon_rows
 
   return cached(m, "support.count_constraints", build)
 
@@ -81,8 +92,8 @@ def constraint_sizes(m: Model) -> tuple[int, int, int, int, int]:
 
 def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
   """Static (efc_type, efc_id) labels for every row of the fixed efc layout
-  (dof friction, tendon friction, joint limits, tendon limits, then
-  contacts), as in mjtpu's support.efc_row_meta."""
+  (equality, dof friction, tendon friction, joint limits, tendon limits,
+  then contacts), as in mjtpu's support.efc_row_meta."""
 
   def build():
     from mjtpu_torch._src import collision_driver
@@ -91,6 +102,12 @@ def efc_row_meta(m: Model) -> tuple[np.ndarray, np.ndarray]:
     types = np.zeros(nefc, np.int32)
     ids = np.zeros(nefc, np.int32)
     r = 0
+    if ne:
+      for e, t in enumerate(np.asarray(m.eq_type)):
+        n = EQ_ROWS[int(t)]
+        types[r : r + n] = int(ConstraintType.EQUALITY)
+        ids[r : r + n] = e
+        r += n
     if nf:
       for kind, objs in ((ConstraintType.FRICTION_DOF, m.friction_dofid),
                          (ConstraintType.FRICTION_TENDON, m.friction_tenid)):
@@ -169,16 +186,28 @@ def dof_ancestor_mask_t(m: Model) -> torch.Tensor:
 
 
 def jac(m: Model, d: Data, point: torch.Tensor, body_id: int):
-  """Jacobian of a world ``point`` (B, 3) attached to body ``body_id``.
+  """Jacobian of a world ``point`` (B, 3) attached to body ``body_id``
+  (mjtpu's form of jac_rows).
 
   Returns (jacp, jacr), each (B, nv, 3).
   """
-  mask = dof_ancestor_mask_t(m)[int(body_id)]
-  root = int(m.body_rootid[body_id])
-  offset = point - d.subtree_com[:, root]
-  jacp = (d.cdof[..., 3:] + math.cross(d.cdof[..., :3], offset[:, None, :])) * mask[:, None]
-  jacr = d.cdof[..., :3] * mask[:, None]
-  return jacp, jacr
+  ids = cached(m, "support.body_ids", lambda: torch.arange(m.nbody, device=m.device))
+  jacp, jacr = jac_rows(m, d, point[:, None], ids[int(body_id):int(body_id) + 1])
+  return jacp[:, 0].transpose(1, 2), jacr[:, 0].transpose(1, 2)
+
+
+def jac_rows(m: Model, d: Data, point: torch.Tensor, body: torch.Tensor):
+  """Jacobians of the world points ``point`` (B, K, 3) attached to the
+  bodies ``body`` (K,), a long tensor on the model's device.
+
+  Returns (jacp, jacr), each (B, K, 3, nv): a row per axis.
+  """
+  mask = dof_ancestor_mask_t(m)[body][None, :, None, :]               # (1, K, 1, nv)
+  offset = point - d.subtree_com[:, index(m, "body_rootid")[body]]    # (B, K, 3)
+  cdof = d.cdof[:, None]                                              # (B, 1, nv, 6)
+  jacp = cdof[..., 3:] + math.cross(cdof[..., :3], offset[:, :, None, :])
+  return (jacp.transpose(-1, -2) * mask,
+          cdof[..., :3].transpose(-1, -2).expand(jacp.shape[:2] + (3, m.nv)) * mask)
 
 
 def wrench_qfrc(m: Model, d: Data, point: torch.Tensor, force: torch.Tensor,
@@ -270,20 +299,29 @@ def contact_forces(m: Model, d: Data) -> torch.Tensor:
 
 
 def contact_force_com(m: Model, d: Data):
-  """Per-contact wrenches about body2's root subtree com, world axes, for
-  cfrc_ext: (wrench (B, ncon, 6), body1 ids, body2 ids (B, ncon)).  The
-  wrench applies positively to body2 and negatively to body1
-  (mj_rnePostConstraint's contact part)."""
+  """Per-contact wrenches in world axes for cfrc_ext, each about the root
+  subtree com of the body it acts on: (wrench1, wrench2 (B, ncon, 6),
+  body1 ids, body2 ids (B, ncon)); +wrench2 acts on body2, -wrench1 on
+  body1 (mj_rnePostConstraint's contact part).  mjtpu takes body2's root
+  com for both, which parts from MuJoCo C where body1 lies in another
+  tree than body2; the port follows C there (ROADMAP C11).  C leaves the
+  world body out; mjtpu gives it the wrench about body2's root com, and
+  so does the port."""
   bodyid = index(m, "geom_bodyid")
   b1 = bodyid[d.contact.geom1.long()]
   b2 = bodyid[d.contact.geom2.long()]
   f = contact_forces(m, d)
   frame = d.contact.frame  # rows are the contact axes
   force = math.mat_t_vec(frame, f[..., :3])
-  root = index(m, "body_rootid")[b2]
-  rc2 = torch.gather(d.subtree_com, 1, root[..., None].expand(root.shape + (3,)))
-  torque = math.mat_t_vec(frame, f[..., 3:]) + math.cross(d.contact.pos - rc2, force)
-  return torch.cat([torque, force], dim=-1), b1, b2
+  torque = math.mat_t_vec(frame, f[..., 3:])
+
+  def wrench(root):
+    rc = torch.gather(d.subtree_com, 1, root[..., None].expand(root.shape + (3,)))
+    return torch.cat([torque + math.cross(d.contact.pos - rc, force), force], dim=-1)
+
+  rootid = index(m, "body_rootid")
+  root2 = rootid[b2]
+  return wrench(torch.where(b1 == 0, root2, rootid[b1])), wrench(root2), b1, b2
 
 
 def _contact_body_table(m: Model) -> torch.Tensor | None:
@@ -308,17 +346,17 @@ def _contact_body_table(m: Model) -> torch.Tensor | None:
 
 
 def contact_body_wrenches(m: Model, d: Data) -> torch.Tensor:
-  """(B, nbody, 6) sum of the contact wrenches on each body: +wrench on
-  body2, -wrench on body1 (contact_force_com).  Static contact geoms sum
+  """(B, nbody, 6) sum of the contact wrenches on each body: +wrench2 on
+  body2, -wrench1 on body1 (contact_force_com).  Static contact geoms sum
   through a gather table in a fixed order; a capped model, whose slots'
   bodies differ per env, through a masked product over the contacts."""
-  wrench, b1, b2 = contact_force_com(m, d)
+  w1, w2, b1, b2 = contact_force_com(m, d)
   table = _contact_body_table(m)
   if table is not None:
-    return scan.segment_sum(torch.cat([wrench, -wrench], dim=1), table)
-  bodies = torch.arange(m.nbody, device=wrench.device)[None, :, None]
-  sign = (b2[:, None, :] == bodies).to(wrench.dtype) - (b1[:, None, :] == bodies).to(wrench.dtype)
-  return sign @ wrench
+    return scan.segment_sum(torch.cat([w2, -w1], dim=1), table)
+  bodies = torch.arange(m.nbody, device=w1.device)[None, :, None]
+  on = lambda b: (b[:, None, :] == bodies).to(w1.dtype)
+  return on(b2) @ w2 - on(b1) @ w1
 
 
 def act_input(m: Model) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:

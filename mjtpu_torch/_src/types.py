@@ -12,10 +12,10 @@ runs:
 
 The slices cover the fields the humanoid_bench, humanoid_terrain,
 scene_pile, branchy66 and ant_bench main paths read and write (sensors,
-cameras and lights since ant_bench), and tendons, their wraps and the
-actuators' activation states (the tendon slice); the rest of mjtpu's
-Model/Data (equality, mocap, energy, ...) arrives with the slices that
-need it.
+cameras and lights since ant_bench), tendons, their wraps and the
+actuators' activation states (the tendon slice), and equality constraints
+and mocap bodies (the equality slice); the rest of mjtpu's Model/Data
+(energy, ...) arrives with the slices that need it.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ MINVAL = 1e-15  # mjMINVAL
 NREF = 2        # mjNREF
 NIMP = 5        # mjNIMP
 NFLUID = 12     # mjNFLUID
+NEQDATA = 11    # mjNEQDATA
 MAXVAL = 1e10
 
 
@@ -377,6 +378,8 @@ class Model:
   nlight: int = static()
   nsensor: int = static()
   nsensordata: int = static()
+  neq: int = static()
+  nmocap: int = static()
   # ---- options / statistics ----
   opt: Option = None
   stat: Statistic = None
@@ -386,6 +389,7 @@ class Model:
   # ---- bodies ----
   body_parentid: np.ndarray = static(None)
   body_rootid: np.ndarray = static(None)
+  body_mocapid: np.ndarray = static(None)  # (nbody,) mocap index, -1 for other bodies
   body_weldid: np.ndarray = static(None)
   body_jntnum: np.ndarray = static(None)
   body_jntadr: np.ndarray = static(None)
@@ -504,6 +508,15 @@ class Model:
   pair_gap: torch.Tensor = None
   pair_friction: torch.Tensor = None
   exclude_signature: np.ndarray = static(None)
+  # ---- equality constraints (eq_data: mjNEQDATA = 11 numbers each) ----
+  eq_type: np.ndarray = static(None)
+  eq_obj1id: np.ndarray = static(None)
+  eq_obj2id: np.ndarray = static(None)
+  eq_objtype: np.ndarray = static(None)
+  eq_active0: np.ndarray = static(None)
+  eq_solref: torch.Tensor = None
+  eq_solimp: torch.Tensor = None
+  eq_data: torch.Tensor = None
   # ---- tendons and their wraps ----
   tendon_adr: np.ndarray = static(None)
   tendon_num: np.ndarray = static(None)
@@ -660,6 +673,11 @@ class Data:
   ctrl: torch.Tensor
   qfrc_applied: torch.Tensor
   xfrc_applied: torch.Tensor
+  eq_active: torch.Tensor   # (B, neq) bool
+  # mocap bodies: user-set frames, (B, nmocap, 3) and (B, nmocap, 4), read
+  # by kinematics in place of body_pos/body_quat
+  mocap_pos: torch.Tensor
+  mocap_quat: torch.Tensor
   # dynamics
   qacc: torch.Tensor
   act_dot: torch.Tensor

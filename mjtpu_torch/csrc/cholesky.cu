@@ -10,7 +10,7 @@
 // on a warp, 4 warps a block:
 //
 //   * `register` (instantiated for the n of MJTPU_CHOL_WIDTHS: 2, 5, 6, 8,
-//     9, 14, 23, 27, the main paths' and the zoo envs' sizes, so every loop bound
+//     9, 12, 14, 23, 27, the main paths' and the zoo envs' sizes, so every loop bound
 //     is a constant; a 32-wide instance masked at run time measured 35-56%
 //     slower, PERF.md).  What
 //     bounds it on this card: at the main paths' sizes (n = 27 and 23,
@@ -119,7 +119,7 @@ __global__ void chol_shared_kernel(const T* __restrict__ mat, const T* __restric
 
 // the n the register kernel is instantiated for (every loop bound a
 // constant); ops/cholesky.py's REGISTER_WIDTHS lists the same
-#define MJTPU_CHOL_WIDTHS(X) X(2) X(5) X(6) X(8) X(9) X(14) X(23) X(27)
+#define MJTPU_CHOL_WIDTHS(X) X(2) X(5) X(6) X(8) X(9) X(12) X(14) X(23) X(27)
 
 constexpr int kRegisterWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;

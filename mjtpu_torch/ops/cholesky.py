@@ -41,10 +41,10 @@ SMEM_LIMIT = _build.SMEM_LIMIT
 _WARPS_PER_BLOCK = 4
 # the n the register kernel is instantiated for (csrc/cholesky.cu's
 # MJTPU_CHOL_WIDTHS): the main paths' (the tendon scene and muscle.xml 2,
-# the swimmer env 5, ant_bench 8, the Ant env 14, humanoid_terrain 23,
-# humanoid_bench 27) and the other zoo envs' (cartpole 2, hopper and the
-# cylinder drop 6, walker2d and halfcheetah 9)
-REGISTER_WIDTHS = (2, 5, 6, 8, 9, 14, 23, 27)
+# the swimmer env 5, ant_bench 8, mocap.xml 12, the Ant env 14,
+# humanoid_terrain 23, humanoid_bench 27) and the other zoo envs' (cartpole
+# 2, hopper and the cylinder drop 6, walker2d and halfcheetah 9)
+REGISTER_WIDTHS = (2, 5, 6, 8, 9, 12, 14, 23, 27)
 
 SOURCE = "cholesky.cu"
 

@@ -195,6 +195,19 @@
       .sensordata) over the steps, .fwd.<field> of step 1, and for the
       wrap scenes .poses.qpos with mjtpu's .poses.ten_length, .ten_J,
       .ten_wrap_xpos and .ten_wrap_active there (fwd_position).
+  mjtpu_torch/assets/equality_scenes.npz, equality_scenes_golden.npz
+      the bundle of equality_scene_xmls (mocap.xml under Euler and
+      ImplicitFast, weld.xml, equality.xml, ball_free.xml under Euler and
+      ImplicitFast, two forests under ImplicitFast, the ball-limit models,
+      the limit sensors with a ball joint, a tendon equality, EQ_ORDER_XML,
+      two equality fuzz scenes) and, per scene from equality_initial_state,
+      mjtpu's run at float64: <scene>.qpos0, .qvel0, .ctrl0 (.act0,
+      .eq_active0), .qpos, .qvel (.act, .sensordata) over the steps,
+      .fwd.<field> of step 1 and .rnepost.cfrc_ext, mjtpu's
+      rne_postconstraint of it, .efc_type and .efc_id, mjtpu's static row
+      labels, and .c.cfrc_ext, MuJoCo C's mj_rnePostConstraint at the
+      start states; the mocap scenes' .mocap_pos and .mocap_quat, set
+      before each step (mocap_schedule).
   mjtpu_torch/assets/swimmer_satellite_env_golden.npz
       mjtpu's env.step as zoo_env_golden.npz, for the swimmer and the three
       satellite envs (--model satellite_envs); none ends an episode early,
@@ -207,7 +220,7 @@ Run from the repository root, where ``mujoco`` and ``jax`` are installed:
         [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
                      |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes
                      |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs
-                     |tendon_scenes]
+                     |tendon_scenes|equality_scenes]
         [--steps N] [--env NAME] [--scene NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -409,13 +422,61 @@ WRAP_SCENES = ("mixed", "sphere", "sphere_side_out", "sphere_side_in", "cylinder
                "cylinder_side_out", "cylinder_side_in", "pulley")
 POSES = 40
 POSE_SPREAD = 0.8
+EQUALITY_SCENES_FILE = ASSETS / "equality_scenes.npz"
+EQUALITY_GOLDEN_FILE = ASSETS / "equality_scenes_golden.npz"
+# tests/test_constraint.py::test_ball_limit_zero_rotation_margin's model:
+# a ball joint's limit row live at zero rotation through its margin
+BALL_LIMIT_MARGIN_XML = """<mujoco><worldbody><body pos="0 0 1">
+    <joint type="ball" range="0 0.4" limited="true" margin="0.01"/>
+    <geom type="capsule" size="0.05" fromto="0 0 0 0.3 0 0"/>
+    </body></worldbody></mujoco>"""
+# tests/test_constraint.py::test_limit_rows_batched_order's model: ball
+# and hinge limits interleaved in joint order
+BALL_LIMIT_ORDER_XML = """<mujoco><worldbody><body pos="0 0 1">
+    <joint type="ball" range="0 30" limited="true"/>
+    <geom type="capsule" size="0.05" fromto="0 0 0 0.3 0 0"/>
+    <body pos="0.3 0 0">
+      <joint type="hinge" axis="0 1 0" range="-20 20" limited="true"/>
+      <geom type="capsule" size="0.04" fromto="0 0 0 0.2 0 0"/>
+      <body pos="0.2 0 0">
+        <joint type="ball" range="0 25" limited="true"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.15 0 0"/>
+      </body>
+    </body>
+    </body></worldbody></mujoco>"""
+# a tendon equality before a connect and a weld, with a free box of each
+# tree in contact with none: the rows each connect and weld force is read
+# from in rne_postconstraint (ROADMAP C11)
+EQ_ORDER_XML = """<mujoco><option timestep="0.002"/>
+  <default><geom contype="0" conaffinity="0"/></default>
+  <worldbody>
+    <body name="a" pos="0 0 1"><joint name="ja" type="slide" axis="1 0 0"/>
+      <geom type="sphere" size="0.1" mass="1"/></body>
+    <body name="b" pos="0.5 0 1"><joint name="jb" type="slide" axis="1 0 0"/>
+      <geom type="sphere" size="0.1" mass="1"/></body>
+    <body name="c" pos="1 0 1"><freejoint/><geom type="box" size="0.1 0.1 0.1" mass="1"/></body>
+    <body name="e" pos="1.5 0 1"><freejoint/><geom type="box" size="0.1 0.1 0.1" mass="1"/></body>
+  </worldbody>
+  <tendon>
+    <fixed name="t1"><joint joint="ja" coef="1"/></fixed>
+    <fixed name="t2"><joint joint="jb" coef="1"/></fixed>
+  </tendon>
+  <equality>
+    <tendon tendon1="t1" tendon2="t2" polycoef="0 1 0 0 0"/>
+    <connect body1="c" body2="e" anchor="0.25 0 0"/>
+    <weld body1="a" body2="c"/>
+  </equality>
+</mujoco>"""
+# tests/test_fuzz.py::test_fuzz_equality_classes's scenes: seed 2 (a weld,
+# live contacts) and seed 3 (a connect), both on trees with ball joints
+EQ_FUZZ_SEEDS = (2, 3)
 # the adhesion scene's four envs: the box at tests/test_transmission.py's
 # lifts (penetrating, in the margin, in the gap band, past margin + gap)
 ADHESION_LIFTS = (0.049, 0.058, 0.075, 0.095)
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
-          "tendon_scenes")
+          "tendon_scenes", "equality_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -1080,11 +1141,14 @@ def load_elliptic_mjmodel():
   return mjm
 
 
-def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel")):
+def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel"), schedule=None,
+               rne_post=False):
   """Steps mjtpu (f64, CPU, jit(vmap(step))) from the state fields
-  ``start`` (B envs): ({field: (steps, B, ...)} after each step, the
-  forward Data of step 1 as port_fields under "fwd.": qpos, qvel and
-  time put back, qacc the solver's)."""
+  ``start`` (B envs), setting the fields of ``schedule`` ({field: (steps,
+  B, ...)}) before each step: ({field: (steps, B, ...)} after each step,
+  the forward Data of step 1 as port_fields under "fwd.": qpos, qvel and
+  time put back, qacc the solver's; with ``rne_post`` also mjtpu's
+  rne_postconstraint of it, its cfrc_ext under "rnepost.cfrc_ext")."""
   import jax
 
   jax.config.update("jax_enable_x64", True)
@@ -1099,14 +1163,22 @@ def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel")):
   d0 = d
   step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
   out = {k: [] for k in fields}
+  post = {}
   for i in range(steps):
+    if schedule:
+      d = d.replace(**{k: jnp.asarray(v[i]) for k, v in schedule.items()})
     d = step(m, d)
     for k in out:
       out[k].append(np.asarray(getattr(d, k)))
     if i == 0:
-      fwd = jax.tree.map(np.asarray, d.replace(
-          qpos=d0.qpos, qvel=d0.qvel, time=d0.time, qacc=d.qacc_warmstart))
-  return {k: np.stack(v) for k, v in out.items()}, port_fields(fwd, "fwd.")
+      fwd = d.replace(qpos=d0.qpos, qvel=d0.qvel, time=d0.time, qacc=d.qacc_warmstart)
+      if rne_post:
+        from mjtpu._src import smooth
+
+        post["rnepost.cfrc_ext"] = np.asarray(jax.jit(jax.vmap(
+            smooth.rne_postconstraint, in_axes=(None, 0)))(m, fwd).cfrc_ext)
+      fwd = jax.tree.map(np.asarray, fwd)
+  return {k: np.stack(v) for k, v in out.items()}, {**port_fields(fwd, "fwd."), **post}
 
 
 def _mjtpu_solo(mjm, start: dict, run: dict, steps: int) -> dict[str, np.ndarray]:
@@ -1429,6 +1501,182 @@ def tendon_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.nd
   return snapshots, golden
 
 
+def equality_scene_xmls() -> dict[str, str]:
+  """The scenes of equality_scenes.npz, name -> MJCF: tests/models'
+  mocap.xml (Euler and ImplicitFast), weld.xml, equality.xml and
+  ball_free.xml (Euler and ImplicitFast), tests/test_blocks.py's FOREST_XML
+  and TENDON_COUPLED_XML under ImplicitFast, the two ball-limit models of
+  tests/test_constraint.py, tests/test_limit_sensors.py's XML, the tendon
+  equality of tests/test_tendon.py, EQ_ORDER_XML, and the equality fuzz
+  scenes of EQ_FUZZ_SEEDS."""
+  from mjtpu._src.test_util import create_mjcf
+  from tests import test_blocks, test_limit_sensors, test_tendon
+
+  models = ROOT / "tests" / "models"
+  read = lambda name: (models / f"{name}.xml").read_text()
+  implicitfast = lambda xml, opt: xml.replace(opt, opt[:-2] + ' integrator="implicitfast"/>', 1)
+  xmls = {
+      "mocap": read("mocap"),
+      "mocap_implicitfast": implicitfast(read("mocap"), '<option timestep="0.005"/>'),
+      "weld": read("weld"),
+      "equality": read("equality"),
+      "ball_free": read("ball_free"),
+      "ball_free_implicitfast": implicitfast(read("ball_free"), '<option timestep="0.002"/>'),
+      "forest_implicitfast": implicitfast(test_blocks.FOREST_XML, '<option timestep="0.002"/>'),
+      "tendon_coupled_implicitfast": implicitfast(test_blocks.TENDON_COUPLED_XML,
+                                                  '<option timestep="0.002"/>'),
+      "ball_limit_margin": BALL_LIMIT_MARGIN_XML,
+      "ball_limit_order": BALL_LIMIT_ORDER_XML,
+      "limit_sensors": test_limit_sensors.XML,
+      "tendon_equality": test_tendon._EQ_XML.replace(
+          "EQ", '<tendon tendon1="ta" tendon2="tb" polycoef="0.05 1.2 0.1 0 0"/>'),
+      "eq_order": EQ_ORDER_XML,
+  }
+  for seed in EQ_FUZZ_SEEDS:
+    xmls[f"fuzz_{seed}"] = create_mjcf(
+        seed + 400, geom_types=("sphere", "capsule"), tendons=True, equality=True,
+        equality_types=("connect", "weld", "joint", "tendon"))
+  return xmls
+
+
+def equality_initial_state(mjm, name: str, seed: int = 0) -> dict[str, np.ndarray]:
+  """The state fields of an equality scene's 4 envs: env 0 at qpos0 (a
+  ball joint at zero rotation), envs 1-3 with hinges and slides +-0.3,
+  ball quaternions +-0.3 and free quaternions +-0.1 before normalizing,
+  free positions +-0.05; every env's qvel in [-0.5, 0.5], ctrl in [-1, 1];
+  equality.xml with its connect off in env 2 and its joint coupling off in
+  env 3 (eq_active); mocap.xml's ball in contact in envs 1-3
+  (_mocap_contacts, from equality_scenes)."""
+  rng = np.random.default_rng(seed)
+  spread = np.full(mjm.nq, 0.3)
+  for j in range(mjm.njnt):
+    q = mjm.jnt_qposadr[j]
+    if mjm.jnt_type[j] == 0:  # mjJNT_FREE
+      spread[q:q + 7] = (0.05, 0.05, 0.05, 0.1, 0.1, 0.1, 0.1)
+  qpos = mjm.qpos0[None] + rng.uniform(-1.0, 1.0, (BATCH, mjm.nq)) * spread
+  qpos[0] = mjm.qpos0
+  for j in range(mjm.njnt):
+    q = mjm.jnt_qposadr[j]
+    if mjm.jnt_type[j] in (0, 1):  # free, ball
+      quat = qpos[:, q + 3:q + 7] if mjm.jnt_type[j] == 0 else qpos[:, q:q + 4]
+      quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+  start = {"qpos": qpos, "qvel": rng.uniform(-0.5, 0.5, (BATCH, mjm.nv)),
+           "ctrl": rng.uniform(-1.0, 1.0, (BATCH, mjm.nu))}
+  if mjm.na:
+    start["act"] = rng.uniform(0.0, 1.0, (BATCH, mjm.na))
+  if name == "equality":
+    start["eq_active"] = np.ones((BATCH, mjm.neq), bool)
+    start["eq_active"][2, 0] = start["eq_active"][3, 1] = False
+  return start
+
+
+def mocap_schedule(mjm, steps: int, seed: int = 0) -> dict[str, np.ndarray]:
+  """mocap.xml's targets before each step (chip_smoke.mocap_targets, the
+  moving-target schedule of tests/test_mocap.py) for BATCH envs, each at
+  its own phase, uniform in [0, MOCAP_PHASE_S) s (numpy seed ``seed``):
+  {"mocap_pos": (steps, B, nmocap, 3), "mocap_quat": (steps, B, nmocap, 4)}."""
+  import torch
+
+  import chip_smoke
+
+  phase = np.random.default_rng(seed).uniform(0.0, chip_smoke.MOCAP_PHASE_S, BATCH)
+  bodies = np.nonzero(mjm.body_mocapid >= 0)[0]
+  base = torch.as_tensor(mjm.body_pos[bodies[np.argsort(mjm.body_mocapid[bodies])]])
+  out = {"mocap_pos": [], "mocap_quat": []}
+  for i in range(steps):
+    pos, quat = chip_smoke.mocap_targets(base, torch.as_tensor(i * mjm.opt.timestep + phase))
+    out["mocap_pos"].append(pos.numpy())
+    out["mocap_quat"].append(quat.numpy())
+  return {k: np.stack(v) for k, v in out.items()}
+
+
+def _mocap_contacts(mjm, start: dict, schedule: dict) -> None:
+  """Puts mocap.xml's ball in contact at step 1: in env 1 at rest 2 mm
+  into the floor (a contact with the world body, whose cfrc_ext row MuJoCo
+  C leaves at zero), in env 2 at rest 2 mm into the face of the mocap box
+  that faces down at the box's pose before step 1 (sphere-box against the
+  moving mocap body), in env 3 at rest 2 mm into the top of the payload
+  (two free bodies, two trees)."""
+  import mujoco
+
+  body = lambda name: mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_BODY, name)
+  size = lambda name: mjm.geom_size[mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_GEOM, name)]
+  free = lambda name: (mjm.jnt_qposadr[mjm.body_jntadr[body(name)]],
+                       mjm.jnt_dofadr[mjm.body_jntadr[body(name)]])
+  (q, v), (qp, _) = free("ball"), free("payload")
+  r = size("ball_sphere")[0]
+  mocap = mjm.body_mocapid[body("target")]
+  mat = np.zeros(9)
+  mujoco.mju_quat2Mat(mat, schedule["mocap_quat"][0, 2, mocap])
+  down = -mat.reshape(3, 3)[:, 2]
+  start["qpos"][2, q:q + 3] = (schedule["mocap_pos"][0, 2, mocap]
+                               + (size("target_box")[2] + r - 0.002) * down)
+  start["qpos"][3, q:q + 3] = start["qpos"][3, qp:qp + 3] + (0.0, 0.0,
+                                                             size("payload_sphere")[0] + r - 0.002)
+  start["qpos"][1, q + 2] = r - 0.002
+  for env in (1, 2, 3):
+    start["qpos"][env, q + 3:q + 7] = (1.0, 0.0, 0.0, 0.0)
+    start["qvel"][env, v:v + 6] = 0.0
+
+
+def _c_step1(mjm, start: dict, schedule: dict | None) -> dict[str, np.ndarray]:
+  """MuJoCo C at an equality scene's start states (the mocap targets of
+  step 1 set): mj_forward, then mj_rnePostConstraint, env by env:
+  {"c.cfrc_ext": (B, nbody, 6)}; and mjtpu's static efc row labels
+  (support.efc_row_meta): {"efc_type", "efc_id": (nefc,)}."""
+  import mujoco
+
+  import mjtpu
+  from mjtpu._src import support
+
+  out = []
+  for e in range(BATCH):
+    mjd = mujoco.MjData(mjm)
+    for k, v in start.items():
+      getattr(mjd, k)[:] = v[e]
+    for k, v in (schedule or {}).items():
+      getattr(mjd, k)[:] = v[0, e]
+    mujoco.mj_forward(mjm, mjd)
+    mujoco.mj_rnePostConstraint(mjm, mjd)
+    out.append(np.array(mjd.cfrc_ext))
+  efc_type, efc_id = support.efc_row_meta(mjtpu.put_model(mjm))
+  return {"c.cfrc_ext": np.stack(out), "efc_type": np.asarray(efc_type),
+          "efc_id": np.asarray(efc_id)}
+
+
+def equality_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the equality scenes' snapshot arrays by name, the equality golden's
+  arrays: per scene its start, mjtpu's qpos, qvel (act, sensordata) after
+  each step, the forward Data of step 1 and mjtpu's rne_postconstraint
+  cfrc_ext of it, its static efc row labels, MuJoCo C's cfrc_ext at the
+  start; the mocap scenes' targets before each step)."""
+  import mujoco
+
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, xml in equality_scene_xmls().items():
+    if names and name not in names:
+      continue
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    snapshots[name] = io.snapshot_arrays(mjm)
+    start = equality_initial_state(mjm, name)
+    schedule = None
+    if mjm.nmocap:
+      schedule = mocap_schedule(mjm, steps)
+      _mocap_contacts(mjm, start, schedule)
+    fields = ("qpos", "qvel") + (("act",) if mjm.na else ()) + (
+        ("sensordata",) if mjm.nsensordata else ())
+    run, fwd = _mjtpu_run(mjm, start, steps, fields, schedule, rne_post=True)
+    golden.update({f"{name}.{k}0": v for k, v in start.items()})
+    golden.update({f"{name}.{k}": v for k, v in {**run, **fwd, **(schedule or {}),
+                                                  **_c_step1(mjm, start, schedule)}.items()})
+    print(f"{name}: nv {mjm.nv}, neq {mjm.neq} (types {mjm.eq_type.tolist()}), nmocap"
+          f" {mjm.nmocap}, nefc {fwd['fwd.efc_D'].shape[1]}, live contacts per env at step 1"
+          f" {(fwd['fwd.contact.dist'] < 0).sum(axis=1).tolist()}")
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -1495,8 +1743,8 @@ def main():
   parser.add_argument("--env", action="append", choices=LOCOMOTION + SATELLITE_ENVS,
                       help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
-                      help="the scenes of collision_scenes, cone_scenes, fluid_scenes and"
-                      " tendon_scenes"
+                      help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
+                      " tendon_scenes and equality_scenes"
                       " (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
@@ -1587,6 +1835,11 @@ def main():
     io.save_snapshot_bundle(out / TENDON_SCENES_FILE.name, snapshots)
     np.savez_compressed(out / TENDON_GOLDEN_FILE.name, **tendon_golden)
     files += [TENDON_SCENES_FILE.name, TENDON_GOLDEN_FILE.name]
+  if "equality_scenes" in models:
+    snapshots, eq_golden = equality_scenes(args.scene, steps)
+    io.save_snapshot_bundle(out / EQUALITY_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / EQUALITY_GOLDEN_FILE.name, **eq_golden)
+    files += [EQUALITY_SCENES_FILE.name, EQUALITY_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -76,6 +76,7 @@ def test_constants_match_bindings():
   assert types.NREF == mujoco.mjNREF
   assert types.NIMP == mujoco.mjNIMP
   assert types.NFLUID == mujoco.mjNFLUID
+  assert types.NEQDATA == mujoco.mjNEQDATA
 
 
 def _assert_models_equal(a, b, path="model"):

@@ -129,17 +129,17 @@ def test_shared_memory_bound():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_size_dispatch_and_launch_geometry(dtype):
   """The main paths' and the zoo envs' n (REGISTER_WIDTHS: 2, 5, 6, 8, 9,
-  14, 23, 27) take the register kernel (an instance of each n), one warp an
+  12, 14, 23, 27) take the register kernel (an instance of each n), one warp an
   env, 4 a block; every other n up to max_n the shared one; past that none
   (tests_cuda: it raises on the card).  The n are the ones csrc/cholesky.cu
   instantiates."""
-  assert cholesky.REGISTER_WIDTHS == (2, 5, 6, 8, 9, 14, 23, 27)
+  assert cholesky.REGISTER_WIDTHS == (2, 5, 6, 8, 9, 12, 14, 23, 27)
   for n in cholesky.REGISTER_WIDTHS:
     assert cholesky.variant(n, dtype) == "register"
     assert cholesky.variants(n, dtype) == ("register", "shared")
     assert cholesky.launch_geometry(4096, n, dtype) == ("register", 1024, 128, 4)
     assert cholesky.launch_geometry(130, n, dtype, "shared") == ("shared", 33, 128, 4)
-  for n in (1, 4, 7, 10, 13, 15, 22, 24, 26, 28, 32, 33, 40, cholesky.max_n(dtype)):
+  for n in (1, 4, 7, 10, 11, 13, 15, 22, 24, 26, 28, 32, 33, 40, cholesky.max_n(dtype)):
     assert cholesky.variant(n, dtype) == "shared" and cholesky.variants(n, dtype) == ("shared",)
   # the shared kernel's block shrinks to what its shared memory allows
   big = cholesky.max_n(dtype)

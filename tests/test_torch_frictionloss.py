@@ -208,21 +208,23 @@ def _tendon_implicit():
 
 
 @pytest.mark.parametrize("make, what", [
-    (lambda: load_mj("friction_tendon.xml"), None),
-    (_ball_limit, "ball joint limits"),
+    (lambda: load_mj("friction_tendon.xml"), (0, 2, 2, 4)),
+    (_ball_limit, (0, 0, 1, 1)),
     (_implicit, "implicit integrator"),
-    (lambda: load_mj("equality.xml"), "equality"),
+    (lambda: load_mj("equality.xml"), (4, 0, 0, 4)),
     (_tendon_implicit, "implicit integrator"),
 ], ids=["tendon_frictionloss", "ball_limit", "implicit", "equality", "tendon_implicit"])
 def test_put_model_still_refuses(make, what):
-  """Ball-joint limits, the full Implicit integrator (a tendon model's
-  too) and equality constraints stay refused, by name; friction_tendon.xml
-  (what None: dof frictionloss beside a limited fixed tendon), refused
-  with the tendons until the tendon slice, builds and steps with its two
-  friction rows and its joint and tendon limit rows."""
-  if what is None:
+  """The full Implicit integrator (a tendon model's too) stays refused, by
+  name.  What a later slice took in builds and steps (what: its
+  count_constraints, (ne, nf, nl, nefc)): friction_tendon.xml (dof
+  frictionloss beside a limited fixed tendon, the tendon slice) with its
+  two friction rows and its joint and tendon limit rows; ball_free.xml
+  with a limited ball joint (one limit row) and equality.xml (a connect's
+  3 rows and a joint coupling's 1), the equality slice."""
+  if not isinstance(what, str):
     m = mjtpu_torch.put_model(make(), device="cpu")
-    assert mjtpu_torch.count_constraints(m) == (0, 2, 2, 4)
+    assert mjtpu_torch.count_constraints(m) == what
     d = mjtpu_torch.step(m, mjtpu_torch.make_data(m, batch_size=2))
     assert bool(torch.isfinite(d.qpos).all()) and int(d.nreset.sum()) == 0
     return

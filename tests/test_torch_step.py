@@ -162,8 +162,9 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
 # accepts (the collision slice: every geom pair mjtpu collides, the
 # max_geom_pairs broadphase; the cone slice: elliptic cones, condim 4 and
 # 6; the fluid slice: fluid forces under RK4; the tendon slice: tendons,
-# every transmission, activation dynamics, Euler's damping on a forest);
-# it must build and step
+# every transmission, activation dynamics, Euler's damping on a forest;
+# the equality slice: equality constraints, ImplicitFast on a forest); it
+# must build and step
 @pytest.mark.parametrize("make, what", [
     (_variant(HB, collide_head=True), None),
     (_xml(_free('type="capsule" size="0.05 0.1"', 0.5) + _free('type="box" size="0.1 0.1 0.1"', 0.2)),
@@ -180,13 +181,12 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
     # tendon sensors, a ball-joint transmission and tendon actuators (the
     # tendon slice)
     (_variant("sensors.xml"), None),
-    (_variant("equality.xml"), "equality"),
+    (_variant("equality.xml"), None),
     (_variant("friction_tendon.xml"), None),
     # RK4 is in the slice since the zoo envs, fluid forces since the fluid
     # slice: an RK4 model in a fluid (as the zoo's swimmer) builds and steps
     (_variant("pendulum_rk4.xml", density=1.2), None),
-    (_variant("boxes.xml", integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST),
-     "ImplicitFast on a multi-tree"),
+    (_variant("boxes.xml", integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), None),
     (_variant(HB, cone=mujoco.mjtCone.mjCONE_ELLIPTIC), None),
     (_variant(HB, solver=mujoco.mjtSolver.mjSOL_PGS), "solver 0"),
     # condim 1 is in the slice since humanoid_terrain, 4 and 6 since the

@@ -36,10 +36,10 @@ def test_kernel_matches_twin(batch, n, dtype):
 
 @pytest.mark.parametrize("clamp", [False, True], ids=["spd", "clamped"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 5, 6, 8, 9, 14, 23, 27, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 2, 5, 6, 8, 9, 12, 14, 23, 27, 32, 33, 40])
 def test_chol_variants_match_twin(n, dtype, clamp):
   """Every variant that can run an n (the register kernel at the main
-  paths' and the zoo envs' n, 2, 5, 6, 8, 9, 14, 23 and 27; the shared
+  paths' and the zoo envs' n, 2, 5, 6, 8, 9, 12, 14, 23 and 27; the shared
   kernel everywhere) within phase 3's
   tolerance of the twin, the register kernel equal to the shared one bit
   for bit, launches counted by variant."""
@@ -482,6 +482,36 @@ def test_tendon_scene_step_on_cuda_matches_cpu(name, per_step):
                                atol=1e-9 * max(1.0, np.abs(want).max(initial=0.0)), err_msg=f)
 
 
+@pytest.mark.parametrize("name", ["mocap", "mocap_implicitfast"])
+def test_mocap_step_on_cuda_matches_cpu(name):
+  """The equality slice's main path (equality_scenes.npz's mocap.xml, a
+  free payload welded to a moving mocap box) at f64 from its golden's
+  start, the golden's targets set before each step: 5 steps on the card
+  against the same steps on the CPU, qpos, qvel, the frames and the efc
+  forces to 1e-9 of scale; on the card the B1 launches are all register,
+  n=12, one per Newton iteration (ImplicitFast's blocked LU takes none)."""
+  from mjtpu_torch._src import solver
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "equality_scenes_golden.npz"))
+  out = {}
+  for device in ("cpu", "cuda"):
+    m, d = chip_smoke.equality_scene(name, golden, device)
+    before = dict(cholesky.variant_launches)
+    newton = solver.loop_counts["iterations"]
+    for t in range(5):
+      d = mjtpu_torch.step(m, chip_smoke._mocap_at(d, golden, name, t))
+    iterations = solver.loop_counts["iterations"] - newton
+    kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    out[device] = d, iterations, kinds
+  (cpu, _, cpu_kinds), (gpu, iterations, kinds) = out["cpu"], out["cuda"]
+  assert cpu_kinds == {"register": 0, "shared": 0}
+  assert kinds == {"register": iterations, "shared": 0} and iterations > 0
+  for f in ("qpos", "qvel", "xpos", "xquat", "efc_force"):
+    want = getattr(cpu, f).numpy()
+    np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(), want, rtol=0,
+                               atol=1e-9 * max(1.0, np.abs(want).max(initial=0.0)), err_msg=f)
+
+
 def _env_step_on_cuda_matches_cpu(name, golden_file):
   """One env step of ``zoo.ENVS[name]`` on the card against the same step
   on the CPU, from an env golden's states: obs and reward of the envs that
@@ -538,8 +568,9 @@ def test_chol_on_elliptic_hessians(dtype):
   """B1 against its twin on the Newton Hessians of the elliptic bench (a
   step from the golden's state after step 1: cone blocks in the middle
   zone folded in; at f32 the regulariser too) and of elliptic.xml (n=12,
-  two trees: the shared kernel), every variant within phase 3's
-  tolerance of the twin and equal bit for bit."""
+  two trees: the register kernel, and the shared one held beside it),
+  every variant within phase 3's tolerance of the twin and equal bit for
+  bit."""
   from mjtpu_torch._src import io
 
   golden = np.load(mjtpu_torch.ASSETS / "humanoid_bench_elliptic_golden.npz")
@@ -565,6 +596,7 @@ def test_chol_on_elliptic_hessians(dtype):
       qvel=torch.as_tensor(scenes["elliptic.qvel0"], dtype=dtype, device="cuda"))
   calls, _ = chip_smoke._capture_hessians(lambda: mjtpu_torch.step(m, d))
   assert calls and calls[0][0].shape == (4, 12, 12)
-  assert cholesky.variant(12, dtype) == "shared"
+  assert cholesky.variant(12, dtype) == "register"
+  assert cholesky.variants(12, dtype) == ("register", "shared")
   for h, grad in calls:
     chip_smoke._hold_chol(h, grad, "elliptic.xml")
