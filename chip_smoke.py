@@ -175,7 +175,7 @@ failure raises and the script exits non-zero:
      one a step where Euler's damping solves a dense tree.
  27. tendon throughput, the main path: the mixed tendon scene at f32
      B=4096 from its snapshot (qpos0 +-0.01, ctrl in [-1, 1], numpy seed
-     1), 3 warm-up and 200 timed steps: env-steps/s, ms per step, B1
+     1), 3 warm-up and 100 timed steps: env-steps/s, ms per step, B1
      launches per step (register only, n=2, one per Newton iteration),
      Newton iterations and linesearch rounds per step, nreset 0, B1's share
      of the step, one profiled step's launches and busy share; then
@@ -201,20 +201,45 @@ failure raises and the script exits non-zero:
      launches per step (register only, n=12, one per Newton iteration),
      Newton iterations and linesearch rounds per step, nreset 0, B1's share
      of the step, one profiled step's launches and busy share.
+ 30. Implicit-slice parity: f64, B=4 on the card, humanoid_implicit and
+     every scene of implicit_scenes.npz (implicit_full.xml, a forest: the
+     blocked LU; implicit_fluid.xml under Implicit and ImplicitFast; the
+     ellipsoid-fluid scene under both; the swimmer under ImplicitFast;
+     friction_tendon.xml and condim4_elliptic.xml under Implicit; two
+     fuzz scenes) and of sensor_scenes.npz (the energy models, the
+     geom-distance, contact and camera-projection sensors) against their
+     mjtpu goldens at the CPU tests' bounds (slice14_errors): step 1's
+     qDeriv and its fluid term, the implicit update, forward's qacc,
+     energy and sensors to 1e-10 of scale, CONTACT's found exact, 100
+     steps to 1e-8 (a contact-sensor tie only where a ULP copy takes
+     mjtpu's pick, ROADMAP C13); one B1 launch per Newton iteration; on
+     the geom-distance scene one B3 launch per SAT collider of the
+     sensors' pairs in each sensor_pos (static for box-box, shared for
+     box-cylinder), and the box-box distance through B3 static equal to
+     the same through its twin bit for bit.
+ 31. Implicit throughput, the main path: humanoid_implicit (the zoo's
+     humanoid.xml under the full Implicit integrator) at f32 B=4096 from
+     qpos0 +-0.01 (numpy seed 1), 3 warm-up and 30 timed steps:
+     env-steps/s, ms per step, B1 launches per step (register only,
+     n=23, one per Newton iteration), Newton iterations and linesearch
+     rounds per step, nreset 0, the shares of B1, of deriv_smooth_vel
+     (the RNE velocity derivative over B x nv copies) and of the LU
+     (CUDA events around each), one profiled step's launches and busy
+     share.
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27 and 29: each kernel's launch
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29 and 31: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
 the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
 
-The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26 and 28, and phase
+The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28 and 30, and phase
 22's cone scenes (``22-cones``), run each in a process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
 overlap it; no phase is timed while they run (the timed phases 23, 25,
-27 and 29 come after all have ended).
+27, 29 and 31 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -320,6 +345,9 @@ TENDON_EFC_BOUND = 1e-10
 TENDON_TRAJECTORY_BOUND = 1e-8
 TENDON_WARMUP = 3
 MUSCLE_TIMED = 20
+# the mixed tendon scene's timed steps (phase 27, 200 until the Implicit
+# slice's phases took its room in the time limit)
+TENDON_TIMED = 100
 # mocap.xml's envs each move their targets from their own phase, uniform in
 # [0, MOCAP_PHASE_S) s (mocap_targets)
 MOCAP_PHASE_S = 2.0
@@ -335,6 +363,15 @@ EQ_EFC = ("efc_J", "efc_pos", "efc_margin", "efc_frictionloss", "efc_D", "efc_ar
 # the equality main path's warm-up and timed steps
 MOCAP_WARMUP = 3
 MOCAP_TIMED = 30
+# the Implicit slice: the bundles' and humanoid_implicit's f64 bounds
+# (tests/test_torch_implicit.py, tests/test_torch_query_sensors.py): step
+# 1's qDeriv, qacc, energy and sensors of scale, the trajectories' qpos
+# and qvel absolute and sensordata and energy of scale
+SLICE14_STEP_BOUND = 1e-10
+SLICE14_TRAJECTORY_BOUND = 1e-8
+SLICE14_BUNDLES = {"implicit": "implicit_scenes", "sensor": "sensor_scenes"}
+IMPLICIT_WARMUP = 3
+IMPLICIT_TIMED = 30
 # phase 3's sizes: the register kernel's n (the main paths' 2, 5, 8, 12,
 # 14, 23, 27 and the zoo envs' 6 and 9), which both variants run, and n
 # that only the shared kernel runs (32 and 33 on either side of its rows'
@@ -1238,8 +1275,9 @@ def _only(**launches) -> dict:
           **launches}
 
 
-def _seam_shares(m, d, steps, stages=False, advance=None):
-  """Per kernel (and with ``stages``, per sensor stage): device ms per step
+def _seam_shares(m, d, steps, stages=False, advance=None, extra=None):
+  """Per kernel (and with ``stages``, per sensor stage; with ``extra``,
+  {name: (module, function)}, per such function): device ms per step
   inside its seam (CUDA events around each call), and the step's device
   ms, over ``steps`` further steps (``advance(d)``, by default
   mjtpu_torch.step(m, d)).  Also the set of n the Cholesky seam took."""
@@ -1254,18 +1292,19 @@ def _seam_shares(m, d, steps, stages=False, advance=None):
            **{entry: (ldl, entry) for entry in LDL_ENTRIES}}
   if stages:
     seams.update({stage: (sensor, stage) for stage in SENSOR_STAGES})
+  seams.update(extra or {})
   events = {k: [] for k in seams}
   originals = {k: getattr(mod, attr) for k, (mod, attr) in seams.items()}
   advance = advance or (lambda d: mjtpu_torch.step(m, d))
   chol_ns = set()
 
   def timed(key):
-    def call(*args):
+    def call(*args, **kwargs):
       if key == "chol_solve":
         chol_ns.add(int(args[1].shape[-1]))
       start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
       start.record()
-      out = originals[key](*args)
+      out = originals[key](*args, **kwargs)
       end.record()
       events[key].append((start, end))
       return out
@@ -1370,11 +1409,22 @@ def phase_terrain_throughput(card):
   return counts
 
 
-def _scaled_err(got, want) -> float:
-  """max |got - want| over max(1, max |want|)."""
+def _abs_err(got, want):
+  """|got - want|, inf wherever got or want is not finite, so that a NaN
+  fails every bound."""
   import numpy as np
 
-  return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+  err = np.abs(got - want)
+  return np.where(np.isfinite(err), err, np.inf)
+
+
+def _scaled_err(got, want) -> float:
+  """max |got - want| over max(1, max |want|); inf where either is not
+  finite."""
+  import numpy as np
+
+  err = float(_abs_err(got, want).max())
+  return err / max(1.0, float(np.abs(want).max())) if np.isfinite(err) else np.inf
 
 
 def phase_pile_parity():
@@ -2573,7 +2623,7 @@ def equality_scene_errors(name, golden, device, steps=None) -> dict:
   if "sensordata" in fields:
     scale = _sensor_scale(m, {"sensordata": g("sensordata")})
   err = dict.fromkeys(fields, 0.0)
-  for t in range(steps or g("qpos").shape[0]):
+  for t in range(g("qpos").shape[0]):
     d = mjtpu_torch.step(m, _mocap_at(d, golden, name, t))
     for f in fields:
       e = np.abs(host(getattr(d, f)) - g(f)[t])
@@ -2631,6 +2681,166 @@ def phase_equality_parity():
       f" {worst['cfrc.world']:.3e}, every row {worst['cfrc.mjtpu']:.3e}, ROADMAP C11), 100 steps {worst['trajectory']:.3e} (limit {EQ_TRAJECTORY_BOUND}); B1"
       f" launches {kinds}, one per Newton iteration and one a step for a dense tree's Euler"
       " damping")
+
+
+def slice14_scene(kind, name, golden, device, dtype=None):
+  """(Model, Data) at the golden's start of a scene of the Implicit slice:
+  ``kind`` "implicit" or "sensor" (a scene of implicit_scenes.npz or
+  sensor_scenes.npz, its golden's entries under "<name>.") or
+  "humanoid_implicit" (humanoid_implicit_model.npz, its golden's entries
+  unprefixed), on ``device`` at ``dtype`` (default float64)."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  if kind == "humanoid_implicit":
+    ns, prefix = io.load_snapshot(mjtpu_torch.ASSETS / "humanoid_implicit_model.npz"), ""
+  else:
+    ns = io.load_snapshot(mjtpu_torch.ASSETS / f"{SLICE14_BUNDLES[kind]}.npz", name)
+    prefix = f"{name}."
+  m = mjtpu_torch.model_from_arrays(ns, dtype=dtype or torch.float64, device=device)
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{prefix}qpos0"].shape[0])
+  start = {k: torch.as_tensor(golden[f"{prefix}{k}0"], dtype=m.dtype, device=device)
+           for k in ("qpos", "qvel", "ctrl") if f"{prefix}{k}0" in golden}
+  return m, mjtpu_torch.replace(d, **start)
+
+
+def golden_fwd(golden, prefix=""):
+  """mjtpu's forward Data of step 1 from a golden's "fwd." fields, as
+  data_from_mjtpu takes it (numpy leaves under the port's field names)."""
+  import types
+
+  head = prefix + "fwd."
+  fields = {k[len(head):]: v for k, v in golden.items() if k.startswith(head)}
+  ns = types.SimpleNamespace(**{k: v for k, v in fields.items() if not k.startswith("contact.")})
+  ns.contact = types.SimpleNamespace(
+      **{k[8:]: v for k, v in fields.items() if k.startswith("contact.")})
+  return ns
+
+
+def found_columns(m):
+  """The sensordata columns of every CONTACT sensor's ``found`` field."""
+  import numpy as np
+
+  from mjtpu_torch._src import sensor
+  from mjtpu_torch._src.types import SensorType
+
+  cols = []
+  for i in np.nonzero(np.asarray(m.sensor_type) == SensorType.CONTACT)[0]:
+    dataspec, _, num = (int(x) for x in np.asarray(m.sensor_intprm)[i])
+    if dataspec & 1:
+      slotdim = sum(w for bit, _, w in sensor._CONTACT_FIELDS if dataspec & bit)
+      cols += [int(m.sensor_adr[i]) + s * slotdim for s in range(num)]
+  return np.asarray(cols, dtype=np.int64)
+
+
+def slice14_errors(kind, name, golden, device) -> dict:
+  """A scene's errors against its golden (the CPU tests and phase 30 share
+  it), each over its bound's scale, max(1, max |mjtpu's|): "deriv" step
+  1's qDeriv (deriv_smooth_vel, rne under Implicit) and "deriv.fluid" its
+  fluid term alone, from mjtpu's forward Data; "update.<field>" the
+  implicit integrator's qpos and qvel from mjtpu's forward Data, absolute;
+  "fwd.<field>" the port's forward's qacc, energy and sensordata (of each
+  sensor's scale); "trajectory.<field>" qpos and qvel over the golden's
+  steps, absolute, sensordata of each sensor's scale and
+  energy of scale, a step whose sensordata parts from mjtpu's in an env
+  held only where one of ELLIPTIC_TIE_COPIES copies of that env's state
+  a few ULP away takes mjtpu's path (a tie: "ties" counts them); "found"
+  the CONTACT found entries that differ (a count, over the forward and
+  every step). Every error is inf where the port's value or mjtpu's is
+  not finite."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import derivative
+  from mjtpu_torch._src.types import IntegratorType
+
+  prefix = "" if kind == "humanoid_implicit" else f"{name}."
+  g = lambda f: golden[f"{prefix}{f}"]
+  has = lambda f: f"{prefix}{f}" in golden
+  host = lambda x: x.cpu().numpy()
+  m, d = slice14_scene(kind, name, golden, device)
+  out = {}
+  ref = mjtpu_torch.data_from_mjtpu(golden_fwd(golden, prefix), device=device)
+  if has("deriv"):
+    rne = m.opt.integrator == IntegratorType.IMPLICIT
+    out["deriv"] = _scaled_err(host(mjtpu_torch.deriv_smooth_vel(m, ref, rne=rne)), g("deriv"))
+    upd = mjtpu_torch.implicit(m, ref)
+    for f in ("qpos", "qvel"):
+      out[f"update.{f}"] = float(_abs_err(host(getattr(upd, f)), g(f)[0]).max())
+  if has("deriv.fluid"):
+    fluid, _ = derivative._velocity_jacobians(m, ref, True, False)
+    out["deriv.fluid"] = _scaled_err(host(fluid), g("deriv.fluid"))
+  fwd = mjtpu_torch.forward(m, d)
+  out["fwd.qacc"] = _scaled_err(host(fwd.qacc), g("fwd.qacc"))
+  out["fwd.energy"] = _scaled_err(host(fwd.energy), g("fwd.energy"))
+  cols = found_columns(m)
+  found = int((host(fwd.sensordata)[:, cols] != g("fwd.sensordata")[:, cols]).sum())
+  fields = [f for f in ("qpos", "qvel", "sensordata", "energy") if has(f)]
+  scale = {"energy": max(1.0, float(np.abs(g("energy")).max()))} if has("energy") else {}
+  if m.nsensordata:
+    scale["sensordata"] = _sensor_scale(m, {"sensordata": g("sensordata") if has("sensordata")
+                                            else g("fwd.sensordata")[None]})
+    out["fwd.sensordata"] = float((_abs_err(host(fwd.sensordata), g("fwd.sensordata"))
+                                   / scale["sensordata"]).max())
+  err = dict.fromkeys(fields, 0.0)
+  ties = 0
+  for t in range(g("qpos").shape[0]):
+    before, d = d, mjtpu_torch.step(m, d)
+    for f in fields:
+      got = host(getattr(d, f))
+      e = _abs_err(got, g(f)[t]) / scale.get(f, 1.0)
+      if f == "sensordata":
+        found += int((got[:, cols] != g(f)[t][:, cols]).sum())
+        for b in np.flatnonzero(e.max(axis=1, initial=0.0) > SLICE14_TRAJECTORY_BOUND):
+          # a tie (ROADMAP C13) only where a copy of the env's state a few
+          # ULP away takes mjtpu's path
+          copies = host(mjtpu_torch.step(m, _env_ulp_copies(before, b)).sensordata)
+          if (_abs_err(copies, g(f)[t][b]) / scale[f]).max(axis=1).min() <= \
+              SLICE14_TRAJECTORY_BOUND:
+            ties += 1
+            e[b] = 0.0
+      err[f] = max(err[f], float(e.max(initial=0.0)))
+  out.update({f"trajectory.{f}": v for f, v in err.items()})
+  out["found"] = found
+  out["ties"] = ties
+  return out
+
+
+def _env_ulp_copies(d, b):
+  """ELLIPTIC_TIE_COPIES copies of env b of the Data ``d``, their qpos and
+  qvel moved by 1-3 ULP (numpy seed 0, as _ulp_copies)."""
+  import dataclasses
+
+  import torch
+
+  import mjtpu_torch
+
+  rows = torch.full((ELLIPTIC_TIE_COPIES,), int(b), device=d.qpos.device)
+  take = lambda obj: dataclasses.replace(obj, **{
+      f.name: take(getattr(obj, f.name)) if dataclasses.is_dataclass(getattr(obj, f.name))
+      else getattr(obj, f.name)[rows] for f in dataclasses.fields(obj)})
+  copies = take(d)
+  moved = _ulp_copies({k: getattr(copies, k)[:1].cpu().numpy() for k in ("qpos", "qvel")}, [0])
+  return mjtpu_torch.replace(copies, **{k: torch.as_tensor(v, device=d.qpos.device)
+                                        for k, v in moved.items()})
+
+
+def slice14_bound(key: str) -> float | None:
+  """The bound of a slice14_errors entry (None: not bounded)."""
+  if key == "found":
+    return 0
+  if key == "ties":
+    return None
+  return SLICE14_TRAJECTORY_BOUND if key.startswith("trajectory") else SLICE14_STEP_BOUND
+
+
+def slice14_over(errs: dict) -> dict:
+  """The entries of a slice14_errors result over their bounds (a NaN is
+  over every bound)."""
+  return {k: v for k, v in errs.items()
+          if slice14_bound(k) is not None and not v <= slice14_bound(k)}
 
 
 def _mocap_path(card):
@@ -2696,8 +2906,8 @@ def phase_mocap_throughput(card):
 
 def phase_tendon_throughput(card):
   """The tendon main path (phase 27): the mixed tendon scene at f32
-  B=4096, TIMED_STEPS timed steps, then muscle.xml, MUSCLE_TIMED."""
-  line, mixed = _tendon_path("mixed", TIMED_STEPS, card, profile=True)
+  B=4096, TENDON_TIMED timed steps, then muscle.xml, MUSCLE_TIMED."""
+  line, mixed = _tendon_path("mixed", TENDON_TIMED, card, profile=True)
   log(f"[tendon throughput] mixed tendon scene (tests/test_tendon.py's _MIXED_XML: spatial"
       " tendon on a cylinder with limit and frictionloss, fixed tendon spring, tendon motor)"
       f" {line}")
@@ -2752,8 +2962,165 @@ def phase_swimmer_throughput(card):
   return counts
 
 
+def phase_slice14_parity():
+  """Both bundles of the Implicit slice and humanoid_implicit at f64 on the
+  card against their mjtpu goldens, at the CPU tests' bounds
+  (slice14_errors; phase 30); one B1 launch per Newton iteration (and one
+  a step for a dense tree's Euler damping); on the geom-distance scene,
+  sensor_pos's B3 launches (_geomdist_b3) in every forward pass, and the
+  box-box distance with B3 equal bit for bit to the same with B3's
+  twin."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io, solver
+  from mjtpu_torch.ops import cholesky, sat
+
+  worst, ties, kinds = {}, 0, dict.fromkeys(cholesky.variant_launches, 0)
+  runs = [("humanoid_implicit", None, dict(np.load(
+      mjtpu_torch.ASSETS / "humanoid_implicit_golden.npz")))]
+  for kind, bundle in SLICE14_BUNDLES.items():
+    golden = dict(np.load(mjtpu_torch.ASSETS / f"{bundle}_golden.npz"))
+    runs += [(kind, name, golden) for name in io.bundle_names(mjtpu_torch.ASSETS / f"{bundle}.npz")]
+  for kind, name, golden in runs:
+    m, _ = slice14_scene(kind, name, golden, "cpu")
+    before, newton = dict(cholesky.variant_launches), solver.loop_counts["iterations"]
+    sat_before = dict(sat.variant_launches)
+    errs = slice14_errors(kind, name, golden, "cuda")
+    steps = golden[f"{name}.qpos" if name else "qpos"].shape[0]
+    launched = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    want = solver.loop_counts["iterations"] - newton + (steps + errs["ties"]) * _damping_solves(m)
+    if sum(launched.values()) != want:
+      raise AssertionError(f"{name or kind}: B1 launches {launched}, want {want}")
+    bad = slice14_over(errs)
+    if bad:
+      raise AssertionError(f"{name or kind} f64 on the card: {bad}")
+    if name == "geomdist":
+      sat_launched = {k: sat.variant_launches[k] - sat_before[k] for k in sat_before}
+      per_forward, box_bits = _geomdist_b3(name, golden)
+      calls = 1 + steps + errs["ties"]  # the forward, every step, every tie copy's step
+      if sat_launched != {k: calls * v for k, v in per_forward.items()}:
+        raise AssertionError(f"geomdist: B3 launches {sat_launched} in {calls} forward passes,"
+                             f" want {per_forward} each")
+    ties += errs["ties"]
+    for k, v in launched.items():
+      kinds[k] += v
+    for k, v in errs.items():
+      group = k if k in ("found", "ties") else k.split(".")[0]
+      worst[group] = max(worst.get(group, 0.0), v)
+  log(f"[implicit parity] humanoid_implicit and {len(runs) - 1} scenes of implicit_scenes.npz"
+      f" and sensor_scenes.npz f64 B=4: max err, step 1's qDeriv {worst['deriv']:.3e} of scale,"
+      f" the implicit update {worst['update']:.3e}, forward's qacc, energy and sensors"
+      f" {worst['fwd']:.3e} (limit {SLICE14_STEP_BOUND}), 100 steps {worst['trajectory']:.3e}"
+      f" (limit {SLICE14_TRAJECTORY_BOUND}), CONTACT found entries that differ {worst['found']},"
+      f" contact-sensor ties taken by a ULP copy {ties} (ROADMAP C13); B1 launches {kinds}, one"
+      f" per Newton iteration; geomdist: B3 per forward pass {per_forward} (sensor_pos once"
+      f" per SAT collider of its pairs: static for box-box, in both orders, shared for"
+      f" box-cylinder), its box-box distance with B3 static against its twin: {box_bits}"
+      f" entries whose bits differ")
+  if box_bits:
+    raise AssertionError(f"geomdist: B3 static and its twin part on {box_bits} entries")
+
+
+def _geomdist_b3(name, golden) -> tuple[dict, int]:
+  """B3 on the geom-distance scene at step 1 on the card: (its launches by
+  variant in one forward pass: collision's and sensor_pos's, which must
+  launch once per SAT collider of the sensors' pairs, static for the
+  box-box ones, shared for box-cylinder; the entries of the box-box
+  distance and fromto whose bits differ between B3 static and B3's twin
+  on the same inputs)."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import collision_convex, sensor, support
+  from mjtpu_torch._src.types import GeomType, ObjType, SensorType
+  from mjtpu_torch.ops import sat
+
+  m, d = slice14_scene("sensor", name, golden, "cuda")
+  before = dict(sat.variant_launches)
+  fwd = mjtpu_torch.fwd_position(m, d)
+  middle = dict(sat.variant_launches)
+  mjtpu_torch.sensor_pos(m, fwd)
+  sensors = {k: sat.variant_launches[k] - middle[k] for k in middle}
+  # one launch per SAT collider of the sensors' pairs (a pair type and
+  # its hulls in mjtpu's order), by the size dispatch's variant
+  pairs = sensor._geomdist_tables(m)
+  want = dict.fromkeys(sensors, 0)
+  for fn, *_ in support._distance_tables(m, tuple(pairs["g1"]), tuple(pairs["g2"])):
+    if getattr(fn, "func", None) is collision_convex.convex_convex:
+      want[sat.variant(fn.keywords["hull1"].sat, fn.keywords["hull2"].sat)] += 1
+  if sensors != want or not want["static"]:
+    raise AssertionError(f"geomdist: sensor_pos launched B3 {sensors}, want {want}")
+  per_forward = {k: sat.variant_launches[k] - before[k] for k in before}
+  box = lambda g: int(m.geom_type[g]) == GeomType.BOX
+  g1, g2 = next(((int(o),), (int(r),)) for t, ot, o, r in zip(
+      m.sensor_type, m.sensor_objtype, m.sensor_objid, m.sensor_refid)
+      if t == SensorType.GEOMDIST and ot == ObjType.GEOM and box(o) and box(r))
+  cut = torch.full((1,), 2.0, dtype=m.dtype, device="cuda")
+  before = sat.variant_launches["static"]
+  kernel = support.geom_distances(m, fwd, g1, g2, cut)
+  if sat.variant_launches["static"] != before + 1:
+    raise AssertionError("geomdist: the box-box distance did not launch B3 static")
+  launch = sat.sat_winners_batch
+  sat.sat_winners_batch = lambda *args, kernel=None: sat.sat_winners_reference(*args)
+  try:
+    twin = support.geom_distances(m, fwd, g1, g2, cut)
+  finally:
+    sat.sat_winners_batch = launch
+  return per_forward, sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(kernel, twin))
+
+
+def _implicit_path(card):
+  """humanoid_implicit at f32 B=4096 (phase 31, the Implicit slice's main
+  path): the zoo's humanoid.xml under the full Implicit integrator from
+  qpos0 +-0.01 (numpy seed 1), IMPLICIT_WARMUP warm-up and IMPLICIT_TIMED
+  timed steps (B1 register at n=23 only, one launch per Newton
+  iteration); its line and counts."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import derivative, smooth
+
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_implicit_model.npz"),
+      dtype=torch.float32, device="cuda")
+  d, secs, counts, loops = _timed_main_path(m, _f32_start(m), IMPLICIT_WARMUP, IMPLICIT_TIMED)
+  if counts != _only(chol_solve=loops["iterations"]):
+    raise AssertionError(f"humanoid_implicit: kernel launches in {IMPLICIT_TIMED} timed steps:"
+                         f" {counts}, Newton {loops}")
+  rate = BENCH_BATCH * IMPLICIT_TIMED / secs
+  shares, step_ms = _seam_shares(m, d, 2, extra={
+      "deriv_smooth_vel": (derivative, "deriv_smooth_vel"), "lu": (smooth, "_lu_solve")})
+  if shares["chol_ns"] != {m.nv}:
+    raise AssertionError(f"humanoid_implicit: B1 took n in {shares['chol_ns']}, not {m.nv}")
+  busy, launches = _busy_share(lambda d: mjtpu_torch.step(m, d), d)
+  live = int((d.contact.dist < 0).sum())
+  share = lambda k: f"{shares[k]:.4f} ms ({100 * shares[k] / step_ms:.2f}%)"
+  line = (f"f32 B={BENCH_BATCH} (nv={m.nv}, nefc {mjtpu_torch.count_constraints(m)[3]}, contact"
+          f" slots {d.contact.dist.shape[1]}): {IMPLICIT_WARMUP} warm-up and {IMPLICIT_TIMED}"
+          f" timed steps in {secs:.3f} s = {rate:.0f} env-steps/s"
+          f" ({1e3 * secs / IMPLICIT_TIMED:.3f} ms/step); qpos finite, nreset 0, {live} live"
+          f" contacts over the batch at the end; per step: B1 register"
+          f" {counts['chol_solve'] / IMPLICIT_TIMED:.2f} launches (n={m.nv}; Newton"
+          f" {loops['iterations'] / IMPLICIT_TIMED:.2f} iterations and"
+          f" {loops['ls_rounds'] / IMPLICIT_TIMED:.2f} linesearch rounds); device step"
+          f" {step_ms:.3f} ms, of it B1 {share('chol_solve')}, deriv_smooth_vel (RNE"
+          f" derivative over B x nv) {share('deriv_smooth_vel')}, the LU of qM - h qDeriv"
+          f" {share('lu')}; one profiled step: {launches} kernel launches, device busy"
+          f" {100 * busy:.1f}% of its wall time; card {card}")
+  return line, counts
+
+
+def phase_implicit_throughput(card):
+  """The Implicit slice's main path (phase 31)."""
+  line, counts = _implicit_path(card)
+  log(f"[implicit throughput] humanoid_implicit (the zoo's humanoid.xml, Implicit, Newton 8 x 8,"
+      f" the RNE velocity derivative, the dense LU) {line}")
+  return counts
+
+
 # the parity phases that run in a process of their own beside phase 22
-SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28")
+SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28", "30")
 SIDE_TIMEOUT_S = 600
 
 
@@ -2791,7 +3158,8 @@ def _side_main(phase: str) -> int:
   {"5": phase_parity, "7": phase_terrain_parity, "10": phase_pile_parity,
    "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
    "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
-   "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity}[phase]()
+   "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity,
+   "30": phase_slice14_parity}[phase]()
   return 0
 
 
@@ -2865,6 +3233,8 @@ def main() -> int:
   lap("27")
   paths["mocap"] = phase_mocap_throughput(card)
   lap("29")
+  paths["humanoid_implicit"] = phase_implicit_throughput(card)
+  lap("31")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():

@@ -35,10 +35,14 @@ Euler's implicit damping on a forest.  Equality constraints run too
 (connect, weld, joint and tendon couplings, each env's ``eq_active``), as
 do mocap bodies (each env's ``mocap_pos`` and ``mocap_quat``), ball-joint
 limits and ImplicitFast on a forest (the blocked LU of
-``factor_solve``).  ``put_model`` refuses models outside the slices with
-NotImplementedError naming the feature (the Implicit integrator, fluid
-forces under the implicit integrators, the enable flags and seven sensor
-types among them).
+``factor_solve``).  So do the full Implicit integrator (qDeriv with the
+RNE and fluid velocity derivatives, ``deriv_smooth_vel``), the energy
+flag (``potential_energy``, ``kinetic_energy``, ``energy_pos``,
+``energy_vel``) and every sensor type mjtpu computes, the energy,
+geom-distance (``geom_distance``), camera-projection and contact sensors
+among them.  ``put_model`` refuses, with NotImplementedError naming the
+feature, what mjtpu refuses (flex, PGS, user sensors) and the OVERRIDE,
+FWDINV and INVDISCRETE enable flags.
 """
 
 import pathlib
@@ -83,6 +87,10 @@ from mjtpu_torch._src.smooth import (
     factor_solve,
     kinematics,
     rne,
+    energy_pos,
+    energy_vel,
+    kinetic_energy,
+    potential_energy,
     rne_postconstraint,
     solve_m,
     subtree_vel,
@@ -95,6 +103,7 @@ from mjtpu_torch._src.support import (
     constraint_sizes,
     contact_forces,
     count_constraints,
+    geom_distance,
     jac,
     xfrc_accumulate,
 )

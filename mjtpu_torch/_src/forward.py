@@ -1,11 +1,11 @@
-"""Forward dynamics orchestration + the Euler, ImplicitFast and RK4 integrators.
+"""Forward dynamics orchestration + the Euler, implicit and RK4 integrators.
 
-Port of mjtpu/_src/forward.py (the slices' part): _check_state, the
-fwd_* stages (tendons, actuator activation dynamics and muscles
-included), forward with the three sensor stages, _advance (the exact
-filter update, the activation clamp), euler (with implicit joint
-damping), implicit (ImplicitFast), rungekutta4 and step, batch-explicit
-over B envs.  put_model refuses the full Implicit integrator.
+Port of mjtpu/_src/forward.py: _check_state, the fwd_* stages (tendons,
+actuator activation dynamics and muscles included; the energy under
+EnableBit.ENERGY), forward with the three sensor stages, _advance (the
+exact filter update, the activation clamp), euler (with implicit joint
+damping), implicit (ImplicitFast and the full Implicit integrator),
+rungekutta4 and step, batch-explicit over B envs.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from mjtpu_torch._src.types import (
     Data,
     DisableBit,
     DynType,
+    EnableBit,
     GainType,
     IntegratorType,
     JointType,
@@ -69,6 +70,8 @@ def fwd_position(m: Model, d: Data) -> Data:
   d = collision_driver.collision(m, d)
   d = constraint.make_constraint(m, d)
   d = smooth.transmission(m, d)
+  if m.opt.enableflags & EnableBit.ENERGY:
+    d = smooth.energy_pos(m, d)
   return d
 
 
@@ -81,6 +84,8 @@ def fwd_velocity(m: Model, d: Data) -> Data:
   d = smooth.com_vel(m, d)
   d = passive_mod.passive(m, d)
   d = smooth.rne(m, d)
+  if m.opt.enableflags & EnableBit.ENERGY:
+    d = smooth.energy_vel(m, d)
   return d
 
 
@@ -306,11 +311,16 @@ def euler(m: Model, d: Data) -> Data:
 
 
 def implicit(m: Model, d: Data) -> Data:
-  """ImplicitFast (mj_implicit without the RNE derivative): the velocity
-  update solves (qM - h * qDeriv) qacc = qfrc_smooth + qfrc_constraint,
-  with qDeriv symmetrized as C's ImplicitFast does."""
-  qderiv = derivative.deriv_smooth_vel(m, d)
-  qderiv = 0.5 * (qderiv + qderiv.transpose(-1, -2))
+  """The implicit-in-velocity integrators (mj_implicit): the velocity
+  update solves (qM - h * qDeriv) qacc = qfrc_smooth + qfrc_constraint by
+  the batched LU of factor_solve (blocked per tree on a forest).  The full
+  Implicit integrator's qDeriv holds the RNE derivative and is not
+  symmetric; ImplicitFast's leaves it out and symmetrizes qDeriv, as C's
+  ImplicitFast does."""
+  full = m.opt.integrator == IntegratorType.IMPLICIT
+  qderiv = derivative.deriv_smooth_vel(m, d, rne=full)
+  if not full:
+    qderiv = 0.5 * (qderiv + qderiv.transpose(-1, -2))
   mh = d.qM - m.opt.timestep * qderiv
   qfrc = d.qfrc_smooth + d.qfrc_constraint
   qacc = smooth.factor_solve(m, mh, qfrc, symmetric=False)
@@ -355,7 +365,7 @@ def step(m: Model, d: Data) -> Data:
   """Advances every env one timestep (mj_step)."""
   d = _check_state(m, d)
   d = forward(m, d)
-  if m.opt.integrator == IntegratorType.IMPLICITFAST:
+  if m.opt.integrator in (IntegratorType.IMPLICITFAST, IntegratorType.IMPLICIT):
     return implicit(m, d)
   if m.opt.integrator == IntegratorType.RK4:
     return rungekutta4(m, d)

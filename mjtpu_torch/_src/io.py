@@ -34,6 +34,7 @@ from mjtpu_torch._src.types import (
     Contact,
     ConvexMesh,
     Data,
+    EnableBit,
     EqType,
     GainType,
     GeomType,
@@ -151,12 +152,23 @@ EQ_FIELDS = {
     "eq_solimp": (0.0, (NIMP,), np.float64), "eq_data": (0.0, (NEQDATA,), np.float64),
 }
 MOCAP_FIELDS = {"body_mocapid": (-1, (), np.int32)}
-# the fields of TENDON_FIELDS and ACT_FIELDS that the port keeps on the
-# host (index tables and the wraps' static parameters)
+# the fields only a sensor type reads, stored where the model has such a
+# sensor: a CONTACT sensor's [dataspec, reduce, num] (rows: nsensor), a
+# CAMPROJECTION sensor's camera intrinsics (rows: ncam), and the geoms of
+# a body operand of GEOMDIST, GEOMNORMAL and GEOMFROMTO (rows: nbody)
+CONTACT_SENSOR_FIELDS = {"sensor_intprm": (0, (3,), np.int32)}
+CAMPROJ_FIELDS = {
+    "cam_resolution": (0, (2,), np.int32), "cam_sensorsize": (0.0, (2,), np.float32),
+    "cam_intrinsic": (0.0, (4,), np.float32), "cam_fovy": (0.0, (), np.float64),
+}
+GEOMDIST_FIELDS = {"body_geomadr": (-1, (), np.int32), "body_geomnum": (0, (), np.int32)}
+# the optional fields that the port keeps on the host (index tables, the
+# wraps' and the sensors' static parameters)
 _HOST_FIELDS = frozenset(("nwrap", "tendon_adr", "tendon_num", "tendon_limited", "wrap_type",
                           "wrap_objid", "wrap_prm", "actuator_actadr", "actuator_actnum",
                           "actuator_actlimited", "actuator_actearly", "eq_type", "eq_obj1id",
-                          "eq_obj2id", "eq_objtype", "eq_active0", "body_mocapid"))
+                          "eq_obj2id", "eq_objtype", "eq_active0", "body_mocapid",
+                          *CONTACT_SENSOR_FIELDS, *CAMPROJ_FIELDS, *GEOMDIST_FIELDS))
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -175,7 +187,10 @@ SENSORS_PORTED = frozenset(SensorType[n] for n in (
     "TENDONLIMITVEL",
     "ACCELEROMETER", "FRAMELINACC", "FRAMEANGACC", "FORCE", "TORQUE", "ACTUATORFRC",
     "JOINTACTFRC", "TENDONACTFRC", "JOINTLIMITFRC", "TENDONLIMITFRC", "TOUCH",
+    "E_POTENTIAL", "E_KINETIC", "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "CAMPROJECTION",
+    "CONTACT",
 ))
+GEOMDIST_SENSORS = frozenset((SensorType.GEOMDIST, SensorType.GEOMNORMAL, SensorType.GEOMFROMTO))
 
 
 def _get(ns, name: str):
@@ -216,17 +231,32 @@ def has_mocap_fields(ns) -> bool:
   return int(ns.nmocap) > 0
 
 
+def _has_sensor(ns, types) -> bool:
+  return bool(np.isin(np.asarray(ns.sensor_type), [int(t) for t in types]).any())
+
+
+# each optional field group and whether a snapshot of ``ns`` stores it
+OPTIONAL_GROUPS = (
+    (TENDON_FIELDS, has_tendon_fields), (ACT_FIELDS, has_act_fields),
+    (EQ_FIELDS, has_eq_fields), (MOCAP_FIELDS, has_mocap_fields),
+    (CONTACT_SENSOR_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CONTACT,))),
+    (CAMPROJ_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CAMPROJECTION,))),
+    (GEOMDIST_FIELDS, lambda ns: _has_sensor(ns, GEOMDIST_SENSORS)),
+)
+
+
 def _optional_field(ns, name: str, spec, stored: bool):
-  """A field of TENDON_FIELDS, ACT_FIELDS, EQ_FIELDS or MOCAP_FIELDS:
-  ns's where a snapshot stores it, else its fill at the model's row count,
-  so a live MjModel and its snapshot give the same Model."""
+  """A field of OPTIONAL_GROUPS: ns's where a snapshot stores it, else its
+  fill at the model's row count, so a live MjModel and its snapshot give
+  the same Model."""
   fill, shape, dtype = spec
   if stored:
     return np.array(getattr(ns, name), dtype=dtype)
   if shape is None:
     return np.array(fill, dtype=dtype)
   # no tendon, wrap or equality where the field is left out
-  rows = {"actuator": int(ns.nu), "body": int(ns.nbody)}.get(name.split("_")[0], 0)
+  rows = {"actuator": int(ns.nu), "body": int(ns.nbody), "sensor": int(ns.nsensor),
+          "cam": int(ns.ncam)}.get(name.split("_")[0], 0)
   return np.full((rows,) + shape, fill, dtype=dtype)
 
 
@@ -240,10 +270,7 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
   extra = ((FRICTION_FIELDS if np.any(np.asarray(mjm.dof_frictionloss) > 0) else ())
            + (FLUID_FIELDS if has_fluid(mjm.opt) else ())
            + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ())
-           + (tuple(TENDON_FIELDS) if has_tendon_fields(mjm) else ())
-           + (tuple(ACT_FIELDS) if has_act_fields(mjm) else ())
-           + (tuple(EQ_FIELDS) if has_eq_fields(mjm) else ())
-           + (tuple(MOCAP_FIELDS) if has_mocap_fields(mjm) else ()))
+           + tuple(name for group, stored in OPTIONAL_GROUPS if stored(mjm) for name in group))
   for name in SNAPSHOT_FIELDS + extra:
     v = _get(mjm, name)
     if name == "names":
@@ -361,19 +388,17 @@ def _validate(ns) -> None:
   eq_type = np.asarray(getattr(ns, "eq_type", ()))
   for t in sorted(set(int(t) for t in eq_type) - {int(e) for e in EqType}):
     refuse(True, f"equality constraint type {t}")
-  # mjtpu adds the fluid forces' velocity derivative to qDeriv by
-  # jax.jacfwd, which the port does not have yet
-  refuse(has_fluid(o) and int(o.integrator) in (IntegratorType.IMPLICIT,
-                                                 IntegratorType.IMPLICITFAST),
-         "fluid forces under the implicit integrators")
   refuse(int(o.solver) not in (SolverType.CG, SolverType.NEWTON),
          f"solver {int(o.solver)} (only CG and Newton)")
-  refuse(int(o.integrator) == IntegratorType.IMPLICIT,
-         "the implicit integrator (RNE velocity derivative)")
   refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST,
-                                   IntegratorType.RK4),
-         f"integrator {int(o.integrator)} (only Euler, ImplicitFast and RK4)")
-  refuse(int(o.enableflags), f"enable flags {int(o.enableflags):#x}")
+                                   IntegratorType.IMPLICIT, IntegratorType.RK4),
+         f"integrator {int(o.integrator)}")
+  # the energy flag runs; the others wait for inverse dynamics (FWDINV,
+  # INVDISCRETE) and the contact overrides (OVERRIDE)
+  flags = int(o.enableflags)
+  for flag in EnableBit:
+    refuse(flag != EnableBit.ENERGY and flags & flag, f"the {flag.name} enable flag")
+  refuse(flags & ~sum(EnableBit), f"enable flags {flags & ~sum(EnableBit):#x}")
 
 
 def _device(device) -> torch.device:
@@ -437,12 +462,8 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["mesh_convex"] = ns.mesh_convex if hasattr(ns, "mesh_convex") else mesh.get(ns)
   fields["geom_convex"] = ns.geom_convex if hasattr(ns, "geom_convex") else mesh.get_geoms(ns)
 
-  opt_np = {name: _optional_field(ns, name, spec, stored)
-            for group, stored in ((TENDON_FIELDS, has_tendon_fields(ns)),
-                                  (ACT_FIELDS, has_act_fields(ns)),
-                                  (EQ_FIELDS, has_eq_fields(ns)),
-                                  (MOCAP_FIELDS, has_mocap_fields(ns)))
-            for name, spec in group.items()}
+  opt_np = {name: _optional_field(ns, name, spec, stored(ns))
+            for group, stored in OPTIONAL_GROUPS for name, spec in group.items()}
   for name, v in opt_np.items():
     fields[name] = v if name in _HOST_FIELDS else f(v)
   fields["nwrap"] = int(opt_np["nwrap"])
@@ -546,14 +567,14 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       efc_aref=zero(nefc), efc_force=zero(nefc), qfrc_actuator=zero(nv),
       qfrc_smooth=zero(nv), qacc_smooth=zero(nv), qfrc_constraint=zero(nv),
       cacc=zero(nbody, 6), cfrc_int=zero(nbody, 6), cfrc_ext=zero(nbody, 6),
-      sensordata=zero(m.nsensordata),
+      sensordata=zero(m.nsensordata), energy=zero(2),
       solver_niter=torch.zeros(B, dtype=torch.int32, device=device),
       nreset=torch.zeros(B, dtype=torch.int32, device=device),
   )
 
 
 _STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "ctrl", "qfrc_applied", "xfrc_applied",
-                 "mocap_pos", "mocap_quat")
+                 "mocap_pos", "mocap_quat", "energy")
 
 
 def put_data(m: Model, mjds) -> Data:

@@ -139,7 +139,25 @@ def _ellipsoid_tables(m: Model) -> dict:
   )
 
 
-def _ellipsoid_fluid_model(m: Model, d: Data) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# the fluid models' tangents (the velocity derivative's fluid term, which
+# mjtpu takes with jax.jacfwd) are written out, the product rule term by
+# term; at ties they take jax's rules: max(x, y) at x == y splits the
+# tangent in halves, a norm or a square root at 0 gives NaN, as does mjtpu's
+# ---------------------------------------------------------------------------
+
+
+def _max_jvp(x: torch.Tensor, floor, x_t: torch.Tensor) -> torch.Tensor:
+  """The tangent of max(x, floor) (a constant floor) by jax's rule."""
+  return torch.where(x > floor, x_t, torch.where(x == floor, 0.5 * x_t, 0.0))
+
+
+def _sqrt_jvp(root: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+  """The tangent of root = sqrt(x): x_t * (0.5 / root), NaN at 0 (jax's)."""
+  return x_t * (0.5 / root)
+
+
+def _ellipsoid_fluid_model(m: Model, d: Data, cvel_t: torch.Tensor | None = None) -> torch.Tensor:
   """Per-geom ellipsoid fluid model (mj_ellipsoidFluidModel), (B, nv):
 
     Kirchhoff added mass  F += p×ω,  T += p×v + h×ω
@@ -156,51 +174,70 @@ def _ellipsoid_fluid_model(m: Model, d: Data) -> torch.Tensor:
                           IIⱼ = 8/15 π rⱼ max(rₖ,rₗ)⁴,  I_max = 8/15 π r_mid r_max⁴
 
   all in the geom frame with v = linear velocity of the geom center minus
-  wind, ω = angular velocity; every fluid geom of the batch at once."""
+  wind, ω = angular velocity; every fluid geom of the batch at once.
+  With ``cvel_t`` (B, nbody, 6), the forces' tangent along cvel_t
+  instead."""
   s = cached(m, "passive.ellipsoid", lambda: _ellipsoid_tables(m))
   pi = torch.pi
   rho, beta = m.opt.density, m.opt.viscosity
   xpos, xmat = d.geom_xpos[:, s["gids"]], d.geom_xmat[:, s["gids"]]
   xmat_t = xmat.transpose(-1, -2)
-  lvel = math.transform_motion(d.cvel[:, s["gbody"]],
-                               xpos - d.subtree_com[:, s["bodies"]["rootid"]], xmat_t)
+  offset = xpos - d.subtree_com[:, s["bodies"]["rootid"]]
+  lvel = math.transform_motion(d.cvel[:, s["gbody"]], offset, xmat_t)
   w = lvel[..., :3]
   v = lvel[..., 3:] - math.mat_vec(xmat_t, m.opt.wind)
   coef = s["coef"]
   c_blunt, c_slender, c_ang, c_kutta, c_magnus = (coef[:, k, None] for k in range(1, 6))
   vmass, vinertia = coef[:, 6:9], coef[:, 9:12]
 
-  # Kirchhoff added-mass momentum coupling (zero-acceleration terms)
-  p = rho * vmass * v
+  p = rho * vmass * v  # Kirchhoff added-mass momentum coupling
   h = rho * vinertia * w
-  frc = math.cross(p, w)
-  trq = math.cross(p, v) + math.cross(h, w)
-
-  # Stokes linear resistance at the equivalent sphere
-  frc = frc - 3.0 * pi * s["d_eq"] * beta * v
-  trq = trq - pi * _cube(s["d_eq"]) * beta * w
-
-  dd2 = s["dd"] * s["dd"]
+  stokes_v = 3.0 * pi * s["d_eq"] * beta  # Stokes resistance at the equivalent sphere
+  stokes_w = pi * _cube(s["d_eq"]) * beta
+  dd2, dd4 = s["dd"] * s["dd"], _fourth(s["dd"])
   s2 = torch.sum(dd2 * v * v, dim=-1, keepdim=True)
-  s4 = torch.sum(_fourth(s["dd"]) * v * v, dim=-1, keepdim=True)
+  s4 = torch.sum(dd4 * v * v, dim=-1, keepdim=True)
   vnorm = math.norm3(v)[..., None]
-  a_proj = pi * torch.sqrt(s4 / torch.clamp_min(s2, math.MINVAL))
-  frc = frc - rho * (
-      c_blunt * a_proj + c_slender * torch.clamp_min(s["a_max"] - a_proj, 0.0)
-  ) * vnorm * v
-
+  den2, den4 = torch.clamp_min(s2, math.MINVAL), torch.clamp_min(s4, math.MINVAL)
+  a_proj = pi * torch.sqrt(s4 / den2)
+  slender = s["a_max"] - a_proj
+  drag = c_blunt * a_proj + c_slender * torch.clamp_min(slender, 0.0)
   n = dd2 * v
-  kutta = pi * torch.sqrt(s2 / torch.clamp_min(s4, math.MINVAL))
-  kutta = kutta / torch.clamp_min(vnorm, math.MINVAL)
-  frc = frc + c_kutta * rho * kutta * math.cross(math.cross(n, v), v)
-
-  frc = frc + c_magnus * rho * s["volume"] * math.cross(w, v)
-
+  root = torch.sqrt(s2 / den4)
+  vn = torch.clamp_min(vnorm, math.MINVAL)
+  kutta = pi * root / vn
+  nxv = math.cross(n, v)
+  lift = math.cross(nxv, v)
   mmix = c_ang * s["moi"] + c_slender * (s["moi_max"] - s["moi"])
-  trq = trq - rho * w * torch.sqrt(torch.sum((mmix * w) ** 2, dim=-1, keepdim=True))
+  mw = mmix * w
+  drag_w = torch.sqrt(torch.sum(mw * mw, dim=-1, keepdim=True))
 
+  if cvel_t is None:
+    frc = (math.cross(p, w) - stokes_v * v - rho * drag * vnorm * v
+           + c_kutta * rho * kutta * lift + c_magnus * rho * s["volume"] * math.cross(w, v))
+    trq = math.cross(p, v) + math.cross(h, w) - stokes_w * w - rho * w * drag_w
+  else:
+    lvel_t = math.transform_motion(cvel_t[:, s["gbody"]], offset, xmat_t)
+    w_t, v_t = lvel_t[..., :3], lvel_t[..., 3:]
+    p_t, h_t = rho * vmass * v_t, rho * vinertia * w_t
+    s2_t = torch.sum(dd2 * (v_t * v + v * v_t), dim=-1, keepdim=True)
+    s4_t = torch.sum(dd4 * (v_t * v + v * v_t), dim=-1, keepdim=True)
+    vnorm_t = _sqrt_jvp(vnorm, math.dot3(v_t, v)[..., None] + math.dot3(v, v_t)[..., None])
+    den2_t, den4_t = _max_jvp(s2, math.MINVAL, s2_t), _max_jvp(s4, math.MINVAL, s4_t)
+    a_proj_t = pi * _sqrt_jvp(a_proj / pi, s4_t / den2 - s4 / den2 * den2_t / den2)
+    drag_t = c_blunt * a_proj_t + c_slender * _max_jvp(slender, 0.0, -a_proj_t)
+    root_t = _sqrt_jvp(root, s2_t / den4 - s2 / den4 * den4_t / den4)
+    kutta_t = pi * root_t / vn - kutta / vn * _max_jvp(vnorm, math.MINVAL, vnorm_t)
+    lift_t = math.cross(math.cross(dd2 * v_t, v) + math.cross(n, v_t), v) + math.cross(nxv, v_t)
+    drag_w_t = _sqrt_jvp(drag_w, torch.sum(2.0 * mw * (mmix * w_t), dim=-1, keepdim=True))
+    frc = (math.cross(p_t, w) + math.cross(p, w_t) - stokes_v * v_t
+           - rho * (drag_t * vnorm * v + drag * vnorm_t * v + drag * vnorm * v_t)
+           + c_kutta * rho * (kutta_t * lift + kutta * lift_t)
+           + c_magnus * rho * s["volume"] * (math.cross(w_t, v) + math.cross(w, v_t)))
+    trq = (math.cross(p_t, v) + math.cross(p, v_t) + math.cross(h_t, w) + math.cross(h, w_t)
+           - stokes_w * w_t - rho * (w_t * drag_w + w * drag_w_t))
   return support.wrench_qfrc(m, d, xpos, math.mat_vec(xmat, frc), math.mat_vec(xmat, trq),
-                      bodies=s["bodies"])
+                             bodies=s["bodies"])
 
 
 def _box_bodies(m: Model) -> np.ndarray:
@@ -230,38 +267,50 @@ def _box_tables(m: Model) -> dict:
   )
 
 
-def _inertia_box_fluid_model(m: Model, d: Data) -> torch.Tensor:
+def _inertia_box_fluid_model(m: Model, d: Data,
+                             cvel_t: torch.Tensor | None = None) -> torch.Tensor:
   """Fluid forces via the inertia-box approximation (mj_inertiaBoxFluidModel),
-  (B, nv), over every body that has mass and no ellipsoid-model geom."""
+  (B, nv), over every body that has mass and no ellipsoid-model geom; with
+  ``cvel_t`` (B, nbody, 6), their tangent along cvel_t instead: the
+  quadratic drag c |x| x has the tangent c (sign(x) x_t x + |x| x_t),
+  zero at x = 0 under torch's rule and jax's alike."""
   s = cached(m, "passive.box", lambda: _box_tables(m))
   pi = torch.pi
   ximat_t = d.ximat.transpose(-1, -2)
   # local 6D velocity at the inertial frame (rows of ximat^T = local axes),
   # wind in the local frame (linear only)
-  lvel = math.transform_motion(d.cvel, d.xipos - d.subtree_com[:, index(m, "body_rootid")],
-                               ximat_t)
+  offset = d.xipos - d.subtree_com[:, index(m, "body_rootid")]
+  lvel = math.transform_motion(d.cvel, offset, ximat_t)
   lang = lvel[..., :3]
   llin = lvel[..., 3:] - math.mat_vec(ximat_t, m.opt.wind)
   diam, visc, density = s["diam"], m.opt.viscosity, m.opt.density
   # viscous resistance, then quadratic drag
-  ltrq = -pi * _cube(diam) * visc * lang
-  lfrc = -3.0 * pi * diam * visc * llin
-  ltrq = ltrq + -density * s["ang_scale"] * torch.abs(lang) * lang
-  lfrc = lfrc + -0.5 * density * s["lin_area"] * torch.abs(llin) * llin
+  visc_ang, visc_lin = -pi * _cube(diam) * visc, -3.0 * pi * diam * visc
+  quad_ang, quad_lin = -density * s["ang_scale"], -0.5 * density * s["lin_area"]
+  if cvel_t is None:
+    ltrq = visc_ang * lang + quad_ang * torch.abs(lang) * lang
+    lfrc = visc_lin * llin + quad_lin * torch.abs(llin) * llin
+  else:
+    lvel_t = math.transform_motion(cvel_t, offset, ximat_t)
+    lang_t, llin_t = lvel_t[..., :3], lvel_t[..., 3:]
+    quad = lambda c, x, x_t: c * torch.sign(x) * x_t * x + c * torch.abs(x) * x_t
+    ltrq = visc_ang * lang_t + quad(quad_ang, lang, lang_t)
+    lfrc = visc_lin * llin_t + quad(quad_lin, llin, llin_t)
   torque = math.mat_vec(d.ximat, ltrq) * s["keep"]
   force = math.mat_vec(d.ximat, lfrc) * s["keep"]
   return support.wrench_qfrc(m, d, d.xipos, force, torque)
 
 
-def _fluid(m: Model, d: Data) -> torch.Tensor:
+def _fluid(m: Model, d: Data, cvel_t: torch.Tensor | None = None) -> torch.Tensor:
   """Fluid forces per body (mj_passive): bodies with any
   fluidshape='ellipsoid' geom take the per-geom ellipsoid model, every
-  other body the inertia-box approximation."""
+  other body the inertia-box approximation; with ``cvel_t`` (B, nbody,
+  6), their tangent along cvel_t."""
   if not len(_fluid_geoms(m)):
-    return _inertia_box_fluid_model(m, d)
-  qfrc = _ellipsoid_fluid_model(m, d)
+    return _inertia_box_fluid_model(m, d, cvel_t)
+  qfrc = _ellipsoid_fluid_model(m, d, cvel_t)
   if _box_bodies(m)[1:].any():  # the world body never contributes
-    qfrc = qfrc + _inertia_box_fluid_model(m, d)
+    qfrc = qfrc + _inertia_box_fluid_model(m, d, cvel_t)
   return qfrc
 
 

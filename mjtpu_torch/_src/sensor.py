@@ -8,8 +8,10 @@ over its K sensors and the B envs.  A stage's groups are written into
 sensordata together: their values are concatenated, clamped at each
 sensor's cutoff as its datatype says (mjtpu's ``_write``) and put in
 place with one indexed write.  The rangefinders of a group cast all
-their rays at once (ray.cast).  The index tables live on the Model's
-device (Model.cache), so a step makes no host copy.
+their rays at once (ray.cast), and the geom-distance sensors of every
+group share one support.geom_distances call (one collider call per pair
+type).  The index tables live on the Model's device (Model.cache), so a
+step makes no host copy.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import torch
 
 from mjtpu_torch._src import collision_driver, math, ray, smooth, support
 from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.io import GEOMDIST_SENSORS
 from mjtpu_torch._src.types import (
     Data,
     DataType,
     DisableBit,
+    EnableBit,
     GeomType,
     JointType,
     Model,
@@ -89,7 +93,8 @@ def _writer(m: Model, stage: Stage):
   """(flat sensordata addresses, lower and upper clamp) of the stage's
   groups' values concatenated in group order: a REAL sensor with a
   positive cutoff clamps to [-cutoff, cutoff], a POSITIVE one to
-  (-inf, cutoff], every other sensor not at all."""
+  (-inf, cutoff], every other sensor (and every CONTACT sensor) not at
+  all."""
 
   def build():
     adrs, dts, cut_ids = [], [], []
@@ -100,8 +105,11 @@ def _writer(m: Model, stage: Stage):
       cut_ids.append(np.repeat(g.ids, g.dim))
     flat = np.concatenate(adrs)
     dt = np.concatenate(dts)
-    cut = m.sensor_cutoff[torch.as_tensor(np.concatenate(cut_ids), device=m.device)]
-    on = cut > 0
+    ids = np.concatenate(cut_ids)
+    cut = m.sensor_cutoff[torch.as_tensor(ids, device=m.device)]
+    # C applies no cutoff to a CONTACT sensor
+    on = (cut > 0) & torch.as_tensor(
+        np.asarray(m.sensor_type)[ids] != SensorType.CONTACT, device=m.device)
     real = torch.as_tensor(dt == DataType.REAL, device=m.device)
     positive = torch.as_tensor(dt == DataType.POSITIVE, device=m.device)
     lo = torch.where(on & real, -cut, -torch.inf)
@@ -326,6 +334,239 @@ def _rangefinder(m: Model, d: Data, g: _Group) -> torch.Tensor:
   return dist
 
 
+def _operand_geoms(m: Model, objtype: int, oid: int) -> list[int]:
+  """A geom-distance operand's geoms: the geom, or every geom of the body."""
+  if ObjType(objtype) == ObjType.GEOM:
+    return [int(oid)]
+  adr, num = int(m.body_geomadr[oid]), int(m.body_geomnum[oid])
+  return list(range(adr, adr + num))
+
+
+def _geomdist_tables(m: Model) -> dict:
+  """The pairs of every GEOMDIST, GEOMNORMAL and GEOMFROMTO sensor of the
+  model, in group order (g1, g2 and each pair's sensor cutoff), and per
+  group its (K, P) table of positions in that list, padded with the
+  position of an extra column of +inf distance."""
+  g1, g2, cut_ids, tables = [], [], [], {}
+  for g in _groups(m, Stage.POS):
+    if g.stype not in GEOMDIST_SENSORS:
+      continue
+    lists = [[(a, b) for a in _operand_geoms(m, g.objtype, o)
+              for b in _operand_geoms(m, g.reftype, r)] for o, r in zip(g.objid, g.refid)]
+    table = np.full((len(lists), max(len(ps) for ps in lists)), -1)
+    for k, (sid, ps) in enumerate(zip(g.ids, lists)):
+      table[k, :len(ps)] = np.arange(len(g1), len(g1) + len(ps))
+      g1 += [p[0] for p in ps]
+      g2 += [p[1] for p in ps]
+      cut_ids += [sid] * len(ps)
+    tables[tuple(g.ids)] = table
+  t = lambda x: torch.as_tensor(np.asarray(x), device=m.device)
+  return dict(g1=g1, g2=g2, cut=m.sensor_cutoff[t(cut_ids)],
+              tables={k: t(np.where(v < 0, len(g1), v)) for k, v in tables.items()})
+
+
+def _geom_distances(m: Model, d: Data):
+  """(dist (B, P + 1), fromto (B, P + 1, 6)) of every geom-distance
+  sensor's pairs (_geomdist_tables), the last column the padding's: the
+  stage's sensors share one support.geom_distances call, so each collider
+  runs once over all of them."""
+  c = cached(m, "sensor.geomdist", lambda: _geomdist_tables(m))
+  dist, fromto = support.geom_distances(m, d, c["g1"], c["g2"], c["cut"])
+  B = dist.shape[0]
+  return (torch.cat([dist, dist.new_full((B, 1), torch.inf)], dim=1),
+          torch.cat([fromto, fromto.new_zeros((B, 1, 6))], dim=1))
+
+
+def _geom_distance(m: Model, g: _Group, dist: torch.Tensor, fromto: torch.Tensor) -> torch.Tensor:
+  """(B, K, dim) GEOMDIST, GEOMNORMAL or GEOMFROMTO (mj_geomDistance) from
+  the stage's pair distances (_geom_distances): the sensor's cutoff is
+  distmax; a body operand takes, over its geoms' pairs, the first pair of
+  least distance (mjtpu's loop keeps a pair only where it is strictly
+  nearer); the normal is normalize(to - from), zero where nothing lies
+  below distmax."""
+  table = cached(m, "sensor.geomdist", lambda: _geomdist_tables(m))["tables"][tuple(g.ids)]
+  if "cutoff" not in g.extra:
+    g.extra["cutoff"] = m.sensor_cutoff[torch.as_tensor(g.ids, device=m.device)]
+  cut = g.extra["cutoff"]
+  dmin, i = torch.min(dist[:, table], dim=-1)  # (B, K)
+  ft = torch.gather(fromto[:, table], 2, i[..., None, None].expand(i.shape + (1, 6)))[:, :, 0]
+  ft = torch.where((dmin < cut)[..., None], ft, 0.0)
+  if g.stype == SensorType.GEOMDIST:
+    return torch.minimum(dmin, cut)
+  if g.stype == SensorType.GEOMFROMTO:
+    return ft
+  n = ft[..., 3:] - ft[..., :3]
+  norm = math.norm3(n)[..., None]
+  return torch.where(norm > 1e-15, n / torch.clamp_min(norm, 1e-15), 0.0)
+
+
+def _camprojection(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """(B, K, 2) the target site in the camera's pixel coordinates
+  (mjtpu's CAMPROJECTION): the focal lengths from cam_intrinsic over
+  cam_sensorsize where the sensor size is set, else from fovy; the
+  principal point is ignored; the camera looks along its -z."""
+  if "focal" not in g.extra:
+    cam = g.refid
+    res = np.asarray(m.cam_resolution)[cam].astype(np.float64)
+    ss = np.asarray(m.cam_sensorsize)[cam]
+    intr = np.asarray(m.cam_intrinsic)[cam]
+    fovy_f = 0.5 * res[:, 1] / np.tan(np.deg2rad(np.asarray(m.cam_fovy)[cam]) / 2)
+    has_ss = ss[:, 0] > 0
+    fx = np.where(has_ss, intr[:, 0] / np.where(has_ss, ss[:, 0], 1.0) * res[:, 0], fovy_f)
+    fy = np.where(has_ss, intr[:, 1] / np.where(has_ss, ss[:, 1], 1.0) * res[:, 1], fovy_f)
+    t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+    g.extra["focal"] = (t(fx), t(fy), t(res[:, 0] / 2), t(res[:, 1] / 2))
+  fx, fy, cx, cy = g.extra["focal"]
+  cam = g.t["refid"]
+  p = math.mat_t_vec(d.cam_xmat[:, cam], d.site_xpos[:, g.t["objid"]] - d.cam_xpos[:, cam])
+  u = -p[..., 0] / p[..., 2] * fx + cx
+  v = p[..., 1] / p[..., 2] * fy + cy
+  return torch.stack([u, v], dim=-1)
+
+
+# a CONTACT sensor's data fields (sensor_intprm[0] bits) in slot order,
+# with their widths, and its reduce modes (sensor_intprm[1])
+_CONTACT_FIELDS = ((1, "found", 1), (2, "force", 3), (4, "torque", 3), (8, "dist", 1),
+                   (16, "pos", 3), (32, "normal", 3), (64, "tangent", 3))
+_REDUCE_NONE, _REDUCE_MINDIST, _REDUCE_MAXFORCE, _REDUCE_NETFORCE = 0, 1, 2, 3
+
+
+def _subtree_mask(m: Model, root: int) -> np.ndarray:
+  """(nbody,) bool: the bodies of the subtree rooted at ``root``."""
+  parent = np.asarray(m.body_parentid)
+  mask = np.zeros(m.nbody, dtype=bool)
+  mask[root] = True
+  for b in range(m.nbody):
+    i = b
+    while i != 0 and i != root:
+      i = int(parent[i])
+    mask[b] |= i == root
+  return mask
+
+
+def _contact_criteria(m: Model, sidx: int) -> list:
+  """A CONTACT sensor's criteria, host tables: per operand (object, then
+  reference) that is set, ("site", its site, its type) or ("sided", the
+  (nbody,) or (ngeom,) mask of what matches, "geom" or "body")."""
+  out = []
+  for otype, oid in ((int(m.sensor_objtype[sidx]), int(m.sensor_objid[sidx])),
+                     (int(m.sensor_reftype[sidx]), int(m.sensor_refid[sidx]))):
+    if oid < 0 or otype == ObjType.UNKNOWN:
+      continue
+    t = lambda x: torch.as_tensor(x, device=m.device)
+    if otype == ObjType.SITE:
+      out.append(("site", oid, int(np.asarray(m.site_type)[oid])))
+    elif otype == ObjType.GEOM:
+      mask = np.zeros(m.ngeom, dtype=bool)
+      mask[oid] = True
+      out.append(("sided", t(mask), "geom"))
+    elif otype == ObjType.BODY:
+      mask = np.zeros(m.nbody, dtype=bool)
+      mask[oid] = True
+      out.append(("sided", t(mask), "body"))
+    elif otype == ObjType.XBODY:  # the subtree criterion
+      out.append(("sided", t(_subtree_mask(m, oid)), "body"))
+    else:
+      raise NotImplementedError(f"contact sensor criterion objtype {otype}")
+  return out
+
+
+def _contact(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """(B, K, dim) CONTACT sensors (mjtpu's _contact_sensor): the contacts
+  that match the sensor's criteria (geom, body and subtree sided; a
+  site's volume holding the contact point), each oriented so that the
+  first matched object is object 1 (a flip negates the normal, the
+  tangent and the t2 components of force and torque); ``found`` the
+  number of matches, in filled slots only; reduce none (the first
+  ``num`` matches in contact order), mindist, maxforce, or netforce (the
+  world-frame sums about the force-weighted centroid, in the pos field).
+  No cutoff (_writer)."""
+  B = d.qpos.shape[0]
+  if collision_driver.ncon(m) == 0:  # nothing writes the sensor
+    adr = np.asarray(m.sensor_adr)[g.ids][:, None] + np.arange(g.dim)
+    return d.sensordata[:, torch.as_tensor(adr, device=d.qpos.device)]
+  con = d.contact
+  forces6 = support.contact_forces(m, d)
+  detected = con.dist < con.margin
+  geom1, geom2 = con.geom1.long(), con.geom2.long()
+  bodyid = index(m, "geom_bodyid")
+  body1, body2 = bodyid[geom1], bodyid[geom2]
+  if "criteria" not in g.extra:
+    g.extra["criteria"] = [_contact_criteria(m, int(i)) for i in g.ids]
+  out = []
+  for sidx, criteria in zip(g.ids, g.extra["criteria"]):
+    dataspec, reduce_, num = (int(x) for x in np.asarray(m.sensor_intprm)[sidx])
+    match, sided = detected, []
+    for kind, obj, extra in criteria:
+      if kind == "site":
+        q = math.mat_t_vec(d.site_xmat[:, obj, None], con.pos - d.site_xpos[:, obj, None])
+        match = match & _inside(extra, q, m.site_size[obj])
+      else:
+        ids1, ids2 = (geom1, geom2) if extra == "geom" else (body1, body2)
+        sided.append((obj[ids1], obj[ids2]))
+    if len(sided) == 1:
+      (m1, m2), = sided
+      match, flip = match & (m1 | m2), m2 & ~m1
+    elif len(sided) == 2:
+      (a1, a2), (b1, b2) = sided
+      fwd, rev = a1 & b2, a2 & b1
+      match, flip = match & (fwd | rev), rev & ~fwd
+    else:
+      flip = torch.zeros_like(match)
+    found = match.sum(dim=-1).to(d.qpos.dtype)  # (B,)
+    sgn = torch.where(flip, -1.0, 1.0).to(d.qpos.dtype)
+    t2flip = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
+    any_found = (found > 0).to(d.qpos.dtype)[:, None]
+    names = [name for bit, name, _ in _CONTACT_FIELDS if dataspec & bit]
+    if reduce_ == _REDUCE_NETFORCE:
+      mf = match.to(d.qpos.dtype)
+      f_w = math.mat_t_vec(con.frame, forces6[..., :3]) * sgn[..., None]
+      t_w = math.mat_t_vec(con.frame, forces6[..., 3:]) * sgn[..., None]
+      w = mf * math.norm3(forces6[..., :3])
+      pos_c = torch.sum(w[..., None] * con.pos, dim=1) / torch.clamp_min(
+          torch.sum(w, dim=1), 1e-15)[:, None]
+      f_net = torch.sum(mf[..., None] * f_w, dim=1)
+      t_net = torch.sum(mf[..., None] * (math.cross(con.pos - pos_c[:, None], f_w) + t_w), dim=1)
+      zero = lambda n: d.qpos.new_zeros((B, n))
+      slot = {"force": f_net * any_found, "torque": t_net * any_found,
+              "pos": pos_c * any_found, "dist": zero(1), "normal": zero(3), "tangent": zero(3),
+              "found": found[:, None]}
+      row = torch.cat([slot[n] for n in names], dim=-1)
+      out.append(row[:, None].expand(B, num, row.shape[-1]).reshape(B, -1))
+      continue
+    fields = {
+        "force": forces6[..., :3] * t2flip, "torque": forces6[..., 3:] * t2flip,
+        "dist": con.dist[..., None], "pos": con.pos,
+        "normal": con.frame[..., 0, :] * sgn[..., None],
+        "tangent": con.frame[..., 1, :] * sgn[..., None],
+        "found": d.qpos.new_zeros(con.dist.shape + (1,)),
+    }
+    rows = torch.cat([fields[n] for n in names], dim=-1)  # (B, ncon, slotdim)
+    if reduce_ in (_REDUCE_MINDIST, _REDUCE_MAXFORCE):
+      if reduce_ == _REDUCE_MINDIST:
+        i = torch.argmin(torch.where(match, con.dist, torch.inf), dim=-1)
+      else:
+        i = torch.argmax(torch.where(match, forces6[..., 0], -torch.inf), dim=-1)
+      row = torch.gather(rows, 1, i[:, None, None].expand(B, 1, rows.shape[-1]))[:, 0] * any_found
+      if dataspec & 1:
+        row = torch.cat([found[:, None], row[:, 1:]], dim=-1)
+      out.append(row[:, None].expand(B, num, row.shape[-1]).reshape(B, -1))
+      continue
+    # reduce none: slot s holds the (s+1)-th match in contact order, found
+    # in column 0 of the filled slots
+    order = torch.cumsum(match.to(torch.int64), dim=-1) - 1  # (B, ncon)
+    s = torch.arange(num, device=order.device)
+    hit = match[:, None] & (order[:, None] == s[None, :, None])  # (B, num, ncon)
+    i = torch.argmax(hit.to(torch.int32), dim=-1)  # the slot's contact (0 if none)
+    slots = torch.gather(rows, 1, i[..., None].expand(B, num, rows.shape[-1]))
+    filled = hit.any(dim=-1)[..., None]
+    slots = torch.where(filled, slots, 0.0)
+    if dataspec & 1:
+      slots = torch.cat([torch.where(filled, found[:, None, None], 0.0), slots[..., 1:]], dim=-1)
+    out.append(slots.reshape(B, -1))
+  return torch.stack(out, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # the three stages
 # ---------------------------------------------------------------------------
@@ -340,6 +581,7 @@ def sensor_pos(m: Model, d: Data) -> Data:
   if not _active(m):
     return d
   vals = []
+  energy, pair_dist = d.energy, None
   for g in _groups(m, Stage.POS):
     objid, refid = g.t["objid"], g.t["refid"]
     st = g.stype
@@ -382,10 +624,33 @@ def sensor_pos(m: Model, d: Data) -> Data:
       val = d.ten_length[:, objid]
     elif st in (SensorType.JOINTLIMITPOS, SensorType.TENDONLIMITPOS):
       val = _limit_read(m, d, g, lambda r, pos: pos)
+    elif st in GEOMDIST_SENSORS:
+      if pair_dist is None:
+        pair_dist = _geom_distances(m, d)
+      val = _geom_distance(m, g, *pair_dist)
+    elif st == SensorType.CAMPROJECTION:
+      val = _camprojection(m, d, g)
+    elif st == SensorType.E_POTENTIAL:
+      # like C, the sensor runs mj_energyPos and writes d.energy even
+      # without EnableBit.ENERGY
+      pe = smooth.potential_energy(m, d)
+      energy = torch.stack([pe, energy[:, 1]], dim=-1)
+      val = pe[:, None].expand(-1, len(g.ids))
+    elif st == SensorType.E_KINETIC:
+      # mjtpu's lazy evaluation (C's flg_energyvel): under EnableBit.ENERGY
+      # fwd_velocity computes the kinetic energy after this stage, so the
+      # sensor reads the previous step's, or a fresh one where energy[1]
+      # is 0 (C's flag unset); without the flag it computes and writes it
+      ke = smooth.kinetic_energy(m, d)
+      if m.opt.enableflags & EnableBit.ENERGY:
+        ke = torch.where(d.energy[:, 1] == 0.0, ke, d.energy[:, 1])
+      else:
+        energy = torch.stack([energy[:, 0], ke], dim=-1)
+      val = ke[:, None].expand(-1, len(g.ids))
     else:
       raise NotImplementedError(f"pos sensor {st.name}")
     vals.append(val)
-  return replace(d, sensordata=_write(m, d, Stage.POS, vals))
+  return replace(d, sensordata=_write(m, d, Stage.POS, vals), energy=energy)
 
 
 def sensor_vel(m: Model, d: Data) -> Data:
@@ -495,6 +760,8 @@ def sensor_acc(m: Model, d: Data) -> Data:
       val = _limit_read(m, d, g, lambda r, pos: d.efc_force[:, r])
     elif st == SensorType.TOUCH:
       val = _touch(m, d, g)
+    elif st == SensorType.CONTACT:
+      val = _contact(m, d, g)
     else:
       raise NotImplementedError(f"acc sensor {st.name}")
     vals.append(val)

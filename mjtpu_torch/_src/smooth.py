@@ -5,8 +5,9 @@ Port of mjtpu/_src/smooth.py: kinematics, com_pos, camlight, tendon
 (forest-blocked through mass_blocks for several trees, the levelwise
 sparse LDL of sparse.py for a large branchy tree, dense otherwise),
 factor_solve (per block for a forest, Cholesky or LU), com_vel,
-rne, transmission (every transmission mjtpu has), and what the sensors
-read: rne_postconstraint and subtree_vel.  Tree traversals use
+rne, transmission (every transmission mjtpu has), what the sensors
+read: rne_postconstraint and subtree_vel, and the energy (energy_pos,
+energy_vel).  Tree traversals use
 scan.body_tree (levelwise groups, batch-explicit).
 """
 
@@ -554,6 +555,30 @@ def rne(m: Model, d: Data) -> Data:
   return replace(d, qfrc_bias=qfrc_bias)
 
 
+def rne_jvp(m: Model, d: Data, qvel_t: torch.Tensor, cvel_t: torch.Tensor,
+            cdof_dot_t: torch.Tensor) -> torch.Tensor:
+  """(B, nv) the derivative of rne's qfrc_bias along the qvel tangents
+  ``qvel_t`` (B, nv), given com_vel's along them, cvel_t and cdof_dot_t:
+  the product rule through rne's two tree passes (the forward-mode pass
+  mjtpu takes with jax.jacfwd; gravity has no tangent)."""
+
+  def cacc_fn(carry, cdof_dot_t, qvel, cdof_dot, qvel_t):
+    t = (torch.einsum("...wi,...w->...i", cdof_dot_t, qvel)
+         + torch.einsum("...wi,...w->...i", cdof_dot, qvel_t))
+    return t if carry is None else carry + t
+
+  cacc_t = scan.body_tree(m, cacc_fn, "vvvv", "b", cdof_dot_t, d.qvel, d.cdof_dot, qvel_t)
+  loc_t = (math.inert_mul(d.cinert, cacc_t)
+           + math.motion_cross_force(cvel_t, math.inert_mul(d.cinert, d.cvel))
+           + math.motion_cross_force(d.cvel, math.inert_mul(d.cinert, cvel_t)))
+
+  def acc_fn(carry, frc):
+    return frc if carry is None else frc + carry
+
+  cfrc_t = scan.body_tree(m, acc_fn, "b", "b", loc_t, reverse=True)
+  return torch.sum(d.cdof * cfrc_t[:, index(m, "dof_bodyid")], dim=-1)
+
+
 def _transmission_tables(m: Model) -> dict:
   """Static transmission groups: the scalar-joint actuators (ids, their
   joints' qpos and dof addresses), the tendon actuators (ids, tendons),
@@ -837,3 +862,77 @@ def subtree_vel(m: Model, d: Data) -> Data:
   linvel = p_sub / torch.clamp_min(m.body_subtreemass, math.MINVAL)[:, None]
   angmom = l_sub + rxp_sub - math.cross(d.subtree_com, p_sub)
   return replace(d, subtree_linvel=linvel, subtree_angmom=angmom)
+
+
+# ---------------------------------------------------------------------------
+# energy (mj_energyPos / mj_energyVel): the gravity term gated on
+# DisableBit.GRAVITY, the joint and tendon springs on DisableBit.SPRING;
+# the kinetic energy always
+# ---------------------------------------------------------------------------
+
+
+def _spring_tables(m: Model) -> dict:
+  """The springy joints' qpos addresses by kind, as device tensors (None
+  where a kind has no joint): scalar (K,), ball (K, 4) and free (K, 3)
+  and (K, 4), with their stiffnesses."""
+  dev = m.device
+  jt, qadr = np.asarray(m.jnt_type), np.asarray(m.jnt_qposadr)
+  out = {}
+  for kind, types, width in (("scalar", (JointType.SLIDE, JointType.HINGE), 0),
+                             ("ball", (JointType.BALL,), 4), ("free", (JointType.FREE,), 3)):
+    j = np.nonzero(np.isin(jt, types))[0]
+    if not len(j):
+      out[kind] = None
+      continue
+    k = m.jnt_stiffness[torch.as_tensor(j, device=dev)]
+    adr = qadr[j][:, None] + np.arange(width) if width else qadr[j]
+    out[kind] = (torch.as_tensor(adr, device=dev), k)
+    if kind == "free":
+      out[kind] += (torch.as_tensor(qadr[j][:, None] + 3 + np.arange(4), device=dev),)
+  return out
+
+
+def potential_energy(m: Model, d: Data) -> torch.Tensor:
+  """(B,) potential energy: gravity, joint springs and tendon springs
+  (mj_energyPos)."""
+  e = d.qpos.new_zeros(d.qpos.shape[0])
+  if not (m.opt.disableflags & DisableBit.GRAVITY):
+    e = e - torch.einsum("n,bni,i->b", m.body_mass, d.xipos, m.opt.gravity)
+  spring_on = not (m.opt.disableflags & DisableBit.SPRING)
+  if m.has_jnt_spring and spring_on:
+    c = cached(m, "smooth.springs", lambda: _spring_tables(m))
+    quat_term = lambda adr, k: 0.5 * torch.sum(k * torch.sum(
+        math.quat_sub(d.qpos[:, adr], m.qpos_spring[adr]) ** 2, dim=-1), dim=-1)
+    if c["scalar"] is not None:
+      adr, k = c["scalar"]
+      dif = d.qpos[:, adr] - m.qpos_spring[adr]
+      e = e + 0.5 * torch.sum(k * dif * dif, dim=-1)
+    if c["ball"] is not None:
+      e = e + quat_term(*c["ball"])
+    if c["free"] is not None:
+      pos, k, quat = c["free"]
+      t = d.qpos[:, pos] - m.qpos_spring[pos]
+      e = e + 0.5 * torch.sum(k * torch.sum(t * t, dim=-1), dim=-1)
+      e = e + quat_term(quat, k)
+  if m.ntendon and m.has_tendon_spring and spring_on:
+    lower, upper = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    length = d.ten_length
+    disp = torch.where(length > upper, length - upper,
+                       torch.where(length < lower, length - lower, 0.0))
+    e = e + 0.5 * torch.sum(m.tendon_stiffness * disp * disp, dim=-1)
+  return e
+
+
+def kinetic_energy(m: Model, d: Data) -> torch.Tensor:
+  """(B,) kinetic energy 0.5 qvel' M qvel (mj_energyVel)."""
+  return 0.5 * torch.sum(d.qvel * (d.qM @ d.qvel[..., None])[..., 0], dim=-1)
+
+
+def energy_pos(m: Model, d: Data) -> Data:
+  """Writes the potential energy into d.energy[:, 0] (mj_energyPos)."""
+  return replace(d, energy=torch.stack([potential_energy(m, d), d.energy[:, 1]], dim=-1))
+
+
+def energy_vel(m: Model, d: Data) -> Data:
+  """Writes the kinetic energy into d.energy[:, 1] (mj_energyVel)."""
+  return replace(d, energy=torch.stack([d.energy[:, 0], kinetic_energy(m, d)], dim=-1))

@@ -466,3 +466,79 @@ def muscle_dynamics(ctrl, act, prm):
       dctrl / torch.clamp_min(width, math.MINVAL) + 0.5)
   tau = torch.where(width < math.MINVAL, hard, soft)
   return dctrl / torch.clamp_min(tau, math.MINVAL)
+
+
+# ---------------------------------------------------------------------------
+# geom distance (mj_geomDistance)
+# ---------------------------------------------------------------------------
+
+
+def _distance_tables(m: Model, g1: tuple, g2: tuple) -> list:
+  """The colliders of P geom pairs: per collider key, in first-use order,
+  (its function, the pairs' positions in the P, their geoms in the order
+  the collider takes (type1 <= type2), -1 where a pair was swapped, else
+  1), device tensors.  A height-field pair keeps a group of its own (its
+  subgrid is sized by its own geom's bounding radius)."""
+  from mjtpu_torch._src import collision_driver
+  from mjtpu_torch._src.types import GeomType
+
+  def build():
+    keys: dict = {}
+    for p, (a, b) in enumerate(zip(g1, g2)):
+      t1, t2 = int(m.geom_type[a]), int(m.geom_type[b])
+      swap = t1 > t2
+      if swap:
+        a, b, t1, t2 = b, a, t2, t1
+      if not collision_driver.has_collision_fn(t1, t2):
+        raise NotImplementedError(
+            f"geom_distance between {GeomType(t1).name} and {GeomType(t2).name} is not supported")
+      key = (t1, t2, collision_driver._shape_key(m, a), collision_driver._shape_key(m, b), 3)
+      if t1 == GeomType.HFIELD:
+        key += (p,)
+      keys.setdefault(key, []).append((p, a, b, -1.0 if swap else 1.0))
+    out = []
+    for key, rows in keys.items():
+      pos, a, b, sign = zip(*rows)
+      fn = collision_driver._collision_fn(m, key[:5], [(x, y, -1) for x, y in zip(a, b)])
+      t = lambda x: torch.as_tensor(np.asarray(x), device=m.device)
+      out.append((fn, t(pos), t(a), t(b), t(sign).to(m.dtype)))
+    return out
+
+  return cached(m, ("support.geom_distance", g1, g2), build)
+
+
+def geom_distances(m: Model, d: Data, g1, g2, distmax: torch.Tensor):
+  """The smallest signed distances of P geom pairs (mj_geomDistance), each
+  through the collider that collision runs on the pair (a box-box or mesh
+  pair through kernel B3, a round geom as mjtpu's inscribed hull): (dist
+  (B, P), clamped to ``distmax`` (P,) where no contact point lies below
+  it; fromto (B, P, 6), the segment between the two nearest surface
+  points, zeros where none does).  The normal of a contact points from
+  the pair's first geom to its second."""
+  B = d.qpos.shape[0]
+  g1 = tuple(int(x) for x in g1)
+  g2 = tuple(int(x) for x in g2)
+  dist = d.qpos.new_zeros((B, len(g1)))
+  mid = d.qpos.new_zeros((B, len(g1), 3))
+  normal = d.qpos.new_zeros((B, len(g1), 3))
+  for fn, pos, a, b, sign in _distance_tables(m, g1, g2):
+    dk, pk, frame = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], m.geom_size[a],
+                       d.geom_xpos[:, b], d.geom_xmat[:, b], m.geom_size[b])
+    dmin, i = torch.min(dk, dim=-1)  # the first of the pair's deepest points
+    take = lambda x: torch.gather(x, 2, i[:, :, None, None].expand(i.shape + (1, 3)))[:, :, 0]
+    dist[:, pos] = dmin
+    mid[:, pos] = take(pk)
+    normal[:, pos] = take(frame[..., 0, :]) * sign[:, None]
+  found = dist < distmax
+  half = (0.5 * dist)[..., None] * normal
+  fromto = torch.where(found[..., None], torch.cat([mid - half, mid + half], dim=-1), 0.0)
+  return torch.where(found, dist, distmax), fromto
+
+
+def geom_distance(m: Model, d: Data, g1: int, g2: int, distmax: float):
+  """The smallest signed distance between geoms g1 and g2 in every env
+  (mj_geomDistance): (dist (B,), clamped to ``distmax`` where nothing lies
+  below it; fromto (B, 6), zeros then)."""
+  dist, fromto = geom_distances(
+      m, d, (g1,), (g2,), torch.full((1,), distmax, dtype=d.qpos.dtype, device=d.qpos.device))
+  return dist[:, 0], fromto[:, 0]

@@ -14,8 +14,8 @@ The slices cover the fields the humanoid_bench, humanoid_terrain,
 scene_pile, branchy66 and ant_bench main paths read and write (sensors,
 cameras and lights since ant_bench), tendons, their wraps and the
 actuators' activation states (the tendon slice), and equality constraints
-and mocap bodies (the equality slice); the rest of mjtpu's Model/Data
-(energy, ...) arrives with the slices that need it.
+and mocap bodies (the equality slice), and the energy, the camera
+intrinsics and the contact sensors' parameters (the Implicit slice).
 """
 
 from __future__ import annotations
@@ -395,6 +395,10 @@ class Model:
   body_jntadr: np.ndarray = static(None)
   body_dofnum: np.ndarray = static(None)
   body_dofadr: np.ndarray = static(None)
+  # each body's first geom and geom count, read by the geom-distance
+  # sensors' body operands (-1 and 0 where a snapshot leaves them out)
+  body_geomadr: np.ndarray = static(None)
+  body_geomnum: np.ndarray = static(None)
   body_pos: torch.Tensor = None
   body_quat: torch.Tensor = None
   body_ipos: torch.Tensor = None
@@ -478,6 +482,12 @@ class Model:
   cam_poscom0: torch.Tensor = None
   cam_pos0: torch.Tensor = None
   cam_mat0: torch.Tensor = None
+  # the CAMPROJECTION sensor's camera intrinsics (host numbers: the focal
+  # lengths are model constants; zeros where a snapshot leaves them out)
+  cam_resolution: np.ndarray = static(None)
+  cam_sensorsize: np.ndarray = static(None)
+  cam_intrinsic: np.ndarray = static(None)
+  cam_fovy: np.ndarray = static(None)
   light_mode: np.ndarray = static(None)
   light_bodyid: np.ndarray = static(None)
   light_targetbodyid: np.ndarray = static(None)
@@ -569,6 +579,9 @@ class Model:
   sensor_refid: np.ndarray = static(None)
   sensor_dim: np.ndarray = static(None)
   sensor_adr: np.ndarray = static(None)
+  # (nsensor, 3) [dataspec, reduce, num] of a CONTACT sensor (zeros where a
+  # snapshot leaves them out)
+  sensor_intprm: np.ndarray = static(None)
   sensor_cutoff: torch.Tensor = None
   # model-constant (nu, nv) moment matrix where every actuator is a
   # scalar-joint transmission, whose moment row is gear[0] at the joint
@@ -748,6 +761,9 @@ class Data:
   cfrc_int: torch.Tensor
   cfrc_ext: torch.Tensor
   sensordata: torch.Tensor
+  # (B, 2) potential and kinetic energy, written under EnableBit.ENERGY or
+  # by an E_POTENTIAL or E_KINETIC sensor (mj_energyPos / mj_energyVel)
+  energy: torch.Tensor
   # solver iterations taken (int32, per env)
   solver_niter: torch.Tensor
   # count of _check_state resets since make_data (int32, per env)

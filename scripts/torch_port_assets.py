@@ -208,6 +208,30 @@
       labels, and .c.cfrc_ext, MuJoCo C's mj_rnePostConstraint at the
       start states; the mocap scenes' .mocap_pos and .mocap_quat, set
       before each step (mocap_schedule).
+  mjtpu_torch/assets/humanoid_implicit_model.npz, humanoid_implicit_golden.npz
+      the zoo's humanoid.xml under the full Implicit integrator
+      (humanoid_implicit) and, from implicit_initial_state, mjtpu's run at
+      float64: qpos0, qvel0, ctrl, qpos, qvel over the steps, fwd.<field>
+      of step 1 and deriv, mjtpu's deriv_smooth_vel(rne=True) of it.
+  mjtpu_torch/assets/implicit_scenes.npz, implicit_scenes_golden.npz
+      the bundle of implicit_scene_xmls (implicit_full.xml,
+      implicit_fluid.xml under Implicit and ImplicitFast,
+      tests/test_fluid.py's ellipsoid-fluid scene
+      under Implicit and ImplicitFast, the swimmer under ImplicitFast,
+      friction_tendon.xml and condim4_elliptic.xml under Implicit, two
+      implicit fuzz scenes) and, per scene from implicit_initial_state,
+      mjtpu's run at float64 as the equality bundle's, with .deriv, mjtpu's
+      deriv_smooth_vel of step 1's forward Data (rne under Implicit), and
+      .deriv.fluid, its fluid term alone (jacfwd of com_vel + _fluid,
+      before the chain mask), where the scene has fluid forces.
+  mjtpu_torch/assets/sensor_scenes.npz, sensor_scenes_golden.npz
+      the bundle of sensor_scene_xmls (tests/test_energy.py's XML with the
+      energy flag and its spring- and gravity-disable variants, its
+      SENSOR_XML without and with the flag, geomdist_xml,
+      tests/test_contact_sensor.py's XML,
+      CAMPROJECTION_XML) and, per scene from sensor_initial_state, mjtpu's
+      run at float64: <scene>.qpos0, .qvel0, .ctrl0, .qpos, .qvel,
+      .sensordata and .energy over the steps and .fwd.<field> of step 1.
   mjtpu_torch/assets/swimmer_satellite_env_golden.npz
       mjtpu's env.step as zoo_env_golden.npz, for the swimmer and the three
       satellite envs (--model satellite_envs); none ends an episode early,
@@ -220,7 +244,8 @@ Run from the repository root, where ``mujoco`` and ``jax`` are installed:
         [--out DIR] [--model humanoid_bench|humanoid_terrain|scene_pile|boxes|branchy66|ant_bench
                      |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes
                      |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs
-                     |tendon_scenes|equality_scenes]
+                     |tendon_scenes|equality_scenes|humanoid_implicit|implicit_scenes
+                     |sensor_scenes]
         [--steps N] [--env NAME] [--scene NAME]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -473,10 +498,76 @@ EQ_FUZZ_SEEDS = (2, 3)
 # the adhesion scene's four envs: the box at tests/test_transmission.py's
 # lifts (penetrating, in the margin, in the gap band, past margin + gap)
 ADHESION_LIFTS = (0.049, 0.058, 0.075, 0.095)
+HUMANOID_IMPLICIT_MODEL_FILE = ASSETS / "humanoid_implicit_model.npz"
+HUMANOID_IMPLICIT_GOLDEN_FILE = ASSETS / "humanoid_implicit_golden.npz"
+IMPLICIT_SCENES_FILE = ASSETS / "implicit_scenes.npz"
+IMPLICIT_GOLDEN_FILE = ASSETS / "implicit_scenes_golden.npz"
+# tests/test_fuzz.py::test_fuzz_implicit_integrator's seeds 0 (ImplicitFast)
+# and 1 (Implicit)
+IMPLICIT_FUZZ_SEEDS = (0, 1)
+# tests/test_fluid.py::test_ellipsoid_fluid_implicit_integrators's scene
+ELLIPSOID_FLUID_XML = """
+    <mujoco>
+      <option density="50" viscosity="2" timestep="0.01" integrator="{integ}"/>
+      <default><geom contype="0" conaffinity="0"/></default>
+      <worldbody>
+        <body pos="0 0 1">
+          <freejoint/>
+          <geom type="ellipsoid" size="0.1 0.2 0.3" mass="1"
+                fluidshape="ellipsoid" euler="20 -35 50"/>
+          <body pos="0.3 0 0">
+            <joint type="hinge" axis="0 1 0" damping="0.05"/>
+            <geom type="capsule" size="0.04 0.15" mass="0.3"
+                  fluidshape="ellipsoid"/>
+          </body>
+        </body>
+      </worldbody>
+    </mujoco>"""
+SENSOR_SCENES_FILE = ASSETS / "sensor_scenes.npz"
+SENSOR_GOLDEN_FILE = ASSETS / "sensor_scenes_golden.npz"
+# tests/test_geomdist.py's XML with a static box (box4) and cylinder
+# (cyl5) that collide with nothing (contype 2 against everything's 1),
+# and the distance sensors of two hull pairs: box-box (SAT, kernel B3)
+# and box-cylinder (mjtpu's inscribed cylinder hull, ROADMAP C16)
+GEOMDIST_EXTRA_BODIES = """
+  <geom name="box4" type="box" size="0.07 0.05 0.03" pos="0.05 0.45 0.45" euler="10 20 30"
+        contype="2" conaffinity="2"/>
+  <geom name="cyl5" type="cylinder" size="0.05 0.08" pos="-0.3 0.5 0.25" euler="0 40 0"
+        contype="2" conaffinity="2"/>
+</worldbody>"""
+GEOMDIST_EXTRA_SENSORS = """
+  <distance geom1="box3" geom2="box4" cutoff="2"/>
+  <fromto geom1="box3" geom2="box4" cutoff="2"/>
+  <normal geom1="box4" geom2="box3" cutoff="2"/>
+  <distance geom1="box3" geom2="cyl5" cutoff="2"/>
+  <fromto geom1="cyl5" geom2="box3" cutoff="2"/>
+</sensor>"""
+# tests/test_sensor.py::test_camprojection's model
+CAMPROJECTION_XML = """<mujoco>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint type="hinge" axis="0 1 0"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+      <site name="tip" pos="0.3 0 0.1"/>
+    </body>
+    <camera name="fovycam" pos="1 -1.5 1.2" xyaxes="1 0.5 0 0 0.3 1"
+            resolution="640 480" fovy="50"/>
+    <camera name="intrcam" pos="-0.5 -1.5 1.0" xyaxes="1 0 0 0 0.3 1"
+            resolution="320 240" sensorsize="0.036 0.024"
+            focal="0.05 0.05" principal="0.001 -0.002"/>
+  </worldbody>
+  <sensor>
+    <camprojection site="tip" camera="fovycam"/>
+    <camprojection site="tip" camera="intrcam"/>
+  </sensor>
+  </mujoco>"""
+# tests/test_contact_sensor.py's sliding state
+CONTACT_SLIDE_QVEL = (0.5, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0)
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
-          "tendon_scenes", "equality_scenes")
+          "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
+          "sensor_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -1142,13 +1233,16 @@ def load_elliptic_mjmodel():
 
 
 def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel"), schedule=None,
-               rne_post=False):
+               rne_post=False, deriv=False):
   """Steps mjtpu (f64, CPU, jit(vmap(step))) from the state fields
   ``start`` (B envs), setting the fields of ``schedule`` ({field: (steps,
   B, ...)}) before each step: ({field: (steps, B, ...)} after each step,
   the forward Data of step 1 as port_fields under "fwd.": qpos, qvel and
   time put back, qacc the solver's; with ``rne_post`` also mjtpu's
-  rne_postconstraint of it, its cfrc_ext under "rnepost.cfrc_ext")."""
+  rne_postconstraint of it, its cfrc_ext under "rnepost.cfrc_ext"; with
+  ``deriv`` mjtpu's deriv_smooth_vel of it under "deriv" (rne under the
+  Implicit integrator) and, where the model has fluid forces, their
+  velocity derivative alone under "deriv.fluid")."""
   import jax
 
   jax.config.update("jax_enable_x64", True)
@@ -1177,8 +1271,30 @@ def _mjtpu_run(mjm, start: dict, steps: int, fields=("qpos", "qvel"), schedule=N
 
         post["rnepost.cfrc_ext"] = np.asarray(jax.jit(jax.vmap(
             smooth.rne_postconstraint, in_axes=(None, 0)))(m, fwd).cfrc_ext)
+      if deriv:
+        post.update(_mjtpu_deriv(m, fwd.replace(act=d0.act)))
       fwd = jax.tree.map(np.asarray, fwd)
   return {k: np.stack(v) for k, v in out.items()}, {**port_fields(fwd, "fwd."), **post}
+
+
+def _mjtpu_deriv(m, fwd) -> dict[str, np.ndarray]:
+  """mjtpu's deriv_smooth_vel of the batched forward Data ``fwd`` (rne
+  under the Implicit integrator) and, where the model has fluid forces,
+  the jacfwd of its com_vel + passive._fluid alone: {"deriv": (B, nv, nv),
+  "deriv.fluid": (B, nv, nv)}."""
+  import jax
+
+  from mjtpu._src import derivative, passive, smooth
+  from mjtpu._src.types import IntegratorType
+
+  full = m.opt.integrator == IntegratorType.IMPLICIT
+  out = {"deriv": np.asarray(jax.jit(jax.vmap(
+      lambda dd: derivative.deriv_smooth_vel(m, dd, rne=full)))(fwd))}
+  if m.opt.has_fluid_params:
+    fluid = lambda dd: jax.jacfwd(
+        lambda v: passive._fluid(m, smooth.com_vel(m, dd.replace(qvel=v))))(dd.qvel)
+    out["deriv.fluid"] = np.asarray(jax.jit(jax.vmap(fluid))(fwd))
+  return out
 
 
 def _mjtpu_solo(mjm, start: dict, run: dict, steps: int) -> dict[str, np.ndarray]:
@@ -1677,6 +1793,188 @@ def equality_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.
   return snapshots, golden
 
 
+def _with_integrator(xml: str, integrator: str) -> str:
+  """``xml`` with its <option>'s integrator set to ``integrator``."""
+  import re
+
+  option = re.search(r"<option\b[^>]*>", xml).group(0)
+  if "integrator=" in option:
+    new = re.sub(r'integrator="[^"]*"', f'integrator="{integrator}"', option)
+  else:
+    new = option.replace("<option", f'<option integrator="{integrator}"', 1)
+  return xml.replace(option, new, 1)
+
+
+def load_humanoid_implicit_mjmodel():
+  """The zoo's humanoid.xml under the full Implicit integrator
+  (humanoid_implicit)."""
+  mjm = load_zoo_mjmodel("humanoid")
+  mjm.opt.integrator = 2  # mjINT_IMPLICIT
+  return mjm
+
+
+def implicit_scene_xmls() -> dict[str, str]:
+  """The scenes of implicit_scenes.npz, name -> MJCF: tests/models'
+  implicit_full.xml and implicit_fluid.xml (also under ImplicitFast, where
+  mjtpu parts from MuJoCo C, ROADMAP C14), ELLIPSOID_FLUID_XML under
+  Implicit and ImplicitFast, the zoo's swimmer.xml (the box fluid model)
+  under ImplicitFast, friction_tendon.xml and condim4_elliptic.xml under
+  Implicit, and the implicit fuzz scenes of IMPLICIT_FUZZ_SEEDS."""
+  from mjtpu._src.test_util import create_mjcf
+
+  models = ROOT / "tests" / "models"
+  read = lambda name: (models / f"{name}.xml").read_text()
+  xmls = {
+      "implicit_full": read("implicit_full"),
+      "implicit_fluid": read("implicit_fluid"),
+      "implicit_fluid_implicitfast": _with_integrator(read("implicit_fluid"), "implicitfast"),
+      "ellipsoid_implicit": ELLIPSOID_FLUID_XML.format(integ="implicit"),
+      "ellipsoid_implicitfast": ELLIPSOID_FLUID_XML.format(integ="implicitfast"),
+      "swimmer_implicitfast": _with_integrator((ZOO / "swimmer.xml").read_text(), "implicitfast"),
+      "friction_tendon_implicit": _with_integrator(read("friction_tendon"), "implicit"),
+      "condim4_elliptic_implicit": _with_integrator(read("condim4_elliptic"), "implicit"),
+  }
+  for seed in IMPLICIT_FUZZ_SEEDS:
+    xmls[f"fuzz_{seed}"] = create_mjcf(
+        seed + 600, geom_types=("sphere", "capsule"),
+        integrator="implicit" if seed % 2 else "implicitfast", tendons=True,
+        frictionloss=(seed % 3 == 0))
+  return xmls
+
+
+def implicit_initial_state(mjm, name: str, seed: int = 0) -> dict[str, np.ndarray]:
+  """The state fields of an implicit scene's 4 envs: qpos0 +-0.05 (the
+  humanoid's +-0.01) with every quaternion normalized, envs 0 and 1 at
+  rest and envs 2 and 3 moving at up to 0.5 (the ellipsoid-fluid scenes:
+  every env at up to 2, as tests/test_fluid.py starts them: at rest their
+  angular drag's derivative is NaN in mjtpu, ROADMAP C15), ctrl in [-1,
+  1]; condim4_elliptic's start is cone_initial_state's."""
+  import mujoco
+
+  if name.startswith("condim4_elliptic"):
+    return cone_initial_state(mjm, "condim4_elliptic", seed)
+  rng = np.random.default_rng(seed)
+  spread = 0.01 if name == "humanoid_implicit" else 0.05
+  qpos = mjm.qpos0[None] + rng.uniform(-spread, spread, (BATCH, mjm.nq))
+  for q in qpos:
+    mujoco.mj_normalizeQuat(mjm, q)
+  speed = 2.0 if name.startswith("ellipsoid") else 0.5
+  qvel = rng.uniform(-speed, speed, (BATCH, mjm.nv))
+  if not name.startswith("ellipsoid"):
+    qvel[:2] = 0.0
+  return {"qpos": qpos, "qvel": qvel, "ctrl": rng.uniform(-1.0, 1.0, (BATCH, mjm.nu))}
+
+
+def _scene_run(mjm, start: dict, steps: int, fields, deriv: bool):
+  """mjtpu's run of a bundle scene (_mjtpu_run) with its start: the
+  golden's entries under the scene's prefix, without it."""
+  run, fwd = _mjtpu_run(mjm, start, steps, fields, deriv=deriv)
+  return {**{f"{k}0": v for k, v in start.items()}, **run, **fwd}
+
+
+def humanoid_implicit_golden(mjm, steps: int = STEPS) -> dict[str, np.ndarray]:
+  """The humanoid_implicit golden's arrays (module docstring)."""
+  start = implicit_initial_state(mjm, "humanoid_implicit")
+  golden = _scene_run(mjm, start, steps, ("qpos", "qvel"), deriv=True)
+  print(f"humanoid_implicit: nefc {golden['fwd.efc_D'].shape[1]}, live contacts per env at step"
+        f" 1 {(golden['fwd.contact.dist'] < 0).sum(axis=1).tolist()}, max |qDeriv|"
+        f" {np.abs(golden['deriv']).max():.3e}")
+  return golden
+
+
+def _bundle(xmls: dict, names, steps: int, start_of, fields_of, deriv: bool):
+  """(the scenes' snapshot arrays by name, their golden's arrays under
+  "<scene>.")."""
+  import mujoco
+
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, xml in xmls.items():
+    if names and name not in names:
+      continue
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    snapshots[name] = io.snapshot_arrays(mjm)
+    run = _scene_run(mjm, start_of(mjm, name), steps, fields_of(mjm), deriv)
+    golden.update({f"{name}.{k}": v for k, v in run.items()})
+    print(f"{name}: nv {mjm.nv}, integrator {int(mjm.opt.integrator)}, nsensor {mjm.nsensor},"
+          f" nefc {run['fwd.efc_D'].shape[1]}, live contacts per env at step 1"
+          f" {(run['fwd.contact.dist'] < 0).sum(axis=1).tolist()}")
+  return snapshots, golden
+
+
+def implicit_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the implicit scenes' snapshot arrays by name, the implicit golden's
+  arrays: per scene its start, mjtpu's qpos and qvel (sensordata) after
+  each step, the forward Data of step 1, and mjtpu's qDeriv of it)."""
+  fields = lambda mjm: ("qpos", "qvel") + (("sensordata",) if mjm.nsensordata else ())
+  return _bundle(implicit_scene_xmls(), names, steps, implicit_initial_state, fields, deriv=True)
+
+
+def sensor_scene_xmls() -> dict[str, str]:
+  """The scenes of sensor_scenes.npz, name -> MJCF: tests/test_energy.py's
+  XML (the energy flag on) and its spring- and gravity-disable variants,
+  its SENSOR_XML (the energy sensors without the flag, and with it:
+  mjtpu's lazy kinetic energy), geomdist_xml,
+  tests/test_contact_sensor.py's XML and CAMPROJECTION_XML."""
+  from tests import test_contact_sensor, test_energy
+
+  flag = '<flag energy="enable"/>'
+  return {
+      "energy": test_energy.XML,
+      "energy_nospring": test_energy.XML.replace(flag, '<flag energy="enable" spring="disable"/>'),
+      "energy_nogravity": test_energy.XML.replace(flag,
+                                                  '<flag energy="enable" gravity="disable"/>'),
+      "energy_sensors": test_energy.SENSOR_XML,
+      "energy_flag_sensors": test_energy.SENSOR_XML.replace("<option gravity=\"0 0 -9.81\">",
+                                                            "<option gravity=\"0 0 -9.81\">" + flag),
+      "geomdist": geomdist_xml(),
+      "contact": test_contact_sensor.XML,
+      "camprojection": CAMPROJECTION_XML,
+  }
+
+
+def geomdist_xml() -> str:
+  """tests/test_geomdist.py's XML with GEOMDIST_EXTRA_BODIES and
+  GEOMDIST_EXTRA_SENSORS."""
+  from tests import test_geomdist
+
+  return (test_geomdist.XML.replace("</worldbody>", GEOMDIST_EXTRA_BODIES, 1)
+          .replace("</sensor>", GEOMDIST_EXTRA_SENSORS, 1))
+
+
+def sensor_initial_state(mjm, name: str, seed: int = 0) -> dict[str, np.ndarray]:
+  """The state fields of a sensor scene's 4 envs: qpos0 +-0.3 (the
+  geom-distance scene's +-0.05) with every quaternion normalized, qvel in
+  [-1, 1], as tests/test_energy.py starts them; the contact scene's envs
+  0 and 1 at rest as placed, 2 and 3 sliding (tests/test_contact_sensor.py's
+  CONTACT_SLIDE_QVEL, then its mirror in x)."""
+  import mujoco
+
+  rng = np.random.default_rng(seed)
+  if name == "contact":
+    qvel = np.zeros((BATCH, mjm.nv))
+    qvel[2] = CONTACT_SLIDE_QVEL
+    qvel[3] = CONTACT_SLIDE_QVEL
+    qvel[3, 0] = -qvel[3, 0]
+    return {"qpos": np.tile(mjm.qpos0, (BATCH, 1)), "qvel": qvel,
+            "ctrl": np.zeros((BATCH, mjm.nu))}
+  spread = 0.05 if name == "geomdist" else 0.3
+  qpos = mjm.qpos0[None] + rng.uniform(-spread, spread, (BATCH, mjm.nq))
+  for q in qpos:
+    mujoco.mj_normalizeQuat(mjm, q)
+  return {"qpos": qpos, "qvel": rng.uniform(-1.0, 1.0, (BATCH, mjm.nv)),
+          "ctrl": rng.uniform(-1.0, 1.0, (BATCH, mjm.nu))}
+
+
+def sensor_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the sensor scenes' snapshot arrays by name, the sensor golden's
+  arrays: per scene its start, mjtpu's qpos, qvel, sensordata and energy
+  after each step and the forward Data of step 1)."""
+  fields = lambda mjm: ("qpos", "qvel", "sensordata", "energy")
+  return _bundle(sensor_scene_xmls(), names, steps, sensor_initial_state, fields, deriv=False)
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -1744,7 +2042,7 @@ def main():
                       help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
                       help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
-                      " tendon_scenes and equality_scenes"
+                      " tendon_scenes, equality_scenes, implicit_scenes and sensor_scenes"
                       " (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
@@ -1840,6 +2138,20 @@ def main():
     io.save_snapshot_bundle(out / EQUALITY_SCENES_FILE.name, snapshots)
     np.savez_compressed(out / EQUALITY_GOLDEN_FILE.name, **eq_golden)
     files += [EQUALITY_SCENES_FILE.name, EQUALITY_GOLDEN_FILE.name]
+  if "humanoid_implicit" in models:
+    mjm = load_humanoid_implicit_mjmodel()
+    io.save_snapshot(mjm, out / HUMANOID_IMPLICIT_MODEL_FILE.name)
+    np.savez_compressed(out / HUMANOID_IMPLICIT_GOLDEN_FILE.name,
+                        **humanoid_implicit_golden(mjm, steps))
+    files += [HUMANOID_IMPLICIT_MODEL_FILE.name, HUMANOID_IMPLICIT_GOLDEN_FILE.name]
+  for key, bundle, path, golden_path in (
+      ("implicit_scenes", implicit_scenes, IMPLICIT_SCENES_FILE, IMPLICIT_GOLDEN_FILE),
+      ("sensor_scenes", sensor_scenes, SENSOR_SCENES_FILE, SENSOR_GOLDEN_FILE)):
+    if key in models:
+      snapshots, scene_golden = bundle(args.scene, steps)
+      io.save_snapshot_bundle(out / path.name, snapshots)
+      np.savez_compressed(out / golden_path.name, **scene_golden)
+      files += [path.name, golden_path.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

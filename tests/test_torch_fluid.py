@@ -12,8 +12,9 @@ fwd_actuation's actuator channel) against mjtpu at float64 on the CPU.
     and qvel to 1e-8, from mjtpu's states;
   * qfrc_gravcomp against MuJoCo C (mjtpu has no gravcomp test of its own
     against C) to 1e-10;
-  * put_model takes fluid and gravcomp under Euler and RK4 and refuses
-    fluid under ImplicitFast and Implicit;
+  * put_model takes fluid and gravcomp under Euler and RK4, and since the
+    Implicit slice under ImplicitFast and Implicit (the fluid forces'
+    velocity derivative, held to mjtpu by tests/test_torch_implicit.py);
   * ant_bench with the constraints disabled (ROADMAP C8) against MuJoCo C
     over 20 steps: mjtpu raises there, so C is the oracle.
 """
@@ -135,10 +136,16 @@ def test_fluid_and_gravcomp_accepted(integrator):
 @pytest.mark.parametrize("integrator", [IntegratorType.IMPLICITFAST, IntegratorType.IMPLICIT],
                          ids=["implicitfast", "implicit"])
 def test_fluid_refused_under_implicit_integrators(integrator):
-  """mjtpu adds the fluid forces' velocity derivative to qDeriv by
-  jax.jacfwd, which the port does not have yet."""
-  with pytest.raises(NotImplementedError, match="fluid forces under the implicit integrators"):
-    mjtpu_torch.put_model(_mixed(integrator), device="cpu")
+  """Fluid forces under ImplicitFast and Implicit, refused until the
+  Implicit slice brought their velocity derivative, build and step from a
+  moving state (at rest the ellipsoid model's angular drag has a NaN
+  derivative in mjtpu and the port alike, ROADMAP C15)."""
+  m = mjtpu_torch.put_model(_mixed(integrator), device="cpu")
+  d = mjtpu_torch.make_data(m, batch_size=2)
+  qvel = np.random.default_rng(0).uniform(-1.0, 1.0, (2, m.nv))
+  d = mjtpu_torch.step(m, mjtpu_torch.replace(d, qvel=torch.as_tensor(qvel)))
+  assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
+  assert int(d.nreset.sum()) == 0 and float(d.qfrc_fluid.abs().max()) > 0
 
 
 def test_constraint_disabled_matches_mujoco_c():

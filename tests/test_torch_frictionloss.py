@@ -210,18 +210,20 @@ def _tendon_implicit():
 @pytest.mark.parametrize("make, what", [
     (lambda: load_mj("friction_tendon.xml"), (0, 2, 2, 4)),
     (_ball_limit, (0, 0, 1, 1)),
-    (_implicit, "implicit integrator"),
+    (_implicit, (0, 0, 0, 4)),
     (lambda: load_mj("equality.xml"), (4, 0, 0, 4)),
-    (_tendon_implicit, "implicit integrator"),
+    (_tendon_implicit, (0, 2, 2, 4)),
 ], ids=["tendon_frictionloss", "ball_limit", "implicit", "equality", "tendon_implicit"])
 def test_put_model_still_refuses(make, what):
-  """The full Implicit integrator (a tendon model's too) stays refused, by
-  name.  What a later slice took in builds and steps (what: its
+  """What a later slice took in builds and steps (what: its
   count_constraints, (ne, nf, nl, nefc)): friction_tendon.xml (dof
   frictionloss beside a limited fixed tendon, the tendon slice) with its
   two friction rows and its joint and tendon limit rows; ball_free.xml
   with a limited ball joint (one limit row) and equality.xml (a connect's
-  3 rows and a joint coupling's 1), the equality slice."""
+  3 rows and a joint coupling's 1), the equality slice; the full Implicit
+  integrator on condim4_elliptic.xml (one condim-4 elliptic contact's 4
+  rows) and on friction_tendon.xml, the Implicit slice.  A string is the
+  name put_model refuses the model by."""
   if not isinstance(what, str):
     m = mjtpu_torch.put_model(make(), device="cpu")
     assert mjtpu_torch.count_constraints(m) == what

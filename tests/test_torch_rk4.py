@@ -197,15 +197,13 @@ def test_twin_matches_mjtpu_base_at_zoo_width(n, clamp):
   np.testing.assert_allclose(got, want, rtol=rel, atol=rel * np.abs(want).max())
 
 
-@pytest.mark.parametrize("name, what", [
-    ("swimmer.xml", "fluid forces"),
-    ("implicit", "the implicit integrator"),
-])
-def test_put_model_refuses_by_name(name, what):
+@pytest.mark.parametrize("name", ["swimmer.xml", "implicit"])
+def test_put_model_refuses_by_name(name):
   """RK4 models pass the integrator gate (the swimmer, RK4 in a viscous
   medium, builds: tests/test_torch_satellite.py); the swimmer under
-  ImplicitFast is refused for its fluid (the fluid forces' velocity
-  derivative is not ported), the full Implicit integrator by name."""
+  ImplicitFast (its fluid's velocity derivative) and pendulum_rk4.xml
+  under the full Implicit integrator, refused until the Implicit slice,
+  build and step too."""
   if name == "implicit":
     mjm = load_mj("pendulum_rk4.xml")
     mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICIT
@@ -214,8 +212,11 @@ def test_put_model_refuses_by_name(name, what):
                                            / "assets" / name))
     mjtpu_torch.put_model(mjm, device="cpu")  # RK4 in a fluid
     mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICITFAST
-  with pytest.raises(NotImplementedError, match=what):
-    mjtpu_torch.put_model(mjm, device="cpu")
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  d = mjtpu_torch.make_data(m, batch_size=2)
+  qvel = np.random.default_rng(0).uniform(-0.5, 0.5, (2, m.nv))
+  d = mjtpu_torch.step(m, mjtpu_torch.replace(d, qvel=torch.as_tensor(qvel)))
+  assert bool(torch.isfinite(d.qpos).all()) and int(d.nreset.sum()) == 0
 
 
 @pytest.mark.parametrize("name", ["ant", "hopper", "walker2d"])

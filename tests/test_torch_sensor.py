@@ -299,6 +299,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("stype", list(UNPORTED))
 def test_unported_sensor_refused_by_name(stype):
+  """USER sensors stay refused by name; the other five types, refused
+  until the Implicit slice, build and run a forward (their values are
+  held to mjtpu by tests/test_torch_query_sensors.py)."""
   xml = f"""<mujoco><worldbody>
     <camera name="c" pos="0 -2 1" xyaxes="1 0 0 0 1 2"/>
     <geom name="g1" type="plane" size="2 2 0.1"/>
@@ -306,5 +309,10 @@ def test_unported_sensor_refused_by_name(stype):
       <site name="s"/></body></worldbody>
     <sensor>{UNPORTED[stype]}</sensor></mujoco>"""
   mjm = mujoco.MjModel.from_xml_string(xml)
-  with pytest.raises(NotImplementedError, match=f"{stype} sensors"):
-    mjtpu_torch.put_model(mjm, device="cpu")
+  if stype == "USER":
+    with pytest.raises(NotImplementedError, match=f"{stype} sensors"):
+      mjtpu_torch.put_model(mjm, device="cpu")
+    return
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  d = mjtpu_torch.forward(m, mjtpu_torch.make_data(m, batch_size=2))
+  assert d.sensordata.shape == (2, mjm.nsensordata) and bool(torch.isfinite(d.sensordata).all())

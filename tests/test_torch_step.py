@@ -193,8 +193,10 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
     # cone slice
     (_variant(HB, pair_dim=4), None),
     (_variant(HB, pair_dim=6), None),
-    (_variant(HB, integrator=mujoco.mjtIntegrator.mjINT_IMPLICIT), "implicit integrator"),
-    (_variant(HB, density=1.2, integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), "fluid"),
+    # the full Implicit integrator and fluid forces under ImplicitFast since
+    # the Implicit slice
+    (_variant(HB, integrator=mujoco.mjtIntegrator.mjINT_IMPLICIT), None),
+    (_variant(HB, density=1.2, integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), None),
 ], ids=["sphere_plane", "box_capsule", "box_hfield", "max_geom_pairs", "eulerdamp_forest",
         "sensors", "equality", "tendon", "rk4", "implicitfast_forest", "elliptic", "pgs",
         "condim1", "condim6", "implicit", "implicitfast_fluid"])

@@ -512,6 +512,38 @@ def test_mocap_step_on_cuda_matches_cpu(name):
                                atol=1e-9 * max(1.0, np.abs(want).max(initial=0.0)), err_msg=f)
 
 
+def test_humanoid_implicit_step_on_cuda_matches_cpu():
+  """The Implicit slice's main path (humanoid_implicit: the zoo's
+  humanoid.xml under the full Implicit integrator) at f64 from its
+  golden's start (two envs at rest, two moving): qDeriv with the RNE term
+  at the start, then 5 steps on the card against the same on the CPU,
+  qDeriv, qpos and qvel to 1e-9 of scale; on the card the B1 launches are
+  all register, one per Newton iteration (the LU of qM - h qDeriv takes
+  none)."""
+  from mjtpu_torch._src import solver
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "humanoid_implicit_golden.npz"))
+  out = {}
+  for device in ("cpu", "cuda"):
+    m, d = chip_smoke.slice14_scene("humanoid_implicit", None, golden, device)
+    qderiv = mjtpu_torch.deriv_smooth_vel(m, mjtpu_torch.forward(m, d), rne=True)
+    before = dict(cholesky.variant_launches)
+    newton = solver.loop_counts["iterations"]
+    for _ in range(5):
+      d = mjtpu_torch.step(m, d)
+    iterations = solver.loop_counts["iterations"] - newton
+    kinds = {k: cholesky.variant_launches[k] - before[k] for k in before}
+    out[device] = d, qderiv, iterations, kinds
+  (cpu, cpu_deriv, _, cpu_kinds), (gpu, deriv, iterations, kinds) = out["cpu"], out["cuda"]
+  assert cpu_kinds == {"register": 0, "shared": 0}
+  assert kinds == {"register": iterations, "shared": 0} and iterations > 0
+  for got, want, f in ((deriv, cpu_deriv, "qDeriv"), (gpu.qpos, cpu.qpos, "qpos"),
+                       (gpu.qvel, cpu.qvel, "qvel")):
+    want = want.numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-9 * max(1.0, np.abs(want).max()), err_msg=f)
+
+
 def _env_step_on_cuda_matches_cpu(name, golden_file):
   """One env step of ``zoo.ENVS[name]`` on the card against the same step
   on the CPU, from an env golden's states: obs and reward of the envs that
