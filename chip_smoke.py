@@ -157,7 +157,7 @@ failure raises and the script exits non-zero:
      exact); ant_bench with DisableBit.CONSTRAINT (ROADMAP C8), 20 steps,
      every touch reading 0.
  25. swimmer env throughput: f32, B=4096, ENVS["swimmer"]() on the card
-     as phase 19 (2 warm-up and 5 timed env steps): env steps/s, ms per
+     as phase 19 (2 warm-up and 3 timed env steps): env steps/s, ms per
      env step, B1 launches per env step by variant (all register, at n=5,
      one per Newton iteration), nreset 0, B1's share of an env step, and
      one profiled env step's launches and the device's busy share; then
@@ -226,20 +226,46 @@ failure raises and the script exits non-zero:
      (the RNE velocity derivative over B x nv copies) and of the LU
      (CUDA events around each), one profiled step's launches and busy
      share.
+ 32. slice-15 parity: f64, on the card, every scene of randomize_scenes.npz
+     (tests/test_randomize.py's friction, mass/gain/damping/timestep,
+     sphere-radius and constants cases, and humanoid_bench with the main
+     path's five fields and their mj_setConst constants) through
+     parallel.randomized_step against mjtpu's batched randomized rollout
+     (RANDOM_BOUND; humanoid_bench RANDOM_BENCH_BOUND through step 50, as
+     C1), each env alone under its own unbatched Model against the batch
+     (RANDOM_SELF_BOUND; humanoid_bench as C1, beside the same run of the
+     base Model, a batch against batches of one, as its witness) and each
+     env stepped once alone from the batch's state at every step
+     (RANDOM_SELF_BOUND for every scene); every scene of
+     inverse_scenes.npz (pendulum, ball_free, spheres, the damped arm with
+     INVDISCRETE under Euler, ImplicitFast and Implicit, capsules.xml
+     under FWDINV, branchy66 with INVDISCRETE) through inverse against
+     mjtpu's outputs (INVERSE_BOUND of scale), the caller's qacc restored.
+ 33. slice-15 throughput, the main paths: the randomized humanoid_bench at
+     f32 B=4096 (bench_randomization's per-env friction, masses, damping,
+     gains and timestep, seed 1, with their constants from
+     randomize_scenes_golden.npz) through parallel.randomized_step from
+     qpos0 +-0.01 (numpy seed 1), 3 warm-up and 30 timed steps (CUDA
+     events): env-steps/s, B1 launches per step (register only, n=27, one
+     per Newton iteration), finite and nreset 0 over the run, 8 envs each
+     stepped once under its own unbatched Model against the batch
+     (RANDOM_CHECK_BOUND); then the branchy66 inverse with INVDISCRETE at
+     f32 B=4096, 2 warm-up and 20 timed calls (CUDA events): B2 lanes
+     factor and solve, one launch each a call.
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29 and 31: each kernel's launch
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29, 31 and 33: each kernel's launch
 count is set to 0 just before each and read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
 the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
 
-The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28 and 30, and phase
+The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 and 32, and phase
 22's cone scenes (``22-cones``), run each in a process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
 overlap it; no phase is timed while they run (the timed phases 23, 25,
-27, 29 and 31 come after all have ended).
+27, 29, 31 and 33 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -310,7 +336,7 @@ C8_STEPS = 20
 SATELLITE_WARMUP = 1
 SATELLITE_TIMED = 2
 ENV_WARMUP = 2
-ENV_TIMED = 5
+ENV_TIMED = 3  # the Ant env takes ~10 s of host an env step
 ELLIPTIC = "humanoid_bench_elliptic"
 # tests/test_torch_elliptic.py's bounds (ROADMAP C7): the copies of a
 # restart's state, a few ULP apart, that look for mjtpu's path where the
@@ -372,6 +398,22 @@ SLICE14_TRAJECTORY_BOUND = 1e-8
 SLICE14_BUNDLES = {"implicit": "implicit_scenes", "sensor": "sensor_scenes"}
 IMPLICIT_WARMUP = 3
 IMPLICIT_TIMED = 30
+# slice 15: the randomize and inverse scenes (randomize_scenes.npz,
+# inverse_scenes.npz), the randomized humanoid_bench and the branchy66
+# inverse at f32 B=4096
+RANDOM_BOUND = 1e-10        # a small randomize scene's batched run against mjtpu's
+RANDOM_BENCH_BOUND = 1e-8   # the randomized humanoid_bench against mjtpu's (C1's bound)
+RANDOM_BENCH_STEPS = 50     # ... this far
+RANDOM_SELF_BOUND = 1e-12   # each env under its own Model against the batched run, f64
+RANDOM_CHECK_ENVS = 8
+RANDOM_CHECK_BOUND = 1e-5   # ... one f32 step, of scale (1.045e-6 on the H100)
+RANDOM_WARMUP = 3
+RANDOM_TIMED = 30
+INVERSE_FIELDS = ("qfrc_inverse", "qfrc_constraint", "efc_force", "qfrc_bias", "qfrc_passive",
+                  "sensordata")
+INVERSE_BOUND = 1e-10       # the port's inverse against mjtpu's, of scale
+INVERSE_WARMUP = 2
+INVERSE_TIMED = 20
 # phase 3's sizes: the register kernel's n (the main paths' 2, 5, 8, 12,
 # 14, 23, 27 and the zoo envs' 6 and 9), which both variants run, and n
 # that only the shared kernel runs (32 and 33 on either side of its rows'
@@ -3119,8 +3161,377 @@ def phase_implicit_throughput(card):
   return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 15: per-env Model rows (parallel.randomize) and inverse dynamics
+# ---------------------------------------------------------------------------
+
+
+def bench_randomization(ns, batch: int, seed: int = 1) -> dict:
+  """The randomized humanoid_bench's rows (numpy, (batch, *shape) each)
+  from numpy seed ``seed``, for ``ns`` (an MjModel or a snapshot): each
+  geom's sliding friction x U(0.5, 1.5), each body's mass x U(0.8, 1.2),
+  each dof's damping x U(0.5, 2), each motor's gain x U(0.8, 1.2), the
+  timestep x U(0.9, 1.1).  Their derived constants come from mj_setConst
+  (randomize_scenes_golden.npz's "bench.rows.*", written for batch =
+  BENCH_BATCH and seed 1)."""
+  import numpy as np
+
+  rng = np.random.default_rng(seed)
+  tile = lambda x: np.tile(np.array(x, dtype=np.float64), (batch,) + (1,) * np.ndim(x))
+  friction, mass = tile(ns.geom_friction), tile(ns.body_mass)
+  friction[..., 0] *= rng.uniform(0.5, 1.5, friction.shape[:2])
+  mass *= rng.uniform(0.8, 1.2, mass.shape)
+  damping = tile(ns.dof_damping) * rng.uniform(0.5, 2.0, (batch, len(ns.dof_damping)))
+  gain = tile(ns.actuator_gainprm)
+  gain[..., 0] *= rng.uniform(0.8, 1.2, gain.shape[:2])
+  timestep = float(ns.opt.timestep) * rng.uniform(0.9, 1.1, batch)
+  return {"geom_friction": friction, "body_mass": mass, "dof_damping": damping,
+          "actuator_gainprm": gain, "opt.timestep": timestep}
+
+
+def _bundle_model(bundle: str, name: str, device, dtype=None):
+  import torch
+
+  import mjtpu_torch
+
+  return mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / f"{bundle}.npz", name),
+      dtype=dtype or torch.float64, device=device)
+
+
+def _rows(golden, prefix: str, m) -> dict:
+  """The rows under ``prefix`` in ``golden`` but those of empty fields (a
+  model without tendons has no tendon row)."""
+  from mjtpu_torch._src.types import field
+
+  out = {}
+  for k in golden.files:
+    if k.startswith(prefix):
+      name = k[len(prefix):]
+      base = field(m, name)
+      if base is None or base.numel():
+        out[name] = golden[k]
+  return out
+
+
+def _env_model(m, rows: dict, i: int):
+  """The unbatched Model of env i: ``m`` with row i of each of ``rows``."""
+  import torch
+
+  from mjtpu_torch._src.types import replace_fields
+
+  return replace_fields(m, {k: torch.as_tensor(v[i], dtype=m.dtype, device=m.device)
+                            for k, v in rows.items()})
+
+
+def _env_data(d, i: int):
+  """Env i of the batched Data ``d``, as a batch of one."""
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  return map_tensors(d, lambda x: x[i:i + 1])
+
+
+def _stack_env(ds, e: int):
+  """Env ``e`` of each of the batched Datas ``ds``, as one Data whose
+  batch is the list."""
+  import torch
+
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  cols = []
+  for d in ds:
+    leaves = []
+    map_tensors(d, lambda x: leaves.append(x[e]) or x)
+    cols.append(leaves)
+  stacked = iter([torch.stack(c) for c in zip(*cols)])
+  return map_tensors(ds[0], lambda x: next(stacked))
+
+
+def _randomize_scene_start(name: str, golden, device):
+  """(the base Model, its rows, the start Data, the golden's steps) of
+  randomize scene ``name``."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  m = _bundle_model("randomize_scenes", name, device)
+  rows = _rows(golden, f"{name}.rows.", m)
+  start = {k[len(name) + 1:-1]: golden[k] for k in golden.files
+           if k.startswith(f"{name}.") and k.endswith("0") and ".rows." not in k}
+  steps, batch = golden[f"{name}.qpos"].shape[:2]
+  t = lambda x: torch.as_tensor(np.asarray(x), dtype=m.dtype, device=device)
+  d0 = mjtpu_torch.replace(mjtpu_torch.make_data(m, batch), **{k: t(v) for k, v in start.items()})
+  return m, rows, d0, steps
+
+
+def _qpos_qvel_err(a, b) -> float:
+  """max |qpos|, |qvel| difference of two Datas of one batch (_abs_err)."""
+  return max(float(_abs_err(getattr(a, f).cpu().numpy(), getattr(b, f).cpu().numpy()).max())
+             for f in ("qpos", "qvel"))
+
+
+def randomize_plain_split(name: str, golden, device) -> float:
+  """Randomize scene ``name``'s base Model without its rows, from the
+  golden's start: the batched run against each env run as a batch of
+  one, the max |qpos|, |qvel| difference over the golden's steps.  What
+  rounding alone splits over a run, the witness beside the "self" error
+  of randomize_scene_errors."""
+  import mjtpu_torch
+
+  m, _, d0, steps = _randomize_scene_start(name, golden, device)
+  plain = [d0]
+  for _ in range(steps):
+    plain.append(mjtpu_torch.step(m, plain[-1]))
+  err = 0.0
+  for e in range(d0.qpos.shape[0]):
+    d = _env_data(d0, e)
+    for i in range(1, steps + 1):
+      d = mjtpu_torch.step(m, d)
+      err = max(err, _qpos_qvel_err(d, _env_data(plain[i], e)))
+  return err
+
+
+def randomize_scene_errors(name: str, golden, device) -> dict:
+  """The randomize scene ``name`` (randomize_scenes.npz, f64): its rows
+  from the golden through parallel.randomized_step from the golden's
+  start, against mjtpu's batched randomized rollout ("mjtpu": the max
+  |qpos|, |qvel| difference over the golden's steps; "mjtpu_head": over
+  its first RANDOM_BENCH_STEPS); each env stepped alone under its own
+  unbatched Model against the batched run ("self"); each env's state at
+  every step stepped once under its own unbatched Model (one batch of
+  the env's states) against the batched run's next step, the worst over
+  every step ("restart": one step's rounding, not amplified over a run)."""
+  import mjtpu_torch
+  from mjtpu_torch import parallel
+
+  m, rows, d0, steps = _randomize_scene_start(name, golden, device)
+  step, _ = parallel.randomized_step(m, rows)
+  d, err, head, ds = d0, 0.0, 0.0, [d0]
+  for i in range(steps):
+    d = step(d)
+    ds.append(d)
+    e = max(float(_abs_err(d.qpos.cpu().numpy(), golden[f"{name}.qpos"][i]).max()),
+            float(_abs_err(d.qvel.cpu().numpy(), golden[f"{name}.qvel"][i]).max()))
+    err = max(err, e)
+    if i < RANDOM_BENCH_STEPS:
+      head = max(head, e)
+  out = {"mjtpu": err, "mjtpu_head": head, "self": 0.0, "restart": 0.0}
+  for e in range(d0.qpos.shape[0]):
+    me, de = _env_model(m, rows, e), _env_data(d0, e)
+    for i in range(1, steps + 1):
+      de = mjtpu_torch.step(me, de)
+      out["self"] = max(out["self"], _qpos_qvel_err(de, _env_data(ds[i], e)))
+    out["restart"] = max(out["restart"], _qpos_qvel_err(
+        mjtpu_torch.step(me, _stack_env(ds[:-1], e)), _stack_env(ds[1:], e)))
+  return out
+
+
+def inverse_scene_errors(name: str, golden, device) -> dict:
+  """The inverse scene ``name`` (inverse_scenes.npz, f64): mjtpu_torch's
+  inverse from the golden's start against mjtpu's outputs, each field's
+  max |difference| over its scale (_scaled_err); "qacc_restored" whether
+  the caller's qacc came back bit for bit; "c" the port's qfrc_inverse
+  against MuJoCo C's, absolute."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  m = _bundle_model("inverse_scenes", name, device)
+  start = {k[len(name) + 1:-1]: golden[k] for k in golden.files
+           if k.startswith(f"{name}.") and k.endswith("0")}
+  batch = len(start["qacc"])
+  t = lambda x: torch.as_tensor(np.asarray(x), dtype=m.dtype, device=device)
+  d = mjtpu_torch.replace(mjtpu_torch.make_data(m, batch), **{k: t(v) for k, v in start.items()})
+  out = mjtpu_torch.inverse(m, d)
+  errs = {k: _scaled_err(getattr(out, k).cpu().numpy(), golden[f"{name}.{k}"])
+          for k in INVERSE_FIELDS if golden[f"{name}.{k}"].size}
+  errs["qacc_restored"] = bool(torch.equal(out.qacc, d.qacc))
+  errs["c"] = float(np.abs(out.qfrc_inverse.cpu().numpy() - golden[f"{name}.c_qfrc_inverse"]).max())
+  return errs
+
+
+def randomize_bounds(name: str) -> tuple[str, float, float]:
+  """(the error key, its bound against mjtpu, the bound of each env's run
+  alone against the batch, and of the base Model's) of randomize scene
+  ``name``: humanoid_bench's truncated solver amplifies ULP differences
+  over a run (C1: its base Model parts a batch of 4 from batches of one
+  as far as its rows do), so it is held to RANDOM_BENCH_BOUND through
+  step RANDOM_BENCH_STEPS in both; its one-step restarts, like every
+  scene's, to RANDOM_SELF_BOUND."""
+  if name == "humanoid_bench":
+    return "mjtpu_head", RANDOM_BENCH_BOUND, RANDOM_BENCH_BOUND
+  return "mjtpu", RANDOM_BOUND, RANDOM_SELF_BOUND
+
+
+def phase_slice15_parity():
+  """Phase 32 (side): every randomize scene's batched run against mjtpu's
+  (RANDOM_BOUND; humanoid_bench's to RANDOM_BENCH_BOUND through step
+  RANDOM_BENCH_STEPS, as C1) and each env alone under its own Model
+  against it (RANDOM_SELF_BOUND), beside the base Model's same run, and
+  each env's one-step restarts (RANDOM_SELF_BOUND); every inverse scene against mjtpu
+  (INVERSE_BOUND of scale) with the caller's qacc restored, f64."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  golden = np.load(mjtpu_torch.ASSETS / "randomize_scenes_golden.npz")
+  for name in io.bundle_names(mjtpu_torch.ASSETS / "randomize_scenes.npz"):
+    errs = randomize_scene_errors(name, golden, "cuda")
+    errs["plain_self"] = randomize_plain_split(name, golden, "cuda")
+    key, bound, self_bound = randomize_bounds(name)
+    if not (errs[key] <= bound and errs["self"] <= self_bound
+            and errs["plain_self"] <= self_bound and errs["restart"] <= RANDOM_SELF_BOUND):
+      raise AssertionError(f"randomize scene {name}: {errs}")
+    log(f"[slice15 parity] randomize {name}: batched against mjtpu {errs[key]:.3e} (bound"
+        f" {bound:g}{' through step %d' % RANDOM_BENCH_STEPS if key == 'mjtpu_head' else ''};"
+        f" over every step {errs['mjtpu']:.3e}), each env under its own Model"
+        f" {errs['self']:.3e} and the base Model's batch against batches of one"
+        f" {errs['plain_self']:.3e} (bound {self_bound:g}), each env's one-step restarts"
+        f" {errs['restart']:.3e} (bound {RANDOM_SELF_BOUND:g})")
+  golden = np.load(mjtpu_torch.ASSETS / "inverse_scenes_golden.npz")
+  for name in io.bundle_names(mjtpu_torch.ASSETS / "inverse_scenes.npz"):
+    errs = inverse_scene_errors(name, golden, "cuda")
+    worst = max(v for k, v in errs.items() if k in INVERSE_FIELDS)
+    if worst > INVERSE_BOUND or not errs["qacc_restored"]:
+      raise AssertionError(f"inverse scene {name}: {errs}")
+    log(f"[slice15 parity] inverse {name}: against mjtpu {worst:.3e} of scale (bound"
+        f" {INVERSE_BOUND:g}), qacc restored, qfrc_inverse against MuJoCo C {errs['c']:.3e}")
+
+
+def _random_bench_path(card):
+  """Phase 33's randomized humanoid_bench: f32 B=4096, per-env friction,
+  masses, damping, gains and timestep (bench_randomization, seed 1) with
+  their derived constants from the committed asset, through
+  parallel.randomized_step; RANDOM_WARMUP warm-up and RANDOM_TIMED timed
+  steps (CUDA events), B1 register at n=27 once per Newton iteration;
+  then RANDOM_CHECK_ENVS envs each stepped once under its own unbatched
+  Model against the batched step from the same state."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch import parallel
+  from mjtpu_torch._src import solver
+  from mjtpu_torch.ops import cholesky
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(ns, dtype=torch.float32, device="cuda")
+  rows = bench_randomization(ns, BENCH_BATCH)
+  consts = _rows(np.load(mjtpu_torch.ASSETS / "randomize_scenes_golden.npz"), "bench.rows.", m)
+  if not np.array_equal(consts.pop("body_mass"), rows["body_mass"]):
+    raise AssertionError("randomize_scenes_golden.npz's bench rows are not bench_randomization's")
+  rows.update(consts)
+  step, mb = parallel.randomized_step(m, rows)
+  d = _f32_start(m)
+  for _ in range(RANDOM_WARMUP):
+    d = step(d)
+  torch.cuda.synchronize()
+  _zero_counts()
+  loops = dict(solver.loop_counts)
+  t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  finite, nreset = True, 0
+  t0.record()
+  for _ in range(RANDOM_TIMED):
+    d = step(d)
+  t1.record()
+  torch.cuda.synchronize()
+  secs = t0.elapsed_time(t1) / 1e3
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  by_variant = dict(cholesky.variant_launches)
+  counts = _read_counts()
+  finite, nreset = bool(torch.isfinite(d.qpos).all()), int(d.nreset.sum())
+  if not finite or nreset:
+    raise AssertionError(f"randomized humanoid_bench: finite {finite}, nreset {nreset}")
+  if counts != _only(chol_solve=loops["iterations"]):
+    raise AssertionError(f"randomized humanoid_bench: launches {counts}, Newton {loops}")
+  envs = np.linspace(0, BENCH_BATCH - 1, RANDOM_CHECK_ENVS).astype(int)
+  batched = step(d)
+  worst = 0.0
+  for e in envs:
+    alone = mjtpu_torch.step(_env_model(m, rows, int(e)), _env_data(d, int(e)))
+    for f in ("qpos", "qvel"):
+      worst = max(worst, _scaled_err(getattr(alone, f)[0].cpu().numpy(),
+                                     getattr(batched, f)[int(e)].cpu().numpy()))
+  if worst > RANDOM_CHECK_BOUND:
+    raise AssertionError(f"randomized humanoid_bench: env alone against the batch {worst:.3e}")
+  spread = float(mb.opt.timestep.max() / mb.opt.timestep.min())
+  rate = BENCH_BATCH * RANDOM_TIMED / secs
+  line = (f"f32 B={BENCH_BATCH}: {RANDOM_WARMUP} warm-up and {RANDOM_TIMED} timed steps in"
+          f" {secs:.3f} s (CUDA events) = {rate:.0f} env-steps/s ({1e3 * secs / RANDOM_TIMED:.3f}"
+          f" ms/step); qpos finite, nreset 0 over the run; per step: B1 register"
+          f" {counts['chol_solve'] / RANDOM_TIMED:.2f} launches (by variant in all"
+          f" {by_variant}; n={m.nv}; Newton"
+          f" {loops['iterations'] / RANDOM_TIMED:.2f} iterations and"
+          f" {loops['ls_rounds'] / RANDOM_TIMED:.2f} linesearch rounds); {len(envs)} envs each"
+          f" stepped under its own Model within {worst:.3e} of scale of the batch (bound"
+          f" {RANDOM_CHECK_BOUND:g}); timesteps span x{spread:.3f}; card {card}")
+  return line, counts
+
+
+def _branchy_inverse_path(card):
+  """Phase 33's branchy66 inverse: f32 B=4096, the 66-dof tree with
+  INVDISCRETE (Euler with implicit damping) at hinge angles qpos0 +-0.3
+  and qvel in [-0.3, 0.3] (numpy seed 1), qacc from one step;
+  INVERSE_WARMUP warm-up and INVERSE_TIMED timed inverse calls (CUDA
+  events): B2 lanes factor (factor_m) and solve (discrete_acc's solve_m),
+  one each a call."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import ldl
+
+  m = _bundle_model("inverse_scenes", "branchy66", "cuda", torch.float32)
+  rng = np.random.default_rng(1)
+  qpos = m.qpos0.cpu().numpy()[None].repeat(BENCH_BATCH, 0)
+  qpos[:, 7:] += rng.uniform(-0.3, 0.3, (BENCH_BATCH, m.nq - 7))
+  t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")
+  d = mjtpu_torch.replace(mjtpu_torch.make_data(m, BENCH_BATCH), qpos=t(qpos),
+                          qvel=t(rng.uniform(-0.3, 0.3, (BENCH_BATCH, m.nv))))
+  d = mjtpu_torch.replace(d, qacc=mjtpu_torch.step(m, d).qacc)
+  for _ in range(INVERSE_WARMUP):
+    out = mjtpu_torch.inverse(m, d)
+  torch.cuda.synchronize()
+  _zero_counts()
+  t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  t0.record()
+  for _ in range(INVERSE_TIMED):
+    out = mjtpu_torch.inverse(m, d)
+  t1.record()
+  torch.cuda.synchronize()
+  secs = t0.elapsed_time(t1) / 1e3
+  by_variant = {e: dict(ldl.variant_launches[e]) for e in ("ldl_factor", "ldl_solve")}
+  counts = _read_counts()
+  if counts != _only(ldl_factor=INVERSE_TIMED, ldl_solve=INVERSE_TIMED):
+    raise AssertionError(f"branchy66 inverse: launches {counts}")
+  if not bool(torch.isfinite(out.qfrc_inverse).all()) or not torch.equal(out.qacc, d.qacc):
+    raise AssertionError("branchy66 inverse: qfrc_inverse not finite or qacc not restored")
+  line = (f"f32 B={BENCH_BATCH} (nv={m.nv}, INVDISCRETE, Euler with implicit damping):"
+          f" {INVERSE_WARMUP} warm-up and {INVERSE_TIMED} timed calls in {secs:.3f} s (CUDA"
+          f" events) = {BENCH_BATCH * INVERSE_TIMED / secs:.0f} env-inverses/s"
+          f" ({1e3 * secs / INVERSE_TIMED:.3f} ms/call); qfrc_inverse finite, qacc restored;"
+          f" per call: B2 lanes factor {counts['ldl_factor'] / INVERSE_TIMED:.0f} and solve"
+          f" {counts['ldl_solve'] / INVERSE_TIMED:.0f} launches (by variant in all"
+          f" {by_variant}); card {card}")
+  return line, counts
+
+
+def phase_slice15_throughput(card):
+  """Phase 33: the randomized humanoid_bench and the branchy66 inverse."""
+  line, bench = _random_bench_path(card)
+  log(f"[slice15 throughput] randomized humanoid_bench (per-env friction, masses, damping,"
+      f" gains and timestep, parallel.randomized_step) {line}")
+  line, inv = _branchy_inverse_path(card)
+  log(f"[slice15 throughput] branchy66 inverse {line}")
+  return bench, inv
+
+
 # the parity phases that run in a process of their own beside phase 22
-SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28", "30")
+SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28", "30",
+               "32")
 SIDE_TIMEOUT_S = 600
 
 
@@ -3154,12 +3565,16 @@ def _side_main(phase: str) -> int:
   it, the kernels loaded from main()'s build."""
   if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+  t0 = time.perf_counter()
   phase_device()
   {"5": phase_parity, "7": phase_terrain_parity, "10": phase_pile_parity,
    "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
    "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
    "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity,
-   "30": phase_slice14_parity}[phase]()
+   "30": phase_slice14_parity, "32": phase_slice15_parity}[phase]()
+  # its own wall time, beside the other side phases: which one holds the
+  # group's rest after phase 22
+  log(f"[time] phase {phase} in its process: {time.perf_counter() - t0:.1f} s")
   return 0
 
 
@@ -3235,6 +3650,8 @@ def main() -> int:
   lap("29")
   paths["humanoid_implicit"] = phase_implicit_throughput(card)
   lap("31")
+  paths["random_bench"], paths["branchy66_inverse"] = phase_slice15_throughput(card)
+  lap("33")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():

@@ -40,13 +40,26 @@ RNE and fluid velocity derivatives, ``deriv_smooth_vel``), the energy
 flag (``potential_energy``, ``kinetic_energy``, ``energy_pos``,
 ``energy_vel``) and every sensor type mjtpu computes, the energy,
 geom-distance (``geom_distance``), camera-projection and contact sensors
-among them.  ``put_model`` refuses, with NotImplementedError naming the
-feature, what mjtpu refuses (flex, PGS, user sensors) and the OVERRIDE,
-FWDINV and INVDISCRETE enable flags.
+among them.  Inverse dynamics run too (``inverse``, with the
+INVDISCRETE flag's undo of the discretization under Euler, ImplicitFast
+and Implicit), and every enable flag: OVERRIDE and FWDINV are carried and
+read nowhere, as in mjtpu.  ``parallel.randomize`` (with ``model_axes``,
+``randomize_with_consts`` and ``randomized_step``) gives a Model one row
+per env of its friction, masses, inertias, damping, gains, timestep,
+gravity and more (``parallel/randomize.py`` lists them), and the zoo's
+``reset`` and ``step`` take such a model as ``model=``.  The rest of
+mjtpu's public names are here too: ``full_m``, ``mul_m``, ``apply_ft``,
+``is_sparse``, ``random_unit_quat`` (from a ``torch.Generator``), the
+``scan`` module, ``save_checkpoint``, ``load_checkpoint`` (which also
+reads mjtpu's checkpoints of the same model), ``device_get_into`` and
+``mujoco_logger``; ``get_data_into`` writes the contacts and efc rows
+back too.  ``put_model`` refuses, with NotImplementedError naming the
+feature, what mjtpu refuses (flex, PGS, user sensors).
 """
 
 import pathlib
 
+from mjtpu_torch._src import scan
 from mjtpu_torch._src.collision_driver import collision, ncon
 from mjtpu_torch._src.constraint import make_constraint
 from mjtpu_torch._src.dataclasses import replace, to
@@ -62,19 +75,25 @@ from mjtpu_torch._src.forward import (
     rungekutta4,
     step,
 )
+from mjtpu_torch._src.inverse import inverse
 from mjtpu_torch._src.io import (
     data_from_mjtpu,
     data_to_numpy,
+    device_get_into,
     device_put,
     get_data_into,
+    load_checkpoint,
     load_snapshot,
     make_data,
     model_from_arrays,
     procedural_terrain,
     put_data,
     put_model,
+    save_checkpoint,
     save_snapshot,
 )
+from mjtpu_torch._src.log import mujoco_logger
+from mjtpu_torch._src.math import random_unit_quat
 from mjtpu_torch._src.passive import passive
 from mjtpu_torch._src.ray import ray, ray_geom
 from mjtpu_torch._src.sensor import sensor_acc, sensor_pos, sensor_vel
@@ -100,11 +119,15 @@ from mjtpu_torch._src.smooth import (
 )
 from mjtpu_torch._src.solver import solve
 from mjtpu_torch._src.support import (
+    apply_ft,
     constraint_sizes,
     contact_forces,
     count_constraints,
+    full_m,
     geom_distance,
+    is_sparse,
     jac,
+    mul_m,
     xfrc_accumulate,
 )
 from mjtpu_torch._src.types import (
@@ -139,4 +162,4 @@ ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 
 __version__ = "0.1.0"
 
-from mjtpu_torch import zoo  # noqa: E402  (after ASSETS: the envs load their snapshots from it)
+from mjtpu_torch import parallel, zoo  # noqa: E402  (after ASSETS: the envs load their snapshots from it)

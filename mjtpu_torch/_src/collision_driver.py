@@ -39,6 +39,8 @@ from mjtpu_torch._src.types import (
     GeomType,
     Model,
     cached,
+    env_expand,
+    rows as env_rows,
 )
 
 G = GeomType
@@ -326,15 +328,18 @@ def contact_efc_address(m: Model, ne: int, nf: int, nl: int) -> np.ndarray:
 
 def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   """Stacked (margin, gap, friction, solref, solreffriction, solimp) for a
-  group's pairs.  <pair> rows use the table; dynamic rows mix per-geom
-  parameters by solmix weight with priority override."""
+  group's pairs, each (E, P, ...) with the env axis E of types.rows (B
+  where randomize gave the geoms' parameter a row per env, else 1).  <pair> rows use
+  the table; dynamic rows mix per-geom parameters by solmix weight with
+  priority override."""
   i1 = np.array([p[0] for p in pairs])
   i2 = np.array([p[1] for p in pairs])
   ip = np.array([p[2] for p in pairs])
 
   p1, p2 = m.geom_priority[i1], m.geom_priority[i2]
-  margin = m.geom_margin[i1] + m.geom_margin[i2]
-  gap = m.geom_gap[i1] + m.geom_gap[i2]
+  gmargin = env_rows(m, "geom_margin")
+  margin = gmargin[:, i1] + gmargin[:, i2]
+  gap = (m.geom_gap[i1] + m.geom_gap[i2])[None]
 
   solmix1, solmix2 = m.geom_solmix[i1], m.geom_solmix[i2]
   small1, small2 = solmix1 < math.MINVAL, solmix2 < math.MINVAL
@@ -347,26 +352,27 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   mix = torch.where(eq_prio, mix, torch.as_tensor(p1 > p2, device=dev).to(mix.dtype))
   mix_ = mix[:, None]
 
-  f1, f2 = m.geom_friction[i1], m.geom_friction[i2]
+  gf, gsr, gsi = (env_rows(m, f"geom_{k}") for k in ("friction", "solref", "solimp"))
+  f1, f2 = gf[:, i1], gf[:, i2]
   friction3 = torch.where(
       eq_prio[:, None], torch.maximum(f1, f2), torch.where(mix_ > 0.5, f1, f2)
   )
-  sr1, sr2 = m.geom_solref[i1], m.geom_solref[i2]
-  is_standard = (sr1[:, 0:1] > 0) & (sr2[:, 0:1] > 0)
+  sr1, sr2 = gsr[:, i1], gsr[:, i2]
+  is_standard = (sr1[..., 0:1] > 0) & (sr2[..., 0:1] > 0)
   solref = torch.where(is_standard, torch.minimum(sr1, sr2), mix_ * sr1 + (1 - mix_) * sr2)
-  solimp = mix_ * m.geom_solimp[i1] + (1 - mix_) * m.geom_solimp[i2]
-  friction = friction3[:, [0, 0, 1, 2, 2]]
+  solimp = mix_ * gsi[:, i1] + (1 - mix_) * gsi[:, i2]
+  friction = friction3[..., [0, 0, 1, 2, 2]]
   solreffriction = torch.zeros_like(solref)
 
-  rows = np.where(ip >= 0)[0]
-  if len(rows):
-    tp = ip[rows]
-    margin[rows] = m.pair_margin[tp]
-    gap[rows] = m.pair_gap[tp]
-    friction[rows] = m.pair_friction[tp]
-    solref[rows] = m.pair_solref[tp]
-    solreffriction[rows] = m.pair_solreffriction[tp]
-    solimp[rows] = m.pair_solimp[tp]
+  sel = np.where(ip >= 0)[0]
+  if len(sel):
+    tp = ip[sel]
+    margin[:, sel] = m.pair_margin[tp]
+    gap[:, sel] = m.pair_gap[tp]
+    friction[:, sel] = m.pair_friction[tp]
+    solref[:, sel] = m.pair_solref[tp]
+    solreffriction[:, sel] = m.pair_solreffriction[tp]
+    solimp[:, sel] = m.pair_solimp[tp]
   return margin, gap, friction, solref, solreffriction, solimp
 
 
@@ -439,8 +445,9 @@ def _static_rows(m: Model):
     if _compacted(m):
       return rows, None
     groups = _schedule(m)
-    rep = lambda x, g: torch.repeat_interleave(x, g.n_per, dim=0)
-    margin, gap, *params = (torch.cat([rep(g.params[k], g) for g in groups]) for k in range(6))
+    rep = lambda x, g: torch.repeat_interleave(x, g.n_per, dim=1)
+    margin, gap, *params = (torch.cat([rep(g.params[k], g) for g in groups], dim=1)
+                            for k in range(6))
     params = (margin, margin + gap, *params)
     geoms = tuple(torch.as_tensor(g, dtype=torch.int32, device=m.device)
                   for g in _slot_geoms(m))
@@ -475,6 +482,7 @@ def collision(m: Model, d: Data) -> Data:
 
   (dim, efc_address), static = _static_rows(m)
   bcast = lambda x: x.expand((B,) + x.shape)
+  size = env_rows(m, "geom_size")  # (E, ngeom, 3)
   dists, poss, frames, slots = [], [], [], []
   for g in _schedule(m):
     i1, i2 = g.i1, g.i2
@@ -483,11 +491,11 @@ def collision(m: Model, d: Data) -> Data:
       sel = _broadphase(m, d, g)
       i1, i2 = i1[sel], i2[sel]
       envs = torch.arange(B, device=device)[:, None]
-      args = (d.geom_xpos[envs, i1], d.geom_xmat[envs, i1], m.geom_size[i1],
-              d.geom_xpos[envs, i2], d.geom_xmat[envs, i2], m.geom_size[i2])
+      args = (d.geom_xpos[envs, i1], d.geom_xmat[envs, i1], env_expand(size, B)[envs, i1],
+              d.geom_xpos[envs, i2], d.geom_xmat[envs, i2], env_expand(size, B)[envs, i2])
     else:
-      args = (d.geom_xpos[:, i1], d.geom_xmat[:, i1], m.geom_size[i1],
-              d.geom_xpos[:, i2], d.geom_xmat[:, i2], m.geom_size[i2])
+      args = (d.geom_xpos[:, i1], d.geom_xmat[:, i1], size[:, i1],
+              d.geom_xpos[:, i2], d.geom_xmat[:, i2], size[:, i2])
     dist, pos, frame = g.fn(*args)  # (B, npair, contacts per pair, ...)
     dists.append(dist.reshape(B, -1))
     poss.append(pos.reshape(B, -1, 3))
@@ -496,17 +504,18 @@ def collision(m: Model, d: Data) -> Data:
       # each slot's parameters and geoms, (B, slots, ...)
       rep = lambda x: torch.repeat_interleave(x, g.n_per, dim=1)
       if g.compacted:
-        slots.append([rep(p[sel]) for p in g.params] + [rep(i1), rep(i2)])
+        slots.append([rep(env_expand(p, B)[envs, sel]) for p in g.params] + [rep(i1), rep(i2)])
       else:
-        slots.append([bcast(torch.repeat_interleave(x, g.n_per, dim=0))
-                      for x in (*g.params, i1, i2)])
+        slots.append([env_expand(torch.repeat_interleave(x, g.n_per, dim=1), B) for x in g.params]
+                     + [bcast(torch.repeat_interleave(x, g.n_per, dim=0)) for x in (i1, i2)])
 
   if static is None:
     margin, gap, friction, solref, solreffriction, solimp, geom1, geom2 = (
         torch.cat([s[k] for s in slots], dim=1) for k in range(8))
     detect, geom1, geom2 = margin + gap, geom1.to(torch.int32), geom2.to(torch.int32)
   else:
-    margin, detect, friction, solref, solreffriction, solimp, geom1, geom2 = map(bcast, static)
+    margin, detect, friction, solref, solreffriction, solimp = (env_expand(x, B) for x in static[:6])
+    geom1, geom2 = map(bcast, static[6:])
 
   dist = torch.cat(dists, dim=1)
   contact = Contact(

@@ -31,7 +31,9 @@ from mjtpu_torch._src.types import (
     JointType,
     Model,
     cached,
+    env_expand,
     index,
+    rows as env_rows,
 )
 
 # MuJoCo impedance clamps
@@ -69,7 +71,7 @@ def _kbi(m: Model, solref, solimp, pos):
   power = torch.clamp_min(solimp[..., 4], 1.0)
 
   if not (m.opt.disableflags & DisableBit.REFSAFE):
-    timeconst = torch.maximum(timeconst, 2.0 * m.opt.timestep)
+    timeconst = torch.maximum(timeconst, 2.0 * env_rows(m, "opt.timestep")[:, None])
 
   k = 1.0 / torch.clamp_min(dmax * dmax * timeconst * timeconst * dampratio * dampratio, math.MINVAL)
   b = 2.0 / torch.clamp_min(dmax * timeconst, math.MINVAL)
@@ -193,12 +195,15 @@ def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
       c = dict(ids=t(ids), data=m.eq_data[ids], solref=rep(m.eq_solref[ids]),
                solimp=rep(m.eq_solimp[ids]))
       o1, o2 = obj1[ids], obj2[ids]
+      # invweight and the tendon references have the env axis of env_rows
       if et in (EqType.CONNECT, EqType.WELD):
         c.update(b1=t(o1), b2=t(o2))
-        iw = m.body_invweight0[o1] + m.body_invweight0[o2]          # (K, 2)
-        c["invweight"] = (rep(iw[:, 0]) if et == EqType.CONNECT else
-                          torch.cat([iw[:, :1].expand(-1, 3), iw[:, 1:].expand(-1, 3)],
-                                    dim=1).reshape(-1))
+        biw = env_rows(m, "body_invweight0")
+        iw = biw[:, o1] + biw[:, o2]                                  # (E, K, 2)
+        c["invweight"] = (torch.repeat_interleave(iw[..., 0], per, dim=1)
+                          if et == EqType.CONNECT else
+                          torch.cat([iw[..., :1].expand(-1, -1, 3), iw[..., 1:].expand(-1, -1, 3)],
+                                    dim=2).reshape(iw.shape[0], -1))
       else:
         has2 = o2 > -1
         o2 = np.where(has2, o2, 0)
@@ -211,10 +216,12 @@ def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
                                                device=m.device)
           c["dof1"] = onehot(dadr[o1])
           c["dof2"] = onehot(dadr[o2]) * c["has2"][:, None]
-          iw1, iw2 = m.dof_invweight0[dadr[o1]], m.dof_invweight0[dadr[o2]]
+          diw = env_rows(m, "dof_invweight0")
+          iw1, iw2 = diw[:, dadr[o1]], diw[:, dadr[o2]]
         else:
-          c.update(t1=t(o1), t2=t(o2), ref1=m.tendon_length0[o1], ref2=m.tendon_length0[o2])
-          iw1, iw2 = m.tendon_invweight0[o1], m.tendon_invweight0[o2]
+          length0, tiw = env_rows(m, "tendon_length0"), env_rows(m, "tendon_invweight0")
+          c.update(t1=t(o1), t2=t(o2), ref1=length0[:, o1], ref2=length0[:, o2])
+          iw1, iw2 = tiw[:, o1], tiw[:, o2]
         c["invweight"] = torch.where(c["has2"] > 0, iw1 + iw2, iw1)
       groups.append((int(et), c))
     perm = np.concatenate([np.arange(s, s + n) for s, n in
@@ -301,7 +308,7 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
     zero = torch.zeros_like(cpos)
     parts.append(_Rows(
         J=J, pos=cpos, pos_imp=pos_imp, pos_out=cpos, margin=zero,
-        invweight=rows(c["invweight"]), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+        invweight=env_expand(c["invweight"], B), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
         frictionloss=zero, r_scale=torch.ones_like(zero),
     ))
     biases.append(bias)
@@ -326,24 +333,25 @@ def _friction_rows(m: Model, d: Data) -> list[_Rows]:
       onehot = np.zeros((len(dofs), m.nv))
       onehot[np.arange(len(dofs)), dofs] = 1.0
       out["dof"] = (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
-                    m.dof_invweight0[dofs], m.dof_solref[dofs], m.dof_solimp[dofs],
-                    m.dof_frictionloss[dofs])
+                    env_rows(m, "dof_invweight0")[:, dofs], m.dof_solref[dofs],
+                    m.dof_solimp[dofs], env_rows(m, "dof_frictionloss")[:, dofs])
     if len(tens):
-      out["tendon"] = (torch.as_tensor(tens, device=m.device), m.tendon_invweight0[tens],
-                       m.tendon_solref_fri[tens], m.tendon_solimp_fri[tens],
-                       m.tendon_frictionloss[tens])
+      out["tendon"] = (torch.as_tensor(tens, device=m.device),
+                       env_rows(m, "tendon_invweight0")[:, tens], m.tendon_solref_fri[tens],
+                       m.tendon_solimp_fri[tens], m.tendon_frictionloss[tens][None])
     return out
 
+  # invweight and frictionloss have the env axis of env_rows
   tables = cached(m, "constraint.friction_rows", build)
   rows = lambda x: x.expand((B,) + x.shape)
   out = []
   for kind, (jac, invweight, solref, solimp, frictionloss) in tables.items():
     jac = rows(jac) if kind == "dof" else d.ten_J[:, jac]
-    zero = d.qpos.new_zeros((B, invweight.shape[0]))
+    zero = d.qpos.new_zeros((B, invweight.shape[1]))
     out.append(_Rows(
         J=jac, pos=zero, pos_imp=zero, pos_out=zero, margin=zero,
-        invweight=rows(invweight), solref=rows(solref), solimp=rows(solimp),
-        frictionloss=rows(frictionloss), r_scale=torch.ones_like(zero),
+        invweight=env_expand(invweight, B), solref=rows(solref), solimp=rows(solimp),
+        frictionloss=env_expand(frictionloss, B), r_scale=torch.ones_like(zero),
     ))
   return out
 
@@ -369,7 +377,8 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
     return dict(
         ids=torch.as_tensor(tens, device=m.device), lo=m.tendon_range[tens, 0],
         hi=m.tendon_range[tens, 1], margin=m.tendon_margin[tens],
-        margin_rows=rep(m.tendon_margin[tens]), invweight=rep(m.tendon_invweight0[tens]),
+        margin_rows=rep(m.tendon_margin[tens]),
+        invweight=torch.repeat_interleave(env_rows(m, "tendon_invweight0")[:, tens], per, dim=1),
         solref=rep(m.tendon_solref_lim[tens]), solimp=rep(m.tendon_solimp_lim[tens]),
         side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(tens)),
     )
@@ -390,7 +399,7 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
   rows = lambda x: x.expand((B,) + x.shape)
   return [_Rows(
       J=(side * active)[..., None] * jac, pos=pos, pos_imp=pos, pos_out=pos,
-      margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
+      margin=rows(c["margin_rows"]), invweight=env_expand(c["invweight"], B),
       solref=rows(c["solref"]), solimp=rows(c["solimp"]),
       frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
   )]
@@ -422,6 +431,8 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       base += per * len(cat)
     perm = np.concatenate([np.arange(s, s + c) for s, c in (starts[j] for j in limited)])
     qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
+    # the range and invweight have the env axis of env_rows
+    jnt_range, dof_iw = env_rows(m, "jnt_range"), env_rows(m, "dof_invweight0")
     cats = []
     for cat, per in ((sh1, 1), (sh2, 2)):
       if not len(cat):
@@ -429,23 +440,24 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       rep = lambda x: torch.repeat_interleave(x, per, dim=0)
       cats.append(dict(
           per=per, n=len(cat), qadr=torch.as_tensor(qadr[cat], device=m.device),
-          lo=m.jnt_range[cat, 0], hi=m.jnt_range[cat, 1], margin=m.jnt_margin[cat],
+          lo=jnt_range[:, cat, 0], hi=jnt_range[:, cat, 1], margin=m.jnt_margin[cat],
           onehot=torch.as_tensor(np.eye(m.nv)[np.repeat(dadr[cat], per)], dtype=m.dtype,
                                  device=m.device),
           side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(cat)),
-          margin_rows=rep(m.jnt_margin[cat]), invweight=rep(m.dof_invweight0[dadr[cat]]),
+          margin_rows=rep(m.jnt_margin[cat]),
+          invweight=torch.repeat_interleave(dof_iw[:, dadr[cat]], per, dim=1),
           solref=rep(m.jnt_solref[cat]), solimp=rep(m.jnt_solimp[cat]),
       ))
     if len(balls):
       # J[i, dadr_i + k] = -axis_i[k] * active_i: a (n, 3, nv) placement
       place = np.zeros((len(balls), 3, m.nv))
       place[np.arange(len(balls))[:, None], np.arange(3), dadr[balls][:, None] + np.arange(3)] = 1
-      rng = m.jnt_range[balls]
+      rng = jnt_range[:, balls]
       cats.append(dict(
           per=None, quat=torch.as_tensor(qadr[balls][:, None] + np.arange(4), device=m.device),
           place=torch.as_tensor(place, dtype=m.dtype, device=m.device),
-          limit=torch.maximum(torch.abs(rng[:, 0]), torch.abs(rng[:, 1])),
-          margin=m.jnt_margin[balls], invweight=m.dof_invweight0[dadr[balls]],
+          limit=torch.maximum(torch.abs(rng[..., 0]), torch.abs(rng[..., 1])),
+          margin=m.jnt_margin[balls], invweight=dof_iw[:, dadr[balls]],
           solref=m.jnt_solref[balls], solimp=m.jnt_solimp[balls],
           x_axis=torch.tensor([1.0, 0.0, 0.0], dtype=m.dtype, device=m.device)))
     identity = np.array_equal(perm, np.arange(len(perm)))
@@ -466,7 +478,8 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       J = torch.einsum("bnk,nkv->bnv", -axis * active[..., None], c["place"])
       parts.append(_Rows(
           J=J, pos=pos, pos_imp=pos, pos_out=pos, margin=rows(c["margin"]),
-          invweight=rows(c["invweight"]), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+          invweight=env_expand(c["invweight"], B), solref=rows(c["solref"]),
+          solimp=rows(c["solimp"]),
           frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
       ))
       continue
@@ -486,7 +499,7 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
     parts.append(_Rows(
         J=c["onehot"] * (side * active)[..., None],
         pos=pos, pos_imp=pos, pos_out=pos,
-        margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
+        margin=rows(c["margin_rows"]), invweight=env_expand(c["invweight"], B),
         solref=rows(c["solref"]), solimp=rows(c["solimp"]),
         frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
     ))
@@ -522,8 +535,8 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
 
   groups = cached(m, "constraint.contact_groups", build)
   jt, jr, (b1, b2) = _contact_jacobians(m, d, rotational=groups[-1][0] > 3)
-  iw_body = m.body_invweight0[:, 0]
-  iw_all = iw_body[b1] + iw_body[b2]        # (B, ncon)
+  iw_body = env_expand(env_rows(m, "body_invweight0")[..., 0], B)
+  iw_all = torch.gather(iw_body, 1, b1) + torch.gather(iw_body, 1, b2)  # (B, ncon)
   pos_all = con.dist - con.includemargin
   active_all = (pos_all < 0).to(pos_all.dtype)
   elliptic = m.opt.cone == ConeType.ELLIPTIC

@@ -27,7 +27,8 @@ import torch
 
 from mjtpu_torch._src import passive, smooth, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import BiasType, Data, DisableBit, GainType, Model, cached
+from mjtpu_torch._src.types import (BiasType, Data, DisableBit, GainType, Model, cached,
+                                    repeat_env_rows, rows as env_rows)
 
 # the Data fields the fluid and RNE passes read; every other field is
 # left out of the stacked batch
@@ -46,17 +47,17 @@ def deriv_smooth_vel(m: Model, d: Data, rne: bool = False) -> torch.Tensor:
     dgain = torch.zeros_like(d.ctrl)
     ids = np.nonzero(np.asarray(m.actuator_gaintype) == GainType.AFFINE)[0]
     if len(ids):  # dforce/dvel += gainprm[2] * input (ctrl, or the last activation)
-      dgain[:, ids] += m.actuator_gainprm[ids, 2] * _actuator_input(m, d)[:, ids]
+      dgain[:, ids] += env_rows(m, "actuator_gainprm")[:, ids, 2] * _actuator_input(m, d)[:, ids]
     ids = np.nonzero(np.asarray(m.actuator_biastype) == BiasType.AFFINE)[0]
     if len(ids):
-      dgain[:, ids] += m.actuator_biasprm[ids, 2]
+      dgain[:, ids] += env_rows(m, "actuator_biasprm")[:, ids, 2]
     moment = d.actuator_moment
     qderiv = qderiv + moment.transpose(-1, -2) @ (dgain[..., None] * moment)
 
   # passive damping
   if not (m.opt.disableflags & DisableBit.DAMPER):
     if m.has_dof_damping:
-      qderiv = qderiv - torch.diag(m.dof_damping)
+      qderiv = qderiv - torch.diag_embed(env_rows(m, "dof_damping"))
     if m.has_tendon_damping:
       qderiv = qderiv - d.ten_J.transpose(-1, -2) @ (m.tendon_damping[:, None] * d.ten_J)
 
@@ -91,6 +92,8 @@ def _velocity_jacobians(m: Model, d: Data, fluid: bool, rne: bool):
   # the fields the passes do not read stay out of the (B * nv) batch
   rest = {f: None for f in d.__dataclass_fields__ if f not in fields}
   dd = replace(d, **fields, **rest)
+  # a model's env rows follow its envs into the stack
+  m = cached(m, ("derivative.stacked", nv), lambda: repeat_env_rows(m, nv))
   qvel_t = _tangents(m, B, d.qvel.dtype, d.qvel.device)
   tan = smooth.com_vel(m, replace(dd, qvel=qvel_t))
   # column j of env b's Jacobian is its copy j's tangent

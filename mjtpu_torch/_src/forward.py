@@ -38,6 +38,7 @@ from mjtpu_torch._src.types import (
     MAXVAL,
     Model,
     cached,
+    rows as env_rows,
 )
 
 
@@ -123,26 +124,28 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     stateful, last, early = support.act_input(m)
     act_in = d.act[:, last]
     if early is not None:
-      act_in = torch.where(early, act_in + m.opt.timestep * act_dot[:, last], act_in)
+      h = env_rows(m, "opt.timestep")[:, None]
+      act_in = torch.where(early, act_in + h * act_dot[:, last], act_in)
     ainput = torch.where(stateful, act_in, ctrl)
 
   gain, bias = torch.zeros_like(ctrl), torch.zeros_like(ctrl)
+  gainprm, biasprm = env_rows(m, "actuator_gainprm"), env_rows(m, "actuator_biasprm")
+  acc0 = env_rows(m, "actuator_acc0")
   if c["fixed"] is not None:
-    gain[:, c["fixed"]] = m.actuator_gainprm[c["fixed"], 0]
-  for out, ids, prm in ((gain, c["affine_gain"], m.actuator_gainprm),
-                        (bias, c["affine_bias"], m.actuator_biasprm)):
+    gain[:, c["fixed"]] = gainprm[:, c["fixed"], 0]
+  for out, ids, prm in ((gain, c["affine_gain"], gainprm), (bias, c["affine_bias"], biasprm)):
     if ids is not None:
-      out[:, ids] = (prm[ids, 0] + prm[ids, 1] * d.actuator_length[:, ids]
-                     + prm[ids, 2] * d.actuator_velocity[:, ids])
+      out[:, ids] = (prm[:, ids, 0] + prm[:, ids, 1] * d.actuator_length[:, ids]
+                     + prm[:, ids, 2] * d.actuator_velocity[:, ids])
   ids = c["muscle_gain"]
   if ids is not None:
     gain[:, ids] = support.muscle_gain(
         d.actuator_length[:, ids], d.actuator_velocity[:, ids], m.actuator_lengthrange[ids],
-        m.actuator_acc0[ids], m.actuator_gainprm[ids])
+        acc0[:, ids], gainprm[:, ids])
   ids = c["muscle_bias"]
   if ids is not None:
     bias[:, ids] = support.muscle_bias(d.actuator_length[:, ids], m.actuator_lengthrange[ids],
-                                       m.actuator_acc0[ids], m.actuator_biasprm[ids])
+                                       acc0[:, ids], biasprm[:, ids])
 
   force = gain * ainput + bias
   if c["forcelimited"] is not None:
@@ -224,8 +227,12 @@ def forward(m: Model, d: Data) -> Data:
   return sensor.sensor_acc(m, d)
 
 
-def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:
-  """qpos integrated by qvel over dt, quaternion-correct (mj_integratePos)."""
+def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                   dt: torch.Tensor) -> torch.Tensor:
+  """qpos integrated by qvel over dt (E,), quaternion-correct
+  (mj_integratePos)."""
+  # the scan's entities reach fn as (B, k, width)
+  dt_q, dt = dt.reshape(-1, 1), dt.reshape(-1, 1, 1)
 
   def fn(jnt_types, qpos, qvel_b):
     out = []
@@ -235,10 +242,10 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torc
       if jt == JointType.FREE:
         out.append(qpos[..., qi : qi + 3] + dt * qvel_b[..., vi : vi + 3])
         out.append(
-            math.quat_integrate(qpos[..., qi + 3 : qi + 7], qvel_b[..., vi + 3 : vi + 6], dt))
+            math.quat_integrate(qpos[..., qi + 3 : qi + 7], qvel_b[..., vi + 3 : vi + 6], dt_q))
         qi, vi = qi + 7, vi + 6
       elif jt == JointType.BALL:
-        out.append(math.quat_integrate(qpos[..., qi : qi + 4], qvel_b[..., vi : vi + 3], dt))
+        out.append(math.quat_integrate(qpos[..., qi : qi + 4], qvel_b[..., vi : vi + 3], dt_q))
         qi, vi = qi + 4, vi + 3
       else:
         out.append(qpos[..., qi : qi + 1] + dt * qvel_b[..., vi : vi + 1])
@@ -279,19 +286,20 @@ def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
   velocity) overrides only the velocity the position update uses.  The
   activations integrate linearly, filterexact ones exactly, and clamp to
   their range where actlimited."""
-  h = m.opt.timestep
+  h = env_rows(m, "opt.timestep")
   act = d.act
   if m.na:
     c = cached(m, "forward.act", lambda: _act_tables(m))
-    act = act + act_dot * h
+    act = act + act_dot * h[:, None]
     if c["exact"] is not None:
       ids, slots = c["exact"]
       tau = torch.clamp_min(m.actuator_dynprm[ids, 0], math.MINVAL)
-      act[:, slots] = d.act[:, slots] + act_dot[:, slots] * tau * (1.0 - torch.exp(-h / tau))
+      act[:, slots] = (d.act[:, slots]
+                       + act_dot[:, slots] * tau * (1.0 - torch.exp(-h[:, None] / tau)))
     if c["limited"] is not None:
       limited, lo, hi = c["limited"]
       act = torch.where(limited, torch.minimum(torch.maximum(act, lo), hi), act)
-  qvel_state = d.qvel + qacc * h
+  qvel_state = d.qvel + qacc * h[:, None]
   qpos = _integrate_pos(m, d.qpos, qvel_state if qvel is None else qvel, h)
   return replace(d, act=act, qpos=qpos, qvel=qvel_state, qacc=qacc, time=d.time + h)
 
@@ -304,7 +312,8 @@ def euler(m: Model, d: Data) -> Data:
   qacc = d.qacc
   if (m.has_dof_damping and not (m.opt.disableflags & DisableBit.EULERDAMP)
       and not (m.opt.disableflags & DisableBit.DAMPER)):
-    mh = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
+    mh = d.qM + (env_rows(m, "opt.timestep")[:, None, None]
+                 * torch.diag_embed(env_rows(m, "dof_damping")))
     qfrc = d.qfrc_smooth + d.qfrc_constraint
     qacc = smooth.factor_solve(m, mh, qfrc)
   return _advance(m, d, d.act_dot, qacc)
@@ -321,7 +330,7 @@ def implicit(m: Model, d: Data) -> Data:
   qderiv = derivative.deriv_smooth_vel(m, d, rne=full)
   if not full:
     qderiv = 0.5 * (qderiv + qderiv.transpose(-1, -2))
-  mh = d.qM - m.opt.timestep * qderiv
+  mh = d.qM - env_rows(m, "opt.timestep")[:, None, None] * qderiv
   qfrc = d.qfrc_smooth + d.qfrc_constraint
   qacc = smooth.factor_solve(m, mh, qfrc, symmetric=False)
   return _advance(m, d, d.act_dot, qacc)
@@ -339,14 +348,14 @@ def rungekutta4(m: Model, d: Data) -> Data:
   each warm-started from the previous pass's solve (the stage Data is
   carried), then one advance from X_0 by the B-weighted passes.  The last
   pass's derived fields stay; qpos, qvel, act and time come from X_0."""
-  h = m.opt.timestep
+  h = env_rows(m, "opt.timestep")
   qpos0, qvel0, act0, time0 = d.qpos, d.qvel, d.act, d.time
   qvels, qaccs, act_dots = [qvel0], [d.qacc], [d.act_dot]
   dd = d
   for a in RK4_A:
     ha = h * a  # at the state's dtype, as mjtpu scans the tableau
-    qvel_i = qvel0 + ha * qaccs[-1]
-    act_i = act0 + ha * act_dots[-1]
+    qvel_i = qvel0 + ha[:, None] * qaccs[-1]
+    act_i = act0 + ha[:, None] * act_dots[-1]
     dd = replace(dd, qpos=_integrate_pos(m, qpos0, qvels[-1], ha), qvel=qvel_i, act=act_i,
                  time=time0 + ha)
     dd = forward(m, dd)

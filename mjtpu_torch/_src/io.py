@@ -6,9 +6,8 @@ MjModel where ``mujoco`` is installed, and ``load_snapshot`` supplies the
 same attributes from a committed .npz where it is not (the machine with
 the GPU has neither ``mujoco`` nor ``jax``).
 
-The slice refuses, with NotImplementedError naming the feature, every
-model outside it — as mjtpu refuses flex.  The refusals go as later slices
-land.
+put_model refuses, with NotImplementedError naming the feature, what
+mjtpu refuses: flex, PGS and user and plugin sensors.
 
 ``data_from_mjtpu`` and ``data_to_numpy`` map between mjtpu's Data (as
 numpy) and the port's batched Data field by field by name; the parity
@@ -31,6 +30,7 @@ from mjtpu_torch._src import mesh, support
 from mjtpu_torch._src.types import (
     BiasType,
     ConeType,
+    ConstraintType,
     Contact,
     ConvexMesh,
     Data,
@@ -50,6 +50,7 @@ from mjtpu_torch._src.types import (
     SolverType,
     Statistic,
     TrnType,
+    field,
 )
 
 # every MjModel attribute model_from_arrays reads: the model snapshot
@@ -104,6 +105,11 @@ FLOAT_FIELDS = (
     "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
     "actuator_forcerange", "actuator_gear", "sensor_cutoff",
 )
+# MuJoCo's defaults of the contact overrides, which a snapshot of a model
+# without EnableBit.OVERRIDE leaves out
+O_SOLREF = (0.02, 1.0)
+O_SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
+OVERRIDE_FIELDS = ("opt.o_margin", "opt.o_solref", "opt.o_solimp")
 SNAPSHOT_FIELDS = SIZE_FIELDS + OPTION_FIELDS + STATIC_FIELDS + FLOAT_FIELDS + ("names",)
 # fields a snapshot stores only where their reader runs, so the snapshots
 # of models without it stay as they were (model_from_arrays reads zeros
@@ -193,12 +199,6 @@ SENSORS_PORTED = frozenset(SensorType[n] for n in (
 GEOMDIST_SENSORS = frozenset((SensorType.GEOMDIST, SensorType.GEOMNORMAL, SensorType.GEOMFROMTO))
 
 
-def _get(ns, name: str):
-  for part in name.split("."):
-    ns = getattr(ns, part)
-  return ns
-
-
 def has_fluid(o) -> bool:
   """Whether the options ``o`` (an MjOption or a snapshot's) set a medium:
   density, viscosity or wind (mjtpu's has_fluid_params)."""
@@ -270,9 +270,10 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
   extra = ((FRICTION_FIELDS if np.any(np.asarray(mjm.dof_frictionloss) > 0) else ())
            + (FLUID_FIELDS if has_fluid(mjm.opt) else ())
            + (GRAVCOMP_FIELDS if np.any(np.asarray(mjm.body_gravcomp) > 0) else ())
+           + (OVERRIDE_FIELDS if int(mjm.opt.enableflags) & EnableBit.OVERRIDE else ())
            + tuple(name for group, stored in OPTIONAL_GROUPS if stored(mjm) for name in group))
   for name in SNAPSHOT_FIELDS + extra:
-    v = _get(mjm, name)
+    v = field(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
     arrays[name] = np.array(v)
@@ -346,7 +347,7 @@ def load_snapshot(path, name: str | None = None) -> types.SimpleNamespace:
     elif v.ndim == 0:
       v = v.item()
     *parents, leaf = key.split(".")
-    setattr(_get(ns, ".".join(parents)) if parents else ns, leaf, v)
+    setattr(field(ns, ".".join(parents)) if parents else ns, leaf, v)
   per = lambda prefix, n: tuple(
       ConvexMesh(**hulls[prefix][i]) if i in hulls[prefix] else None for i in range(n))
   ns.mesh_convex = per("hull.", ns.nmesh)
@@ -393,11 +394,9 @@ def _validate(ns) -> None:
   refuse(int(o.integrator) not in (IntegratorType.EULER, IntegratorType.IMPLICITFAST,
                                    IntegratorType.IMPLICIT, IntegratorType.RK4),
          f"integrator {int(o.integrator)}")
-  # the energy flag runs; the others wait for inverse dynamics (FWDINV,
-  # INVDISCRETE) and the contact overrides (OVERRIDE)
+  # every enable flag MuJoCo has runs as in mjtpu: OVERRIDE and FWDINV
+  # are carried and read nowhere (OVERRIDE: ROADMAP C17)
   flags = int(o.enableflags)
-  for flag in EnableBit:
-    refuse(flag != EnableBit.ENERGY and flags & flag, f"the {flag.name} enable flag")
   refuse(flags & ~sum(EnableBit), f"enable flags {flags & ~sum(EnableBit):#x}")
 
 
@@ -431,6 +430,11 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
       solver=SolverType(int(o.solver)), iterations=int(o.iterations),
       ls_iterations=int(o.ls_iterations), disableflags=int(o.disableflags),
       enableflags=int(o.enableflags), has_fluid_params=has_fluid(o),
+      # the contact overrides of EnableBit.OVERRIDE, carried as mjtpu
+      # carries them (a snapshot stores them where the flag is on)
+      o_margin=f(getattr(o, "o_margin", 0.0)),
+      o_solref=f(getattr(o, "o_solref", O_SOLREF)),
+      o_solimp=f(getattr(o, "o_solimp", O_SOLIMP)),
   )
   fields["stat"] = Statistic(meaninertia=f(ns.stat.meaninertia))
   for name in STATIC_FIELDS:
@@ -566,7 +570,8 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       efc_margin=zero(nefc), efc_frictionloss=zero(nefc), efc_D=zero(nefc),
       efc_aref=zero(nefc), efc_force=zero(nefc), qfrc_actuator=zero(nv),
       qfrc_smooth=zero(nv), qacc_smooth=zero(nv), qfrc_constraint=zero(nv),
-      cacc=zero(nbody, 6), cfrc_int=zero(nbody, 6), cfrc_ext=zero(nbody, 6),
+      qfrc_inverse=zero(nv), cacc=zero(nbody, 6), cfrc_int=zero(nbody, 6),
+      cfrc_ext=zero(nbody, 6),
       sensordata=zero(m.nsensordata), energy=zero(2),
       solver_niter=torch.zeros(B, dtype=torch.int32, device=device),
       nreset=torch.zeros(B, dtype=torch.int32, device=device),
@@ -593,10 +598,12 @@ def put_data(m: Model, mjds) -> Data:
   return dataclasses.replace(d, **changes)
 
 
-def get_data_into(results, m: Model, d: Data) -> None:
+def get_data_into(results, m: Model, d: Data, sort_contacts: bool = False) -> None:
   """Writes a batched Data into a list of MjData (one per env): state,
-  kinematics, dynamics and forces.  Contact and efc rows are not written
-  back in this slice (that needs MjData's arena reallocation)."""
+  kinematics, dynamics and forces, and, as mjtpu's get_data_into, the
+  contacts and efc rows compacted to MuJoCo C's dynamic layout (each
+  MjData's arena reallocated to the live counts).  ``sort_contacts``
+  orders the contacts by (geom1, geom2) as mjtpu's does."""
   if len(results) != d.batch_size:
     raise ValueError(f"need {d.batch_size} MjData instances, got {len(results)}")
   for b, res in enumerate(results):
@@ -609,6 +616,124 @@ def get_data_into(results, m: Model, d: Data) -> None:
         setattr(res, f.name, float(val))
       elif target.size == val.size and f.name not in ("qM", "qLD"):
         target[...] = val.reshape(target.shape)
+    _contacts_into(res, m, d, b, sort_contacts)
+
+
+device_get_into = get_data_into
+
+
+def _contacts_into(res, m: Model, d: Data, b: int, sort_contacts: bool) -> None:
+  """Env b's contacts and live efc rows into the MjData ``res`` (mjtpu's
+  write-back, io.py:434-543): a contact is kept where dist < margin + gap
+  (exclude where dist >= includemargin), an efc row where it is live: an
+  active equality's, every friction row, a limit row with a nonzero J row,
+  the rows of a contact with dist < includemargin."""
+  import mujoco
+
+  np_ = lambda x: x[b].detach().cpu().numpy()
+  con = d.contact
+  ne_s, nf_s, nl_s, _, nefc_s = support.constraint_sizes(m)
+  nc_start = ne_s + nf_s + nl_s
+  dist, im, addr = np_(con.dist).astype(np.float64), np_(con.includemargin), np_(con.efc_address)
+  dim, geom1, geom2 = np_(con.dim), np_(con.geom1), np_(con.geom2)
+  active = np.nonzero(dist < np_(con.margin))[0]
+  if sort_contacts and active.size:
+    active = active[np.lexsort((dist[active], geom2[active], geom1[active]))]
+
+  efc_J = np_(d.efc_J).astype(np.float64)
+  live = np.zeros(nefc_s, bool)
+  if nefc_s:
+    live[:nc_start] = np.abs(efc_J[:nc_start]).max(axis=1) > 0
+    if ne_s:
+      live[:ne_s] = np.repeat(np_(d.eq_active).astype(bool),
+                              [support.EQ_ROWS[int(t)] for t in m.eq_type])
+    live[ne_s:ne_s + nf_s] = True
+  pyramidal = m.opt.cone == ConeType.PYRAMIDAL
+  rows_of = lambda dm: 1 if dm == 1 else (2 * (dm - 1) if pyramidal else dm)
+  for i in range(len(dist)):
+    if dist[i] < im[i]:
+      live[addr[i]:addr[i] + rows_of(int(dim[i]))] = True
+  new_index = np.cumsum(live) - 1
+  nefc_live = int(live.sum())
+  mujoco._functions._realloc_con_efc(res, ncon=len(active), nefc=nefc_live,
+                                     nJ=nefc_live * m.nv)
+  if active.size:
+    c = res.contact
+    c.exclude[:] = (dist[active] >= im[active]).astype(np.int32)
+    c.dist[:] = dist[active]
+    c.pos[:] = np_(con.pos)[active]
+    c.frame[:] = np_(con.frame)[active].reshape(active.size, -1)
+    c.includemargin[:] = im[active]
+    c.friction[:] = np_(con.friction)[active]
+    c.solref[:] = np_(con.solref)[active]
+    c.solimp[:] = np_(con.solimp)[active]
+    c.dim[:] = dim[active]
+    c.geom1[:] = geom1[active]
+    c.geom2[:] = geom2[active]
+    c.geom[:] = np_(con.geom)[active]
+    c.efc_address[:] = np.where(dist[active] < im[active], new_index[addr[active]], -1)
+  if not nefc_live:
+    return
+  efc_type, efc_id = support.efc_row_meta(m)
+  con_rows = efc_type >= int(ConstraintType.CONTACT_FRICTIONLESS)
+  id_remap = np.full(len(dist), -1, np.int32)
+  id_remap[active] = np.arange(len(active), dtype=np.int32)
+  efc_id = efc_id.copy()
+  efc_id[con_rows] = id_remap[efc_id[con_rows]]
+  res.ne = int(live[:ne_s].sum())
+  res.nf = int(live[ne_s:ne_s + nf_s].sum())
+  res.nl = int(live[nc_start - nl_s:nc_start].sum())
+  res.efc_type[:] = efc_type[live]
+  res.efc_id[:] = efc_id[live]
+  for name in ("efc_pos", "efc_margin", "efc_frictionloss", "efc_D", "efc_aref", "efc_force"):
+    getattr(res, name)[:] = np_(getattr(d, name)).astype(np.float64)[live]
+  res.efc_J[:] = efc_J[live].reshape(-1)
+  res.efc_J_rownnz[:] = m.nv
+  res.efc_J_rowadr[:] = np.arange(nefc_live) * m.nv
+  res.efc_J_colind[:] = np.tile(np.arange(m.nv), nefc_live)
+
+
+def _leaves(d: Data) -> list[torch.Tensor]:
+  """Data's tensors in mjtpu's pytree leaf order: the fields in order,
+  the Contact's in place (the two dataclasses list them alike)."""
+  out = []
+  for f in dataclasses.fields(d):
+    v = getattr(d, f.name)
+    out += _leaves(v) if dataclasses.is_dataclass(v) else [v]
+  return out
+
+
+def _rebuild(like, leaves) -> Data:
+  changes = {}
+  for f in dataclasses.fields(like):
+    v = getattr(like, f.name)
+    changes[f.name] = _rebuild(v, leaves) if dataclasses.is_dataclass(v) else next(leaves)
+  return dataclasses.replace(like, **changes)
+
+
+def save_checkpoint(path, d: Data) -> None:
+  """Saves a batched Data to an .npz checkpoint, as mjtpu's
+  save_checkpoint lays it out: leaf i of the Data under ``arr_i``."""
+  np.savez(path, *[x.detach().cpu().numpy() for x in _leaves(d)])
+
+
+def load_checkpoint(path, like: Data) -> Data:
+  """Loads a checkpoint saved by save_checkpoint, or by mjtpu's for the
+  same model, into the structure, dtypes and device of ``like`` (e.g.
+  make_data(m, B)); an unbatched mjtpu checkpoint loads as one env."""
+  leaves = _leaves(like)
+  out = []
+  with np.load(path) as z:
+    if len(z.files) != len(leaves):
+      raise ValueError(f"checkpoint holds {len(z.files)} arrays, Data has {len(leaves)}")
+    for i, ref in enumerate(leaves):
+      v = z[f"arr_{i}"]
+      if v.ndim == ref.dim() - 1:
+        v = v[None]
+      if tuple(v.shape[1:]) != tuple(ref.shape[1:]):
+        raise ValueError(f"checkpoint array {i} has shape {v.shape}, Data's is {tuple(ref.shape)}")
+      out.append(torch.as_tensor(np.array(v), device=ref.device).to(ref.dtype))
+  return _rebuild(like, iter(out))
 
 
 def data_from_mjtpu(leaves, device="cuda") -> Data:
@@ -620,7 +745,11 @@ def data_from_mjtpu(leaves, device="cuda") -> Data:
   def conv(cls, src):
     out = {}
     for f in dataclasses.fields(cls):
-      v = getattr(src, f.name)
+      if f.name == "qfrc_inverse" and not hasattr(src, f.name):
+        # goldens written before inverse dynamics came to the port
+        v = np.zeros_like(np.asarray(src.qvel))
+      else:
+        v = getattr(src, f.name)
       out[f.name] = conv(Contact, v) if f.name == "contact" else torch.as_tensor(
           np.array(v), device=device)
     return cls(**out)

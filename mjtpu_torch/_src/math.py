@@ -366,3 +366,24 @@ def cho_solve(low: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   y = torch.linalg.solve_triangular(low, b[..., None], upper=False)
   x = torch.linalg.solve_triangular(low.transpose(-1, -2), y, upper=True)
   return x[..., 0]
+
+
+def quat_from_uniform(u: torch.Tensor) -> torch.Tensor:
+  """(..., 4) unit quaternions from uniform samples u (..., 3) in [0, 1),
+  by mjtpu's random_unit_quat arithmetic (Shoemake's method)."""
+  r1 = torch.sqrt(1.0 - u[..., 0])
+  r2 = torch.sqrt(u[..., 0])
+  t1 = 2.0 * torch.pi * u[..., 1]
+  t2 = 2.0 * torch.pi * u[..., 2]
+  return torch.stack([r2 * torch.cos(t2), r1 * torch.sin(t1), r1 * torch.cos(t1),
+                      r2 * torch.sin(t2)], dim=-1)
+
+
+def random_unit_quat(generator: torch.Generator, shape=(), dtype=torch.float64,
+                     device=None) -> torch.Tensor:
+  """Uniformly distributed unit quaternions (..., 4) of ``shape``, drawn
+  from ``generator`` (which takes the place of mjtpu's key), on its
+  device unless ``device`` names another."""
+  device = generator.device if device is None else device
+  u = torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype, device=device)
+  return quat_from_uniform(u)

@@ -17,7 +17,8 @@ import torch
 
 from mjtpu_torch._src import math, scan, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import Data, DisableBit, GeomType, JointType, Model, cached, index
+from mjtpu_torch._src.types import (Data, DisableBit, GeomType, JointType, Model, cached, index,
+                                    rows as env_rows)
 
 
 def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,12 +52,12 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
 
     spring = scan.flat(
         m, fn, "jjqq", "v",
-        np.asarray(m.jnt_type), m.jnt_stiffness[None], d.qpos, m.qpos_spring[None],
+        np.asarray(m.jnt_type), env_rows(m, "jnt_stiffness"), d.qpos, m.qpos_spring[None],
     )
     if spring is not None:
       qfrc_spring = spring
 
-  qfrc_damper = -m.dof_damping * d.qvel
+  qfrc_damper = -env_rows(m, "dof_damping") * d.qvel
 
   # tendon springs (a deadband between the two spring lengths) and dampers
   if m.has_tendon_spring:
@@ -78,7 +79,8 @@ def _ten_force(d: Data, force: torch.Tensor) -> torch.Tensor:
 def _gravcomp(m: Model, d: Data) -> torch.Tensor:
   """Gravity-compensation generalized force (B, nv): each body's
   -gravity * mass * gravcomp at its centre of mass."""
-  force = -m.opt.gravity * (m.body_mass * m.body_gravcomp)[:, None]   # (nbody, 3)
+  force = (-env_rows(m, "opt.gravity")[:, None, :]
+           * (env_rows(m, "body_mass") * env_rows(m, "body_gravcomp"))[..., None])  # (E, nbody, 3)
   return support.wrench_qfrc(m, d, d.xipos, force.expand(d.xipos.shape))
 
 
@@ -94,8 +96,8 @@ def _geom_semiaxes(m: Model, gids: torch.Tensor) -> torch.Tensor:
   """(G, 3) ellipsoid semiaxes of the geoms ``gids`` (mj_geomSemiAxes):
   sphere (r,r,r), capsule (r,r,half_len+r), cylinder (r,r,half_len),
   ellipsoid/box = size."""
-  size = m.geom_size[gids]
-  r, h = size[:, 0], size[:, 1]
+  size = env_rows(m, "geom_size")[:, gids]                  # (E, G, 3)
+  r, h = size[..., 0], size[..., 1]
   gtype = torch.as_tensor(np.asarray(m.geom_type), device=m.device)[gids][:, None]
   out = torch.where(gtype == GeomType.SPHERE, torch.stack([r, r, r], dim=-1), size)
   out = torch.where(gtype == GeomType.CAPSULE, torch.stack([r, r, h + r], dim=-1), out)
@@ -121,7 +123,7 @@ def _ellipsoid_tables(m: Model) -> dict:
   gids = long(geoms)
   r = _geom_semiaxes(m, gids)
   rs = torch.sort(r, dim=-1).values
-  r0, r1, r2 = r[:, 0], r[:, 1], r[:, 2]
+  r0, r1, r2 = r[..., 0], r[..., 1], r[..., 2]
   rmax_perp = torch.stack([torch.maximum(r1, r2), torch.maximum(r0, r2),
                            torch.maximum(r0, r1)], dim=-1)
   moi = (8.0 / 15.0) * pi * r * _fourth(rmax_perp)
@@ -129,12 +131,12 @@ def _ellipsoid_tables(m: Model) -> dict:
       gids=gids, gbody=long(gbody),
       bodies={"mask": support.dof_ancestor_mask_t(m)[long(gbody)],
               "rootid": long(np.asarray(m.body_rootid)[gbody])},
-      d_eq=((2.0 / 3.0) * ((r0 + r1) + r2))[:, None],
+      d_eq=((2.0 / 3.0) * ((r0 + r1) + r2))[..., None],
       dd=torch.stack([r1 * r2, r0 * r2, r0 * r1], dim=-1),
-      a_max=(pi * rs[:, 1] * rs[:, 2])[:, None],
-      volume=((4.0 / 3.0) * pi * r0 * r1 * r2)[:, None],
+      a_max=(pi * rs[..., 1] * rs[..., 2])[..., None],
+      volume=((4.0 / 3.0) * pi * r0 * r1 * r2)[..., None],
       moi=moi,
-      moi_max=((8.0 / 15.0) * pi * rs[:, 1] * _fourth(rs[:, 2]))[:, None],
+      moi_max=((8.0 / 15.0) * pi * rs[..., 1] * _fourth(rs[..., 2]))[..., None],
       coef=m.geom_fluid[gids],
   )
 
@@ -252,18 +254,19 @@ def _box_tables(m: Model) -> dict:
   """Each body's equivalent inertia box, its drag terms, and which bodies
   take the model (mass > 0 and no fluidshape="ellipsoid" geom): constants
   of the Model (nbody, ...)."""
-  mass = torch.clamp_min(m.body_mass, math.MINVAL)
-  ix, iy, iz = m.body_inertia[:, 0], m.body_inertia[:, 1], m.body_inertia[:, 2]
+  body_mass, inertia = env_rows(m, "body_mass"), env_rows(m, "body_inertia")  # (E, nbody, ...)
+  mass = torch.clamp_min(body_mass, math.MINVAL)
+  ix, iy, iz = inertia[..., 0], inertia[..., 1], inertia[..., 2]
   side = lambda a, b, c: torch.sqrt(torch.clamp_min((a + b - c) * 6.0 / mass, math.MINVAL))
   box = torch.stack([side(iy, iz, ix), side(iz, ix, iy), side(ix, iy, iz)], dim=-1)
-  b0, b1, b2 = box[:, 0], box[:, 1], box[:, 2]
-  keep = (m.body_mass > 0) & torch.as_tensor(_box_bodies(m), device=m.device)
+  b0, b1, b2 = box[..., 0], box[..., 1], box[..., 2]
+  keep = (body_mass > 0) & torch.as_tensor(_box_bodies(m), device=m.device)
   return dict(
-      diam=(((b0 + b1) + b2) / 3.0)[:, None],
+      diam=(((b0 + b1) + b2) / 3.0)[..., None],
       ang_scale=torch.stack([b0 * (_fourth(b1) + _fourth(b2)), b1 * (_fourth(b0) + _fourth(b2)),
                              b2 * (_fourth(b0) + _fourth(b1))], dim=-1) / 64.0,
       lin_area=torch.stack([b1 * b2, b0 * b2, b0 * b1], dim=-1),
-      keep=keep[:, None].to(m.dtype),
+      keep=keep[..., None].to(m.dtype),
   )
 
 

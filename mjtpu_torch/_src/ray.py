@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from mjtpu_torch._src import math
-from mjtpu_torch._src.types import Data, GeomType, Model, cached
+from mjtpu_torch._src.types import Data, GeomType, Model, cached, rows as env_rows
 
 _INF = float("inf")
 
@@ -221,7 +221,8 @@ def cast(m: Model, d: Data, pnt: torch.Tensor, vec: torch.Tensor,
   dists = []
   for gt, geoms, mask, tris in groups:
     pos, mat = d.geom_xpos[:, None, geoms], d.geom_xmat[:, None, geoms]
-    t = ray_geom(pos, mat, m.geom_size[geoms], pnt[:, :, None], vec[:, :, None], gt, tris)
+    t = ray_geom(pos, mat, env_rows(m, "geom_size")[:, None, geoms], pnt[:, :, None],
+                 vec[:, :, None], gt, tris)
     dists.append(torch.where(mask, t, _INF))
   dists = torch.cat(dists, dim=-1)[..., perm]  # (B, S, union) in ascending geom id
   best = torch.argmin(dists, dim=-1)

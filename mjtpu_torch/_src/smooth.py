@@ -29,6 +29,7 @@ from mjtpu_torch._src.types import (
     WrapType,
     cached,
     index,
+    rows as env_rows,
 )
 from mjtpu_torch.ops import fused
 
@@ -125,7 +126,7 @@ def kinematics(m: Model, d: Data) -> Data:
     qpos = d.qpos
 
   # inertial / geom / site frames
-  xipos = xpos + math.rotate(m.body_ipos, xquat)
+  xipos = xpos + math.rotate(env_rows(m, "body_ipos"), xquat)
   ximat = math.quat_to_mat(math.quat_mul(xquat, m.body_iquat))
 
   bid = index(m, "geom_bodyid")
@@ -156,12 +157,13 @@ def com_pos(m: Model, d: Data) -> Data:
     return own[0] + carry[0], own[1] + carry[1]
 
   smass, smom = scan.body_tree(
-      m, mass_fn, "bb", "bb", m.body_mass[None], d.xipos, reverse=True
+      m, mass_fn, "bb", "bb", env_rows(m, "body_mass"), d.xipos, reverse=True
   )
   subtree_com = smom / torch.clamp_min(smass, math.MINVAL)[..., None]
 
   root_com = subtree_com[:, index(m, "body_rootid")]
-  cinert = math.transform_inert(m.body_inertia, d.xipos - root_com, d.ximat, m.body_mass)
+  cinert = math.transform_inert(env_rows(m, "body_inertia"), d.xipos - root_com, d.ximat,
+                                env_rows(m, "body_mass"))
   cinert[:, 0] = 0.0  # world body has no inertia
 
   def cdof_fn(jnt_types, xanchor, xaxis, xmat, com):
@@ -361,7 +363,7 @@ def crb(m: Model, d: Data) -> Data:
   full = buf @ d.cdof.transpose(-1, -2)  # (B, nv, nv)
   lower = full * dof_chain_mask(m)
   qm = lower + lower.transpose(-1, -2) - torch.diag_embed(torch.diagonal(full, dim1=-2, dim2=-1))
-  qm = qm + torch.diag(m.dof_armature)
+  qm = qm + torch.diag_embed(env_rows(m, "dof_armature"))
   return replace(d, crb=crb_body, qM=qm)
 
 
@@ -525,11 +527,12 @@ def com_vel(m: Model, d: Data) -> Data:
 
 
 def _base_acc(m: Model, d: Data) -> torch.Tensor:
-  """The world's com-frame acceleration: -gravity (unless disabled)."""
-  base_acc = torch.zeros(6, dtype=d.qpos.dtype, device=d.qpos.device)
-  if not (m.opt.disableflags & DisableBit.GRAVITY):
-    base_acc = torch.cat([base_acc[:3], -m.opt.gravity])
-  return base_acc
+  """The world's com-frame acceleration: -gravity (unless disabled), (E,
+  1, 6) over the scan's (B, k, 6)."""
+  gravity = env_rows(m, "opt.gravity")
+  if m.opt.disableflags & DisableBit.GRAVITY:
+    return gravity.new_zeros((gravity.shape[0], 1, 6))
+  return torch.cat([torch.zeros_like(gravity), -gravity], dim=-1)[:, None]
 
 
 def rne(m: Model, d: Data) -> Data:
@@ -849,8 +852,8 @@ def subtree_vel(m: Model, d: Data) -> Data:
   root_com = d.subtree_com[:, index(m, "body_rootid")]
   ang, lin = d.cvel[..., :3], d.cvel[..., 3:]
   # each body's com velocity and momenta, world frame
-  p_body = m.body_mass[:, None] * (lin - math.cross(d.xipos - root_com, ang))
-  l_body = math.mat_vec(d.ximat, m.body_inertia * math.mat_t_vec(d.ximat, ang))
+  p_body = env_rows(m, "body_mass")[..., None] * (lin - math.cross(d.xipos - root_com, ang))
+  l_body = math.mat_vec(d.ximat, env_rows(m, "body_inertia") * math.mat_t_vec(d.ximat, ang))
   rxp = math.cross(d.xipos, p_body)
 
   def acc3(carry, a, b, c):
@@ -859,7 +862,7 @@ def subtree_vel(m: Model, d: Data) -> Data:
 
   p_sub, l_sub, rxp_sub = scan.body_tree(m, acc3, "bbb", "bbb", p_body, l_body, rxp,
                                          reverse=True)
-  linvel = p_sub / torch.clamp_min(m.body_subtreemass, math.MINVAL)[:, None]
+  linvel = p_sub / torch.clamp_min(env_rows(m, "body_subtreemass"), math.MINVAL)[..., None]
   angmom = l_sub + rxp_sub - math.cross(d.subtree_com, p_sub)
   return replace(d, subtree_linvel=linvel, subtree_angmom=angmom)
 
@@ -884,7 +887,7 @@ def _spring_tables(m: Model) -> dict:
     if not len(j):
       out[kind] = None
       continue
-    k = m.jnt_stiffness[torch.as_tensor(j, device=dev)]
+    k = env_rows(m, "jnt_stiffness")[:, torch.as_tensor(j, device=dev)]
     adr = qadr[j][:, None] + np.arange(width) if width else qadr[j]
     out[kind] = (torch.as_tensor(adr, device=dev), k)
     if kind == "free":
@@ -897,7 +900,8 @@ def potential_energy(m: Model, d: Data) -> torch.Tensor:
   (mj_energyPos)."""
   e = d.qpos.new_zeros(d.qpos.shape[0])
   if not (m.opt.disableflags & DisableBit.GRAVITY):
-    e = e - torch.einsum("n,bni,i->b", m.body_mass, d.xipos, m.opt.gravity)
+    e = e - torch.einsum("...n,...ni,...i->...", env_rows(m, "body_mass"), d.xipos,
+                         env_rows(m, "opt.gravity"))
   spring_on = not (m.opt.disableflags & DisableBit.SPRING)
   if m.has_jnt_spring and spring_on:
     c = cached(m, "smooth.springs", lambda: _spring_tables(m))

@@ -37,7 +37,8 @@ import torch
 
 from mjtpu_torch._src import math, smooth, support
 from mjtpu_torch._src.dataclasses import replace
-from mjtpu_torch._src.types import ConeType, Data, DisableBit, Model, SolverType, cached
+from mjtpu_torch._src.types import (ConeType, Data, DisableBit, Model, SolverType, cached,
+                                    rows as env_rows)
 from mjtpu_torch.ops import fused
 
 # solver iterations and linesearch rounds run (each counts once for the
@@ -331,7 +332,7 @@ def _cone_blocks(cones: list[_Cone], efc_J: torch.Tensor, Jaref: torch.Tensor) -
 
 
 def _rescale(m: Model, value):
-  return value / (m.stat.meaninertia * max(1, m.nv))
+  return value / (env_rows(m, "stat.meaninertia") * max(1, m.nv))
 
 
 def solve(m: Model, d: Data) -> Data:
@@ -357,7 +358,7 @@ def solve(m: Model, d: Data) -> Data:
   # f32: regularize the Hessian so near-singular active sets stay
   # factorable (preconditioner only; the exact linesearch still minimizes
   # the true cost)
-  reg = None if dtype == torch.float64 else 1e-6 * m.stat.meaninertia
+  reg = None if dtype == torch.float64 else 1e-6 * env_rows(m, "stat.meaninertia")[:, None, None]
   eye = torch.eye(m.nv, dtype=dtype, device=d.qpos.device)
 
   newton = m.opt.solver == SolverType.NEWTON
@@ -383,7 +384,7 @@ def solve(m: Model, d: Data) -> Data:
     mv = matvec(d.qM, search)
     jv = matvec(efc_J, search)
 
-    smag = math.safe_norm(search) * m.stat.meaninertia * max(1, m.nv)
+    smag = math.safe_norm(search) * env_rows(m, "stat.meaninertia") * max(1, m.nv)
     gtol = m.opt.tolerance * m.opt.ls_tolerance * smag
 
     quad_gauss = torch.stack(

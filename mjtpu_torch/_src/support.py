@@ -21,6 +21,7 @@ from mjtpu_torch._src.types import (
     Model,
     cached,
     index,
+    rows as env_rows,
 )
 
 # ---------------------------------------------------------------------------
@@ -229,6 +230,34 @@ def wrench_qfrc(m: Model, d: Data, point: torch.Tensor, force: torch.Tensor,
   if torque is not None:
     qfrc = qfrc + torch.einsum("nv,bvi,bni->bv", mask, d.cdof[..., :3], torque)
   return qfrc
+
+
+def is_sparse(m: Model) -> bool:
+  """Whether the mass matrix uses MuJoCo's sparse (nM,) layout: never, as
+  in mjtpu (qM is dense (B, nv, nv); the sparse LDL of kernel B2 keeps
+  its own compact factor)."""
+  del m
+  return False
+
+
+def apply_ft(m: Model, d: Data, force: torch.Tensor, torque: torch.Tensor,
+             point: torch.Tensor, body_id: int) -> torch.Tensor:
+  """(B, nv) the generalized force of a world-frame force and torque (B,
+  3) applied at ``point`` (B, 3) on body ``body_id`` (mjtpu's apply_ft)."""
+  jacp, jacr = jac(m, d, point, body_id)
+  return (jacp @ force[..., None])[..., 0] + (jacr @ torque[..., None])[..., 0]
+
+
+def full_m(m: Model, d: Data) -> torch.Tensor:
+  """(B, nv, nv) the dense mass matrix (mjtpu's full_m and dense_m)."""
+  del m
+  return d.qM
+
+
+def mul_m(m: Model, d: Data, vec: torch.Tensor) -> torch.Tensor:
+  """(B, nv) qM @ vec per env (mj_mulM)."""
+  del m
+  return (d.qM @ vec[..., None])[..., 0]
 
 
 def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
@@ -522,8 +551,9 @@ def geom_distances(m: Model, d: Data, g1, g2, distmax: torch.Tensor):
   mid = d.qpos.new_zeros((B, len(g1), 3))
   normal = d.qpos.new_zeros((B, len(g1), 3))
   for fn, pos, a, b, sign in _distance_tables(m, g1, g2):
-    dk, pk, frame = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], m.geom_size[a],
-                       d.geom_xpos[:, b], d.geom_xmat[:, b], m.geom_size[b])
+    size = env_rows(m, "geom_size")
+    dk, pk, frame = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], size[:, a],
+                       d.geom_xpos[:, b], d.geom_xmat[:, b], size[:, b])
     dmin, i = torch.min(dk, dim=-1)  # the first of the pair's deepest points
     take = lambda x: torch.gather(x, 2, i[:, :, None, None].expand(i.shape + (1, 3)))[:, :, 0]
     dist[:, pos] = dmin

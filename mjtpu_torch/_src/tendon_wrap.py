@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from mjtpu_torch._src import math, scan, support
-from mjtpu_torch._src.types import Data, Model, WrapType, cached
+from mjtpu_torch._src.types import Data, Model, WrapType, cached, rows as env_rows
 
 _MINVAL = 1e-15
 # f(z0) constant: 2*asin(0.9999999) (the C engine bakes this literal)
@@ -458,7 +458,7 @@ def spatial_tendon(m: Model, d: Data):
       sl = math.mat_t_vec(gm, d.site_xpos[:, g["side"]] - gx)
     else:
       sl = torch.zeros_like(l0)
-    radius = m.geom_size[g["geom"], 0].expand(l0.shape[:-1])
+    radius = env_rows(m, "geom_size")[:, g["geom"], 0].expand(l0.shape[:-1])
     wrapped, wlen, w0l, w1l = wrap(l0, l1, radius, sl, g["sphere"], g["has_side"])
     w0 = gx + math.mat_vec(gm, w0l)
     w1 = gx + math.mat_vec(gm, w1l)

@@ -339,6 +339,11 @@ class Option:
   enableflags: int = static()
   # density, viscosity or wind set: passive adds the fluid forces
   has_fluid_params: bool = static(False)
+  # the contact overrides of EnableBit.OVERRIDE: carried and read nowhere,
+  # as in mjtpu (ROADMAP C17)
+  o_margin: torch.Tensor = None
+  o_solref: torch.Tensor = None
+  o_solimp: torch.Tensor = None
 
 
 @dataclasses.dataclass
@@ -433,6 +438,9 @@ class Model:
   dof_armature: torch.Tensor = None
   dof_damping: torch.Tensor = None
   dof_invweight0: torch.Tensor = None
+  # mj_setConst's dof_M0, read nowhere (as in mjtpu): None but where
+  # parallel.randomize gives it one row per env
+  dof_M0: torch.Tensor = None
   dof_frictionloss: torch.Tensor = None
   # the solver parameters of the dofs' friction rows, their only reader:
   # mjModel's values at the dofs with frictionloss > 0, zero at the others
@@ -605,6 +613,10 @@ class Model:
   has_tendon_spring: bool = static(False)  # any tendon_stiffness > 0
   has_tendon_damping: bool = static(False)  # any tendon_damping > 0
   has_tendon_armature: bool = static(False)  # any tendon_armature > 0
+  # the field paths ("body_mass", "opt.timestep", ...) that hold one row
+  # per env, (B, *shape), on a model from parallel.randomize; rows() reads
+  # every field randomize may batch
+  env_fields: frozenset = static(frozenset())
   cache: dict = dataclasses.field(
       init=False, repr=False, compare=False, metadata={"static": True}
   )
@@ -626,6 +638,54 @@ def cached(m: Model, key, build):
   if key not in m.cache:
     m.cache[key] = build()
   return m.cache[key]
+
+
+def field(m, name: str):
+  """The attribute at the dotted path ``name`` ("opt.timestep", "body_mass")
+  of a Model, an MjModel or a snapshot's namespace."""
+  obj = m
+  for part in name.split("."):
+    obj = getattr(obj, part)
+  return obj
+
+
+def rows(m: Model, name: str) -> torch.Tensor:
+  """The field ``name`` with a leading env axis E: (B, *shape) where the
+  model holds one row per env (parallel.randomize), else (1, *shape), a
+  view that broadcasts over the batch.  Every reader of a field that
+  randomize accepts goes through here, and indexes the field's own axes
+  after the env axis, so one expression serves both."""
+  x = field(m, name)
+  return x if name in m.env_fields else x[None]
+
+
+def env_expand(x: torch.Tensor, batch: int) -> torch.Tensor:
+  """``x``, whose leading axis is an env axis of 1 or ``batch`` (rows, or
+  a table built from them), as a (batch, ...) view."""
+  return x.expand((batch,) + x.shape[1:])
+
+
+def replace_fields(m: Model, updates: dict) -> Model:
+  """A copy of ``m`` (with a fresh cache) whose dotted paths take the
+  values of ``updates``."""
+  nested: dict = {}
+  for name, v in updates.items():
+    head, _, rest = name.partition(".")
+    if rest:
+      nested.setdefault(head, {})[rest] = v
+    else:
+      nested[head] = v
+  return dataclasses.replace(m, **{
+      k: dataclasses.replace(getattr(m, k), **v) if isinstance(v, dict) else v
+      for k, v in nested.items()})
+
+
+def repeat_env_rows(m: Model, k: int) -> Model:
+  """``m`` with each env row repeated k times in place, for a batch whose
+  envs are each stacked k times (m itself where it has no env rows)."""
+  if not m.env_fields:
+    return m
+  return replace_fields(m, {n: field(m, n).repeat_interleave(k, dim=0) for n in m.env_fields})
 
 
 def index(m: Model, name: str) -> torch.Tensor:
@@ -756,6 +816,8 @@ class Data:
   qfrc_smooth: torch.Tensor
   qacc_smooth: torch.Tensor
   qfrc_constraint: torch.Tensor
+  # inverse dynamics (mj_inverse): the applied force that gives qacc
+  qfrc_inverse: torch.Tensor
   # post-constraint (rne_postconstraint) and sensors
   cacc: torch.Tensor
   cfrc_int: torch.Tensor

@@ -14,9 +14,13 @@ Usage:
     state = env.reset(4096, gen)
     state = env.step(state, action, gen)             # auto-resets done envs
 
-Not ported, each refused with NotImplementedError naming it: pixel
-observations (mjtpu's render.py) and the ``model=`` override of reset and
-step (domain randomization).
+``reset`` and ``step`` take ``model=``, a Model with one row per env
+from ``mjtpu_torch.parallel.randomize`` (domain randomization): the
+physics runs under it, while observations and rewards keep reading the
+env's own model, as in mjtpu.
+
+Not ported, refused with NotImplementedError naming it: pixel
+observations (mjtpu's render.py).
 """
 
 from __future__ import annotations
@@ -53,13 +57,6 @@ class State:
   reward: torch.Tensor  # (B,)
   done: torch.Tensor    # (B,) bool
   steps: torch.Tensor   # (B,) int32 episode step counter
-
-
-def _refuse_model(model) -> None:
-  if model is not None:
-    raise NotImplementedError(
-        "mjtpu_torch.zoo does not support the model= override of reset and step (domain"
-        " randomization) yet")
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -141,9 +138,10 @@ class MjtpuEnv:
   def reset(self, batch_size: int, generator: torch.Generator,
             model: Model | None = None) -> State:
     """``batch_size`` envs from the noisy initial state, drawn from
-    ``generator``."""
-    _refuse_model(model)
-    data = forward_mod.forward(self.model, self._noisy_init(batch_size, generator))
+    ``generator``; ``model`` overrides the env's Model for the physics
+    (one row per env from parallel.randomize)."""
+    m = self.model if model is None else model
+    data = forward_mod.forward(m, self._noisy_init(batch_size, generator))
     return self._init_state(data)
 
   def step(self, state: State, action: torch.Tensor, generator: torch.Generator,
@@ -151,9 +149,11 @@ class MjtpuEnv:
     """Steps every env ``frame_skip`` physics steps under ``action`` (B, nu);
     envs that end their episode start afresh from a noisy initial state
     drawn from ``generator`` (mjtpu's fused auto-reset).  ctrl takes the
-    action as it is; fwd_actuation clamps it to ctrlrange, as in mjtpu."""
-    _refuse_model(model)
-    m = self.model
+    action as it is; fwd_actuation clamps it to ctrlrange, as in mjtpu.
+    ``model`` overrides the env's Model for the physics (domain
+    randomization: a Model from parallel.randomize, row i for env i);
+    observations and rewards keep reading the env's own model."""
+    m = self.model if model is None else model
     ctrl = self._prepare_ctrl(action)
     data = replace(state.data, ctrl=ctrl.to(state.data.ctrl.dtype))
     for _ in range(self.frame_skip):

@@ -563,11 +563,28 @@ CAMPROJECTION_XML = """<mujoco>
   </mujoco>"""
 # tests/test_contact_sensor.py's sliding state
 CONTACT_SLIDE_QVEL = (0.5, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0)
+RANDOMIZE_SCENES_FILE = ASSETS / "randomize_scenes.npz"
+RANDOMIZE_GOLDEN_FILE = ASSETS / "randomize_scenes_golden.npz"
+INVERSE_SCENES_FILE = ASSETS / "inverse_scenes.npz"
+INVERSE_GOLDEN_FILE = ASSETS / "inverse_scenes_golden.npz"
+# tests/test_randomize.py's free ball on a plane
+RANDOMIZE_BALL_XML = """<mujoco><option timestep="0.005"/><worldbody>
+<geom type="plane" size="5 5 .1"/><body pos="0 0 0.28"><freejoint/>
+<geom type="sphere" size="0.3" mass="1" friction="1 .005 .0001"/></body></worldbody></mujoco>"""
+# tests/test_inverse.py's damped two-link arm in a medium, under each
+# integrator with INVDISCRETE
+INVERSE_ARM_XML = """<mujoco><option integrator="{integ}" viscosity="0.1" density="5"/>
+<worldbody><body pos="0.15 0 0"><joint type="hinge" axis="0 1 0" damping="5"/>
+<geom type="capsule" size="0.02" fromto="0 0 0 .1 0 0"/><body pos="0.1 0 0">
+<joint type="hinge" axis="0 1 0" damping="3"/>
+<geom type="capsule" size="0.015" fromto="-.1 0 0 .1 0 0"/></body></body></worldbody></mujoco>"""
+INVERSE_OUT = ("qfrc_inverse", "qacc", "qfrc_constraint", "efc_force", "qfrc_bias",
+               "qfrc_passive", "sensordata")
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
           "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
-          "sensor_scenes")
+          "sensor_scenes", "randomize_scenes", "inverse_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -860,15 +877,18 @@ def ant_initial_state(mjm, batch: int = BATCH, seed: int = 0):
 
 
 def port_fields(d, prefix: str) -> dict[str, np.ndarray]:
-  """Every field of the port's Data, read by name from mjtpu's Data ``d``
-  (numpy leaves), under ``prefix`` (the contact fields under
-  ``prefix + "contact."``)."""
+  """Every field of the port's Data but qfrc_inverse (which only inverse
+  writes; the goldens of forward Data leave it out), read by name from
+  mjtpu's Data ``d`` (numpy leaves), under ``prefix`` (the contact fields
+  under ``prefix + "contact."``)."""
   import dataclasses
 
   from mjtpu_torch._src import types
 
   out = {}
   for f in dataclasses.fields(types.Data):
+    if f.name == "qfrc_inverse":
+      continue
     if f.name == "contact":
       for c in dataclasses.fields(types.Contact):
         out[f"{prefix}contact.{c.name}"] = np.asarray(getattr(d.contact, c.name))
@@ -1975,6 +1995,199 @@ def sensor_scenes(names=None, steps: int = STEPS) -> tuple[dict, dict[str, np.nd
   return _bundle(sensor_scene_xmls(), names, steps, sensor_initial_state, fields, deriv=False)
 
 
+def randomize_scene_specs() -> dict:
+  """The scenes of randomize_scenes.npz, name -> (MjModel, rows, start
+  state, steps, with the derived constants): tests/test_randomize.py's
+  friction, mass/gain/damping/timestep, sphere-radius and
+  constants-from-mj_setConst cases, and humanoid_bench with the main
+  path's five fields (chip_smoke.bench_randomization) and their
+  constants, its first BATCH envs."""
+  import mujoco
+
+  import chip_smoke
+
+  out = {}
+  ball = mujoco.MjModel.from_xml_string(RANDOMIZE_BALL_XML)
+  fric = np.tile(np.array(ball.geom_friction), (4, 1, 1))
+  fric[:, :, 0] = np.array([[0.01, 0.05, 0.2, 0.8]]).T
+  qvel = np.zeros((4, ball.nv))
+  qvel[:, 0] = 4.0
+  out["ball_friction"] = (ball, {"geom_friction": fric}, {"qvel": qvel}, 15, False)
+  size = np.tile(np.array(ball.geom_size), (3, 1, 1))
+  size[:, 1, 0] = [0.25, 0.3, 0.35]
+  out["ball_size"] = (ball, {"geom_size": size}, {}, 40, False)
+  cart = mujoco.MjModel.from_xml_path(str(ROOT / "tests" / "models" / "cartpole.xml"))
+  rng = np.random.default_rng(3)
+  mass = np.tile(np.array(cart.body_mass), (3, 1))
+  mass[:, 1] *= rng.uniform(0.5, 1.5, 3)
+  gain = np.tile(np.array(cart.actuator_gainprm), (3, 1, 1))
+  gain[:, 0, 0] *= rng.uniform(0.8, 1.2, 3)
+  damp = np.tile(np.array(cart.dof_damping), (3, 1)) * rng.uniform(0.5, 2.0, (3, 1))
+  ts = np.full((3,), 0.005) * rng.uniform(0.9, 1.1, 3)
+  start = {"qpos": np.tile([0.1, 0.2], (3, 1)), "ctrl": np.full((3, 1), 0.7)}
+  out["cartpole_mixed"] = (cart, {"body_mass": mass, "actuator_gainprm": gain,
+                                  "dof_damping": damp, "opt.timestep": ts}, start, 15, False)
+  mass = np.tile(np.array(cart.body_mass), (3, 1))
+  mass[:, 1] *= [0.5, 1.0, 2.0]
+  start = {"qpos": np.tile([0.1, 0.2], (3, 1)), "ctrl": np.full((3, 1), 0.6)}
+  out["cartpole_consts"] = (cart, {"body_mass": mass}, start, 10, True)
+  bench = load_mjmodel()
+  rows = {k: v[:BATCH] for k, v in chip_smoke.bench_randomization(bench, BATCH).items()}
+  qpos0, qvel0, ctrl = initial_state(bench)
+  out["humanoid_bench"] = (bench, rows, {"qpos": qpos0, "qvel": qvel0, "ctrl": ctrl},
+                           chip_smoke.RANDOM_BENCH_STEPS, True)
+  return out
+
+
+def randomize_scenes() -> tuple[dict, dict[str, np.ndarray]]:
+  """(the randomize scenes' snapshot arrays by name, their golden: per
+  scene "<scene>.rows.<field>" each randomized field's rows (with the
+  derived constants where the scene takes them), "<scene>.<field>0" the
+  start, "<scene>.qpos" and ".qvel" after each step of mjtpu's batched
+  randomized step (parallel.randomized_step, or
+  jit(vmap(step, in_axes=(axes, 0))) over randomize_with_consts), f64 on
+  the CPU; and "bench.rows.<field>" the main path's B=4096 body_mass rows
+  and their constants, which the card's machine cannot compute)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import chip_smoke
+  import mjtpu
+  from mjtpu import parallel
+  from mjtpu_torch._src import io
+  from mjtpu_torch.parallel.randomize import _derived_constants
+
+  snapshots, golden = {}, {}
+  for name, (mjm, rows, start, steps, consts) in randomize_scene_specs().items():
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    batch = next(iter(rows.values())).shape[0]
+    if consts:
+      mb, axes = parallel.randomize_with_consts(mjm, m, rows)
+      step = jax.jit(jax.vmap(mjtpu.step, in_axes=(axes, 0)))
+      step_fn = lambda d: step(mb, d)
+      full = {k: np.asarray(v) for k, v in rows.items()}
+      full.update({k: np.asarray(v) for k, v in _derived_constants(
+          mjm, rows).items()})
+    else:
+      step_fn, mb = parallel.randomized_step(m, {k: jnp.asarray(v) for k, v in rows.items()})
+      full = rows
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(batch))
+    d = d.replace(**{k: jnp.asarray(v) for k, v in start.items()})
+    qpos, qvel = [], []
+    for _ in range(steps):
+      d = step_fn(d)
+      qpos.append(np.asarray(d.qpos))
+      qvel.append(np.asarray(d.qvel))
+    golden.update({f"{name}.rows.{k}": np.asarray(v) for k, v in full.items()})
+    golden.update({f"{name}.{k}0": np.asarray(v) for k, v in start.items()})
+    golden[f"{name}.qpos"], golden[f"{name}.qvel"] = np.stack(qpos), np.stack(qvel)
+    print(f"{name}: B {batch}, {steps} steps, fields {sorted(full)}, spread of the last qpos"
+          f" over the envs {np.ptp(qpos[-1], axis=0).max():.3e}")
+  bench = load_mjmodel()
+  rows = chip_smoke.bench_randomization(bench, chip_smoke.BENCH_BATCH)
+  mass = {"body_mass": rows["body_mass"]}
+  consts = _derived_constants(bench, mass)
+  golden.update({f"bench.rows.{k}": v for k, v in {**mass, **consts}.items()
+                 if k != "dof_M0" and np.size(v)})
+  return snapshots, golden
+
+
+def inverse_scene_specs() -> dict:
+  """The scenes of inverse_scenes.npz, name -> (MjModel, start state of
+  BATCH envs, where its qacc comes from: "given" in the start, "forward"
+  mjtpu's forward of it, "step" the qacc of mjtpu's step from it, the
+  discrete one): tests/test_inverse.py's pendulum, ball_free and spheres (env
+  e: numpy seed e, qpos0 +-0.2, qvel in [-0.5, 0.5], qacc from
+  mj_forward), its damped arm with INVDISCRETE under Euler, ImplicitFast
+  and Implicit (env e: seed e's qvel stepped 10 times by MuJoCo C, the
+  last qacc), capsules.xml under FWDINV with a random qfrc_applied (qacc
+  from mjtpu's forward), and the 66-dof branchy tree (slice 4's model:
+  Euler with implicit damping) with INVDISCRETE from its golden's start
+  states (qacc from mjtpu's step)."""
+  import mujoco
+
+  models = ROOT / "tests" / "models"
+  out = {}
+  for name in ("pendulum", "ball_free", "spheres"):
+    mjm = mujoco.MjModel.from_xml_path(str(models / f"{name}.xml"))
+    start = {k: [] for k in ("qpos", "qvel", "qacc")}
+    for e in range(BATCH):
+      mjd = mujoco.MjData(mjm)
+      rng = np.random.default_rng(e)
+      mjd.qpos[:] = mjm.qpos0 + rng.uniform(-0.2, 0.2, mjm.nq)
+      mjd.qvel[:] = rng.uniform(-0.5, 0.5, mjm.nv)
+      mujoco.mj_forward(mjm, mjd)
+      for k in start:
+        start[k].append(np.array(getattr(mjd, k)))
+    out[name] = (mjm, {k: np.stack(v) for k, v in start.items()}, "given")
+  for integ in ("Euler", "implicitfast", "implicit"):
+    mjm = mujoco.MjModel.from_xml_string(INVERSE_ARM_XML.format(integ=integ))
+    mjm.opt.enableflags |= mujoco.mjtEnableBit.mjENBL_INVDISCRETE
+    start = {k: [] for k in ("qpos", "qvel", "qacc")}
+    for e in range(BATCH):
+      mjd = mujoco.MjData(mjm)
+      mjd.qvel[:] = np.random.default_rng(e).uniform(-0.5, 0.5, mjm.nv)
+      for _ in range(10):
+        mujoco.mj_step(mjm, mjd)
+      for k in start:
+        start[k].append(np.array(getattr(mjd, k)))
+    out[f"discrete_{integ.lower()}"] = (mjm, {k: np.stack(v) for k, v in start.items()}, "given")
+  mjm = mujoco.MjModel.from_xml_path(str(models / "capsules.xml"))
+  mjm.opt.enableflags |= mujoco.mjtEnableBit.mjENBL_FWDINV
+  rng = np.random.default_rng(1)
+  out["fwdinv"] = (mjm, {"qvel": rng.uniform(-0.2, 0.2, (BATCH, mjm.nv)),
+                         "qfrc_applied": rng.uniform(-1, 1, (BATCH, mjm.nv))}, "forward")
+  mjm = load_branchy_mjmodel()
+  mjm.opt.enableflags |= mujoco.mjtEnableBit.mjENBL_INVDISCRETE
+  qpos, qvel = branchy_initial_state(mjm)
+  out["branchy66"] = (mjm, {"qpos": qpos, "qvel": qvel}, "step")
+  return out
+
+
+def inverse_scenes() -> tuple[dict, dict[str, np.ndarray]]:
+  """(the inverse scenes' snapshot arrays by name, their golden: per scene
+  its start "<scene>.<field>0" (qacc0 the inverse's input), mjtpu's
+  jit(vmap(inverse)) outputs (INVERSE_OUT) at f64 on the CPU, and MuJoCo
+  C's mj_inverse qfrc_inverse from the same inputs, "<scene>.c_qfrc_inverse")."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+  import mujoco
+
+  import mjtpu
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, (mjm, start, qacc_from) in inverse_scene_specs().items():
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+    d = d.replace(**{k: jnp.asarray(v) for k, v in start.items()})
+    if qacc_from != "given":
+      run = mjtpu.forward if qacc_from == "forward" else mjtpu.step
+      qacc = np.asarray(jax.jit(jax.vmap(run, in_axes=(None, 0)))(m, d).qacc)
+      start = {**start, "qpos": np.asarray(d.qpos), "qacc": qacc}
+      d = d.replace(qacc=jnp.asarray(qacc))
+    inv = jax.jit(jax.vmap(mjtpu.inverse, in_axes=(None, 0)))(m, d)
+    c_inv = []
+    for e in range(BATCH):
+      mjd = mujoco.MjData(mjm)
+      for k, v in start.items():
+        getattr(mjd, k)[:] = v[e]
+      mujoco.mj_inverse(mjm, mjd)
+      c_inv.append(np.array(mjd.qfrc_inverse))
+    golden.update({f"{name}.{k}0": np.asarray(v) for k, v in start.items()})
+    golden.update({f"{name}.{k}": np.asarray(getattr(inv, k)) for k in INVERSE_OUT})
+    golden[f"{name}.c_qfrc_inverse"] = np.stack(c_inv)
+    print(f"{name}: nv {mjm.nv}, nefc {np.asarray(inv.efc_force).shape[1]}, mjtpu against C"
+          f" {np.abs(np.asarray(inv.qfrc_inverse) - golden[f'{name}.c_qfrc_inverse']).max():.3e}")
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -2149,6 +2362,14 @@ def main():
       ("sensor_scenes", sensor_scenes, SENSOR_SCENES_FILE, SENSOR_GOLDEN_FILE)):
     if key in models:
       snapshots, scene_golden = bundle(args.scene, steps)
+      io.save_snapshot_bundle(out / path.name, snapshots)
+      np.savez_compressed(out / golden_path.name, **scene_golden)
+      files += [path.name, golden_path.name]
+  for key, bundle, path, golden_path in (
+      ("randomize_scenes", randomize_scenes, RANDOMIZE_SCENES_FILE, RANDOMIZE_GOLDEN_FILE),
+      ("inverse_scenes", inverse_scenes, INVERSE_SCENES_FILE, INVERSE_GOLDEN_FILE)):
+    if key in models:
+      snapshots, scene_golden = bundle()
       io.save_snapshot_bundle(out / path.name, snapshots)
       np.savez_compressed(out / golden_path.name, **scene_golden)
       files += [path.name, golden_path.name]

@@ -137,7 +137,9 @@ def test_ant_forward(golden):
 
   got = mjtpu_torch.data_to_numpy(mjtpu_torch.forward(_model(), _start(_model(), golden)))
   want = _fwd(golden)
-  names = [f.name for f in dataclasses.fields(mjtpu_torch.Data) if f.name != "contact"]
+  # qfrc_inverse is inverse's output, which forward leaves as it is
+  names = [f.name for f in dataclasses.fields(mjtpu_torch.Data)
+           if f.name not in ("contact", "qfrc_inverse")]
   names += [f"contact.{f.name}" for f in dataclasses.fields(mjtpu_torch.Contact)]
   _assert_close(got, want, [n for n in names if n not in FRAME_FIELDS], STAGE_BOUND, "forward")
   # the sensors read real forces: the hip contacts' touch readings

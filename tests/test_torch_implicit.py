@@ -15,7 +15,7 @@ LU) against mjtpu at float64 on the CPU, from the committed goldens.
   * qDeriv from rest and from moving states apart, the RNE term nonzero;
   * where mjtpu parts from MuJoCo C: the box fluid model's ImplicitFast
     derivative (ROADMAP C14) and the ellipsoid model's at rest (C15);
-  * the enable flags still refused (OVERRIDE, FWDINV, INVDISCRETE) and
+  * the enable flags OVERRIDE, FWDINV and INVDISCRETE accepted, and
     flex, by name.
 """
 
@@ -163,11 +163,22 @@ def test_ellipsoid_fluid_at_rest_is_nan_as_in_mjtpu():
 
 @pytest.mark.parametrize("flag", ["OVERRIDE", "FWDINV", "INVDISCRETE"])
 def test_remaining_enable_flags_refused_by_name(flag):
-  """Every enable flag but ENERGY stays refused, by its name."""
-  mjm = mujoco.MjModel.from_xml_path(str(chip_smoke.ROOT / "tests" / "models" / "pendulum.xml"))
+  """The enable flags that stayed refused until inverse dynamics came to
+  the port now build, and a step under each equals the step without it
+  bit for bit, as in mjtpu: none of them changes forward dynamics there
+  (OVERRIDE is read nowhere, ROADMAP C17; FWDINV and INVDISCRETE act in
+  mj_inverse only)."""
+  path = str(chip_smoke.ROOT / "tests" / "models" / "pendulum.xml")
+  mjm = mujoco.MjModel.from_xml_path(path)
   mjm.opt.enableflags = int(getattr(mujoco.mjtEnableBit, f"mjENBL_{flag}"))
-  with pytest.raises(NotImplementedError, match=f"the {flag} enable flag"):
-    mjtpu_torch.put_model(mjm, device="cpu")
+  m = mjtpu_torch.put_model(mjm, device="cpu")
+  assert m.opt.enableflags & int(getattr(mjtpu_torch.EnableBit, flag))
+  m0 = mjtpu_torch.put_model(mujoco.MjModel.from_xml_path(path), device="cpu")
+  qvel = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5, (2, m.nv)))
+  d, d0 = (mjtpu_torch.replace(mjtpu_torch.make_data(mm, 2), qvel=qvel) for mm in (m, m0))
+  for _ in range(3):
+    d, d0 = mjtpu_torch.step(m, d), mjtpu_torch.step(m0, d0)
+  assert torch.equal(d.qpos, d0.qpos) and torch.equal(d.qvel, d0.qvel)
 
 
 def test_flex_refused_by_name():

@@ -197,9 +197,14 @@ _BOXES = _free('type="box" size="0.1 0.1 0.1"', 0.2) + _free('type="box" size="0
     # the Implicit slice
     (_variant(HB, integrator=mujoco.mjtIntegrator.mjINT_IMPLICIT), None),
     (_variant(HB, density=1.2, integrator=mujoco.mjtIntegrator.mjINT_IMPLICITFAST), None),
+    # the OVERRIDE, FWDINV and INVDISCRETE enable flags since inverse
+    # dynamics came to the port
+    (_variant(HB, enableflags=int(mujoco.mjtEnableBit.mjENBL_OVERRIDE
+                                  | mujoco.mjtEnableBit.mjENBL_FWDINV
+                                  | mujoco.mjtEnableBit.mjENBL_INVDISCRETE)), None),
 ], ids=["sphere_plane", "box_capsule", "box_hfield", "max_geom_pairs", "eulerdamp_forest",
         "sensors", "equality", "tendon", "rk4", "implicitfast_forest", "elliptic", "pgs",
-        "condim1", "condim6", "implicit", "implicitfast_fluid"])
+        "condim1", "condim6", "implicit", "implicitfast_fluid", "enable_flags"])
 def test_put_model_refuses_out_of_slice(make, what):
   """put_model refuses a model outside the slices, naming the feature; the
   cases that a later slice took in (what None) build and step."""

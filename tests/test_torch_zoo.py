@@ -206,13 +206,26 @@ def test_env_refusals(make, what):
 
 
 def test_model_override_refused():
+  """The model= override of reset and step, refused until the port had
+  per-env Model rows, runs: the env's own model passed as model= gives
+  its plain reset and step bit for bit, and a model with one mass row per
+  env moves the physics of each env apart."""
   env = _env("cartpole")
+  action = torch.full((2, 1), 0.5, dtype=torch.float64)
+  runs = []
+  for model in (None, env.model):
+    gen = torch.Generator().manual_seed(0)
+    state = env.reset(2, gen, model=model)
+    runs.append(env.step(state, action, gen, model=model))
+  assert torch.equal(runs[0].data.qpos, runs[1].data.qpos)
+  assert torch.equal(runs[0].obs, runs[1].obs)
+  mass = env.model.body_mass.expand(2, -1).clone()
+  mass[1, 1] *= 3.0
+  mb, _ = mjtpu_torch.parallel.randomize(env.model, {"body_mass": mass})
   gen = torch.Generator().manual_seed(0)
-  with pytest.raises(NotImplementedError, match="model= override"):
-    env.reset(2, gen, model=env.model)
-  state = env.reset(2, gen)
-  with pytest.raises(NotImplementedError, match="model= override"):
-    env.step(state, torch.zeros(2, 1, dtype=torch.float64), gen, model=env.model)
+  state = env.step(env.reset(2, gen, model=mb), action, gen, model=mb)
+  assert torch.equal(state.data.qpos[0], runs[0].data.qpos[0])
+  assert not torch.equal(state.data.qpos[1], runs[0].data.qpos[1])
 
 
 def test_env_builds_on_cuda_by_default():

@@ -632,3 +632,34 @@ def test_chol_on_elliptic_hessians(dtype):
   assert cholesky.variants(12, dtype) == ("register", "shared")
   for h, grad in calls:
     chip_smoke._hold_chol(h, grad, "elliptic.xml")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_randomized_step_on_the_card(dtype):
+  """The randomized humanoid_bench (chip_smoke.bench_randomization's rows
+  with their committed constants) at B=8 on the card: the batched step
+  launches B1 `register` at n=27 once (Newton 1 x 4), and each env stepped
+  alone under its own unbatched Model matches it (f64: 1e-12 of scale;
+  f32: RANDOM_CHECK_BOUND)."""
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(ns, dtype=dtype, device="cuda")
+  rows = chip_smoke.bench_randomization(ns, chip_smoke.BENCH_BATCH)
+  rows.update(chip_smoke._rows(np.load(mjtpu_torch.ASSETS / "randomize_scenes_golden.npz"),
+                               "bench.rows.", m))
+  rows = {k: v[:8] for k, v in rows.items()}
+  step, _ = mjtpu_torch.parallel.randomized_step(m, rows)
+  rng = np.random.default_rng(0)
+  d = mjtpu_torch.replace(
+      mjtpu_torch.make_data(m, 8),
+      qpos=torch.as_tensor(ns.qpos0[None] + rng.uniform(-0.01, 0.01, (8, m.nq)), dtype=dtype,
+                           device="cuda"),
+      ctrl=torch.as_tensor(rng.uniform(-1, 1, (8, m.nu)), dtype=dtype, device="cuda"))
+  before = cholesky.variant_launches["register"]
+  out = step(d)
+  assert cholesky.variant_launches["register"] - before == 1
+  bound = 1e-12 if dtype == torch.float64 else chip_smoke.RANDOM_CHECK_BOUND
+  for e in range(8):
+    alone = mjtpu_torch.step(chip_smoke._env_model(m, rows, e), chip_smoke._env_data(d, e))
+    for f in ("qpos", "qvel"):
+      assert chip_smoke._scaled_err(getattr(alone, f)[0].cpu().numpy(),
+                                    getattr(out, f)[e].cpu().numpy()) <= bound, (e, f)
