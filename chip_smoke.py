@@ -48,8 +48,9 @@ failure raises and the script exits non-zero:
      ellipsoid-box and ellipsoid-ellipsoid (n in 1, 130, 4096; the size
      dispatch must give them the shared kernel); random, axis-aligned
      touching and stacked poses; f32 and f64; every variant that can run a
-     pair equal to the twin bit for bit in winner indices and separations;
-     times of both variants at box-box, n = 491520 (scene_pile's group at
+     pair equal to the twin bit for bit in winner indices and separations
+     (the side phase ``9-twin``, beside phase 22, or inline with
+     --kernels); times of both variants at box-box, n = 491520 (scene_pile's group at
      B=4096), and of the shared kernel at each round pair, n = 4096 (the
      cylinder drop's group at B=4096), f32, each beside its twin and its
      bound (_sat_work).
@@ -216,7 +217,9 @@ failure raises and the script exits non-zero:
      the geom-distance scene one B3 launch per SAT collider of the
      sensors' pairs in each sensor_pos (static for box-box, shared for
      box-cylinder), and the box-box distance through B3 static equal to
-     the same through its twin bit for bit.
+     the same through its twin bit for bit.  Two processes: ``30``
+     (humanoid_implicit and implicit_scenes.npz) and ``30-sensors``
+     (sensor_scenes.npz).
  31. Implicit throughput, the main path: humanoid_implicit (the zoo's
      humanoid.xml under the full Implicit integrator) at f32 B=4096 from
      qpos0 +-0.01 (numpy seed 1), 3 warm-up and 30 timed steps:
@@ -252,20 +255,49 @@ failure raises and the script exits non-zero:
      (RANDOM_CHECK_BOUND); then the branchy66 inverse with INVDISCRETE at
      f32 B=4096, 2 warm-up and 20 timed calls (CUDA events): B2 lanes
      factor and solve, one launch each a call.
+ 34. slice-16 parity: f64, on the card, every scene of diff_scenes.npz
+     (DIFF_SCENES: tests/test_diff.py's pendulum, plain and with adaptive
+     substeps, spheres and sph_cyl under contacts from distance, the
+     sphere at a box corner and the box on a box, roll.xml and the
+     60-step bounce, plain and smooth, and humanoid_bench, K=4) under its
+     differentiable_mode against mjtpu's jax.grad golden: values at step
+     1 to 1e-10 of scale, over the run to 1e-8, gradients to 1e-8 of
+     their max-abs and finite; B1's backward (cholesky.CholSolve: the
+     kernel on (mat, x_bar)) against autograd through the twin at n=27
+     and 23, B=4096, f32 and f64, to phase 3's tolerances; B2's, B3's and
+     B4's wrappers raise on an input that requires grad, and their
+     differentiable seams (the kernel forward; B2's solves launch it once
+     more backward, the rest take the twin's gradient) match autograd
+     through the twin at B=4096, f32 and f64, to the same; hopper_bench and
+     pendulum_implicit (stepped_scenes.npz) 50 steps and their inverse
+     against mjtpu to 1e-8 of scale.
+ 35. slice-16 throughput, the differentiable main path: gradients of
+     humanoid_bench rollouts at f32 B=4096 under differentiable_mode()
+     (K=8 steps from qpos0 +-0.01, qvel and ctrl (8, B, 21) in [-1, 1],
+     numpy seed 1; loss sum of the final qpos^2; backward to the initial
+     qvel and every ctrl): forward and backward wall, env-steps/s, B1
+     register launches (8 forward, 8 backward; B2-B4 none), B1 alone on
+     its 8 backward launches' inputs (timed again as phase 3 times, not
+     its time inside the backward), peak memory, and the envs whose
+     gradient is not finite (must be 0); one warm-up rollout, then 5
+     timed runs, reported as the median with the least and the most.
 
-The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29, 31 and 33: each kernel's launch
-count is set to 0 just before each and read just after, by variant too:
+The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29, 31,
+33 and 35: each kernel's launch count is set to 0 just before each and
+read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
 the size dispatch gives to B3's shared kernel.  The last two lines are the kernel
 record and {"ok": true, ...}.
 
-The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 and 32, and phase
-22's cone scenes (``22-cones``), run each in a process of its own
+The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 (two
+processes, ``30`` and ``30-sensors``), 32 and 34, phase 9's twin check
+(``9-twin``) and phase 22's cone scenes (``22-cones``), run each in a
+process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
 overlap it; no phase is timed while they run (the timed phases 23, 25,
-27, 29, 31 and 33 come after all have ended).
+27, 29, 31, 33 and 35 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -291,6 +323,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PARITY_STEPS = 100
 TIGHT_STEPS = 50  # the benchmark-config trajectory holds 1e-8 this far
 BENCH_BATCH = 4096
+# phases 6 and 23
 WARMUP_STEPS = 20
 TIMED_STEPS = 200
 TERRAIN_BOUND = 1e-8  # tests/test_torch_terrain.py's TRAJECTORY_BOUND
@@ -663,15 +696,15 @@ def phase_cholesky():
   return main_abs_err, times[27, f32], variant_ms[27, f32], shapes
 
 
-def _windows(n, hy, hx, has_axis, dtype, gen, flat=False):
+def _windows(n, hy, hx, has_axis, dtype, gen, flat=False, device="cuda"):
   """Random height windows (n, R, C), origins and objects over them."""
   import torch
 
-  u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda", dtype=dtype)
+  u = lambda *shape: torch.rand(*shape, generator=gen, device=device, dtype=dtype)
   rr, cc = 2 * hy + 2, 2 * hx + 2
-  zwin = torch.full((n, rr, cc), 0.05, dtype=dtype, device="cuda") if flat else 0.3 * u(n, rr, cc)
+  zwin = torch.full((n, rr, cc), 0.05, dtype=dtype, device=device) if flat else 0.3 * u(n, rr, cc)
   origin = 40.0 * u(n, 2) - 20.0
-  span = torch.tensor([(cc - 1) * 1.29, (rr - 1) * 1.29], dtype=dtype, device="cuda")
+  span = torch.tensor([(cc - 1) * 1.29, (rr - 1) * 1.29], dtype=dtype, device=device)
   center = torch.cat([origin + u(n, 2) * span, 0.4 * u(n, 1) - 0.05], dim=1)
   axis = (0.6 * u(n, 3) - 0.3) if has_axis else torch.zeros_like(center)
   return zwin, origin, center - axis, center + axis, 0.03 + 0.1 * u(n)
@@ -783,8 +816,8 @@ def _rock_hull():
   return next(h for h in ns.mesh_convex if h is not None)
 
 
-def _sat_poses(kind, n, h1, h2, dtype, gen):
-  """(pos1, mat1, pos2, mat2) on the card: random rotations and offsets;
+def _sat_poses(kind, n, h1, h2, dtype, gen, device="cuda"):
+  """(pos1, mat1, pos2, mat2) on ``device``: random rotations and offsets;
   axis-aligned hulls touching 1 mm deep along x, y or z (half of them
   with small sideways offsets); or hull 2 stacked on hull 1, 1 mm deep,
   with a yaw."""
@@ -792,19 +825,19 @@ def _sat_poses(kind, n, h1, h2, dtype, gen):
 
   import torch
 
-  u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda", dtype=dtype)
+  u = lambda *shape: torch.rand(*shape, generator=gen, device=device, dtype=dtype)
   pos1 = 2.0 * u(n, 3) - 1.0
-  eye = torch.eye(3, dtype=dtype, device="cuda").expand(n, 3, 3)
+  eye = torch.eye(3, dtype=dtype, device=device).expand(n, 3, 3)
   if kind == "random":
     def rot():
-      q = torch.randn(n, 4, generator=gen, device="cuda", dtype=dtype)
+      q = torch.randn(n, 4, generator=gen, device=device, dtype=dtype)
       w, x, y, z = (q / q.norm(dim=1, keepdim=True)).unbind(1)
       return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
                           2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
                           2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
                          1).reshape(n, 3, 3)
     return pos1, rot(), pos1 + 0.3 * u(n, 3) - 0.15, rot()
-  ext1, ext2 = (torch.as_tensor(abs(h.vert).max(0), dtype=dtype, device="cuda") for h in (h1, h2))
+  ext1, ext2 = (torch.as_tensor(abs(h.vert).max(0), dtype=dtype, device=device) for h in (h1, h2))
   if kind == "aligned":
     axis = (3 * u(n)).long().clamp(max=2)
     step = torch.nn.functional.one_hot(axis, 3).to(dtype) * (ext1 + ext2 - 0.001)
@@ -813,7 +846,7 @@ def _sat_poses(kind, n, h1, h2, dtype, gen):
   yaw = 2 * math.pi * u(n)
   c, s0, z, o = torch.cos(yaw), torch.sin(yaw), torch.zeros_like(yaw), torch.ones_like(yaw)
   mat2 = torch.stack([c, -s0, z, s0, c, z, z, z, o], 1).reshape(n, 3, 3)
-  lift = torch.zeros(n, 3, dtype=dtype, device="cuda")
+  lift = torch.zeros(n, 3, dtype=dtype, device=device)
   lift[:, 2] = ext1[2] + ext2[2] - 0.001
   lift[:, :2] = 0.02 * u(n, 2) - 0.01
   return pos1, eye, pos1 + lift, mat2
@@ -874,23 +907,38 @@ def round_hull_pairs() -> dict:
   }
 
 
-def phase_sat():
+def sat_check_pairs() -> dict:
+  """Phase 9's hull pairs, name -> (hull 1, hull 2): the box and rock
+  pairs (the static kernel's) and the round-hull pairs (the shared
+  kernel's)."""
   import numpy as np
-  import torch
 
   from mjtpu_torch._src import mesh
+
+  box = mesh.box(np.array([0.08, 0.08, 0.08]))  # scene_pile's boxes
+  return {"box-box equal": (box, box),
+          "box-box unequal": (mesh.box(np.array([0.1, 0.15, 0.2])),
+                              mesh.box(np.array([0.12, 0.1, 0.08]))),
+          "box-rock": (mesh.box(np.array([0.1, 0.15, 0.2])), _rock_hull()),
+          **round_hull_pairs()}
+
+
+def phase_sat_parity():
+  """Phase 9's check of B3 against its twin, bit for bit (indices and
+  separations), every variant the size dispatch allows, over
+  sat_check_pairs() x random, axis-aligned and stacked poses x n in 1,
+  130 and SAT_N (ROUND_N for the round hulls) x f32, f64.  Run as the side
+  phase ``9-twin`` beside phase 22 (the twins at n = SAT_N are the card's
+  work, not the host's), inline with --kernels."""
+  import torch
+
   from mjtpu_torch.ops import sat
 
   gen = torch.Generator(device="cuda").manual_seed(2)
-  box = mesh.box(np.array([0.08, 0.08, 0.08]))  # scene_pile's boxes
-  pairs = {"box-box equal": (box, box),
-           "box-box unequal": (mesh.box(np.array([0.1, 0.15, 0.2])),
-                               mesh.box(np.array([0.12, 0.1, 0.08]))),
-           "box-rock": (mesh.box(np.array([0.1, 0.15, 0.2])), _rock_hull())}
   rounds = round_hull_pairs()
-  checked, edge_wins, main_err = {}, 0, None
+  checked, edge_wins = {}, 0
   for dtype in (torch.float32, torch.float64):
-    for name, (h1, h2) in {**pairs, **rounds}.items():
+    for name, (h1, h2) in sat_check_pairs().items():
       hulls = (sat.sat_hull(h1, dtype, "cuda"), sat.sat_hull(h2, dtype, "cuda"))
       if name in rounds and sat.variant(*hulls) != "shared":
         raise AssertionError(f"sat {name}: the size dispatch picks {sat.variant(*hulls)}")
@@ -911,9 +959,6 @@ def phase_sat():
                     g.double(), w.double(), lambda: kernel()[o].double(),
                     lambda: twin()[o].double()))
             checked[kind] = checked.get(kind, 0) + n
-            if (name, kind_of_pose, n, dtype, kind) == ("box-box equal", "random", SAT_N,
-                                                        torch.float32, "static"):
-              main_err = float((seps - want_seps).abs().max())
           edge_wins += int((want_seps[:, 2] > want_seps[:, :2].max(1).values).sum())
   log(f"[sat] kernel == twin bit for bit (indices and separations) in every case: 3 box and"
       f" rock hull pairs x n in 1, 130, {SAT_N} and 4 round-hull pairs ({', '.join(rounds)};"
@@ -921,12 +966,28 @@ def phase_sat():
       f" stacked poses x f32, f64; instances by variant {checked}; the edge axis wins in"
       f" {edge_wins}")
 
+
+def phase_sat():
+  """Phase 9's timings: B3's variants and its twin on the pile's box-box
+  group and the round hulls at f32, and the main path's error (static
+  against the twin on the timed box-box inputs); the bit-for-bit check is
+  phase_sat_parity."""
+  import numpy as np
+  import torch
+
+  from mjtpu_torch._src import mesh
+  from mjtpu_torch.ops import sat
+
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  box = mesh.box(np.array([0.08, 0.08, 0.08]))  # scene_pile's boxes
+  rounds = round_hull_pairs()
   dtype = torch.float32
   hulls = (sat.sat_hull(box, dtype, "cuda"),) * 2
   poses = _sat_poses("random", SAT_N, box, box, dtype, gen)
   run = {kind: (lambda kind=kind: sat.sat_winners_batch(*poses, *hulls, kernel=kind))
          for kind in sat.variants(*hulls)}
   run_p = lambda: sat.sat_winners_reference(*poses, *hulls)
+  main_err = float((run["static"]()[0] - run_p()[0]).abs().max())
   # plain, static, shared, shared, static, plain: compare within one call.  The
   # 61 MB the calls read and write (poses 47 MB) exceed the 50 MB L2: mostly
   # cold, and either way small beside the operations that bound the kernel
@@ -1715,8 +1776,8 @@ def phase_ant_rk4_parity():
   # step 1's forward passes, read through the forward seam
   passes, original = [], forward_mod.forward
 
-  def record(m, d):
-    d = original(m, d)
+  def record(m, d, **kw):
+    d = original(m, d, **kw)
     passes.append(d.qacc.cpu().numpy())
     return d
 
@@ -3004,14 +3065,15 @@ def phase_swimmer_throughput(card):
   return counts
 
 
-def phase_slice14_parity():
-  """Both bundles of the Implicit slice and humanoid_implicit at f64 on the
-  card against their mjtpu goldens, at the CPU tests' bounds
-  (slice14_errors; phase 30); one B1 launch per Newton iteration (and one
-  a step for a dense tree's Euler damping); on the geom-distance scene,
-  sensor_pos's B3 launches (_geomdist_b3) in every forward pass, and the
-  box-box distance with B3 equal bit for bit to the same with B3's
-  twin."""
+def phase_slice14_parity(part: str):
+  """The Implicit slice at f64 on the card against its mjtpu goldens, at
+  the CPU tests' bounds (slice14_errors; phase 30, in two processes:
+  ``part`` "implicit", humanoid_implicit and implicit_scenes.npz, or
+  "sensor", sensor_scenes.npz); one B1 launch per Newton iteration (and
+  one a step for a dense tree's Euler damping); on the geom-distance
+  scene, sensor_pos's B3 launches (_geomdist_b3) in every forward pass,
+  and the box-box distance with B3 equal bit for bit to the same with
+  B3's twin."""
   import numpy as np
 
   import mjtpu_torch
@@ -3020,10 +3082,11 @@ def phase_slice14_parity():
 
   worst, ties, kinds = {}, 0, dict.fromkeys(cholesky.variant_launches, 0)
   runs = [("humanoid_implicit", None, dict(np.load(
-      mjtpu_torch.ASSETS / "humanoid_implicit_golden.npz")))]
-  for kind, bundle in SLICE14_BUNDLES.items():
-    golden = dict(np.load(mjtpu_torch.ASSETS / f"{bundle}_golden.npz"))
-    runs += [(kind, name, golden) for name in io.bundle_names(mjtpu_torch.ASSETS / f"{bundle}.npz")]
+      mjtpu_torch.ASSETS / "humanoid_implicit_golden.npz")))] if part == "implicit" else []
+  bundle = SLICE14_BUNDLES[part]
+  golden = dict(np.load(mjtpu_torch.ASSETS / f"{bundle}_golden.npz"))
+  runs += [(part, name, golden) for name in io.bundle_names(mjtpu_torch.ASSETS / f"{bundle}.npz")]
+  per_forward, box_bits = None, 0
   for kind, name, golden in runs:
     m, _ = slice14_scene(kind, name, golden, "cpu")
     before, newton = dict(cholesky.variant_launches), solver.loop_counts["iterations"]
@@ -3050,18 +3113,25 @@ def phase_slice14_parity():
     for k, v in errs.items():
       group = k if k in ("found", "ties") else k.split(".")[0]
       worst[group] = max(worst.get(group, 0.0), v)
-  log(f"[implicit parity] humanoid_implicit and {len(runs) - 1} scenes of implicit_scenes.npz"
-      f" and sensor_scenes.npz f64 B=4: max err, step 1's qDeriv {worst['deriv']:.3e} of scale,"
-      f" the implicit update {worst['update']:.3e}, forward's qacc, energy and sensors"
-      f" {worst['fwd']:.3e} (limit {SLICE14_STEP_BOUND}), 100 steps {worst['trajectory']:.3e}"
-      f" (limit {SLICE14_TRAJECTORY_BOUND}), CONTACT found entries that differ {worst['found']},"
-      f" contact-sensor ties taken by a ULP copy {ties} (ROADMAP C13); B1 launches {kinds}, one"
-      f" per Newton iteration; geomdist: B3 per forward pass {per_forward} (sensor_pos once"
-      f" per SAT collider of its pairs: static for box-box, in both orders, shared for"
-      f" box-cylinder), its box-box distance with B3 static against its twin: {box_bits}"
-      f" entries whose bits differ")
+  what = (f"humanoid_implicit and {len(runs) - 1} scenes of implicit_scenes.npz"
+          if part == "implicit" else f"{len(runs)} scenes of sensor_scenes.npz")
+  get = lambda k: f"{worst[k]:.3e}" if k in worst else "none"
+  line = (f"[implicit parity] {what} f64 B=4: max err, step 1's qDeriv {get('deriv')} of scale,"
+          f" the implicit update {get('update')}, forward's qacc, energy and sensors"
+          f" {get('fwd')} (limit {SLICE14_STEP_BOUND}), 100 steps {get('trajectory')}"
+          f" (limit {SLICE14_TRAJECTORY_BOUND}), CONTACT found entries that differ"
+          f" {worst['found']}, contact-sensor ties taken by a ULP copy {ties} (ROADMAP C13); B1"
+          f" launches {kinds}, one per Newton iteration")
+  if per_forward is not None:
+    line += (f"; geomdist: B3 per forward pass {per_forward} (sensor_pos once per SAT collider"
+             f" of its pairs: static for box-box, in both orders, shared for box-cylinder), its"
+             f" box-box distance with B3 static against its twin: {box_bits} entries whose bits"
+             f" differ")
+  log(line)
   if box_bits:
     raise AssertionError(f"geomdist: B3 static and its twin part on {box_bits} entries")
+  if part == "sensor" and per_forward is None:
+    raise AssertionError("sensor_scenes.npz has no geomdist scene")
 
 
 def _geomdist_b3(name, golden) -> tuple[dict, int]:
@@ -3529,9 +3599,433 @@ def phase_slice15_throughput(card):
   return bench, inv
 
 
+# the differentiable scenes (diff_scenes.npz; tests/test_diff.py's cases),
+# name -> (kind, steps, differentiable_mode's keywords, the qpos entries
+# the loss or the offset reads):
+#   "rollout": loss = sum of the final qpos[entries]^2 after `steps` steps
+#              from the golden's start (each step's ctrl from its ctrl
+#              sequence, where it has one), its gradient with respect to
+#              the start's qvel (and the ctrl sequence)
+#   "mindist": loss = min(contact.dist) of fwd_position at the start's
+#              qpos with the golden's offset added to qpos[entries], its
+#              gradient with respect to the offset
+DIFF_SCENES = {
+    "pendulum": ("rollout", 20, {}, None),
+    "pendulum_adaptive": ("rollout", 20, {"adaptive_integration": True,
+                                          "adaptive_substeps": 4}, None),
+    "spheres": ("rollout", 10, {"cfd": True, "cfd_width": 0.01}, None),
+    "box_corner": ("mindist", 0, {"smooth_collisions": True, "cfd": True}, (0,)),
+    "box_box": ("mindist", 0, {"smooth_collisions": True, "cfd": True}, (2,)),
+    "sph_cyl": ("rollout", 8, {"cfd": True, "cfd_width": 0.01}, None),
+    "roll": ("mindist", 0, {"smooth_collisions": True}, None),
+    "bounce": ("rollout", 60, {}, (0, 1)),
+    "bounce_smooth": ("rollout", 60, {"smooth_collisions": True, "cfd": True,
+                                      "cfd_width": 0.02}, (0, 1)),
+    "humanoid_bench": ("rollout", 4, {}, None),
+}
+DIFF_VALUE_HEAD_BOUND = 1e-10  # the values at step 1, of their scale
+DIFF_VALUE_BOUND = 1e-8        # ... over the rollout
+DIFF_GRAD_BOUND = 1e-8         # the gradients, of their max-abs
+# B1's backward against the twin's autograd, at the main paths' n
+DIFF_CHOL_NS = (27, 23)
+DIFF_K = 8  # the differentiable main path's steps
+DIFF_RUNS = 5  # its timed rollouts (forward and backward) after the warm-up
+STEPPED_BOUND = 1e-8  # hopper_bench and pendulum_implicit against mjtpu, of scale
+
+
+def diff_scene_model(name, device, dtype=None):
+  """The Model of a diff scene (diff_scenes.npz) on ``device``."""
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  ns = io.load_snapshot(mjtpu_torch.ASSETS / "diff_scenes.npz", name)
+  return mjtpu_torch.model_from_arrays(ns, device=device, **({"dtype": dtype} if dtype else {}))
+
+
+def diff_scene_run(name, golden, device, m=None) -> dict:
+  """One diff scene through the port under its differentiable_mode, from
+  the golden's start on ``device``: the values ("qpos", "qvel" per step
+  and "loss" for a rollout, "loss" for a mindist scene) and the gradients
+  ("grad_qvel", "grad_ctrl", "grad_offset"), as numpy arrays."""
+  import torch
+
+  import mjtpu_torch
+
+  kind, steps, cfg, entries = DIFF_SCENES[name]
+  m = m or diff_scene_model(name, device)
+  t = lambda k: torch.as_tensor(golden[f"{name}.{k}"], dtype=m.dtype, device=device)
+  qpos0 = t("qpos0")
+  d = mjtpu_torch.make_data(m, batch_size=qpos0.shape[0])
+  out = {}
+  with mjtpu_torch.differentiable_mode(**cfg):
+    if kind == "rollout":
+      qvel0 = t("qvel0").requires_grad_(True)
+      ctrl = t("ctrl0").requires_grad_(True) if f"{name}.ctrl0" in golden else None
+      d = mjtpu_torch.replace(d, qpos=qpos0, qvel=qvel0)
+      qpos, qvel = [], []
+      for i in range(steps):
+        if ctrl is not None:
+          d = mjtpu_torch.replace(d, ctrl=ctrl[i])
+        d = mjtpu_torch.step(m, d)
+        qpos.append(d.qpos)
+        qvel.append(d.qvel)
+      q = d.qpos if entries is None else d.qpos[:, list(entries)]
+      loss = torch.sum(q * q, dim=-1)
+      loss.sum().backward()
+      out.update(qpos=torch.stack(qpos), qvel=torch.stack(qvel), grad_qvel=qvel0.grad)
+      if ctrl is not None:
+        out["grad_ctrl"] = ctrl.grad
+    else:
+      offset = t("offset0").requires_grad_(True)
+      cols = list(range(m.nq)) if entries is None else list(entries)
+      sel = torch.zeros((len(cols), m.nq), dtype=m.dtype, device=device)
+      sel[torch.arange(len(cols)), torch.as_tensor(cols)] = 1.0
+      d = mjtpu_torch.fwd_position(m, mjtpu_torch.replace(d, qpos=qpos0 + offset @ sel))
+      loss = torch.amin(d.contact.dist, dim=-1)
+      loss.sum().backward()
+      out["grad_offset"] = offset.grad
+  out["loss"] = loss
+  return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def diff_scene_errors(name, golden, device, got=None) -> dict:
+  """A diff scene's values and gradients on ``device`` (or ``got``, a run
+  of diff_scene_run) against mjtpu's jax.grad golden: "head" (the values
+  at step 1, of their scale), "values" (every step and the loss, of their
+  scale), and per gradient its error of the golden's max-abs; "finite"
+  whether every gradient is finite."""
+  import numpy as np
+
+  got = got or diff_scene_run(name, golden, device)
+  scaled = _scaled_err
+  errs = {"finite": all(bool(np.isfinite(v).all()) for k, v in got.items()
+                        if k.startswith("grad_"))}
+  if "qpos" in got:
+    errs["head"] = max(scaled(got[f][0], golden[f"{name}.{f}"][0]) for f in ("qpos", "qvel"))
+    errs["values"] = max(scaled(got[f], golden[f"{name}.{f}"]) for f in ("qpos", "qvel", "loss"))
+  else:
+    errs["head"] = errs["values"] = scaled(got["loss"], golden[f"{name}.loss"])
+  for k, v in got.items():
+    if k.startswith("grad_"):
+      want = golden[f"{name}.{k}"]
+      errs[k] = float(_abs_err(v, want).max() / max(float(np.abs(want).max()), 1e-300))
+  return errs
+
+
+def chol_backward_error(n: int, dtype, batch: int, gen) -> float:
+  """B1's backward (cholesky.CholSolve on the card: the kernel forward and
+  backward) against autograd through its plain twin, on the same random
+  SPD batch mat = sym(P) = (P + P^T) / 2 and right-hand sides g, of the
+  loss sum(x * w) for a random w: the larger of the gradients' (P's and
+  g's) max error over their max-abs."""
+  import torch
+
+  from mjtpu_torch.ops import cholesky
+
+  mat, rhs = _spd(n, batch, dtype, gen)
+  w = torch.randn(batch, n, dtype=dtype, device="cuda", generator=gen)
+  grads = []
+  for solve in (cholesky.CholSolve.apply, cholesky.chol_solve_reference):
+    p = mat.clone().requires_grad_(True)
+    g = rhs.clone().requires_grad_(True)
+    x = solve((0.5 * (p + p.transpose(1, 2))).contiguous(), g)
+    torch.sum(x * w).backward()
+    grads.append((p.grad, g.grad))
+  return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads))
+
+
+def kernel_grad_refusals() -> dict:
+  """For B2, B3 and B4: whether the wrapper raised on a CUDA input that
+  requires grad while grad mode is on (a wrapper has no backward; the
+  engine calls it through its differentiable seam)."""
+  import numpy as np
+  import torch
+
+  from mjtpu_torch._src import mesh, sparse
+  from mjtpu_torch.ops import hfield, ldl, sat
+
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  t = sparse.device_tables(sparse._build(66, branchy_parentid(6, 10)), torch.float64, "cuda")
+  mc, rhs, _ = chain_pattern_batch(t, 4, torch.float64, gen)
+  box = sat.sat_hull(mesh.box(np.array([0.08, 0.08, 0.08])), torch.float64, "cuda")
+  poses = _sat_poses("random", 4, box, box, torch.float64, gen)
+  zwin, origin, a, b, r = _windows(4, 2, 2, True, torch.float64, gen)
+  calls = {
+      "ldl_factor": lambda: ldl.ldl_factor(t, mc.requires_grad_(True)),
+      "sat_winners": lambda: sat.sat_winners_batch(poses[0].requires_grad_(True), *poses[1:],
+                                                   box, box),
+      "hfield_manifold": lambda: hfield.manifold_batch(zwin, origin, a.requires_grad_(True), b,
+                                                       r, 2, 2, 1.29, 1.29, True),
+  }
+  raised = {}
+  for name, call in calls.items():
+    try:
+      call()
+      raised[name] = False
+    except RuntimeError as e:
+      raised[name] = "no backward" in str(e)
+  return raised
+
+
+def seam_grad_errors(device, dtype, batch: int, gen) -> dict:
+  """B2's, B3's and B4's differentiable seams (ops.ldl's LdlFactorSolve,
+  LdlSolve and ldl_factor_differentiable on the branchy66 tree, ops.sat's
+  sat_winners_differentiable on random box poses, ops.hfield's
+  manifold_differentiable on random windows) on ``device``: per seam, the
+  gradient of sum(out * w) for a random w with respect to every float
+  input, against autograd through the twin on the same inputs (the larger
+  max error over the max-abs), and the kernel launches the seam made in
+  its forward and in its backward: name -> (error, forward, backward)."""
+  import numpy as np
+  import torch
+
+  from mjtpu_torch._src import mesh, sparse
+  from mjtpu_torch.ops import hfield, ldl, sat
+
+  t = sparse.device_tables(sparse._build(66, branchy_parentid(6, 10)), dtype, device)
+  mc, rhs, _ = chain_pattern_batch(t, batch, dtype, gen)
+  S = ldl.ldl_factor_reference(t, mc)
+  box = sat.sat_hull(mesh.box(np.array([0.08, 0.08, 0.08])), dtype, device)
+  poses = _sat_poses("random", batch, box, box, dtype, gen, device=device)
+  win = _windows(batch, 2, 2, True, dtype, gen, device=device)
+  hf = (2, 2, 1.29, 1.29, True)
+  count = lambda key: lambda: ldl.launches[key]
+  seams = {
+      "ldl_factor_solve": (lambda mc, b: ldl.LdlFactorSolve.apply(t, mc, b),
+                           lambda mc, b: ldl.ldl_factor_solve_reference(t, mc, b), (mc, rhs),
+                           count("ldl_factor_solve")),
+      "ldl_solve": (lambda s, b: ldl.LdlSolve.apply(t, s, b),
+                    lambda s, b: ldl.ldl_solve_reference(t, s, b), (S, rhs), count("ldl_solve")),
+      "ldl_factor": (lambda mc: ldl.ldl_factor_differentiable(t, mc),
+                     lambda mc: ldl.ldl_factor_reference(t, mc), (mc,), count("ldl_factor")),
+      "sat_winners": (lambda *p: sat.sat_winners_differentiable(*p, box, box)[0],
+                      lambda *p: sat.sat_winners_reference(*p, box, box)[0], poses,
+                      lambda: sat.launches),
+      "hfield_manifold": (lambda *w: hfield.manifold_differentiable(*w, *hf),
+                          lambda *w: hfield.manifold_reference(*w, *hf), win,
+                          lambda: hfield.launches),
+  }
+  out = {}
+  for name, (seam, twin, inputs, launches) in seams.items():
+    grads, weights, counts = [], None, []
+    for fn in (seam, twin):
+      xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+      before = launches()
+      y = fn(*xs)
+      ys = y if isinstance(y, tuple) else (y,)
+      fwd = launches() - before
+      if weights is None:
+        weights = [torch.randn(o.shape, dtype=dtype, device=device, generator=gen) for o in ys]
+      loss = sum(torch.sum(torch.where(torch.isfinite(o), o, 0.0) * w) for o, w in zip(ys, weights))
+      loss.backward()
+      counts.append((fwd, launches() - before - fwd))
+      grads.append([x.grad for x in xs])
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+              for a, b in zip(*grads))
+    out[name] = (err, *counts[0])
+  return out
+
+
+def stepped_scene_errors(name: str, golden, device) -> dict:
+  """A stepped scene (stepped_scenes.npz: hopper_bench, pendulum_implicit)
+  stepped STEPPED_STEPS times at f64 from its golden's start on
+  ``device``: qpos and qvel against mjtpu's, of their scale, and the
+  inverse of the Data after each step against mjtpu's qfrc_inverse."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  m = mjtpu_torch.model_from_arrays(
+      io.load_snapshot(mjtpu_torch.ASSETS / "stepped_scenes.npz", name), device=device)
+  t = lambda k: torch.as_tensor(golden[f"{name}.{k}"], dtype=m.dtype, device=device)
+  d = mjtpu_torch.replace(mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0]),
+                          qpos=t("qpos0"), qvel=t("qvel0"), ctrl=t("ctrl0"))
+  out = {"qpos": [], "qvel": [], "qfrc_inverse": []}
+  for _ in range(golden[f"{name}.qpos"].shape[0]):
+    d = mjtpu_torch.step(m, d)
+    out["qpos"].append(d.qpos)
+    out["qvel"].append(d.qvel)
+    out["qfrc_inverse"].append(mjtpu_torch.inverse(m, d).qfrc_inverse)
+  return {k: _scaled_err(torch.stack(v).cpu().numpy(), golden[f"{name}.{k}"])
+          for k, v in out.items()}
+
+
+def phase_slice16_parity():
+  """Phase 34 (side): every diff scene under its differentiable_mode at
+  f64 on the card against mjtpu's jax.grad golden (the values at step 1
+  to DIFF_VALUE_HEAD_BOUND of scale, over the rollout to DIFF_VALUE_BOUND,
+  the gradients to DIFF_GRAD_BOUND of their max-abs, all finite); B1's
+  backward against the twin's autograd at n in DIFF_CHOL_NS, B=4096, f32
+  and f64, to phase 3's tolerances; B2's, B3's and B4's wrappers refuse an
+  input that requires grad, and their differentiable seams (the kernel
+  forward) match the twin's autograd to the same tolerances
+  (seam_grad_errors); the stepped scenes (hopper_bench, pendulum_implicit) at
+  f64 against mjtpu to STEPPED_BOUND."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  golden = np.load(mjtpu_torch.ASSETS / "diff_scenes_golden.npz")
+  for name in DIFF_SCENES:
+    errs = diff_scene_errors(name, golden, "cuda")
+    grads = {k: v for k, v in errs.items() if k.startswith("grad_")}
+    if not (errs["finite"] and errs["head"] <= DIFF_VALUE_HEAD_BOUND
+            and errs["values"] <= DIFF_VALUE_BOUND
+            and all(v <= DIFF_GRAD_BOUND for v in grads.values())):
+      raise AssertionError(f"diff scene {name}: {errs}")
+    log(f"[slice16 parity] diff {name}: values at step 1 {errs['head']:.3e} (bound"
+        f" {DIFF_VALUE_HEAD_BOUND:g}), over the run {errs['values']:.3e} (bound"
+        f" {DIFF_VALUE_BOUND:g}), gradients "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+        + f" of their max-abs (bound {DIFF_GRAD_BOUND:g}), finite")
+  gen = torch.Generator(device="cuda").manual_seed(5)
+  tol = {torch.float32: 1e-4, torch.float64: 1e-10}
+  for n in DIFF_CHOL_NS:
+    for dtype in (torch.float32, torch.float64):
+      err = chol_backward_error(n, dtype, BENCH_BATCH, gen)
+      if err > tol[dtype]:
+        raise AssertionError(f"B1 backward n={n} {dtype}: {err:.3e} > {tol[dtype]}")
+      log(f"[slice16 parity] B1 backward (kernel forward and backward) against the twin's"
+          f" autograd, n={n} B={BENCH_BATCH} {str(dtype)[6:]}: {err:.3e} of the gradients'"
+          f" max-abs (bound {tol[dtype]:g})")
+  raised = kernel_grad_refusals()
+  if not all(raised.values()):
+    raise AssertionError(f"a kernel wrapper took an input that requires grad: {raised}")
+  log(f"[slice16 parity] B2's, B3's and B4's wrappers raise on an input that requires grad:"
+      f" {raised}")
+  # the seams' launches: the kernel once forward; B2's solves once more backward
+  want = {"ldl_factor_solve": (1, 1), "ldl_solve": (1, 1), "ldl_factor": (1, 0),
+          "sat_winners": (1, 0), "hfield_manifold": (1, 0)}
+  for dtype in (torch.float32, torch.float64):
+    errs = seam_grad_errors("cuda", dtype, BENCH_BATCH, gen)
+    bad = {k: v for k, v in errs.items() if v[0] > tol[dtype] or v[1:] != want[k]}
+    if bad:
+      raise AssertionError(f"differentiable seams {dtype}: {bad} (launches want {want})")
+    log(f"[slice16 parity] B2, B3 and B4's differentiable seams B={BENCH_BATCH}"
+        f" {str(dtype)[6:]} against the twin's autograd (error of the gradients' max-abs,"
+        f" bound {tol[dtype]:g}; kernel launches forward, backward): "
+        + ", ".join(f"{k} {e:.3e} ({f}, {b})" for k, (e, f, b) in errs.items()))
+  golden = np.load(mjtpu_torch.ASSETS / "stepped_scenes_golden.npz")
+  for name in ("hopper_bench", "pendulum_implicit"):
+    errs = stepped_scene_errors(name, golden, "cuda")
+    if max(errs.values()) > STEPPED_BOUND:
+      raise AssertionError(f"stepped scene {name}: {errs}")
+    log(f"[slice16 parity] {name}: {golden[f'{name}.qpos'].shape[0]} steps against mjtpu, "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of scale (bound {STEPPED_BOUND:g})")
+
+
+def _diff_path(card):
+  """Phase 35's main path: gradients of humanoid_bench rollouts at f32,
+  B=4096, under differentiable_mode() with its defaults: DIFF_K steps from
+  qpos0 +-0.01 with qvel and a ctrl sequence (DIFF_K, B, nu) uniform in
+  [-1, 1] (numpy seed 1), the loss the sum of the final qpos^2, and
+  loss.backward() for its gradients with respect to the initial qvel and
+  every step's ctrl.  A one-step warm-up rollout, then DIFF_RUNS timed
+  rollouts, each forward and backward by the host clock (synchronized),
+  reported as the median with the least and the most; the first is the
+  counted run (every kernel count set to 0 before its forward; B1
+  register once a step in the forward, Newton 1 x 4 at its fixed count,
+  and once a step in the backward).  B1 alone on the backward's inputs:
+  each of the counted run's backward launches' inputs, kept as the
+  backward made them, timed again on its own by cuda_ms (phase 3's
+  method: back-to-back calls, warm L2), summed; it is the kernel's time
+  alone, not its time inside the backward."""
+  import statistics
+
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky
+
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"),
+      dtype=torch.float32, device="cuda")
+  rng = np.random.default_rng(1)
+  t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")
+  qpos = t(m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (BENCH_BATCH, m.nq)))
+  qvel = t(rng.uniform(-1.0, 1.0, (BENCH_BATCH, m.nv)))
+  ctrl = t(rng.uniform(-1.0, 1.0, (DIFF_K, BENCH_BATCH, m.nu)))
+
+  def rollout(steps):
+    qvel0, ctrls = qvel.clone().requires_grad_(True), ctrl.clone().requires_grad_(True)
+    d = mjtpu_torch.replace(mjtpu_torch.make_data(m, BENCH_BATCH), qpos=qpos, qvel=qvel0)
+    with mjtpu_torch.differentiable_mode():
+      for i in range(steps):
+        d = mjtpu_torch.step(m, mjtpu_torch.replace(d, ctrl=ctrls[i]))
+    return torch.sum(d.qpos * d.qpos), qvel0, ctrls, d
+
+  rollout(1)[0].backward()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  solve, backward_inputs = cholesky.cholesky_solve, []
+  walls = []
+  for run in range(DIFF_RUNS):
+    if run == 0:
+      _zero_counts()
+    t0 = time.perf_counter()
+    loss, qvel0, ctrls, d = rollout(DIFF_K)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if run == 0:
+      forward = cholesky.launches
+      cholesky.cholesky_solve = lambda mat, rhs, **kw: backward_inputs.append(
+          (mat, rhs)) or solve(mat, rhs, **kw)
+    try:
+      loss.backward()
+      torch.cuda.synchronize()
+    finally:
+      cholesky.cholesky_solve = solve
+    t2 = time.perf_counter()
+    walls.append((t1 - t0, t2 - t1))
+    if run == 0:
+      counts = _read_counts()
+      backward = counts["chol_solve"] - forward
+    bad = int((~torch.isfinite(qvel0.grad).all(dim=1)
+               | ~torch.isfinite(ctrls.grad).all(dim=2).all(dim=0)).sum())
+    if bad or not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
+      raise AssertionError(f"diff humanoid_bench run {run}: {bad} envs with a gradient not"
+                           f" finite, nreset {int(d.nreset.sum())}")
+    del loss, qvel0, ctrls, d
+  peak = torch.cuda.max_memory_allocated()
+  if (counts != _only(chol_solve=2 * DIFF_K) or forward != DIFF_K
+      or len(backward_inputs) != DIFF_K):
+    raise AssertionError(f"diff humanoid_bench: launches {counts}, {forward} in the forward")
+  b1_ms = sum(cuda_ms(lambda a=a, b=b: solve(a, b)) for a, b in backward_inputs)
+  med = lambda xs: statistics.median(xs)
+  fwd_s, bwd_s = med([f for f, _ in walls]), med([b for _, b in walls])
+  totals = [f + b for f, b in walls]
+  rate = BENCH_BATCH * DIFF_K / med(totals)
+  rates = sorted(BENCH_BATCH * DIFF_K / x for x in totals)
+  line = (f"f32 B={BENCH_BATCH} K={DIFF_K}, {DIFF_RUNS} runs (host clock, synchronized):"
+          f" forward median {fwd_s:.3f} s, backward median {bwd_s:.3f} s, together median"
+          f" {med(totals):.3f} s (least {min(totals):.3f}, most {max(totals):.3f}) ="
+          f" {rate:.0f} env-steps/s forward and backward together (runs {rates[0]:.0f} to"
+          f" {rates[-1]:.0f}); B1 register (n={m.nv}) launches {forward} in the forward,"
+          f" {backward} in the backward; B1 alone on the backward's {len(backward_inputs)}"
+          f" inputs, timed again {b1_ms:.4f} ms in all ({TIMING}); peak memory"
+          f" {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); envs with a gradient"
+          f" not finite 0 in every run; card {card}")
+  figures = {"launches_forward": forward, "launches_backward": backward,
+             "b1_alone_on_backward_inputs_ms": b1_ms, "forward_s": fwd_s, "backward_s": bwd_s,
+             "total_s_runs": totals, "env_steps_per_s": rate, "peak_memory_bytes": peak}
+  return line, counts, figures
+
+
+def phase_slice16_throughput(card):
+  """Phase 35: gradients of humanoid_bench rollouts (the differentiable
+  main path): (its launch counts, its B1 figures)."""
+  line, counts, figures = _diff_path(card)
+  log(f"[slice16 throughput] humanoid_bench gradients under differentiable_mode() {line}")
+  return counts, figures
+
+
 # the parity phases that run in a process of their own beside phase 22
-SIDE_PHASES = ("5", "7", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26", "28", "30",
-               "32")
+SIDE_PHASES = ("5", "7", "9-twin", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26",
+               "28", "30", "30-sensors", "32", "34")
 SIDE_TIMEOUT_S = 600
 
 
@@ -3571,7 +4065,9 @@ def _side_main(phase: str) -> int:
    "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
    "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
    "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity,
-   "30": phase_slice14_parity, "32": phase_slice15_parity}[phase]()
+   "30": lambda: phase_slice14_parity("implicit"),
+   "30-sensors": lambda: phase_slice14_parity("sensor"), "32": phase_slice15_parity,
+   "34": phase_slice16_parity, "9-twin": phase_sat_parity}[phase]()
   # its own wall time, beside the other side phases: which one holds the
   # group's rest after phase 22
   log(f"[time] phase {phase} in its process: {time.perf_counter() - t0:.1f} s")
@@ -3604,6 +4100,8 @@ def main() -> int:
   hf_err, hf_t, hf_variant_ms = phase_hfield()
   lap("4")
   sat_err, sat_t, sat_variant_ms, sat_shapes = phase_sat()
+  if "--kernels" in sys.argv[1:]:
+    phase_sat_parity()
   lap("9")
   ldl_err, ldl_t, ldl_context, ldl_variant_ms = phase_ldl()
   lap("12")
@@ -3652,6 +4150,8 @@ def main() -> int:
   lap("31")
   paths["random_bench"], paths["branchy66_inverse"] = phase_slice15_throughput(card)
   lap("33")
+  paths["diff_humanoid_bench"], diff_figures = phase_slice16_throughput(card)
+  lap("35")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -3696,6 +4196,9 @@ def main() -> int:
       # the elliptic bench's own Newton Hessians, f32 B=4096 (timed) and
       # the f64 restarts' (max_abs_err_f64)
       record[-1]["elliptic_hessians"] = {**elliptic_timed, "max_abs_err_f64": elliptic_f64_err}
+      # the differentiable main path's forward and backward launches and
+      # the backward's device time (phase 35)
+      record[-1]["diff_path"] = diff_figures
     if name == "sat_winners":
       # the round hulls (the cylinder drop's cylinder-box and three more
       # pairs), shared, n = ROUND_N, f32

@@ -53,8 +53,12 @@ mjtpu's public names are here too: ``full_m``, ``mul_m``, ``apply_ft``,
 ``scan`` module, ``save_checkpoint``, ``load_checkpoint`` (which also
 reads mjtpu's checkpoints of the same model), ``device_get_into`` and
 ``mujoco_logger``; ``get_data_into`` writes the contacts and efc rows
-back too.  ``put_model`` refuses, with NotImplementedError naming the
-feature, what mjtpu refuses (flex, PGS, user sensors).
+back too.  ``differentiable_mode()`` (with ``DiffConfig`` and
+``get_diff_config``) makes ``step`` differentiable on autograd: fixed
+solver iterations, contacts from distance, smooth collisions and
+adaptive substeps, as in mjtpu.  ``put_model`` refuses, with
+NotImplementedError naming the feature, what mjtpu refuses (flex, PGS,
+user sensors).
 """
 
 import pathlib
@@ -64,6 +68,7 @@ from mjtpu_torch._src.collision_driver import collision, ncon
 from mjtpu_torch._src.constraint import make_constraint
 from mjtpu_torch._src.dataclasses import replace, to
 from mjtpu_torch._src.derivative import deriv_smooth_vel
+from mjtpu_torch._src.diff_config import DiffConfig, differentiable_mode, get_diff_config
 from mjtpu_torch._src.forward import (
     euler,
     forward,

@@ -6,11 +6,13 @@ seam _sat_winners and convex_convex), batched over every leading axis
 (here: B envs x the group's pairs).  A group's pairs share their hulls
 (collision_driver groups mesh geoms by mesh id and boxes by exact size),
 whose tables collision_driver turns into tensors once per model
-(``hull_consts``) and passes as ``hull1``/``hull2``.  The differentiable-mode blends of mjtpu
-(_smooth_k) are not ported.  Outputs are (dist (..., n), pos (..., n, 3),
-frame (..., n, 3, 3)) with the normal from geom1 into geom2.
-Convex-convex finds its SAT winners through kernel B3 (``ops.sat``) on
-the whole (B x npair) batch; the manifold clipping stays plain torch.
+(``hull_consts``) and passes as ``hull1``/``hull2``.  Under
+``differentiable_mode(smooth_collisions=True)`` the case switches blend
+by a sigmoid of their margin (``diff_config.smooth_k``), as in mjtpu.  Outputs are
+(dist (..., n), pos (..., n, 3), frame (..., n, 3, 3)) with the normal
+from geom1 into geom2.  Convex-convex finds its SAT winners through
+kernel B3 (``ops.sat``) on the whole (B x npair) batch, in every mode,
+through its differentiable seam; the manifold clipping stays plain torch.
 """
 
 from __future__ import annotations
@@ -20,11 +22,16 @@ from typing import NamedTuple
 import torch
 
 from mjtpu_torch._src import math
+from mjtpu_torch._src.diff_config import smooth_k
 from mjtpu_torch._src.math import cross, dot3
 from mjtpu_torch._src.types import ConvexMesh
 
 # small preference for face axes over edge axes (numerical-tie stability)
 _EDGE_TOL = 1e-10
+
+
+def _renorm(n):
+  return n / torch.clamp_min(math.norm3(n), 1e-12)[..., None]
 
 
 class HullConsts(NamedTuple):
@@ -92,7 +99,13 @@ def _closest_on_face(face_verts, n, p):
   seg_pts = math.closest_segment_point(a, b, p[..., None, :])
   diff = seg_pts - p[..., None, :]
   best = _take(seg_pts, torch.argmin(dot3(diff, diff), dim=-1))
-  return torch.where(inside_all[..., None], p, best)
+  k = smooth_k()
+  if k is None:
+    return torch.where(inside_all[..., None], p, best)
+  # the signed outside margin in length units (> 0 outside a side plane)
+  e_hat = edge_out / torch.clamp_min(math.norm3(edge_out), 1e-12)[..., None]
+  margin = torch.amax(dot3(p[..., None, :] - a, e_hat), dim=-1)
+  return math.sigmoid_blend(-margin, p, best, k)
 
 
 def sphere_convex(pos1, mat1, size1, pos2, mat2, size2, hull2):
@@ -104,16 +117,29 @@ def sphere_convex(pos1, mat1, size1, pos2, mat2, size2, hull2):
 
   d_f = dot3(face_normal, c[..., None, :] - face_vert[:, 0])  # (..., nf)
   f = torch.argmax(d_f, dim=-1)
-  sep = torch.gather(d_f, -1, f[..., None])[..., 0]
-  nf = face_normal[f]
+  k0 = smooth_k()
+  if k0 is None:
+    sep = torch.gather(d_f, -1, f[..., None])[..., 0]
+    nf = face_normal[f]
+  else:
+    # a soft face max: the hard argmax kinks at face ties (box edges and
+    # corners); softmax weights keep sep and the normal smooth across them
+    w = torch.softmax(k0 * d_f, dim=-1)
+    sep = torch.sum(w * d_f, dim=-1)
+    nf = _renorm(w @ face_normal)
   inside = sep < 0
 
   p_plane = c - sep[..., None] * nf
   closest = _closest_on_face(face_vert[f], nf, p_plane)
   dir_out, dist_c = math.normalize_with_norm(closest - c)
   # outside: along to_closest; inside: pushed out along the face normal
-  n_local = torch.where(inside[..., None], nf, dir_out)
-  dist = torch.where(inside, sep, dist_c) - r
+  k = smooth_k()
+  if k is None:
+    n_local = torch.where(inside[..., None], nf, dir_out)
+    dist = torch.where(inside, sep, dist_c) - r
+  else:
+    n_local = _renorm(math.sigmoid_blend(-sep, nf, dir_out, k))
+    dist = math.sigmoid_blend(-sep, sep, dist_c, k) - r
   n_world = math.mat_vec(mat2, n_local)
   pos = pos1 + n_world * (r + 0.5 * dist)[..., None]
   return dist[..., None], pos[..., None, :], math.make_frame(n_world)[..., None, :, :]
@@ -193,15 +219,22 @@ def capsule_convex(pos1, mat1, size1, pos2, mat2, size2, hull2):
   t_hi = torch.where(degenerate, t_mid, torch.clamp(t_hi, 0.0, 1.0))
 
   ue = use_edge[..., None]
+  k = smooth_k()
+  s_edge = best_edge_sep - sep_face_best  # > 0: the edge case wins
   dists, poss, frames = [], [], []
   for idx, t in enumerate((t_lo, t_hi)):
     p_seg = a + t[..., None] * ab
     d_face = dot3(nf, p_seg - fv[..., 0, :]) - r
     # the normal points from the capsule (geom1) into the hull (geom2)
     p_face = p_seg + (-nf) * (r + 0.5 * d_face)[..., None]
-    p_use = torch.where(ue, p_edge, p_face)
-    d_use = torch.where(use_edge, d_edge, d_face)
-    n_use = torch.where(ue, -n_edge, -nf)
+    if k is None or idx == 1:
+      p_use = torch.where(ue, p_edge, p_face)
+      d_use = torch.where(use_edge, d_edge, d_face)
+      n_use = torch.where(ue, -n_edge, -nf)
+    else:
+      p_use = math.sigmoid_blend(s_edge, p_edge, p_face, k)
+      d_use = math.sigmoid_blend(s_edge, d_edge, d_face, k)
+      n_use = _renorm(math.sigmoid_blend(s_edge, -n_edge, -nf, k))
     if idx == 1:  # an edge contact takes one slot only
       d_use = torch.where(use_edge, 1.0, d_use)
     n_world = math.mat_vec(mat2, n_use)
@@ -251,12 +284,13 @@ def _manifold_points(pts, mask, depth, n):
 
 def _sat_winners(pos1, mat1, pos2, mat2, hull1: HullConsts, hull2: HullConsts):
   """SAT winners of every pair: (seps (..., 3), idx (..., 4) int32).  The
-  whole (B x npair) batch goes to ops.sat.sat_winners_batch (kernel B3 on
-  the card, its twin on the CPU), always."""
+  whole (B x npair) batch goes to ops.sat.sat_winners_differentiable
+  (kernel B3 on the card, its twin on the CPU), always; its seps carry
+  the twin's gradient, which the differentiable-mode blends read."""
   from mjtpu_torch.ops import sat
 
   lead = pos1.shape[:-1]
-  seps, idx = sat.sat_winners_batch(
+  seps, idx = sat.sat_winners_differentiable(
       pos1.reshape(-1, 3), mat1.reshape(-1, 3, 3), pos2.reshape(-1, 3), mat2.reshape(-1, 3, 3),
       hull1.sat, hull2.sat)
   return seps.reshape(lead + (3,)), idx.reshape(lead + (4,))
@@ -325,7 +359,8 @@ def convex_convex(pos1, mat1, size1, pos2, mat2, size2, hull1: HullConsts, hull2
   seps, idx = _sat_winners(pos1, mat1, pos2, mat2, hull1, hull2)
   sep1_best, sep2_best, best_edge_sep = seps.unbind(-1)
   bf1, bf2, be1, be2 = idx.long().unbind(-1)
-  use_edge = best_edge_sep > torch.maximum(sep1_best, sep2_best) + _EDGE_TOL
+  best_face_sep = torch.maximum(sep1_best, sep2_best)
+  use_edge = best_edge_sep > best_face_sep + _EDGE_TOL
 
   # edge-edge contact from the winning pair's end points
   e1, e2 = hull1.edge[be1], hull2.edge[be2]                               # (..., 2)
@@ -341,16 +376,34 @@ def convex_convex(pos1, mat1, size1, pos2, mat2, size2, hull1: HullConsts, hull2
   d_a, p_a = _face_manifold(_take_face(f1, bf1), nb1, f2, n2)
   d_b, p_b = _face_manifold(_take_face(f2, bf2), nb2, f1, n1)
   ref_is_1 = sep1_best >= sep2_best
+  k = smooth_k()
   # for hull2 as reference the normal (geom1 -> geom2) is -ref_n
-  n_face = torch.where(ref_is_1[..., None], nb1, -nb2)
-  d_face = torch.where(ref_is_1[..., None], d_a, d_b)
-  p_face = torch.where(ref_is_1[..., None, None], p_a, p_b)
+  if k is None:
+    n_face = torch.where(ref_is_1[..., None], nb1, -nb2)
+    d_face = torch.where(ref_is_1[..., None], d_a, d_b)
+    p_face = torch.where(ref_is_1[..., None, None], p_a, p_b)
+  else:
+    s_ref = sep1_best - sep2_best  # > 0: hull1 is the reference
+    n_face = _renorm(math.sigmoid_blend(s_ref, nb1, -nb2, k))
+    d_face = math.sigmoid_blend(s_ref, d_a, d_b, k)
+    p_face = math.sigmoid_blend(s_ref, p_a, p_b, k)
 
   ue = use_edge[..., None]
   one = torch.ones_like(d_face[..., 1:])
   dist = torch.where(ue, torch.cat([edge_dist[..., None], one], dim=-1), d_face)
   pos = torch.where(ue[..., None], torch.cat(
       [edge_pos[..., None, :], torch.zeros_like(p_face[..., 1:, :])], dim=-2), p_face)
-  n_c = torch.where(ue, n_edge, n_face)
+  if k is None:
+    n_c = torch.where(ue, n_edge, n_face)
+  else:
+    # the deepest slot's dist, pos and normal blend across the edge/face
+    # switch; slots 1-3 keep the hard edge deactivation (the count is
+    # discrete)
+    s_e = best_edge_sep - best_face_sep
+    dist = torch.cat([math.sigmoid_blend(s_e, edge_dist, d_face[..., 0], k)[..., None],
+                      dist[..., 1:]], dim=-1)
+    pos = torch.cat([math.sigmoid_blend(s_e, edge_pos, p_face[..., 0, :], k)[..., None, :],
+                     pos[..., 1:, :]], dim=-2)
+    n_c = _renorm(math.sigmoid_blend(s_e, n_edge, n_face, k))
   frame = math.make_frame(n_c)[..., None, :, :].expand(dist.shape + (3, 3))
   return dist, pos, frame

@@ -10,8 +10,10 @@ pulled into the height field's local frame (terrain up = +z), the 4-point
 manifold is computed there by ``ops.hfield.manifold_batch`` over all
 (env, pair) instances at once, and only the 4 winners go back to world.
 
-On a CUDA tensor the manifold always runs in the hand-written kernel (or
-raises); the plain twin runs only for a CPU tensor.  The window gather
+On a CUDA tensor the manifold runs in the hand-written kernel (or
+raises), in every mode; the plain twin runs for a CPU tensor.  The seam
+is differentiable (``manifold_differentiable``: the twin's gradient
+backward).  The window gather
 stays plain torch, outside the kernel, as it stays in XLA outside mjtpu's
 Pallas call.  As in mjtpu, objects collide with the surface triangles only
 (two per cell); the side walls of the boundary prisms are not modelled.
@@ -90,7 +92,7 @@ def _hfield_object(pos1, mat1, pos2, mat2, size2, m: Model, hid: int, rbound: fl
   origin = torch.stack([x0, y0], dim=-1)
   flat = lambda x: x.reshape((-1,) + x.shape[len(lead):])
   r = size2[..., 0].expand(lead)
-  dist4, pos_l, n_l = hfield_op.manifold_batch(
+  dist4, pos_l, n_l = hfield_op.manifold_differentiable(
       flat(zwin), flat(origin), flat(a), flat(b), flat(r), hy, hx, dx, dy, has_axis)
   dist4 = dist4.reshape(lead + (4,))
   # local -> world: pos1 + mat1 @ p, with the axes as mjtpu's `p @ mat1.T`

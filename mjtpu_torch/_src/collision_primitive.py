@@ -2,8 +2,9 @@
 
 Port of mjtpu/_src/collision_primitive.py: plane against sphere, capsule,
 ellipsoid and cylinder; sphere against sphere, capsule and cylinder;
-capsule against capsule.  mjtpu's differentiable-mode blends (_soft_where
-with a sharpness) are not ported: ``_where`` is its hard branch.  Inputs
+capsule against capsule.  The cylinder colliders' case switches blend by
+a sigmoid under ``differentiable_mode(smooth_collisions=True)``
+(``_soft_where``), as in mjtpu.  Inputs
 are world poses/sizes with any leading axes (here: B envs x the group's
 pairs); outputs are
 (dist (..., n), pos (..., n, 3), frame (..., n, 3, 3)) with the normal
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from mjtpu_torch._src import math
+from mjtpu_torch._src.diff_config import smooth_k
 
 
 def _sphere_sphere_raw(p1, r1, p2, r2):
@@ -86,16 +88,20 @@ def plane_capsule(pos1, mat1, size1, pos2, mat2, size2):
   )
 
 
-def _where(cond_margin, a, b):
+def _soft_where(cond_margin, k, a, b):
   """where(cond_margin > 0, a, b), broadcast over a trailing 3-axis of a
-  and b (mjtpu's _soft_where outside diff mode)."""
+  and b; sigmoid-blended with sharpness k in differentiable mode (k None
+  outside it)."""
+  if k is not None:
+    return math.sigmoid_blend(cond_margin, a, b, k)
   c = cond_margin > 0
   return torch.where(c[..., None] if a.dim() > c.dim() else c, a, b)
 
 
-def _sign_of(x):
-  """1 where x > 0, else -1, at x's dtype."""
-  return torch.where(x > 0, 1.0, -1.0).to(x.dtype)
+def _sign_of(x, k):
+  """1 where x > 0, else -1 (blended in differentiable mode), at x's dtype."""
+  one = torch.ones_like(x)
+  return _soft_where(x, k, one, -one)
 
 
 def plane_ellipsoid(pos1, mat1, size1, pos2, mat2, size2):
@@ -116,13 +122,14 @@ def plane_cylinder(pos1, mat1, size1, pos2, mat2, size2):
   contact) and two rim points at +-120 degrees on the deep cap (an upright
   cylinder's disk contact).  All four slots are always written; the
   constraint layer gates them on penetration."""
+  k = smooth_k()
   r, h = size2[..., 0], size2[..., 1]
   n = mat1[..., :, 2]
   axis = mat2[..., :, 2]
 
   # orient the axis toward the plane (prjaxis <= 0 after the flip)
   prjaxis0 = math.dot3(n, axis)
-  sign = -_sign_of(prjaxis0)
+  sign = -_sign_of(prjaxis0, k)
   axis = axis * sign[..., None]
   prjaxis = prjaxis0 * sign
 
@@ -132,8 +139,9 @@ def plane_cylinder(pos1, mat1, size1, pos2, mat2, size2):
   # component (degenerate when the axis is perpendicular to the plane)
   vec = axis * prjaxis[..., None] - n
   len_ = math.norm3(vec)
-  vec = _where(len_ - 1e-12, vec / torch.clamp_min(len_, 1e-12)[..., None] * r[..., None],
-               mat2[..., :, 0] * r[..., None])
+  vec = _soft_where(len_ - 1e-12, k,
+                    vec / torch.clamp_min(len_, 1e-12)[..., None] * r[..., None],
+                    mat2[..., :, 0] * r[..., None])
   prjvec = math.dot3(vec, n)
 
   axis_h = axis * h[..., None]
@@ -162,6 +170,7 @@ def sphere_cylinder(pos1, mat1, size1, pos2, mat2, size2):
   """One contact between a sphere (geom1) and a cylinder (geom2): the
   closest point of the solid cylinder, or for a centre inside it the
   nearer of the side wall and the cap."""
+  k = smooth_k()
   r_s = size1[..., 0]
   r_c, h = size2[..., 0], size2[..., 1]
 
@@ -170,7 +179,8 @@ def sphere_cylinder(pos1, mat1, size1, pos2, mat2, size2):
   rho_vec = torch.stack([c[..., 0], c[..., 1], zero], dim=-1)
   rho = math.norm3(rho_vec)
   x_axis = torch.stack([torch.ones_like(zero), zero, zero], dim=-1)
-  rho_hat = _where(rho - 1e-12, rho_vec / torch.clamp_min(rho, 1e-12)[..., None], x_axis)
+  rho_hat = _soft_where(rho - 1e-12, k, rho_vec / torch.clamp_min(rho, 1e-12)[..., None],
+                        x_axis)
   z = c[..., 2]
 
   # outside: clamp to the solid cylinder
@@ -179,26 +189,26 @@ def sphere_cylinder(pos1, mat1, size1, pos2, mat2, size2):
                       dim=-1)
   u = c - p_out
   u_len = math.norm3(u)
-  u_hat = _where(u_len - 1e-12, u / torch.clamp_min(u_len, 1e-12)[..., None], rho_hat)
+  u_hat = _soft_where(u_len - 1e-12, k, u / torch.clamp_min(u_len, 1e-12)[..., None], rho_hat)
   dist_out = u_len - r_s
 
   # inside: pushed out through the nearer of the side wall and the cap
   gap_side = r_c - rho
   gap_cap = h - torch.abs(z)
   use_side = gap_cap - gap_side  # > 0: the side wall is nearer
-  zsign = _sign_of(z)
+  zsign = _sign_of(z, k)
   cap_n = torch.stack([zero, zero, torch.ones_like(zero)], dim=-1) * zsign[..., None]
-  n_in = _where(use_side, rho_hat, cap_n)
+  n_in = _soft_where(use_side, k, rho_hat, cap_n)
   dist_in = -(torch.minimum(gap_side, gap_cap) + r_s)
   p_in_side = rho_hat * r_c[..., None]
   p_in_side = torch.stack([p_in_side[..., 0], p_in_side[..., 1], z], dim=-1)
   p_in_cap = torch.stack([c[..., 0], c[..., 1], h * zsign], dim=-1)
-  p_in = _where(use_side, p_in_side, p_in_cap)
+  p_in = _soft_where(use_side, k, p_in_side, p_in_cap)
 
   inside = torch.minimum(gap_side, gap_cap)  # > 0 iff the centre is inside
-  dist = _where(inside, dist_in, dist_out)
-  n_out_local = _where(inside, n_in, u_hat)
-  p_surf = _where(inside, p_in, p_out)
+  dist = _soft_where(inside, k, dist_in, dist_out)
+  n_out_local = _soft_where(inside, k, n_in, u_hat)
+  p_surf = _soft_where(inside, k, p_in, p_out)
   pos_local = p_surf + 0.5 * dist[..., None] * n_out_local
 
   pos = pos2 + math.mat_vec(mat2, pos_local)

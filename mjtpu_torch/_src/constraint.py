@@ -23,6 +23,7 @@ import torch
 
 from mjtpu_torch._src import math, scan, support
 from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.diff_config import get_diff_config
 from mjtpu_torch._src.types import (
     ConeType,
     Data,
@@ -539,6 +540,18 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
   iw_all = torch.gather(iw_body, 1, b1) + torch.gather(iw_body, 1, b2)  # (B, ncon)
   pos_all = con.dist - con.includemargin
   active_all = (pos_all < 0).to(pos_all.dtype)
+  cfg = get_diff_config()
+  if cfg is not None and cfg.cfd:
+    # contacts from distance: a sigmoid activation within cfd_width and a
+    # softplus penetration, each through a straight-through estimator, so
+    # the values are the hard ones (active below cfd_width) and the
+    # gradients the soft ones
+    soft_act = torch.sigmoid(-pos_all / cfg.cfd_width)
+    hard_act = (pos_all < cfg.cfd_width).to(pos_all.dtype)
+    active_all = soft_act + (hard_act - soft_act).detach()
+    x = -pos_all / cfg.cfd_dc
+    pos_soft = -cfg.cfd_dc * torch.logaddexp(x, torch.zeros_like(x))
+    pos_all = pos_soft + (pos_all - pos_soft).detach()
   elliptic = m.opt.cone == ConeType.ELLIPTIC
 
   rows = []

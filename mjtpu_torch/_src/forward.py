@@ -26,6 +26,7 @@ from mjtpu_torch._src import (
     support,
 )
 from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.diff_config import get_diff_config
 from mjtpu_torch._src.types import (
     BiasType,
     Data,
@@ -38,6 +39,7 @@ from mjtpu_torch._src.types import (
     MAXVAL,
     Model,
     cached,
+    replace_fields,
     rows as env_rows,
 )
 
@@ -210,9 +212,11 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
   return replace(d, qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
 
 
-def forward(m: Model, d: Data) -> Data:
+def forward(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
   """Full forward dynamics (mj_forward), with the sensor stages after
-  the position, velocity and acceleration stages as in mjtpu."""
+  the position, velocity and acceleration stages as in mjtpu;
+  ``fixed_iterations`` runs the solver's loops to their bounds (as it
+  does under differentiable mode)."""
   d = fwd_position(m, d)
   d = sensor.sensor_pos(m, d)
   d = fwd_velocity(m, d)
@@ -223,7 +227,7 @@ def forward(m: Model, d: Data) -> Data:
   if nefc == 0:
     d = replace(d, qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth)
   else:
-    d = solver.solve(m, d)
+    d = solver.solve(m, d, fixed_iterations=fixed_iterations)
   return sensor.sensor_acc(m, d)
 
 
@@ -370,12 +374,29 @@ def rungekutta4(m: Model, d: Data) -> Data:
   return _advance(m, dd, act_dot_comb, qacc_comb, qvel=qvel_comb)
 
 
-def step(m: Model, d: Data) -> Data:
-  """Advances every env one timestep (mj_step)."""
+def _single_step(m: Model, d: Data, fixed_iterations: bool) -> Data:
   d = _check_state(m, d)
-  d = forward(m, d)
+  d = forward(m, d, fixed_iterations=fixed_iterations)
   if m.opt.integrator in (IntegratorType.IMPLICITFAST, IntegratorType.IMPLICIT):
     return implicit(m, d)
   if m.opt.integrator == IntegratorType.RK4:
     return rungekutta4(m, d)
   return euler(m, d)
+
+
+def step(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
+  """Advances every env one timestep (mj_step).
+
+  Under ``differentiable_mode()`` the solver runs its fixed iteration
+  counts and, with ``adaptive_integration``, the step splits into
+  ``adaptive_substeps`` equal substeps of timestep / n (each env's own
+  timestep where the model holds one per env)."""
+  cfg = get_diff_config()
+  if cfg is not None and cfg.adaptive_integration and cfg.adaptive_substeps > 1:
+    n = cfg.adaptive_substeps
+    m_sub = cached(m, ("forward.substep", n), lambda: replace_fields(
+        m, {"opt.timestep": m.opt.timestep / n}))
+    for _ in range(n):
+      d = _single_step(m_sub, d, fixed_iterations)
+    return d
+  return _single_step(m, d, fixed_iterations)

@@ -323,7 +323,22 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
   bh = tb - (tb - b)
   al, bl = a - ah, b - bh
   err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-  return (p + c) + err
+  # err is the product's rounding error, whose derivative is zero: the
+  # gradient is that of a * b + c, bit for bit
+  return (p + c) + err.detach()
+
+
+def sigmoid_blend(s, a, b, sharpness):
+  """Smooth ``where(s > 0, a, b)``: sigmoid(k s) a + (1 - sigmoid) b.
+
+  The colliders' case blending under ``differentiable_mode`` with
+  ``smooth_collisions``, so a case switch stays differentiable across the
+  transition.  ``a`` and ``b`` (of one shape) may carry trailing axes
+  past ``s``'s.
+  """
+  w = torch.sigmoid(sharpness * s)
+  w = w.reshape(w.shape + (1,) * (a.dim() - w.dim()))
+  return w * a + (1.0 - w) * b
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,10 @@ also needed: the bounds (CG 30 x 50 on scene_pile, Newton 100 x 50 on
 ant_bench) would otherwise run ~10^5 eager launches a step where mjtpu's
 loops stop after a few.  ``loop_counts`` adds up the iterations and
 rounds the loops ran; ``EARLY_EXIT = False`` runs them to their bounds.
+``fixed_iterations`` (on by itself under ``differentiable_mode``) runs
+both loops to their bounds with no host check inside either, as mjtpu's
+fori_loops with the finished lanes frozen: the same values, and a graph
+that autograd can run backward.
 
 The primal problem (MuJoCo Computation docs): minimize over qacc
     0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth) + s(J qacc - aref)
@@ -37,6 +41,7 @@ import torch
 
 from mjtpu_torch._src import math, smooth, support
 from mjtpu_torch._src.dataclasses import replace
+from mjtpu_torch._src.diff_config import get_diff_config
 from mjtpu_torch._src.types import (ConeType, Data, DisableBit, Model, SolverType, cached,
                                     rows as env_rows)
 from mjtpu_torch.ops import fused
@@ -335,9 +340,12 @@ def _rescale(m: Model, value):
   return value / (env_rows(m, "stat.meaninertia") * max(1, m.nv))
 
 
-def solve(m: Model, d: Data) -> Data:
-  """Solves for constrained qacc (mj_fwdConstraint, CG or Newton)."""
+def solve(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
+  """Solves for constrained qacc (mj_fwdConstraint, CG or Newton);
+  ``fixed_iterations`` (or differentiable mode) runs the loops to their
+  bounds without a host check."""
   dtype = d.qpos.dtype
+  early_exit = EARLY_EXIT and not (fixed_iterations or get_diff_config() is not None)
   meta = _efc_meta(m)
   efc_J, efc_D, efc_aref = d.efc_J, d.efc_D, d.efc_aref
   efc_frictionloss = d.efc_frictionloss
@@ -409,7 +417,7 @@ def solve(m: Model, d: Data) -> Data:
     # converged lanes frozen; left once none continues (module docstring)
     for _ in range(m.opt.ls_iterations):
       cont = swap & ~((lo.d0 < 0) & (lo.d0 > -gtol)) & ~((hi.d0 > 0) & (hi.d0 < gtol))
-      if EARLY_EXIT and not bool((cont & running).any()):
+      if early_exit and not bool((cont & running).any()):
         break
       loop_counts["ls_rounds"] += 1
       lo_next = point(lo.alpha - lo.d0 / lo.d1)
@@ -478,7 +486,7 @@ def solve(m: Model, d: Data) -> Data:
     ))
 
   for _ in range(m.opt.iterations):
-    if EARLY_EXIT and bool(ctx.done.all()):
+    if early_exit and bool(ctx.done.all()):
       break
     loop_counts["iterations"] += 1
     # the expensive preconditioned gradient runs once per iteration

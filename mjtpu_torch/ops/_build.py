@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "mjtpu_torch"
 # dynamic shared memory one block may use on Hopper (227 KB)
@@ -95,3 +97,50 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
   """Raises if a kernel's C entry point returned a CUDA error."""
   if err != 0:
     raise RuntimeError(f"{what} kernel launch failed: {lib.mjtpu_cuda_error_string(err).decode()}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+  """Raises where a kernel's wrapper would take an input that requires
+  grad while grad mode is on: the wrapper's output carries no gradient,
+  and a backward through it would silently leave the gradient out.  The
+  engine calls the wrapper through its differentiable seam (``TwinGrad``,
+  ``ldl.LdlFactorSolve``, ``ldl.LdlSolve``), whose forward runs it with
+  grad mode off."""
+  if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    raise RuntimeError(
+        f"the {what} kernel's wrapper has no backward, and an input requires grad: call it"
+        " through its differentiable seam, or under torch.no_grad()")
+
+
+class TwinGrad(torch.autograd.Function):
+  """A kernel's output with its plain twin's gradient.  ``apply(kernel,
+  twin, *inputs)``: the forward is ``kernel(*inputs)`` (a wrapper: the
+  kernel on a CUDA tensor, the twin on a CPU tensor); the backward runs
+  ``twin`` again on the saved inputs under grad mode and back-propagates
+  the output gradients through it.  Integer outputs carry no gradient.
+  The kernels agree with their twins (bit for bit, or to their stated
+  tolerance), so the gradient is that of the forward's values; where a
+  winner could differ at a tie, it is the twin's winner's."""
+
+  @staticmethod
+  def forward(ctx, kernel, twin, *inputs):
+    ctx.twin = twin
+    ctx.save_for_backward(*inputs)
+    out = kernel(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    ctx.mark_non_differentiable(*(o for o in outs if not o.is_floating_point()))
+    return out
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, *grads):
+    need = ctx.needs_input_grad[2:]
+    with torch.enable_grad():
+      xs = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+      out = ctx.twin(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+    wrt = [x for x in xs if x.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                   allow_unused=True) if pairs and wrt else [None] * len(wrt))
+    return (None, None, *(next(got) if x.requires_grad else None for x in xs))

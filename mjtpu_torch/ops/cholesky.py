@@ -17,9 +17,15 @@ Cholesky:
   * on a CPU tensor it runs the plain twin ``chol_solve_reference``, the
     port of mjtpu's ``fused._base`` (math.safe_cholesky + cho_solve).
 
-``launches`` counts kernel launches (never twin calls), so a run can show
-that its main path went through the kernel; ``variant_launches`` counts
-them by variant.
+``CholSolve`` makes the solve differentiable on autograd, in every mode:
+its forward is ``cholesky_solve``, and its backward for x = mat^-1 rhs is
+one more ``cholesky_solve`` on (mat, x_bar), which gives rhs_bar, and the
+outer product mat_bar = -rhs_bar x^T.  On a CPU tensor both passes run the
+twin, so the CPU and the card take the same formula.
+
+``launches`` counts kernel launches (never twin calls), the backward's
+too, so a run can show that its main path went through the kernel;
+``variant_launches`` counts them by variant.
 """
 
 from __future__ import annotations
@@ -158,3 +164,27 @@ def cholesky_solve(mat: torch.Tensor, rhs: torch.Tensor, *,
   launches += 1
   variant_launches[kind] += 1
   return out
+
+
+class CholSolve(torch.autograd.Function):
+  """x = mat^-1 rhs for SPD mat (B, n, n) and rhs (B, n), with the
+  analytic backward: rhs_bar = mat^-1 x_bar (the same kernel once more:
+  mat is symmetric) and mat_bar = -rhs_bar x^T.  The kernel reads one
+  triangle of mat; the gradient is that of a symmetric mat, so it equals
+  autodiff's through the plain factor wherever no pivot is clamped,
+  summed over the two entries that every symmetric construction of mat
+  ties together."""
+
+  @staticmethod
+  def forward(ctx, mat, rhs):
+    x = cholesky_solve(mat, rhs)
+    ctx.save_for_backward(mat, x)
+    return x
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, x_bar):
+    mat, x = ctx.saved_tensors
+    rhs_bar = cholesky_solve(mat, x_bar.contiguous())
+    mat_bar = -rhs_bar[:, :, None] * x[:, None, :] if ctx.needs_input_grad[0] else None
+    return mat_bar, rhs_bar

@@ -29,6 +29,11 @@ multiply-add.  Selection: 4 rounds of argmin with near-duplicate
 suppression (|p - p_chosen|^2 < 1e-10 -> +inf); a round whose minimum is
 not finite gives dist = 1, pos = 0, normal = (0, 0, 1).
 
+The wrapper has no backward: on the card it raises on an input that
+requires grad while grad mode is on (``_build.refuse_grad``).  The
+engine's seam is ``manifold_differentiable``: the kernel forward, the
+twin's gradient backward (``_build.TwinGrad``).
+
 ``launches`` counts kernel launches (never twin calls), and
 ``variant_launches`` counts them by variant.
 """
@@ -257,6 +262,7 @@ def manifold_batch(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: float
     return manifold_reference(zwin, origin, a, b, r, hy, hx, dx, dy, has_axis)
   if zwin.device.type != "cuda":
     raise ValueError(f"manifold_batch runs on cuda or cpu, not {zwin.device}")
+  _build.refuse_grad("hfield manifold", zwin, origin, a, b, r)
   if max(hy, hx) > MAX_HALF_CELLS or smem_per_warp(hy, hx, zwin.dtype) > SMEM_LIMIT:
     raise ValueError(
         f"subgrid (hy, hx) = ({hy}, {hx}) exceeds the kernel's static bound"
@@ -281,3 +287,14 @@ def manifold_batch(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: float
   launches += 1
   variant_launches[kind] += 1
   return dist, pos, nrm
+
+
+def manifold_differentiable(zwin, origin, a, b, r, hy: int, hx: int, dx: float, dy: float,
+                            has_axis: bool):
+  """``manifold_batch`` with a backward (``_build.TwinGrad``): the kernel's
+  manifold forward, the twin's gradient backward.  The engine's seam, in
+  every mode."""
+  static = (hy, hx, dx, dy, has_axis)
+  return _build.TwinGrad.apply(lambda *t: manifold_batch(*t, *static),
+                               lambda *t: manifold_reference(*t, *static),
+                               zwin, origin, a, b, r)

@@ -30,8 +30,16 @@ CPU tensor each runs its plain twin (``*_reference``, built on
 ``_src/sparse.py``), which sums in the kernels' order: all agree bit for
 bit.
 
+The wrappers have no backward: on the card they raise on an input that
+requires grad while grad mode is on (``_build.refuse_grad``).  The
+engine's seams (``ops.fused``) take them through autograd Functions with
+the kernel forward: ``LdlFactorSolve`` (backward: the kernel once more
+and the outer product on the tree's pattern), ``LdlSolve`` (backward: the
+kernel once more, and the factors' gradient by the twin) and
+``ldl_factor_differentiable`` (the twin's gradient, ``_build.TwinGrad``).
+
 ``launches`` counts kernel launches per entry point (never twin calls),
-``variant_launches`` per entry point and variant.
+the backward's too, ``variant_launches`` per entry point and variant.
 """
 
 from __future__ import annotations
@@ -153,6 +161,7 @@ def _run(name: str, t: sparse.Tables, mat: torch.Tensor, rhs: torch.Tensor | Non
     return reference()
   if mat.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu, not {mat.device}")
+  _build.refuse_grad(name, mat, rhs)
   if not (mat.is_contiguous() and (rhs is None or rhs.is_contiguous())):
     raise ValueError(f"{name} takes contiguous tensors")
   kind, _, _, warps = launch_geometry(mat.shape[0], t, mat.dtype, kernel)
@@ -190,3 +199,73 @@ def ldl_factor_solve(t: sparse.Tables, Mc: torch.Tensor, rhs: torch.Tensor, *,
   """Factors Mc (B, nv, depth) and solves M x = rhs (B, nv) in one launch."""
   return _run("ldl_factor_solve", t, Mc, rhs, lambda: ldl_factor_solve_reference(t, Mc, rhs),
               kernel)
+
+
+def _pattern_outer(t: sparse.Tables, rhs_bar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """The gradient of x = M^-1 rhs with respect to the compact entries Mc
+  (B, nv, depth) of a symmetric M, given rhs_bar = M^-1 x_bar: -(rhs_bar_i
+  x_j + rhs_bar_j x_i) at an off-diagonal entry (i, ancestor j), which
+  stands for both M[i, j] and M[j, i], -rhs_bar_i x_i on the diagonal, 0
+  at the pad entries."""
+  B = x.shape[0]
+  rows, anc = t.gather // t.nv, t.gather % t.nv
+  off = (anc != rows).to(x.dtype)
+  g = rhs_bar[:, rows] * x[:, anc] + off * rhs_bar[:, anc] * x[:, rows]
+  return (-g * t.mask).reshape(B, t.nv, t.depth)
+
+
+class LdlFactorSolve(torch.autograd.Function):
+  """x = M^-1 rhs from compact Mc (B, nv, depth) and rhs (B, nv), with the
+  analytic backward: rhs_bar = M^-1 x_bar (the same kernel once more: M is
+  symmetric) and Mc_bar from -rhs_bar x^T on the tree's pattern
+  (``_pattern_outer``).  It equals autodiff through the twin wherever no
+  pivot is floored.  On a CPU tensor both passes run the twin."""
+
+  @staticmethod
+  def forward(ctx, t, Mc, rhs):
+    x = ldl_factor_solve(t, Mc, rhs)
+    ctx.t = t
+    ctx.save_for_backward(Mc, x)
+    return x
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, x_bar):
+    Mc, x = ctx.saved_tensors
+    rhs_bar = ldl_factor_solve(ctx.t, Mc, x_bar.contiguous())
+    Mc_bar = _pattern_outer(ctx.t, rhs_bar, x) if ctx.needs_input_grad[1] else None
+    return None, Mc_bar, rhs_bar
+
+
+class LdlSolve(torch.autograd.Function):
+  """x = M^-1 rhs from compact factors S (B, nv, depth) and rhs (B, nv):
+  the backward's rhs_bar = M^-1 x_bar is the same kernel once more; S_bar,
+  where S requires grad, is the twin's (``sparse.solve`` run again under
+  grad mode).  On a CPU tensor both passes run the twin."""
+
+  @staticmethod
+  def forward(ctx, t, S, rhs):
+    x = ldl_solve(t, S, rhs)
+    ctx.t = t
+    ctx.save_for_backward(S, rhs)
+    return x
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, x_bar):
+    S, rhs = ctx.saved_tensors
+    x_bar = x_bar.contiguous()
+    rhs_bar = ldl_solve(ctx.t, S, x_bar)
+    S_bar = None
+    if ctx.needs_input_grad[1]:
+      with torch.enable_grad():
+        s = S.detach().requires_grad_(True)
+        S_bar, = torch.autograd.grad(ldl_solve_reference(ctx.t, s, rhs), s, x_bar)
+    return None, S_bar, rhs_bar
+
+
+def ldl_factor_differentiable(t: sparse.Tables, Mc: torch.Tensor) -> torch.Tensor:
+  """``ldl_factor`` with a backward (``_build.TwinGrad``): the kernel's
+  factors forward, the twin's gradient backward."""
+  return _build.TwinGrad.apply(lambda mc: ldl_factor(t, mc),
+                               lambda mc: ldl_factor_reference(t, mc), Mc)

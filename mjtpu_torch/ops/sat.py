@@ -43,6 +43,11 @@ operations in the kernel's order (3-vector dots as x + y + z, no matmul),
 and the kernel is built with ``--fmad=false`` so that nvcc contracts no
 multiply-add: the two agree bit for bit.
 
+The wrapper has no backward: on the card it raises on an input that
+requires grad while grad mode is on (``_build.refuse_grad``).  The
+engine's seam is ``sat_winners_differentiable``: the kernel forward, the
+twin's gradient backward (``_build.TwinGrad``).
+
 ``launches`` counts kernel launches (never twin calls), and
 ``variant_launches`` counts them by variant.
 """
@@ -274,6 +279,7 @@ def sat_winners_batch(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull, *,
     return sat_winners_reference(pos1, mat1, pos2, mat2, h1, h2)
   if pos1.device.type != "cuda":
     raise ValueError(f"sat_winners_batch runs on cuda or cpu, not {pos1.device}")
+  _build.refuse_grad("sat", pos1, mat1, pos2, mat2)
   dtype = pos1.dtype
   sizes = (hull_sizes(h1), hull_sizes(h2))
   n = pos1.shape[0]
@@ -302,3 +308,13 @@ def sat_winners_batch(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull, *,
   launches += 1
   variant_launches[kind] += 1
   return seps, idx
+
+
+def sat_winners_differentiable(pos1, mat1, pos2, mat2, h1: SatHull, h2: SatHull):
+  """``sat_winners_batch`` with a backward (``_build.TwinGrad``): the
+  kernel's seps and winners forward, the twin's gradient of the seps
+  backward (the max's gradient flows to the winning face or edge pair).
+  The engine's seam, in every mode."""
+  return _build.TwinGrad.apply(lambda *p: sat_winners_batch(*p, h1, h2),
+                               lambda *p: sat_winners_reference(*p, h1, h2),
+                               pos1, mat1, pos2, mat2)

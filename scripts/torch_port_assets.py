@@ -233,6 +233,17 @@
       run at float64: <scene>.qpos0, .qvel0, .ctrl0, .qpos, .qvel,
       .sensordata and .energy over the steps and .fwd.<field> of step 1.
   mjtpu_torch/assets/swimmer_satellite_env_golden.npz
+  mjtpu_torch/assets/diff_scenes.npz, diff_scenes_golden.npz
+      tests/test_diff.py's differentiable scenes (chip_smoke.DIFF_SCENES)
+      at B=4: per scene its start, mjtpu's values under
+      differentiable_mode at f64 on the CPU (qpos and qvel after every
+      step and the loss of a rollout; the loss of a min-distance scene)
+      and the loss's gradients by jax.grad (diff_scenes)
+  mjtpu_torch/assets/stepped_scenes.npz, stepped_scenes_golden.npz
+      mjtpu/zoo/assets/hopper_bench.xml and tests/models/pendulum_implicit.xml
+      at B=4: their start, mjtpu's qpos and qvel after each of 50 steps and
+      its inverse's qfrc_inverse of the state after each step
+      (stepped_scenes)
       mjtpu's env.step as zoo_env_golden.npz, for the swimmer and the three
       satellite envs (--model satellite_envs); none ends an episode early,
       so env 3 starts one step before its episode_length; the CMG envs
@@ -580,11 +591,40 @@ INVERSE_ARM_XML = """<mujoco><option integrator="{integ}" viscosity="0.1" densit
 <geom type="capsule" size="0.015" fromto="-.1 0 0 .1 0 0"/></body></body></worldbody></mujoco>"""
 INVERSE_OUT = ("qfrc_inverse", "qacc", "qfrc_constraint", "efc_force", "qfrc_bias",
                "qfrc_passive", "sensordata")
+DIFF_SCENES_FILE = ASSETS / "diff_scenes.npz"
+DIFF_GOLDEN_FILE = ASSETS / "diff_scenes_golden.npz"
+STEPPED_SCENES_FILE = ASSETS / "stepped_scenes.npz"
+STEPPED_GOLDEN_FILE = ASSETS / "stepped_scenes_golden.npz"
+STEPPED_STEPS = 50
+# (iterations, ls_iterations) of the diff scenes that step a solver
+DIFF_SOLVER_BOUNDS = {"spheres": (4, 8), "sph_cyl": (4, 8), "bounce": (1, 4),
+                      "bounce_smooth": (1, 4)}
+# tests/test_diff.py's sphere near a box corner and box on a box
+DIFF_BOX_CORNER_XML = """<mujoco><worldbody>
+  <body pos="0 0 0"><geom type="box" size=".2 .2 .2" mass="1"/></body>
+  <body pos="0.21 0.21 0.1"><freejoint/>
+    <geom type="sphere" size=".05" mass="0.1"/></body>
+</worldbody></mujoco>"""
+DIFF_BOX_BOX_XML = """<mujoco><worldbody>
+  <body pos="0 0 0"><geom type="box" size=".2 .2 .1" mass="1"/></body>
+  <body pos="0.03 0.01 0.205"><freejoint/>
+    <geom type="box" size=".1 .1 .1" mass="0.1"/></body>
+</worldbody></mujoco>"""
+# tests/test_diff.py's bouncing ball
+DIFF_BOUNCE_XML = """<mujoco>
+  <option timestep="0.01"/>
+  <worldbody>
+    <geom type="plane" size="10 10 .1"/>
+    <body pos="0 0 1.0"><freejoint/>
+      <geom type="sphere" size="0.1" mass="0.2"/></body>
+  </worldbody>
+</mujoco>"""
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
           "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
-          "sensor_scenes", "randomize_scenes", "inverse_scenes")
+          "sensor_scenes", "randomize_scenes", "inverse_scenes", "diff_scenes",
+          "stepped_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -2188,6 +2228,194 @@ def inverse_scenes() -> tuple[dict, dict[str, np.ndarray]]:
   return snapshots, golden
 
 
+def diff_scene_specs(names=None) -> dict:
+  """The scenes of diff_scenes.npz (chip_smoke.DIFF_SCENES), name ->
+  (MjModel, start of BATCH envs; numpy seed 0 each):
+    pendulum, pendulum_adaptive   tests/models/pendulum.xml at qpos0, qvel
+                                  uniform in [-0.5, 0.5]
+    spheres                       tests/models/spheres.xml with the first
+                                  sphere 3 mm into the floor to 8 mm over
+                                  it, the second set beside it at the same
+                                  heights, qvel in [-0.3, 0.3]
+    box_corner, box_box           tests/test_diff.py's scenes at qpos0,
+                                  offsets -1.5, -0.5, 0.5 and 1.5 mm
+    sph_cyl                       tests/models/sph_cyl.xml with the sphere
+                                  3 mm into the cylinder to 6 mm over it
+                                  (2 cm sideways at most), falling at up
+                                  to 0.3 m/s
+    roll                          roll_initial_state, offsets 0
+    bounce, bounce_smooth         tests/test_diff.py's ball thrown at
+                                  (0.3, 0.3, -0.3) m/s, each component
+                                  moved by up to 0.05
+    humanoid_bench                the bench model at qpos0 +-0.01, qvel in
+                                  [-1, 1] and a ctrl sequence (4, BATCH,
+                                  21) in [-1, 1] (seed 1)
+  The scenes that step a solver run it with the bounds of
+  DIFF_SOLVER_BOUNDS in place of MuJoCo's 100 x 50: under
+  differentiable_mode every iteration and linesearch round runs (mjtpu's
+  fori_loops; the port's eager loops), and the default bounds, 5,000
+  rounds a step, would take minutes a scene on the CPU."""
+  import chip_smoke
+  import mujoco
+
+  models = ROOT / "tests" / "models"
+  from_path = lambda n: mujoco.MjModel.from_xml_path(str(models / n))
+  out = {}
+  for name in names or chip_smoke.DIFF_SCENES:
+    kind, steps = chip_smoke.DIFF_SCENES[name][:2]
+    rng = np.random.default_rng(1 if name == "humanoid_bench" else 0)
+    if name.startswith("pendulum"):
+      mjm = from_path("pendulum.xml")
+      start = {"qvel0": rng.uniform(-0.5, 0.5, (BATCH, mjm.nv))}
+    elif name == "spheres":
+      mjm = from_path("spheres.xml")
+      qpos = np.tile(mjm.qpos0, (BATCH, 1))
+      qpos[:, 2] = 0.1 + rng.uniform(-0.003, 0.008, BATCH)
+      qpos[:, 7] = 0.4
+      qpos[:, 9] = 0.12 + rng.uniform(-0.003, 0.008, BATCH)
+      start = {"qpos0": qpos, "qvel0": rng.uniform(-0.3, 0.3, (BATCH, mjm.nv))}
+    elif name in ("box_corner", "box_box"):
+      mjm = mujoco.MjModel.from_xml_string(
+          DIFF_BOX_CORNER_XML if name == "box_corner" else DIFF_BOX_BOX_XML)
+      start = {"offset0": np.array([[-1.5e-3], [-0.5e-3], [0.5e-3], [1.5e-3]])}
+    elif name == "sph_cyl":
+      mjm = from_path("sph_cyl.xml")
+      qpos = np.tile(mjm.qpos0, (BATCH, 1))
+      qpos[:, :2] += rng.uniform(-0.02, 0.02, (BATCH, 2))
+      # the cylinder's top at z 0.2, the sphere's radius 0.08
+      qpos[:, 2] = 0.28 + rng.uniform(-0.003, 0.006, BATCH)
+      qvel = np.zeros((BATCH, mjm.nv))
+      qvel[:, 2] = -rng.uniform(0.0, 0.3, BATCH)
+      start = {"qpos0": qpos, "qvel0": qvel}
+    elif name == "roll":
+      mjm = from_path("roll.xml")
+      start = {"qpos0": roll_initial_state(mjm)[0], "offset0": np.zeros((BATCH, mjm.nq))}
+    elif name.startswith("bounce"):
+      mjm = mujoco.MjModel.from_xml_string(DIFF_BOUNCE_XML)
+      qvel = np.zeros((BATCH, mjm.nv))
+      qvel[:, :3] = np.array([0.3, 0.3, -0.3]) + rng.uniform(-0.05, 0.05, (BATCH, 3))
+      start = {"qvel0": qvel}
+    else:
+      mjm = load_mjmodel()
+      start = {"qpos0": mjm.qpos0[None] + rng.uniform(-0.01, 0.01, (BATCH, mjm.nq)),
+               "qvel0": rng.uniform(-1.0, 1.0, (BATCH, mjm.nv)),
+               "ctrl0": rng.uniform(-1.0, 1.0, (steps, BATCH, mjm.nu))}
+    if name in DIFF_SOLVER_BOUNDS:
+      mjm.opt.iterations, mjm.opt.ls_iterations = DIFF_SOLVER_BOUNDS[name]
+    start.setdefault("qpos0", np.tile(mjm.qpos0, (BATCH, 1)))
+    out[name] = (mjm, start)
+  return out
+
+
+def diff_scenes(names=None) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the diff scenes' snapshot arrays by name, their golden: per scene its
+  start "<scene>.<field>0" and mjtpu's values and gradients under the
+  scene's differentiable_mode at f64 on the CPU: a rollout's "qpos" and
+  "qvel" (steps, BATCH, ...) after each step (lax.scan of mjtpu.step),
+  "loss" and "grad_qvel" (and "grad_ctrl"), a min-distance scene's "loss"
+  and "grad_offset"; jit(vmap(value_and_grad)) over the envs)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import chip_smoke
+  import mjtpu
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, (mjm, start) in diff_scene_specs(names).items():
+    kind, steps, cfg, entries = chip_smoke.DIFF_SCENES[name]
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    d0 = mjtpu.make_data(m)
+    cols = np.arange(mjm.nq) if entries is None else np.asarray(entries)
+    with mjtpu.differentiable_mode(**cfg):
+      if kind == "rollout":
+        def loss(qvel0, ctrl, qpos0):
+          def body(d, c):
+            d = mjtpu.step(m, d if c is None else d.replace(ctrl=c))
+            return d, (d.qpos, d.qvel)
+          d, (qs, vs) = jax.lax.scan(body, d0.replace(qpos=qpos0, qvel=qvel0), ctrl,
+                                     length=steps)
+          return jnp.sum(d.qpos[cols] ** 2), (qs, vs)
+
+        ctrl = start.get("ctrl0")
+        fn = jax.jit(jax.vmap(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True),
+                              in_axes=(0, None if ctrl is None else 1, 0)))
+        (val, (qs, vs)), (g_qvel, g_ctrl) = fn(
+            jnp.asarray(start["qvel0"]), None if ctrl is None else jnp.asarray(ctrl),
+            jnp.asarray(start["qpos0"]))
+        res = {"loss": val, "qpos": jnp.swapaxes(qs, 0, 1), "qvel": jnp.swapaxes(vs, 0, 1),
+               "grad_qvel": g_qvel}
+        if ctrl is not None:
+          res["grad_ctrl"] = jnp.swapaxes(g_ctrl, 0, 1)
+      else:
+        def mindist(offset, qpos0):
+          d = mjtpu.fwd_position(m, d0.replace(qpos=qpos0.at[cols].add(offset)))
+          return jnp.min(d.contact.dist)
+
+        val, g = jax.jit(jax.vmap(jax.value_and_grad(mindist)))(
+            jnp.asarray(start["offset0"]), jnp.asarray(start["qpos0"]))
+        res = {"loss": val, "grad_offset": g}
+    golden.update({f"{name}.{k}": np.asarray(v) for k, v in start.items()})
+    golden.update({f"{name}.{k}": np.asarray(v) for k, v in res.items()})
+    print(f"{name}: loss {np.asarray(res['loss'])}, grad max-abs "
+          + ", ".join(f"{k} {np.abs(np.asarray(v)).max():.3e}" for k, v in res.items()
+                      if k.startswith("grad_")))
+  return snapshots, golden
+
+
+def stepped_scene_specs() -> dict:
+  """The scenes of stepped_scenes.npz, name -> (MjModel, start of BATCH
+  envs, numpy seed 0): mjtpu/zoo/assets/hopper_bench.xml and
+  tests/models/pendulum_implicit.xml at qpos0 +-0.01 (hinge and slide
+  joints only), qvel and ctrl uniform in [-0.5, 0.5] and [-1, 1]."""
+  import mujoco
+
+  out = {}
+  for name, path in (("hopper_bench", ZOO / "hopper_bench.xml"),
+                     ("pendulum_implicit", ROOT / "tests" / "models" / "pendulum_implicit.xml")):
+    mjm = mujoco.MjModel.from_xml_path(str(path))
+    rng = np.random.default_rng(0)
+    out[name] = (mjm, {"qpos0": mjm.qpos0[None] + rng.uniform(-0.01, 0.01, (BATCH, mjm.nq)),
+                       "qvel0": rng.uniform(-0.5, 0.5, (BATCH, mjm.nv)),
+                       "ctrl0": rng.uniform(-1.0, 1.0, (BATCH, mjm.nu))})
+  return out
+
+
+def stepped_scenes() -> tuple[dict, dict[str, np.ndarray]]:
+  """(the stepped scenes' snapshot arrays by name, their golden: per scene
+  its start "<scene>.<field>0", mjtpu's "qpos" and "qvel" (STEPPED_STEPS,
+  BATCH, ...) after each step of jit(vmap(step)) at f64 on the CPU, and
+  "qfrc_inverse" of jit(vmap(inverse)) of the Data after each step)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu_torch._src import io
+
+  snapshots, golden = {}, {}
+  for name, (mjm, start) in stepped_scene_specs().items():
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(BATCH))
+    d = d.replace(**{k[:-1]: jnp.asarray(v) for k, v in start.items()})
+    step = jax.jit(jax.vmap(mjtpu.step, in_axes=(None, 0)))
+    inverse = jax.jit(jax.vmap(mjtpu.inverse, in_axes=(None, 0)))
+    out = {"qpos": [], "qvel": [], "qfrc_inverse": []}
+    for _ in range(STEPPED_STEPS):
+      d = step(m, d)
+      out["qpos"].append(np.asarray(d.qpos))
+      out["qvel"].append(np.asarray(d.qvel))
+      out["qfrc_inverse"].append(np.asarray(inverse(m, d).qfrc_inverse))
+    golden.update({f"{name}.{k}": np.asarray(v) for k, v in start.items()})
+    golden.update({f"{name}.{k}": np.stack(v) for k, v in out.items()})
+  return snapshots, golden
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -2255,8 +2483,8 @@ def main():
                       help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
                       help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
-                      " tendon_scenes, equality_scenes, implicit_scenes and sensor_scenes"
-                      " (repeatable; default: all)")
+                      " tendon_scenes, equality_scenes, implicit_scenes, sensor_scenes and"
+                      " diff_scenes (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
   steps = args.steps or STEPS
@@ -2373,6 +2601,16 @@ def main():
       io.save_snapshot_bundle(out / path.name, snapshots)
       np.savez_compressed(out / golden_path.name, **scene_golden)
       files += [path.name, golden_path.name]
+  if "diff_scenes" in models:
+    snapshots, scene_golden = diff_scenes(args.scene)
+    io.save_snapshot_bundle(out / DIFF_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / DIFF_GOLDEN_FILE.name, **scene_golden)
+    files += [DIFF_SCENES_FILE.name, DIFF_GOLDEN_FILE.name]
+  if "stepped_scenes" in models:
+    snapshots, scene_golden = stepped_scenes()
+    io.save_snapshot_bundle(out / STEPPED_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / STEPPED_GOLDEN_FILE.name, **scene_golden)
+    files += [STEPPED_SCENES_FILE.name, STEPPED_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

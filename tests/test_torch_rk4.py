@@ -65,8 +65,8 @@ class _Passes:
     self.data = []
     original = forward_mod.forward
 
-    def record(m, d):
-      d = original(m, d)
+    def record(m, d, **kw):
+      d = original(m, d, **kw)
       self.data.append(d)
       return d
 

@@ -663,3 +663,49 @@ def test_randomized_step_on_the_card(dtype):
     for f in ("qpos", "qvel"):
       assert chip_smoke._scaled_err(getattr(alone, f)[0].cpu().numpy(),
                                     getattr(out, f)[e].cpu().numpy()) <= bound, (e, f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [27, 23])
+def test_chol_backward_matches_twin_autograd(n, dtype):
+  """B1's autograd.Function on the card (the kernel forward, one more
+  launch of it backward) against autograd through the twin (phase 3's
+  tolerances), and its launches counted: two, forward and backward."""
+  gen = torch.Generator(device="cuda").manual_seed(n)
+  before = cholesky.launches
+  err = chip_smoke.chol_backward_error(n, dtype, 130, gen)
+  assert cholesky.launches - before == 2
+  assert err <= (1e-4 if dtype == torch.float32 else 1e-10)
+
+
+def test_kernels_without_backward_refuse_grad():
+  """B2's, B3's and B4's wrappers raise on a CUDA input that requires
+  grad, and run under torch.no_grad()."""
+  assert all(chip_smoke.kernel_grad_refusals().values())
+  with torch.no_grad():
+    assert not any(chip_smoke.kernel_grad_refusals().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seams_backward_on_the_card(dtype):
+  """B2's, B3's and B4's differentiable seams launch their kernel forward
+  (B2's solves once more backward) and match autograd through the twin to
+  phase 3's tolerances."""
+  errs = chip_smoke.seam_grad_errors("cuda", dtype, 130,
+                                     torch.Generator(device="cuda").manual_seed(6))
+  tol = 1e-4 if dtype == torch.float32 else 1e-10
+  backward = {"ldl_factor_solve": 1, "ldl_solve": 1}
+  for name, (err, fwd, bwd) in errs.items():
+    assert err <= tol and fwd == 1 and bwd == backward.get(name, 0), (name, errs[name])
+
+
+def test_diff_scene_on_the_card():
+  """The box-on-box scene (B3's kernel forward, its twin's gradient) and
+  the pendulum under differentiable_mode on the card, against mjtpu's
+  golden."""
+  golden = np.load(mjtpu_torch.ASSETS / "diff_scenes_golden.npz")
+  for name in ("box_box", "pendulum"):
+    errs = chip_smoke.diff_scene_errors(name, golden, "cuda")
+    assert errs["finite"] and errs["values"] <= chip_smoke.DIFF_VALUE_BOUND, errs
+    assert all(v <= chip_smoke.DIFF_GRAD_BOUND for k, v in errs.items()
+               if k.startswith("grad_")), errs
