@@ -158,7 +158,7 @@ failure raises and the script exits non-zero:
      exact); ant_bench with DisableBit.CONSTRAINT (ROADMAP C8), 20 steps,
      every touch reading 0.
  25. swimmer env throughput: f32, B=4096, ENVS["swimmer"]() on the card
-     as phase 19 (2 warm-up and 3 timed env steps): env steps/s, ms per
+     as phase 19 (1 warm-up and 3 timed env steps): env steps/s, ms per
      env step, B1 launches per env step by variant (all register, at n=5,
      one per Newton iteration), nreset 0, B1's share of an env step, and
      one profiled env step's launches and the device's busy share; then
@@ -281,9 +281,33 @@ failure raises and the script exits non-zero:
      its time inside the backward), peak memory, and the envs whose
      gradient is not finite (must be 0); one warm-up rollout, then 5
      timed runs, reported as the median with the least and the most.
+ 36. slice-17 parity: f64 on the card, every view of the scenes of
+     render_scenes.npz (tests/test_render.py's textured, lit, narrow-spot,
+     point-light, inactive-light, cube-texture, 6-face and single-square
+     skybox, cylinder-ellipsoid and body-camera scenes and a mesh scene,
+     B=2: camera 0 under flat, phong with shadows, fog 0.2, ssaa 2, the
+     fixed light and a background colour, and every camera under the
+     defaults) against mjtpu's jit(render_batch_rgbd) golden
+     (render_scene_errors): rgb and depth to 1e-10 where seg agrees, seg
+     equal, any other pixel a tie that a copy of its rays a few ULP away
+     resolves to mjtpu's pick; the humanoid and satellite_small envs with
+     pixel_obs=True, the start and 3 env steps against pixel_env_golden.npz
+     (pixel_env_errors): pixels to the same bounds, obs and reward to
+     1e-10, done and steps exact.
+ 37. slice-17 throughput, the render main path: the humanoid env with
+     pixel observations (ENVS["humanoid"](pixel_obs=True): f32 B=4096,
+     camera 0 the observer camera mjtpu injects, 64 x 64 pixels rendered
+     after every reset and auto-reset), 2 warm-up and 3 timed env steps
+     (host clock): env steps/s beside the same env without pixels, B1
+     register launches (n=23, one per Newton iteration), nreset 0, peak
+     memory; render_batch_rgbd alone on its states: 5 timed calls, its
+     launches and the device's busy share in one profiled call, its peak
+     memory, its stages (rays, nearest-hit loops, the winners' normals and
+     albedo) by CUDA events over one more call; the f32 render of 8 envs
+     against f64 on the same frames.
 
 The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29, 31,
-33 and 35: each kernel's launch count is set to 0 just before each and
+33, 35 and 37: each kernel's launch count is set to 0 just before each and
 read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
@@ -291,13 +315,14 @@ the size dispatch gives to B3's shared kernel.  The last two lines are the kerne
 record and {"ok": true, ...}.
 
 The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 (two
-processes, ``30`` and ``30-sensors``), 32 and 34, phase 9's twin check
-(``9-twin``) and phase 22's cone scenes (``22-cones``), run each in a
+processes, ``30`` and ``30-sensors``), 32, 34 and 36, phase 9's twin check
+(``9-twin``) and phase 22's cone scenes (``22-cones`` and ``22-cones-2``,
+every other scene each), run each in a
 process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
 overlap it; no phase is timed while they run (the timed phases 23, 25,
-27, 29, 31, 33 and 35 come after all have ended).
+27, 29, 31, 33, 35 and 37 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -368,7 +393,7 @@ C8_STEPS = 20
 # the satellite envs' env steps at f32 B=4096 (warm-up, timed)
 SATELLITE_WARMUP = 1
 SATELLITE_TIMED = 2
-ENV_WARMUP = 2
+ENV_WARMUP = 1
 ENV_TIMED = 3  # the Ant env takes ~10 s of host an env step
 ELLIPTIC = "humanoid_bench_elliptic"
 # tests/test_torch_elliptic.py's bounds (ROADMAP C7): the copies of a
@@ -2338,9 +2363,11 @@ def phase_elliptic_parity():
   return _hold_chol(h, grad, f"{ELLIPTIC}'s Newton Hessians (the 400 restarts)")
 
 
-def phase_cone_parity():
+def phase_cone_parity(half: int):
   """Phase 22's cone and frictionloss scenes at f64 against their golden,
-  and B1 against its twin on elliptic.xml's Hessians."""
+  every other scene of the bundle from ``half`` (0 or 1: two side
+  processes), and B1 against its twin on elliptic.xml's Hessians in the
+  half that steps it."""
   import numpy as np
   import torch
 
@@ -2350,7 +2377,7 @@ def phase_cone_parity():
   bundle = mjtpu_torch.ASSETS / "cone_scenes.npz"
   scenes = dict(np.load(mjtpu_torch.ASSETS / "cone_scenes_golden.npz"))
   hessians = None
-  for name in io.bundle_names(bundle):
+  for name in io.bundle_names(bundle)[half::2]:
     m = mjtpu_torch.model_from_arrays(io.load_snapshot(bundle, name), dtype=torch.float64,
                                       device="cuda")
     fuzz = name.startswith("fuzz_")
@@ -2383,9 +2410,10 @@ def phase_cone_parity():
       raise AssertionError(f"{name}: {launches} B1 launches, {iterations} Newton iterations")
     if name == "elliptic":
       hessians = calls[0]
-  # n=12: the register kernel, and the shared one beside it
-  _hold_chol(*hessians, "elliptic.xml's first Newton Hessians (two trees, dense)")
-  _hold_chol(hessians[0].float(), hessians[1].float(), "elliptic.xml's Hessians cast to f32")
+  if hessians is not None:
+    # n=12: the register kernel, and the shared one beside it
+    _hold_chol(*hessians, "elliptic.xml's first Newton Hessians (two trees, dense)")
+    _hold_chol(hessians[0].float(), hessians[1].float(), "elliptic.xml's Hessians cast to f32")
 
 
 def phase_elliptic_throughput(card, bench):
@@ -4023,9 +4051,370 @@ def phase_slice16_throughput(card):
   return counts, figures
 
 
+RENDER_BOUND = 1e-10        # rgb and depth against mjtpu's at f64, where seg agrees
+RENDER_TIE_COPIES = 64     # copies of a pixel's rays that may resolve a tie ...
+RENDER_TIE_ULPS = 4        # ... each component moved by up to this many ULP
+PIXEL_ENVS = ("humanoid", "satellite_small")
+PIXEL_WARMUP = 2
+PIXEL_TIMED = 3
+RENDER_TIMED = 5
+# the f32 card render of the main path's envs against the f64 one of the
+# same states: the share of seg pixels that differ and the largest rgb
+# difference where seg agrees
+RENDER_F32_ENVS = 8
+
+
+def ulp_ray_copies(vec, copies: int, ulps: int, seed: int = 0):
+  """``copies`` copies of the rays ``vec`` (S, 3), each component moved
+  by a whole number of ULP drawn from [-ulps, ulps] (numpy seed):
+  (copies, S, 3)."""
+  import numpy as np
+  import torch
+
+  shift = np.random.default_rng(seed).integers(-ulps, ulps + 1, (copies,) + tuple(vec.shape))
+  mag = torch.abs(vec)
+  ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+  return vec + torch.as_tensor(shift, dtype=vec.dtype, device=vec.device) * ulp
+
+
+def render_view_errors(m, d, rd, want, camera: int = 0, options=None, got=None) -> dict:
+  """render_rgbd of every env of ``d`` (or ``got``, its (rgb, depth,
+  seg)) against mjtpu's ``want`` (rgb, depth, seg as numpy): the largest
+  rgb and depth errors where seg agrees and both are within RENDER_BOUND,
+  and the pixels past that (seg differs, or rgb or depth past the bound),
+  each of which must be a tie: one of RENDER_TIE_COPIES copies of its rays
+  a few ULP away (ulp_ray_copies) gives mjtpu's seg, rgb and depth.
+  Fails on a pixel no copy resolves."""
+  import numpy as np
+  import torch
+
+  from mjtpu_torch._src import render
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  options = dict(options or {})
+  want_rgb, want_depth, want_seg = want
+  height, width = want_seg.shape[1:]
+  if got is None:
+    got = render.render_rgbd(m, d, width=width, height=height, camera=camera, rd=rd, **options)
+  rgb, depth, seg = (x.cpu().numpy() for x in got)
+  err_rgb = np.abs(rgb - want_rgb).max(-1)
+  err_depth = np.abs(depth - want_depth)
+  ok = (seg == want_seg) & (err_rgb <= RENDER_BOUND) & (err_depth <= RENDER_BOUND)
+  ssaa = options.pop("ssaa", 1)
+  out = {"rgb": float(err_rgb[ok].max(initial=0.0)), "depth": float(err_depth[ok].max(initial=0.0)),
+         "seg_diff": int((seg != want_seg).sum()), "ties": int((~ok).sum()), "pixels": ok.size}
+  if ok.all():
+    return out
+  vec = render.camera_rays(m, d, rd, camera, width, height, ssaa)
+  row = width * ssaa
+  samples = ssaa * ssaa
+  centre = (ssaa // 2) * ssaa + ssaa // 2
+  for b, y, x in np.argwhere(~ok):
+    idx = [(y * ssaa + i) * row + x * ssaa + j for i in range(ssaa) for j in range(ssaa)]
+    rays = ulp_ray_copies(vec[b, idx], RENDER_TIE_COPIES, RENDER_TIE_ULPS,
+                          seed=int((b * height + y) * width + x))
+    one = map_tensors(d, lambda t: t[b:b + 1])
+    c_rgb, c_depth, c_seg = render.shade_rays(
+        m, one, rd, one.cam_xpos[:, camera], rays.reshape(1, -1, 3), **options)
+    c_rgb, c_depth = c_rgb.reshape(-1, samples, 3), c_depth.reshape(-1, samples)
+    if samples > 1:  # render.reduce_samples' order of the sums
+      c_rgb = sum(c_rgb[:, k] for k in range(samples)) / samples
+      c_depth = sum(c_depth[:, k] for k in range(samples)) / samples
+    else:
+      c_rgb, c_depth = c_rgb[:, 0], c_depth[:, 0]
+    c_seg = c_seg.reshape(-1, samples)[:, centre]
+    match = ((c_seg.cpu().numpy() == want_seg[b, y, x])
+             & (np.abs(c_rgb.cpu().numpy() - want_rgb[b, y, x]).max(-1) <= RENDER_BOUND)
+             & (np.abs(c_depth.cpu().numpy() - want_depth[b, y, x]) <= RENDER_BOUND))
+    if not match.any():
+      raise AssertionError(
+          f"pixel (env {b}, row {y}, column {x}): seg {seg[b, y, x]} rgb {rgb[b, y, x]} depth"
+          f" {depth[b, y, x]} against mjtpu's {want_seg[b, y, x]} {want_rgb[b, y, x]}"
+          f" {want_depth[b, y, x]}, and no copy of its rays {RENDER_TIE_ULPS} ULP away gives"
+          " mjtpu's")
+  return out
+
+
+def render_scene(name: str, golden, device, dtype=None):
+  """(Model, Data after forward, RenderData) of a scene of
+  render_scenes.npz at the golden's qpos; the single-square skybox's image
+  put into the RenderData as mjtpu's golden put it."""
+  import dataclasses
+
+  import torch
+
+  import mjtpu_torch
+
+  m = _bundle_model("render_scenes", name, device, dtype)
+  qpos = torch.as_tensor(golden[f"{name}.qpos"], dtype=m.dtype, device=device)
+  d = mjtpu_torch.make_data(m, batch_size=qpos.shape[0])
+  d = mjtpu_torch.forward(m, mjtpu_torch.replace(d, qpos=qpos))
+  rd = mjtpu_torch.precompute_render_data(m)
+  if f"{name}.sky_tex" in golden:
+    rd = dataclasses.replace(rd, sky_tex=golden[f"{name}.sky_tex"])
+  return m, d, rd
+
+
+def render_views(golden) -> list:
+  """The golden's views: [scene, label, camera, options] each."""
+  return json.loads(golden["views"].tobytes())
+
+
+def render_scene_errors(name: str, golden, device) -> dict:
+  """Every view of render scene ``name`` at f64 against mjtpu's golden
+  (render_view_errors): "<label>.cam<c>" -> its errors."""
+  m, d, rd = render_scene(name, golden, device)
+  out = {}
+  for scene, label, cam, options in render_views(golden):
+    if scene == name:
+      key = f"{name}.{label}.cam{cam}"
+      want = tuple(golden[f"{key}.{k}"] for k in ("rgb", "depth", "seg"))
+      out[f"{label}.cam{cam}"] = render_view_errors(m, d, rd, want, cam, options)
+  return out
+
+
+def pixel_env_errors(name: str, golden, device) -> dict:
+  """``zoo.ENVS[name](pixel_obs=True)`` at f64 from the pixel env golden's
+  states through its actions (as _env_golden_err): the pixels of the start
+  (every env) and of each env step (envs 0-2: env 3 restarts from mjtpu's
+  PRNG after its first step) against mjtpu's (render_view_errors, the
+  env's own pixels with the depth and seg of a render of the same Data,
+  whose rgb must be the env's pixels bit for bit); obs and reward to
+  ENV_BOUND, done and steps exact.  Returns {"obs_reward": err, "pixels":
+  [each step's render_view_errors]}."""
+  import dataclasses
+
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch import zoo
+  from mjtpu_torch._src import render
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  size = tuple(int(x) for x in golden[f"{name}.pixels"].shape[2:4])
+  env = zoo.ENVS[name](dtype=torch.float64, device=device, pixel_obs=True, pixel_size=size)
+  m = env.model
+  t = lambda x: torch.as_tensor(x, device=device)
+  d = mjtpu_torch.make_data(m, batch_size=golden[f"{name}.qpos0"].shape[0])
+  d = mjtpu_torch.replace(d, qpos=t(golden[f"{name}.qpos0"]), qvel=t(golden[f"{name}.qvel0"]))
+  state = dataclasses.replace(env._init_state(mjtpu_torch.forward(m, d)),
+                              steps=t(golden[f"{name}.steps0"]))
+  gen = torch.Generator(device=device).manual_seed(0)
+  err, pixels = 0.0, []
+  actions = golden[f"{name}.action"]
+  for step in range(actions.shape[0] + 1):
+    if step:
+      state = env.step(state, t(actions[step - 1]), gen)
+      live = 4 if step == 1 else 3
+      for k, n in (("obs", 3), ("reward", live)):
+        got = getattr(state, k)[:n].cpu().numpy()
+        err = max(err, float(np.abs(got - golden[f"{name}.{k}"][step][:n]).max()))
+      for k in ("done", "steps"):
+        if not np.array_equal(getattr(state, k)[:live].cpu().numpy(),
+                              golden[f"{name}.{k}"][step][:live]):
+          raise AssertionError(f"{name} env step {step} {k}: {getattr(state, k).tolist()}")
+    n = 4 if step == 0 else 3
+    data = map_tensors(state.data, lambda x: x[:n])
+    rgb, depth, seg = render.render_rgbd(m, data, width=size[1], height=size[0], camera=0,
+                                         rd=env._render_data)
+    if not torch.equal(rgb, state.pixels[:n]):
+      raise AssertionError(f"{name} env step {step}: State.pixels is not camera 0's render")
+    want = tuple(golden[f"{name}.{k}"][step][:n] for k in ("pixels", "depth", "seg"))
+    pixels.append(render_view_errors(m, data, env._render_data, want,
+                                     got=(state.pixels[:n], depth, seg)))
+  if not err <= ENV_BOUND:
+    raise AssertionError(f"{name}: obs or reward differ from mjtpu's env by {err:.3e}")
+  return {"obs_reward": err, "pixels": pixels}
+
+
+def phase_slice17_parity():
+  """Phase 36: every view of the render scenes and the pixel envs at f64
+  on the card against mjtpu's goldens, to the CPU tests' bounds."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  golden = dict(np.load(mjtpu_torch.ASSETS / "render_scenes_golden.npz"))
+  scenes = io.bundle_names(mjtpu_torch.ASSETS / "render_scenes.npz")
+  errs = {name: render_scene_errors(name, golden, "cuda") for name in scenes}
+  views = [e for per in errs.values() for e in per.values()]
+  log(f"[slice17 parity] {len(scenes)} render scenes, {len(views)} views, f64 B=2 on the card"
+      f" against mjtpu's jit(render_batch_rgbd): max abs err where seg agrees rgb"
+      f" {max(e['rgb'] for e in views):.3e}, depth {max(e['depth'] for e in views):.3e}"
+      f" (limit {RENDER_BOUND}); pixels past it {sum(e['ties'] for e in views)} of"
+      f" {sum(e['pixels'] for e in views)} (seg differs at"
+      f" {sum(e['seg_diff'] for e in views)}), each a tie that a copy of its rays"
+      f" {RENDER_TIE_ULPS} ULP away resolves to mjtpu's pick")
+  pixel_golden = dict(np.load(mjtpu_torch.ASSETS / "pixel_env_golden.npz"))
+  for name in PIXEL_ENVS:
+    e = pixel_env_errors(name, pixel_golden, "cuda")
+    px = e["pixels"]
+    log(f"[slice17 parity] {name} env, pixel_obs=True, f64 B=4, the start and"
+        f" {len(px) - 1} env steps against mjtpu's: obs and reward {e['obs_reward']:.3e}"
+        f" (limit {ENV_BOUND}); pixels rgb {max(x['rgb'] for x in px):.3e}, depth"
+        f" {max(x['depth'] for x in px):.3e} where seg agrees, ties"
+        f" {sum(x['ties'] for x in px)} of {sum(x['pixels'] for x in px)}")
+
+
+def _pixel_env_run(env, seed: int = 0, counted: bool = False):
+  """``env`` at f32 B=4096 from its reset (a torch.Generator seeded
+  ``seed``), PIXEL_WARMUP warm-up and PIXEL_TIMED timed env steps
+  with actions uniform in [-1, 1] (host clock, synchronized; the peak
+  memory of the timed steps); with ``counted`` every kernel count set to
+  0 just before the timed steps and read just after.  Returns (state,
+  secs, counts or None, Newton loops, peak bytes)."""
+  import torch
+
+  from mjtpu_torch._src import solver
+
+  batch = BENCH_BATCH
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  act = lambda: 2.0 * torch.rand(batch, env.action_size, generator=gen, device="cuda") - 1.0
+  state = env.reset(batch, gen)
+  for _ in range(PIXEL_WARMUP):
+    state = env.step(state, act(), gen)
+  actions = [act() for _ in range(PIXEL_TIMED)]
+  nreset = torch.zeros((), dtype=torch.int64, device="cuda")
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  if counted:
+    _zero_counts()
+  loops = dict(solver.loop_counts)
+  t0 = time.perf_counter()
+  for a in actions:
+    state = env.step(state, a, gen)
+    nreset += state.data.nreset.sum()
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  counts = _read_counts() if counted else None
+  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
+  if not bool(torch.isfinite(state.data.qpos).all()) or int(nreset):
+    raise AssertionError(f"{env.name} env run not finite or reset: nreset {int(nreset)}")
+  return state, secs, counts, loops, torch.cuda.max_memory_allocated()
+
+
+def _pixel_path(card):
+  """Phase 37's main path: the humanoid env with pixel observations
+  (ENVS["humanoid"](pixel_obs=True): f32 on the card, camera 0 the
+  injected observer camera, 64 x 64) at B=4096, beside the same env
+  without pixels; then render_batch_rgbd alone on its states: RENDER_TIMED
+  calls (host clock, synchronized), the peak memory of a call, one call
+  under torch.profiler; and the f32 render of RENDER_F32_ENVS envs against
+  the f64 one of the same frames."""
+  import statistics
+
+  import numpy as np
+  import torch
+
+  from mjtpu_torch import zoo
+  from mjtpu_torch._src import render
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  env = zoo.ENVS["humanoid"](pixel_obs=True)
+  if env.model.dtype != torch.float32 or env.device.type != "cuda" or env.pixel_size != (64, 64):
+    raise AssertionError(f"the pixel env built at {env.model.dtype} on {env.device},"
+                         f" {env.pixel_size}")
+  state, secs, counts, loops, step_peak = _pixel_env_run(env, counted=True)
+  if counts != _only(chol_solve=loops["iterations"]) or not counts["chol_solve"]:
+    raise AssertionError(f"pixel env: kernel launches in {PIXEL_TIMED} env steps: {counts},"
+                         f" Newton {loops}")
+  pixels = state.pixels
+  if (tuple(pixels.shape) != (BENCH_BATCH, 64, 64, 3) or not bool(torch.isfinite(pixels).all())
+      or float(pixels.min()) < 0.0 or float(pixels.max()) > 1.0):
+    raise AssertionError(f"pixel env: pixels {tuple(pixels.shape)} not finite in [0, 1]")
+  advance = lambda s: env.step(s, torch.zeros(BENCH_BATCH, env.action_size, device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(1))
+  shares, step_ms = _seam_shares(env.model, state, 1, advance=advance)
+  if shares["chol_ns"] != {env.model.nv}:
+    raise AssertionError(f"Cholesky launches at n={shares['chol_ns']}, not {env.model.nv}")
+  plain = zoo.ENVS["humanoid"]()
+  _, plain_secs, _, plain_loops, plain_peak = _pixel_env_run(plain)
+  del plain
+
+  m, d, rd = env.model, state.data, env._render_data
+  call = lambda dd: render.render_batch_rgbd(m, dd, width=64, height=64, rd=rd)
+  rgb, depth, seg = call(d)
+  ids = set(np.unique(seg.cpu().numpy()).tolist())
+  if not ids <= {-1, *rd.geom_ids} or not bool(torch.equal(rgb, pixels)):
+    raise AssertionError(f"render_batch_rgbd: seg ids {ids}, or its rgb is not the pixels")
+  hit = float((seg >= 0).float().mean())
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  walls = []
+  for _ in range(RENDER_TIMED):
+    t0 = time.perf_counter()
+    call(d)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+  render_peak = torch.cuda.max_memory_allocated() - base
+  busy, launches = _busy_share(call, d)
+  # one more call with CUDA events around the renderer's stages: the rays,
+  # the nearest-hit loops (camera and shadow rays), within them the
+  # winners' normals and albedo
+  stages = {"camera_rays": (render, "camera_rays"), "trace": (render, "_trace"),
+            "shade_hit": (render, "_shade_hit")}
+  stage_ms, render_ms = _seam_shares(m, d, 1, advance=call, extra=stages)
+  stage_ms = {k: stage_ms[k] for k in stages}
+
+  # the f32 renderer against f64 on the same frames (Data cast to f64)
+  env64 = zoo.ENVS["humanoid"](dtype=torch.float64, pixel_obs=True)
+  few = map_tensors(d, lambda x: x[:RENDER_F32_ENVS])
+  few64 = map_tensors(few, lambda x: x.double() if x.is_floating_point() else x)
+  r32 = render.render_batch_rgbd(m, few, width=64, height=64, rd=rd)
+  r64 = render.render_batch_rgbd(env64.model, few64, width=64, height=64,
+                                 rd=env64._render_data)
+  same = r32[2] == r64[2]
+  seg_share = float((~same).float().mean())
+  rgb_err = float((r32[0].double() - r64[0]).abs().amax(-1)[same].max())
+  med = statistics.median(walls)
+  figures = {
+      "env_steps_per_s": BENCH_BATCH * PIXEL_TIMED / secs,
+      "env_steps_per_s_no_pixels": BENCH_BATCH * PIXEL_TIMED / plain_secs,
+      "ms_per_env_step": 1e3 * secs / PIXEL_TIMED,
+      "ms_per_env_step_no_pixels": 1e3 * plain_secs / PIXEL_TIMED,
+      "render_ms": [1e3 * w for w in walls], "render_launches": launches,
+      "render_device_ms": render_ms, "render_stage_ms": stage_ms,
+      "render_busy": busy, "render_peak_bytes": render_peak, "step_peak_bytes": step_peak,
+      "step_peak_bytes_no_pixels": plain_peak, "b1_launches_per_env_step":
+      counts["chol_solve"] / PIXEL_TIMED, "f32_seg_share": seg_share,
+      "f32_rgb_err": rgb_err}
+  line = (f"f32 B={BENCH_BATCH} 64 x 64, {PIXEL_WARMUP} warm-up and {PIXEL_TIMED} timed env"
+          f" steps (host clock, synchronized): with pixels {figures['env_steps_per_s']:.0f} env"
+          f" steps/s ({figures['ms_per_env_step']:.3f} ms an env step), without"
+          f" {figures['env_steps_per_s_no_pixels']:.0f} ({figures['ms_per_env_step_no_pixels']:.3f}"
+          f" ms); B1 register (n={m.nv}) launches per env step"
+          f" {figures['b1_launches_per_env_step']:.2f} (Newton"
+          f" {loops['iterations'] / (PIXEL_TIMED * env.frame_skip):.2f} iterations a physics"
+          f" step), B1 {shares['chol_solve']:.4f} ms of a {step_ms:.3f} ms device env step;"
+          f" nreset 0; peak memory {step_peak / 2**30:.2f} GiB with pixels,"
+          f" {plain_peak / 2**30:.2f} GiB without; render_batch_rgbd alone {RENDER_TIMED} calls:"
+          f" median {1e3 * med:.3f} ms (least {1e3 * min(walls):.3f}, most"
+          f" {1e3 * max(walls):.3f}), {launches} kernel launches and device busy"
+          f" {100 * busy:.1f}% of one profiled call, peak {render_peak / 2**30:.2f} GiB over its"
+          f" inputs, {100 * hit:.1f}% of pixels hit a geom; one call by CUDA events"
+          f" {render_ms:.3f} ms: rays {stage_ms['camera_rays']:.3f}, nearest-hit loops"
+          f" {stage_ms['trace']:.3f} (of it the winners' normals and albedo"
+          f" {stage_ms['shade_hit']:.3f}), the rest (shading, sky, reduction)"
+          f" {render_ms - stage_ms['camera_rays'] - stage_ms['trace']:.3f}; f32 against f64 on"
+          f" {RENDER_F32_ENVS} envs' frames: seg differs at {100 * seg_share:.4f}% of pixels,"
+          f" rgb {rgb_err:.3e} where seg agrees; card {card}")
+  return line, counts, figures
+
+
+def phase_slice17_throughput(card):
+  """Phase 37: the humanoid env with pixel observations (the render
+  slice's main path): (its launch counts, its figures)."""
+  line, counts, figures = _pixel_path(card)
+  log(f"[slice17 throughput] humanoid env with pixel_obs=True {line}")
+  return counts, figures
+
+
 # the parity phases that run in a process of their own beside phase 22
-SIDE_PHASES = ("5", "7", "9-twin", "10", "13", "15", "17", "18", "20", "22-cones", "24", "26",
-               "28", "30", "30-sensors", "32", "34")
+SIDE_PHASES = ("5", "7", "9-twin", "10", "13", "15", "17", "18", "20", "22-cones",
+               "22-cones-2", "24", "26", "28", "30", "30-sensors", "32", "34", "36")
 SIDE_TIMEOUT_S = 600
 
 
@@ -4063,11 +4452,12 @@ def _side_main(phase: str) -> int:
   phase_device()
   {"5": phase_parity, "7": phase_terrain_parity, "10": phase_pile_parity,
    "13": phase_branchy_parity, "15": phase_ant_parity, "17": phase_ant_rk4_parity,
-   "18": phase_env_parity, "20": phase_collision_parity, "22-cones": phase_cone_parity,
+   "18": phase_env_parity, "20": phase_collision_parity, "22-cones": lambda: phase_cone_parity(0),
+   "22-cones-2": lambda: phase_cone_parity(1),
    "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity,
    "30": lambda: phase_slice14_parity("implicit"),
    "30-sensors": lambda: phase_slice14_parity("sensor"), "32": phase_slice15_parity,
-   "34": phase_slice16_parity, "9-twin": phase_sat_parity}[phase]()
+   "34": phase_slice16_parity, "36": phase_slice17_parity, "9-twin": phase_sat_parity}[phase]()
   # its own wall time, beside the other side phases: which one holds the
   # group's rest after phase 22
   log(f"[time] phase {phase} in its process: {time.perf_counter() - t0:.1f} s")
@@ -4152,6 +4542,8 @@ def main() -> int:
   lap("33")
   paths["diff_humanoid_bench"], diff_figures = phase_slice16_throughput(card)
   lap("35")
+  paths["humanoid_pixels"], pixel_figures = phase_slice17_throughput(card)
+  lap("37")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -4199,6 +4591,10 @@ def main() -> int:
       # the differentiable main path's forward and backward launches and
       # the backward's device time (phase 35)
       record[-1]["diff_path"] = diff_figures
+      # the pixel env's main path (phase 37): its env steps with and
+      # without pixels, the renderer's time, launches, busy share and
+      # memory; B1 launches per env step
+      record[-1]["pixel_env"] = pixel_figures
     if name == "sat_winners":
       # the round hulls (the cylinder drop's cylinder-box and three more
       # pairs), shared, n = ROUND_N, f32

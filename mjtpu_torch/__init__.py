@@ -26,8 +26,7 @@ Passive forces take gravity compensation (through qfrc_passive, or the
 actuators for a joint with actuatorgravcomp) and fluid forces (the
 per-geom ellipsoid model and the inertia-box model, with wind), so the
 zoo also runs the swimmer and the three satellite envs (``zoo.cmg``,
-``zoo.satellite``): every env mjtpu's zoo has, without pixel
-observations.  Tendons run too, fixed and spatial (sphere and cylinder
+``zoo.satellite``): every env mjtpu's zoo has.  Tendons run too, fixed and spatial (sphere and cylinder
 wraps, side sites, pulleys; ``tendon``, ``tendon_armature``), with their
 springs, dampers, frictionloss and limit rows and sensors, as do every
 actuator transmission mjtpu has, activation dynamics with muscles, and
@@ -56,7 +55,11 @@ reads mjtpu's checkpoints of the same model), ``device_get_into`` and
 back too.  ``differentiable_mode()`` (with ``DiffConfig`` and
 ``get_diff_config``) makes ``step`` differentiable on autograd: fixed
 solver iterations, contacts from distance, smooth collisions and
-adaptive substeps, as in mjtpu.  ``put_model`` refuses, with
+adaptive substeps, as in mjtpu.  ``render``, ``render_rgbd``,
+``render_batch``, ``render_batch_rgbd`` and ``precompute_render_data``
+ray-trace every env of a batched Data at once (the batched names are the
+same functions), and the zoo's envs take ``pixel_obs=True``.  Every
+public name of mjtpu has its counterpart here.  ``put_model`` refuses, with
 NotImplementedError naming the feature, what mjtpu refuses (flex, PGS,
 user sensors).
 """
@@ -101,6 +104,13 @@ from mjtpu_torch._src.log import mujoco_logger
 from mjtpu_torch._src.math import random_unit_quat
 from mjtpu_torch._src.passive import passive
 from mjtpu_torch._src.ray import ray, ray_geom
+from mjtpu_torch._src.render import (
+    precompute_render_data,
+    render,
+    render_batch,
+    render_batch_rgbd,
+    render_rgbd,
+)
 from mjtpu_torch._src.sensor import sensor_acc, sensor_pos, sensor_vel
 from mjtpu_torch._src.smooth import (
     camlight,

@@ -165,16 +165,38 @@ MOCAP_FIELDS = {"body_mocapid": (-1, (), np.int32)}
 CONTACT_SENSOR_FIELDS = {"sensor_intprm": (0, (3,), np.int32)}
 CAMPROJ_FIELDS = {
     "cam_resolution": (0, (2,), np.int32), "cam_sensorsize": (0.0, (2,), np.float32),
-    "cam_intrinsic": (0.0, (4,), np.float32), "cam_fovy": (0.0, (), np.float64),
+    "cam_intrinsic": (0.0, (4,), np.float32),
 }
 GEOMDIST_FIELDS = {"body_geomadr": (-1, (), np.int32), "body_geomnum": (0, (), np.int32)}
+# what the renderer reads (mjtpu's io.py keeps the same split between host
+# and device), stored where the model has a camera: the geoms' colours and
+# materials, the materials' textures, the textures' bytes, the lights'
+# kinds and terms and each camera's field of view (rows: ngeom, nlight,
+# ncam; none of the materials and textures where a snapshot leaves them out)
+RENDER_FIELDS = {
+    "geom_rgba": (0.0, (4,), np.float32), "geom_matid": (-1, (), np.int32),
+    "mat_texid": (-1, (10,), np.int32), "mat_texrepeat": (0.0, (2,), np.float32),
+    "mat_texuniform": (False, (), bool), "mat_rgba": (0.0, (4,), np.float32),
+    "tex_type": (0, (), np.int32), "tex_adr": (0, (), np.int64), "tex_height": (0, (), np.int32),
+    "tex_width": (0, (), np.int32), "tex_nchannel": (0, (), np.int32),
+    "tex_data": (0, (), np.uint8),
+    "light_type": (0, (), np.int32), "light_castshadow": (False, (), bool),
+    "light_active": (False, (), bool),
+    "light_diffuse": (0.0, (3,), np.float32), "light_ambient": (0.0, (3,), np.float32),
+    "light_specular": (0.0, (3,), np.float32), "light_attenuation": (0.0, (3,), np.float32),
+    "light_cutoff": (0.0, (), np.float32), "light_exponent": (0.0, (), np.float32),
+    "cam_fovy": (0.0, (), np.float64),
+}
 # the optional fields that the port keeps on the host (index tables, the
-# wraps' and the sensors' static parameters)
+# wraps' and the sensors' static parameters, the renderer's tables)
 _HOST_FIELDS = frozenset(("nwrap", "tendon_adr", "tendon_num", "tendon_limited", "wrap_type",
                           "wrap_objid", "wrap_prm", "actuator_actadr", "actuator_actnum",
                           "actuator_actlimited", "actuator_actearly", "eq_type", "eq_obj1id",
                           "eq_obj2id", "eq_objtype", "eq_active0", "body_mocapid",
-                          *CONTACT_SENSOR_FIELDS, *CAMPROJ_FIELDS, *GEOMDIST_FIELDS))
+                          *CONTACT_SENSOR_FIELDS, *CAMPROJ_FIELDS, *GEOMDIST_FIELDS,
+                          *(k for k in RENDER_FIELDS if k not in (
+                              "geom_rgba", "light_diffuse", "light_ambient", "light_specular",
+                              "light_attenuation", "light_cutoff", "light_exponent"))))
 # a snapshot also stores the hull tables of each colliding mesh, under
 # "hull.<mesh id>.<ConvexMesh field>", and of each colliding box, cylinder
 # and ellipsoid, under "geomhull.<geom id>.<ConvexMesh field>"
@@ -231,6 +253,19 @@ def has_mocap_fields(ns) -> bool:
   return int(ns.nmocap) > 0
 
 
+def has_render_fields(ns) -> bool:
+  """Whether a snapshot of ``ns`` stores RENDER_FIELDS: it has a camera."""
+  return int(ns.ncam) > 0
+
+
+def render_field(ns, name: str):
+  """``ns``'s value of a RENDER_FIELDS entry, all lights active where the
+  MjModel predates light_active (mjtpu's io.py falls back the same way)."""
+  if name == "light_active" and not hasattr(ns, name):
+    return np.ones(int(ns.nlight), dtype=bool)
+  return field(ns, name)
+
+
 def _has_sensor(ns, types) -> bool:
   return bool(np.isin(np.asarray(ns.sensor_type), [int(t) for t in types]).any())
 
@@ -242,6 +277,7 @@ OPTIONAL_GROUPS = (
     (CONTACT_SENSOR_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CONTACT,))),
     (CAMPROJ_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CAMPROJECTION,))),
     (GEOMDIST_FIELDS, lambda ns: _has_sensor(ns, GEOMDIST_SENSORS)),
+    (RENDER_FIELDS, has_render_fields),
 )
 
 
@@ -251,12 +287,13 @@ def _optional_field(ns, name: str, spec, stored: bool):
   the same Model."""
   fill, shape, dtype = spec
   if stored:
-    return np.array(getattr(ns, name), dtype=dtype)
+    return np.array(render_field(ns, name), dtype=dtype)
   if shape is None:
     return np.array(fill, dtype=dtype)
-  # no tendon, wrap or equality where the field is left out
+  # no tendon, wrap, equality, material or texture where the field is left out
   rows = {"actuator": int(ns.nu), "body": int(ns.nbody), "sensor": int(ns.nsensor),
-          "cam": int(ns.ncam)}.get(name.split("_")[0], 0)
+          "cam": int(ns.ncam), "geom": int(ns.ngeom),
+          "light": int(ns.nlight)}.get(name.split("_")[0], 0)
   return np.full((rows,) + shape, fill, dtype=dtype)
 
 
@@ -273,7 +310,7 @@ def snapshot_arrays(mjm, mesh_convex: tuple | None = None,
            + (OVERRIDE_FIELDS if int(mjm.opt.enableflags) & EnableBit.OVERRIDE else ())
            + tuple(name for group, stored in OPTIONAL_GROUPS if stored(mjm) for name in group))
   for name in SNAPSHOT_FIELDS + extra:
-    v = field(mjm, name)
+    v = render_field(mjm, name) if name in RENDER_FIELDS else field(mjm, name)
     if name == "names":
       v = np.frombuffer(bytes(v), dtype=np.uint8)
     arrays[name] = np.array(v)
@@ -466,8 +503,13 @@ def model_from_arrays(ns, dtype: torch.dtype = torch.float64, device="cuda") -> 
   fields["mesh_convex"] = ns.mesh_convex if hasattr(ns, "mesh_convex") else mesh.get(ns)
   fields["geom_convex"] = ns.geom_convex if hasattr(ns, "geom_convex") else mesh.get_geoms(ns)
 
-  opt_np = {name: _optional_field(ns, name, spec, stored(ns))
-            for group, stored in OPTIONAL_GROUPS for name, spec in group.items()}
+  # a snapshot written before it kept the render fields holds fills there
+  # (render.precompute_render_data refuses such a model by their names)
+  fields["render_filled"] = frozenset(
+      name for name in RENDER_FIELDS if not (has_render_fields(ns) and (
+          name == "light_active" or hasattr(ns, name))))
+  opt_np = {name: _optional_field(ns, name, spec, stored(ns) and name not in fields[
+      "render_filled"]) for group, stored in OPTIONAL_GROUPS for name, spec in group.items()}
   for name, v in opt_np.items():
     fields[name] = v if name in _HOST_FIELDS else f(v)
   fields["nwrap"] = int(opt_np["nwrap"])

@@ -495,7 +495,7 @@ class Model:
   cam_resolution: np.ndarray = static(None)
   cam_sensorsize: np.ndarray = static(None)
   cam_intrinsic: np.ndarray = static(None)
-  cam_fovy: np.ndarray = static(None)
+  cam_fovy: np.ndarray = static(None)  # degrees (the renderer; CAMPROJECTION)
   light_mode: np.ndarray = static(None)
   light_bodyid: np.ndarray = static(None)
   light_targetbodyid: np.ndarray = static(None)
@@ -503,6 +503,31 @@ class Model:
   light_dir: torch.Tensor = None
   light_poscom0: torch.Tensor = None
   light_pos0: torch.Tensor = None
+  # ---- what the renderer reads (mjtpu's split: index tables, texture
+  # bytes and light flags on the host, colours and light terms on the
+  # device); fills where a snapshot leaves them out, named in render_filled ----
+  geom_rgba: torch.Tensor = None
+  geom_matid: np.ndarray = static(None)
+  mat_texid: np.ndarray = static(None)        # (nmat, mjNTEXROLE)
+  mat_texrepeat: np.ndarray = static(None)
+  mat_texuniform: np.ndarray = static(None)
+  mat_rgba: np.ndarray = static(None)
+  tex_type: np.ndarray = static(None)
+  tex_adr: np.ndarray = static(None)
+  tex_height: np.ndarray = static(None)
+  tex_width: np.ndarray = static(None)
+  tex_nchannel: np.ndarray = static(None)
+  tex_data: np.ndarray = static(None)         # (ntexdata,) uint8
+  light_type: np.ndarray = static(None)
+  light_castshadow: np.ndarray = static(None)
+  light_active: np.ndarray = static(None)
+  light_diffuse: torch.Tensor = None
+  light_ambient: torch.Tensor = None
+  light_specular: torch.Tensor = None
+  light_attenuation: torch.Tensor = None
+  light_cutoff: torch.Tensor = None
+  light_exponent: torch.Tensor = None
+  render_filled: frozenset = static(frozenset())  # the render fields that hold fills
   # ---- meshes (convex hulls and the triangles rays hit) and height fields ----
   mesh_convex: tuple = static(None)        # tuple[ConvexMesh | None] per mesh
   mesh_vertadr: np.ndarray = static(None)

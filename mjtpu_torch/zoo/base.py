@@ -19,8 +19,13 @@ from ``mjtpu_torch.parallel.randomize`` (domain randomization): the
 physics runs under it, while observations and rewards keep reading the
 env's own model, as in mjtpu.
 
-Not ported, refused with NotImplementedError naming it: pixel
-observations (mjtpu's render.py).
+``pixel_obs=True`` renders camera 0 of every env into ``State.pixels``
+(B, H, W, 3) at ``pixel_size`` (H, W) after each reset and each step's
+auto-reset, as mjtpu's envs do.  Where the env's MJCF has no camera, mjtpu
+injects an observer camera; the port loads that model's snapshot from
+``assets/pixel_env_models.npz``.  humanoid_terrain is refused by name: its
+floor is a height field, which no ray intersector draws, in mjtpu
+neither.
 """
 
 from __future__ import annotations
@@ -33,10 +38,15 @@ import torch
 from mjtpu_torch import ASSETS
 from mjtpu_torch._src import forward as forward_mod
 from mjtpu_torch._src import io
+from mjtpu_torch._src import render as render_mod
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import Data, Model
 
 ENVS: dict[str, Callable[..., "MjtpuEnv"]] = {}
+# snapshots of the zoo models whose MJCF has no camera, with the observer
+# camera mjtpu's pixel envs inject (name: the plain snapshot's, less
+# "_model.npz")
+PIXEL_MODELS_FILE = "pixel_env_models.npz"
 
 
 def register_env(name: str):
@@ -57,6 +67,8 @@ class State:
   reward: torch.Tensor  # (B,)
   done: torch.Tensor    # (B,) bool
   steps: torch.Tensor   # (B,) int32 episode step counter
+  # (B, H, W, 3) with pixel observations, else (B, 0); reset and step fill it
+  pixels: torch.Tensor = None
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -86,14 +98,22 @@ class MjtpuEnv:
   episode_length: int = 1000
 
   def __init__(self, dtype: torch.dtype = torch.float32, device="cuda",
-               pixel_obs: bool = False):
-    if pixel_obs:
-      raise NotImplementedError(
-          "mjtpu_torch.zoo does not support pixel observations (render.py) yet")
+               pixel_obs: bool = False, pixel_size=(64, 64)):
     ns = io.load_snapshot(ASSETS / self.snapshot)
+    if pixel_obs and not int(ns.ncam):
+      name = self.snapshot.removesuffix("_model.npz")
+      if name not in io.bundle_names(ASSETS / PIXEL_MODELS_FILE):
+        raise NotImplementedError(
+            f"mjtpu_torch.zoo renders no pixels for {self.name}: its floor is a height"
+            " field, which has no ray intersector (in mjtpu neither)")
+      ns = io.load_snapshot(ASSETS / PIXEL_MODELS_FILE, name)
     # mjtpu's dt reads the MjModel's float64 timestep, whatever the dtype
     self._timestep = float(ns.opt.timestep)
     self.model: Model = io.model_from_arrays(ns, dtype=dtype, device=device)
+    self.pixel_obs = pixel_obs
+    self.pixel_size = tuple(pixel_size)
+    self._render_data = (render_mod.precompute_render_data(self.model) if pixel_obs
+                         else None)
 
   @property
   def device(self) -> torch.device:
@@ -124,15 +144,25 @@ class MjtpuEnv:
     qvel = noise * torch.randn((batch_size, m.nv), generator=generator, **kw)
     return replace(io.make_data(m, batch_size=batch_size), qpos=qpos, qvel=qvel)
 
+  def _pixels(self, data: Data) -> torch.Tensor:
+    """Camera 0's image of every env, (B, H, W, 3), or (B, 0) without pixel
+    observations."""
+    if not self.pixel_obs:
+      return data.qpos.new_zeros((data.qpos.shape[0], 0))
+    h, w = self.pixel_size
+    return render_mod.render(self.model, data, width=w, height=h, camera=0,
+                             rd=self._render_data)
+
   def _init_state(self, data: Data) -> State:
     """The State of freshly reset envs at ``data`` (forward already run):
-    their observation, reward 0, not done, step 0."""
+    their observation, reward 0, not done, step 0, their pixels."""
     obs = self._obs(data)
     batch = obs.shape[0]
     return State(
         data=data, obs=obs, reward=obs.new_zeros(batch),
         done=torch.zeros(batch, dtype=torch.bool, device=obs.device),
         steps=torch.zeros(batch, dtype=torch.int32, device=obs.device),
+        pixels=self._pixels(data),
     )
 
   def reset(self, batch_size: int, generator: torch.Generator,
@@ -152,7 +182,7 @@ class MjtpuEnv:
     action as it is; fwd_actuation clamps it to ctrlrange, as in mjtpu.
     ``model`` overrides the env's Model for the physics (domain
     randomization: a Model from parallel.randomize, row i for env i);
-    observations and rewards keep reading the env's own model."""
+    observations, rewards and pixels keep reading the env's own model."""
     m = self.model if model is None else model
     ctrl = self._prepare_ctrl(action)
     data = replace(state.data, ctrl=ctrl.to(state.data.ctrl.dtype))
@@ -167,7 +197,8 @@ class MjtpuEnv:
     data = _select(done, fresh, data)
     steps = torch.where(done, 0, steps)
     obs = self._obs(data)
-    return State(data=data, obs=obs, reward=reward.to(obs.dtype), done=done, steps=steps)
+    return State(data=data, obs=obs, reward=reward.to(obs.dtype), done=done, steps=steps,
+                 pixels=self._pixels(data))
 
   # -- per-env definitions ---------------------------------------------------
 

@@ -248,6 +248,24 @@
       satellite envs (--model satellite_envs); none ends an episode early,
       so env 3 starts one step before its episode_length; the CMG envs
       start with their rotors spinning, as their reset does.
+  mjtpu_torch/assets/render_scenes.npz, render_scenes_golden.npz
+      the bundle of render_scene_xmls (tests/test_render.py's scenes and a
+      mesh scene; the 6-face skybox painted one colour a face) and mjtpu's
+      jit(render_batch_rgbd) at float64 of each at B=2 (render_scenes):
+      every view (render_views: camera 0 under each RENDER_OPTIONS set,
+      every camera under the defaults) at RENDER_SIZE, the starts, the
+      single-square skybox put into the RenderData, and "views" (JSON).
+      ``--view LABEL`` writes only those views.
+  mjtpu_torch/assets/pixel_env_models.npz, pixel_env_golden.npz
+      (--model pixel_envs) the snapshots of PIXEL_MODELS, the zoo models
+      whose MJCF has no camera, with the observer camera mjtpu's pixel envs
+      inject (pixel_env_mjmodel); and mjtpu's humanoid and satellite_small
+      envs with pixel_obs=True at RENDER_SIZE as zoo_env_golden.npz steps
+      them (humanoid's env 3 starts with its torso above the healthy band),
+      with the pixels of the start and of each env step and the depth and
+      seg of a render of the same Data (pixel_env_golden).  The zoo
+      snapshots of models with a camera (satellite_small, satellite_large,
+      --model zoo) keep the render fields since.
 
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
@@ -256,8 +274,9 @@ Run from the repository root, where ``mujoco`` and ``jax`` are installed:
                      |zoo|ant_rk4|zoo_envs|cylinder_drop|roll|sph_cyl|collision_scenes
                      |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs
                      |tendon_scenes|equality_scenes|humanoid_implicit|implicit_scenes
-                     |sensor_scenes]
-        [--steps N] [--env NAME] [--scene NAME]
+                     |sensor_scenes|randomize_scenes|inverse_scenes|diff_scenes
+                     |stepped_scenes|render_scenes|pixel_envs]
+        [--steps N] [--env NAME] [--scene NAME] [--view LABEL]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
 humanoid_bench amplifies the ULP differences between ISAs (AVX-512 against
@@ -619,12 +638,102 @@ DIFF_BOUNCE_XML = """<mujoco>
       <geom type="sphere" size="0.1" mass="0.2"/></body>
   </worldbody>
 </mujoco>"""
+RENDER_SCENES_FILE = ASSETS / "render_scenes.npz"
+RENDER_GOLDEN_FILE = ASSETS / "render_scenes_golden.npz"
+PIXEL_ENV_MODELS_FILE = ASSETS / "pixel_env_models.npz"
+PIXEL_ENV_GOLDEN_FILE = ASSETS / "pixel_env_golden.npz"
+# the zoo models whose MJCF has no camera: mjtpu's pixel envs inject their
+# observer camera (mjtpu/zoo/base.py), and the port loads these snapshots
+# of the injected model (humanoid_terrain's height field cannot be drawn)
+PIXEL_MODELS = ("ant", "cartpole", "halfcheetah", "hopper", "humanoid", "satellite", "swimmer",
+                "walker2d")
+PIXEL_ENVS = ("humanoid", "satellite_small")
+# the renders' (height, width) and batch
+RENDER_SIZE = (24, 32)
+RENDER_BATCH = 2
+# tests/test_render.py's option sets
+RENDER_OPTIONS = {
+    "flat": {"shading": "flat"}, "shadows": {"shading": "phong", "shadows": True},
+    "fog": {"fog": 0.2}, "ssaa": {"ssaa": 2}, "fixed_light": {"scene_lights": False},
+    "background": {"background": [0.2, 0.3, 0.4]},
+}
+# tests/test_render.py's single-square skybox, put into the RenderData
+SQUARE_SKY = (0.2, 0.9, 0.4)
+SKYBOX_FACE_COLORS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1), (0, 1, 1))
+CUBE_TEXTURE_XML = """<mujoco>
+  <asset>
+    <texture name="cb" type="cube" builtin="checker" rgb1="1 0 0"
+             rgb2="0 0 1" width="32" height="32"/>
+    <material name="cb" texture="cb"/>
+  </asset>
+  <worldbody>
+    <camera name="c" pos="0 -1.5 0.5" xyaxes="1 0 0 0 0.32 0.95"/>
+    <body pos="0 0 0.5"><freejoint/>
+      <geom type="sphere" size="0.4" material="cb"/></body>
+  </worldbody>
+  </mujoco>"""
+SKYBOX_FACES_XML = """<mujoco>
+  <asset><texture name="sky" type="skybox" builtin="flat" rgb1="1 1 1"
+                  width="8" height="48"/></asset>
+  <worldbody>
+    <camera name="xp" xyaxes="0 -1 0 0 0 1"/>
+    <camera name="xn" xyaxes="0 1 0 0 0 1"/>
+    <camera name="yp" xyaxes="1 0 0 0 0 1"/>
+    <camera name="yn" xyaxes="-1 0 0 0 0 1"/>
+    <camera name="zp" xyaxes="1 0 0 0 -1 0"/>
+    <camera name="zn" xyaxes="1 0 0 0 1 0"/>
+    <geom type="sphere" size=".01" pos="100 100 100"/>
+  </worldbody>
+  </mujoco>"""
+SKYBOX_SQUARE_XML = """<mujoco>
+  <worldbody>
+    <camera name="xp" xyaxes="0 -1 0 0 0 1"/>
+    <camera name="zn" xyaxes="1 0 0 0 1 0"/>
+    <geom type="sphere" size=".01" pos="100 100 100"/>
+  </worldbody>
+  </mujoco>"""
+CYLINDER_ELLIPSOID_XML = """<mujoco><worldbody>
+    <camera name="c" pos="0 -3 1" xyaxes="1 0 0 0 0.32 0.95"/>
+    <geom type="plane" size="4 4 .1" rgba=".6 .6 .6 1"/>
+    <body pos="-0.7 0 0.6"><geom type="cylinder" size="0.3 0.5"
+      rgba="1 0 0 1"/></body>
+    <body pos="0.7 0 0.6"><geom type="ellipsoid" size="0.3 0.2 0.5"
+      rgba="0 0 1 1"/></body>
+  </worldbody></mujoco>"""
+CAMERA_BODY_XML = """<mujoco><worldbody>
+    <geom type="plane" size="4 4 .1"/>
+    <body pos="0 0 1"><joint type="slide" axis="1 0 0"/>
+      <geom type="sphere" size="0.01" rgba="0 0 0 0" contype="0"
+        conaffinity="0" mass="1"/>
+      <camera name="c" pos="0 0 0.3" xyaxes="1 0 0 0 0.32 0.95"/></body>
+    <body pos="0 2 0.4"><geom type="box" size=".4 .4 .4" rgba="1 0 0 1"/>
+    </body>
+  </worldbody></mujoco>"""
+# a mesh (an octahedron and a wedge) beside a capsule, under a spot light
+# that casts shadows
+RENDER_MESH_XML = """<mujoco>
+  <asset>
+    <mesh name="oct" vertex="0.3 0 0  -0.3 0 0  0 0.3 0  0 -0.3 0  0 0 0.4  0 0 -0.4"/>
+    <mesh name="wedge" vertex="0 0 0  0.5 0 0  0 0.4 0  0 0 0.3  0.5 0 0.3  0 0.4 0.3"/>
+  </asset>
+  <worldbody>
+    <camera name="c" pos="1.6 -1.8 1.4" xyaxes="0.75 0.66 0 -0.3 0.34 0.89"/>
+    <light name="spot" pos="0.5 -0.5 2.5" dir="-0.2 0.2 -1" diffuse=".8 .8 .8"
+           ambient=".1 .1 .1" specular=".3 .3 .3" cutoff="50" castshadow="true"/>
+    <geom type="plane" size="3 3 .1" rgba=".7 .7 .7 1"/>
+    <body pos="0 0 0.5"><freejoint/>
+      <geom type="mesh" mesh="oct" rgba=".2 .6 .9 1"/></body>
+    <body pos="-0.6 0.3 0"><geom type="mesh" mesh="wedge" rgba=".9 .5 .1 1"/></body>
+    <body pos="0.7 0.2 0.3"><freejoint/>
+      <geom type="capsule" size=".1 .2" rgba=".3 .8 .3 1"/></body>
+  </worldbody>
+</mujoco>"""
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
           "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
           "sensor_scenes", "randomize_scenes", "inverse_scenes", "diff_scenes",
-          "stepped_scenes")
+          "stepped_scenes", "render_scenes", "pixel_envs")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -1056,6 +1165,8 @@ def env_initial_state(name: str, env, seed: int = 0):
     qpos[3, 2] = 0.5 if name == "hopper" else 1.5  # tilted past the bound
   elif name == "cartpole":
     qpos[3, 1] = 1.5         # the pole past 1 rad
+  elif name == "humanoid":
+    qpos[3, 2] = 2.1         # torso above the healthy band
   elif name in ("halfcheetah",) + SATELLITE_ENVS:  # these never end early
     steps[3] = env.episode_length - 1
   if hasattr(env, "_rotor_dofs"):
@@ -2416,6 +2527,186 @@ def stepped_scenes() -> tuple[dict, dict[str, np.ndarray]]:
   return snapshots, golden
 
 
+def render_scene_xmls() -> dict[str, str]:
+  """The scenes of render_scenes.npz: tests/test_render.py's scenes (its
+  textured scene, its lit scene with the narrow spot, point-light and
+  inactive-light variants, the cube-textured sphere, the 6-face and the
+  single-square skyboxes, the cylinder and ellipsoid, the camera on a
+  body) and RENDER_MESH_XML."""
+  import sys
+
+  sys.path.insert(0, str(ROOT))
+  from tests.test_render import _LIT_XML, _XML
+
+  return {
+      "textured": _XML, "lit": _LIT_XML,
+      "lit_narrow": _LIT_XML.replace('cutoff="60"', 'cutoff="12"'),
+      "lit_point": _LIT_XML.replace('cutoff="60"', 'cutoff="179"').replace(
+          'castshadow="true"', 'castshadow="false" attenuation="1 0 0.35"'),
+      "lit_inactive": _LIT_XML.replace('castshadow="true"', 'castshadow="true" active="false"'),
+      "cube_texture": CUBE_TEXTURE_XML, "skybox_faces": SKYBOX_FACES_XML,
+      "skybox_square": SKYBOX_SQUARE_XML, "cylinder_ellipsoid": CYLINDER_ELLIPSOID_XML,
+      "camera_body": CAMERA_BODY_XML, "mesh": RENDER_MESH_XML,
+  }
+
+
+def render_scene_mjmodel(name: str):
+  """A render scene's MjModel; the 6-face skybox gets one flat colour a
+  face (SKYBOX_FACE_COLORS, in MuJoCo's face order), as
+  tests/test_render.py paints it."""
+  import mujoco
+
+  mjm = mujoco.MjModel.from_xml_string(render_scene_xmls()[name])
+  if name == "skybox_faces":
+    tid = int(np.flatnonzero(np.atleast_1d(mjm.tex_type) == 2)[0])
+    w, h, adr = int(mjm.tex_width[tid]), int(mjm.tex_height[tid]), int(mjm.tex_adr[tid])
+    img = np.repeat(np.asarray(SKYBOX_FACE_COLORS, np.float64), w, axis=0)[:, None]
+    img = np.broadcast_to(img, (h, w, 3))
+    mjm.tex_data[adr:adr + h * w * 3] = np.round(img.reshape(-1) * 255).astype(np.uint8)
+  return mjm
+
+
+def render_initial_state(mjm, seed: int = 0) -> np.ndarray:
+  """(RENDER_BATCH, nq) qpos: env 0 at qpos0, env 1 with its free bodies
+  moved up to 5 cm and turned up to 0.3 rad and every other joint moved up
+  to 0.3 (numpy seed)."""
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(mjm.qpos0, (RENDER_BATCH, 1))
+  _perturb(mjm, qpos[1], rng, 0.05, 0.3)
+  free = {a + i for a in _free_joints(mjm) for i in range(7)}
+  rest = [i for i in range(mjm.nq) if i not in free]
+  qpos[1, rest] += rng.uniform(-0.3, 0.3, len(rest))
+  return qpos
+
+
+def render_views(mjm) -> list:
+  """(label, camera, options) of each render of a scene: camera 0 under
+  every RENDER_OPTIONS set, and every camera under the defaults."""
+  return ([(label, 0, opts) for label, opts in RENDER_OPTIONS.items()]
+          + [("default", cam, {}) for cam in range(mjm.ncam)])
+
+
+def render_scenes(names=None, labels=None) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the bundle's snapshots, the golden's arrays) of render_scene_xmls:
+  per scene its qpos (render_initial_state) and, per view (render_views),
+  mjtpu's jit(render_batch_rgbd) at float64 on the CPU of the batch after
+  jit(vmap(forward)): <scene>.<label>.cam<c>.rgb, .depth and .seg at
+  RENDER_SIZE; the single-square skybox's image (<scene>.sky_tex), put
+  into mjtpu's RenderData; and "views", the JSON list of [scene, label,
+  camera, options].  ``labels``: only the views of these labels."""
+  import dataclasses
+  import json
+
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu_torch._src import io
+
+  height, width = RENDER_SIZE
+  snapshots, out, views = {}, {}, []
+  for name in names or render_scene_xmls():
+    mjm = render_scene_mjmodel(name)
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    qpos = render_initial_state(mjm)
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(RENDER_BATCH))
+    d = jax.jit(jax.vmap(mjtpu.forward, in_axes=(None, 0)))(m, d.replace(qpos=jnp.asarray(qpos)))
+    rd = mjtpu.precompute_render_data(m)
+    out[f"{name}.qpos"] = qpos
+    if name == "skybox_square":
+      sky = np.tile(np.asarray(SQUARE_SKY, np.float64), (8, 8, 1))
+      rd = dataclasses.replace(rd, sky_tex=sky)
+      out[f"{name}.sky_tex"] = sky
+    for label, cam, opts in render_views(mjm):
+      if labels and label not in labels:
+        continue
+      f = jax.jit(lambda dd, cam=cam, opts=opts: mjtpu.render_batch_rgbd(
+          m, dd, width=width, height=height, camera=cam, rd=rd, **opts))
+      for k, v in zip(("rgb", "depth", "seg"), f(d)):
+        out[f"{name}.{label}.cam{cam}.{k}"] = np.asarray(v)
+      views.append([name, label, cam, opts])
+    segs = [v for k, v in out.items() if k.startswith(f"{name}.") and k.endswith(".seg")]
+    print(f"{name}: {len(segs)} views, seg ids {sorted(set(np.unique(segs).tolist()))}")
+  out["views"] = np.frombuffer(json.dumps(views).encode(), dtype=np.uint8)
+  return snapshots, out
+
+
+def pixel_env_mjmodel(name: str):
+  """The zoo model ``name`` with the observer camera mjtpu's pixel envs
+  inject where the MJCF has none (mjtpu/zoo/base.py's string edit)."""
+  import mujoco
+
+  xml = (ZOO / f"{name}.xml").read_text()
+  if "<camera" not in xml:
+    xml = xml.replace(
+        "<worldbody>",
+        '<worldbody><camera name="track" pos="2.5 -2.5 1.5"'
+        ' xyaxes="0.7 0.7 0 -0.23 0.23 0.94"/>',
+        1,
+    )
+  return mujoco.MjModel.from_xml_string(xml)
+
+
+def pixel_env_golden(names=PIXEL_ENVS, steps: int = ENV_STEPS) -> dict[str, np.ndarray]:
+  """The pixel env golden's arrays: mjtpu's ``names`` envs with
+  pixel_obs=True at RENDER_SIZE from env_initial_state's states, as
+  env_golden steps them, with the pixels of the start and of each env
+  step, and the depth and segmentation of a render_batch_rgbd of the same
+  Data (its rgb must be the env's pixels)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import mjtpu
+  from mjtpu.zoo import ENVS
+  from mjtpu.zoo.base import State
+
+  height, width = RENDER_SIZE
+  out = {}
+  for name in names:
+    env = ENVS[name](dtype=jnp.float64, pixel_obs=True, pixel_size=RENDER_SIZE)
+    qpos0, qvel0, steps0 = env_initial_state(name, env)
+    action = np.random.default_rng(1).uniform(-1.0, 1.0, (steps, BATCH, env.action_size))
+    d = jax.vmap(lambda _: env._d0)(jnp.arange(BATCH))
+    d = d.replace(qpos=jnp.asarray(qpos0), qvel=jnp.asarray(qvel0))
+    d = jax.jit(jax.vmap(mjtpu.forward, in_axes=(None, 0)))(env.model, d)
+    rgbd = jax.jit(lambda dd: mjtpu.render_batch_rgbd(env.model, dd, width=width, height=height,
+                                                       camera=0, rd=env._render_data))
+    # the start's pixels: env._pixels is render with these arguments
+    state = State(data=d, obs=jax.vmap(env._obs)(d), reward=jnp.zeros(BATCH),
+                  done=jnp.zeros(BATCH, bool),
+                  key=jax.random.split(jax.random.PRNGKey(0), BATCH),
+                  steps=jnp.asarray(steps0), pixels=rgbd(d)[0])
+    step = jax.jit(jax.vmap(env.step))
+    rec = {k: [] for k in ("obs", "reward", "done", "steps", "pixels", "depth", "seg")}
+    for t in range(steps + 1):
+      if t:
+        state = step(state, jnp.asarray(action[t - 1]))
+      rgb, depth, seg = (np.asarray(x) for x in rgbd(state.data))
+      pixels = np.asarray(state.pixels)
+      gap = np.abs(rgb - pixels).max()
+      if not gap <= 1e-12:
+        raise AssertionError(f"{name} step {t}: render_batch_rgbd's rgb parts from the env's"
+                             f" pixels by {gap:.3e}")
+      for k, v in (("obs", state.obs), ("reward", state.reward), ("done", state.done),
+                   ("steps", state.steps), ("pixels", pixels), ("depth", depth),
+                   ("seg", seg)):
+        rec[k].append(np.asarray(v))
+    rec = {k: np.stack(v) for k, v in rec.items()}
+    if steps and (rec["done"][1:, :3].any() or not rec["done"][1, 3]):
+      raise AssertionError(f"{name}: done {rec['done'].tolist()}: envs 0-2 must stay"
+                           " healthy and env 3 end at the first step")
+    print(f"{name}: rewards {rec['reward'][1:].tolist()}, seg ids"
+          f" {sorted(set(np.unique(rec['seg']).tolist()))}")
+    out.update({f"{name}.{k}": v for k, v in dict(
+        qpos0=qpos0, qvel0=qvel0, steps0=steps0, action=action, **rec).items()})
+  return out
+
+
 def initial_state(mjm, batch: int = BATCH, seed: int = 0):
   """(qpos, qvel, ctrl) for ``batch`` envs around qpos0."""
   rng = np.random.default_rng(seed)
@@ -2479,12 +2770,14 @@ def main():
                       " ant_rk4, cylinder_drop, roll, sph_cyl, humanoid_bench_elliptic and cone"
                       f" scene golden trajectories (default {STEPS}) and env steps of the env"
                       f" golden (default {ENV_STEPS})")
-  parser.add_argument("--env", action="append", choices=LOCOMOTION + SATELLITE_ENVS,
+  parser.add_argument("--env", action="append", choices=LOCOMOTION + SATELLITE_ENVS + ("humanoid",),
                       help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
                       help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
                       " tendon_scenes, equality_scenes, implicit_scenes, sensor_scenes and"
                       " diff_scenes (repeatable; default: all)")
+  parser.add_argument("--view", action="append", choices=(*RENDER_OPTIONS, "default"),
+                      help="the views of render_scenes by label (repeatable; default: all)")
   args = parser.parse_args()
   out = args.out
   steps = args.steps or STEPS
@@ -2611,6 +2904,18 @@ def main():
     io.save_snapshot_bundle(out / STEPPED_SCENES_FILE.name, snapshots)
     np.savez_compressed(out / STEPPED_GOLDEN_FILE.name, **scene_golden)
     files += [STEPPED_SCENES_FILE.name, STEPPED_GOLDEN_FILE.name]
+  if "render_scenes" in models:
+    snapshots, scene_golden = render_scenes(args.scene, args.view)
+    io.save_snapshot_bundle(out / RENDER_SCENES_FILE.name, snapshots)
+    np.savez_compressed(out / RENDER_GOLDEN_FILE.name, **scene_golden)
+    files += [RENDER_SCENES_FILE.name, RENDER_GOLDEN_FILE.name]
+  if "pixel_envs" in models:
+    io.save_snapshot_bundle(out / PIXEL_ENV_MODELS_FILE.name, {
+        name: io.snapshot_arrays(pixel_env_mjmodel(name)) for name in PIXEL_MODELS})
+    names = [e for e in args.env or PIXEL_ENVS if e in PIXEL_ENVS]
+    np.savez_compressed(out / PIXEL_ENV_GOLDEN_FILE.name, **pixel_env_golden(
+        names, ENV_STEPS if args.steps is None else args.steps))
+    files += [PIXEL_ENV_MODELS_FILE.name, PIXEL_ENV_GOLDEN_FILE.name]
   for name in files:
     print(f"wrote {out / name} ({(out / name).stat().st_size} bytes)")
 

@@ -24,11 +24,6 @@ import mjtpu_torch
 from mjtpu_torch._src import math as t_math
 from tests.conftest import load_mj
 
-# mjtpu's names the port leaves to later slices: differentiable mode
-# (diff_config.py) and rendering (render.py)
-LATER = {"DiffConfig", "differentiable_mode", "get_diff_config", "precompute_render_data",
-         "render", "render_batch", "render_batch_rgbd", "render_rgbd"}
-
 OVERRIDE_XML = """<mujoco><option timestep="0.005"/><worldbody>
 <geom type="plane" size="5 5 .1"/>
 <body pos="0 0 0.1"><freejoint/><geom type="sphere" size="0.1"/></body>
@@ -42,7 +37,7 @@ OVERRIDE_STEPS = 50
 
 def test_public_names():
   public = {n for n in dir(mjtpu) if not n.startswith("_")} - {"parallel", "zoo"}
-  missing = sorted(n for n in public - LATER if not hasattr(mjtpu_torch, n))
+  missing = sorted(n for n in public if not hasattr(mjtpu_torch, n))
   assert not missing, missing
   for n in ("randomize", "model_axes", "randomize_with_consts", "randomized_step"):
     assert callable(getattr(mjtpu_torch.parallel, n))

@@ -709,3 +709,58 @@ def test_diff_scene_on_the_card():
     assert errs["finite"] and errs["values"] <= chip_smoke.DIFF_VALUE_BOUND, errs
     assert all(v <= chip_smoke.DIFF_GRAD_BOUND for k, v in errs.items()
                if k.startswith("grad_")), errs
+
+
+@pytest.mark.parametrize("scene", ["textured", "lit", "mesh"])
+def test_render_scene_on_the_card_matches_cpu(scene):
+  """A golden render scene's every view at f64 on the card (its own
+  forward, its own render) against the CPU's render of the CPU's
+  forward, to the CPU tests' bounds: rgb and depth within 1e-10 where seg
+  agrees, any other pixel a tie that copies of its rays a few ULP away
+  resolve to the CPU's pick (chip_smoke.render_view_errors)."""
+  from mjtpu_torch._src import render
+
+  with np.load(mjtpu_torch.ASSETS / "render_scenes_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  cpu = chip_smoke.render_scene(scene, golden, "cpu")
+  card = chip_smoke.render_scene(scene, golden, "cuda")
+  height, width = golden[f"{scene}.shadows.cam0.seg"].shape[1:]
+  for _, label, cam, options in (v for v in chip_smoke.render_views(golden) if v[0] == scene):
+    want = tuple(x.numpy() for x in render.render_rgbd(
+        *cpu[:2], width=width, height=height, camera=cam, rd=cpu[2], **options))
+    errs = chip_smoke.render_view_errors(*card, want, cam, options)
+    assert errs["rgb"] <= chip_smoke.RENDER_BOUND and errs["depth"] <= chip_smoke.RENDER_BOUND
+
+
+# the f32 render of the humanoid pixel env's frames against the f64 one of
+# the same frames on the card: measured 1.14e-05 of the pixels' seg and
+# 3.19e-03 in rgb where seg agrees (NVIDIA H100 80GB HBM3, 700 W); the
+# bounds hold 4x and 3x that
+RENDER_F32_SEG_SHARE = 5e-5
+RENDER_F32_RGB_ERR = 1e-2
+
+
+def test_render_f32_against_f64_on_the_card():
+  """The main path's renderer at f32 (the humanoid pixel env, 64 x 64,
+  64 envs from a reset) against f64 on the same frames (the Data cast to
+  f64): the share of seg pixels that differ, and the largest rgb error
+  where seg agrees."""
+  from mjtpu_torch import zoo
+  from mjtpu_torch._src import render
+  from mjtpu_torch._src.dataclasses import map_tensors
+
+  env = zoo.ENVS["humanoid"](pixel_obs=True)
+  env64 = zoo.ENVS["humanoid"](dtype=torch.float64, pixel_obs=True)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  state = env.reset(64, gen)
+  state = env.step(state, 2.0 * torch.rand(64, env.action_size, generator=gen,
+                                           device="cuda") - 1.0, gen)
+  d64 = map_tensors(state.data, lambda x: x.double() if x.is_floating_point() else x)
+  r32 = render.render_batch_rgbd(env.model, state.data, rd=env._render_data)
+  r64 = render.render_batch_rgbd(env64.model, d64, rd=env64._render_data)
+  assert torch.equal(r32[0], state.pixels)
+  same = r32[2] == r64[2]
+  share = float((~same).double().mean())
+  err = float((r32[0].double() - r64[0]).abs().amax(-1)[same].max())
+  print(f"f32 against f64: seg differs at {share:.3e} of pixels, rgb {err:.3e} where it agrees")
+  assert share <= RENDER_F32_SEG_SHARE and err <= RENDER_F32_RGB_ERR
