@@ -244,13 +244,28 @@ failure raises and the script exits non-zero:
      INVDISCRETE under Euler, ImplicitFast and Implicit, capsules.xml
      under FWDINV, branchy66 with INVDISCRETE) through inverse against
      mjtpu's outputs (INVERSE_BOUND of scale), the caller's qacc restored.
- 33. slice-15 throughput, the main paths: the randomized humanoid_bench at
-     f32 B=4096 (bench_randomization's per-env friction, masses, damping,
-     gains and timestep, seed 1, with their constants from
-     randomize_scenes_golden.npz) through parallel.randomized_step from
-     qpos0 +-0.01 (numpy seed 1), 3 warm-up and 30 timed steps (CUDA
-     events): env-steps/s, B1 launches per step (register only, n=27, one
-     per Newton iteration), finite and nreset 0 over the run, 8 envs each
+     Its side process ``32-fields`` (slice 18): every scene of
+     randomize_fields.npz (every traced field mjtpu's randomize accepts,
+     each perturbed in an env of its own on small models that read them,
+     and the two main paths below at B=4) through parallel.randomized_step
+     against mjtpu's golden (field_scene_errors: RANDOM_BOUND of scale;
+     humanoid_bench RANDOM_BENCH_BOUND through step 50), each env's
+     one-step restarts alone under its own Model against the batch
+     (RANDOM_SELF_BOUND, RANDOM_CHECK_ENVS envs a scene), and every env
+     that mjtpu's rows leave with the base env left there.
+ 33. slice-15 and slice-18 throughput, the main paths, each beside its
+     base Model's plain path in the same call (_randomized_path; host
+     clock around the synchronized steps): the randomized humanoid_bench
+     at f32 B=4096 (bench_randomization's per-env friction, masses,
+     damping, gains and timestep and its locomotion fields, seed 1, with
+     their constants from randomize_fields_golden.npz) through
+     parallel.randomized_step from qpos0 +-0.01 (numpy seed 1), 3 warm-up
+     and 30 timed steps: env-steps/s, B1 launches per step (register
+     only, n=27, one per Newton iteration); the per-env terrain,
+     humanoid_terrain at f32 B=4096 with each env's heights and friction
+     (terrain_randomization), 3 warm-up and 20 timed steps: B4 static
+     twice a step, B1 register (n=23) once per Newton iteration; each
+     finite and nreset 0 over the run, its peak memory, 8 envs each
      stepped once under its own unbatched Model against the batch
      (RANDOM_CHECK_BOUND); then the branchy66 inverse with INVDISCRETE at
      f32 B=4096, 2 warm-up and 20 timed calls (CUDA events): B2 lanes
@@ -315,7 +330,8 @@ the size dispatch gives to B3's shared kernel.  The last two lines are the kerne
 record and {"ok": true, ...}.
 
 The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 (two
-processes, ``30`` and ``30-sensors``), 32, 34 and 36, phase 9's twin check
+processes, ``30`` and ``30-sensors``), 32 (two: ``32`` and ``32-fields``),
+34 and 36, phase 9's twin check
 (``9-twin``) and phase 22's cone scenes (``22-cones`` and ``22-cones-2``,
 every other scene each), run each in a
 process of its own
@@ -467,6 +483,17 @@ RANDOM_CHECK_ENVS = 8
 RANDOM_CHECK_BOUND = 1e-5   # ... one f32 step, of scale (1.045e-6 on the H100)
 RANDOM_WARMUP = 3
 RANDOM_TIMED = 30
+# what a randomize_fields scene holds against mjtpu's golden, step by
+# step, where the model has it (the cameras' and lights' frames move with
+# their fields only)
+FIELD_OUTPUTS = ("qpos", "qvel", "act", "sensordata", "cam_xpos", "cam_xmat", "light_xpos",
+                 "light_xdir")
+# the fields the randomized humanoid_bench of phase 33 adds to
+# bench_randomization's five, each shown to move its trajectory
+# (tests/test_torch_randomize_fields.py); opt.impratio is left out, as
+# this model's pyramidal cones never read it
+BENCH_LOCOMOTION_FIELDS = ("body_pos", "geom_pos", "jnt_solref", "jnt_solimp", "jnt_margin",
+                           "qpos_spring", "actuator_ctrlrange")
 INVERSE_FIELDS = ("qfrc_inverse", "qfrc_constraint", "efc_force", "qfrc_bias", "qfrc_passive",
                   "sensordata")
 INVERSE_BOUND = 1e-10       # the port's inverse against mjtpu's, of scale
@@ -3264,14 +3291,24 @@ def phase_implicit_throughput(card):
 # ---------------------------------------------------------------------------
 
 
-def bench_randomization(ns, batch: int, seed: int = 1) -> dict:
+def bench_randomization(ns, batch: int, seed: int = 1, locomotion: bool = False) -> dict:
   """The randomized humanoid_bench's rows (numpy, (batch, *shape) each)
   from numpy seed ``seed``, for ``ns`` (an MjModel or a snapshot): each
   geom's sliding friction x U(0.5, 1.5), each body's mass x U(0.8, 1.2),
   each dof's damping x U(0.5, 2), each motor's gain x U(0.8, 1.2), the
   timestep x U(0.9, 1.1).  Their derived constants come from mj_setConst
   (randomize_scenes_golden.npz's "bench.rows.*", written for batch =
-  BENCH_BATCH and seed 1)."""
+  BENCH_BATCH and seed 1).
+
+  With ``locomotion``, the same draws and then, from the same generator,
+  BENCH_LOCOMOTION_FIELDS: each limb's body_pos x U(0.95, 1.05), each
+  geom's pos + U(-5, 5) mm, each joint's solref time constant x U(0.8,
+  1.2) and solimp dmin and dmax x U(0.98, 1), a margin U(0, 0.02) on each
+  limited joint (narrower than half its range, so no limit turns
+  two-sided), each hinge's spring reference qpos0 + U(-0.1, 0.1), each
+  motor's ctrlrange x U(0.8, 1.2).  Their derived constants (body_pos
+  moves them) are randomize_fields_golden.npz's "bench.rows.*", written
+  for batch = BENCH_BATCH and seed 1."""
   import numpy as np
 
   rng = np.random.default_rng(seed)
@@ -3283,8 +3320,42 @@ def bench_randomization(ns, batch: int, seed: int = 1) -> dict:
   gain = tile(ns.actuator_gainprm)
   gain[..., 0] *= rng.uniform(0.8, 1.2, gain.shape[:2])
   timestep = float(ns.opt.timestep) * rng.uniform(0.9, 1.1, batch)
-  return {"geom_friction": friction, "body_mass": mass, "dof_damping": damping,
+  rows = {"geom_friction": friction, "body_mass": mass, "dof_damping": damping,
           "actuator_gainprm": gain, "opt.timestep": timestep}
+  if not locomotion:
+    return rows
+  body_pos = tile(ns.body_pos)
+  body_pos[:, 2:] *= rng.uniform(0.95, 1.05, (batch, len(body_pos[0]) - 2, 1))  # the limbs
+  geom_pos = tile(ns.geom_pos) + rng.uniform(-0.005, 0.005, (batch,) + np.shape(ns.geom_pos))
+  solref, solimp = tile(ns.jnt_solref), tile(ns.jnt_solimp)
+  solref[..., 0] *= rng.uniform(0.8, 1.2, solref.shape[:2])
+  solimp[..., :2] *= rng.uniform(0.98, 1.0, solimp.shape[:2] + (2,))
+  rng_width = np.diff(np.asarray(ns.jnt_range, dtype=np.float64), axis=-1)[:, 0]
+  limited = np.asarray(ns.jnt_limited, dtype=bool) & (rng_width > 0.04)
+  margin = tile(ns.jnt_margin) + rng.uniform(0.0, 0.02, (batch, len(limited))) * limited
+  hinge = np.zeros(len(np.asarray(ns.qpos0)), dtype=bool)
+  types, adr = np.asarray(ns.jnt_type), np.asarray(ns.jnt_qposadr)
+  hinge[adr[types == 3]] = True  # mjJNT_HINGE
+  spring = tile(ns.qpos_spring) + rng.uniform(-0.1, 0.1, (batch, len(hinge))) * hinge
+  ctrlrange = tile(ns.actuator_ctrlrange) * rng.uniform(
+      0.8, 1.2, (batch, len(ns.actuator_ctrlrange), 1))
+  new = (body_pos, geom_pos, solref, solimp, margin, spring, ctrlrange)
+  return {**rows, **dict(zip(BENCH_LOCOMOTION_FIELDS, new))}
+
+
+def terrain_randomization(ns, batch: int, seed: int = 1) -> dict:
+  """The per-env terrain of humanoid_terrain (numpy, (batch, *shape) each)
+  from numpy seed ``seed``: each env's height field the base heights x
+  U(0.5, 1.5) per cell, clipped to [0, 1], and each geom's sliding
+  friction x U(0.5, 1.5)."""
+  import numpy as np
+
+  rng = np.random.default_rng(seed)
+  heights = np.asarray(ns.hfield_data, dtype=np.float64)
+  heights = np.clip(heights[None] * rng.uniform(0.5, 1.5, (batch,) + heights.shape), 0.0, 1.0)
+  friction = np.tile(np.array(ns.geom_friction, dtype=np.float64), (batch, 1, 1))
+  friction[..., 0] *= rng.uniform(0.5, 1.5, friction.shape[:2])
+  return {"hfield_data": heights, "geom_friction": friction}
 
 
 def _bundle_model(bundle: str, name: str, device, dtype=None):
@@ -3345,15 +3416,15 @@ def _stack_env(ds, e: int):
   return map_tensors(ds[0], lambda x: next(stacked))
 
 
-def _randomize_scene_start(name: str, golden, device):
+def _randomize_scene_start(name: str, golden, device, bundle: str = "randomize_scenes"):
   """(the base Model, its rows, the start Data, the golden's steps) of
-  randomize scene ``name``."""
+  randomize scene ``name`` of ``bundle``."""
   import numpy as np
   import torch
 
   import mjtpu_torch
 
-  m = _bundle_model("randomize_scenes", name, device)
+  m = _bundle_model(bundle, name, device)
   rows = _rows(golden, f"{name}.rows.", m)
   start = {k[len(name) + 1:-1]: golden[k] for k in golden.files
            if k.startswith(f"{name}.") and k.endswith("0") and ".rows." not in k}
@@ -3463,6 +3534,89 @@ def randomize_bounds(name: str) -> tuple[str, float, float]:
   return "mjtpu", RANDOM_BOUND, RANDOM_SELF_BOUND
 
 
+def field_scene_errors(name: str, golden, device, envs=None) -> dict:
+  """The randomize_fields scene ``name`` (f64): its rows from the golden
+  through parallel.randomized_step from the golden's start, against
+  mjtpu's batched randomized rollout, each (B,) over the envs: "mjtpu" the
+  max difference over FIELD_OUTPUTS and the golden's steps, each output's
+  over its scale (max(1, max |golden|)), "mjtpu_head" over the first
+  RANDOM_BENCH_STEPS; "moved" and "mjtpu_moved" how far the port's and
+  mjtpu's env parts from env 0 (the base Model's), absolute; "self" each
+  env of ``envs`` (default all) alone under its own unbatched Model: its
+  state at every step of the batched run (one batch of the env's states)
+  stepped once, against the batched run's next step, of scale (NaN for
+  the other envs)."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch import parallel
+
+  m, rows, d0, steps = _randomize_scene_start(name, golden, device, "randomize_fields")
+  step, _ = parallel.randomized_step(m, rows)
+  outs = [o for o in FIELD_OUTPUTS if f"{name}.{o}" in golden.files]
+  B = d0.qpos.shape[0]
+  scale = {o: max(1.0, float(np.abs(golden[f"{name}.{o}"]).max())) for o in outs}
+  flat = lambda x: x.detach().cpu().numpy().reshape(x.shape[0], -1)
+  out = {k: np.zeros(B) for k in ("mjtpu", "mjtpu_head", "moved", "mjtpu_moved")}
+  out["self"] = np.full(B, np.nan)
+  d, ds = d0, [d0]
+  for i in range(steps):
+    d = step(d)
+    ds.append(d)
+    for o in outs:
+      got, want = flat(getattr(d, o)), golden[f"{name}.{o}"][i].reshape(B, -1)
+      err = _abs_err(got, want).max(axis=1) / scale[o]
+      out["mjtpu"] = np.maximum(out["mjtpu"], err)
+      if i < RANDOM_BENCH_STEPS:
+        out["mjtpu_head"] = np.maximum(out["mjtpu_head"], err)
+      out["moved"] = np.maximum(out["moved"], _abs_err(got, got[:1]).max(axis=1))
+      out["mjtpu_moved"] = np.maximum(out["mjtpu_moved"], _abs_err(want, want[:1]).max(axis=1))
+  for e in range(B) if envs is None else envs:
+    alone, batched = mjtpu_torch.step(_env_model(m, rows, e), _stack_env(ds[:-1], e)), _stack_env(
+        ds[1:], e)
+    out["self"][e] = max(float(_abs_err(flat(getattr(alone, o)), flat(getattr(batched, o))).max())
+                         / scale[o] for o in outs)
+  return out
+
+
+def field_bounds(name: str) -> tuple[str, float, float]:
+  """(the error key, its bound against mjtpu, the bound of each env alone
+  against the batch) of randomize_fields scene ``name``: humanoid_bench's
+  truncated solver amplifies ULP differences over a run (C1), so it is
+  held to RANDOM_BENCH_BOUND through step RANDOM_BENCH_STEPS in both."""
+  if name == "humanoid_bench":
+    return "mjtpu_head", RANDOM_BENCH_BOUND, RANDOM_BENCH_BOUND
+  return "mjtpu", RANDOM_BOUND, RANDOM_SELF_BOUND
+
+
+def phase_slice18_parity():
+  """Phase 32-fields (side): every randomize_fields scene at f64 against
+  mjtpu's golden (field_bounds: RANDOM_BOUND of scale, humanoid_bench
+  RANDOM_BENCH_BOUND through step RANDOM_BENCH_STEPS), each env alone
+  under its own Model against the batch (RANDOM_SELF_BOUND; RANDOM_CHECK_ENVS
+  envs of each scene), and every env that mjtpu's rows leave where the
+  base env goes left there by the port too."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch._src import io
+
+  golden = np.load(mjtpu_torch.ASSETS / "randomize_fields_golden.npz")
+  for name in io.bundle_names(mjtpu_torch.ASSETS / "randomize_fields.npz"):
+    B = golden[f"{name}.qpos"].shape[1]
+    envs = np.unique(np.linspace(0, B - 1, RANDOM_CHECK_ENVS).astype(int))
+    errs = field_scene_errors(name, golden, "cuda", envs=[int(e) for e in envs])
+    key, bound, self_bound = field_bounds(name)
+    still = errs["mjtpu_moved"] == 0.0
+    worst, alone = float(errs[key].max()), float(np.nanmax(errs["self"]))
+    if not (worst <= bound and alone <= self_bound and np.all(errs["moved"][still] == 0.0)):
+      raise AssertionError(f"randomize_fields {name}: {errs}")
+    log(f"[slice18 parity] randomize_fields {name}: B={B}, batched against mjtpu {worst:.3e} of"
+        f" scale (bound {bound:g}), {len(envs)} envs each under its own Model {alone:.3e}"
+        f" (bound {self_bound:g}), {int(still[1:].sum())} of {B - 1} perturbed envs where mjtpu's"
+        f" stay with the base env stay there")
+
+
 def phase_slice15_parity():
   """Phase 32 (side): every randomize scene's batched run against mjtpu's
   (RANDOM_BOUND; humanoid_bench's to RANDOM_BENCH_BOUND through step
@@ -3499,52 +3653,29 @@ def phase_slice15_parity():
         f" {INVERSE_BOUND:g}), qacc restored, qfrc_inverse against MuJoCo C {errs['c']:.3e}")
 
 
-def _random_bench_path(card):
-  """Phase 33's randomized humanoid_bench: f32 B=4096, per-env friction,
-  masses, damping, gains and timestep (bench_randomization, seed 1) with
-  their derived constants from the committed asset, through
-  parallel.randomized_step; RANDOM_WARMUP warm-up and RANDOM_TIMED timed
-  steps (CUDA events), B1 register at n=27 once per Newton iteration;
-  then RANDOM_CHECK_ENVS envs each stepped once under its own unbatched
-  Model against the batched step from the same state."""
+def _randomized_path(card, m, rows, warmup, timed, launches):
+  """A randomized main path at f32 B=4096 through parallel.randomized_step
+  (``rows``: numpy (B, *shape) each), beside the plain path of the base
+  Model ``m`` in the same call: ``warmup`` warm-up and ``timed`` timed
+  steps of each (_timed_main_path), the randomized run's launches
+  against ``launches(newton_loops)`` and its peak memory; then
+  RANDOM_CHECK_ENVS envs each stepped once under its own unbatched Model
+  against the batched step from the same state.  Returns (the line's
+  text, the randomized run's counts, its figures)."""
   import numpy as np
   import torch
 
   import mjtpu_torch
   from mjtpu_torch import parallel
-  from mjtpu_torch._src import solver
-  from mjtpu_torch.ops import cholesky
 
-  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
-  m = mjtpu_torch.model_from_arrays(ns, dtype=torch.float32, device="cuda")
-  rows = bench_randomization(ns, BENCH_BATCH)
-  consts = _rows(np.load(mjtpu_torch.ASSETS / "randomize_scenes_golden.npz"), "bench.rows.", m)
-  if not np.array_equal(consts.pop("body_mass"), rows["body_mass"]):
-    raise AssertionError("randomize_scenes_golden.npz's bench rows are not bench_randomization's")
-  rows.update(consts)
   step, mb = parallel.randomized_step(m, rows)
-  d = _f32_start(m)
-  for _ in range(RANDOM_WARMUP):
-    d = step(d)
   torch.cuda.synchronize()
-  _zero_counts()
-  loops = dict(solver.loop_counts)
-  t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-  finite, nreset = True, 0
-  t0.record()
-  for _ in range(RANDOM_TIMED):
-    d = step(d)
-  t1.record()
-  torch.cuda.synchronize()
-  secs = t0.elapsed_time(t1) / 1e3
-  loops = {k: solver.loop_counts[k] - loops[k] for k in loops}
-  by_variant = dict(cholesky.variant_launches)
-  counts = _read_counts()
-  finite, nreset = bool(torch.isfinite(d.qpos).all()), int(d.nreset.sum())
-  if not finite or nreset:
-    raise AssertionError(f"randomized humanoid_bench: finite {finite}, nreset {nreset}")
-  if counts != _only(chol_solve=loops["iterations"]):
-    raise AssertionError(f"randomized humanoid_bench: launches {counts}, Newton {loops}")
+  torch.cuda.reset_peak_memory_stats()
+  d, secs, counts, loops = _timed_main_path(mb, _f32_start(m), warmup, timed, advance=step)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  if counts != launches(loops):
+    raise AssertionError(f"randomized path: launches {counts}, Newton {loops}")
+  _, plain_secs, plain_counts, plain_loops = _timed_main_path(m, _f32_start(m), warmup, timed)
   envs = np.linspace(0, BENCH_BATCH - 1, RANDOM_CHECK_ENVS).astype(int)
   batched = step(d)
   worst = 0.0
@@ -3554,19 +3685,68 @@ def _random_bench_path(card):
       worst = max(worst, _scaled_err(getattr(alone, f)[0].cpu().numpy(),
                                      getattr(batched, f)[int(e)].cpu().numpy()))
   if worst > RANDOM_CHECK_BOUND:
-    raise AssertionError(f"randomized humanoid_bench: env alone against the batch {worst:.3e}")
-  spread = float(mb.opt.timestep.max() / mb.opt.timestep.min())
-  rate = BENCH_BATCH * RANDOM_TIMED / secs
-  line = (f"f32 B={BENCH_BATCH}: {RANDOM_WARMUP} warm-up and {RANDOM_TIMED} timed steps in"
-          f" {secs:.3f} s (CUDA events) = {rate:.0f} env-steps/s ({1e3 * secs / RANDOM_TIMED:.3f}"
-          f" ms/step); qpos finite, nreset 0 over the run; per step: B1 register"
-          f" {counts['chol_solve'] / RANDOM_TIMED:.2f} launches (by variant in all"
-          f" {by_variant}; n={m.nv}; Newton"
-          f" {loops['iterations'] / RANDOM_TIMED:.2f} iterations and"
-          f" {loops['ls_rounds'] / RANDOM_TIMED:.2f} linesearch rounds); {len(envs)} envs each"
-          f" stepped under its own Model within {worst:.3e} of scale of the batch (bound"
-          f" {RANDOM_CHECK_BOUND:g}); timesteps span x{spread:.3f}; card {card}")
-  return line, counts
+    raise AssertionError(f"randomized path: env alone against the batch {worst:.3e}")
+  rate, plain_rate = BENCH_BATCH * timed / secs, BENCH_BATCH * timed / plain_secs
+  per = lambda c, k: c[k] / timed
+  figures = {"env_steps_per_s": rate, "plain_env_steps_per_s": plain_rate,
+             "peak_gib": peak, "nreset": 0, "alone_err": worst}
+  line = (f"f32 B={BENCH_BATCH}: {warmup} warm-up and {timed} timed steps in {secs:.3f} s ="
+          f" {rate:.0f} env-steps/s ({1e3 * secs / timed:.3f} ms/step), the base Model's plain"
+          f" path in the same call {plain_rate:.0f} env-steps/s ({1e3 * plain_secs / timed:.3f}"
+          f" ms/step); qpos finite, nreset 0 over both runs; per step: B1 register"
+          f" {per(counts, 'chol_solve'):.2f} launches (Newton {per(loops, 'iterations'):.2f}"
+          f" iterations, {per(loops, 'ls_rounds'):.2f} linesearch rounds; plain"
+          f" {per(plain_counts, 'chol_solve'):.2f} and {per(plain_loops, 'iterations'):.2f}),"
+          f" B4 static {per(counts, 'hfield_manifold'):.2f} launches (plain"
+          f" {per(plain_counts, 'hfield_manifold'):.2f}); n={m.nv}; peak memory {peak:.2f} GiB;"
+          f" {len(envs)} envs each stepped under its own Model within {worst:.3e} of scale of"
+          f" the batch (bound {RANDOM_CHECK_BOUND:g}); card {card}")
+  return line, counts, figures
+
+
+def _random_bench_path(card):
+  """Phase 33's randomized humanoid_bench: bench_randomization's five
+  fields and its locomotion fields (numpy seed 1) with their derived
+  constants from the committed asset, RANDOM_WARMUP warm-up and
+  RANDOM_TIMED timed steps, B1 register at n=27 once per Newton
+  iteration (_randomized_path)."""
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz")
+  m = mjtpu_torch.model_from_arrays(ns, dtype=torch.float32, device="cuda")
+  rows = bench_randomization(ns, BENCH_BATCH, locomotion=True)
+  consts = _rows(np.load(mjtpu_torch.ASSETS / "randomize_fields_golden.npz"), "bench.rows.", m)
+  for k in ("body_mass", "body_pos"):
+    if not np.array_equal(consts.pop(k), rows[k]):
+      raise AssertionError(f"randomize_fields_golden.npz's bench rows of {k} are not"
+                           " bench_randomization's")
+  rows.update(consts)
+  line, counts, figures = _randomized_path(
+      card, m, rows, RANDOM_WARMUP, RANDOM_TIMED,
+      lambda loops: _only(chol_solve=loops["iterations"]))
+  spread = float(rows["opt.timestep"].max() / rows["opt.timestep"].min())
+  return f"{line}; timesteps span x{spread:.3f}", counts, figures
+
+
+def _random_terrain_path(card):
+  """Phase 33's per-env terrain: humanoid_terrain with each env's own
+  height field and friction (terrain_randomization, numpy seed 1: 1,024
+  cells an env), TERRAIN_WARMUP warm-up and TERRAIN_TIMED timed steps,
+  B4 static twice a step and B1 register at n=23 once per Newton
+  iteration (_randomized_path)."""
+  import torch
+
+  import mjtpu_torch
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
+  m = mjtpu_torch.model_from_arrays(ns, dtype=torch.float32, device="cuda")
+  rows = terrain_randomization(ns, BENCH_BATCH)
+  return _randomized_path(
+      card, m, rows, TERRAIN_WARMUP, TERRAIN_TIMED,
+      lambda loops: _only(chol_solve=loops["iterations"], hfield_manifold=2 * TERRAIN_TIMED))
 
 
 def _branchy_inverse_path(card):
@@ -3618,13 +3798,19 @@ def _branchy_inverse_path(card):
 
 
 def phase_slice15_throughput(card):
-  """Phase 33: the randomized humanoid_bench and the branchy66 inverse."""
-  line, bench = _random_bench_path(card)
-  log(f"[slice15 throughput] randomized humanoid_bench (per-env friction, masses, damping,"
-      f" gains and timestep, parallel.randomized_step) {line}")
+  """Phase 33: the randomized humanoid_bench, the per-env terrain and the
+  branchy66 inverse: (their launch counts, the randomized paths'
+  figures)."""
+  line, bench, bench_fig = _random_bench_path(card)
+  log(f"[slice18 throughput] randomized humanoid_bench (per-env friction, masses, damping,"
+      f" gains, timestep, {', '.join(BENCH_LOCOMOTION_FIELDS)}, parallel.randomized_step)"
+      f" {line}")
+  line, terrain, terrain_fig = _random_terrain_path(card)
+  log(f"[slice18 throughput] per-env terrain humanoid_terrain (per-env hfield_data and"
+      f" geom_friction, parallel.randomized_step) {line}")
   line, inv = _branchy_inverse_path(card)
   log(f"[slice15 throughput] branchy66 inverse {line}")
-  return bench, inv
+  return bench, terrain, inv, {"humanoid_bench": bench_fig, "humanoid_terrain": terrain_fig}
 
 
 # the differentiable scenes (diff_scenes.npz; tests/test_diff.py's cases),
@@ -4414,7 +4600,7 @@ def phase_slice17_throughput(card):
 
 # the parity phases that run in a process of their own beside phase 22
 SIDE_PHASES = ("5", "7", "9-twin", "10", "13", "15", "17", "18", "20", "22-cones",
-               "22-cones-2", "24", "26", "28", "30", "30-sensors", "32", "34", "36")
+               "22-cones-2", "24", "26", "28", "30", "30-sensors", "32", "32-fields", "34", "36")
 SIDE_TIMEOUT_S = 600
 
 
@@ -4457,6 +4643,7 @@ def _side_main(phase: str) -> int:
    "24": phase_fluid_parity, "26": phase_tendon_parity, "28": phase_equality_parity,
    "30": lambda: phase_slice14_parity("implicit"),
    "30-sensors": lambda: phase_slice14_parity("sensor"), "32": phase_slice15_parity,
+   "32-fields": phase_slice18_parity,
    "34": phase_slice16_parity, "36": phase_slice17_parity, "9-twin": phase_sat_parity}[phase]()
   # its own wall time, beside the other side phases: which one holds the
   # group's rest after phase 22
@@ -4538,7 +4725,8 @@ def main() -> int:
   lap("29")
   paths["humanoid_implicit"] = phase_implicit_throughput(card)
   lap("31")
-  paths["random_bench"], paths["branchy66_inverse"] = phase_slice15_throughput(card)
+  (paths["random_bench"], paths["random_terrain"], paths["branchy66_inverse"],
+   random_figures) = phase_slice15_throughput(card)
   lap("33")
   paths["diff_humanoid_bench"], diff_figures = phase_slice16_throughput(card)
   lap("35")
@@ -4595,6 +4783,10 @@ def main() -> int:
       # without pixels, the renderer's time, launches, busy share and
       # memory; B1 launches per env step
       record[-1]["pixel_env"] = pixel_figures
+    if name in ("chol_solve", "hfield_manifold"):
+      # the randomized main paths (phase 33): env steps/s beside the plain
+      # path's in the same call, peak memory, each env alone's error
+      record[-1]["randomized_paths"] = random_figures
     if name == "sat_winners":
       # the round hulls (the cylinder drop's cylinder-box and three more
       # pairs), shared, n = ROUND_N, f32

@@ -326,22 +326,29 @@ def contact_efc_address(m: Model, ne: int, nf: int, nl: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+# the fields the mixed contact parameters read
+_CONTACT_FIELDS = ("geom_margin", "geom_gap", "geom_solmix", "geom_friction", "geom_solref",
+                   "geom_solimp", "pair_margin", "pair_gap", "pair_friction", "pair_solref",
+                   "pair_solreffriction", "pair_solimp")
+
+
 def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   """Stacked (margin, gap, friction, solref, solreffriction, solimp) for a
-  group's pairs, each (E, P, ...) with the env axis E of types.rows (B
-  where randomize gave the geoms' parameter a row per env, else 1).  <pair> rows use
-  the table; dynamic rows mix per-geom parameters by solmix weight with
-  priority override."""
+  group's pairs, each (E, P, ...) with the env axis E of types.rows: B
+  where randomize gave any of _CONTACT_FIELDS a row per env, else 1, the
+  same in every group.  <pair> rows use the table; dynamic rows mix
+  per-geom parameters by solmix weight with priority override."""
   i1 = np.array([p[0] for p in pairs])
   i2 = np.array([p[1] for p in pairs])
   ip = np.array([p[2] for p in pairs])
 
   p1, p2 = m.geom_priority[i1], m.geom_priority[i2]
-  gmargin = env_rows(m, "geom_margin")
+  gmargin, ggap = env_rows(m, "geom_margin"), env_rows(m, "geom_gap")
   margin = gmargin[:, i1] + gmargin[:, i2]
-  gap = (m.geom_gap[i1] + m.geom_gap[i2])[None]
+  gap = ggap[:, i1] + ggap[:, i2]
 
-  solmix1, solmix2 = m.geom_solmix[i1], m.geom_solmix[i2]
+  gsolmix = env_rows(m, "geom_solmix")
+  solmix1, solmix2 = gsolmix[:, i1], gsolmix[:, i2]
   small1, small2 = solmix1 < math.MINVAL, solmix2 < math.MINVAL
   mix = solmix1 / (solmix1 + solmix2)
   mix = torch.where(small1 & small2, 0.5, mix)
@@ -350,7 +357,7 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   dev = margin.device
   eq_prio = torch.as_tensor(p1 == p2, device=dev)
   mix = torch.where(eq_prio, mix, torch.as_tensor(p1 > p2, device=dev).to(mix.dtype))
-  mix_ = mix[:, None]
+  mix_ = mix[..., None]
 
   gf, gsr, gsi = (env_rows(m, f"geom_{k}") for k in ("friction", "solref", "solimp"))
   f1, f2 = gf[:, i1], gf[:, i2]
@@ -364,16 +371,15 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   friction = friction3[..., [0, 0, 1, 2, 2]]
   solreffriction = torch.zeros_like(solref)
 
+  E = max(env_rows(m, name).shape[0] for name in _CONTACT_FIELDS)
+  out = [x.expand((E,) + x.shape[1:]).clone()
+         for x in (margin, gap, friction, solref, solreffriction, solimp)]
   sel = np.where(ip >= 0)[0]
   if len(sel):
     tp = ip[sel]
-    margin[:, sel] = m.pair_margin[tp]
-    gap[:, sel] = m.pair_gap[tp]
-    friction[:, sel] = m.pair_friction[tp]
-    solref[:, sel] = m.pair_solref[tp]
-    solreffriction[:, sel] = m.pair_solreffriction[tp]
-    solimp[:, sel] = m.pair_solimp[tp]
-  return margin, gap, friction, solref, solreffriction, solimp
+    for x, k in zip(out, ("margin", "gap", "friction", "solref", "solreffriction", "solimp")):
+      x[:, sel] = env_rows(m, f"pair_{k}")[:, tp]
+  return tuple(out)
 
 
 def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Callable:
@@ -462,13 +468,13 @@ def _broadphase(m: Model, d: Data, g: _Group) -> torch.Tensor:
   (jax.lax.top_k's order: a stable sort).  The bound is the distance of
   the two bounding spheres (for a plane, the sphere's signed height above
   it) less the detection buffer margin + gap."""
-  rb = m.geom_rbound
+  rb = env_rows(m, "geom_rbound")
   detect = g.params[0] + g.params[1]
   x1, x2 = d.geom_xpos[:, g.i1], d.geom_xpos[:, g.i2]
   if g.plane:
-    bound = math.dot3(d.geom_xmat[:, g.i1][..., :, 2], x2 - x1) - rb[g.i2] - detect
+    bound = math.dot3(d.geom_xmat[:, g.i1][..., :, 2], x2 - x1) - rb[:, g.i2] - detect
   else:
-    bound = math.norm3(x2 - x1) - rb[g.i1] - rb[g.i2] - detect
+    bound = math.norm3(x2 - x1) - rb[:, g.i1] - rb[:, g.i2] - detect
   return torch.sort(bound, dim=1, stable=True).indices[:, :g.npair]
 
 

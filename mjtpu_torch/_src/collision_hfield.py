@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from mjtpu_torch._src import math
-from mjtpu_torch._src.types import Model, cached
+from mjtpu_torch._src.types import Model, cached, rows as env_rows
 from mjtpu_torch.ops import hfield as hfield_op
 
 # cap on the static subgrid half-extent (cells); bigger objects clamp here
@@ -56,6 +56,15 @@ def _grid_consts(m: Model, hid: int):
   return nrow, ncol, sx, sy, ztop, int(m.hfield_adr[hid]), dx, dy
 
 
+def _heights(m: Model, flat: torch.Tensor) -> torch.Tensor:
+  """hfield_data at the (B, ...) flat indices ``flat``: each env's own
+  heights where the model holds one row of them per env."""
+  data = env_rows(m, "hfield_data")
+  if data.shape[0] == 1:
+    return data[0][flat]
+  return torch.gather(data, 1, flat.reshape(flat.shape[0], -1)).reshape(flat.shape)
+
+
 def _height_window(m: Model, hid: int, lc: torch.Tensor, hy: int, hx: int):
   """Gathers the (..., R, C) height window under the local object centres
   ``lc`` (..., 3) and its origin (x0, y0); R = 2hy+2 rows, C = 2hx+2 cols."""
@@ -68,7 +77,7 @@ def _height_window(m: Model, hid: int, lc: torch.Tensor, hy: int, hx: int):
   rows = torch.clamp(ri[..., None] - hy + ar_r, 0, nrow - 1)
   cols = torch.clamp(ci[..., None] - hx + ar_c, 0, ncol - 1)
   flat = adr + rows[..., :, None] * ncol + cols[..., None, :]
-  z = m.hfield_data[flat] * ztop
+  z = _heights(m, flat) * ztop
   x0 = -sx + cols[..., 0].to(lc.dtype) * dx
   y0 = -sy + rows[..., 0].to(lc.dtype) * dy
   return z, x0, y0
@@ -124,7 +133,7 @@ def hfield_convex(pos1, mat1, size1, pos2, mat2, size2, m: Model, hid: int, hull
   ri = torch.clamp(torch.floor(fy).to(torch.int32), 0, nrow - 2)
   u = torch.clamp(fx - ci, 0.0, 1.0)
   w = torch.clamp(fy - ri, 0.0, 1.0)
-  height = lambda r, c: m.hfield_data[(adr + r * ncol + c).long()] * ztop
+  height = lambda r, c: _heights(m, (adr + r * ncol + c).long()) * ztop
   z00, z01 = height(ri, ci), height(ri, ci + 1)
   z10, z11 = height(ri + 1, ci), height(ri + 1, ci + 1)
   x0 = -sx + ci.to(v.dtype) * dx

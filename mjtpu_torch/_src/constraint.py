@@ -165,12 +165,12 @@ def _point_acc_bias(m: Model, d: Data, cvel, cacc_bias, p, b):
 
 
 def _poly(data, dif):
-  """The coupling polynomial's value and slope at dif (B, K): data (K, 5)
-  its coefficients, constant term first."""
+  """The coupling polynomial's value and slope at dif (B, K): data (E, K,
+  5) its coefficients, constant term first."""
   powers = torch.arange(5, dtype=dif.dtype, device=dif.device)
   pows = dif[..., None] ** powers
   value = torch.sum(data * pows, dim=-1)
-  deriv = torch.sum(data[:, 1:] * powers[1:] * pows[..., :4], dim=-1)
+  deriv = torch.sum(data[..., 1:] * powers[1:] * pows[..., :4], dim=-1)
   return value, deriv
 
 
@@ -192,9 +192,10 @@ def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
       for k, e in enumerate(ids):
         starts[int(e)] = (base + per * k, per)
       base += per * len(ids)
-      rep = lambda x: torch.repeat_interleave(x, per, dim=0)
-      c = dict(ids=t(ids), data=m.eq_data[ids], solref=rep(m.eq_solref[ids]),
-               solimp=rep(m.eq_solimp[ids]))
+      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
+      c = dict(ids=t(ids), data=env_rows(m, "eq_data")[:, ids],
+               solref=rep(env_rows(m, "eq_solref")[:, ids]),
+               solimp=rep(env_rows(m, "eq_solimp")[:, ids]))
       o1, o2 = obj1[ids], obj2[ids]
       # invweight and the tendon references have the env axis of env_rows
       if et in (EqType.CONNECT, EqType.WELD):
@@ -211,8 +212,9 @@ def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
         c["has2"] = torch.as_tensor(has2, dtype=m.dtype, device=m.device)
         if et == EqType.JOINT:
           qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
-          c.update(q1=t(qadr[o1]), q2=t(qadr[o2]), ref1=m.qpos0[qadr[o1]],
-                   ref2=m.qpos0[qadr[o2]])
+          qpos0 = env_rows(m, "qpos0")
+          c.update(q1=t(qadr[o1]), q2=t(qadr[o2]), ref1=qpos0[:, qadr[o1]],
+                   ref2=qpos0[:, qadr[o2]])
           onehot = lambda adr: torch.as_tensor(np.eye(m.nv)[adr], dtype=m.dtype,
                                                device=m.device)
           c["dof1"] = onehot(dadr[o1])
@@ -242,7 +244,7 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
   groups, perm = _eq_tables(m)
   if any(et in (EqType.CONNECT, EqType.WELD) for et, _ in groups):
     cvel, cacc_bias = _vel_products(m, d)
-  rows = lambda x: x.expand((B,) + x.shape)
+  rows = lambda x: env_expand(x, B)
   parts, biases = [], []
   for et, c in groups:
     active = d.eq_active[:, c["ids"]].to(dtype)                       # (B, K)
@@ -251,8 +253,8 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
       b1, b2, data = c["b1"], c["b2"], c["data"]
       # a connect's data: anchor in body1, anchor in body2; a weld's:
       # anchor in body2, anchor in body1, relpose quaternion, torquescale
-      a1, a2 = (data[:, 0:3], data[:, 3:6]) if et == EqType.CONNECT else (
-          data[:, 3:6], data[:, 0:3])
+      a1, a2 = (data[..., 0:3], data[..., 3:6]) if et == EqType.CONNECT else (
+          data[..., 3:6], data[..., 0:3])
       pos1 = math.mat_vec(d.xmat[:, b1], a1) + d.xpos[:, b1]
       pos2 = math.mat_vec(d.xmat[:, b2], a2) + d.xpos[:, b2]
       cpos = pos1 - pos2
@@ -264,7 +266,7 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
       if et == EqType.CONNECT:
         pos_imp = math.norm3(cpos)[..., None].expand(B, K, 3)
       else:
-        relpose, ts = data[:, 6:10], data[:, 10:11]
+        relpose, ts = data[..., 6:10], data[..., 10:11]
         # rotational residual r = ts vec(q2^-1 (q1 relpose)); its rate is
         # ts/2 A (w1 - w2), A = _quat_vec_map(u, v)
         u = math.quat_inv(d.xquat[:, b2])
@@ -296,7 +298,7 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
       else:
         pos1 = d.ten_length[:, c["t1"]] - c["ref1"]
         dif = (d.ten_length[:, c["t2"]] - c["ref2"]) * has2
-      value, deriv = _poly(c["data"][:, :5], dif)
+      value, deriv = _poly(c["data"][..., :5], dif)
       cpos_raw = pos1 - value
       if et == EqType.JOINT:
         J = c["dof1"] - deriv[..., None] * c["dof2"]
@@ -309,7 +311,7 @@ def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
     zero = torch.zeros_like(cpos)
     parts.append(_Rows(
         J=J, pos=cpos, pos_imp=pos_imp, pos_out=cpos, margin=zero,
-        invweight=env_expand(c["invweight"], B), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
+        invweight=rows(c["invweight"]), solref=rows(c["solref"]), solimp=rows(c["solimp"]),
         frictionloss=zero, r_scale=torch.ones_like(zero),
     ))
     biases.append(bias)
@@ -334,25 +336,27 @@ def _friction_rows(m: Model, d: Data) -> list[_Rows]:
       onehot = np.zeros((len(dofs), m.nv))
       onehot[np.arange(len(dofs)), dofs] = 1.0
       out["dof"] = (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
-                    env_rows(m, "dof_invweight0")[:, dofs], m.dof_solref[dofs],
-                    m.dof_solimp[dofs], env_rows(m, "dof_frictionloss")[:, dofs])
+                    env_rows(m, "dof_invweight0")[:, dofs], env_rows(m, "dof_solref")[:, dofs],
+                    env_rows(m, "dof_solimp")[:, dofs], env_rows(m, "dof_frictionloss")[:, dofs])
     if len(tens):
       out["tendon"] = (torch.as_tensor(tens, device=m.device),
-                       env_rows(m, "tendon_invweight0")[:, tens], m.tendon_solref_fri[tens],
-                       m.tendon_solimp_fri[tens], m.tendon_frictionloss[tens][None])
+                       env_rows(m, "tendon_invweight0")[:, tens],
+                       env_rows(m, "tendon_solref_fri")[:, tens],
+                       env_rows(m, "tendon_solimp_fri")[:, tens],
+                       env_rows(m, "tendon_frictionloss")[:, tens])
     return out
 
-  # invweight and frictionloss have the env axis of env_rows
+  # every table but the Jacobian has the env axis of env_rows
   tables = cached(m, "constraint.friction_rows", build)
-  rows = lambda x: x.expand((B,) + x.shape)
+  rows = lambda x: env_expand(x, B)
   out = []
   for kind, (jac, invweight, solref, solimp, frictionloss) in tables.items():
-    jac = rows(jac) if kind == "dof" else d.ten_J[:, jac]
+    jac = jac.expand((B,) + jac.shape) if kind == "dof" else d.ten_J[:, jac]
     zero = d.qpos.new_zeros((B, invweight.shape[1]))
     out.append(_Rows(
         J=jac, pos=zero, pos_imp=zero, pos_out=zero, margin=zero,
-        invweight=env_expand(invweight, B), solref=rows(solref), solimp=rows(solimp),
-        frictionloss=env_expand(frictionloss, B), r_scale=torch.ones_like(zero),
+        invweight=rows(invweight), solref=rows(solref), solimp=rows(solimp),
+        frictionloss=rows(frictionloss), r_scale=torch.ones_like(zero),
     ))
   return out
 
@@ -374,13 +378,15 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
   per = support.tendon_limit_rows_per(m)
 
   def build():
-    rep = lambda x: torch.repeat_interleave(x, per, dim=0)
+    # every table but ids and side has the env axis of env_rows
+    rep = lambda x: torch.repeat_interleave(x, per, dim=1)
+    rng, margin = env_rows(m, "tendon_range")[:, tens], env_rows(m, "tendon_margin")[:, tens]
     return dict(
-        ids=torch.as_tensor(tens, device=m.device), lo=m.tendon_range[tens, 0],
-        hi=m.tendon_range[tens, 1], margin=m.tendon_margin[tens],
-        margin_rows=rep(m.tendon_margin[tens]),
-        invweight=torch.repeat_interleave(env_rows(m, "tendon_invweight0")[:, tens], per, dim=1),
-        solref=rep(m.tendon_solref_lim[tens]), solimp=rep(m.tendon_solimp_lim[tens]),
+        ids=torch.as_tensor(tens, device=m.device), lo=rng[..., 0], hi=rng[..., 1],
+        margin=margin, margin_rows=rep(margin),
+        invweight=rep(env_rows(m, "tendon_invweight0")[:, tens]),
+        solref=rep(env_rows(m, "tendon_solref_lim")[:, tens]),
+        solimp=rep(env_rows(m, "tendon_solimp_lim")[:, tens]),
         side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(tens)),
     )
 
@@ -397,10 +403,10 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
     pos = torch.minimum(dist_min, dist_max) - c["margin"]
     side = torch.where(dist_min < dist_max, 1.0, -1.0).to(dtype)
   active = (pos < 0).to(dtype)
-  rows = lambda x: x.expand((B,) + x.shape)
+  rows = lambda x: env_expand(x, B)
   return [_Rows(
       J=(side * active)[..., None] * jac, pos=pos, pos_imp=pos, pos_out=pos,
-      margin=rows(c["margin_rows"]), invweight=env_expand(c["invweight"], B),
+      margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
       solref=rows(c["solref"]), solimp=rows(c["solimp"]),
       frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
   )]
@@ -432,22 +438,23 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       base += per * len(cat)
     perm = np.concatenate([np.arange(s, s + c) for s, c in (starts[j] for j in limited)])
     qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
-    # the range and invweight have the env axis of env_rows
+    # every table of a field has the env axis of env_rows
     jnt_range, dof_iw = env_rows(m, "jnt_range"), env_rows(m, "dof_invweight0")
+    margin = env_rows(m, "jnt_margin")
+    solref, solimp = env_rows(m, "jnt_solref"), env_rows(m, "jnt_solimp")
     cats = []
     for cat, per in ((sh1, 1), (sh2, 2)):
       if not len(cat):
         continue
-      rep = lambda x: torch.repeat_interleave(x, per, dim=0)
+      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
       cats.append(dict(
           per=per, n=len(cat), qadr=torch.as_tensor(qadr[cat], device=m.device),
-          lo=jnt_range[:, cat, 0], hi=jnt_range[:, cat, 1], margin=m.jnt_margin[cat],
+          lo=jnt_range[:, cat, 0], hi=jnt_range[:, cat, 1], margin=margin[:, cat],
           onehot=torch.as_tensor(np.eye(m.nv)[np.repeat(dadr[cat], per)], dtype=m.dtype,
                                  device=m.device),
           side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(cat)),
-          margin_rows=rep(m.jnt_margin[cat]),
-          invweight=torch.repeat_interleave(dof_iw[:, dadr[cat]], per, dim=1),
-          solref=rep(m.jnt_solref[cat]), solimp=rep(m.jnt_solimp[cat]),
+          margin_rows=rep(margin[:, cat]), invweight=rep(dof_iw[:, dadr[cat]]),
+          solref=rep(solref[:, cat]), solimp=rep(solimp[:, cat]),
       ))
     if len(balls):
       # J[i, dadr_i + k] = -axis_i[k] * active_i: a (n, 3, nv) placement
@@ -458,15 +465,15 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
           per=None, quat=torch.as_tensor(qadr[balls][:, None] + np.arange(4), device=m.device),
           place=torch.as_tensor(place, dtype=m.dtype, device=m.device),
           limit=torch.maximum(torch.abs(rng[..., 0]), torch.abs(rng[..., 1])),
-          margin=m.jnt_margin[balls], invweight=dof_iw[:, dadr[balls]],
-          solref=m.jnt_solref[balls], solimp=m.jnt_solimp[balls],
+          margin=margin[:, balls], invweight=dof_iw[:, dadr[balls]],
+          solref=solref[:, balls], solimp=solimp[:, balls],
           x_axis=torch.tensor([1.0, 0.0, 0.0], dtype=m.dtype, device=m.device)))
     identity = np.array_equal(perm, np.arange(len(perm)))
     return cats, None if identity else torch.as_tensor(perm, device=m.device)
 
   cats, perm = cached(m, "constraint.limit_rows", build)
   parts = []
-  rows = lambda x: x.expand((B,) + x.shape)
+  rows = lambda x: env_expand(x, B)
   for c in cats:
     if c["per"] is None:
       # a ball joint: its rotation angle against the larger |range|
@@ -479,7 +486,7 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       J = torch.einsum("bnk,nkv->bnv", -axis * active[..., None], c["place"])
       parts.append(_Rows(
           J=J, pos=pos, pos_imp=pos, pos_out=pos, margin=rows(c["margin"]),
-          invweight=env_expand(c["invweight"], B), solref=rows(c["solref"]),
+          invweight=rows(c["invweight"]), solref=rows(c["solref"]),
           solimp=rows(c["solimp"]),
           frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
       ))
@@ -500,7 +507,7 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
     parts.append(_Rows(
         J=c["onehot"] * (side * active)[..., None],
         pos=pos, pos_imp=pos, pos_out=pos,
-        margin=rows(c["margin_rows"]), invweight=env_expand(c["invweight"], B),
+        margin=rows(c["margin_rows"]), invweight=rows(c["invweight"]),
         solref=rows(c["solref"]), solimp=rows(c["solimp"]),
         frictionloss=torch.zeros_like(pos), r_scale=torch.ones_like(pos),
     ))
@@ -587,7 +594,8 @@ def _contact_rows(m: Model, d: Data) -> list[_Rows]:
         mu_ratio2 = (mu[..., :condim - 1] / torch.clamp_min(mu[..., :1], math.MINVAL)) ** 2
         r_scale = torch.cat([
             torch.ones_like(pos)[..., None],
-            1.0 / torch.clamp_min(m.opt.impratio * mu_ratio2, math.MINVAL)], dim=-1)
+            1.0 / torch.clamp_min(env_rows(m, "opt.impratio")[:, None, None] * mu_ratio2,
+                                  math.MINVAL)], dim=-1)
         # friction rows take solreffriction where it is not zero
         srf = con.solreffriction[:, sl]
         use_srf = torch.any(srf != 0.0, dim=-1, keepdim=True)

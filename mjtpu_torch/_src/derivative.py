@@ -59,7 +59,8 @@ def deriv_smooth_vel(m: Model, d: Data, rne: bool = False) -> torch.Tensor:
     if m.has_dof_damping:
       qderiv = qderiv - torch.diag_embed(env_rows(m, "dof_damping"))
     if m.has_tendon_damping:
-      qderiv = qderiv - d.ten_J.transpose(-1, -2) @ (m.tendon_damping[:, None] * d.ten_J)
+      damping = env_rows(m, "tendon_damping")[..., None]
+      qderiv = qderiv - d.ten_J.transpose(-1, -2) @ (damping * d.ten_J)
 
   # the fluid forces' velocity derivative (mjtpu: jacfwd of com_vel +
   # passive._fluid), both fluid models

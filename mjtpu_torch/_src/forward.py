@@ -52,7 +52,7 @@ def _check_state(m: Model, d: Data) -> Data:
   r = reset[:, None]
   return replace(
       d,
-      qpos=torch.where(r, m.qpos0, d.qpos),
+      qpos=torch.where(r, env_rows(m, "qpos0"), d.qpos),
       qvel=torch.where(r, 0.0, d.qvel),
       qacc=torch.where(r, 0.0, d.qacc),
       qacc_warmstart=torch.where(r, 0.0, d.qacc_warmstart),
@@ -105,20 +105,19 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   c = cached(m, "forward.actuation", lambda: _actuation_tables(m))
   ctrl = d.ctrl
   if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
-    clamped = torch.minimum(
-        torch.maximum(ctrl, m.actuator_ctrlrange[:, 0]), m.actuator_ctrlrange[:, 1]
-    )
+    ctrlrange = env_rows(m, "actuator_ctrlrange")
+    clamped = torch.minimum(torch.maximum(ctrl, ctrlrange[..., 0]), ctrlrange[..., 1])
     ctrl = torch.where(c["ctrllimited"], clamped, ctrl)
 
   act_dot = torch.zeros_like(d.act)
+  dynprm = env_rows(m, "actuator_dynprm")
   for dyn, ids, slots in c["dyn"]:
     if dyn == DynType.INTEGRATOR:
       val = ctrl[:, ids]
     elif dyn in (DynType.FILTER, DynType.FILTEREXACT):
-      val = (ctrl[:, ids] - d.act[:, slots]) / torch.clamp_min(m.actuator_dynprm[ids, 0],
-                                                                math.MINVAL)
+      val = (ctrl[:, ids] - d.act[:, slots]) / torch.clamp_min(dynprm[:, ids, 0], math.MINVAL)
     else:  # MUSCLE
-      val = support.muscle_dynamics(ctrl[:, ids], d.act[:, slots], m.actuator_dynprm[ids])
+      val = support.muscle_dynamics(ctrl[:, ids], d.act[:, slots], dynprm[:, ids])
     act_dot[:, slots] = val
 
   ainput = ctrl
@@ -132,7 +131,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
 
   gain, bias = torch.zeros_like(ctrl), torch.zeros_like(ctrl)
   gainprm, biasprm = env_rows(m, "actuator_gainprm"), env_rows(m, "actuator_biasprm")
-  acc0 = env_rows(m, "actuator_acc0")
+  acc0, lengthrange = env_rows(m, "actuator_acc0"), env_rows(m, "actuator_lengthrange")
   if c["fixed"] is not None:
     gain[:, c["fixed"]] = gainprm[:, c["fixed"], 0]
   for out, ids, prm in ((gain, c["affine_gain"], gainprm), (bias, c["affine_bias"], biasprm)):
@@ -142,25 +141,25 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   ids = c["muscle_gain"]
   if ids is not None:
     gain[:, ids] = support.muscle_gain(
-        d.actuator_length[:, ids], d.actuator_velocity[:, ids], m.actuator_lengthrange[ids],
+        d.actuator_length[:, ids], d.actuator_velocity[:, ids], lengthrange[:, ids],
         acc0[:, ids], gainprm[:, ids])
   ids = c["muscle_bias"]
   if ids is not None:
-    bias[:, ids] = support.muscle_bias(d.actuator_length[:, ids], m.actuator_lengthrange[ids],
+    bias[:, ids] = support.muscle_bias(d.actuator_length[:, ids], lengthrange[:, ids],
                                        acc0[:, ids], biasprm[:, ids])
 
   force = gain * ainput + bias
   if c["forcelimited"] is not None:
-    clamped = torch.minimum(
-        torch.maximum(force, m.actuator_forcerange[:, 0]), m.actuator_forcerange[:, 1]
-    )
+    forcerange = env_rows(m, "actuator_forcerange")
+    clamped = torch.minimum(torch.maximum(force, forcerange[..., 0]), forcerange[..., 1])
     force = torch.where(c["forcelimited"], clamped, force)
 
   qfrc_actuator = _actgravcomp(m, d, torch.einsum("buv,bu->bv", d.actuator_moment, force))
 
   # clamp per-dof actuator force (jnt_actfrcrange)
   if c["actfrclimited"] is not None:
-    lo, hi = c["actfrcrange"]
+    rng = env_rows(m, "jnt_actfrcrange")[:, c["dof_jnt"]]
+    lo, hi = rng[..., 0], rng[..., 1]
     clamped = torch.minimum(torch.maximum(qfrc_actuator, lo), hi)
     qfrc_actuator = torch.where(c["actfrclimited"], clamped, qfrc_actuator)
   return replace(d, act_dot=act_dot, actuator_force=force, qfrc_actuator=qfrc_actuator)
@@ -182,7 +181,6 @@ def _actuation_tables(m: Model) -> dict:
   mask = lambda x: torch.as_tensor(np.asarray(x, dtype=bool), device=dev) if np.any(x) else None
   ids = lambda sel: torch.as_tensor(np.nonzero(sel)[0], device=dev) if np.any(sel) else None
   dof_jnt = np.asarray(m.dof_jntid)
-  rng = m.jnt_actfrcrange[dof_jnt]
   # each dyntype's actuators and their last activation slots
   last = np.asarray(m.actuator_actadr) + np.asarray(m.actuator_actnum) - 1
   dyntype = np.asarray(m.actuator_dyntype)
@@ -200,7 +198,7 @@ def _actuation_tables(m: Model) -> dict:
       muscle_bias=ids(np.asarray(m.actuator_biastype) == BiasType.MUSCLE),
       forcelimited=mask(m.actuator_forcelimited),
       actfrclimited=mask(np.asarray(m.jnt_actfrclimited, dtype=bool)[dof_jnt]),
-      actfrcrange=(rng[:, 0], rng[:, 1]),
+      dof_jnt=long(dof_jnt),
   )
 
 
@@ -278,8 +276,9 @@ def _act_tables(m: Model) -> dict:
     owner = np.full(m.na, -1)
     for u in limited:
       owner[actadr[u] : actadr[u] + actnum[u]] = u
-    rows = m.actuator_actrange[torch.as_tensor(np.maximum(owner, 0), device=dev)]
-    out["limited"] = (torch.as_tensor(owner >= 0, device=dev), rows[:, 0], rows[:, 1])
+    # the ranges have the env axis of env_rows: (E, na)
+    rows = env_rows(m, "actuator_actrange")[:, torch.as_tensor(np.maximum(owner, 0), device=dev)]
+    out["limited"] = (torch.as_tensor(owner >= 0, device=dev), rows[..., 0], rows[..., 1])
   return out
 
 
@@ -297,7 +296,7 @@ def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
     act = act + act_dot * h[:, None]
     if c["exact"] is not None:
       ids, slots = c["exact"]
-      tau = torch.clamp_min(m.actuator_dynprm[ids, 0], math.MINVAL)
+      tau = torch.clamp_min(env_rows(m, "actuator_dynprm")[:, ids, 0], math.MINVAL)
       act[:, slots] = (d.act[:, slots]
                        + act_dot[:, slots] * tau * (1.0 - torch.exp(-h[:, None] / tau)))
     if c["limited"] is not None:

@@ -50,7 +50,9 @@ from mjtpu_torch._src.types import (
     SolverType,
     Statistic,
     TrnType,
+    env_expand,
     field,
+    rows as env_rows,
 )
 
 # every MjModel attribute model_from_arrays reads: the model snapshot
@@ -158,6 +160,9 @@ EQ_FIELDS = {
     "eq_solimp": (0.0, (NIMP,), np.float64), "eq_data": (0.0, (NEQDATA,), np.float64),
 }
 MOCAP_FIELDS = {"body_mocapid": (-1, (), np.int32)}
+# each light's direction at qpos0 (mj_setConst's, read nowhere, as in
+# mjtpu), stored where the model has a light (rows: nlight)
+LIGHT_FIELDS = {"light_dir0": (0.0, (3,), np.float64)}
 # the fields only a sensor type reads, stored where the model has such a
 # sensor: a CONTACT sensor's [dataspec, reduce, num] (rows: nsensor), a
 # CAMPROJECTION sensor's camera intrinsics (rows: ncam), and the geoms of
@@ -274,6 +279,7 @@ def _has_sensor(ns, types) -> bool:
 OPTIONAL_GROUPS = (
     (TENDON_FIELDS, has_tendon_fields), (ACT_FIELDS, has_act_fields),
     (EQ_FIELDS, has_eq_fields), (MOCAP_FIELDS, has_mocap_fields),
+    (LIGHT_FIELDS, lambda ns: int(ns.nlight) > 0),
     (CONTACT_SENSOR_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CONTACT,))),
     (CAMPROJ_FIELDS, lambda ns: _has_sensor(ns, (SensorType.CAMPROJECTION,))),
     (GEOMDIST_FIELDS, lambda ns: _has_sensor(ns, GEOMDIST_SENSORS)),
@@ -589,7 +595,9 @@ def make_data(m: Model, batch_size: int = 1) -> Data:
       qacc_warmstart=zero(nv), ctrl=zero(m.nu), qfrc_applied=zero(nv),
       xfrc_applied=zero(nbody, 6),
       eq_active=per_env(torch.as_tensor(np.asarray(m.eq_active0, dtype=bool), device=device)),
-      mocap_pos=per_env(m.body_pos[mocap_body]), mocap_quat=per_env(m.body_quat[mocap_body]),
+      # each env's own body frame where randomize gave the field rows
+      mocap_pos=env_expand(env_rows(m, "body_pos")[:, mocap_body], B).clone(),
+      mocap_quat=env_expand(env_rows(m, "body_quat")[:, mocap_body], B).clone(),
       qacc=zero(nv), act_dot=zero(m.na),
       xpos=zero(nbody, 3), xquat=xquat, xmat=eye3(nbody), xipos=zero(nbody, 3),
       ximat=eye3(nbody), xanchor=zero(njnt, 3), xaxis=zero(njnt, 3),

@@ -52,7 +52,7 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
 
     spring = scan.flat(
         m, fn, "jjqq", "v",
-        np.asarray(m.jnt_type), env_rows(m, "jnt_stiffness"), d.qpos, m.qpos_spring[None],
+        np.asarray(m.jnt_type), env_rows(m, "jnt_stiffness"), d.qpos, env_rows(m, "qpos_spring"),
     )
     if spring is not None:
       qfrc_spring = spring
@@ -61,13 +61,14 @@ def _spring_damper(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
 
   # tendon springs (a deadband between the two spring lengths) and dampers
   if m.has_tendon_spring:
-    lower, upper = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    lengthspring = env_rows(m, "tendon_lengthspring")
+    lower, upper = lengthspring[..., 0], lengthspring[..., 1]
     length = d.ten_length
     displacement = torch.where(length > upper, upper - length,
                                torch.where(length < lower, lower - length, 0.0))
-    qfrc_spring = qfrc_spring + _ten_force(d, m.tendon_stiffness * displacement)
+    qfrc_spring = qfrc_spring + _ten_force(d, env_rows(m, "tendon_stiffness") * displacement)
   if m.has_tendon_damping:
-    qfrc_damper = qfrc_damper + _ten_force(d, -m.tendon_damping * d.ten_velocity)
+    qfrc_damper = qfrc_damper + _ten_force(d, -env_rows(m, "tendon_damping") * d.ten_velocity)
   return qfrc_spring, qfrc_damper
 
 
@@ -115,7 +116,7 @@ def _fourth(x: torch.Tensor) -> torch.Tensor:
 
 def _ellipsoid_tables(m: Model) -> dict:
   """The fluid geoms' indices and shape terms, constants of the Model
-  (G, ...)."""
+  with the env axis of env_rows (E, G, ...)."""
   pi = torch.pi
   long = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
   geoms = _fluid_geoms(m)
@@ -137,7 +138,7 @@ def _ellipsoid_tables(m: Model) -> dict:
       volume=((4.0 / 3.0) * pi * r0 * r1 * r2)[..., None],
       moi=moi,
       moi_max=((8.0 / 15.0) * pi * rs[..., 1] * _fourth(rs[..., 2]))[..., None],
-      coef=m.geom_fluid[gids],
+      coef=env_rows(m, "geom_fluid")[:, gids],
   )
 
 
@@ -181,16 +182,16 @@ def _ellipsoid_fluid_model(m: Model, d: Data, cvel_t: torch.Tensor | None = None
   instead."""
   s = cached(m, "passive.ellipsoid", lambda: _ellipsoid_tables(m))
   pi = torch.pi
-  rho, beta = m.opt.density, m.opt.viscosity
+  rho, beta = _medium(m)
   xpos, xmat = d.geom_xpos[:, s["gids"]], d.geom_xmat[:, s["gids"]]
   xmat_t = xmat.transpose(-1, -2)
   offset = xpos - d.subtree_com[:, s["bodies"]["rootid"]]
   lvel = math.transform_motion(d.cvel[:, s["gbody"]], offset, xmat_t)
   w = lvel[..., :3]
-  v = lvel[..., 3:] - math.mat_vec(xmat_t, m.opt.wind)
+  v = lvel[..., 3:] - math.mat_vec(xmat_t, env_rows(m, "opt.wind")[:, None])
   coef = s["coef"]
-  c_blunt, c_slender, c_ang, c_kutta, c_magnus = (coef[:, k, None] for k in range(1, 6))
-  vmass, vinertia = coef[:, 6:9], coef[:, 9:12]
+  c_blunt, c_slender, c_ang, c_kutta, c_magnus = (coef[..., k, None] for k in range(1, 6))
+  vmass, vinertia = coef[..., 6:9], coef[..., 9:12]
 
   p = rho * vmass * v  # Kirchhoff added-mass momentum coupling
   h = rho * vinertia * w
@@ -242,6 +243,12 @@ def _ellipsoid_fluid_model(m: Model, d: Data, cvel_t: torch.Tensor | None = None
                              bodies=s["bodies"])
 
 
+def _medium(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
+  """(density, viscosity), each (E, 1, 1): the env axis of env_rows over
+  an entity axis and a vector axis."""
+  return (env_rows(m, "opt.density")[:, None, None], env_rows(m, "opt.viscosity")[:, None, None])
+
+
 def _box_bodies(m: Model) -> np.ndarray:
   """(nbody,) host bool: the bodies without a fluidshape="ellipsoid" geom,
   which take the inertia-box model."""
@@ -285,8 +292,9 @@ def _inertia_box_fluid_model(m: Model, d: Data,
   offset = d.xipos - d.subtree_com[:, index(m, "body_rootid")]
   lvel = math.transform_motion(d.cvel, offset, ximat_t)
   lang = lvel[..., :3]
-  llin = lvel[..., 3:] - math.mat_vec(ximat_t, m.opt.wind)
-  diam, visc, density = s["diam"], m.opt.viscosity, m.opt.density
+  llin = lvel[..., 3:] - math.mat_vec(ximat_t, env_rows(m, "opt.wind")[:, None])
+  density, visc = _medium(m)
+  diam = s["diam"]
   # viscous resistance, then quadratic drag
   visc_ang, visc_lin = -pi * _cube(diam) * visc, -3.0 * pi * diam * visc
   quad_ang, quad_lin = -density * s["ang_scale"], -0.5 * density * s["lin_area"]

@@ -86,11 +86,30 @@ def _decode_tex(m: Model, tid: int) -> np.ndarray:
   return img[:, :, :3]
 
 
+# the renderer's own Model fields (colours and light terms): one Model
+# value for every env, as mjtpu's render_batch vmaps over Data only
+RENDER_MODEL_FIELDS = ("geom_rgba", "light_diffuse", "light_ambient", "light_specular",
+                       "light_attenuation", "light_cutoff", "light_exponent")
+
+
+def _refuse_env_rows(m: Model) -> None:
+  """Raises NotImplementedError naming the RENDER_MODEL_FIELDS that ``m``
+  holds one row per env of (parallel.randomize): mjtpu's renderer fails
+  on such rows, or mixes the envs' light attenuations (ROADMAP C21)."""
+  rows = sorted(set(RENDER_MODEL_FIELDS) & m.env_fields)
+  if rows:
+    raise NotImplementedError(
+        f"mjtpu_torch cannot render a Model with one row per env of {', '.join(rows)}: the"
+        " renderer draws every env with the Model's colours and lights, and mjtpu's"
+        " render_batch, which maps over the Data only, cannot either")
+
+
 def precompute_render_data(m: Model, geom_groups=None) -> RenderData:
   """Packs the visible geoms' colours, triangles and textures and the
   skybox (mjtpu's precompute_render_data), and puts their device tensors
   at the model's dtype on its device.  ``geom_groups``: six flags, the
   geom groups to draw (None: all)."""
+  _refuse_env_rows(m)
   if m.render_filled:
     raise ValueError(
         "mjtpu_torch cannot render this model: its snapshot lacks the render fields "
@@ -576,6 +595,7 @@ def render_rgbd(
         "render() needs a <camera> in the model (indexing cam_xpos on a "
         "camera-less model would silently read garbage)"
     )
+  _refuse_env_rows(m)
   rd = precompute_render_data(m) if rd is None else rd
   batch = d.qpos.shape[0]
   rays = width * height * ssaa * ssaa

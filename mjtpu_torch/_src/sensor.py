@@ -36,6 +36,7 @@ from mjtpu_torch._src.types import (
     TrnType,
     cached,
     index,
+    rows as env_rows,
 )
 
 _NO_REF = -2  # reftype of a sensor without a reference frame
@@ -106,7 +107,8 @@ def _writer(m: Model, stage: Stage):
     flat = np.concatenate(adrs)
     dt = np.concatenate(dts)
     ids = np.concatenate(cut_ids)
-    cut = m.sensor_cutoff[torch.as_tensor(ids, device=m.device)]
+    # the clamps have the env axis of env_rows: (E, n)
+    cut = env_rows(m, "sensor_cutoff")[:, torch.as_tensor(ids, device=m.device)]
     # C applies no cutoff to a CONTACT sensor
     on = (cut > 0) & torch.as_tensor(
         np.asarray(m.sensor_type)[ids] != SensorType.CONTACT, device=m.device)
@@ -207,13 +209,13 @@ def _frame_quat(m: Model, d: Data, objtype: int, ids: torch.Tensor):
   """(B, K, 4) frame quaternions of one object type (FRAMEQUAT)."""
   objtype = ObjType(objtype)
   if objtype == ObjType.BODY:
-    return math.quat_mul(d.xquat[:, ids], m.body_iquat[ids])
+    return math.quat_mul(d.xquat[:, ids], env_rows(m, "body_iquat")[:, ids])
   if objtype == ObjType.XBODY:
     return d.xquat[:, ids]
   if objtype == ObjType.GEOM:
-    return math.quat_mul(d.xquat[:, index(m, "geom_bodyid")[ids]], m.geom_quat[ids])
+    return math.quat_mul(d.xquat[:, index(m, "geom_bodyid")[ids]], env_rows(m, "geom_quat")[:, ids])
   if objtype == ObjType.SITE:
-    return math.quat_mul(d.xquat[:, index(m, "site_bodyid")[ids]], m.site_quat[ids])
+    return math.quat_mul(d.xquat[:, index(m, "site_bodyid")[ids]], env_rows(m, "site_quat")[:, ids])
   return math.mat_to_quat(d.cam_xmat[:, ids])
 
 
@@ -253,7 +255,8 @@ def _inside_sites(m: Model, g: _Group, sites: np.ndarray, q: torch.Tensor) -> to
   group's site, inside the site's volume; one batch per site type."""
   out = torch.zeros(q.shape[:-1], dtype=torch.bool, device=q.device)
   for stype, pos, sid in _site_types(m, g, sites):
-    s = m.site_size[sid].reshape((len(sid),) + (1,) * (q.dim() - 3) + (3,))
+    s = env_rows(m, "site_size")[:, sid]
+    s = s.reshape(s.shape[:2] + (1,) * (q.dim() - 3) + (3,))
     out[:, pos] = _inside(stype, q[:, pos], s)
   return out
 
@@ -361,7 +364,7 @@ def _geomdist_tables(m: Model) -> dict:
       cut_ids += [sid] * len(ps)
     tables[tuple(g.ids)] = table
   t = lambda x: torch.as_tensor(np.asarray(x), device=m.device)
-  return dict(g1=g1, g2=g2, cut=m.sensor_cutoff[t(cut_ids)],
+  return dict(g1=g1, g2=g2, cut=env_rows(m, "sensor_cutoff")[:, t(cut_ids)],
               tables={k: t(np.where(v < 0, len(g1), v)) for k, v in tables.items()})
 
 
@@ -386,7 +389,7 @@ def _geom_distance(m: Model, g: _Group, dist: torch.Tensor, fromto: torch.Tensor
   below distmax."""
   table = cached(m, "sensor.geomdist", lambda: _geomdist_tables(m))["tables"][tuple(g.ids)]
   if "cutoff" not in g.extra:
-    g.extra["cutoff"] = m.sensor_cutoff[torch.as_tensor(g.ids, device=m.device)]
+    g.extra["cutoff"] = env_rows(m, "sensor_cutoff")[:, torch.as_tensor(g.ids, device=m.device)]
   cut = g.extra["cutoff"]
   dmin, i = torch.min(dist[:, table], dim=-1)  # (B, K)
   ft = torch.gather(fromto[:, table], 2, i[..., None, None].expand(i.shape + (1, 6)))[:, :, 0]
@@ -500,7 +503,7 @@ def _contact(m: Model, d: Data, g: _Group) -> torch.Tensor:
     for kind, obj, extra in criteria:
       if kind == "site":
         q = math.mat_t_vec(d.site_xmat[:, obj, None], con.pos - d.site_xpos[:, obj, None])
-        match = match & _inside(extra, q, m.site_size[obj])
+        match = match & _inside(extra, q, env_rows(m, "site_size")[:, obj, None])
       else:
         ids1, ids2 = (geom1, geom2) if extra == "geom" else (body1, body2)
         sided.append((obj[ids1], obj[ids2]))
@@ -586,7 +589,7 @@ def sensor_pos(m: Model, d: Data) -> Data:
     objid, refid = g.t["objid"], g.t["refid"]
     st = g.stype
     if st == SensorType.MAGNETOMETER:
-      val = math.mat_t_vec(d.site_xmat[:, objid], m.opt.magnetic)
+      val = math.mat_t_vec(d.site_xmat[:, objid], env_rows(m, "opt.magnetic")[:, None])
     elif st == SensorType.RANGEFINDER:
       val = _rangefinder(m, d, g)
     elif st == SensorType.JOINTPOS:

@@ -52,7 +52,7 @@ def kinematics(m: Model, d: Data) -> Data:
   place of body_pos/body_quat, before the tree scan, as in mjtpu: the
   frame reaches its children, and the scan's normalize of the quaternion
   is C's mju_normalize4 of mocap_quat."""
-  body_pos, body_quat = m.body_pos[None], m.body_quat[None]
+  body_pos, body_quat = env_rows(m, "body_pos"), env_rows(m, "body_quat")
   if m.nmocap:
     # (B, nbody, .) frames by a gather and a select: no scatter, no copy
     # from the host
@@ -117,8 +117,8 @@ def kinematics(m: Model, d: Data) -> Data:
 
   qpos, xanchor, xaxis, xpos, xquat, xmat = scan.body_tree(
       m, fn, "jjjqqbb", "qjjbbb",
-      np.asarray(m.jnt_type), m.jnt_pos[None], m.jnt_axis[None],
-      d.qpos, m.qpos0[None], body_pos, body_quat,
+      np.asarray(m.jnt_type), env_rows(m, "jnt_pos"), env_rows(m, "jnt_axis"),
+      d.qpos, env_rows(m, "qpos0"), body_pos, body_quat,
   )
   if xanchor is None:  # model with no joints
     xanchor, xaxis = d.xanchor, d.xaxis
@@ -127,16 +127,16 @@ def kinematics(m: Model, d: Data) -> Data:
 
   # inertial / geom / site frames
   xipos = xpos + math.rotate(env_rows(m, "body_ipos"), xquat)
-  ximat = math.quat_to_mat(math.quat_mul(xquat, m.body_iquat))
+  ximat = math.quat_to_mat(math.quat_mul(xquat, env_rows(m, "body_iquat")))
 
   bid = index(m, "geom_bodyid")
-  geom_xpos = xpos[:, bid] + math.rotate(m.geom_pos, xquat[:, bid])
-  geom_xmat = math.quat_to_mat(math.quat_mul(xquat[:, bid], m.geom_quat))
+  geom_xpos = xpos[:, bid] + math.rotate(env_rows(m, "geom_pos"), xquat[:, bid])
+  geom_xmat = math.quat_to_mat(math.quat_mul(xquat[:, bid], env_rows(m, "geom_quat")))
 
   if m.nsite:
     sid = index(m, "site_bodyid")
-    site_xpos = xpos[:, sid] + math.rotate(m.site_pos, xquat[:, sid])
-    site_xmat = math.quat_to_mat(math.quat_mul(xquat[:, sid], m.site_quat))
+    site_xpos = xpos[:, sid] + math.rotate(env_rows(m, "site_pos"), xquat[:, sid])
+    site_xmat = math.quat_to_mat(math.quat_mul(xquat[:, sid], env_rows(m, "site_quat")))
   else:
     site_xpos, site_xmat = d.site_xpos, d.site_xmat
 
@@ -228,15 +228,16 @@ def camlight(m: Model, d: Data) -> Data:
   if m.ncam:
     bid = index(m, "cam_bodyid")
     quat = d.xquat[:, bid]
-    cam_xpos = d.xpos[:, bid] + math.rotate(m.cam_pos, quat)
-    cam_xmat = math.quat_to_mat(math.quat_mul(quat, m.cam_quat))
+    cam_xpos = d.xpos[:, bid] + math.rotate(env_rows(m, "cam_pos"), quat)
+    cam_xmat = math.quat_to_mat(math.quat_mul(quat, env_rows(m, "cam_quat")))
+    mat0 = env_rows(m, "cam_mat0").unflatten(-1, (3, 3))
     for mode, ids, body in _track_modes(m, "cam"):
       if mode == CamLightType.TRACK:
-        cam_xpos[:, ids] = d.xpos[:, body] + m.cam_pos0[ids]
-        cam_xmat[:, ids] = m.cam_mat0[ids].reshape(-1, 3, 3)
+        cam_xpos[:, ids] = d.xpos[:, body] + env_rows(m, "cam_pos0")[:, ids]
+        cam_xmat[:, ids] = mat0[:, ids]
       elif mode == CamLightType.TRACKCOM:
-        cam_xpos[:, ids] = d.subtree_com[:, body] + m.cam_poscom0[ids]
-        cam_xmat[:, ids] = m.cam_mat0[ids].reshape(-1, 3, 3)
+        cam_xpos[:, ids] = d.subtree_com[:, body] + env_rows(m, "cam_poscom0")[:, ids]
+        cam_xmat[:, ids] = mat0[:, ids]
       else:  # the camera looks down -z at the target
         target = (d.subtree_com if mode == CamLightType.TARGETBODYCOM else d.xpos)[:, body]
         z = math.normalize(cam_xpos[:, ids] - target)
@@ -248,13 +249,13 @@ def camlight(m: Model, d: Data) -> Data:
   if m.nlight:
     bid = index(m, "light_bodyid")
     quat = d.xquat[:, bid]
-    light_xpos = d.xpos[:, bid] + math.rotate(m.light_pos, quat)
-    light_xdir = math.rotate(m.light_dir, quat)
+    light_xpos = d.xpos[:, bid] + math.rotate(env_rows(m, "light_pos"), quat)
+    light_xdir = math.rotate(env_rows(m, "light_dir"), quat)
     for mode, ids, body in _track_modes(m, "light"):
       if mode == CamLightType.TRACK:
-        light_xpos[:, ids] = d.xpos[:, body] + m.light_pos0[ids]
+        light_xpos[:, ids] = d.xpos[:, body] + env_rows(m, "light_pos0")[:, ids]
       elif mode == CamLightType.TRACKCOM:
-        light_xpos[:, ids] = d.subtree_com[:, body] + m.light_poscom0[ids]
+        light_xpos[:, ids] = d.subtree_com[:, body] + env_rows(m, "light_poscom0")[:, ids]
       else:
         target = (d.subtree_com if mode == CamLightType.TARGETBODYCOM else d.xpos)[:, body]
         light_xdir[:, ids] = light_xpos[:, ids] - target
@@ -317,7 +318,7 @@ def tendon_armature(m: Model, d: Data) -> Data:
   drops those terms, and qM stays block diagonal per tree."""
   if not m.ntendon:
     return d
-  ja = d.ten_J * m.tendon_armature[:, None]
+  ja = d.ten_J * env_rows(m, "tendon_armature")[..., None]
   add = d.ten_J.transpose(-1, -2) @ ja
   return replace(d, qM=d.qM + add * chain_pattern(m))
 
@@ -633,28 +634,29 @@ def _transmit(m: Model, d: Data, e: dict, length, moment) -> None:
   """Writes one actuator's length (B,) and moment row (B, nv) of a ball
   or free joint, site, slider-crank or body (adhesion) transmission into
   ``length`` and ``moment``."""
-  u, kind, gear = e["u"], e["kind"], m.actuator_gear[e["u"]]
+  # gear and the crank length have the env axis of env_rows: (E, 6), (E,)
+  u, kind, gear = e["u"], e["kind"], env_rows(m, "actuator_gear")[:, e["u"]]
   if kind in (TrnType.JOINT, TrnType.JOINTINPARENT):
     qadr, dadr = e["qadr"], e["dadr"]
     if e["ball"]:
       q = d.qpos[:, qadr : qadr + 4]
-      gearaxis = math.rotate_inv(gear[:3], q) if kind == TrnType.JOINTINPARENT \
-          else gear[:3].expand(q.shape[:1] + (3,))
-      length[:, u] = math.dot3(math.quat_to_vel(q), gear[:3])
+      gearaxis = math.rotate_inv(gear[..., :3], q) if kind == TrnType.JOINTINPARENT \
+          else gear[..., :3].expand(q.shape[:1] + (3,))
+      length[:, u] = math.dot3(math.quat_to_vel(q), gear[..., :3])
       moment[:, u, dadr : dadr + 3] = gearaxis
     else:  # FREE: length stays 0
       q = d.qpos[:, qadr + 3 : qadr + 7]
-      gearaxis = math.rotate_inv(gear[3:], q) if kind == TrnType.JOINTINPARENT \
-          else gear[3:].expand(q.shape[:1] + (3,))
-      moment[:, u, dadr : dadr + 3] = gear[:3]
+      gearaxis = math.rotate_inv(gear[..., 3:], q) if kind == TrnType.JOINTINPARENT \
+          else gear[..., 3:].expand(q.shape[:1] + (3,))
+      moment[:, u, dadr : dadr + 3] = gear[..., :3]
       moment[:, u, dadr + 3 : dadr + 6] = gearaxis
   elif kind == TrnType.SITE:
     sid, refid = e["id0"], e["id1"]
     jacp, jacr = _site_jac(m, d, sid)
     if refid == -1:  # length stays 0
       frame = d.site_xmat[:, sid]
-      moment[:, u] = (_rows_dot(jacp, math.mat_vec(frame, gear[:3]))
-                      + _rows_dot(jacr, math.mat_vec(frame, gear[3:])))
+      moment[:, u] = (_rows_dot(jacp, math.mat_vec(frame, gear[..., :3]))
+                      + _rows_dot(jacr, math.mat_vec(frame, gear[..., 3:])))
     else:
       jacp2, jacr2 = _site_jac(m, d, refid)
       frame = d.site_xmat[:, refid]
@@ -662,30 +664,30 @@ def _transmit(m: Model, d: Data, e: dict, length, moment) -> None:
       quat_rel = math.quat_mul(math.quat_inv(math.mat_to_quat(frame)),
                                math.mat_to_quat(d.site_xmat[:, sid]))
       vecr = math.quat_to_vel(quat_rel)
-      length[:, u] = math.dot3(vecp, gear[:3]) + math.dot3(vecr, gear[3:])
+      length[:, u] = math.dot3(vecp, gear[..., :3]) + math.dot3(vecr, gear[..., 3:])
       djacp = math.mat_t_vec(frame[:, None], jacp - jacp2)
       djacr = math.mat_t_vec(frame[:, None], jacr - jacr2)
-      moment[:, u] = _rows_dot(djacp, gear[:3]) + _rows_dot(djacr, gear[3:])
+      moment[:, u] = _rows_dot(djacp, gear[..., :3]) + _rows_dot(djacr, gear[..., 3:])
   elif kind == TrnType.SLIDERCRANK:
     # length = gear0 * (a.v - sqrt((a.v)^2 + rod^2 - v.v)) with a the
     # slider site's z axis and v = crank_pos - slider_pos; the moment is
     # the analytic dL/dq through both site Jacobians and the turning axis
     cid, sid = e["id0"], e["id1"]
-    rod = m.actuator_cranklength[u]
+    rod = env_rows(m, "actuator_cranklength")[:, u]
     axis = d.site_xmat[:, sid, :, 2]
     vec = d.site_xpos[:, cid] - d.site_xpos[:, sid]
     av = math.dot3(axis, vec)
     # a rod shorter than the crank offset is unreachable: clamp as C's
     # ok=0 branch does rather than give NaN
     det = torch.sqrt(torch.clamp_min(av * av + rod * rod - math.dot3(vec, vec), math.MINVAL))
-    length[:, u] = gear[0] * (av - det)
+    length[:, u] = gear[..., 0] * (av - det)
     scale = 1.0 - av / det
     dldv = scale[:, None] * axis + vec / det[:, None]
     jacp_c, _ = _site_jac(m, d, cid)
     jacp_s, jacr_s = _site_jac(m, d, sid)
     mom = _rows_dot(jacp_c - jacp_s, dldv) + _rows_dot(
         jacr_s, scale[:, None] * math.cross(axis, vec))
-    moment[:, u] = gear[0] * mom
+    moment[:, u] = gear[..., 0, None] * mom
   elif kind == TrnType.BODY:
     # adhesion: length 0; the moment is minus the mean of the normal rows
     # of every detected contact (dist < margin, gap-band contacts too)
@@ -710,18 +712,22 @@ def _transmit(m: Model, d: Data, e: dict, length, moment) -> None:
 def transmission(m: Model, d: Data) -> Data:
   """Actuator lengths and moment arms (mj_transmission).  Where every
   actuator is a scalar-joint transmission the moment matrix is the
-  model's constant (put_model bakes it); otherwise scalar joints and
+  model's constant (put_model bakes it, and its gear: per-env
+  actuator_gear rows reach neither the moment nor the length there, as in
+  mjtpu, ROADMAP C19); otherwise scalar joints and
   tendons are batched per group, and each other actuator (ball and free
   joints, sites, slider-cranks, bodies) runs on its own, over the batch."""
   if not m.nu:
     return d
   B = d.qpos.shape[0]
   if m.actuator_static_moment is not None:
-    qadr, g0 = cached(m, "smooth.transmission", lambda: (
-        torch.as_tensor(np.asarray(m.jnt_qposadr)[np.asarray(m.actuator_trnid)[:, 0]],
-                        device=m.device),
-        m.actuator_gear[:, 0],
-    ))
+    def build():
+      jid = np.asarray(m.actuator_trnid)[:, 0]
+      dadr = np.asarray(m.jnt_dofadr)[jid]
+      return (torch.as_tensor(np.asarray(m.jnt_qposadr)[jid], device=m.device),
+              m.actuator_static_moment[np.arange(m.nu), dadr])
+
+    qadr, g0 = cached(m, "smooth.transmission", build)
     return replace(
         d,
         actuator_length=d.qpos[:, qadr] * g0,
@@ -733,14 +739,14 @@ def transmission(m: Model, d: Data) -> Data:
   moment = d.qpos.new_zeros((B, m.nu, m.nv))
   if t["joint"] is not None:
     ids, qadr, dadr = t["joint"]
-    g0 = m.actuator_gear[ids, 0]
+    g0 = env_rows(m, "actuator_gear")[:, ids, 0]
     length[:, ids] = d.qpos[:, qadr] * g0
     moment[:, ids, dadr] = g0
   if t["tendon"] is not None:
     ids, ten = t["tendon"]
-    g0 = m.actuator_gear[ids, 0]
+    g0 = env_rows(m, "actuator_gear")[:, ids, 0]
     length[:, ids] = d.ten_length[:, ten] * g0
-    moment[:, ids] = d.ten_J[:, ten] * g0[:, None]
+    moment[:, ids] = d.ten_J[:, ten] * g0[..., None]
   for e in t["rest"]:
     _transmit(m, d, e, length, moment)
   return replace(d, actuator_length=length, actuator_moment=moment)
@@ -773,11 +779,11 @@ def _eq_wrench_tables(m: Model) -> dict | None:
     t = lambda x: torch.as_tensor(x, device=m.device)
     b1, b2 = np.asarray(m.eq_obj1id)[ids], np.asarray(m.eq_obj2id)[ids]
     k = len(ids)
-    data = m.eq_data[ids]
+    data = env_rows(m, "eq_data")[:, ids]  # (E, K, NEQDATA): the anchors keep the env axis
     w = torch.as_tensor(weld, device=m.device)[:, None]
     return dict(
-        b1=t(b1), b2=t(b2), anchor1=torch.where(w, data[:, 3:6], data[:, 0:3]),
-        anchor2=torch.where(w, data[:, 0:3], data[:, 3:6]),
+        b1=t(b1), b2=t(b2), anchor1=torch.where(w, data[..., 3:6], data[..., 0:3]),
+        anchor2=torch.where(w, data[..., 0:3], data[..., 3:6]),
         force=t(first[:, None] + np.arange(3)),
         torque=t(first[:, None] + 3 * weld[:, None] + np.arange(3)),
         weld=torch.as_tensor(weld, dtype=m.dtype, device=m.device)[:, None],
@@ -905,25 +911,27 @@ def potential_energy(m: Model, d: Data) -> torch.Tensor:
   spring_on = not (m.opt.disableflags & DisableBit.SPRING)
   if m.has_jnt_spring and spring_on:
     c = cached(m, "smooth.springs", lambda: _spring_tables(m))
+    spring = env_rows(m, "qpos_spring")
     quat_term = lambda adr, k: 0.5 * torch.sum(k * torch.sum(
-        math.quat_sub(d.qpos[:, adr], m.qpos_spring[adr]) ** 2, dim=-1), dim=-1)
+        math.quat_sub(d.qpos[:, adr], spring[:, adr]) ** 2, dim=-1), dim=-1)
     if c["scalar"] is not None:
       adr, k = c["scalar"]
-      dif = d.qpos[:, adr] - m.qpos_spring[adr]
+      dif = d.qpos[:, adr] - spring[:, adr]
       e = e + 0.5 * torch.sum(k * dif * dif, dim=-1)
     if c["ball"] is not None:
       e = e + quat_term(*c["ball"])
     if c["free"] is not None:
       pos, k, quat = c["free"]
-      t = d.qpos[:, pos] - m.qpos_spring[pos]
+      t = d.qpos[:, pos] - spring[:, pos]
       e = e + 0.5 * torch.sum(k * torch.sum(t * t, dim=-1), dim=-1)
       e = e + quat_term(quat, k)
   if m.ntendon and m.has_tendon_spring and spring_on:
-    lower, upper = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    lengthspring = env_rows(m, "tendon_lengthspring")
+    lower, upper = lengthspring[..., 0], lengthspring[..., 1]
     length = d.ten_length
     disp = torch.where(length > upper, length - upper,
                        torch.where(length < lower, length - lower, 0.0))
-    e = e + 0.5 * torch.sum(m.tendon_stiffness * disp * disp, dim=-1)
+    e = e + 0.5 * torch.sum(env_rows(m, "tendon_stiffness") * disp * disp, dim=-1)
   return e
 
 

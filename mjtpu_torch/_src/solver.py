@@ -393,7 +393,7 @@ def solve(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
     jv = matvec(efc_J, search)
 
     smag = math.safe_norm(search) * env_rows(m, "stat.meaninertia") * max(1, m.nv)
-    gtol = m.opt.tolerance * m.opt.ls_tolerance * smag
+    gtol = env_rows(m, "opt.tolerance") * env_rows(m, "opt.ls_tolerance") * smag
 
     quad_gauss = torch.stack(
         [gauss, _dot(search, Ma - qfrc_smooth), 0.5 * _dot(search, mv)], dim=-1
@@ -511,7 +511,8 @@ def solve(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
     grad = gradient(new.Ma, new.efc_force)
     improvement = _rescale(m, ctx.cost - new.cost)
     gradnorm = _rescale(m, math.safe_norm(grad))
-    done = ctx.done | (improvement < m.opt.tolerance) | (gradnorm < m.opt.tolerance)
+    tol = env_rows(m, "opt.tolerance")
+    done = ctx.done | (improvement < tol) | (gradnorm < tol)
     new = new._replace(grad=grad, niter=ctx.niter + 1, done=done)
     # freeze finished envs (mjtpu's body does the same)
     ctx = _where(ctx.done, ctx, new)

@@ -503,6 +503,7 @@ class Model:
   light_dir: torch.Tensor = None
   light_poscom0: torch.Tensor = None
   light_pos0: torch.Tensor = None
+  light_dir0: torch.Tensor = None  # read nowhere, as in mjtpu
   # ---- what the renderer reads (mjtpu's split: index tables, texture
   # bytes and light flags on the host, colours and light terms on the
   # device); fills where a snapshot leaves them out, named in render_filled ----
@@ -618,7 +619,8 @@ class Model:
   sensor_cutoff: torch.Tensor = None
   # model-constant (nu, nv) moment matrix where every actuator is a
   # scalar-joint transmission, whose moment row is gear[0] at the joint
-  # dof; None where some actuator's moment depends on the state
+  # dof; None where some actuator's moment depends on the state.  A device
+  # tensor that parallel.randomize treats as static, as mjtpu declares it
   actuator_static_moment: torch.Tensor = None
   # ---- custom numerics / names (max_contact_points lookup) ----
   numeric_adr: np.ndarray = static(None)

@@ -13,9 +13,12 @@ meaning: a static field; a field whose consuming branch put_model gated
 off (``dof_damping`` on a model without damping, ...); a value pattern
 that put_model baked into the row layout (the frictionloss set, a limit's
 two-sidedness); a ``geom_size`` that varies on a geom that is not a round
-primitive.  Of the traced fields mjtpu accepts, the port takes those in
-``_ACCEPTED`` and refuses every other one with ``NotImplementedError``
-naming it.
+primitive.  It accepts every traced field mjtpu's randomize accepts
+(``_ACCEPTED``).  Some of them change nothing, as in mjtpu: ``light_dir0``,
+``dof_M0`` and the ``opt.o_*`` overrides are read nowhere, and per-env
+``actuator_gear`` rows do not reach a model whose moment matrix put_model
+baked (``actuator_static_moment``: every actuator a scalar-joint
+transmission; ROADMAP C19).
 
 As in mjtpu, randomizing masses or inertias leaves MuJoCo's derived
 constants (``body_invweight0``, ``dof_M0``, ``stat.meaninertia``, ...) at
@@ -33,7 +36,7 @@ import torch
 
 from mjtpu_torch._src import forward
 from mjtpu_torch._src.dataclasses import is_static
-from mjtpu_torch._src.types import Data, GeomType, Model, field, replace_fields
+from mjtpu_torch._src.types import Data, GeomType, Model, Option, Statistic, field, replace_fields
 
 # fields whose consuming branch put_model gates off where the base model
 # has them all zero (mjtpu's _GATED)
@@ -63,16 +66,26 @@ _CONST_FIELDS = (
     "actuator_acc0",
 )
 
-# the fields the port randomizes: every reader takes them through
-# types.rows
-_ACCEPTED = frozenset((
-    "opt.timestep", "opt.gravity",
-    "geom_friction", "geom_solref", "geom_solimp", "geom_margin", "geom_size",
-    "body_mass", "body_inertia", "body_ipos", "body_gravcomp",
-    "dof_damping", "dof_armature", "dof_frictionloss", "jnt_stiffness", "jnt_range",
-    "actuator_gainprm", "actuator_biasprm",
-    *_CONST_FIELDS, "stat.meaninertia",
-))
+# tensor fields that mjtpu declares static: the port keeps them on the
+# device for its readers, and randomize refuses them as mjtpu does
+_STATIC_TENSORS = frozenset(("actuator_static_moment",))
+
+
+def _traced(cls, prefix: str = "") -> list[str]:
+  """The dotted paths of the traced fields of ``cls`` (Model, with its
+  Option and Statistic)."""
+  out = []
+  for f in dataclasses.fields(cls):
+    if not f.init or is_static(f) or f.name in _STATIC_TENSORS:
+      continue
+    sub = {"opt": Option, "stat": Statistic}.get(f.name) if cls is Model else None
+    out += _traced(sub, f"{f.name}.") if sub else [prefix + f.name]
+  return out
+
+
+# the fields the port randomizes, every traced field mjtpu's randomize
+# accepts: every reader takes them through types.rows
+_ACCEPTED = frozenset(_traced(Model))
 
 
 def _resolve(m: Model, key: str):
@@ -83,7 +96,7 @@ def _resolve(m: Model, key: str):
   for i, seg in enumerate(parts):
     fields = {f.name: f for f in dataclasses.fields(obj)}
     f = fields.get(seg)
-    if f is not None and is_static(f):
+    if f is not None and (is_static(f) or (obj is m and seg in _STATIC_TENSORS)):
       raise ValueError(
           f"'{key}' is a static (trace-time) field of {type(obj).__name__}: it is baked into"
           " the step's structure and cannot vary per env. Randomize traced fields only; to"
@@ -154,7 +167,7 @@ def model_axes(m: Model, batched: Model) -> dict[str, int | None]:
 
   def walk(a, b, prefix):
     for f in dataclasses.fields(a):
-      if not f.init or is_static(f):
+      if not f.init or is_static(f) or f.name in _STATIC_TENSORS:
         continue
       x, y = getattr(a, f.name), getattr(b, f.name)
       if dataclasses.is_dataclass(x):
@@ -185,8 +198,6 @@ def randomize(m: Model, updates: dict[str, Any]) -> tuple[Model, dict[str, int |
   Raises:
     ValueError: mjtpu's refusals (see the module docstring), and shape or
       batch-size mismatches.
-    NotImplementedError: a traced field mjtpu accepts that the port does
-      not randomize yet.
   """
   if not updates:
     raise ValueError("randomize() needs at least one field update")
@@ -218,10 +229,6 @@ def randomize(m: Model, updates: dict[str, Any]) -> tuple[Model, dict[str, int |
           "'geom_fluid' cannot be randomized: opt.has_fluid_params is False, so the fluid"
           " force branch does not run. Set a nonzero density, viscosity or wind in the MJCF.")
     _check_patterns(m, key, _numpy(v))
-    if key not in _ACCEPTED:
-      raise NotImplementedError(
-          f"mjtpu_torch.parallel.randomize does not randomize '{key}' yet; it takes"
-          f" {sorted(_ACCEPTED)}")
     cast[key] = torch.as_tensor(v).to(device=base.device, dtype=base.dtype)
   mb = replace_fields(m, {**cast, "env_fields": frozenset(m.env_fields | set(cast))})
   return mb, model_axes(m, mb)

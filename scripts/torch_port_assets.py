@@ -266,6 +266,19 @@
       seg of a render of the same Data (pixel_env_golden).  The zoo
       snapshots of models with a camera (satellite_small, satellite_large,
       --model zoo) keep the render fields since.
+  mjtpu_torch/assets/randomize_fields.npz, randomize_fields_golden.npz
+      (--model randomize_fields) the bundle of FIELD_HOMES' scenes
+      (FIELDS_XML of tests/test_torch_randomize.py, FIELD_SENSING_XML,
+      FIELD_FRICTION_XML, FIELD_ELLIPTIC_XML, the slider-crank of
+      tests/test_transmission.py, FIELD_TERRAIN_XML, cartpole.xml) and of
+      the two randomized main paths, humanoid_bench and humanoid_terrain;
+      and mjtpu's batched randomized rollout of each at float64, every
+      traced field perturbed in an env of its own (field_perturbation),
+      the main paths at B=4 with chip_smoke's rows, and humanoid_bench's
+      B=4096 mj_setConst rows (randomize_fields).  ``--scene NAME``
+      writes only those scenes.  The snapshots of models with a light
+      (satellite_small, satellite_large, the lit render scenes) hold
+      light_dir0 since.
 
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
@@ -275,7 +288,7 @@ Run from the repository root, where ``mujoco`` and ``jax`` are installed:
                      |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs
                      |tendon_scenes|equality_scenes|humanoid_implicit|implicit_scenes
                      |sensor_scenes|randomize_scenes|inverse_scenes|diff_scenes
-                     |stepped_scenes|render_scenes|pixel_envs]
+                     |stepped_scenes|render_scenes|pixel_envs|randomize_fields]
         [--steps N] [--env NAME] [--scene NAME] [--view LABEL]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -728,12 +741,155 @@ RENDER_MESH_XML = """<mujoco>
       <geom type="capsule" size=".1 .2" rgba=".3 .8 .3 1"/></body>
   </worldbody>
 </mujoco>"""
+RANDOMIZE_FIELDS_FILE = ASSETS / "randomize_fields.npz"
+RANDOMIZE_FIELDS_GOLDEN_FILE = ASSETS / "randomize_fields_golden.npz"
+# the steps of each randomize_fields scene but the main paths'
+FIELD_STEPS = 12
+# the main paths' steps at B=4: humanoid_bench through C1's bound, the
+# terrain as far
+FIELD_BENCH_STEPS = 50
+FIELD_TERRAIN_STEPS = 20
+# a scene that reads the fields FIELDS_XML does not: a <pair>, sites with
+# touch, magnetometer, rangefinder and frame sensors (cutoffs), fixed,
+# tracking and targeting cameras and lights, a fluid (ellipsoid-model)
+# geom in a medium with wind, a weld, a limited spatial tendon wrapping a
+# cylinder with springs, damping and frictionloss, a fixed tendon with
+# armature and frictionloss, and a filter
+# actuator with ctrl, force, activation and joint-force limits
+FIELD_SENSING_XML = """<mujoco>
+  <option timestep="0.004" density="1.2" viscosity="0.05" wind="0.4 0 0.2" magnetic="0 -0.5 0.3"/>
+  <worldbody>
+    <light name="fixed" pos="0 0 3" dir="0 0.3 -1"/>
+    <camera name="fixed" pos="0 -3 1" xyaxes="1 0 0 0 0.3 1"/>
+    <geom name="floor" type="plane" size="3 3 .1" solmix="0.3" solref="0.03 1.1"
+          solimp="0.85 0.96 0.002 0.5 2" friction="0.9 0.01 0.001"/>
+    <geom name="post" type="cylinder" pos="0.6 0 1.1" size="0.05 0.2" zaxis="0 1 0"
+          contype="0" conaffinity="0"/>
+    <site name="anchor" pos="0.3 0 1.6" size="0.02"/>
+    <body name="ball" pos="0 0 0.105">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.1" mass="1" solmix="2" solref="0.01 0.8"
+            solimp="0.9 0.99 0.001 0.5 2" friction="0.6 0.02 0.002" gap="0.002" margin="0.004"/>
+      <site name="zone" type="sphere" size="0.09"/>
+      <camera name="track" mode="track" pos="0 -1 0.5" xyaxes="1 0 0 0 0.5 1"/>
+      <camera name="trackcom" mode="trackcom" pos="0 -1.5 0.5" xyaxes="1 0 0 0 0.5 1"/>
+      <light name="track" mode="track" pos="0 0 1" dir="0 0 -1"/>
+      <light name="trackcom" mode="trackcom" pos="0.2 0 1" dir="0 0 -1"/>
+    </body>
+    <body name="ball2" pos="0.5 0 0.085">
+      <freejoint/>
+      <geom name="ball2" type="sphere" size="0.08" mass="0.5" contype="0" conaffinity="0"/>
+    </body>
+    <body name="wing" pos="-0.6 0 1">
+      <freejoint/>
+      <geom type="ellipsoid" size="0.15 0.06 0.02" mass="0.1" fluidshape="ellipsoid"
+            contype="0" conaffinity="0"/>
+      <light name="target" mode="targetbody" target="ball" pos="0 0 0.5"/>
+    </body>
+    <body name="pend" pos="1 0 1.2">
+      <joint name="swing" type="hinge" axis="0 1 0" damping="0.05" frictionloss="0.5"
+             actuatorfrclimited="true" actuatorfrcrange="-0.3 0.3"/>
+      <geom type="capsule" fromto="0 0 0 0 0 -0.4" size="0.03" mass="0.4" contype="0"
+            conaffinity="0"/>
+      <site name="tip" pos="0 0 -0.4" size="0.03" zaxis="0 0 -1"/>
+    </body>
+    <body name="welded" pos="1.1 0 0.7">
+      <freejoint/>
+      <geom type="sphere" size="0.05" mass="0.1" contype="0" conaffinity="0"/>
+    </body>
+  </worldbody>
+  <contact>
+    <pair geom1="floor" geom2="ball2" condim="3" friction="0.8 0.8 0.01 0.001 0.001"
+          solref="0.03 1" solreffriction="0.04 1" solimp="0.9 0.95 0.001 0.5 2" margin="0.005"
+          gap="0.001"/>
+  </contact>
+  <equality><weld body1="welded" body2="pend" solref="0.05 1" solimp="0.9 0.95 0.001 0.5 2"/>
+  </equality>
+  <tendon>
+    <spatial name="rope" limited="true" range="0 0.95" margin="0.08" stiffness="3" damping="0.3"
+             frictionloss="0.05" springlength="0.6 0.7" solreflimit="0.03 1"
+             solimplimit="0.9 0.95 0.001 0.5 2" solreffriction="0.03 1"
+             solimpfriction="0.9 0.95 0.001 0.5 2">
+      <site site="anchor"/><geom geom="post"/><site site="tip"/>
+    </spatial>
+    <fixed name="inertia" armature="0.01" frictionloss="0.3"><joint joint="swing" coef="1"/>
+    </fixed>
+  </tendon>
+  <actuator>
+    <general name="filter" joint="swing" dyntype="filter" dynprm="0.05" gainprm="2"
+             ctrllimited="true" ctrlrange="-1 1" forcelimited="true" forcerange="-0.5 0.5"
+             actlimited="true" actrange="-0.7 0.7"/>
+  </actuator>
+  <sensor>
+    <touch site="zone" cutoff="8"/>
+    <magnetometer site="tip"/>
+    <rangefinder site="tip"/>
+    <framequat objtype="body" objname="ball"/>
+    <framequat objtype="geom" objname="ball"/>
+    <framequat objtype="site" objname="tip"/>
+    <framepos objtype="site" objname="tip" cutoff="1.2"/>
+  </sensor>
+</mujoco>"""
+# a pendulum at 0.3 rad held by the frictionloss of its hinge and of a
+# fixed tendon (the friction rows short of their bound)
+FIELD_FRICTION_XML = """<mujoco><option timestep="0.004"/><worldbody>
+<body pos="0 0 1"><joint name="hinge" type="hinge" axis="0 1 0" frictionloss="0.5"/>
+<geom type="capsule" fromto="0 0 0 0 0 -0.4" size="0.03" mass="0.4"/></body></worldbody>
+<tendon><fixed name="t" frictionloss="0.3"><joint joint="hinge" coef="1"/></fixed></tendon>
+</mujoco>"""
+# a ball sliding under elliptic cones (the friction rows read impratio)
+FIELD_ELLIPTIC_XML = """<mujoco><option timestep="0.005" cone="elliptic" impratio="2"/>
+<worldbody><geom type="plane" size="5 5 .1"/><body pos="0 0 0.1"><freejoint/>
+<geom type="sphere" size="0.1" mass="1" friction="0.5 .005 .0001"/></body></worldbody></mujoco>"""
+# a sphere, a capsule and a box dropping onto a small height field
+FIELD_TERRAIN_XML = """<mujoco><option timestep="0.004"/>
+<asset><hfield name="terrain" nrow="12" ncol="12" size="1 1 0.2 0.1"/></asset>
+<worldbody><geom name="ground" type="hfield" hfield="terrain"/>
+<body pos="0.1 0.2 0.25"><freejoint/><geom type="sphere" size="0.1" mass="0.5"/></body>
+<body pos="-0.3 -0.2 0.22"><freejoint/><geom type="capsule" size="0.05 0.15" mass="0.5"/></body>
+<body pos="0.4 -0.3 0.25"><freejoint/><geom type="box" size="0.08 0.08 0.08" mass="0.5"/></body>
+</worldbody></mujoco>"""
+# each randomize_fields scene's perturbed fields (one env each), beside
+# its base env 0; every traced field mjtpu's randomize accepts is in one
+# at least
+FIELD_HOMES = {
+    "fields": (
+        "opt.timestep", "opt.gravity", "opt.tolerance", "opt.ls_tolerance", "opt.o_margin",
+        "opt.o_solref", "opt.o_solimp", "stat.meaninertia", "qpos0", "qpos_spring",
+        "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass", "body_subtreemass",
+        "body_inertia", "body_gravcomp", "body_invweight0", "jnt_solref", "jnt_solimp",
+        "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin", "dof_armature",
+        "dof_damping", "dof_invweight0", "dof_M0", "dof_frictionloss", "dof_solref",
+        "dof_solimp", "geom_solref", "geom_solimp", "geom_size", "geom_pos", "geom_quat",
+        "geom_friction", "geom_margin", "geom_rbound", "tendon_length0", "tendon_invweight0",
+        "eq_data", "eq_solref", "eq_solimp", "actuator_gainprm", "actuator_biasprm",
+        "actuator_gear", "actuator_dynprm", "actuator_lengthrange", "actuator_acc0"),
+    "sensing": (
+        "geom_solmix", "geom_gap", "geom_fluid", "geom_rgba", "site_size", "site_pos",
+        "site_quat", "cam_pos", "cam_quat", "cam_poscom0", "cam_pos0", "cam_mat0", "light_pos",
+        "light_dir", "light_poscom0", "light_pos0", "light_dir0", "light_diffuse",
+        "light_ambient", "light_specular", "light_attenuation", "light_cutoff",
+        "light_exponent", "pair_solref", "pair_solreffriction", "pair_solimp", "pair_margin",
+        "pair_gap", "pair_friction", "eq_data", "eq_solref", "eq_solimp", "tendon_solref_lim",
+        "tendon_solimp_lim", "tendon_range", "tendon_margin", "tendon_stiffness",
+        "tendon_damping", "tendon_armature", "tendon_frictionloss", "tendon_lengthspring",
+        "actuator_ctrlrange",
+        "actuator_forcerange", "actuator_actrange", "jnt_actfrcrange", "sensor_cutoff",
+        "opt.wind", "opt.magnetic", "opt.density", "opt.viscosity"),
+    "friction": ("dof_frictionloss", "dof_solref", "dof_solimp", "tendon_frictionloss",
+                 "tendon_solref_fri", "tendon_solimp_fri"),
+    "elliptic": ("opt.impratio",),
+    "slidercrank": ("actuator_cranklength", "actuator_gear"),
+    "terrain": ("hfield_data",),
+    # ROADMAP C19: gear on a model with actuator_static_moment
+    "cartpole_gear": ("actuator_gear",),
+}
 MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy66", "ant_bench",
           "zoo", "ant_rk4", "zoo_envs", *CONTACT_MODELS, "collision_scenes",
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
           "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
           "sensor_scenes", "randomize_scenes", "inverse_scenes", "diff_scenes",
-          "stepped_scenes", "render_scenes", "pixel_envs")
+          "stepped_scenes", "render_scenes", "pixel_envs", "randomize_fields")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -2246,6 +2402,234 @@ def randomize_scenes() -> tuple[dict, dict[str, np.ndarray]]:
   return snapshots, golden
 
 
+def _rotate_quats(q: np.ndarray, angle: float = 0.1) -> np.ndarray:
+  """Each quaternion (..., 4) times a rotation by ``angle`` about a fixed
+  oblique axis."""
+  axis = np.array([0.3, 0.5, 0.8]) / np.linalg.norm([0.3, 0.5, 0.8])
+  w2, (x2, y2, z2) = np.cos(angle / 2), np.sin(angle / 2) * axis
+  w1, x1, y1, z1 = np.moveaxis(q, -1, 0)
+  return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                   w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2],
+                  axis=-1)
+
+
+def _rotate_vecs(v: np.ndarray, angle: float = 0.1) -> np.ndarray:
+  """Each vector (..., 3) rotated by ``angle`` about the axis of
+  _rotate_quats (Rodrigues)."""
+  k = np.array([0.3, 0.5, 0.8]) / np.linalg.norm([0.3, 0.5, 0.8])
+  return (v * np.cos(angle) + np.cross(k, v) * np.sin(angle)
+          + k * (v @ k)[..., None] * (1.0 - np.cos(angle)))
+
+
+def field_perturbation(mjm, name: str, base: np.ndarray) -> np.ndarray:
+  """A perturbed copy of field ``name``'s base value ``base`` (mjtpu's, of
+  the MjModel ``mjm``) that keeps mjtpu's boundary: quaternions and axes
+  turned by 0.1 rad; the frictionloss sets, the limits' two-sidedness
+  and the non-round geoms' sizes kept; the ranges and cutoffs narrowed,
+  the margins widened to 0.45 of a range; positions and equality data
+  shifted; the solver's and its linesearch's tolerances x 100; a
+  field that is zero throughout + 0.02; every other one scaled by 1.2,
+  1.3, 1.4, 1.2, ... along its first axis."""
+  x = np.array(base, dtype=np.float64)
+  if name.endswith("quat"):
+    return _rotate_quats(x)
+  if name in ("jnt_axis", "light_dir", "light_dir0"):
+    return _rotate_vecs(x)
+  if name in ("jnt_range", "actuator_ctrlrange", "actuator_forcerange", "actuator_actrange",
+              "jnt_actfrcrange", "sensor_cutoff"):
+    return x * (0.8 if name == "jnt_range" else 0.5)
+  if name == "tendon_range":
+    return x * 0.95
+  if name == "jnt_margin":  # 0.45 of each limited joint's range: one-sided still
+    width = np.diff(np.array(mjm.jnt_range), axis=-1)[:, 0]
+    return x + 0.45 * width * np.array(mjm.jnt_limited, dtype=bool)
+  if name in ("geom_pos", "site_pos"):
+    return x + np.array([0.01, -0.02, 0.015])
+  if name == "eq_data":
+    return x + 0.02
+  if name in ("opt.tolerance", "opt.ls_tolerance"):
+    return x * 100.0
+  if name == "geom_size":
+    x[np.isin(np.array(mjm.geom_type), (2, 3, 4, 5)), 0] *= 1.2  # the round geoms' radii
+    return x
+  if name == "hfield_data":
+    return x * 0.7
+  if name == "stat.meaninertia":
+    return x * 1e4  # the rescaled tolerance stops the solver earlier
+  if name in ("qpos0", "qpos_spring", "tendon_lengthspring"):
+    return x + 0.05
+  if "solimp" in name:
+    return x * 0.97  # dmin and dmax stay below 1
+  if not np.any(x):
+    return x + 0.02
+  if not x.ndim:
+    return x * 1.3
+  scale = 1.2 + 0.1 * (np.arange(len(x)) % 3)
+  return x * scale.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _field_scene(name: str):
+  """(MjModel, start state of one env) of randomize_fields scene ``name``."""
+  import mujoco
+
+  from tests import test_transmission
+  from tests.test_torch_randomize import FIELDS_XML
+
+  rng = np.random.default_rng(1)
+  xml = {"fields": FIELDS_XML, "sensing": FIELD_SENSING_XML, "friction": FIELD_FRICTION_XML,
+         "elliptic": FIELD_ELLIPTIC_XML,
+         "slidercrank": test_transmission.XML, "terrain": FIELD_TERRAIN_XML}
+  if name == "cartpole_gear":
+    mjm = mujoco.MjModel.from_xml_path(str(ROOT / "tests" / "models" / "cartpole.xml"))
+    return mjm, {"qpos": np.zeros(mjm.nq), "ctrl": np.full(mjm.nu, 0.7)}
+  mjm = mujoco.MjModel.from_xml_string(xml[name])
+  start = {"qpos": np.array(mjm.qpos0), "qvel": rng.uniform(-0.5, 0.5, mjm.nv),
+           "ctrl": rng.uniform(-1.0, 1.0, mjm.nu)}
+  if name == "fields":
+    start["qvel"][0] = 1.0  # the ball slides
+    start["ctrl"] = np.array([0.3, 0.1, 0.5])
+  elif name == "sensing":
+    start["ctrl"] = np.array([0.9])  # past half the ctrl and activation ranges
+    # the pendulum held at 0.3 rad by its frictionloss
+    swing = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_JOINT, "swing")
+    start["qpos"][mjm.jnt_qposadr[swing]] = 0.3
+    start["qvel"][mjm.jnt_dofadr[swing]] = 0.0
+  elif name == "friction":
+    start["qpos"], start["qvel"] = np.array([0.3]), np.zeros(1)
+  elif name == "elliptic":
+    start["qvel"] = np.array([2.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+  elif name == "terrain":
+    mjm.hfield_data[:] = 0.5 + 0.3 * rng.uniform(0.0, 1.0, mjm.hfield_data.shape)
+    start["qvel"] = np.zeros(mjm.nv)
+    start["qvel"][2::6] = -2.5  # every body drops onto the terrain
+  return mjm, start
+
+
+def randomize_field_specs(names=None) -> dict:
+  """The scenes of randomize_fields.npz, name -> (MjModel, rows (B,
+  *shape) each, start state (B, ...), steps, with the derived constants):
+  each scene of FIELD_HOMES with its base in env 0 and field k of its
+  homes perturbed (field_perturbation) in env k + 1 (cartpole_gear: the
+  gear x 2 in env 1, ROADMAP C19), and the two main paths at BATCH envs:
+  humanoid_bench with chip_smoke.bench_randomization(locomotion=True) and
+  its constants from mj_setConst, humanoid_terrain with
+  chip_smoke.terrain_randomization."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import chip_smoke
+  import mjtpu
+
+  out = {}
+  for name, homes in FIELD_HOMES.items():
+    if names and name not in names:
+      continue
+    mjm, start = _field_scene(name)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    batch = len(homes) + 1
+    rows = {}
+    for k, key in enumerate(homes):
+      base = np.asarray(_attr(m, key), dtype=np.float64)
+      r = np.repeat(base[None], batch, axis=0)
+      r[k + 1] = base * 2.0 if name == "cartpole_gear" else field_perturbation(mjm, key, base)
+      rows[key] = r
+    start = {k: np.repeat(np.asarray(v, dtype=np.float64)[None], batch, axis=0)
+             for k, v in start.items()}
+    out[name] = (mjm, rows, start, 10 if name == "cartpole_gear" else FIELD_STEPS, False)
+  if not names or "humanoid_bench" in names:
+    bench = load_mjmodel()
+    qpos0, qvel0, ctrl = initial_state(bench)
+    out["humanoid_bench"] = (bench, chip_smoke.bench_randomization(bench, BATCH, locomotion=True),
+                             {"qpos": qpos0, "qvel": qvel0, "ctrl": ctrl}, FIELD_BENCH_STEPS, True)
+  if not names or "humanoid_terrain" in names:
+    terrain = load_terrain_mjmodel()
+    qpos0, qvel0, ctrl = terrain_initial_state(terrain)
+    out["humanoid_terrain"] = (terrain, chip_smoke.terrain_randomization(terrain, BATCH),
+                               {"qpos": qpos0, "qvel": qvel0, "ctrl": ctrl}, FIELD_TERRAIN_STEPS,
+                               False)
+  return out
+
+
+def _attr(obj, key: str):
+  """The attribute at the dotted path ``key`` of ``obj``."""
+  for part in key.split("."):
+    obj = getattr(obj, part)
+  return obj
+
+
+def randomize_fields(names=None) -> tuple[dict, dict[str, np.ndarray]]:
+  """(the randomize_fields scenes' snapshot arrays by name, their golden:
+  per scene "<scene>.fields" its perturbed fields in env order (but the
+  main paths'), "<scene>.rows.<field>" each randomized field's rows (with
+  the derived constants where the scene takes them), "<scene>.<field>0"
+  the start, and "<scene>.<output>" each of chip_smoke.FIELD_OUTPUTS the
+  model has after each step of mjtpu's batched randomized step
+  (parallel.randomize, then jit(vmap(step, in_axes=(axes, 0))); for a
+  model with mesh hulls, which mjtpu's in_axes tree cannot hold, ROADMAP
+  C20, jit(vmap(step)) over the rows with the base Model closed over),
+  f64 on the CPU; and "bench.rows.<field>" the randomized humanoid_bench's
+  body_mass and body_pos at B=4096 (phase 33) and their constants, which
+  the card's machine cannot compute)."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import chip_smoke
+  import mjtpu
+  from mjtpu import parallel
+  from mjtpu_torch._src import io
+  from mjtpu_torch.parallel.randomize import _derived_constants
+
+  snapshots, golden = {}, {}
+  for name, (mjm, rows, start, steps, consts) in randomize_field_specs(names).items():
+    snapshots[name] = io.snapshot_arrays(mjm)
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    batch = next(iter(rows.values())).shape[0]
+    full = dict(rows)
+    if consts:
+      full.update({k: v for k, v in _derived_constants(mjm, rows).items() if np.size(v)})
+    mb, axes = parallel.randomize(m, {k: jnp.asarray(v) for k, v in full.items()})
+    if mjm.nmesh:
+      # mjtpu's in_axes tree cannot hold a model with mesh hulls (ROADMAP
+      # C20): vmap its step over the rows, the base Model closed over
+      keys = list(full)
+      one = lambda vals, dd: mjtpu.step(m.tree_replace(dict(zip(keys, vals))), dd)
+      step, mb = jax.jit(jax.vmap(one)), [_attr(mb, k) for k in keys]
+    else:
+      step = jax.jit(jax.vmap(mjtpu.step, in_axes=(axes, 0)))
+    d = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(batch))
+    d = d.replace(**{k: jnp.asarray(v) for k, v in start.items()})
+    fields = [f for f in chip_smoke.FIELD_OUTPUTS if np.size(getattr(d, f))]
+    outs = {f: [] for f in fields}
+    for _ in range(steps):
+      d = step(mb, d)
+      for f in fields:
+        outs[f].append(np.asarray(getattr(d, f)))
+    if name in FIELD_HOMES:
+      golden[f"{name}.fields"] = np.array(FIELD_HOMES[name])
+      last = np.concatenate([np.asarray(outs[f][-1]).reshape(batch, -1) for f in fields], 1)
+      moved = np.abs(last - last[:1]).max(axis=1)[1:]
+      unmoved = [k for k, v in zip(FIELD_HOMES[name], moved) if v == 0.0]
+      print(f"{name}: B {batch}, {steps} steps; unmoved at the last step: {unmoved}")
+    golden.update({f"{name}.rows.{k}": np.asarray(v) for k, v in full.items()})
+    golden.update({f"{name}.{k}0": np.asarray(v) for k, v in start.items()})
+    golden.update({f"{name}.{f}": np.stack(v) for f, v in outs.items()})
+    spread = np.ptp(outs["qpos"][-1], axis=0).max()
+    print(f"{name}: spread of the last qpos over the envs {spread:.3e}, finite"
+          f" {all(np.isfinite(np.stack(v)).all() for v in outs.values())}")
+  if not names or "humanoid_bench" in names:
+    bench = load_mjmodel()
+    rows = chip_smoke.bench_randomization(bench, chip_smoke.BENCH_BATCH, locomotion=True)
+    geometry = {k: rows[k] for k in ("body_mass", "body_pos")}
+    consts = _derived_constants(bench, geometry)
+    golden.update({f"bench.rows.{k}": v for k, v in {**geometry, **consts}.items()
+                   if k != "dof_M0" and np.size(v)})
+  return snapshots, golden
+
+
 def inverse_scene_specs() -> dict:
   """The scenes of inverse_scenes.npz, name -> (MjModel, start state of
   BATCH envs, where its qacc comes from: "given" in the start, "forward"
@@ -2774,8 +3158,8 @@ def main():
                       help="the envs of the env goldens (repeatable; default: all of each)")
   parser.add_argument("--scene", action="append",
                       help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
-                      " tendon_scenes, equality_scenes, implicit_scenes, sensor_scenes and"
-                      " diff_scenes (repeatable; default: all)")
+                      " tendon_scenes, equality_scenes, implicit_scenes, sensor_scenes,"
+                      " diff_scenes and randomize_fields (repeatable; default: all)")
   parser.add_argument("--view", action="append", choices=(*RENDER_OPTIONS, "default"),
                       help="the views of render_scenes by label (repeatable; default: all)")
   args = parser.parse_args()
@@ -2909,6 +3293,11 @@ def main():
     io.save_snapshot_bundle(out / RENDER_SCENES_FILE.name, snapshots)
     np.savez_compressed(out / RENDER_GOLDEN_FILE.name, **scene_golden)
     files += [RENDER_SCENES_FILE.name, RENDER_GOLDEN_FILE.name]
+  if "randomize_fields" in models:
+    snapshots, scene_golden = randomize_fields(args.scene)
+    io.save_snapshot_bundle(out / RANDOMIZE_FIELDS_FILE.name, snapshots)
+    np.savez_compressed(out / RANDOMIZE_FIELDS_GOLDEN_FILE.name, **scene_golden)
+    files += [RANDOMIZE_FIELDS_FILE.name, RANDOMIZE_FIELDS_GOLDEN_FILE.name]
   if "pixel_envs" in models:
     io.save_snapshot_bundle(out / PIXEL_ENV_MODELS_FILE.name, {
         name: io.snapshot_arrays(pixel_env_mjmodel(name)) for name in PIXEL_MODELS})

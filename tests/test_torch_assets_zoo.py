@@ -12,8 +12,9 @@ from tests.test_torch_assets import ZOO_BUILT, _assets_script, _regenerate, _sna
 
 def test_zoo_snapshot_files_are_fresh(tmp_path):
   """The zoo envs' snapshots are what the script writes; the swimmer's,
-  the one with fluid forces, also holds io.FLUID_FIELDS, and those of the
-  models with a camera (the satellites with CMGs) io.RENDER_FIELDS."""
+  the one with fluid forces, also holds io.FLUID_FIELDS, those of the
+  models with a camera (the satellites with CMGs) io.RENDER_FIELDS, and
+  those of the models with a light io.LIGHT_FIELDS."""
   script = _assets_script()
   new_dir = _regenerate(tmp_path, "--model", "zoo")
   assert script.ZOO_MODELS == ZOO_BUILT
@@ -22,6 +23,8 @@ def test_zoo_snapshot_files_are_fresh(tmp_path):
     extra = io.FLUID_FIELDS if name == "swimmer" else ()
     if script.load_zoo_mjmodel(name).ncam:
       extra += tuple(io.RENDER_FIELDS)
+    if script.load_zoo_mjmodel(name).nlight:
+      extra += tuple(io.LIGHT_FIELDS)
     assert _snapshot_keys(old_file) == sorted(io.SNAPSHOT_FIELDS + extra)
     with np.load(new_dir / old_file.name) as new, np.load(old_file) as old:
       assert sorted(new.files) == sorted(old.files)

@@ -8,9 +8,9 @@ parallel.randomized_step at f64 on the CPU against mjtpu's batched
 randomized rollout in the committed golden, and each env stepped alone
 under its own unbatched Model against the batched run, beside the same
 check on the base Model (a batch against batches of one, no rows).
-Every field the port randomizes (randomize._ACCEPTED) moves the
-trajectory of a model that reads it, and mjtpu's guards raise its
-errors.
+Every field of the first randomize slice (FIELDS) moves the trajectory
+of a model that reads it, and mjtpu's guards raise its errors; every
+other traced field is held to mjtpu in tests/test_torch_randomize_fields.py.
 """
 
 import copy
@@ -26,7 +26,6 @@ import mjtpu
 import mjtpu_torch
 from mjtpu import parallel as j_parallel
 from mjtpu_torch import parallel
-from mjtpu_torch.parallel.randomize import _ACCEPTED
 from mjtpu_torch._src import io
 from mjtpu_torch._src.types import field
 from tests.conftest import load_mj
@@ -172,16 +171,6 @@ def test_geom_size_round_only():
     parallel.randomize(m, {"geom_size": size2})
 
 
-@pytest.mark.parametrize("key", ["jnt_solref", "geom_rbound", "actuator_gear", "opt.wind"])
-def test_unported_field_refused_by_name(key):
-  """A traced field mjtpu randomizes and the port does not yet raises
-  NotImplementedError naming it."""
-  m = mjtpu_torch.put_model(load_mj("cartpole.xml"), device="cpu")
-  v = field(m, key).expand((2,) + tuple(field(m, key).shape)).clone()
-  with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-    parallel.randomize(m, {key: v})
-
-
 def test_randomize_with_consts_matches_fresh_put_model():
   """Mass rows with their constants from mj_setConst step as a fresh
   put_model of each env's modified MjModel does, within 1e-12."""
@@ -223,7 +212,18 @@ def test_randomize_with_consts_needs_mujoco(monkeypatch):
     parallel.randomize_with_consts(object(), m, {"body_mass": np.ones((2, m.nbody))})
 
 
-# one model that reads every field the port randomizes: a ball on the
+# the fields of the first randomize slice, each held here on FIELDS_XML
+FIELDS = (
+    "opt.timestep", "opt.gravity",
+    "geom_friction", "geom_solref", "geom_solimp", "geom_margin", "geom_size",
+    "body_mass", "body_inertia", "body_ipos", "body_gravcomp",
+    "dof_damping", "dof_armature", "dof_frictionloss", "jnt_stiffness", "jnt_range",
+    "actuator_gainprm", "actuator_biasprm",
+    "body_subtreemass", "body_invweight0", "dof_invweight0", "dof_M0", "tendon_invweight0",
+    "tendon_length0", "actuator_acc0", "stat.meaninertia",
+)
+
+# one model that reads every field of FIELDS: a ball on the
 # floor (contact parameters, its size, gravity compensation, the contact
 # rows' invweight), a limited hinge arm with damping, armature,
 # frictionloss and a spring (the limit and friction rows' invweight), a
@@ -278,12 +278,12 @@ def _perturbed(m, name):
 @pytest.fixture(scope="module")
 def field_runs():
   """One batched run of FIELDS_XML (f64, 20 steps) in which env 0 has the
-  base model and env k+1 field k of _ACCEPTED perturbed, each env also
+  base model and env k+1 field k of FIELDS perturbed, each env also
   stepped alone under its own Model: {field: (|env k+1 - env 0|, |env k+1
   - alone|)} over qpos, qvel and sensordata."""
   mjm = mujoco.MjModel.from_xml_string(FIELDS_XML)
   m = mjtpu_torch.put_model(mjm, device="cpu")
-  names = sorted(_ACCEPTED)
+  names = sorted(FIELDS)
   B = len(names) + 1
   rows = {}
   for k, name in enumerate(names):
@@ -311,7 +311,7 @@ def field_runs():
   return res
 
 
-@pytest.mark.parametrize("name", sorted(_ACCEPTED))
+@pytest.mark.parametrize("name", sorted(FIELDS))
 def test_field_matters(name, field_runs):
   """Each randomized field moves its env's trajectory (but dof_M0, which
   mjtpu and the port read nowhere), and the batched run equals the env

@@ -666,6 +666,36 @@ def test_randomized_step_on_the_card(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_per_env_terrain_on_the_card(dtype):
+  """humanoid_terrain with each env's own heights and friction
+  (chip_smoke.terrain_randomization) at B=8 on the card: the batched step
+  launches B4 `static` twice, on windows gathered from each env's heights,
+  and each env stepped alone under its own unbatched Model matches it
+  (f64: 1e-12 of scale; f32: RANDOM_CHECK_BOUND)."""
+  from mjtpu_torch.ops import hfield
+
+  ns = mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_terrain_model.npz")
+  m = mjtpu_torch.model_from_arrays(ns, dtype=dtype, device="cuda")
+  rows = chip_smoke.terrain_randomization(ns, 8)
+  step, _ = mjtpu_torch.parallel.randomized_step(m, rows)
+  rng = np.random.default_rng(0)
+  d = mjtpu_torch.replace(
+      mjtpu_torch.make_data(m, 8),
+      qpos=torch.as_tensor(ns.qpos0[None] + rng.uniform(-0.01, 0.01, (8, m.nq)), dtype=dtype,
+                           device="cuda"),
+      ctrl=torch.as_tensor(rng.uniform(-1, 1, (8, m.nu)), dtype=dtype, device="cuda"))
+  before = hfield.variant_launches["static"]
+  out = step(d)
+  assert hfield.variant_launches["static"] - before == 2
+  bound = 1e-12 if dtype == torch.float64 else chip_smoke.RANDOM_CHECK_BOUND
+  for e in range(8):
+    alone = mjtpu_torch.step(chip_smoke._env_model(m, rows, e), chip_smoke._env_data(d, e))
+    for f in ("qpos", "qvel"):
+      assert chip_smoke._scaled_err(getattr(alone, f)[0].cpu().numpy(),
+                                    getattr(out, f)[e].cpu().numpy()) <= bound, (e, f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [27, 23])
 def test_chol_backward_matches_twin_autograd(n, dtype):
   """B1's autograd.Function on the card (the kernel forward, one more
