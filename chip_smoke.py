@@ -320,9 +320,33 @@ failure raises and the script exits non-zero:
      memory, its stages (rays, nearest-hit loops, the winners' normals and
      albedo) by CUDA events over one more call; the f32 render of 8 envs
      against f64 on the same frames.
+ 38. slice-19 throughput, the system-identification main path:
+     humanoid_bench at f32 B=4096 under differentiable_mode()'s defaults
+     (Newton 1 x 4), targets a K=8 rollout under seeded reference rows of
+     body_mass, dof_damping, dof_armature, jnt_stiffness, geom_friction,
+     jnt_solref and actuator_gainprm, 3 Adam steps on those rows from a
+     seeded perturbation x U(0.8, 1.2), each one rollout forward and
+     backward of the mean over the steps of ||qpos - target||^2 (after a
+     warm-up rollout): forward and backward wall, env-steps/s, B1
+     register launches (8 forward, 8 backward: cholesky.CholSolve's
+     mat_bar reaches body_mass and dof_armature through qM), peak memory,
+     the 3 losses, the envs whose gradient is not finite (must be 0), and
+     the host syncs of a rollout forward and backward with the rows
+     requiring grad beside the same rollout with the gradient taken to
+     qvel, each on a randomized Model built before the count (may not be
+     more).
+ 38-parity (side). every model_grad scene (model_grad_scenes_golden.npz:
+     the 9 randomize_fields scenes with their rows as the point, and
+     humanoid_bench's unbatched base fields) at f64 on the card through
+     B1 (B4 on the height-field scenes, forward with its twin's gradient)
+     against mjtpu's jax.grad: values 1e-10 at step 1 and 1e-8 over the
+     run of scale, gradients 1e-8 of their max-abs, a zero of mjtpu's
+     zero, all finite; where mjtpu's gradient is NaN (ROADMAP C22) the
+     port's within 1e-4 of central differences of its own loss, and of
+     one-sided ones along the fields that cross a tie (model_grad_fd_error).
 
 The main paths are phases 6, 8, 11, 14, 16, 19, 21, 23, 25, 27, 29, 31,
-33, 35 and 37: each kernel's launch count is set to 0 just before each and
+33, 35, 37 and 38: each kernel's launch count is set to 0 just before each and
 read just after, by variant too:
 the main paths must run the redesigned variants only (NEW_VARIANT: B1
 register, B2 lanes, B3 and B4 static), but for phase 21, whose round hulls
@@ -331,14 +355,14 @@ record and {"ok": true, ...}.
 
 The parity phases 5, 7, 10, 13, 15, 17, 18, 20, 24, 26, 28, 30 (two
 processes, ``30`` and ``30-sensors``), 32 (two: ``32`` and ``32-fields``),
-34 and 36, phase 9's twin check
+34, 36 and 38 (``38-parity``), phase 9's twin check
 (``9-twin``) and phase 22's cone scenes (``22-cones`` and ``22-cones-2``,
 every other scene each), run each in a
 process of its own
 (``python3 chip_smoke.py --phase 24``), started just after phase 21 and
 awaited after the rest of phase 22, so their host-bound steps at B=4
 overlap it; no phase is timed while they run (the timed phases 23, 25,
-27, 29, 31, 33, 35 and 37 come after all have ended).
+27, 29, 31, 33, 35, 37 and 38 come after all have ended).
 
     python3 chip_smoke.py --kernels
 
@@ -353,6 +377,7 @@ stream until the host has enqueued them all, over the number of calls
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import statistics
@@ -4598,9 +4623,453 @@ def phase_slice17_throughput(card):
   return counts, figures
 
 
+# the model_grad scenes (model_grad_scenes_golden.npz): each
+# randomize_fields scene with its rows as the point of the gradient, name
+# -> (steps of the loss, (iterations, ls_iterations) of its solver: under
+# differentiable_mode every round runs, so the scenes that default to 100
+# x 50 run at DIFF_SOLVER_BOUNDS-like bounds; humanoid_bench at its own)
+MODEL_GRAD_SCENES = {
+    "fields": (3, (2, 4)), "sensing": (3, (2, 4)), "friction": (3, (2, 4)),
+    "elliptic": (3, (2, 4)), "slidercrank": (3, (2, 4)), "terrain": (3, (2, 4)),
+    "cartpole_gear": (3, (2, 4)), "humanoid_bench": (4, (1, 4)), "humanoid_terrain": (2, (2, 4)),
+}
+# humanoid_bench's unbatched base-Model fields (one tensor shared by the
+# batch), the starts of its randomize_fields scene, MODEL_GRAD_BASE_STEPS
+MODEL_GRAD_BASE = "bench_base"
+MODEL_GRAD_BASE_FIELDS = ("body_mass", "geom_friction", "dof_damping", "actuator_gainprm",
+                          "opt.timestep")
+MODEL_GRAD_BASE_STEPS = 4
+# a port gradient where mjtpu's is not finite (ROADMAP C22) against central
+# differences of the port's own loss in one direction over those entries
+# (model_grad_fd_error): tests/test_diff.py's rtol
+MODEL_GRAD_FD_RTOL = 1e-4
+# ... but for the fields that place a contact's detection: where a margin
+# crosses a contact's distance the loss jumps (the contact is detected, its
+# rows live), and a difference measures the jump (the sensing scene's
+# ball2 rests at its pair's margin)
+MODEL_GRAD_FD_SKIP = ("geom_margin", "geom_gap", "pair_margin", "pair_gap")
+# ... and, held to one-sided differences, the fields that move the fields
+# scene's muscle activation across its ctrl: the activation lands on its
+# ctrl after one step, the next step picks its time constant by a where at
+# that tie, and the loss has a kink along them
+MODEL_GRAD_FD_TIE = ("actuator_dynprm", "opt.timestep")
+# the system-identification path (phase 38): humanoid_bench at f32,
+# BENCH_BATCH envs, SYSID_K steps a rollout, SYSID_STEPS Adam steps on
+# these per-env rows from seeded perturbations of the reference rows
+SYSID_FIELDS = ("body_mass", "dof_damping", "dof_armature", "jnt_stiffness", "geom_friction",
+                "jnt_solref", "actuator_gainprm")
+SYSID_K = 8
+SYSID_STEPS = 3
+SYSID_LR = 0.01  # Adam's step, of each field's largest reference magnitude
+
+
+def model_grad_loss(d):
+  """(B,) the model_grad scenes' loss term of one step: the sum over every
+  FIELD_OUTPUTS field of each env of (x + 1)^2 (the offset keeps a
+  gradient to unit vectors and frames, whose squares sum to a constant)."""
+  import torch
+
+  return sum(torch.sum((getattr(d, o).reshape(d.qpos.shape[0], -1) + 1.0) ** 2, dim=1)
+             for o in FIELD_OUTPUTS)
+
+
+def model_grad_scene_run(name, golden, device, dtype=None, backward=True, cfg=None) -> dict:
+  """One model_grad scene through the port under differentiable_mode()
+  from the golden's start: each of its fields as leaf tensors that
+  require grad (a randomize_fields scene's rows through
+  parallel.randomize; ``MODEL_GRAD_BASE``'s unbatched fields through
+  replace_fields), its steps, the loss summed over the steps of
+  model_grad_loss, and loss.sum().backward(); ``cfg`` (a dict) overrides
+  the mode's defaults.  Returns numpy arrays: "loss"
+  (B,), "qpos" (steps, B, nq) and "grad.<field>" (None where the port
+  leaves a field without a gradient, which must then be zero in mjtpu's)."""
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch import parallel
+  from mjtpu_torch._src.types import field, replace_fields
+
+  scene = "humanoid_bench" if name == MODEL_GRAD_BASE else name
+  m = _bundle_model("randomize_fields", scene, device, dtype)
+  it, ls = (int(x) for x in golden[f"{name}.solver"])
+  m = replace_fields(m, {"opt.iterations": it, "opt.ls_iterations": ls})
+  t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=device)
+  if name == MODEL_GRAD_BASE:
+    leaves = {k: field(m, k).detach().clone().requires_grad_(True) for k in MODEL_GRAD_BASE_FIELDS}
+    mg = replace_fields(m, leaves)
+  else:
+    leaves = {k: t(v).requires_grad_(True) for k, v in _rows(golden, f"{name}.rows.", m).items()}
+    mg, _ = parallel.randomize(m, leaves)
+  start = {k[len(name) + 1:-1]: golden[k] for k in golden.files
+           if k.startswith(f"{name}.") and k.count(".") == 1 and k.endswith("0")}
+  batch = golden[f"{name}.loss"].shape[0]
+  d = mjtpu_torch.replace(mjtpu_torch.make_data(mg, batch), **{k: t(v) for k, v in start.items()})
+  loss, qpos = 0.0, []
+  with mjtpu_torch.differentiable_mode(**(cfg or {})):
+    for _ in range(int(golden[f"{name}.steps"])):
+      d = mjtpu_torch.step(mg, d)
+      loss = loss + model_grad_loss(d)
+      qpos.append(d.qpos)
+  if backward and loss.requires_grad:
+    # (no field reaches the loss where each is one mjtpu ignores: gear on
+    # a baked moment matrix, ROADMAP C19; every gradient is then None)
+    loss.sum().backward()
+  out = {"loss": loss, "qpos": torch.stack(qpos)}
+  out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+  out.update({f"grad.{k}": None if v.grad is None else v.grad.cpu().numpy()
+              for k, v in leaves.items()})
+  return out
+
+
+def model_grad_scene_errors(name, golden, device, got=None) -> dict:
+  """A model_grad scene on ``device`` (or ``got``, a run of
+  model_grad_scene_run) against mjtpu's golden: "head" the qpos at step 1
+  and "values" every step's qpos and the loss, of their scale; "grads"
+  each field's gradient error over the golden's max-abs, or, where mjtpu's
+  is zero throughout, the port's max-abs (zero where the port gives none),
+  both over the entries where mjtpu's gradient is finite (0 where none
+  is); "mjtpu_nonfinite"
+  the count of the others (ROADMAP C22: mjtpu's NaN gradients, which the
+  port's model_grad_fd_error holds instead); "finite" whether every
+  gradient of the port is finite; "zero" the fields whose gradient mjtpu
+  leaves at zero."""
+  import numpy as np
+
+  got = got or model_grad_scene_run(name, golden, device)
+  errs = {"head": _scaled_err(got["qpos"][0], golden[f"{name}.qpos"][0]),
+          "values": max(_scaled_err(got[k], golden[f"{name}.{k}"]) for k in ("qpos", "loss")),
+          "grads": {}, "zero": [], "finite": True, "mjtpu_nonfinite": 0}
+  for k in golden.files:
+    if not k.startswith(f"{name}.grad."):
+      continue
+    f = k[len(f"{name}.grad."):]
+    want, port = golden[k], got.get(f"grad.{f}")
+    if f"grad.{f}" not in got:
+      raise AssertionError(f"model_grad {name}: the port took no field {f}")
+    port = np.zeros_like(want) if port is None else port
+    errs["finite"] &= bool(np.isfinite(port).all())
+    live = np.isfinite(want)
+    errs["mjtpu_nonfinite"] += int((~live).sum())
+    want, port = np.where(live, want, 0.0), np.where(live, port, 0.0)
+    scale = float(np.abs(want).max())
+    if not live.any():
+      errs["grads"][f] = 0.0  # no finite entry of mjtpu's to hold it to
+    elif scale == 0.0:
+      errs["zero"].append(f)
+      errs["grads"][f] = float(np.abs(port).max())
+    else:
+      errs["grads"][f] = float(_abs_err(port, want).max()) / scale
+  return errs
+
+
+def model_grad_fd_error(name, golden, device, eps: float = 1e-6) -> dict:
+  """Where mjtpu's gradient is not finite (ROADMAP C22), the port's held to
+  its own loss L (the summed loss of model_grad_scene_run, under
+  differentiable_mode(cfd=False): contacts from distance take a
+  straight-through gradient, which differences of the values cannot see)
+  along two directions over those entries (numpy seed 0, normal, times
+  each entry's magnitude; MODEL_GRAD_FD_SKIP's fields left out):
+  "smooth" over every other field but MODEL_GRAD_FD_TIE's, the error
+  |grad . v - fd| over |grad . v| with fd = (L(x + eps v) - L(x - eps v))
+  / (2 eps); "tie" over MODEL_GRAD_FD_TIE's fields, where the loss has a
+  kink, the error of grad . v against the nearer of its one-sided
+  differences (the slope of the branch the port takes).  Each must be
+  within MODEL_GRAD_FD_RTOL.  The directions a scene has no entry for are
+  left out: {} where mjtpu's gradient is finite throughout."""
+  import numpy as np
+
+  rows = {k[len(f"{name}.rows."):]: golden[k] for k in golden.files
+          if k.startswith(f"{name}.rows.")}
+  rng = np.random.default_rng(0)
+  v = {f: rng.standard_normal(x.shape) * np.abs(x) * ~np.isfinite(golden[f"{name}.grad.{f}"])
+       for f, x in rows.items() if f not in MODEL_GRAD_FD_SKIP}
+  dirs = {kind: {f: x for f, x in v.items() if (f in MODEL_GRAD_FD_TIE) == (kind == "tie")}
+          for kind in ("smooth", "tie")}
+  dirs = {kind: d for kind, d in dirs.items() if any(np.any(x) for x in d.values())}
+  if not dirs:
+    return {}
+  cfg = {"cfd": False}
+  got = model_grad_scene_run(name, golden, device, cfg=cfg)
+  loss0 = got["loss"]
+  errs = {}
+  for kind, d in dirs.items():
+    # (B,) each env's slope and losses: an env's loss reads its own rows only
+    slope = sum(np.sum((got[f"grad.{f}"] * d[f]).reshape(len(loss0), -1), axis=1) for f in d
+                if got[f"grad.{f}"] is not None)
+    loss = {0: loss0}
+    for sign in (1, -1):
+      moved = {k: golden[k] for k in golden.files}
+      moved.update({f"{name}.rows.{f}": rows[f] + sign * eps * d[f] for f in d})
+      loss[sign] = model_grad_scene_run(name, _Files(moved), device, backward=False,
+                                        cfg=cfg)["loss"]
+    if kind == "smooth":
+      fd = np.sum(loss[1] - loss[-1]) / (2 * eps)
+      errs[kind] = float(abs(np.sum(slope) - fd) / max(abs(np.sum(slope)), 1e-300))
+    else:
+      # each env's kink on its own side of its tie: the nearer one-sided
+      # difference, env by env
+      err = np.minimum(np.abs(slope - (loss[1] - loss[0]) / eps),
+                       np.abs(slope - (loss[0] - loss[-1]) / eps))
+      envs = sum(np.any(d[f].reshape(len(loss0), -1) != 0, axis=1) for f in d) > 0
+      errs[kind] = float(np.max(err[envs] / np.maximum(np.abs(slope[envs]), 1e-300)))
+  return errs
+
+
+class _Files(dict):
+  """A dict of arrays read as an npz file (``.files``)."""
+
+  @property
+  def files(self):
+    return list(self)
+
+
+def model_grad_ok(errs: dict) -> bool:
+  """A model_grad scene's errors within the diff scenes' bounds: values
+  at step 1 DIFF_VALUE_HEAD_BOUND, over the run DIFF_VALUE_BOUND, each
+  gradient DIFF_GRAD_BOUND of its max-abs, a gradient mjtpu leaves at zero
+  zero, all finite."""
+  return (errs["finite"] and errs["head"] <= DIFF_VALUE_HEAD_BOUND
+          and errs["values"] <= DIFF_VALUE_BOUND
+          and all(v == 0.0 if f in errs["zero"] else v <= DIFF_GRAD_BOUND
+                  for f, v in errs["grads"].items()))
+
+
+def phase_slice19_parity():
+  """Phase 38-parity (side): every model_grad scene at f64 on the card
+  against mjtpu's jax.grad golden (model_grad_ok), through the kernels:
+  B1 in every solve and its backward, B4 forward with the twin's gradient
+  to each env's hfield_data rows on the height-field scenes, B3 where a
+  scene's hulls take it; each scene's launches, and on the height-field
+  scenes the hfield_data gradient nonzero where mjtpu's is."""
+  import numpy as np
+
+  import mjtpu_torch
+  from mjtpu_torch.ops import cholesky, hfield, sat
+
+  golden = np.load(mjtpu_torch.ASSETS / "model_grad_scenes_golden.npz")
+  for name in (*MODEL_GRAD_SCENES, MODEL_GRAD_BASE):
+    _zero_counts()
+    got = model_grad_scene_run(name, golden, "cuda")
+    launches = {"chol_solve": cholesky.launches, "hfield_manifold": hfield.launches,
+                "sat_winners": sat.launches}
+    errs = model_grad_scene_errors(name, golden, "cuda", got=got)
+    fd = model_grad_fd_error(name, golden, "cuda") if errs["mjtpu_nonfinite"] else {}
+    hf = got.get("grad.hfield_data")
+    if not model_grad_ok(errs) or not launches["chol_solve"] or (
+        errs["mjtpu_nonfinite"] and not fd) or any(
+            not e <= MODEL_GRAD_FD_RTOL for e in fd.values()) or (hf is not None and not (
+                launches["hfield_manifold"]
+                and (np.abs(hf).max() > 0) == ("hfield_data" not in errs["zero"]))):
+      raise AssertionError(f"model_grad {name}: {errs}, central differences {fd}, launches"
+                           f" {launches}")
+    worst = max((v for f, v in errs["grads"].items() if f not in errs["zero"]), default=0.0)
+    log(f"[slice19 parity] model_grad {name}: {len(errs['grads'])} fields, gradients within"
+        f" {worst:.3e} of their max-abs (bound {DIFF_GRAD_BOUND:g}), {len(errs['zero'])} zero"
+        f" in mjtpu and the port, values at step 1 {errs['head']:.3e} and over the run"
+        f" {errs['values']:.3e} of scale, finite; "
+        + ("" if not fd else f"{errs['mjtpu_nonfinite']} entries where mjtpu's is not finite"
+           f" (C22) against differences of the port's loss "
+           + ", ".join(f"{kind} {e:.3e}" for kind, e in fd.items())
+           + f" (bound {MODEL_GRAD_FD_RTOL:g}); ")
+        + f"launches forward and backward {launches}"
+        + ("" if hf is None else f"; hfield_data gradient max-abs {np.abs(hf).max():.3e}"))
+
+
+def sysid_rows(ns, batch: int, seed: int = 1) -> tuple[dict, dict]:
+  """(reference rows, start rows) of the system-identification path (numpy,
+  (batch, *shape) each) for ``ns`` (a snapshot or a Model's fields as
+  numpy): each of SYSID_FIELDS' entries x U(0.8, 1.2) for the reference,
+  and the reference x U(0.8, 1.2) again for the start, numpy seed
+  ``seed``."""
+  import numpy as np
+
+  rng = np.random.default_rng(seed)
+  ref, start = {}, {}
+  for k in SYSID_FIELDS:
+    base = np.tile(np.array(getattr(ns, k), dtype=np.float64), (batch,) + (1,) * np.ndim(
+        getattr(ns, k)))
+    ref[k] = base * rng.uniform(0.8, 1.2, base.shape)
+    start[k] = ref[k] * rng.uniform(0.8, 1.2, base.shape)
+  return ref, start
+
+
+def _sysid_path(card):
+  """Phase 38's main path: system identification on humanoid_bench at
+  f32, B=4096 under differentiable_mode()'s defaults (Newton 1 x 4, the
+  model's own): targets are a rollout of SYSID_K steps (from qpos0 +-0.01,
+  qvel and ctrl (SYSID_K, B, nu) uniform in [-1, 1], numpy seed 1) under
+  the reference rows of sysid_rows; from its start rows, each of
+  SYSID_FIELDS a leaf tensor (B, *shape) that requires grad through
+  parallel.randomize, SYSID_STEPS steps of torch.optim.Adam (lr SYSID_LR
+  of each field's largest reference magnitude), each one rollout forward
+  and backward of the loss: per env the mean over the steps of ||qpos -
+  target||^2, summed over the envs.  One warm-up rollout forward and
+  backward, then the Adam steps timed, forward and backward each by the
+  host clock (synchronized); the first is the counted run (every kernel
+  count set to 0 before its forward: B1 register once a step forward,
+  cholesky.CholSolve once a step backward, whose mat_bar reaches
+  body_mass and dof_armature through qM); peak memory over the timed
+  steps; the envs whose gradient of any field is not finite (must be 0);
+  and the host syncs of one more rollout forward and backward
+  (torch.cuda.set_sync_debug_mode) beside the same rollout with its
+  gradient taken to the initial qvel and no field requiring grad: the
+  tables rebuilt from the live fields add none."""
+  import statistics
+  import warnings
+  from types import SimpleNamespace
+
+  import numpy as np
+  import torch
+
+  import mjtpu_torch
+  from mjtpu_torch import parallel
+  from mjtpu_torch.ops import cholesky
+
+  m = mjtpu_torch.model_from_arrays(
+      mjtpu_torch.load_snapshot(mjtpu_torch.ASSETS / "humanoid_bench_model.npz"),
+      dtype=torch.float32, device="cuda")
+  B, K = BENCH_BATCH, SYSID_K
+  rng = np.random.default_rng(1)
+  t = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")
+  qpos = t(m.qpos0.cpu().numpy()[None] + rng.uniform(-0.01, 0.01, (B, m.nq)))
+  qvel = t(rng.uniform(-1.0, 1.0, (B, m.nv)))
+  ctrl = t(rng.uniform(-1.0, 1.0, (K, B, m.nu)))
+  base = SimpleNamespace(**{k: getattr(m, k).cpu().numpy() for k in SYSID_FIELDS})
+  ref, start = sysid_rows(base, B)
+
+  def rollout(rows, qvel0=qvel):
+    return rollout_on(parallel.randomize(m, rows)[0], qvel0)
+
+  def rollout_on(mb, qvel0):
+    d = mjtpu_torch.replace(mjtpu_torch.make_data(mb, B), qpos=qpos, qvel=qvel0)
+    out = []
+    with mjtpu_torch.differentiable_mode():
+      for i in range(K):
+        d = mjtpu_torch.step(mb, mjtpu_torch.replace(d, ctrl=ctrl[i]))
+        out.append(d.qpos)
+    return torch.stack(out), d
+
+  with torch.no_grad():
+    target, _ = rollout({k: t(v) for k, v in ref.items()})
+  leaves = {k: t(v).requires_grad_(True) for k, v in start.items()}
+  opt = torch.optim.Adam([{"params": [leaves[k]], "lr": SYSID_LR * float(np.abs(ref[k]).max())}
+                          for k in SYSID_FIELDS])
+
+  def loss_of(qs):
+    per_env = torch.mean(torch.sum((qs - target) ** 2, dim=-1), dim=0)
+    return per_env.sum(), per_env
+
+  loss, _ = loss_of(rollout(leaves)[0])
+  loss.backward()
+  opt.zero_grad()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  walls, losses, bad = [], [], 0
+  for step in range(SYSID_STEPS):
+    if step == 0:
+      _zero_counts()
+    t0 = time.perf_counter()
+    qs, d = rollout(leaves)
+    loss, per_env = loss_of(qs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if step == 0:
+      forward = cholesky.launches
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if step == 0:
+      counts = _read_counts()
+      backward = counts["chol_solve"] - forward
+    walls.append((t1 - t0, t2 - t1))
+    losses.append(float(per_env.detach().mean()))
+    finite = torch.ones(B, dtype=torch.bool, device="cuda")
+    for v in leaves.values():
+      finite &= torch.isfinite(v.grad).reshape(B, -1).all(dim=1)
+    bad = max(bad, int((~finite).sum()))
+    if bad or not bool(torch.isfinite(d.qpos).all()) or int(d.nreset.sum()):
+      raise AssertionError(f"sysid step {step}: {bad} envs with a gradient not finite, nreset"
+                           f" {int(d.nreset.sum())}")
+    opt.step()
+    opt.zero_grad()
+    del qs, d, loss, per_env
+  peak = torch.cuda.max_memory_allocated()
+  if counts != _only(chol_solve=2 * K) or forward != K:
+    raise AssertionError(f"sysid path: launches {counts}, {forward} in the forward")
+
+  def syncs(rows, qvel0) -> collections.Counter:
+    """The host syncs of one rollout forward and backward on the Model
+    randomized with ``rows``, by the line that made each; the Model is
+    built before the count (randomize reads the values of rows that do not
+    require grad on the host)."""
+    mb, _ = parallel.randomize(m, rows)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter("always")
+      torch.cuda.set_sync_debug_mode("warn")
+      try:
+        loss_of(rollout_on(mb, qvel0)[0])[0].backward()
+      finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message))
+
+  # the mode's first switch in a process warns once that it is a prototype
+  # (a warning that names synchronizing operations): switched once here,
+  # outside the counts
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode("default")
+  # the baseline: the same rollout and backward with the gradient taken to
+  # the initial qvel (phase 35's path) and no Model field requiring grad
+  at_grad = syncs(leaves, qvel)
+  opt.zero_grad()
+  at_plain = syncs({k: v.detach() for k, v in leaves.items()}, qvel.clone().requires_grad_(True))
+  sync_grad, sync_plain = sum(at_grad.values()), sum(at_plain.values())
+  if not sync_plain:
+    raise AssertionError("sysid path: no host sync counted without the rows requiring grad, where"
+                         " the new Model's index tables are copied from the host: the count is"
+                         " blind")
+  if sync_grad > sync_plain:
+    raise AssertionError(f"sysid path: {sync_grad} host syncs a rollout with its rows requiring"
+                         f" grad, {sync_plain} without; only with the rows: {at_grad - at_plain},"
+                         f" only without: {at_plain - at_grad}")
+  med = statistics.median
+  fwd_s, bwd_s = med([f for f, _ in walls]), med([b for _, b in walls])
+  totals = [f + b for f, b in walls]
+  rate = B * K / med(totals)
+  figures = {"launches_forward": forward, "launches_backward": backward, "forward_s": fwd_s,
+             "backward_s": bwd_s, "total_s_runs": totals, "env_steps_per_s": rate,
+             "peak_memory_bytes": peak, "losses": losses, "nonfinite_envs": bad,
+             "host_syncs_grad": sync_grad, "host_syncs_plain": sync_plain}
+  line = (f"f32 B={B} K={K}, {len(SYSID_FIELDS)} fields per env ({', '.join(SYSID_FIELDS)}),"
+          f" {SYSID_STEPS} Adam steps after one warm-up rollout (host clock, synchronized):"
+          f" forward median {fwd_s:.3f} s, backward median {bwd_s:.3f} s, together median"
+          f" {med(totals):.3f} s (least {min(totals):.3f}, most {max(totals):.3f}) ="
+          f" {rate:.0f} env-steps/s forward and backward together; losses (mean per env) "
+          + ", ".join(f"{x:.6e}" for x in losses)
+          + f"; B1 register (n={m.nv}) launches {forward} in the forward, {backward} in the"
+          f" backward; peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated);"
+          f" envs with a gradient not finite {bad}; host syncs of a rollout forward and"
+          f" backward {sync_grad} with the rows requiring grad, {sync_plain} with the initial"
+          f" qvel's instead; card {card}")
+  return line, counts, figures
+
+
+def phase_slice19_throughput(card):
+  """Phase 38: system identification on humanoid_bench (the slice-19 main
+  path): (its launch counts, its figures)."""
+  line, counts, figures = _sysid_path(card)
+  log(f"[slice19 throughput] humanoid_bench system identification under differentiable_mode()"
+      f" {line}")
+  return counts, figures
+
+
 # the parity phases that run in a process of their own beside phase 22
 SIDE_PHASES = ("5", "7", "9-twin", "10", "13", "15", "17", "18", "20", "22-cones",
-               "22-cones-2", "24", "26", "28", "30", "30-sensors", "32", "32-fields", "34", "36")
+               "22-cones-2", "24", "26", "28", "30", "30-sensors", "32", "32-fields", "34", "36",
+               "38-parity")
 SIDE_TIMEOUT_S = 600
 
 
@@ -4644,7 +5113,8 @@ def _side_main(phase: str) -> int:
    "30": lambda: phase_slice14_parity("implicit"),
    "30-sensors": lambda: phase_slice14_parity("sensor"), "32": phase_slice15_parity,
    "32-fields": phase_slice18_parity,
-   "34": phase_slice16_parity, "36": phase_slice17_parity, "9-twin": phase_sat_parity}[phase]()
+   "34": phase_slice16_parity, "36": phase_slice17_parity, "9-twin": phase_sat_parity,
+   "38-parity": phase_slice19_parity}[phase]()
   # its own wall time, beside the other side phases: which one holds the
   # group's rest after phase 22
   log(f"[time] phase {phase} in its process: {time.perf_counter() - t0:.1f} s")
@@ -4732,6 +5202,8 @@ def main() -> int:
   lap("35")
   paths["humanoid_pixels"], pixel_figures = phase_slice17_throughput(card)
   lap("37")
+  paths["sysid_humanoid_bench"], sysid_figures = phase_slice19_throughput(card)
+  lap("38")
   # each path ran only the variant it expects (_read_counts); the
   # redesigned variant of every kernel ran on some path
   for name, kinds in VARIANT_LAUNCHES.items():
@@ -4783,6 +5255,9 @@ def main() -> int:
       # without pixels, the renderer's time, launches, busy share and
       # memory; B1 launches per env step
       record[-1]["pixel_env"] = pixel_figures
+      # the system-identification path (phase 38): Adam steps on per-env
+      # Model rows, each one rollout forward and backward (B1 8 + 8)
+      record[-1]["sysid_path"] = sysid_figures
     if name in ("chol_solve", "hfield_manifold"):
       # the randomized main paths (phase 33): env steps/s beside the plain
       # path's in the same call, peak memory, each env alone's error

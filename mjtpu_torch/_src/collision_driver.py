@@ -332,17 +332,14 @@ _CONTACT_FIELDS = ("geom_margin", "geom_gap", "geom_solmix", "geom_friction", "g
                    "pair_solreffriction", "pair_solimp")
 
 
-def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
+def _contact_params(m: Model, g: "_Group"):
   """Stacked (margin, gap, friction, solref, solreffriction, solimp) for a
   group's pairs, each (E, P, ...) with the env axis E of types.rows: B
   where randomize gave any of _CONTACT_FIELDS a row per env, else 1, the
   same in every group.  <pair> rows use the table; dynamic rows mix
-  per-geom parameters by solmix weight with priority override."""
-  i1 = np.array([p[0] for p in pairs])
-  i2 = np.array([p[1] for p in pairs])
-  ip = np.array([p[2] for p in pairs])
-
-  p1, p2 = m.geom_priority[i1], m.geom_priority[i2]
+  per-geom parameters by solmix weight with priority override.  Every
+  index comes from the group's device tables."""
+  i1, i2 = g.i1, g.i2
   gmargin, ggap = env_rows(m, "geom_margin"), env_rows(m, "geom_gap")
   margin = gmargin[:, i1] + gmargin[:, i2]
   gap = ggap[:, i1] + ggap[:, i2]
@@ -354,9 +351,8 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   mix = torch.where(small1 & small2, 0.5, mix)
   mix = torch.where(small1 & ~small2, 0.0, mix)
   mix = torch.where(~small1 & small2, 1.0, mix)
-  dev = margin.device
-  eq_prio = torch.as_tensor(p1 == p2, device=dev)
-  mix = torch.where(eq_prio, mix, torch.as_tensor(p1 > p2, device=dev).to(mix.dtype))
+  eq_prio = g.eq_prio
+  mix = torch.where(eq_prio, mix, g.prio_gt.to(mix.dtype))
   mix_ = mix[..., None]
 
   gf, gsr, gsi = (env_rows(m, f"geom_{k}") for k in ("friction", "solref", "solimp"))
@@ -368,18 +364,26 @@ def _contact_params(m: Model, pairs: list[tuple[int, int, int]]):
   is_standard = (sr1[..., 0:1] > 0) & (sr2[..., 0:1] > 0)
   solref = torch.where(is_standard, torch.minimum(sr1, sr2), mix_ * sr1 + (1 - mix_) * sr2)
   solimp = mix_ * gsi[:, i1] + (1 - mix_) * gsi[:, i2]
-  friction = friction3[..., [0, 0, 1, 2, 2]]
+  # [0, 0, 1, 2, 2] by slices: an index list would copy from the host
+  f = lambda k: friction3[..., k:k + 1]
+  friction = torch.cat([f(0), f(0), f(1), f(2), f(2)], dim=-1)
   solreffriction = torch.zeros_like(solref)
 
   E = max(env_rows(m, name).shape[0] for name in _CONTACT_FIELDS)
   out = [x.expand((E,) + x.shape[1:]).clone()
          for x in (margin, gap, friction, solref, solreffriction, solimp)]
-  sel = np.where(ip >= 0)[0]
-  if len(sel):
-    tp = ip[sel]
+  if g.pair_slots is not None:
+    sel, tp = g.pair_slots
     for x, k in zip(out, ("margin", "gap", "friction", "solref", "solreffriction", "solimp")):
       x[:, sel] = env_rows(m, f"pair_{k}")[:, tp]
   return tuple(out)
+
+
+def _group_params(m: Model) -> list[tuple]:
+  """Each group's mixed contact parameters (_contact_params), in schedule
+  order."""
+  return cached(m, "collision.group_params",
+                lambda: [_contact_params(m, g) for g in _schedule(m)], live=True)
 
 
 def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Callable:
@@ -418,8 +422,10 @@ def _collision_fn(m: Model, key: tuple, pairs: list[tuple[int, int, int]]) -> Ca
 class _Group:
   """One group's narrowphase: its pair function, geom ids (P,) as tensors,
   contacts per pair, the pairs the broadphase keeps (``npair``; P where it
-  keeps all), whether geom1 is a plane, and the mixed parameters per pair
-  (margin, gap, friction, solref, solreffriction, solimp)."""
+  keeps all), whether geom1 is a plane, and the index tables its mixed
+  parameters read (_contact_params): whether each pair's geoms have equal
+  priority and whether geom1's is the higher, and the slots of its
+  <pair> rows with their pair ids (None without)."""
 
   def __init__(self, m: Model, key: tuple, pairs: list[tuple[int, int, int]]):
     self.fn = _collision_fn(m, key, pairs)
@@ -429,7 +435,14 @@ class _Group:
     self.npair = _group_npair(m, key, pairs)
     self.compacted = self.npair < len(pairs)
     self.plane = key[0] == GeomType.PLANE
-    self.params = _contact_params(m, pairs)
+    p1 = m.geom_priority[np.array([p[0] for p in pairs])]
+    p2 = m.geom_priority[np.array([p[1] for p in pairs])]
+    self.eq_prio = torch.as_tensor(p1 == p2, device=m.device)
+    self.prio_gt = torch.as_tensor(p1 > p2, device=m.device)
+    ip = np.array([p[2] for p in pairs])
+    sel = np.where(ip >= 0)[0]
+    self.pair_slots = (torch.as_tensor(sel, device=m.device),
+                       torch.as_tensor(ip[sel], device=m.device)) if len(sel) else None
 
 
 def _schedule(m: Model) -> list[_Group]:
@@ -450,26 +463,31 @@ def _static_rows(m: Model):
             torch.as_tensor(contact_efc_address(m, ne, nf, nl), device=m.device))
     if _compacted(m):
       return rows, None
-    groups = _schedule(m)
-    rep = lambda x, g: torch.repeat_interleave(x, g.n_per, dim=1)
-    margin, gap, *params = (torch.cat([rep(g.params[k], g) for g in groups], dim=1)
-                            for k in range(6))
-    params = (margin, margin + gap, *params)
     geoms = tuple(torch.as_tensor(g, dtype=torch.int32, device=m.device)
                   for g in _slot_geoms(m))
-    return rows, params + geoms
+    return rows, geoms
 
-  return cached(m, "collision.static_rows", build)
+  rows, geoms = cached(m, "collision.static_rows", build)
+  if geoms is None:
+    return rows, None
+
+  def params():
+    rep = lambda x, g: torch.repeat_interleave(x, g.n_per, dim=1)
+    margin, gap, *rest = (torch.cat([rep(p[k], g) for g, p in zip(_schedule(m), _group_params(m))],
+                                    dim=1) for k in range(6))
+    return (margin, margin + gap, *rest)
+
+  return rows, cached(m, "collision.static_params", params, live=True) + geoms
 
 
-def _broadphase(m: Model, d: Data, g: _Group) -> torch.Tensor:
+def _broadphase(m: Model, d: Data, g: _Group, params: tuple) -> torch.Tensor:
   """(B, npair) the pairs of group g that the narrowphase runs in each env:
   the npair smallest bound distances, the lower pair index first on ties
   (jax.lax.top_k's order: a stable sort).  The bound is the distance of
   the two bounding spheres (for a plane, the sphere's signed height above
   it) less the detection buffer margin + gap."""
   rb = env_rows(m, "geom_rbound")
-  detect = g.params[0] + g.params[1]
+  detect = params[0] + params[1]
   x1, x2 = d.geom_xpos[:, g.i1], d.geom_xpos[:, g.i2]
   if g.plane:
     bound = math.dot3(d.geom_xmat[:, g.i1][..., :, 2], x2 - x1) - rb[:, g.i2] - detect
@@ -490,11 +508,12 @@ def collision(m: Model, d: Data) -> Data:
   bcast = lambda x: x.expand((B,) + x.shape)
   size = env_rows(m, "geom_size")  # (E, ngeom, 3)
   dists, poss, frames, slots = [], [], [], []
-  for g in _schedule(m):
+  params = _group_params(m) if static is None else None
+  for k, g in enumerate(_schedule(m)):
     i1, i2 = g.i1, g.i2
     if g.compacted:
       # the broadphase's pairs, per env: (B, K) geom ids
-      sel = _broadphase(m, d, g)
+      sel = _broadphase(m, d, g, params[k])
       i1, i2 = i1[sel], i2[sel]
       envs = torch.arange(B, device=device)[:, None]
       args = (d.geom_xpos[envs, i1], d.geom_xmat[envs, i1], env_expand(size, B)[envs, i1],
@@ -510,9 +529,9 @@ def collision(m: Model, d: Data) -> Data:
       # each slot's parameters and geoms, (B, slots, ...)
       rep = lambda x: torch.repeat_interleave(x, g.n_per, dim=1)
       if g.compacted:
-        slots.append([rep(env_expand(p, B)[envs, sel]) for p in g.params] + [rep(i1), rep(i2)])
+        slots.append([rep(env_expand(p, B)[envs, sel]) for p in params[k]] + [rep(i1), rep(i2)])
       else:
-        slots.append([env_expand(torch.repeat_interleave(x, g.n_per, dim=1), B) for x in g.params]
+        slots.append([env_expand(torch.repeat_interleave(x, g.n_per, dim=1), B) for x in params[k]]
                      + [bcast(torch.repeat_interleave(x, g.n_per, dim=0)) for x in (i1, i2)])
 
   if static is None:

@@ -82,7 +82,14 @@ def _kbi(m: Model, solref, solimp, pos):
 
   x = torch.abs(pos) / width
   y_low = (mid ** (1.0 - power)) * (x ** power)
-  y_high = 1.0 - ((1.0 - mid) ** (1.0 - power)) * ((1.0 - x) ** power)
+  # where a gradient is taken, the upper branch's base clamped at 0: past
+  # x = 1 (where imp is dmax) 1 - x is negative, and its power is NaN at a
+  # power that is not an integer, and its gradient to the power (b^p log
+  # b) NaN at any, which reaches every gradient through the where below;
+  # x <= 1 keeps its bits, and a plain step its operations.  mjtpu takes
+  # the negative base (ROADMAP C22)
+  xb = torch.clamp_max(x, 1.0) if x.requires_grad or power.requires_grad else x
+  y_high = 1.0 - ((1.0 - mid) ** (1.0 - power)) * ((1.0 - xb) ** power)
   y = torch.where(x < mid, y_low, y_high)
   imp = dmin + y * (dmax - dmin)
   imp = torch.minimum(torch.maximum(imp, dmin), dmax)
@@ -174,10 +181,12 @@ def _poly(data, dif):
   return value, deriv
 
 
-def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
-  """Per equality type present, in EqType order: (type, its constants over
-  its K equalities); and the permutation from that type-grouped row order
-  back to eq order (None if the identity)."""
+def _eq_index(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
+  """Per equality type present, in EqType order: (type, its index tables
+  over its K equalities as device tensors: ids, the objects and, for the
+  joint and tendon ones, where each reads its references and invweights);
+  and the permutation from that type-grouped row order back to eq order
+  (None if the identity)."""
 
   def build():
     eq_type = np.asarray(m.eq_type)
@@ -192,46 +201,68 @@ def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
       for k, e in enumerate(ids):
         starts[int(e)] = (base + per * k, per)
       base += per * len(ids)
-      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
-      c = dict(ids=t(ids), data=env_rows(m, "eq_data")[:, ids],
-               solref=rep(env_rows(m, "eq_solref")[:, ids]),
-               solimp=rep(env_rows(m, "eq_solimp")[:, ids]))
       o1, o2 = obj1[ids], obj2[ids]
-      # invweight and the tendon references have the env axis of env_rows
+      c = dict(per=per, ids=t(ids), o1=t(o1))
       if et in (EqType.CONNECT, EqType.WELD):
-        c.update(b1=t(o1), b2=t(o2))
-        biw = env_rows(m, "body_invweight0")
-        iw = biw[:, o1] + biw[:, o2]                                  # (E, K, 2)
-        c["invweight"] = (torch.repeat_interleave(iw[..., 0], per, dim=1)
-                          if et == EqType.CONNECT else
-                          torch.cat([iw[..., :1].expand(-1, -1, 3), iw[..., 1:].expand(-1, -1, 3)],
-                                    dim=2).reshape(iw.shape[0], -1))
+        c.update(b1=c["o1"], b2=t(o2))
       else:
         has2 = o2 > -1
         o2 = np.where(has2, o2, 0)
-        c["has2"] = torch.as_tensor(has2, dtype=m.dtype, device=m.device)
+        c.update(o2=t(o2), has2=torch.as_tensor(has2, dtype=m.dtype, device=m.device))
         if et == EqType.JOINT:
           qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
-          qpos0 = env_rows(m, "qpos0")
-          c.update(q1=t(qadr[o1]), q2=t(qadr[o2]), ref1=qpos0[:, qadr[o1]],
-                   ref2=qpos0[:, qadr[o2]])
+          c.update(q1=t(qadr[o1]), q2=t(qadr[o2]), d1=t(dadr[o1]), d2=t(dadr[o2]))
           onehot = lambda adr: torch.as_tensor(np.eye(m.nv)[adr], dtype=m.dtype,
                                                device=m.device)
           c["dof1"] = onehot(dadr[o1])
           c["dof2"] = onehot(dadr[o2]) * c["has2"][:, None]
-          diw = env_rows(m, "dof_invweight0")
-          iw1, iw2 = diw[:, dadr[o1]], diw[:, dadr[o2]]
         else:
-          length0, tiw = env_rows(m, "tendon_length0"), env_rows(m, "tendon_invweight0")
-          c.update(t1=t(o1), t2=t(o2), ref1=length0[:, o1], ref2=length0[:, o2])
-          iw1, iw2 = tiw[:, o1], tiw[:, o2]
-        c["invweight"] = torch.where(c["has2"] > 0, iw1 + iw2, iw1)
+          c.update(t1=c["o1"], t2=c["o2"])
       groups.append((int(et), c))
     perm = np.concatenate([np.arange(s, s + n) for s, n in
                            (starts[e] for e in range(len(eq_type)))])
     return groups, None if np.array_equal(perm, np.arange(len(perm))) else t(perm)
 
-  return cached(m, "constraint.eq_tables", build)
+  return cached(m, "constraint.eq_index", build)
+
+
+def _eq_tables(m: Model) -> tuple[list[tuple[int, dict]], torch.Tensor | None]:
+  """_eq_index's groups, each with its constants read from the traced
+  fields (the data, solref and solimp per row, the invweight and the
+  joint and tendon references), with the env axis of env_rows; and the
+  permutation back to eq order."""
+  index_groups, perm = _eq_index(m)
+
+  def build():
+    groups = []
+    for et, ix in index_groups:
+      per = ix["per"]
+      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
+      c = dict(ix, data=env_rows(m, "eq_data")[:, ix["ids"]],
+               solref=rep(env_rows(m, "eq_solref")[:, ix["ids"]]),
+               solimp=rep(env_rows(m, "eq_solimp")[:, ix["ids"]]))
+      if et in (EqType.CONNECT, EqType.WELD):
+        biw = env_rows(m, "body_invweight0")
+        iw = biw[:, ix["b1"]] + biw[:, ix["b2"]]                      # (E, K, 2)
+        c["invweight"] = (torch.repeat_interleave(iw[..., 0], per, dim=1)
+                          if et == EqType.CONNECT else
+                          torch.cat([iw[..., :1].expand(-1, -1, 3), iw[..., 1:].expand(-1, -1, 3)],
+                                    dim=2).reshape(iw.shape[0], -1))
+      else:
+        if et == EqType.JOINT:
+          qpos0 = env_rows(m, "qpos0")
+          c.update(ref1=qpos0[:, ix["q1"]], ref2=qpos0[:, ix["q2"]])
+          diw = env_rows(m, "dof_invweight0")
+          iw1, iw2 = diw[:, ix["d1"]], diw[:, ix["d2"]]
+        else:
+          length0, tiw = env_rows(m, "tendon_length0"), env_rows(m, "tendon_invweight0")
+          c.update(ref1=length0[:, ix["t1"]], ref2=length0[:, ix["t2"]])
+          iw1, iw2 = tiw[:, ix["t1"]], tiw[:, ix["t2"]]
+        c["invweight"] = torch.where(ix["has2"] > 0, iw1 + iw2, iw1)
+      groups.append((et, c))
+    return groups
+
+  return cached(m, "constraint.eq_tables", build, live=True), perm
 
 
 def _eq_rows(m: Model, d: Data) -> tuple[list[_Rows], torch.Tensor]:
@@ -328,26 +359,33 @@ def _friction_rows(m: Model, d: Data) -> list[_Rows]:
   frictionloss, in dof order, then the Jacobian row of each tendon with
   frictionloss, in tendon order."""
   B = d.qpos.shape[0]
-  dofs, tens = np.asarray(m.friction_dofid), np.asarray(m.friction_tenid)
 
-  def build():
+  def index():
+    """Per kind: the objects' ids on the device, and the dofs' Jacobian."""
+    dofs, tens = np.asarray(m.friction_dofid), np.asarray(m.friction_tenid)
     out = {}
     if len(dofs):
       onehot = np.zeros((len(dofs), m.nv))
       onehot[np.arange(len(dofs)), dofs] = 1.0
-      out["dof"] = (torch.as_tensor(onehot, dtype=m.dtype, device=m.device),
-                    env_rows(m, "dof_invweight0")[:, dofs], env_rows(m, "dof_solref")[:, dofs],
-                    env_rows(m, "dof_solimp")[:, dofs], env_rows(m, "dof_frictionloss")[:, dofs])
+      out["dof"] = (torch.as_tensor(dofs, device=m.device),
+                    torch.as_tensor(onehot, dtype=m.dtype, device=m.device))
     if len(tens):
-      out["tendon"] = (torch.as_tensor(tens, device=m.device),
-                       env_rows(m, "tendon_invweight0")[:, tens],
-                       env_rows(m, "tendon_solref_fri")[:, tens],
-                       env_rows(m, "tendon_solimp_fri")[:, tens],
-                       env_rows(m, "tendon_frictionloss")[:, tens])
+      out["tendon"] = (torch.as_tensor(tens, device=m.device),) * 2
+    return out
+
+  ix = cached(m, "constraint.friction_index", index)
+
+  def build():
+    out = {}
+    for kind, prefix, fri in (("dof", "dof", ""), ("tendon", "tendon", "_fri")):
+      if kind in ix:
+        ids, jac = ix[kind]
+        out[kind] = (jac, *(env_rows(m, f"{prefix}_{f}")[:, ids] for f in (
+            "invweight0", f"solref{fri}", f"solimp{fri}", "frictionloss")))
     return out
 
   # every table but the Jacobian has the env axis of env_rows
-  tables = cached(m, "constraint.friction_rows", build)
+  tables = cached(m, "constraint.friction_rows", build, live=True)
   rows = lambda x: env_expand(x, B)
   out = []
   for kind, (jac, invweight, solref, solimp, frictionloss) in tables.items():
@@ -377,20 +415,23 @@ def _tendon_limit_rows(m: Model, d: Data) -> list[_Rows]:
   B, dtype = d.qpos.shape[0], d.qpos.dtype
   per = support.tendon_limit_rows_per(m)
 
+  ix = cached(m, "constraint.tendon_limit_index", lambda: dict(
+      ids=torch.as_tensor(tens, device=m.device),
+      side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(tens))))
+
   def build():
     # every table but ids and side has the env axis of env_rows
     rep = lambda x: torch.repeat_interleave(x, per, dim=1)
-    rng, margin = env_rows(m, "tendon_range")[:, tens], env_rows(m, "tendon_margin")[:, tens]
+    ids = ix["ids"]
+    rng, margin = env_rows(m, "tendon_range")[:, ids], env_rows(m, "tendon_margin")[:, ids]
     return dict(
-        ids=torch.as_tensor(tens, device=m.device), lo=rng[..., 0], hi=rng[..., 1],
-        margin=margin, margin_rows=rep(margin),
-        invweight=rep(env_rows(m, "tendon_invweight0")[:, tens]),
-        solref=rep(env_rows(m, "tendon_solref_lim")[:, tens]),
-        solimp=rep(env_rows(m, "tendon_solimp_lim")[:, tens]),
-        side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(tens)),
+        ix, lo=rng[..., 0], hi=rng[..., 1], margin=margin, margin_rows=rep(margin),
+        invweight=rep(env_rows(m, "tendon_invweight0")[:, ids]),
+        solref=rep(env_rows(m, "tendon_solref_lim")[:, ids]),
+        solimp=rep(env_rows(m, "tendon_solimp_lim")[:, ids]),
     )
 
-  c = cached(m, "constraint.tendon_limit_rows", build)
+  c = cached(m, "constraint.tendon_limit_rows", build, live=True)
   length = d.ten_length[:, c["ids"]]
   jac = d.ten_J[:, c["ids"]]
   dist_min = length - c["lo"]
@@ -422,10 +463,10 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
     return []
   dtype = d.qpos.dtype
 
-  def build():
-    """Per category (one-sided, two-sided, ball): the model constants of
-    its rows; and the permutation back to joint order (None if
-    identity)."""
+  def index():
+    """Per category (one-sided, two-sided, ball): its joints, their dofs
+    and qpos addresses, and its rows' placement; and the permutation back
+    to joint order (None if identity)."""
     two = np.asarray(m.jnt_limit_two_sided).astype(bool)
     ball = np.asarray(m.jnt_type)[limited] == JointType.BALL
     sh1 = limited[~ball & ~two[limited]]
@@ -438,40 +479,55 @@ def _joint_limit_rows(m: Model, d: Data) -> list[_Rows]:
       base += per * len(cat)
     perm = np.concatenate([np.arange(s, s + c) for s, c in (starts[j] for j in limited)])
     qadr, dadr = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
-    # every table of a field has the env axis of env_rows
-    jnt_range, dof_iw = env_rows(m, "jnt_range"), env_rows(m, "dof_invweight0")
-    margin = env_rows(m, "jnt_margin")
-    solref, solimp = env_rows(m, "jnt_solref"), env_rows(m, "jnt_solimp")
+    t = lambda x: torch.as_tensor(x, device=m.device)
     cats = []
     for cat, per in ((sh1, 1), (sh2, 2)):
       if not len(cat):
         continue
-      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
       cats.append(dict(
-          per=per, n=len(cat), qadr=torch.as_tensor(qadr[cat], device=m.device),
-          lo=jnt_range[:, cat, 0], hi=jnt_range[:, cat, 1], margin=margin[:, cat],
+          per=per, n=len(cat), jnt=t(cat), dof=t(dadr[cat]), qadr=t(qadr[cat]),
           onehot=torch.as_tensor(np.eye(m.nv)[np.repeat(dadr[cat], per)], dtype=m.dtype,
                                  device=m.device),
           side=torch.tensor([1.0, -1.0], dtype=m.dtype, device=m.device).repeat(len(cat)),
-          margin_rows=rep(margin[:, cat]), invweight=rep(dof_iw[:, dadr[cat]]),
-          solref=rep(solref[:, cat]), solimp=rep(solimp[:, cat]),
       ))
     if len(balls):
       # J[i, dadr_i + k] = -axis_i[k] * active_i: a (n, 3, nv) placement
       place = np.zeros((len(balls), 3, m.nv))
       place[np.arange(len(balls))[:, None], np.arange(3), dadr[balls][:, None] + np.arange(3)] = 1
-      rng = jnt_range[:, balls]
       cats.append(dict(
-          per=None, quat=torch.as_tensor(qadr[balls][:, None] + np.arange(4), device=m.device),
+          per=None, jnt=t(balls), dof=t(dadr[balls]),
+          quat=t(qadr[balls][:, None] + np.arange(4)),
           place=torch.as_tensor(place, dtype=m.dtype, device=m.device),
-          limit=torch.maximum(torch.abs(rng[..., 0]), torch.abs(rng[..., 1])),
-          margin=margin[:, balls], invweight=dof_iw[:, dadr[balls]],
-          solref=solref[:, balls], solimp=solimp[:, balls],
           x_axis=torch.tensor([1.0, 0.0, 0.0], dtype=m.dtype, device=m.device)))
     identity = np.array_equal(perm, np.arange(len(perm)))
-    return cats, None if identity else torch.as_tensor(perm, device=m.device)
+    return cats, None if identity else t(perm)
 
-  cats, perm = cached(m, "constraint.limit_rows", build)
+  index_cats, perm = cached(m, "constraint.limit_index", index)
+
+  def build():
+    """Per category, its index tables with the model constants of its
+    rows, each with the env axis of env_rows."""
+    jnt_range, dof_iw = env_rows(m, "jnt_range"), env_rows(m, "dof_invweight0")
+    margin = env_rows(m, "jnt_margin")
+    solref, solimp = env_rows(m, "jnt_solref"), env_rows(m, "jnt_solimp")
+    cats = []
+    for ix in index_cats:
+      j, per = ix["jnt"], ix["per"]
+      if per is None:
+        rng = jnt_range[:, j]
+        cats.append(dict(
+            ix, limit=torch.maximum(torch.abs(rng[..., 0]), torch.abs(rng[..., 1])),
+            margin=margin[:, j], invweight=dof_iw[:, ix["dof"]],
+            solref=solref[:, j], solimp=solimp[:, j]))
+        continue
+      rep = lambda x: torch.repeat_interleave(x, per, dim=1)
+      cats.append(dict(
+          ix, lo=jnt_range[:, j, 0], hi=jnt_range[:, j, 1], margin=margin[:, j],
+          margin_rows=rep(margin[:, j]), invweight=rep(dof_iw[:, ix["dof"]]),
+          solref=rep(solref[:, j]), solimp=rep(solimp[:, j])))
+    return cats
+
+  cats = cached(m, "constraint.limit_rows", build, live=True)
   parts = []
   rows = lambda x: env_expand(x, B)
   for c in cats:

@@ -28,7 +28,7 @@ import torch
 from mjtpu_torch._src import passive, smooth, support
 from mjtpu_torch._src.dataclasses import replace
 from mjtpu_torch._src.types import (BiasType, Data, DisableBit, GainType, Model, cached,
-                                    repeat_env_rows, rows as env_rows)
+                                    derived, repeat_env_rows, rows as env_rows)
 
 # the Data fields the fluid and RNE passes read; every other field is
 # left out of the stacked batch
@@ -94,7 +94,7 @@ def _velocity_jacobians(m: Model, d: Data, fluid: bool, rne: bool):
   rest = {f: None for f in d.__dataclass_fields__ if f not in fields}
   dd = replace(d, **fields, **rest)
   # a model's env rows follow its envs into the stack
-  m = cached(m, ("derivative.stacked", nv), lambda: repeat_env_rows(m, nv))
+  m = derived(m, ("derivative.stacked", nv), lambda: repeat_env_rows(m, nv))
   qvel_t = _tangents(m, B, d.qvel.dtype, d.qvel.device)
   tan = smooth.com_vel(m, replace(dd, qvel=qvel_t))
   # column j of env b's Jacobian is its copy j's tangent

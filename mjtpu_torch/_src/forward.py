@@ -39,6 +39,7 @@ from mjtpu_torch._src.types import (
     MAXVAL,
     Model,
     cached,
+    derived,
     replace_fields,
     rows as env_rows,
 )
@@ -276,10 +277,16 @@ def _act_tables(m: Model) -> dict:
     owner = np.full(m.na, -1)
     for u in limited:
       owner[actadr[u] : actadr[u] + actnum[u]] = u
-    # the ranges have the env axis of env_rows: (E, na)
-    rows = env_rows(m, "actuator_actrange")[:, torch.as_tensor(np.maximum(owner, 0), device=dev)]
-    out["limited"] = (torch.as_tensor(owner >= 0, device=dev), rows[..., 0], rows[..., 1])
+    out["limited"] = (torch.as_tensor(owner >= 0, device=dev),
+                      torch.as_tensor(np.maximum(owner, 0), device=dev))
   return out
+
+
+def _act_ranges(m: Model, owner: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+  """(lower, upper) activation ranges over the activation slots, from
+  their owners ``owner`` (na,), with the env axis of env_rows: (E, na)."""
+  rows = env_rows(m, "actuator_actrange")[:, owner]
+  return rows[..., 0], rows[..., 1]
 
 
 def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
@@ -300,7 +307,8 @@ def _advance(m: Model, d: Data, act_dot: torch.Tensor, qacc: torch.Tensor,
       act[:, slots] = (d.act[:, slots]
                        + act_dot[:, slots] * tau * (1.0 - torch.exp(-h[:, None] / tau)))
     if c["limited"] is not None:
-      limited, lo, hi = c["limited"]
+      limited, owner = c["limited"]
+      lo, hi = cached(m, "forward.act_ranges", lambda: _act_ranges(m, owner), live=True)
       act = torch.where(limited, torch.minimum(torch.maximum(act, lo), hi), act)
   qvel_state = d.qvel + qacc * h[:, None]
   qpos = _integrate_pos(m, d.qpos, qvel_state if qvel is None else qvel, h)
@@ -393,7 +401,7 @@ def step(m: Model, d: Data, fixed_iterations: bool = False) -> Data:
   cfg = get_diff_config()
   if cfg is not None and cfg.adaptive_integration and cfg.adaptive_substeps > 1:
     n = cfg.adaptive_substeps
-    m_sub = cached(m, ("forward.substep", n), lambda: replace_fields(
+    m_sub = derived(m, ("forward.substep", n), lambda: replace_fields(
         m, {"opt.timestep": m.opt.timestep / n}))
     for _ in range(n):
       d = _single_step(m_sub, d, fixed_iterations)

@@ -41,6 +41,18 @@ def mat_t_vec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   return torch.stack([dot3(mat[..., :, k], v) for k in range(3)], dim=-1)
 
 
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+  """sqrt of a non-negative ``x`` whose gradient at 0 is 0, not sqrt's
+  infinite slope, which times a zero cotangent (a branch a where leaves,
+  a length that is clamped) makes NaN; the values keep their bits.  Where
+  no gradient is taken it is sqrt itself, so a plain step keeps its
+  operations."""
+  if not x.requires_grad:
+    return torch.sqrt(x)
+  live = x > 0
+  return torch.where(live, torch.sqrt(torch.where(live, x, 1.0)), 0.0)
+
+
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
   sq = torch.sum(x * x, dim=dim)
   is_zero = sq == 0.0

@@ -93,13 +93,12 @@ def _fluid_geoms(m: Model) -> np.ndarray:
   return np.nonzero(m.geom_fluid_np[:, 0] != 0)[0]
 
 
-def _geom_semiaxes(m: Model, gids: torch.Tensor) -> torch.Tensor:
-  """(G, 3) ellipsoid semiaxes of the geoms ``gids`` (mj_geomSemiAxes):
-  sphere (r,r,r), capsule (r,r,half_len+r), cylinder (r,r,half_len),
-  ellipsoid/box = size."""
+def _geom_semiaxes(m: Model, gids: torch.Tensor, gtype: torch.Tensor) -> torch.Tensor:
+  """(G, 3) ellipsoid semiaxes of the geoms ``gids`` of types ``gtype``
+  (G, 1) (mj_geomSemiAxes): sphere (r,r,r), capsule (r,r,half_len+r),
+  cylinder (r,r,half_len), ellipsoid/box = size."""
   size = env_rows(m, "geom_size")[:, gids]                  # (E, G, 3)
   r, h = size[..., 0], size[..., 1]
-  gtype = torch.as_tensor(np.asarray(m.geom_type), device=m.device)[gids][:, None]
   out = torch.where(gtype == GeomType.SPHERE, torch.stack([r, r, r], dim=-1), size)
   out = torch.where(gtype == GeomType.CAPSULE, torch.stack([r, r, h + r], dim=-1), out)
   return torch.where(gtype == GeomType.CYLINDER, torch.stack([r, r, h], dim=-1), out)
@@ -114,24 +113,32 @@ def _fourth(x: torch.Tensor) -> torch.Tensor:
   return x2 * x2  # x**4 as XLA's integer power computes it
 
 
-def _ellipsoid_tables(m: Model) -> dict:
-  """The fluid geoms' indices and shape terms, constants of the Model
-  with the env axis of env_rows (E, G, ...)."""
-  pi = torch.pi
+def _ellipsoid_index(m: Model) -> dict:
+  """The fluid geoms' indices as device tensors: ids, types (G, 1), bodies
+  and those bodies' ancestor masks and roots."""
   long = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
   geoms = _fluid_geoms(m)
   gbody = np.asarray(m.geom_bodyid)[geoms]
-  gids = long(geoms)
-  r = _geom_semiaxes(m, gids)
+  return dict(
+      gids=long(geoms), gtype=long(np.asarray(m.geom_type)[geoms])[:, None], gbody=long(gbody),
+      bodies={"mask": support.dof_ancestor_mask_t(m)[long(gbody)],
+              "rootid": long(np.asarray(m.body_rootid)[gbody])})
+
+
+def _ellipsoid_tables(m: Model, ix: dict) -> dict:
+  """_ellipsoid_index's tables with the fluid geoms' shape terms, from the
+  traced sizes and coefficients, with the env axis of env_rows (E, G,
+  ...)."""
+  pi = torch.pi
+  gids = ix["gids"]
+  r = _geom_semiaxes(m, gids, ix["gtype"])
   rs = torch.sort(r, dim=-1).values
   r0, r1, r2 = r[..., 0], r[..., 1], r[..., 2]
   rmax_perp = torch.stack([torch.maximum(r1, r2), torch.maximum(r0, r2),
                            torch.maximum(r0, r1)], dim=-1)
   moi = (8.0 / 15.0) * pi * r * _fourth(rmax_perp)
   return dict(
-      gids=gids, gbody=long(gbody),
-      bodies={"mask": support.dof_ancestor_mask_t(m)[long(gbody)],
-              "rootid": long(np.asarray(m.body_rootid)[gbody])},
+      ix,
       d_eq=((2.0 / 3.0) * ((r0 + r1) + r2))[..., None],
       dd=torch.stack([r1 * r2, r0 * r2, r0 * r1], dim=-1),
       a_max=(pi * rs[..., 1] * rs[..., 2])[..., None],
@@ -180,7 +187,8 @@ def _ellipsoid_fluid_model(m: Model, d: Data, cvel_t: torch.Tensor | None = None
   wind, ω = angular velocity; every fluid geom of the batch at once.
   With ``cvel_t`` (B, nbody, 6), the forces' tangent along cvel_t
   instead."""
-  s = cached(m, "passive.ellipsoid", lambda: _ellipsoid_tables(m))
+  ix = cached(m, "passive.ellipsoid_index", lambda: _ellipsoid_index(m))
+  s = cached(m, "passive.ellipsoid", lambda: _ellipsoid_tables(m, ix), live=True)
   pi = torch.pi
   rho, beta = _medium(m)
   xpos, xmat = d.geom_xpos[:, s["gids"]], d.geom_xmat[:, s["gids"]]
@@ -202,18 +210,22 @@ def _ellipsoid_fluid_model(m: Model, d: Data, cvel_t: torch.Tensor | None = None
   s4 = torch.sum(dd4 * v * v, dim=-1, keepdim=True)
   vnorm = math.norm3(v)[..., None]
   den2, den4 = torch.clamp_min(s2, math.MINVAL), torch.clamp_min(s4, math.MINVAL)
-  a_proj = pi * torch.sqrt(s4 / den2)
+  # the square roots through math.sqrt0: at rest (v or w zero) their
+  # gradient is 0 where sqrt's is NaN (mjtpu's, ROADMAP C22); the values,
+  # and the tangents _sqrt_jvp takes from them (NaN at rest, C15), keep
+  # their bits
+  a_proj = pi * math.sqrt0(s4 / den2)
   slender = s["a_max"] - a_proj
   drag = c_blunt * a_proj + c_slender * torch.clamp_min(slender, 0.0)
   n = dd2 * v
-  root = torch.sqrt(s2 / den4)
+  root = math.sqrt0(s2 / den4)
   vn = torch.clamp_min(vnorm, math.MINVAL)
   kutta = pi * root / vn
   nxv = math.cross(n, v)
   lift = math.cross(nxv, v)
   mmix = c_ang * s["moi"] + c_slender * (s["moi_max"] - s["moi"])
   mw = mmix * w
-  drag_w = torch.sqrt(torch.sum(mw * mw, dim=-1, keepdim=True))
+  drag_w = math.sqrt0(torch.sum(mw * mw, dim=-1, keepdim=True))
 
   if cvel_t is None:
     frc = (math.cross(p, w) - stokes_v * v - rho * drag * vnorm * v
@@ -257,17 +269,17 @@ def _box_bodies(m: Model) -> np.ndarray:
   return use_box
 
 
-def _box_tables(m: Model) -> dict:
+def _box_tables(m: Model, use_box: torch.Tensor) -> dict:
   """Each body's equivalent inertia box, its drag terms, and which bodies
-  take the model (mass > 0 and no fluidshape="ellipsoid" geom): constants
-  of the Model (nbody, ...)."""
+  take the model (mass > 0 and, ``use_box`` (nbody,), no
+  fluidshape="ellipsoid" geom): constants of the Model (E, nbody, ...)."""
   body_mass, inertia = env_rows(m, "body_mass"), env_rows(m, "body_inertia")  # (E, nbody, ...)
   mass = torch.clamp_min(body_mass, math.MINVAL)
   ix, iy, iz = inertia[..., 0], inertia[..., 1], inertia[..., 2]
   side = lambda a, b, c: torch.sqrt(torch.clamp_min((a + b - c) * 6.0 / mass, math.MINVAL))
   box = torch.stack([side(iy, iz, ix), side(iz, ix, iy), side(ix, iy, iz)], dim=-1)
   b0, b1, b2 = box[..., 0], box[..., 1], box[..., 2]
-  keep = (body_mass > 0) & torch.as_tensor(_box_bodies(m), device=m.device)
+  keep = (body_mass > 0) & use_box
   return dict(
       diam=(((b0 + b1) + b2) / 3.0)[..., None],
       ang_scale=torch.stack([b0 * (_fourth(b1) + _fourth(b2)), b1 * (_fourth(b0) + _fourth(b2)),
@@ -284,7 +296,9 @@ def _inertia_box_fluid_model(m: Model, d: Data,
   ``cvel_t`` (B, nbody, 6), their tangent along cvel_t instead: the
   quadratic drag c |x| x has the tangent c (sign(x) x_t x + |x| x_t),
   zero at x = 0 under torch's rule and jax's alike."""
-  s = cached(m, "passive.box", lambda: _box_tables(m))
+  use_box = cached(m, "passive.box_bodies",
+                   lambda: torch.as_tensor(_box_bodies(m), device=m.device))
+  s = cached(m, "passive.box", lambda: _box_tables(m, use_box), live=True)
   pi = torch.pi
   ximat_t = d.ximat.transpose(-1, -2)
   # local 6D velocity at the inertial frame (rows of ximat^T = local axes),

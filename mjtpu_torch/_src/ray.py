@@ -29,7 +29,8 @@ def _quad(a, b, c):
   det = b * b - a * c
   big = torch.abs(a) > 1e-15
   ok = (det >= 0) & big
-  sdet = torch.sqrt(torch.clamp_min(det, 0.0))
+  # a miss's root is never taken: its gradient is 0 (mjtpu's NaN, ROADMAP C22)
+  sdet = math.sqrt0(torch.clamp_min(det, 0.0))
   den = torch.where(big, a, 1e-15)
   t0 = (-b - sdet) / den
   t1 = (-b + sdet) / den

@@ -107,18 +107,22 @@ def _writer(m: Model, stage: Stage):
     flat = np.concatenate(adrs)
     dt = np.concatenate(dts)
     ids = np.concatenate(cut_ids)
-    # the clamps have the env axis of env_rows: (E, n)
-    cut = env_rows(m, "sensor_cutoff")[:, torch.as_tensor(ids, device=m.device)]
+    t = lambda x: torch.as_tensor(x, device=m.device)
     # C applies no cutoff to a CONTACT sensor
-    on = (cut > 0) & torch.as_tensor(
-        np.asarray(m.sensor_type)[ids] != SensorType.CONTACT, device=m.device)
-    real = torch.as_tensor(dt == DataType.REAL, device=m.device)
-    positive = torch.as_tensor(dt == DataType.POSITIVE, device=m.device)
-    lo = torch.where(on & real, -cut, -torch.inf)
-    hi = torch.where(on & (real | positive), cut, torch.inf)
-    return torch.as_tensor(flat, dtype=torch.long, device=m.device), lo, hi
+    return (t(flat.astype(np.int64)), t(ids), t(np.asarray(m.sensor_type)[ids] != SensorType.CONTACT),
+            t(dt == DataType.REAL), t(dt == DataType.POSITIVE))
 
-  return cached(m, ("sensor.writer", int(stage)), build)
+  flat, ids, clamped, real, positive = cached(m, ("sensor.writer_index", int(stage)), build)
+
+  def clamps():
+    # the clamps have the env axis of env_rows: (E, n)
+    cut = env_rows(m, "sensor_cutoff")[:, ids]
+    on = (cut > 0) & clamped
+    return (torch.where(on & real, -cut, -torch.inf),
+            torch.where(on & (real | positive), cut, torch.inf))
+
+  lo, hi = cached(m, ("sensor.writer", int(stage)), clamps, live=True)
+  return flat, lo, hi
 
 
 def _write(m: Model, d: Data, stage: Stage, vals: list[torch.Tensor]) -> torch.Tensor:
@@ -347,7 +351,7 @@ def _operand_geoms(m: Model, objtype: int, oid: int) -> list[int]:
 
 def _geomdist_tables(m: Model) -> dict:
   """The pairs of every GEOMDIST, GEOMNORMAL and GEOMFROMTO sensor of the
-  model, in group order (g1, g2 and each pair's sensor cutoff), and per
+  model, in group order (g1, g2 and each pair's sensor on the device), and per
   group its (K, P) table of positions in that list, padded with the
   position of an extra column of +inf distance."""
   g1, g2, cut_ids, tables = [], [], [], {}
@@ -364,7 +368,7 @@ def _geomdist_tables(m: Model) -> dict:
       cut_ids += [sid] * len(ps)
     tables[tuple(g.ids)] = table
   t = lambda x: torch.as_tensor(np.asarray(x), device=m.device)
-  return dict(g1=g1, g2=g2, cut=env_rows(m, "sensor_cutoff")[:, t(cut_ids)],
+  return dict(g1=g1, g2=g2, cut_ids=t(np.asarray(cut_ids, dtype=np.int64)),
               tables={k: t(np.where(v < 0, len(g1), v)) for k, v in tables.items()})
 
 
@@ -374,7 +378,9 @@ def _geom_distances(m: Model, d: Data):
   stage's sensors share one support.geom_distances call, so each collider
   runs once over all of them."""
   c = cached(m, "sensor.geomdist", lambda: _geomdist_tables(m))
-  dist, fromto = support.geom_distances(m, d, c["g1"], c["g2"], c["cut"])
+  cut = cached(m, "sensor.geomdist_cutoff",
+               lambda: env_rows(m, "sensor_cutoff")[:, c["cut_ids"]], live=True)
+  dist, fromto = support.geom_distances(m, d, c["g1"], c["g2"], cut)
   B = dist.shape[0]
   return (torch.cat([dist, dist.new_full((B, 1), torch.inf)], dim=1),
           torch.cat([fromto, fromto.new_zeros((B, 1, 6))], dim=1))
@@ -388,9 +394,10 @@ def _geom_distance(m: Model, g: _Group, dist: torch.Tensor, fromto: torch.Tensor
   nearer); the normal is normalize(to - from), zero where nothing lies
   below distmax."""
   table = cached(m, "sensor.geomdist", lambda: _geomdist_tables(m))["tables"][tuple(g.ids)]
-  if "cutoff" not in g.extra:
-    g.extra["cutoff"] = env_rows(m, "sensor_cutoff")[:, torch.as_tensor(g.ids, device=m.device)]
-  cut = g.extra["cutoff"]
+  key = tuple(int(i) for i in g.ids)
+  ids = cached(m, ("sensor.group_ids", key), lambda: torch.as_tensor(g.ids, device=m.device))
+  cut = cached(m, ("sensor.group_cutoff", key),
+               lambda: env_rows(m, "sensor_cutoff")[:, ids], live=True)
   dmin, i = torch.min(dist[:, table], dim=-1)  # (B, K)
   ft = torch.gather(fromto[:, table], 2, i[..., None, None].expand(i.shape + (1, 6)))[:, :, 0]
   ft = torch.where((dmin < cut)[..., None], ft, 0.0)

@@ -759,8 +759,8 @@ def transmission(m: Model, d: Data) -> Data:
 
 def _eq_wrench_tables(m: Model) -> dict | None:
   """The connect and weld equalities' constants for cfrc_ext, in eq order:
-  their bodies, each body's anchor (a connect's data holds body1's first,
-  a weld's body2's), efc rows of force (K, 3) and torque (K, 3) (a
+  their ids and bodies, whether each is a weld (their anchors are
+  _eq_anchors'), efc rows of force (K, 3) and torque (K, 3) (a
   connect's torque rows are its force rows, masked by ``weld``), and the
   segment_table that sums the 2K wrenches (+ on body1, then - on body2)
   into each body; None where there is none."""
@@ -779,11 +779,8 @@ def _eq_wrench_tables(m: Model) -> dict | None:
     t = lambda x: torch.as_tensor(x, device=m.device)
     b1, b2 = np.asarray(m.eq_obj1id)[ids], np.asarray(m.eq_obj2id)[ids]
     k = len(ids)
-    data = env_rows(m, "eq_data")[:, ids]  # (E, K, NEQDATA): the anchors keep the env axis
-    w = torch.as_tensor(weld, device=m.device)[:, None]
     return dict(
-        b1=t(b1), b2=t(b2), anchor1=torch.where(w, data[..., 3:6], data[..., 0:3]),
-        anchor2=torch.where(w, data[..., 0:3], data[..., 3:6]),
+        ids=t(ids), b1=t(b1), b2=t(b2), is_weld=t(weld)[:, None],
         force=t(first[:, None] + np.arange(3)),
         torque=t(first[:, None] + 3 * weld[:, None] + np.arange(3)),
         weld=torch.as_tensor(weld, dtype=m.dtype, device=m.device)[:, None],
@@ -792,6 +789,20 @@ def _eq_wrench_tables(m: Model) -> dict | None:
              for b in range(m.nbody)], 2 * k, m.device))
 
   return cached(m, "smooth.eq_wrench_tables", build)
+
+
+def _eq_anchors(m: Model, c: dict) -> tuple[torch.Tensor, torch.Tensor]:
+  """Each connect's and weld's anchors on body1 and body2, (E, K, 3) with
+  the env axis of env_rows (a connect's data holds body1's first, a
+  weld's body2's)."""
+
+  def build():
+    data = env_rows(m, "eq_data")[:, c["ids"]]  # (E, K, NEQDATA)
+    w = c["is_weld"]
+    return (torch.where(w, data[..., 3:6], data[..., 0:3]),
+            torch.where(w, data[..., 0:3], data[..., 3:6]))
+
+  return cached(m, "smooth.eq_anchors", build, live=True)
 
 
 def _eq_body_wrenches(m: Model, d: Data, c: dict) -> torch.Tensor:
@@ -808,7 +819,8 @@ def _eq_body_wrenches(m: Model, d: Data, c: dict) -> torch.Tensor:
     p = math.mat_vec(d.xmat[:, b], anchor) + d.xpos[:, b]
     return torch.cat([torque + math.cross(p - d.subtree_com[:, root[b]], force), force], -1)
 
-  w1, w2 = wrench(c["b1"], c["anchor1"]), wrench(c["b2"], c["anchor2"])
+  anchor1, anchor2 = _eq_anchors(m, c)
+  w1, w2 = wrench(c["b1"], anchor1), wrench(c["b2"], anchor2)
   return scan.segment_sum(torch.cat([w1, -w2], dim=1), c["table"])
 
 
@@ -881,9 +893,9 @@ def subtree_vel(m: Model, d: Data) -> Data:
 
 
 def _spring_tables(m: Model) -> dict:
-  """The springy joints' qpos addresses by kind, as device tensors (None
-  where a kind has no joint): scalar (K,), ball (K, 4) and free (K, 3)
-  and (K, 4), with their stiffnesses."""
+  """The springy joints by kind, as device tensors (None where a kind has
+  no joint): their joint ids (K,) and qpos addresses, scalar (K,), ball
+  (K, 4) and free (K, 3) and (K, 4)."""
   dev = m.device
   jt, qadr = np.asarray(m.jnt_type), np.asarray(m.jnt_qposadr)
   out = {}
@@ -893,12 +905,17 @@ def _spring_tables(m: Model) -> dict:
     if not len(j):
       out[kind] = None
       continue
-    k = env_rows(m, "jnt_stiffness")[:, torch.as_tensor(j, device=dev)]
     adr = qadr[j][:, None] + np.arange(width) if width else qadr[j]
-    out[kind] = (torch.as_tensor(adr, device=dev), k)
+    out[kind] = (torch.as_tensor(j, device=dev), torch.as_tensor(adr, device=dev))
     if kind == "free":
       out[kind] += (torch.as_tensor(qadr[j][:, None] + 3 + np.arange(4), device=dev),)
   return out
+
+
+def _spring_stiffness(m: Model, c: dict) -> dict:
+  """Each kind's stiffnesses (E, K), with the env axis of env_rows."""
+  k = env_rows(m, "jnt_stiffness")
+  return {kind: None if t is None else k[:, t[0]] for kind, t in c.items()}
 
 
 def potential_energy(m: Model, d: Data) -> torch.Tensor:
@@ -911,17 +928,20 @@ def potential_energy(m: Model, d: Data) -> torch.Tensor:
   spring_on = not (m.opt.disableflags & DisableBit.SPRING)
   if m.has_jnt_spring and spring_on:
     c = cached(m, "smooth.springs", lambda: _spring_tables(m))
+    stiff = cached(m, "smooth.spring_stiffness", lambda: _spring_stiffness(m, c), live=True)
     spring = env_rows(m, "qpos_spring")
     quat_term = lambda adr, k: 0.5 * torch.sum(k * torch.sum(
         math.quat_sub(d.qpos[:, adr], spring[:, adr]) ** 2, dim=-1), dim=-1)
     if c["scalar"] is not None:
-      adr, k = c["scalar"]
+      _, adr = c["scalar"]
+      k = stiff["scalar"]
       dif = d.qpos[:, adr] - spring[:, adr]
       e = e + 0.5 * torch.sum(k * dif * dif, dim=-1)
     if c["ball"] is not None:
-      e = e + quat_term(*c["ball"])
+      e = e + quat_term(c["ball"][1], stiff["ball"])
     if c["free"] is not None:
-      pos, k, quat = c["free"]
+      _, pos, quat = c["free"]
+      k = stiff["free"]
       t = d.qpos[:, pos] - spring[:, pos]
       e = e + 0.5 * torch.sum(k * torch.sum(t * t, dim=-1), dim=-1)
       e = e + quat_term(quat, k)

@@ -49,12 +49,17 @@ def _cross2(a, b):
   return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
 
 
+# the wraps' square roots through math.sqrt0: a zero length (an endpoint
+# on its circle, a wrap that does not wrap) has a zero gradient, where
+# mjtpu's is NaN (ROADMAP C22); the values keep their bits
+
+
 def _norm2(v):
-  return torch.sqrt(_dot2(v, v))
+  return math.sqrt0(_dot2(v, v))
 
 
 def _norm3(v):
-  return torch.sqrt(math.dot3(v, v))
+  return math.sqrt0(math.dot3(v, v))
 
 
 def _safe_div(a, b):
@@ -101,8 +106,8 @@ def wrap_circle2d(e0, e1, r, sd, has_side: bool):
   else:
     ok = ok & intersects
 
-  sqrt0 = torch.sqrt(torch.clamp_min(sqlen0 - sqrad, 0.0))
-  sqrt1 = torch.sqrt(torch.clamp_min(sqlen1 - sqrad, 0.0))
+  sqrt0 = math.sqrt0(torch.clamp_min(sqlen0 - sqrad, 0.0))
+  sqrt1 = math.sqrt0(torch.clamp_min(sqlen1 - sqrad, 0.0))
   den0 = torch.clamp_min(sqlen0, _MINVAL)
   den1 = torch.clamp_min(sqlen1, _MINVAL)
 
@@ -184,9 +189,9 @@ def wrap_inside2d(e0, e1, r):
   f, fail, done = f0, use_mid, torch.abs(f0) <= _NEWTON_TOL
   for _ in range(_NEWTON_STEPS):
     zr0, zr1 = z * r0, z * r1
-    c0 = torch.sqrt(torch.clamp_min(1 - zr0 * zr0, 0.0))
-    c1 = torch.sqrt(torch.clamp_min(1 - zr1 * zr1, 0.0))
-    cz = torch.sqrt(torch.clamp_min(1 - z * z, 0.0))
+    c0 = math.sqrt0(torch.clamp_min(1 - zr0 * zr0, 0.0))
+    c1 = math.sqrt0(torch.clamp_min(1 - zr1 * zr1, 0.0))
+    cz = math.sqrt0(torch.clamp_min(1 - z * z, 0.0))
     fp = (r0 / torch.clamp_min(c0, _MINVAL) + r1 / torch.clamp_min(c1, _MINVAL)
           - 2.0 / torch.clamp_min(cz, _MINVAL))
     stepfail = fp > -_MINVAL
@@ -282,7 +287,7 @@ def wrap(x0, x1, r, side, is_sphere: bool, has_side: bool):
   z0 = x0[..., 2] + dz * l0 / tot
   z1 = x0[..., 2] + dz * (l0 + wlen2) / tot
   dzw = z1 - z0
-  wlen3 = torch.sqrt(wlen2 * wlen2 + dzw * dzw)
+  wlen3 = math.sqrt0(wlen2 * wlen2 + dzw * dzw)
   w0 = torch.cat([t0, z0[..., None]], dim=-1)
   w1 = torch.cat([t1, z1[..., None]], dim=-1)
   return wrapped, wlen3, w0, w1

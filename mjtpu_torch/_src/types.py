@@ -660,11 +660,63 @@ class Model:
     return self.qpos0.dtype
 
 
-def cached(m: Model, key, build):
-  """Returns ``m.cache[key]``, building it with ``build()`` on first use."""
+def _holds_grad(obj) -> bool:
+  """Whether a tensor field of ``obj`` (a Model, its Option or Statistic)
+  requires grad."""
+  for f in dataclasses.fields(obj):
+    x = getattr(obj, f.name)
+    if isinstance(x, torch.Tensor):
+      if x.requires_grad:
+        return True
+    elif dataclasses.is_dataclass(x) and _holds_grad(x):
+      return True
+  return False
+
+
+def grad_live(m: Model) -> bool:
+  """Whether grad mode is on and a traced field of ``m`` requires grad:
+  the tables built from traced fields must then carry this call's graph.
+  The fields are read once per Model, at its first call in grad mode: give
+  a field requires_grad before that, or take a new Model with it
+  (parallel.randomize, replace_fields).  Host attributes only, no sync."""
+  if not torch.is_grad_enabled():
+    return False
+  live = m.cache.get("grad_live")
+  if live is None:
+    live = m.cache["grad_live"] = _holds_grad(m)
+  return live
+
+
+def cached(m: Model, key, build, live: bool = False):
+  """Returns ``m.cache[key]``, building it with ``build()`` on first use.
+
+  ``live`` marks a table that ``build`` makes from traced fields.  Where
+  grad_live(m), such a table is built from the live fields on every call
+  and not kept: a kept table would hold the graph of the call that built
+  it, which its backward frees, or none where it was built under no_grad.
+  Otherwise it is kept as the plain path keeps it.  A live builder takes
+  its indices from tables of its own (not live, kept), so that a rebuild
+  copies nothing from the host."""
+  if live and grad_live(m):
+    return build()
   if key not in m.cache:
     m.cache[key] = build()
   return m.cache[key]
+
+
+def derived(m: Model, key, build) -> Model:
+  """The Model ``build()`` derives from ``m`` (a substep Model, a stacked
+  one), cached under ``key`` like a live table.  Where it is rebuilt
+  (grad_live(m)), every build shares one cache dict kept on ``m``: the
+  builds differ only in their graph, which the live tables ``cached`` never
+  keeps there, so the other tables kept there hold for each of them and are
+  built once."""
+  if not grad_live(m):
+    return cached(m, key, build)
+  out = build()
+  if out is not m:
+    out.cache = cached(m, (key, "cache"), dict)
+  return out
 
 
 def field(m, name: str):

@@ -193,7 +193,11 @@ def randomize(m: Model, updates: dict[str, Any]) -> tuple[Model, dict[str, int |
 
   Returns:
     (batched_model, axes): step env i of a B-env Data under row i of every
-    randomized field with ``step(batched_model, d)``.
+    randomized field with ``step(batched_model, d)``.  Rows that are
+    tensors requiring grad stay in the graph: under differentiable_mode()
+    a loss of the step's outputs back-propagates to each env's row (the
+    value-pattern checks are skipped for them, as mjtpu skips them for
+    tracers).
 
   Raises:
     ValueError: mjtpu's refusals (see the module docstring), and shape or
@@ -228,7 +232,11 @@ def randomize(m: Model, updates: dict[str, Any]) -> tuple[Model, dict[str, int |
       raise ValueError(
           "'geom_fluid' cannot be randomized: opt.has_fluid_params is False, so the fluid"
           " force branch does not run. Set a nonzero density, viscosity or wind in the MJCF.")
-    _check_patterns(m, key, _numpy(v))
+    if not (isinstance(v, torch.Tensor) and v.requires_grad):
+      # rows that require grad are the point of a gradient (system
+      # identification): their values are not read on the host, as mjtpu
+      # skips the checks for tracers
+      _check_patterns(m, key, _numpy(v))
     cast[key] = torch.as_tensor(v).to(device=base.device, dtype=base.dtype)
   mb = replace_fields(m, {**cast, "env_fields": frozenset(m.env_fields | set(cast))})
   return mb, model_axes(m, mb)

@@ -279,6 +279,14 @@
       writes only those scenes.  The snapshots of models with a light
       (satellite_small, satellite_large, the lit render scenes) hold
       light_dir0 since.
+  mjtpu_torch/assets/model_grad_scenes_golden.npz
+      (--model model_grad_scenes) mjtpu's values and jax.grad under
+      differentiable_mode() at float64 of each randomize_fields scene with
+      its rows (and derived constants) as the point, at the solver bounds
+      and steps of chip_smoke.MODEL_GRAD_SCENES, and of humanoid_bench's
+      unbatched MODEL_GRAD_BASE_FIELDS (model_grad_scenes); the scenes'
+      snapshots are randomize_fields.npz's.  ``--scene NAME`` writes only
+      those scenes.
 
 Run from the repository root, where ``mujoco`` and ``jax`` are installed:
 
@@ -288,7 +296,8 @@ Run from the repository root, where ``mujoco`` and ``jax`` are installed:
                      |humanoid_bench_elliptic|cone_scenes|fluid_scenes|satellite_envs
                      |tendon_scenes|equality_scenes|humanoid_implicit|implicit_scenes
                      |sensor_scenes|randomize_scenes|inverse_scenes|diff_scenes
-                     |stepped_scenes|render_scenes|pixel_envs|randomize_fields]
+                     |stepped_scenes|render_scenes|pixel_envs|randomize_fields
+                     |model_grad_scenes]
         [--steps N] [--env NAME] [--scene NAME] [--view LABEL]
 
 XLA compiles for the host's vector ISA, and the truncated solver of
@@ -743,6 +752,7 @@ RENDER_MESH_XML = """<mujoco>
 </mujoco>"""
 RANDOMIZE_FIELDS_FILE = ASSETS / "randomize_fields.npz"
 RANDOMIZE_FIELDS_GOLDEN_FILE = ASSETS / "randomize_fields_golden.npz"
+MODEL_GRAD_GOLDEN_FILE = ASSETS / "model_grad_scenes_golden.npz"
 # the steps of each randomize_fields scene but the main paths'
 FIELD_STEPS = 12
 # the main paths' steps at B=4: humanoid_bench through C1's bound, the
@@ -889,7 +899,7 @@ MODELS = ("humanoid_bench", "humanoid_terrain", "scene_pile", "boxes", "branchy6
           "humanoid_bench_elliptic", "cone_scenes", "fluid_scenes", "satellite_envs",
           "tendon_scenes", "equality_scenes", "humanoid_implicit", "implicit_scenes",
           "sensor_scenes", "randomize_scenes", "inverse_scenes", "diff_scenes",
-          "stepped_scenes", "render_scenes", "pixel_envs", "randomize_fields")
+          "stepped_scenes", "render_scenes", "pixel_envs", "randomize_fields", "model_grad_scenes")
 # env steps of the env golden
 ENV_STEPS = 3
 # the pile golden keeps the state after every PILE_EVERY-th step
@@ -2630,6 +2640,92 @@ def randomize_fields(names=None) -> tuple[dict, dict[str, np.ndarray]]:
   return snapshots, golden
 
 
+def model_grad_scenes(names=None) -> dict[str, np.ndarray]:
+  """The golden of model_grad_scenes_golden.npz: for each scene of
+  chip_smoke.MODEL_GRAD_SCENES, the randomize_fields scene of that name
+  (its snapshot in randomize_fields.npz, its rows, derived constants and
+  start from randomize_fields_golden.npz) with its solver bounds
+  "<scene>.solver" and steps "<scene>.steps", and mjtpu's values and
+  jax.grad under differentiable_mode() at f64 on the CPU with the rows as
+  the point: the loss, the steps' sum of chip_smoke.model_grad_loss,
+  "<scene>.loss" (B,), "<scene>.qpos" (steps, B, nq) after each step, and
+  "<scene>.grad.<field>" (B, *shape) of the summed loss; one jit of
+  value_and_grad over a lax.scan of jax.vmap over the envs of mjtpu.step
+  under each env's Model (the base Model with its rows, tree_replace: the
+  semantics of randomize's in_axes, which a model with mesh hulls cannot
+  take, ROADMAP C20); and for chip_smoke.MODEL_GRAD_BASE, humanoid_bench's
+  unbatched MODEL_GRAD_BASE_FIELDS as the point, one Model for every env,
+  from its scene's start."""
+  import jax
+
+  jax.config.update("jax_enable_x64", True)
+  import jax.numpy as jnp
+
+  import chip_smoke
+  import mjtpu
+
+  with np.load(RANDOMIZE_FIELDS_GOLDEN_FILE) as z:
+    fields_golden = {k: z[k] for k in z.files}
+  todo = [n for n in (*chip_smoke.MODEL_GRAD_SCENES, chip_smoke.MODEL_GRAD_BASE)
+          if not names or n in names]
+  specs = randomize_field_specs(
+      sorted({"humanoid_bench" if n == chip_smoke.MODEL_GRAD_BASE else n for n in todo}))
+  golden = {}
+  for name in todo:
+    base = name == chip_smoke.MODEL_GRAD_BASE
+    scene = "humanoid_bench" if base else name
+    steps, solver = ((chip_smoke.MODEL_GRAD_BASE_STEPS, chip_smoke.MODEL_GRAD_SCENES[scene][1])
+                     if base else chip_smoke.MODEL_GRAD_SCENES[name])
+    mjm = specs[scene][0]
+    mjm.opt.iterations, mjm.opt.ls_iterations = solver
+    m = mjtpu.put_model(mjm, dtype=jnp.float64)
+    start = {k[len(scene) + 1:-1]: v for k, v in fields_golden.items()
+             if k.startswith(f"{scene}.") and k.count(".") == 1 and k.endswith("0")}
+    batch = next(iter(start.values())).shape[0]
+    d0 = jax.vmap(lambda _: mjtpu.make_data(m))(jnp.arange(batch))
+    d0 = d0.replace(**{k: jnp.asarray(v) for k, v in start.items()})
+
+    def env_loss(d):
+      return sum(jnp.sum((jnp.reshape(getattr(d, o), (batch, -1)) + 1.0) ** 2, axis=1)
+                 for o in chip_smoke.FIELD_OUTPUTS)
+
+    if base:
+      keys = list(chip_smoke.MODEL_GRAD_BASE_FIELDS)
+      point = {k: _attr(m, k) for k in keys}
+      advance = lambda vals, d: jax.vmap(mjtpu.step, in_axes=(None, 0))(m.tree_replace(vals), d)
+    else:
+      keys = sorted(k[len(f"{scene}.rows."):] for k in fields_golden
+                    if k.startswith(f"{scene}.rows."))
+      point = {k: jnp.asarray(fields_golden[f"{scene}.rows.{k}"]) for k in keys}
+      one = lambda vals, d: mjtpu.step(m.tree_replace(vals), d)
+      advance = lambda vals, d: jax.vmap(one)(vals, d)
+
+    def loss(vals):
+      def body(d, _):
+        d = advance(vals, d)
+        return d, (env_loss(d), d.qpos)
+
+      _, (terms, qpos) = jax.lax.scan(body, d0, None, length=steps)
+      per_env = jnp.sum(terms, axis=0)
+      return jnp.sum(per_env), (per_env, qpos)
+
+    with mjtpu.differentiable_mode():
+      (_, (per_env, qpos)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(point)
+    golden[f"{name}.steps"] = np.array(steps)
+    golden[f"{name}.solver"] = np.array(solver)
+    golden.update({f"{name}.{k}0": np.asarray(v) for k, v in start.items()})
+    if not base:
+      golden.update({f"{name}.rows.{k}": np.asarray(point[k]) for k in keys})
+    golden[f"{name}.loss"] = np.asarray(per_env)
+    golden[f"{name}.qpos"] = np.asarray(qpos)
+    golden.update({f"{name}.grad.{k}": np.asarray(grads[k]) for k in keys})
+    zero = [k for k in keys if not np.any(np.asarray(grads[k]))]
+    finite = all(np.isfinite(np.asarray(grads[k])).all() for k in keys)
+    print(f"{name}: B {batch}, {steps} steps, solver {solver}, {len(keys)} fields, zero"
+          f" gradients {zero}, finite {finite}, loss {np.asarray(per_env)}", flush=True)
+  return golden
+
+
 def inverse_scene_specs() -> dict:
   """The scenes of inverse_scenes.npz, name -> (MjModel, start state of
   BATCH envs, where its qacc comes from: "given" in the start, "forward"
@@ -3159,7 +3255,8 @@ def main():
   parser.add_argument("--scene", action="append",
                       help="the scenes of collision_scenes, cone_scenes, fluid_scenes,"
                       " tendon_scenes, equality_scenes, implicit_scenes, sensor_scenes,"
-                      " diff_scenes and randomize_fields (repeatable; default: all)")
+                      " diff_scenes, randomize_fields and model_grad_scenes (repeatable;"
+                      " default: all)")
   parser.add_argument("--view", action="append", choices=(*RENDER_OPTIONS, "default"),
                       help="the views of render_scenes by label (repeatable; default: all)")
   args = parser.parse_args()
@@ -3298,6 +3395,9 @@ def main():
     io.save_snapshot_bundle(out / RANDOMIZE_FIELDS_FILE.name, snapshots)
     np.savez_compressed(out / RANDOMIZE_FIELDS_GOLDEN_FILE.name, **scene_golden)
     files += [RANDOMIZE_FIELDS_FILE.name, RANDOMIZE_FIELDS_GOLDEN_FILE.name]
+  if "model_grad_scenes" in models:
+    np.savez_compressed(out / MODEL_GRAD_GOLDEN_FILE.name, **model_grad_scenes(args.scene))
+    files.append(MODEL_GRAD_GOLDEN_FILE.name)
   if "pixel_envs" in models:
     io.save_snapshot_bundle(out / PIXEL_ENV_MODELS_FILE.name, {
         name: io.snapshot_arrays(pixel_env_mjmodel(name)) for name in PIXEL_MODELS})
